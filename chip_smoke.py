@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (yalm_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root: `python3 chip_smoke.py`. It builds the
+kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
+
+1. preflight: card name and power limit, build time, and the card's
+   streaming ceiling from a 2 GiB device-to-device copy;
+2. each kernel against its plain PyTorch version on the card, at
+   Mistral-7B shapes with fp8-e5m2 weights (bf16 and int8+scale as well on
+   gemv_l), with its time, its plain version's time, its bound and, where
+   one PyTorch call computes the same function, that call's time;
+3. the slice end to end at full width and depth (Mistral-7B shapes, random
+   fp8 weights made on the card from a seed, bf16 cache): three requests
+   through Engine.generate -- 200 tokens + 64 greedy, 1500 + 64 sampled
+   (T 0.8, top-p 0.9), 4090 + 16 across the 4096 window, then an 8-token
+   follow-up hydrated token by token in the ring regime -- with every
+   kernel's launch count over that run;
+4. the same model at depth 2 on the card against the plain versions on the
+   CPU: a 64-token prefill and 8 teacher-forced decode steps;
+5. the CLI's completion, perplexity and passkey modes on a small fp8
+   checkpoint, as subprocesses.
+
+Any failure raises, so the script exits non-zero before its last line,
+which is {"ok": true, "device": {...}}. Without a CUDA GPU, or outside the
+repository, it exits non-zero at once. It takes no arguments: every run
+drives all five phases.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, published
+BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor cores, published
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def mistral7b(n_layers: int = 32):
+    from yalm_tpu_torch.config import ModelConfig
+    return ModelConfig(dim=4096, hidden_dim=14336, head_dim=128, n_layers=n_layers,
+                       n_heads=32, n_kv_heads=8, vocab_size=32000, max_seq_len=4096,
+                       bos_token_id=1, eos_token_id=2, rope_theta=1e6,
+                       rotary_dim=128, norm_eps=1e-5, act_type="silu",
+                       weight_dtype="fp8")
+
+
+def synth_fast_weights(cfg, device, seed: int):
+    """Random fp8-e5m2 weights (std 0.02) made on the card in the decode
+    layout, chunk by chunk so no full-size bf16 temporary exists."""
+    import torch
+    from yalm_tpu_torch.models.fast import FastWeights
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    fp8 = torch.float8_e5m2
+
+    def mk(*shape, scale=0.02):
+        out = torch.empty(shape, dtype=fp8, device=device)
+        flat = out.view(-1, shape[-1])
+        step = max(1, (64 << 20) // shape[-1])
+        for i in range(0, flat.shape[0], step):
+            rows = flat[i:i + step]
+            rows.copy_((torch.randn(rows.shape, generator=gen, device=device,
+                                    dtype=torch.bfloat16) * scale).to(fp8))
+        return out
+
+    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
+    return FastWeights(
+        embed=mk(cfg.vocab_size, d), rms_att=ones(L, d), rms_ffn=ones(L, d),
+        wqkv=mk(L, cfg.q_dim + 2 * cfg.kv_dim, d), wo=mk(L, d, cfg.q_dim),
+        w13=mk(L, 2 * h, d), w2=mk(L, d, h), final_norm=ones(d),
+        lm_head=mk(cfg.vocab_size, d))
+
+
+class Bench:
+    """Kernel-vs-plain checks and timings; collects one row per case.
+
+    Tolerance of every case: 2e-3 of the largest reference magnitude (at
+    least 1). Kernel and plain version round the same operands to bf16 and
+    sum in f32, so they differ by the summation order, plus a rare one-ulp
+    bf16 flip (of a normalised input, a GLU output or a softmax weight)
+    where the two f32 values straddle a rounding boundary. Every case
+    compares only what its kernels compute, never a residual added to it:
+    attn_block_l's Wo @ attention is ~0.1 typical, ~0.5 at most, here, so
+    its tolerance is the floor, 2e-3."""
+
+    def __init__(self, ceiling: float):
+        self.ceiling = ceiling
+        self.rows: list[dict] = []
+
+    @staticmethod
+    def time_ms(fn, reps: int = 25) -> float:
+        """Median device time of fn(rep) over `reps` calls. A sleep kernel
+        keeps the card busy while the host enqueues them, so host overhead
+        between launches does not count."""
+        import torch
+        for r in range(3):
+            fn(r)
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+        torch.cuda._sleep(100_000_000)
+        for r, (s, e) in enumerate(ev):
+            s.record()
+            fn(r)
+            e.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+    def case(self, name, label, got, want, tol_rel, *, kernel, plain,
+             library=None, bytes_=0, flops=0, json_row=False):
+        import torch
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = tol_rel * max(1.0, float(want.float().abs().max()))
+        finite = bool(torch.isfinite(got).all())
+        row = dict(name=name, case=label, max_abs_err=err, tol=tol,
+                   ms=self.time_ms(kernel), plain_ms=self.time_ms(plain),
+                   library_ms=self.time_ms(library) if library else None,
+                   bytes=bytes_, flops=flops, json=json_row)
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row["ceiling_ms"] = bytes_ / self.ceiling * 1e3
+        self.rows.append(row)
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        log(f"  {name:14s} {label:34s} err {err:.3e} tol {tol:.3e}  "
+            f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} lib {lib} "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        if not (finite and err <= tol):
+            raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
+                                 f"version (max |err| {err:.3e} > tol {tol:.3e}, finite={finite})")
+
+
+def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
+    """Phase 2: every kernel against its plain version at main-path shapes."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.block import attn_block_l, attn_block_plain
+    from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=dev) * scale
+
+    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lay = lambda r: r % L  # noqa: E731  (cycle layers: each call streams cold weights)
+    # the library calls cycle 4 layers of pre-dequantized copies (> the 50 MB L2)
+
+    # the kernels' e5m2 -> bf16 widening is exact: all 256 codes through the
+    # GEMV kernel (row n = [code n, 0, ...], x = e_0) against torch's cast
+    codes = torch.zeros(1, 256, 16, dtype=torch.uint8, device=dev)
+    codes[0, :, 0] = torch.arange(256, device=dev, dtype=torch.uint8)
+    e0 = torch.zeros(16, device=dev)
+    e0[0] = 1.0
+    got = G.gemv_l(e0, codes.view(torch.float8_e5m2), 0)
+    want = codes[0, :, 0].view(torch.float8_e5m2).to(torch.bfloat16).float()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same.all()):
+        raise AssertionError("the kernel's e5m2 -> bf16 widening is not exact")
+    log("  e5m2 -> bf16 widening in the GEMV kernel: bit-exact for all 256 codes")
+
+    # K1: gemv (LM head)
+    x = randn(d)
+    lm_bf16 = fw.lm_head.to(torch.bfloat16)
+    bench.case("gemv", "lm_head e5m2 (32000x4096)", G.gemv(x, fw.lm_head),
+               G.gemv_l_plain(x, fw.lm_head[None], 0), 2e-3,
+               kernel=lambda r: G.gemv(x, fw.lm_head),
+               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0),
+               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+               bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
+    del lm_bf16
+
+    # K1: gemv_l with the norm prologue, and with the residual epilogue
+    x = randn(d, scale=3.0)
+    wqkv_bf16 = fw.wqkv[:4].to(torch.bfloat16)
+    bench.case("gemv_l", "wqkv e5m2 + rmsnorm (6144x4096)",
+               G.gemv_l(x, fw.wqkv, 0, norm_w=fw.rms_att),
+               G.gemv_l_plain(x, fw.wqkv, 0, norm_w=fw.rms_att), 2e-3,
+               kernel=lambda r: G.gemv_l(x, fw.wqkv, lay(r), norm_w=fw.rms_att),
+               plain=lambda r: G.gemv_l_plain(x, fw.wqkv, lay(r), norm_w=fw.rms_att),
+               library=lambda r: F.linear(x.to(torch.bfloat16), wqkv_bf16[r % 4]),
+               bytes_=Nqkv * d + 8 * d + 4 * Nqkv, flops=2 * Nqkv * d, json_row=True)
+    del wqkv_bf16
+    xm, res = randn(q_dim), randn(d)
+    bench.case("gemv_l", "wo e5m2 + residual (4096x4096)",
+               G.gemv_l(xm, fw.wo, 1, residual=res),
+               G.gemv_l_plain(xm, fw.wo, 1, residual=res), 2e-3,
+               kernel=lambda r: G.gemv_l(xm, fw.wo, lay(r), residual=res),
+               plain=lambda r: G.gemv_l_plain(xm, fw.wo, lay(r), residual=res),
+               bytes_=d * q_dim + 4 * q_dim + 8 * d, flops=2 * d * q_dim)
+    w_bf16 = randn(2, Nqkv, d, scale=0.02).to(torch.bfloat16)
+    bench.case("gemv_l", "wqkv bf16 + rmsnorm (6144x4096)",
+               G.gemv_l(x, w_bf16, 1, norm_w=fw.rms_att[:2].contiguous()),
+               G.gemv_l_plain(x, w_bf16, 1, norm_w=fw.rms_att[:2]), 2e-3,
+               kernel=lambda r: G.gemv_l(x, w_bf16, r % 2, norm_w=fw.rms_att[:2].contiguous()),
+               plain=lambda r: G.gemv_l_plain(x, w_bf16, r % 2, norm_w=fw.rms_att[:2]),
+               bytes_=2 * Nqkv * d + 8 * d + 4 * Nqkv, flops=2 * Nqkv * d)
+    del w_bf16
+    w_i8 = torch.randint(-127, 128, (2, Nqkv, d), generator=gen, device=dev,
+                         dtype=torch.int8)
+    s_i8 = torch.rand(2, Nqkv, generator=gen, device=dev) * 1e-3 + 1e-4
+    bench.case("gemv_l", "wqkv int8 + scale (6144x4096)",
+               G.gemv_l(x, w_i8, 1, scale=s_i8), G.gemv_l_plain(x, w_i8, 1, scale=s_i8),
+               2e-3,
+               kernel=lambda r: G.gemv_l(x, w_i8, r % 2, scale=s_i8),
+               plain=lambda r: G.gemv_l_plain(x, w_i8, r % 2, scale=s_i8),
+               bytes_=Nqkv * d + 4 * d + 8 * Nqkv, flops=2 * Nqkv * d)
+    del w_i8, s_i8
+
+    # K1: gemm_l, the prefill chunks
+    for B, nm, w, N, K in ((16, "wqkv", fw.wqkv, Nqkv, d), (64, "wqkv", fw.wqkv, Nqkv, d),
+                           (256, "wqkv", fw.wqkv, Nqkv, d), (256, "wo", fw.wo, d, q_dim),
+                           (256, "w2", fw.w2, d, h), (256, "w13", fw.w13, 2 * h, d)):
+        xb = randn(B, K)
+        wl = w[:4].to(torch.bfloat16)
+        bench.case("gemm_l", f"B={B} {nm} e5m2 ({N}x{K})", G.gemm_l(xb, w, 0),
+                   G.gemm_l_plain(xb, w, 0), 2e-3,
+                   kernel=lambda r, xb=xb, w=w: G.gemm_l(xb, w, lay(r)),
+                   plain=lambda r, xb=xb, w=w: G.gemm_l_plain(xb, w, lay(r)),
+                   library=lambda r, xb=xb, wl=wl: F.linear(xb.to(torch.bfloat16), wl[r % 4]),
+                   bytes_=N * K + 4 * B * (K + N), flops=2 * B * N * K,
+                   json_row=(B == 256 and nm == "w13"))
+        del wl
+
+    # K2: attend_step_l against a random full-size bf16 cache
+    cache = KVCache.init(cfg, torch.bfloat16, dev)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    S = cfg.max_seq_len
+    for pos in (0, 999, 4095, 6000):
+        kv_sink = 2 if pos >= S else 0
+        kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+        kv_len = min(pos + 1, S)
+        q, kn, vn = randn(Hk, Hq // Hk, D, scale=2.0), randn(Hk, D, scale=2.0), randn(Hk, D)
+        sl = (3, kv_len, kv_sink, pos)
+        want = A.attend_step_plain(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl[1:], **rope)
+        row_plain = cache.k[3, kv_pos].clone()
+        got = A.attend_step_l(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl[1:], **rope)
+        row_err = float((cache.k[3, kv_pos].float() - row_plain.float()).abs().max())
+        if row_err > 2 ** -7 * float(row_plain.float().abs().max()):
+            raise AssertionError(f"attend_step_l pos {pos}: written k row differs by {row_err}")
+        kk = cache.k[:4, :kv_len].transpose(1, 2).contiguous()   # (4, Hk, kv_len, D)
+        vv = cache.v[:4, :kv_len].transpose(1, 2).contiguous()
+        qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+        att_bytes = 2 * kv_len * Hk * D * 2 + 4 * (2 * Hq * D + 2 * Hk * D)
+        bench.case("attend_step_l",
+                   f"kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else ""),
+                   got, want, 2e-3,
+                   kernel=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl[1:]: A.attend_step_l(
+                       *a, cache.k, cache.v, lay(r), kp, *s, **rope),
+                   plain=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl[1:]: A.attend_step_plain(
+                       *a, cache.k, cache.v, lay(r), kp, *s, **rope),
+                   library=lambda r, qq=qq, kk=kk, vv=vv: F.scaled_dot_product_attention(
+                       qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
+                   bytes_=att_bytes, flops=4 * kv_len * Hq * D,
+                   json_row=(pos == 6000))
+        del kk, vv
+
+    # K2 past shared memory: a 32768-slot window (Mistral-7B v0.2's) keeps
+    # its scores in global scratch
+    big = KVCache.init(dataclasses.replace(cfg, n_layers=1, max_seq_len=32768),
+                       torch.bfloat16, dev)
+    big.k.copy_(torch.randn(big.k.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+    big.v.copy_(torch.randn(big.v.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+    pos, Sb = 40000, 32768
+    kv_pos = 2 + (pos - 2) % (Sb - 2)
+    q, kn, vn = randn(Hk, Hq // Hk, D, scale=2.0), randn(Hk, D, scale=2.0), randn(Hk, D)
+    sl = (kv_pos, Sb, 2, pos)
+    want = A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope)
+    got = A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope)
+    bench.case("attend_step_l", f"kv_len={Sb} pos={pos} scores in global", got, want, 2e-3,
+               kernel=lambda r: A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               plain=lambda r: A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               bytes_=2 * Sb * Hk * D * 2 + 4 * (2 * Hq * D + 2 * Hk * D),
+               flops=4 * Sb * Hq * D)
+    del big
+
+    # K3: attn_block_l, mid-window; without the residual, so the check
+    # holds what the three launches compute
+    x = randn(d, scale=3.0)
+    pos = 999
+    blk = dict(n_heads=Hq, norm_eps=cfg.norm_eps, add_residual=False, **rope)
+    args = lambda l: (x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l,  # noqa: E731
+                      pos, pos + 1, 0, pos)
+    want = attn_block_plain(*args(5), **blk)
+    got = attn_block_l(*args(5), **blk)
+    bench.case("attn_block_l", "kv_len=1000 e5m2", got, want, 2e-3,
+               kernel=lambda r: attn_block_l(*args(lay(r)), **blk),
+               plain=lambda r: attn_block_plain(*args(lay(r)), **blk),
+               bytes_=Nqkv * d + d * q_dim + 2 * (pos + 1) * Hk * D * 2 + 12 * d,
+               flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
+    del cache
+
+    # K4: ffn_l, one row (decode) and four rows
+    for B in (1, 4):
+        xf = randn(d, scale=3.0) if B == 1 else randn(B, d, scale=3.0)
+        kw = dict(norm_eps=cfg.norm_eps, act="silu")
+        bench.case("ffn_l", f"B={B} e5m2", ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw),
+                   ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw), 2e-3,
+                   kernel=lambda r, xf=xf: ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
+                   plain=lambda r, xf=xf: ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
+                   bytes_=3 * h * d + 8 * B * d + 4 * d, flops=B * 6 * h * d,
+                   json_row=(B == 1))
+
+
+def phase_serve(cfg, fw, dev) -> dict:
+    """Phase 3: three requests through Engine.generate at full size."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.tokenizer import Tokenizer
+    from yalm_tpu_torch.utils.testing import synth_vocab
+
+    tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
+    eng = Engine(cfg, fw, tok, device=dev)
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, n - 1).tolist()
+
+    def serve(name, toks, n, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, t_first = [], None
+        for t in eng.generate(toks, max_steps=n, **kw):
+            if t_first is None:
+                t_first = time.perf_counter()
+            out.append(t)
+        t_end = time.perf_counter()
+        logits = eng._last_logits
+        if len(out) != n or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{name}: bad token stream {out[:8]}... ({len(out)})")
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (cfg.vocab_size,):
+            raise AssertionError(f"{name}: non-finite or misshapen logits")
+        r = dict(request=name, prompt_tokens=len(toks), new_tokens=n,
+                 ttft_s=t_first - t0, prefill_tok_s=len(toks) / (t_first - t0),
+                 decode_tok_s=(n - 1) / (t_end - t_first) if n > 1 else None,
+                 end_pos=eng.pos)
+        log(f"  {name}: prompt {len(toks)}, {n} new: TTFT {r['ttft_s']:.4f} s, "
+            f"prefill {r['prefill_tok_s']:.1f} tok/s, decode {r['decode_tok_s']:.2f} tok/s, "
+            f"first tokens {out[:6]}")
+        return r
+
+    eng.warmup()
+    _build.LAUNCHES.clear()
+    reqs = []
+    eng.reset()
+    reqs.append(serve("greedy 200+64", prompt(200), 64, temperature=0.0))
+    profile = profile_decode(eng, 16)
+    eng.reset()
+    reqs.append(serve("sampled 1500+64", prompt(1500), 64, temperature=0.8,
+                      top_p=0.9, seed=1234))
+    eng.reset()
+    reqs.append(serve("window 4090+16", prompt(4090), 16, temperature=0.0))
+    # the follow-up turn starts past the window: per-token hydration in the
+    # ring regime, sinks active
+    reqs.append(serve("ring follow-up 8+8", prompt(8), 8, temperature=0.0))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches over the three requests: {launches}")
+    missing = [k for k in ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block_l", "ffn_l")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    return dict(requests=reqs, launches=launches, decode_profile=profile)
+
+
+def profile_decode(eng, n: int) -> dict:
+    """torch.profiler over n greedy decode steps (continuing the engine's
+    sequence): wall time, device time by kernel, and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tok = int(torch.argmax(eng._last_logits))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tok = int(torch.argmax(eng._step(tok)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            dev_us[e.key] = dev_us.get(e.key, 0) + us
+    busy = sum(dev_us.values()) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    r = dict(steps=n, context=eng.pos, wall_ms_per_step=wall / n * 1e3,
+             device_ms_per_step=busy / n * 1e3,
+             idle_share=(1 - busy / wall) if busy else None,
+             top=[(k[:60], v / n / 1e3) for k, v in top])
+    if not busy:
+        log("  profiler saw no device time: only the wall time is reported")
+    log(f"  decode profile at context {eng.pos}: {r['wall_ms_per_step']:.3f} ms/step wall, "
+        f"{r['device_ms_per_step']:.3f} ms/step on the device, idle share {r['idle_share']}")
+    for k, ms in r["top"]:
+        log(f"    {ms:8.4f} ms/step  {k}")
+    return r
+
+
+def phase_parity(fw, dev) -> dict:
+    """Phase 4: depth-2 model, card (kernels) vs CPU (plain versions)."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import FastWeights, decode_step_fast, prefill_fast
+
+    cfg = mistral7b(n_layers=2)
+    fw2 = FastWeights(embed=fw.embed, rms_att=fw.rms_att[:2], rms_ffn=fw.rms_ffn[:2],
+                      wqkv=fw.wqkv[:2], wo=fw.wo[:2], w13=fw.w13[:2], w2=fw.w2[:2],
+                      final_norm=fw.final_norm, lm_head=fw.lm_head)
+    fw_cpu = fw2.to("cpu")
+    rng = np.random.default_rng(5)
+    toks = rng.integers(3, cfg.vocab_size, 64 + 8)
+    worst = 0.0
+    runs = {}
+    for name, w, d in (("cuda", fw2, dev), ("cpu", fw_cpu, torch.device("cpu"))):
+        cache = KVCache.init(cfg, torch.bfloat16, d)
+        out = [prefill_fast(cfg, w, toks[:64], 0, 64, cache, logits_mode="last")[0]]
+        for i in range(8):  # teacher-forced decode
+            out.append(decode_step_fast(cfg, w, int(toks[64 + i]), 64 + i, cache)[0])
+        runs[name] = [o.float().cpu() for o in out]
+    for step, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        err = float((g - c).abs().max())
+        tol = 1e-2 * max(1.0, float(c.abs().max()))
+        worst = max(worst, err / tol)
+        if err > tol or int(g.argmax()) != int(c.argmax()):
+            raise AssertionError(f"depth-2 parity step {step}: max |err| {err:.3e} "
+                                 f"(tol {tol:.3e}), argmax {int(g.argmax())} vs {int(c.argmax())}")
+    log(f"  depth-2 logits, card vs CPU plain: 9 steps agree; worst err/tol {worst:.3f}")
+    return dict(steps=9, worst_err_over_tol=worst)
+
+
+def phase_cli(dev) -> None:
+    """Phase 5: the CLI modes as subprocesses on a small fp8 checkpoint."""
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tiny_fp8.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128,
+                                       n_heads=4, n_kv_heads=2, vocab_size=512,
+                                       max_seq_len=512, rotary_dim=128,
+                                       weight_dtype="fp8"), seed=3)
+    cli = [sys.executable, "-m", "yalm_tpu_torch.cli", path]
+    for args in (["-m", "completion", "-i", "hello world", "-n", "16", "-t", "0"],
+                 ["-m", "perplexity", "-i", "hello world this is a test of the key"],
+                 ["-m", "passkey", "-n", "4", "-s", "1"]):
+        t0 = time.perf_counter()
+        res = subprocess.run(cli + args, cwd=ROOT, capture_output=True, timeout=600)
+        # random weights emit arbitrary bytes (byte-fallback tokens)
+        out, err = (res.stdout.decode(errors="replace"), res.stderr.decode(errors="replace"))
+        tail = (out + err).strip().splitlines()[-3:]
+        log(f"  cli {args[1]}: rc {res.returncode} in {time.perf_counter() - t0:.1f} s: "
+            + " | ".join(tail))
+        if res.returncode != 0:
+            raise AssertionError(f"cli {args[1]} failed:\n{out}\n{err}")
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    try:
+        from yalm_tpu_torch.ops.cuda import _build
+    except ImportError:
+        print("chip_smoke: run from the root of the repository", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+
+    # streaming ceiling: a 2 GiB device-to-device copy (read + write)
+    src = torch.empty(1 << 31, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ceiling = 2 * src.numel() / (Bench.time_ms(lambda r: dst.copy_(src), reps=10) * 1e-3)
+    del src, dst
+    log(f"streaming ceiling (2 GiB D2D copy): {ceiling / 1e9:.1f} GB/s")
+
+    cfg = mistral7b()
+    t0 = time.perf_counter()
+    fw = synth_fast_weights(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"Mistral-7B-shape fp8 weights made on the card in {time.perf_counter() - t0:.1f} s "
+        f"({sum(t.numel() * t.element_size() for t in (fw.embed, fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head)) / 1e9:.2f} GB)")
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 (fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head)) + 4 * cfg.dim * (2 * cfg.n_layers + 1)
+    log(f"decode-token weight bytes {wbytes / 1e9:.3f} GB: bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"at 3.35 TB/s, {wbytes / ceiling * 1e3:.3f} ms at the measured ceiling")
+
+    bench = Bench(ceiling)
+    log("phase 2: kernels vs plain versions on the card")
+    phase_kernels(bench, cfg, fw, dev)
+    log("phase 3: the slice end to end (32 layers)")
+    summary = {"serve": phase_serve(cfg, fw, dev)}
+    log("phase 4: depth-2 parity, card vs CPU")
+    summary["parity"] = phase_parity(fw, dev)
+    del fw
+    torch.cuda.empty_cache()
+    log("phase 5: CLI modes")
+    phase_cli(dev)
+
+    launches = summary["serve"]["launches"]
+    # name -> (source, the TPU function of the same name it replaces); the
+    # composite wrappers launch csrc/gemv.cu and csrc/attention.cu
+    sources = {"gemv": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:81"),
+               "gemv_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:148"),
+               "gemm_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:426"),
+               "attend_step_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:808"),
+               "attn_block_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:554"),
+               "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332")}
+    kernels = []
+    for r in bench.rows:
+        if not r["json"]:
+            continue
+        src, rep = sources[r["name"]]
+        kernels.append(dict(
+            name=r["name"], route="cuda", source="yalm_tpu_torch/" + src, replaces=rep,
+            case=r["case"], launches=launches[r["name"]],
+            max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"], tol=r["tol"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            ceiling_ms=r["ceiling_ms"]))
+    log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"cases": bench.rows, **summary}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

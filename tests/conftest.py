@@ -28,3 +28,8 @@ assert len(jax.devices()) == 8, "expected 8 virtual CPU devices"
 # load_weights/load_fast_weights now copy out of the mmap (models/weights.py),
 # which eliminated the crashes; the per-test subprocess isolation that
 # papered over them has been removed.
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU and skips without one (tests/test_torch_cuda.py)")

@@ -1,0 +1,93 @@
+"""The port stands alone: it imports no JAX, no ml_dtypes and nothing of
+the JAX package; its kernel wrappers choose by device and refuse devices
+they have no path for; its entry points never fall back to the CPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from yalm_tpu_torch.ops.cuda.attention import attend_step_l
+from yalm_tpu_torch.ops.cuda.block import attn_block_l
+from yalm_tpu_torch.ops.cuda.ffn import ffn_l
+from yalm_tpu_torch.ops.cuda.gemv import gemm_l, gemv, gemv_l
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import yalm_tpu_torch
+for m in pkgutil.walk_packages(yalm_tpu_torch.__path__, "yalm_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "yalm_tpu"))
+print("BAD", bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def _calls(dev):
+    t = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)  # noqa: E731
+    cache = lambda: t(2, 16, 2, 128, dt=torch.bfloat16)  # noqa: E731
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=128)
+    return {
+        "gemv": lambda: gemv(t(64), t(32, 64)),
+        "gemv_l": lambda: gemv_l(t(64), t(2, 32, 64), 0),
+        "gemm_l": lambda: gemm_l(t(4, 64), t(2, 32, 64), 0),
+        "attend_step_l": lambda: attend_step_l(t(2, 2, 128), t(2, 128), t(2, 128),
+                                               cache(), cache(), 0, 0, 1, 0, 0, **rope),
+        "attn_block_l": lambda: attn_block_l(t(64), t(2, 64), t(2, 1024, 64), t(2, 64, 512),
+                                             cache(), cache(), 0, 0, 1, 0, 0, n_heads=4,
+                                             norm_eps=1e-5, **rope),
+        "ffn_l": lambda: ffn_l(t(64), t(2, 64), t(2, 96, 64), t(2, 64, 48), 0,
+                               norm_eps=1e-5, act="silu"),
+    }
+
+
+@pytest.mark.parametrize("name", list(_calls("cpu")))
+def test_wrappers_dispatch_by_device(name):
+    # CPU tensors run the plain version
+    assert torch.isfinite(_calls("cpu")[name]()).all()
+    # a device with neither a kernel nor a plain version raises
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        _calls("meta")[name]()
+
+
+def test_mixed_devices_raise():
+    with pytest.raises(ValueError, match="different devices"):
+        gemv_l(torch.zeros(64), torch.zeros(2, 32, 64, device="meta"), 0)
+
+
+def test_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "m.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128,
+                                       n_heads=4, n_kv_heads=2, vocab_size=512,
+                                       max_seq_len=32, rotary_dim=128))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        Engine.from_checkpoint(path)   # device="cuda" by default
+
+
+def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok": true' not in res.stdout
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok": true' not in res.stdout

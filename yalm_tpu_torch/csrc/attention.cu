@@ -1,0 +1,239 @@
+// Fused decode attention step over the layer-stacked bf16 KV ring buffer.
+//
+// Replaces yalm_tpu/ops/pallas/attention.py:attend_step_l (body
+// _fused_attn_body, _flash_heads, _lazy_sink_rotate; numerics reference
+// _attn_step_ref) and is the middle of ops/pallas/block.py:attn_block_l.
+// One launch, one block per kv head h:
+//   1. RoPE on q (then * 1/sqrt(D), rounded to bf16) and on k_new at `pos`,
+//      from a (D/2,) f32 pair-frequency table computed on the host (so every
+//      rope scaling kind lives in ops/core.py) and `mscale`; accurate
+//      sinf/cosf, since angles reach pos * freq ~ 4e3 rad.
+//   2. The rounded k/v rows go into ring slot kv_pos of head h, IN PLACE.
+//      Only this block reads head h, so after __syncthreads() the block's
+//      own reads see the row (no other block races it).
+//   3. Pass 1 streams the K rows of slots < kv_len in tiles of 64 through
+//      shared memory: bf16 q . bf16 k summed in f32, every score kept --
+//      in shared memory while its kv_len * qpk floats fit (64 KB at 4096 x
+//      4; up to 13310 slots at qpk 4 and 6590 at qpk 8, D 128), else in a
+//      global (Hk, kv_len, qpk) f32 scratch the caller passes as `scores`
+//      (16 B per slot at qpk 4 beside the 512 B of its K/V rows, mostly
+//      L2 hits), so the window has no limit of its own.
+//   4. Ring regime (kv_sink > 0): the first kv_sink rows of tile 0 are
+//      rotated by max(0, pos - S + 1) positions (mscale 1) and rounded to
+//      bf16 in shared memory only -- the lazy StreamingLLM sink view; the
+//      cache keeps the sink keys as written.
+//   5. The softmax over all scores in f32 (max, exp, sum, divide), each
+//      normalised p rounded to bf16; pass 2 streams the V rows and sums
+//      bf16(p) . bf16(v) in f32 (with global scores, each tile's p is first
+//      staged in shared memory, where the scores region then holds one tile).
+// This is the JAX emulation's numerics exactly (_attend_ref: normalise,
+// then cast p to bf16), not the Pallas kernel's online softmax, which
+// normalises after the cast: across a 32-layer model the two differ by
+// ~1% of the logits, the emulation's way is the reference, and the stored
+// scores cost no extra device-memory traffic.
+//
+// Bound on this card: bytes (the K/V rows of slots < kv_len, 16 MB per layer
+// at 4096 slots x 8 heads x 128 x bf16 x 2). Only Hk = 8 blocks run, so a
+// handful of SMs stream the cache: split-K over the sequence
+// (flash-decoding) is the known next step.
+#include "common.cuh"
+
+using namespace yt;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;
+constexpr int KPAD = 8;      // bf16 padding per shared K row (bank spread)
+constexpr int MAX_OUT = 8;   // output elements per thread: qpk * D <= 2048
+
+struct AttnArgs {
+  const float* q;        // (Hk, qpk, D) unrotated, unscaled
+  const float* k_new;    // (Hk, D) unrotated
+  const float* v_new;    // (Hk, D)
+  __nv_bfloat16* k_all;  // (L, S, Hk, D), updated in place
+  __nv_bfloat16* v_all;  // (L, S, Hk, D), updated in place
+  const float* freq;     // (D/2,) rope pair frequencies
+  float* out;            // (Hk, qpk, D)
+  float* scores;         // (Hk, kv_len, qpk) scratch, or null: scores in smem
+  float mscale, inv_sqrt_d;
+  int layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks;
+};
+
+// shared memory: q (qpk, D + 2) f32 | scores (kv_len, qpk) f32, or with
+// global scores one tile's p (TILE, qpk) | one K or V tile (TILE, D + KPAD)
+// bf16, 16-byte aligned
+__host__ __device__ inline size_t float_words(int qpk, int D, int kv_len) {
+  const size_t n = (size_t)qpk * (D + 2) + (size_t)kv_len * qpk;
+  return (n + 3) & ~(size_t)3;
+}
+
+__host__ __device__ inline size_t smem_bytes(int qpk, int D, int kv_len) {
+  return float_words(qpk, D, kv_len) * sizeof(float) +
+         (size_t)TILE * (D + KPAD) * sizeof(__nv_bfloat16);
+}
+
+// kGlobalScores: the scores are in a.scores. A template parameter, not a
+// runtime choice, so the shared-memory instance keeps shared-memory loads
+// (a pointer that may be either is read through slower generic loads).
+template <bool kGlobalScores>
+__global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, qpk = a.qpk, h = blockIdx.x, half = D / 2, n = a.kv_len;
+  const int QS = D + 2, KS = D + KPAD;
+  float* qs = reinterpret_cast<float*>(smem);  // (qpk, QS)
+  // (kv_len, qpk): scores, then bf16(p). Only this block touches its part of
+  // the global scratch, so __syncthreads() orders it as it does shared memory.
+  float* ps = qs + qpk * QS;  // shared: every score, or one tile's p
+  float* sc = kGlobalScores ? a.scores + (size_t)h * n * qpk : ps;
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<float*>(smem) + float_words(qpk, D, kGlobalScores ? TILE : n));  // (TILE, KS)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, vpr = D / 8;
+  const float posf = (float)a.pos;
+
+  // 1-2: rope, scale, and the in-place row write
+  for (int i = tid; i < qpk * half; i += THREADS) {
+    const int j = i / half, p = i - j * half;
+    const float ang = posf * a.freq[p];
+    const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+    const float* qr = a.q + ((size_t)h * qpk + j) * D;
+    const float x0 = qr[2 * p], x1 = qr[2 * p + 1];
+    qs[j * QS + 2 * p] = bf16_round((x0 * c - x1 * s) * a.inv_sqrt_d);
+    qs[j * QS + 2 * p + 1] = bf16_round((x0 * s + x1 * c) * a.inv_sqrt_d);
+  }
+  const size_t new_row = (((size_t)a.layer * a.S + a.kv_pos) * a.Hk + h) * D;
+  for (int p = tid; p < half; p += THREADS) {
+    const float ang = posf * a.freq[p];
+    const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+    const float x0 = a.k_new[(size_t)h * D + 2 * p], x1 = a.k_new[(size_t)h * D + 2 * p + 1];
+    a.k_all[new_row + 2 * p] = __float2bfloat16_rn(x0 * c - x1 * s);
+    a.k_all[new_row + 2 * p + 1] = __float2bfloat16_rn(x0 * s + x1 * c);
+  }
+  for (int d = tid; d < D; d += THREADS)
+    a.v_all[new_row + d] = __float2bfloat16_rn(a.v_new[(size_t)h * D + d]);
+  __syncthreads();
+
+  // 3-4: pass 1, every score of slots < kv_len
+  const float rot = (float)max(0, a.pos - a.S + 1);
+  for (int t0 = 0; t0 < n; t0 += TILE) {
+    const int nt = min(TILE, n - t0);
+    for (int i = tid; i < nt * vpr; i += THREADS) {
+      const int r = i / vpr, c = i - r * vpr;
+      const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
+      *reinterpret_cast<uint4*>(tile + r * KS + 8 * c) =
+          *reinterpret_cast<const uint4*>(a.k_all + off);
+    }
+    __syncthreads();
+    if (t0 == 0 && a.kv_sink > 0) {  // the lazy sink view (tile 0 holds the sinks)
+      const int nsink = min(min(a.kv_sink, a.kv_sinks), nt);
+      for (int i = tid; i < nsink * half; i += THREADS) {
+        const int r = i / half, p = i - r * half;
+        const float ang = rot * a.freq[p];
+        const float c = cosf(ang), s = sinf(ang);
+        const float x0 = __bfloat162float(tile[r * KS + 2 * p]);
+        const float x1 = __bfloat162float(tile[r * KS + 2 * p + 1]);
+        tile[r * KS + 2 * p] = __float2bfloat16_rn(x0 * c - x1 * s);
+        tile[r * KS + 2 * p + 1] = __float2bfloat16_rn(x0 * s + x1 * c);
+      }
+      __syncthreads();
+    }
+    for (int i = tid; i < nt * qpk; i += THREADS) {  // one (slot, query) dot per thread
+      const int r = i / qpk, j = i - r * qpk;
+      const float2* qj = reinterpret_cast<const float2*>(qs + j * QS);
+      const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(tile + r * KS);
+      float dot = 0.f;
+      for (int p = 0; p < half; ++p) {
+        const float2 kf = __bfloat1622float2(kr[p]);
+        const float2 qf = qj[p];
+        dot = fmaf(qf.x, kf.x, dot);
+        dot = fmaf(qf.y, kf.y, dot);
+      }
+      sc[(t0 + r) * qpk + j] = dot;
+    }
+    __syncthreads();
+  }
+
+  // 5: softmax per query row, one warp each: p = bf16(exp(s - max) / sum)
+  for (int j = warp; j < qpk; j += WARPS) {
+    float m = -INFINITY;
+    for (int r = lane; r < n; r += 32) m = fmaxf(m, sc[r * qpk + j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float e = expf(sc[r * qpk + j] - m);
+      sc[r * qpk + j] = e;
+      l += e;
+    }
+    l = warp_sum(l);
+    for (int r = lane; r < n; r += 32) sc[r * qpk + j] = bf16_round(sc[r * qpk + j] / l);
+  }
+  __syncthreads();
+
+  // pass 2: out = sum over slots of bf16(p) * bf16(v), f32
+  float acc[MAX_OUT];
+#pragma unroll
+  for (int i = 0; i < MAX_OUT; ++i) acc[i] = 0.f;
+  const int nout = qpk * D;
+  for (int t0 = 0; t0 < n; t0 += TILE) {
+    const int nt = min(TILE, n - t0);
+    for (int i = tid; i < nt * vpr; i += THREADS) {
+      const int r = i / vpr, c = i - r * vpr;
+      const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
+      *reinterpret_cast<uint4*>(tile + r * D + 8 * c) =
+          *reinterpret_cast<const uint4*>(a.v_all + off);
+    }
+    if (kGlobalScores)
+      for (int i = tid; i < nt * qpk; i += THREADS) ps[i] = sc[(size_t)t0 * qpk + i];
+    const float* pt = kGlobalScores ? ps : sc + t0 * qpk;  // (nt, qpk) p of this tile
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < MAX_OUT; ++i) {
+      const int idx = tid + i * THREADS;
+      if (idx < nout) {
+        const int j = idx / D, d = idx - j * D;
+        float o = acc[i];
+        for (int r = 0; r < nt; ++r)
+          o = fmaf(pt[r * qpk + j], __bfloat162float(tile[r * D + d]), o);
+        acc[i] = o;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < MAX_OUT; ++i) {
+    const int idx = tid + i * THREADS;
+    if (idx < nout) {
+      const int j = idx / D, d = idx - j * D;
+      a.out[((size_t)h * qpk + j) * D + d] = acc[i];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int yt_attend_step(const float* q, const float* k_new, const float* v_new,
+                              void* k_all, void* v_all, const float* freq,
+                              float mscale, float inv_sqrt_d, float* out,
+                              float* scores, int layer, int S, int Hk, int qpk, int D,
+                              int kv_pos, int kv_len, int kv_sink, int pos,
+                              int kv_sinks, void* stream) {
+  if (D < 8 || D % 8 || qpk < 1 || qpk * D > THREADS * MAX_OUT || Hk < 1 ||
+      layer < 0 || kv_len < 1 || kv_len > S || kv_pos < 0 || kv_pos >= S ||
+      kv_sink < 0 || kv_sink > kv_sinks)
+    return ERR_ARGS;
+  const size_t smem = smem_bytes(qpk, D, scores ? TILE : kv_len);
+  if (smem > 227 * 1024) return ERR_ARGS;
+  const auto kern = scores ? attend_step_kernel<true> : attend_step_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const AttnArgs a{q, k_new, v_new,
+                   static_cast<__nv_bfloat16*>(k_all), static_cast<__nv_bfloat16*>(v_all),
+                   freq, out, scores, mscale, inv_sqrt_d,
+                   layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks};
+  kern<<<Hk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,374 @@
+"""Fast decode and chunked prefill on the hand-written kernels (port of
+`yalm_tpu/models/fast.py`, dense models on one device).
+
+One decode step per token: embedding gather, then per layer the attention
+block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
+residual) and the FFN (`ffn_l`: norm + w13 GEMV with GLU, w2 GEMV +
+residual), then the final norm and the LM-head `gemv`. Prefill runs the
+layer-indexed `gemm_l` for every projection of a chunk and leaves the chunk
+attention to plain torch (as the JAX package leaves it to XLA). The KV
+cache is updated IN PLACE. Models outside this slice (MoE, int4, qk-norm,
+sandwich norms, softcaps, sliding layers) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..codec.format import numpy_to_torch, tag_for_numpy
+from ..config import KV_SINKS, ModelConfig
+from ..ops.core import NEG_INF, apply_rope, gelu, rmsnorm, silu
+from ..ops.cuda.block import attn_block_l
+from ..ops.cuda.ffn import ffn_l
+from ..ops.cuda.gemv import bf16f, gemm, gemm_l, gemv
+from .cache import KVCache
+
+
+@dataclass
+class FastScales:
+    """Per-output-channel dequant scales of int8 checkpoints, in the row
+    order of FastWeights' concatenated projections (y = (W_q @ x) * s)."""
+
+    embed: torch.Tensor    # (vocab,) f32
+    wqkv: torch.Tensor     # (n_layers, q_dim + 2*kv_dim) f32
+    wo: torch.Tensor       # (n_layers, dim) f32
+    w13: torch.Tensor      # (n_layers, 2*hidden_dim) f32
+    w2: torch.Tensor       # (n_layers, dim) f32
+    lm_head: torch.Tensor  # (vocab,) f32
+
+
+@dataclass
+class FastWeights:
+    """Decode layout: per-layer stacks, [wq;wk;wv] and [w1;w3] concatenated."""
+
+    embed: torch.Tensor       # (vocab, dim)
+    rms_att: torch.Tensor     # (n_layers, dim) f32
+    rms_ffn: torch.Tensor     # (n_layers, dim) f32
+    wqkv: torch.Tensor        # (n_layers, q_dim + 2*kv_dim, dim)
+    wo: torch.Tensor          # (n_layers, dim, q_dim)
+    w13: torch.Tensor         # (n_layers, 2*hidden_dim, dim)
+    w2: torch.Tensor          # (n_layers, dim, hidden_dim)
+    final_norm: torch.Tensor  # (dim,) f32
+    lm_head: torch.Tensor     # (vocab, dim)
+    bqkv: Optional[torch.Tensor] = None    # (n_layers, q_dim + 2*kv_dim) f32
+    scales: Optional[FastScales] = None    # int8 checkpoints only
+
+    def to(self, device) -> "FastWeights":
+        """A copy on `device` (the lm_head stays shared with embed when tied)."""
+        moved: dict = {}
+        out = {}
+        for f in fields(self):
+            t = getattr(self, f.name)
+            if isinstance(t, FastScales):
+                out[f.name] = FastScales(**{g.name: getattr(t, g.name).to(device)
+                                            for g in fields(t)})
+            elif t is not None:
+                if id(t) not in moved:
+                    moved[id(t)] = t.to(device)
+                out[f.name] = moved[id(t)]
+            else:
+                out[f.name] = None
+        return FastWeights(**out)
+
+
+def _check_slice(cfg: ModelConfig) -> None:
+    """Raise for model features that later slices of the port bring."""
+    missing = [name for name, on in (
+        ("MoE experts", cfg.is_moe),
+        ("int4 weights", cfg.weight_dtype == "int4"),
+        ("qk-norm", cfg.has_qk_norm),
+        ("sandwich norms", cfg.has_post_norms),
+        ("attention softcap", bool(cfg.attn_softcap)),
+        ("final softcap", bool(cfg.final_softcap)),
+        ("sliding-window layers", any(cfg.layer_sliding)),
+    ) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{', '.join(missing)}: not in this slice of the PyTorch port "
+            "(see ROADMAP.md, Queue 1)")
+
+
+def _itemsize(cfg: ModelConfig) -> int:
+    # fp16 checkpoints load as bf16
+    return {"fp32": 4, "fp16": 2, "bf16": 2, "fp8": 1, "int8": 1}.get(cfg.weight_dtype, 1)
+
+
+def gemv_supported(N: int, K: int, itemsize: int) -> bool:
+    """csrc/gemv.cu: rows of 16-byte chunks, x staged in shared memory."""
+    return K * itemsize % 16 == 0 and K * 2 <= 227 * 1024
+
+
+def gemm_supported(K: int, itemsize: int) -> bool:
+    """csrc/gemm.cu: 32-wide K steps of 16-byte chunks."""
+    return K % 32 == 0 and K * itemsize % 16 == 0
+
+
+def attention_supported(cfg: ModelConfig) -> bool:
+    """csrc/attention.cu: 16-byte row chunks and <= 8 outputs per thread
+    (any window: scores that overflow shared memory go to global scratch)."""
+    qpk = cfg.n_heads // cfg.n_kv_heads
+    return cfg.head_dim % 8 == 0 and qpk * cfg.head_dim <= 2048
+
+
+def fast_unsupported(cfg: ModelConfig) -> Optional[str]:
+    """Why this model's shapes do not fit the port's Hopper kernels, or None."""
+    isz = _itemsize(cfg)
+    for name, n, k in (("wqkv", cfg.q_dim + 2 * cfg.kv_dim, cfg.dim),
+                       ("wo", cfg.dim, cfg.q_dim), ("w13", 2 * cfg.hidden_dim, cfg.dim),
+                       ("w2", cfg.dim, cfg.hidden_dim), ("lm_head", cfg.vocab_size, cfg.dim)):
+        if not (gemv_supported(n, k, isz) and gemm_supported(k, isz)):
+            return (f"{name} ({n}x{k}, {isz}-byte weights): the GEMV/GEMM kernels take "
+                    "K a multiple of 32 whose rows are 16-byte chunks, K <= 116224")
+    if not attention_supported(cfg):
+        return (f"head_dim {cfg.head_dim} x {cfg.n_heads // cfg.n_kv_heads} queries per "
+                "kv head: the attention kernel takes head_dim % 8 == 0 and qpk*head_dim <= 2048")
+    return None
+
+
+def fast_supported(cfg: ModelConfig) -> bool:
+    """Whether this model's shapes fit the port's Hopper kernels."""
+    return fast_unsupported(cfg) is None
+
+
+# ---------------------------------------------------------------------------
+# weight loading
+# ---------------------------------------------------------------------------
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    # f16 -> bf16 on the host: not exact, and the kernels compute in bf16
+    return t.to(torch.bfloat16) if t.dtype == torch.float16 else t
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A same-width integer view (copies of fp8 tensors go through it)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
+    """Load a dense checkpoint straight into the decode layout on `device`.
+
+    Each layer's tensors are copied out of the checkpoint mmap, concatenated
+    on the host and written into a preallocated device stack, so neither the
+    host nor the device holds a second copy of the whole model."""
+    _check_slice(cfg)
+    device = torch.device(device)
+    t = yf.tensors
+    d, h, q, kd = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
+
+    def get(name, shape):
+        if tuple(t[name].shape) != shape:
+            raise ValueError(f"tensor {name}: expected {shape}, got {t[name].shape}")
+        return _host(yf.torch(name))
+
+    def stack(parts_of_layer):
+        first = parts_of_layer(0)
+        out = torch.empty((cfg.n_layers,) + tuple(first.shape), dtype=first.dtype,
+                          device=device)
+        for l in range(cfg.n_layers):
+            _bits(out[l]).copy_(_bits(first if l == 0 else parts_of_layer(l)))
+        return out
+
+    def layer_cat(specs):
+        return lambda l: torch.cat([get(f.format(l), s) for f, s in specs])
+
+    def one(name, shape):
+        return lambda l: get(name.format(l), shape)
+
+    def put(x):
+        return _bits(torch.empty_like(x, device=device)).copy_(_bits(x)).view(x.dtype)
+
+    embed = put(get("model.embed.weight", (cfg.vocab_size, d)))
+    lm = (put(get("model.output.weight", (cfg.vocab_size, d)))
+          if "model.output.weight" in t else embed)
+    bqkv = None
+    if cfg.has_qkv_bias:
+        bqkv = stack(layer_cat([("model.layers.{}.attn.wq.bias", (q,)),
+                                ("model.layers.{}.attn.wk.bias", (kd,)),
+                                ("model.layers.{}.attn.wv.bias", (kd,))])).float()
+    scales = None
+    if "model.embed.weight.scale" in t:   # int8 checkpoint
+        semb = put(get("model.embed.weight.scale", (cfg.vocab_size,)))
+        scales = FastScales(
+            embed=semb,
+            wqkv=stack(layer_cat([("model.layers.{}.attn.wq.weight.scale", (q,)),
+                                  ("model.layers.{}.attn.wk.weight.scale", (kd,)),
+                                  ("model.layers.{}.attn.wv.weight.scale", (kd,))])),
+            wo=stack(one("model.layers.{}.attn.wo.weight.scale", (d,))),
+            w13=stack(layer_cat([("model.layers.{}.mlp.w1.weight.scale", (h,)),
+                                 ("model.layers.{}.mlp.w3.weight.scale", (h,))])),
+            w2=stack(one("model.layers.{}.mlp.w2.weight.scale", (d,))),
+            lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,)))
+                     if "model.output.weight.scale" in t else semb))
+    return FastWeights(
+        embed=embed,
+        rms_att=stack(one("model.layers.{}.attn.norm.weight", (d,))),
+        rms_ffn=stack(one("model.layers.{}.mlp.norm.weight", (d,))),
+        wqkv=stack(layer_cat([("model.layers.{}.attn.wq.weight", (q, d)),
+                              ("model.layers.{}.attn.wk.weight", (kd, d)),
+                              ("model.layers.{}.attn.wv.weight", (kd, d))])),
+        wo=stack(one("model.layers.{}.attn.wo.weight", (d, q))),
+        w13=stack(layer_cat([("model.layers.{}.mlp.w1.weight", (h, d)),
+                             ("model.layers.{}.mlp.w3.weight", (h, d))])),
+        w2=stack(one("model.layers.{}.mlp.w2.weight", (d, h))),
+        final_norm=put(get("model.norm.weight", (d,))),
+        lm_head=lm, bqkv=bqkv, scales=scales)
+
+
+def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
+                            device="cpu") -> FastWeights:
+    """The port's FastWeights from the JAX package's FastWeights fields given
+    as numpy arrays (`arrays["scales"]`, if present, a mapping of the
+    FastScales fields). bf16/fp8 arrays of ml_dtypes' types are recognised
+    by dtype name and reinterpreted through same-width integer views."""
+    _check_slice(cfg)
+
+    def conv(a):
+        return _host(numpy_to_torch(a, tag_for_numpy(a))).to(device)
+
+    scales = arrays.get("scales")
+    kw = {f.name: conv(arrays[f.name]) for f in fields(FastWeights)
+          if f.name != "scales" and arrays.get(f.name) is not None}
+    if scales is not None:
+        kw["scales"] = FastScales(**{f.name: conv(scales[f.name])
+                                     for f in fields(FastScales)})
+    return FastWeights(**kw)
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, fw: FastWeights, tokens) -> torch.Tensor:
+    """(T, dim) f32 embedding rows, gathered through an integer view of the
+    table (not every backend indexes fp8 tensors)."""
+    idx = torch.as_tensor(tokens, dtype=torch.long, device=fw.embed.device).reshape(-1)
+    x = _bits(fw.embed).index_select(0, idx).view(fw.embed.dtype).float()
+    if cfg.embed_scale != 1.0:
+        x = x * cfg.embed_scale
+    if fw.scales is not None:
+        x = x * fw.scales.embed.index_select(0, idx)[:, None]
+    return x
+
+
+def _clip(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
+    if math.isinf(cfg.qkv_clip):
+        return a
+    return torch.clamp(a, -cfg.qkv_clip, cfg.qkv_clip)
+
+
+def ring_slots(pos: int, window: int) -> tuple[int, int, int]:
+    """(kv_sink, kv_pos, kv_len) of absolute position pos in the ring buffer
+    (fast.py:587-589): KV_SINKS sink slots once pos >= window."""
+    kv_sink = KV_SINKS if pos >= window else 0
+    kv_pos = kv_sink + (pos - kv_sink) % (window - kv_sink)
+    return kv_sink, kv_pos, min(pos + 1, window)
+
+
+def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
+                     cache: KVCache, *, output_logits: bool = True
+                     ) -> tuple[Optional[torch.Tensor], KVCache]:
+    """One decode step at absolute position `pos`; updates `cache` in place
+    and returns (logits (vocab,) f32 or None, cache). `token` is an int or a
+    one-element tensor on the weights' device."""
+    _check_slice(cfg)
+    sc = fw.scales
+    pos = int(pos)
+    x = _embed(cfg, fw, token)[0]
+    kv_sink, kv_pos, kv_len = ring_slots(pos, cfg.max_seq_len)
+    rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+
+    for i in range(cfg.n_layers):
+        x = attn_block_l(
+            x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, i,
+            kv_pos, kv_len, kv_sink, pos, n_heads=cfg.n_heads,
+            norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
+            scale_qkv=sc.wqkv if sc else None,
+            scale_o=sc.wo if sc else None, **rope)
+        x = ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, i,
+                  sc.w13 if sc else None, sc.w2 if sc else None,
+                  norm_eps=cfg.norm_eps, act=cfg.act_type)
+
+    if not output_logits:
+        return None, cache
+    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemv(x, fw.lm_head, sc.lm_head if sc else None), cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill
+# ---------------------------------------------------------------------------
+
+def _attend_chunk_bf16(q4, kc, vc, mask, D):
+    """Chunk attention with bf16 operands, f32 sums and an f32 softmax
+    (fast.py:943-955); plain torch on every device."""
+    scores = torch.einsum("tgqd,lgd->gqtl", bf16f(q4), bf16f(kc)) / math.sqrt(D)
+    scores = torch.where(mask[None, None], scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    return torch.einsum("gqtl,lgd->tgqd", bf16f(att), bf16f(vc))
+
+
+def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
+                 valid_len: int, cache: KVCache, *, logits_mode: str = "last",
+                 attend_len: int = 0) -> tuple[Optional[torch.Tensor], KVCache]:
+    """Chunked prefill of `tokens` (a padded chunk of T ids; the first
+    valid_len are real) at positions pos0.., inside the window. Writes the
+    valid rows' k/v into the cache in place. attend_len (0 = the window)
+    bounds the attention width; it must cover pos0 + T.
+
+    logits_mode: "none" -> None; "last" -> (vocab,) logits of the last valid
+    token; "all" -> (T, vocab)."""
+    _check_slice(cfg)
+    dev = fw.wqkv.device
+    tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev).reshape(-1)
+    T = tok.shape[0]
+    L = cfg.max_seq_len
+    S = attend_len or L
+    if S % 8 or S > L or pos0 + T > S or not 0 < valid_len <= T:
+        raise ValueError(f"prefill_fast: chunk {pos0}+{T} (valid {valid_len}) "
+                         f"vs attend_len {S}, window {L}")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qpk = Hq // Hk
+    H = cfg.hidden_dim
+    act = silu if cfg.act_type == "silu" else gelu
+    sc = fw.scales
+
+    positions = pos0 + torch.arange(T, device=dev)
+    att_mask = torch.arange(S, device=dev)[None, :] <= positions[:, None]
+    x = _embed(cfg, fw, tok)                           # (T, dim)
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = gemm_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv)
+        q = apply_rope(qkv[:, : cfg.q_dim].reshape(T, Hq, D), positions,
+                       cfg.rope_param, cfg.rotary_dim)
+        k = apply_rope(qkv[:, cfg.q_dim: cfg.q_dim + cfg.kv_dim].reshape(T, Hk, D),
+                       positions, cfg.rope_param, cfg.rotary_dim)
+        v = qkv[:, cfg.q_dim + cfg.kv_dim:].reshape(T, Hk, D)
+        cache.k[i, pos0: pos0 + valid_len] = k[:valid_len].to(cache.k.dtype)
+        cache.v[i, pos0: pos0 + valid_len] = v[:valid_len].to(cache.v.dtype)
+        mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), cache.k[i, :S],
+                                   cache.v[i, :S], att_mask, D)
+        x = x + gemm_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
+        xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
+        h13 = gemm_l(xb2, fw.w13, i, sc.w13 if sc else None)
+        h = act(h13[:, :H]) * h13[:, H:]
+        x = x + gemm_l(h, fw.w2, i, sc.w2 if sc else None)
+
+    if logits_mode == "none":
+        return None, cache
+    if logits_mode == "last":
+        xl = rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps)
+        return gemv(xl, fw.lm_head, sc.lm_head if sc else None), cache
+    if logits_mode == "all":
+        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+        return gemm(xn, fw.lm_head, sc.lm_head if sc else None), cache
+    raise ValueError(f"bad logits_mode {logits_mode!r}")

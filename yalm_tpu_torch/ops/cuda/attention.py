@@ -1,0 +1,128 @@
+"""Fused decode attention step (port of `attend_step_l`,
+`yalm_tpu/ops/pallas/attention.py`).
+
+One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
+`kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
+aliased its buffers), the lazy StreamingLLM sink view in the ring regime,
+then GQA attention over slots < kv_len. Kernel: `csrc/attention.cu`. The
+cache is bf16; the e5m2 cache, softcap, sliding window and Gemma3's
+alternate rope are later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from ..core import (NEG_INF, rope_freq_table, rope_mscale, rope_rotation_param,
+                    rotate_pairs)
+from . import _build as B
+from .gemv import bf16f
+
+
+SMEM_MAX = 227 * 1024
+
+
+def smem_bytes(qpk: int, D: int, kv_len: int) -> int:
+    """Shared memory of csrc/attention.cu: q, every score (one tile's, 64,
+    when the scores go to global scratch), one K/V tile."""
+    words = qpk * (D + 2) + kv_len * qpk
+    return (words + 3) // 4 * 16 + 64 * (D + 8) * 2
+
+
+@functools.lru_cache(maxsize=64)
+def _freq_table(theta, D: int, rotary_dim: int, device: str) -> torch.Tensor:
+    # one (D/2,) table per model and device; the kernel reads it every step
+    return rope_freq_table(theta, D, rotary_dim, device=torch.device(device))
+
+
+def _rot(rows: torch.Tensor, theta, rotary_dim: int, pos) -> torch.Tensor:
+    """RoPE rows[..., D] forward by `pos` positions (f32)."""
+    freq = _freq_table(theta, rows.shape[-1], rotary_dim, str(rows.device))
+    ang = freq * float(pos)   # f32 product, as pos_f32 * freq
+    return rotate_pairs(rows.float(), ang, rope_mscale(theta))
+
+
+def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
+                      kv_sink, pos, *, kv_sinks, theta, rotary_dim):
+    """The JAX emulation `_attn_step_ref` (attention.py:775-802): mutates
+    k_all/v_all in place, returns mix (Hk, qpk, D) f32. Normalises the
+    softmax before the bf16 cast of p, as the emulation and the CUDA kernel
+    do (the Pallas kernel's online softmax normalises after)."""
+    L, S, Hk, D = k_all.shape
+    _, qpk, _ = q.shape
+    q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos) * (1.0 / math.sqrt(D))
+    k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
+    v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
+    k = k_all[layer].float()
+    if kv_sink > 0:
+        # lazy sink view: the first kv_sink rows rotated forward by
+        # max(0, pos - S + 1), rounded to the cache type; the cache keeps
+        # them as written
+        rot = max(0, int(pos) - S + 1)
+        rows = _rot(k[:kv_sink], rope_rotation_param(theta), rotary_dim, rot)
+        k = k.clone()
+        k[:kv_sink] = rows.to(k_all.dtype).float()
+    q3 = bf16f(q2).reshape(Hk, qpk, D)
+    scores = torch.einsum("gpd,sgd->gps", q3, bf16f(k))
+    valid = torch.arange(S, device=k.device) < kv_len
+    scores = torch.where(valid[None, None], scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    out = torch.einsum("gps,sgd->gpd", bf16f(att), bf16f(v_all[layer].float()))
+    return out
+
+
+def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
+                       kv_sink, pos, *, kv_sinks, theta, rotary_dim):
+    """One launch of csrc/attention.cu on CUDA tensors (adds one to
+    LAUNCHES["attend_step_l"])."""
+    L, S, Hk, D = k_all.shape
+    _, qpk, _ = q.shape
+    B.require(k_all.dtype == torch.bfloat16 and v_all.dtype == torch.bfloat16,
+              "attend_step_l: the kernel takes a bf16 cache (e5m2 is a later slice)")
+    B.require(k_all.is_contiguous() and v_all.is_contiguous() and v_all.shape == k_all.shape,
+              "attend_step_l: k_all/v_all must be contiguous (L, S, Hk, D)")
+    B.require(D % 8 == 0 and qpk * D <= 2048,
+              f"attend_step_l: head_dim {D} x qpk {qpk} unsupported")
+    B.require(0 <= layer < L and 0 <= kv_pos < S and 1 <= kv_len <= S
+              and 0 <= kv_sink <= kv_sinks, "attend_step_l: position scalars out of range")
+    B.require(B.aligned16(k_all, v_all), "attend_step_l: cache must be 16-byte aligned")
+    qc = q.float().contiguous()
+    kn = k_new.float().contiguous()
+    vn = v_new.float().contiguous()
+    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    out = torch.empty((Hk, qpk, D), dtype=torch.float32, device=q.device)
+    # the scores of a window too long for shared memory go to global scratch
+    scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
+              torch.empty((Hk, kv_len, qpk), dtype=torch.float32, device=q.device))
+    code = B.lib().yt_attend_step(
+        B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all), B.ptr(freq),
+        rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
+        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos), kv_sinks,
+        B.stream_ptr())
+    B.check(code, "attend_step_l")
+    B.LAUNCHES["attend_step_l"] += 1
+    return out
+
+
+def attend_step_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                  k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
+                  kv_pos: int, kv_len: int, kv_sink: int, pos: int,
+                  win=None, alt=None, *, kv_sinks: int, theta, rotary_dim: int,
+                  softcap: float = 0.0) -> torch.Tensor:
+    """Fused decode-attention step against layer `layer` of the cache.
+
+    q: (Hk, qpk, D) f32 unrotated, unscaled; k_new/v_new: (Hk, D) f32.
+    k_all/v_all: (L, S, Hk, D), updated IN PLACE at slot kv_pos.
+    Returns mix (Hk, qpk, D) f32. (The JAX function also returns the
+    caches, which are the same tensors here.)"""
+    if win is not None or alt is not None or softcap:
+        raise NotImplementedError(
+            "attend_step_l: sliding window, alternate rope and softcap are a later slice")
+    args = (q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len, kv_sink, pos)
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    if B.device_kind(q, k_new, v_new, k_all, v_all) == "cpu":
+        return attend_step_plain(*args, **kw)
+    return launch_attend_step(*args, **kw)
