@@ -18,18 +18,22 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    kernel's launch count over that run;
 4. the same model at depth 2 on the card against the plain versions on the
    CPU: a 64-token prefill and 8 teacher-forced decode steps;
+then phases 2-4 again for the int4 path (packed int4 layer weights with
+group scales, int8 embedding and LM head, fp8-e5m2 KV cache: the
+configuration of `bench.py`'s defaults), after the fp8 weights are freed;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
-   checkpoint, as subprocesses.
+   checkpoint and on a small int4 checkpoint with `-C fp8`, as subprocesses.
 
 Any failure raises, so the script exits non-zero before its last line,
 which is {"ok": true, "device": {...}}. Without a CUDA GPU, or outside the
 repository, it exits non-zero at once. It takes no arguments: every run
-drives all five phases.
+drives every phase of both paths.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -47,13 +51,22 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def mistral7b(n_layers: int = 32):
+@contextlib.contextmanager
+def phase(name: str):
+    """Log a phase's name, then its seconds."""
+    t0 = time.perf_counter()
+    log(name)
+    yield
+    log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
+def mistral7b(n_layers: int = 32, weight_dtype: str = "fp8"):
     from yalm_tpu_torch.config import ModelConfig
     return ModelConfig(dim=4096, hidden_dim=14336, head_dim=128, n_layers=n_layers,
                        n_heads=32, n_kv_heads=8, vocab_size=32000, max_seq_len=4096,
                        bos_token_id=1, eos_token_id=2, rope_theta=1e6,
                        rotary_dim=128, norm_eps=1e-5, act_type="silu",
-                       weight_dtype="fp8")
+                       weight_dtype=weight_dtype)
 
 
 def synth_fast_weights(cfg, device, seed: int):
@@ -84,6 +97,64 @@ def synth_fast_weights(cfg, device, seed: int):
         lm_head=mk(cfg.vocab_size, d))
 
 
+def synth_int4_weights(cfg, device, seed: int):
+    """Random packed int4 weights made on the card in the decode layout:
+    both nibbles of each byte uniform over 1..15, i.e. q - 8 over -7..7
+    with mean 0 (uniform bytes, as bench.py:216-220 makes them, give every
+    weight a mean of -0.5 * scale, and the shared component drives a
+    32-layer stack to one repeated token), with group scales around
+    0.02 / 4.32 (4.32 = the std of q - 8), so the dequantized weights have
+    a std of about 0.02; the embedding and LM head are random int8 with
+    per-row scales around 0.02 / 73.6."""
+    import torch
+    from yalm_tpu_torch.models.fast import FastScales, FastWeights
+    from yalm_tpu_torch.ops.int4 import int4_group
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def nibbles(*shape):
+        out = torch.empty(shape, dtype=torch.uint8, device=device)
+        flat = out.view(-1, shape[-1])
+        step = max(1, (256 << 20) // shape[-1])
+        for i in range(0, flat.shape[0], step):
+            lo, hi = (torch.randint(1, 16, flat[i:i + step].shape, generator=gen,
+                                    device=device, dtype=torch.uint8) for _ in range(2))
+            flat[i:i + step] = lo | (hi << 4)
+        return out
+
+    def scales(*shape, base):
+        return (torch.rand(shape, generator=gen, device=device) + 0.5) * base
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device, dtype=torch.int8)
+
+    L, d, h, q = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.q_dim
+    nqkv = q + 2 * cfg.kv_dim
+    G = lambda k: k // int4_group(k)  # noqa: E731
+    s4 = 0.02 / 4.32
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
+    return FastWeights(
+        embed=int8(cfg.vocab_size, d), rms_att=ones(L, d), rms_ffn=ones(L, d),
+        wqkv=nibbles(L, nqkv, d // 2), wo=nibbles(L, d, q // 2),
+        w13=nibbles(L, 2 * h, d // 2), w2=nibbles(L, d, h // 2), final_norm=ones(d),
+        lm_head=int8(cfg.vocab_size, d),
+        scales=FastScales(embed=scales(cfg.vocab_size, base=0.02 / 73.6),
+                          wqkv=scales(L, G(d), nqkv, base=s4), wo=scales(L, G(q), d, base=s4),
+                          w13=scales(L, G(d), 2 * h, base=s4), w2=scales(L, G(h), d, base=s4),
+                          lm_head=scales(cfg.vocab_size, base=0.02 / 73.6)))
+
+
+def dequant4(w4, gs):
+    """bf16 copies of packed int4 layers (L, N, K/2) with scales (L, G, N):
+    the weights the library call (F.linear) is timed on."""
+    import torch
+    L, N, Kp = w4.shape
+    G = gs.shape[1]
+    p = w4.reshape(L, N, G, -1)
+    q = torch.cat([(p & 0xF).to(torch.bfloat16) - 8, (p >> 4).to(torch.bfloat16) - 8], -1)
+    return (q.float() * gs.transpose(1, 2)[..., None]).reshape(L, N, 2 * Kp).to(torch.bfloat16)
+
+
 class Bench:
     """Kernel-vs-plain checks and timings; collects one row per case.
 
@@ -91,14 +162,17 @@ class Bench:
     least 1). Kernel and plain version round the same operands to bf16 and
     sum in f32, so they differ by the summation order, plus a rare one-ulp
     bf16 flip (of a normalised input, a GLU output or a softmax weight)
-    where the two f32 values straddle a rounding boundary. Every case
-    compares only what its kernels compute, never a residual added to it:
-    attn_block_l's Wo @ attention is ~0.1 typical, ~0.5 at most, here, so
-    its tolerance is the floor, 2e-3."""
+    where the two f32 values straddle a rounding boundary. No case adds the
+    model's residual stream (x ~ 3 here) to what it compares: the
+    attn_block and ffn cases run with add_residual=False (attn_block_l's
+    Wo @ attention is ~0.1 typical, ~0.5 at most, so its tolerance is the
+    floor, 2e-3), and the wo GEMV cases test the residual epilogue with a
+    unit-scale vector."""
 
     def __init__(self, ceiling: float):
         self.ceiling = ceiling
         self.rows: list[dict] = []
+        self.path = "fp8"   # the path whose kernels the next cases hold
 
     @staticmethod
     def time_ms(fn, reps: int = 25) -> float:
@@ -126,7 +200,7 @@ class Bench:
         err = float((got.float() - want.float()).abs().max())
         tol = tol_rel * max(1.0, float(want.float().abs().max()))
         finite = bool(torch.isfinite(got).all())
-        row = dict(name=name, case=label, max_abs_err=err, tol=tol,
+        row = dict(name=name, path=self.path, case=label, max_abs_err=err, tol=tol,
                    ms=self.time_ms(kernel), plain_ms=self.time_ms(plain),
                    library_ms=self.time_ms(library) if library else None,
                    bytes=bytes_, flops=flops, json=json_row)
@@ -313,10 +387,10 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
     del cache
 
-    # K4: ffn_l, one row (decode) and four rows
+    # K4: ffn_l, one row (decode) and four rows, without the residual
     for B in (1, 4):
         xf = randn(d, scale=3.0) if B == 1 else randn(B, d, scale=3.0)
-        kw = dict(norm_eps=cfg.norm_eps, act="silu")
+        kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
         bench.case("ffn_l", f"B={B} e5m2", ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw),
                    ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw), 2e-3,
                    kernel=lambda r, xf=xf: ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
@@ -325,8 +399,196 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                    json_row=(B == 1))
 
 
-def phase_serve(cfg, fw, dev) -> dict:
-    """Phase 3: three requests through Engine.generate at full size."""
+def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
+    """Phase 2 of the int4 path: the int4 kernels and the e5m2 cache
+    against their plain versions at main-path shapes."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.core import silu
+    from yalm_tpu_torch.ops.cuda import attention as A
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_plain
+    from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_plain
+
+    bench.path = "int4"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=dev) * scale
+
+    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sc = fw.scales
+    lay = lambda r: r % L  # noqa: E731
+
+    def w4_bytes(N, K):   # packed weights and their group scales
+        return N * K // 2 + 4 * (K // (512 if K % 512 == 0 else 256)) * N
+
+    # K1: the int8 LM head of this path
+    x = randn(d)
+    lm_bf16 = (fw.lm_head.float() * sc.lm_head[:, None]).to(torch.bfloat16)
+    bench.case("gemv", "lm_head int8 + scale (32000x4096)", G.gemv(x, fw.lm_head, sc.lm_head),
+               G.gemv_l_plain(x, fw.lm_head[None], 0, scale=sc.lm_head[None]), 2e-3,
+               kernel=lambda r: G.gemv(x, fw.lm_head, sc.lm_head),
+               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0, scale=sc.lm_head[None]),
+               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+               bytes_=V * d + 4 * d + 8 * V, flops=2 * V * d, json_row=True)
+    del lm_bf16
+
+    # K5: the int4 GEMV as the decode path launches it (csrc/gemv.cu)
+    x, xm, xh, res = randn(d, scale=3.0), randn(q_dim), randn(h), randn(d)
+    for nm, w, s, N, K, kw, lib_x in (
+            ("wqkv + rmsnorm", fw.wqkv, sc.wqkv, Nqkv, d, dict(norm_w=fw.rms_att), x),
+            ("wo + residual", fw.wo, sc.wo, d, q_dim, dict(residual=res), xm),
+            ("w13 + rmsnorm + GLU", fw.w13, sc.w13, 2 * h, d, dict(norm_w=fw.rms_att), x),
+            ("w2", fw.w2, sc.w2, d, h, {}, xh)):
+        glu = "GLU" in nm
+        wl = dequant4(w[:4], s[:4])
+
+        def kern(r, w=w, s=s, kw=kw, xx=lib_x, glu=glu):
+            if not (kw or glu):   # no prologue or epilogue: the public wrapper
+                return G.gemv4_l(xx, w, lay(r), s)
+            return G.launch_gemv("gemv4_l", xx, w, lay(r), scale=s,
+                                 glu_act="silu" if glu else None, **kw)
+
+        def plain(r, w=w, s=s, kw=kw, xx=lib_x, glu=glu, N=N):
+            y = G.gemv_l_plain(xx, w, lay(r), scale=s, **kw)
+            return G.bf16f(silu(y[:N // 2]) * y[N // 2:]) if glu else y
+        got = kern(0)
+        # the GLU output goes to w2 rounded to bf16 (ffn.py:188): every value
+        # the kernel writes must be a bf16 value, whatever the tolerance
+        if glu and not torch.equal(got, G.bf16f(got)):
+            raise AssertionError("gemv4_l GLU: the kernel's output is not rounded to bf16")
+        bench.case("gemv4_l", f"{nm} ({N}x{K})", got, plain(0), 2e-3, kernel=kern,
+                   plain=plain,
+                   library=lambda r, xx=lib_x, wl=wl: F.linear(xx.to(torch.bfloat16), wl[r % 4]),
+                   bytes_=w4_bytes(N, K) + 4 * (K + N) + (4 * K if "norm" in nm else 0)
+                   + (4 * N if "residual" in nm else 0) - (2 * N if glu else 0),
+                   flops=2 * N * K, json_row=nm == "wqkv + rmsnorm")
+        del wl
+
+    # K5: gemm4_l, the prefill chunks (csrc/gemm.cu)
+    for nm, w, s, N, K in (("wqkv", fw.wqkv, sc.wqkv, Nqkv, d), ("w13", fw.w13, sc.w13, 2 * h, d),
+                           ("w2", fw.w2, sc.w2, d, h)):
+        wl = dequant4(w[:4], s[:4])
+        for B in (16, 64, 256):
+            xb = randn(B, K)
+            bench.case("gemm4_l", f"B={B} {nm} ({N}x{K})", G.gemm4_l(xb, w, 0, s),
+                       G.gemm4_l_plain(xb, w, 0, s), 2e-3,
+                       kernel=lambda r, xb=xb, w=w, s=s: G.gemm4_l(xb, w, lay(r), s),
+                       plain=lambda r, xb=xb, w=w, s=s: G.gemm4_l_plain(xb, w, lay(r), s),
+                       library=lambda r, xb=xb, wl=wl: F.linear(xb.to(torch.bfloat16), wl[r % 4]),
+                       bytes_=w4_bytes(N, K) + 4 * B * (K + N), flops=2 * B * N * K,
+                       json_row=(B == 256 and nm == "w13"))
+        del wl
+
+    # K2 with the e5m2 cache: the f32 -> e5m2 row write rounds once, as
+    # torch's cast does, at edge values (ties, 57344, 61440 -> inf,
+    # subnormals) and random ones: the v row holds v_new as written
+    e5 = torch.float8_e5m2
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    small = KVCache.init(dataclasses.replace(cfg, n_layers=1, max_seq_len=64), e5, dev)
+    vn = randn(Hk, D, scale=4.0)
+    edges = torch.tensor([0.0, -0.0, 1.125, 1.375, -1.625, 57344.0, 61439.0, 61440.0,
+                          -61440.0, 1e6, 2.0 ** -16, 2.0 ** -17, 3 * 2.0 ** -18, 1.5e-5],
+                         device=dev)
+    vn.view(-1)[:len(edges)] = edges
+    A.attend_step_l(randn(Hk, Hq // Hk, D), randn(Hk, D), vn, small.k, small.v, 0, 5, 6, 0, 5,
+                    **rope)
+    if not torch.equal(small.v[0, 5].view(torch.uint8), vn.to(e5).view(torch.uint8)):
+        raise AssertionError("the attention kernel's f32 -> e5m2 row write differs from torch's")
+    log(f"  f32 -> e5m2 row write in the attention kernel: bit-exact for {Hk * D} values "
+        f"({len(edges)} edge values among them)")
+    del small
+
+    cache = KVCache.init(cfg, e5, dev)
+    cache.k.copy_(torch.randn(cache.k.shape, generator=gen, device=dev).to(e5))
+    cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev).to(e5))
+    S = cfg.max_seq_len
+    for pos in (999, 6000):
+        kv_sink = 2 if pos >= S else 0
+        kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+        kv_len = min(pos + 1, S)
+        q, kn, vn = randn(Hk, Hq // Hk, D, scale=2.0), randn(Hk, D, scale=2.0), randn(Hk, D)
+        sl = (kv_len, kv_sink, pos)
+        want = A.attend_step_plain(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl, **rope)
+        rows = cache.k[3, kv_pos].clone(), cache.v[3, kv_pos].clone()
+        got = A.attend_step_l(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl, **rope)
+        for t, row in zip((cache.k, cache.v), rows):
+            if not torch.equal(t[3, kv_pos].view(torch.uint8), row.view(torch.uint8)):
+                raise AssertionError(f"attend_step_l e5m2 pos {pos}: the kernel's written row "
+                                     "differs from the plain version's")
+        kk = cache.k[:4, :kv_len].transpose(1, 2).to(torch.bfloat16)   # (4, Hk, kv_len, D)
+        vv = cache.v[:4, :kv_len].transpose(1, 2).to(torch.bfloat16)
+        qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+        bench.case("attend_step_l",
+                   f"e5m2 kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else ""),
+                   got, want, 2e-3,
+                   kernel=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl: A.attend_step_l(
+                       *a, cache.k, cache.v, lay(r), kp, *s, **rope),
+                   plain=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl: A.attend_step_plain(
+                       *a, cache.k, cache.v, lay(r), kp, *s, **rope),
+                   library=lambda r, qq=qq, kk=kk, vv=vv: F.scaled_dot_product_attention(
+                       qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
+                   bytes_=2 * kv_len * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D),
+                   flops=4 * kv_len * Hq * D, json_row=(pos == 6000))
+        del kk, vv
+    log("  e5m2 rows written by the kernel equal the plain version's byte for byte")
+
+    big = KVCache.init(dataclasses.replace(cfg, n_layers=1, max_seq_len=32768), e5, dev)
+    big.k.copy_(torch.randn(big.k.shape, generator=gen, device=dev).to(e5))
+    big.v.copy_(torch.randn(big.v.shape, generator=gen, device=dev).to(e5))
+    pos, Sb = 40000, 32768
+    q, kn, vn = randn(Hk, Hq // Hk, D, scale=2.0), randn(Hk, D, scale=2.0), randn(Hk, D)
+    sl = (2 + (pos - 2) % (Sb - 2), Sb, 2, pos)
+    want = A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope)
+    got = A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope)
+    bench.case("attend_step_l", f"e5m2 kv_len={Sb} pos={pos} scores in global", got, want, 2e-3,
+               kernel=lambda r: A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               plain=lambda r: A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               bytes_=2 * Sb * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D), flops=4 * Sb * Hq * D)
+    del big
+
+    # K6: attn_block4_l, mid-window, without the residual
+    x = randn(d, scale=3.0)
+    pos = 999
+    blk = dict(n_heads=Hq, norm_eps=cfg.norm_eps, add_residual=False, **rope)
+    args = lambda l: (x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l,  # noqa: E731
+                      pos, pos + 1, 0, pos)
+    sc4 = dict(scale_qkv=sc.wqkv, scale_o=sc.wo)
+    bench.case("attn_block4_l", "kv_len=1000 e5m2 cache",
+               attn_block4_l(*args(5), **sc4, **blk), attn_block_plain(*args(5), **sc4, **blk),
+               2e-3,
+               kernel=lambda r: attn_block4_l(*args(lay(r)), **sc4, **blk),
+               plain=lambda r: attn_block_plain(*args(lay(r)), **sc4, **blk),
+               bytes_=w4_bytes(Nqkv, d) + w4_bytes(d, q_dim) + 2 * (pos + 1) * Hk * D + 12 * d,
+               flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
+    del cache
+
+    # K7: ffn4_l, one row (decode), without the residual
+    xf = randn(d, scale=3.0)
+    kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
+    bench.case("ffn4_l", "B=1", ffn4_l(xf, fw.rms_ffn, fw.w13, fw.w2, 2, sc.w13, sc.w2, **kw),
+               ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, 2, sc.w13, sc.w2, **kw), 2e-3,
+               kernel=lambda r: ffn4_l(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), sc.w13, sc.w2, **kw),
+               plain=lambda r: ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), sc.w13, sc.w2,
+                                         **kw),
+               bytes_=w4_bytes(2 * h, d) + w4_bytes(d, h) + 12 * d, flops=6 * h * d,
+               json_row=True)
+
+
+# the kernels each path must launch in its phase-3 run
+PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block_l", "ffn_l"),
+                "int4": ("gemv", "gemv4_l", "gemm4_l", "attend_step_l", "attn_block4_l",
+                         "ffn4_l")}
+
+
+def phase_serve(cfg, fw, dev, kv_dtype, path: str) -> dict:
+    """Phase 3: three requests (and a ring follow-up) through
+    Engine.generate at full size, with the path's launch counts."""
     import numpy as np
     import torch
     from yalm_tpu_torch.engine import Engine
@@ -335,7 +597,7 @@ def phase_serve(cfg, fw, dev) -> dict:
     from yalm_tpu_torch.utils.testing import synth_vocab
 
     tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
-    eng = Engine(cfg, fw, tok, device=dev)
+    eng = Engine(cfg, fw, tok, kv_dtype=kv_dtype, device=dev)
     rng = np.random.default_rng(0)
 
     def prompt(n):
@@ -380,11 +642,10 @@ def phase_serve(cfg, fw, dev) -> dict:
     reqs.append(serve("ring follow-up 8+8", prompt(8), 8, temperature=0.0))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    log(f"  launches over the three requests: {launches}")
-    missing = [k for k in ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block_l", "ffn_l")
-               if launches.get(k, 0) <= 0]
+    log(f"  launches over the {path} path's requests: {launches}")
+    missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     return dict(requests=reqs, launches=launches, decode_profile=profile)
 
 
@@ -424,24 +685,29 @@ def profile_decode(eng, n: int) -> dict:
     return r
 
 
-def phase_parity(fw, dev) -> dict:
+def phase_parity(cfg, fw, dev, kv_dtype) -> dict:
     """Phase 4: depth-2 model, card (kernels) vs CPU (plain versions)."""
     import numpy as np
     import torch
     from yalm_tpu_torch.models.cache import KVCache
-    from yalm_tpu_torch.models.fast import FastWeights, decode_step_fast, prefill_fast
+    from yalm_tpu_torch.models.fast import (FastScales, FastWeights, decode_step_fast,
+                                            prefill_fast)
 
-    cfg = mistral7b(n_layers=2)
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    sc = fw.scales
     fw2 = FastWeights(embed=fw.embed, rms_att=fw.rms_att[:2], rms_ffn=fw.rms_ffn[:2],
                       wqkv=fw.wqkv[:2], wo=fw.wo[:2], w13=fw.w13[:2], w2=fw.w2[:2],
-                      final_norm=fw.final_norm, lm_head=fw.lm_head)
+                      final_norm=fw.final_norm, lm_head=fw.lm_head,
+                      scales=None if sc is None else FastScales(
+                          embed=sc.embed, wqkv=sc.wqkv[:2], wo=sc.wo[:2], w13=sc.w13[:2],
+                          w2=sc.w2[:2], lm_head=sc.lm_head))
     fw_cpu = fw2.to("cpu")
     rng = np.random.default_rng(5)
     toks = rng.integers(3, cfg.vocab_size, 64 + 8)
     worst = 0.0
     runs = {}
     for name, w, d in (("cuda", fw2, dev), ("cpu", fw_cpu, torch.device("cpu"))):
-        cache = KVCache.init(cfg, torch.bfloat16, d)
+        cache = KVCache.init(cfg, kv_dtype, d)
         out = [prefill_fast(cfg, w, toks[:64], 0, 64, cache, logits_mode="last")[0]]
         for i in range(8):  # teacher-forced decode
             out.append(decode_step_fast(cfg, w, int(toks[64 + i]), 64 + i, cache)[0])
@@ -458,28 +724,42 @@ def phase_parity(fw, dev) -> dict:
 
 
 def phase_cli(dev) -> None:
-    """Phase 5: the CLI modes as subprocesses on a small fp8 checkpoint."""
+    """Phase 5: the CLI modes as subprocesses on a small fp8 checkpoint
+    (bf16 cache) and a small int4 one (e5m2 cache, `-C fp8`)."""
     from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
     out_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "tiny_fp8.yalm")
-    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128,
-                                       n_heads=4, n_kv_heads=2, vocab_size=512,
-                                       max_seq_len=512, rotary_dim=128,
-                                       weight_dtype="fp8"), seed=3)
-    cli = [sys.executable, "-m", "yalm_tpu_torch.cli", path]
-    for args in (["-m", "completion", "-i", "hello world", "-n", "16", "-t", "0"],
-                 ["-m", "perplexity", "-i", "hello world this is a test of the key"],
-                 ["-m", "passkey", "-n", "4", "-s", "1"]):
-        t0 = time.perf_counter()
-        res = subprocess.run(cli + args, cwd=ROOT, capture_output=True, timeout=600)
-        # random weights emit arbitrary bytes (byte-fallback tokens)
-        out, err = (res.stdout.decode(errors="replace"), res.stderr.decode(errors="replace"))
-        tail = (out + err).strip().splitlines()[-3:]
-        log(f"  cli {args[1]}: rc {res.returncode} in {time.perf_counter() - t0:.1f} s: "
-            + " | ".join(tail))
-        if res.returncode != 0:
-            raise AssertionError(f"cli {args[1]} failed:\n{out}\n{err}")
+    for wdt, extra in (("fp8", []), ("int4", ["-C", "fp8"])):
+        path = os.path.join(out_dir, f"tiny_{wdt}.yalm")
+        synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128,
+                                           n_heads=4, n_kv_heads=2, vocab_size=512,
+                                           max_seq_len=512, rotary_dim=128,
+                                           weight_dtype=wdt), seed=3)
+        cli = [sys.executable, "-m", "yalm_tpu_torch.cli", path, *extra]
+        for args in (["-m", "completion", "-i", "hello world", "-n", "16", "-t", "0"],
+                     ["-m", "perplexity", "-i", "hello world this is a test of the key"],
+                     ["-m", "passkey", "-n", "4", "-s", "1"]):
+            t0 = time.perf_counter()
+            res = subprocess.run(cli + args, cwd=ROOT, capture_output=True, timeout=600)
+            # random weights emit arbitrary bytes (byte-fallback tokens)
+            out, err = (res.stdout.decode(errors="replace"), res.stderr.decode(errors="replace"))
+            tail = (out + err).strip().splitlines()[-3:]
+            log(f"  cli {wdt} {' '.join(extra)} {args[1]}: rc {res.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s: " + " | ".join(tail))
+            if res.returncode != 0:
+                raise AssertionError(f"cli {wdt} {args[1]} failed:\n{out}\n{err}")
+
+
+def log_token_bytes(cfg, fw, ceiling: float) -> None:
+    """The weight bytes one decode token streams, and their bound."""
+    sc = fw.scales
+    wbytes = (sum(t.numel() * t.element_size() for t in (fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head))
+              + 4 * cfg.dim * (2 * cfg.n_layers + 1)
+              + (sum(getattr(sc, f).numel() * 4 for f in ("wqkv", "wo", "w13", "w2", "lm_head"))
+                 if sc is not None else 0))
+    log(f"decode-token weight bytes ({cfg.weight_dtype}) {wbytes / 1e9:.3f} GB: bound "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s, "
+        f"{wbytes / ceiling * 1e3:.3f} ms at the measured ceiling")
 
 
 def main() -> int:
@@ -524,24 +804,37 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"Mistral-7B-shape fp8 weights made on the card in {time.perf_counter() - t0:.1f} s "
         f"({sum(t.numel() * t.element_size() for t in (fw.embed, fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head)) / 1e9:.2f} GB)")
-    wbytes = sum(t.numel() * t.element_size() for t in
-                 (fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head)) + 4 * cfg.dim * (2 * cfg.n_layers + 1)
-    log(f"decode-token weight bytes {wbytes / 1e9:.3f} GB: bound {wbytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
-        f"at 3.35 TB/s, {wbytes / ceiling * 1e3:.3f} ms at the measured ceiling")
+    log_token_bytes(cfg, fw, ceiling)
 
     bench = Bench(ceiling)
-    log("phase 2: kernels vs plain versions on the card")
-    phase_kernels(bench, cfg, fw, dev)
-    log("phase 3: the slice end to end (32 layers)")
-    summary = {"serve": phase_serve(cfg, fw, dev)}
-    log("phase 4: depth-2 parity, card vs CPU")
-    summary["parity"] = phase_parity(fw, dev)
+    summary: dict = {"fp8": {}, "int4": {}}
+    with phase("phase 2 (fp8 path): kernels vs plain versions on the card"):
+        phase_kernels(bench, cfg, fw, dev)
+    with phase("phase 3 (fp8 path, bf16 cache): the slice end to end (32 layers)"):
+        summary["fp8"]["serve"] = phase_serve(cfg, fw, dev, torch.bfloat16, "fp8")
+    with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
+        summary["fp8"]["parity"] = phase_parity(cfg, fw, dev, torch.bfloat16)
     del fw
     torch.cuda.empty_cache()
-    log("phase 5: CLI modes")
-    phase_cli(dev)
 
-    launches = summary["serve"]["launches"]
+    cfg4 = mistral7b(weight_dtype="int4")
+    t0 = time.perf_counter()
+    fw4 = synth_int4_weights(cfg4, dev, seed=1)
+    torch.cuda.synchronize()
+    log(f"Mistral-7B-shape int4 weights made on the card in {time.perf_counter() - t0:.1f} s")
+    log_token_bytes(cfg4, fw4, ceiling)
+    e5 = torch.float8_e5m2
+    with phase("phase 2 (int4 path): int4 kernels and the e5m2 cache vs plain versions"):
+        phase_kernels4(bench, cfg4, fw4, dev)
+    with phase("phase 3 (int4 path, e5m2 cache): the slice end to end (32 layers)"):
+        summary["int4"]["serve"] = phase_serve(cfg4, fw4, dev, e5, "int4")
+    with phase("phase 4 (int4 path, e5m2 cache): depth-2 parity, card vs CPU"):
+        summary["int4"]["parity"] = phase_parity(cfg4, fw4, dev, e5)
+    del fw4
+    torch.cuda.empty_cache()
+    with phase("phase 5: CLI modes"):
+        phase_cli(dev)
+
     # name -> (source, the TPU function of the same name it replaces); the
     # composite wrappers launch csrc/gemv.cu and csrc/attention.cu
     sources = {"gemv": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:81"),
@@ -549,7 +842,11 @@ def main() -> int:
                "gemm_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:426"),
                "attend_step_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:808"),
                "attn_block_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:554"),
-               "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332")}
+               "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),
+               "gemv4_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:776"),
+               "gemm4_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:600"),
+               "attn_block4_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:365"),
+               "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227")}
     kernels = []
     for r in bench.rows:
         if not r["json"]:
@@ -557,7 +854,8 @@ def main() -> int:
         src, rep = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source="yalm_tpu_torch/" + src, replaces=rep,
-            case=r["case"], launches=launches[r["name"]],
+            path=r["path"], case=r["case"],
+            launches=summary[r["path"]]["serve"]["launches"][r["name"]],
             max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

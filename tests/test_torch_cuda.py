@@ -2,7 +2,8 @@
 small and ragged shapes the Mistral-7B main path never gives them (odd row
 counts, N not a multiple of the tile, head_dim 64, qpk 1 and 3, windows
 that are not a multiple of the attention tile, a window whose scores
-overflow shared memory).
+overflow shared memory; int4 weights with 1, 3 and 28 groups; an e5m2
+cache, whose written rows must equal the plain version's byte for byte).
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -20,10 +21,13 @@ import torch
 
 from yalm_tpu_torch.ops.cuda import _build
 from yalm_tpu_torch.ops.cuda.attention import attend_step_l, attend_step_plain
-from yalm_tpu_torch.ops.cuda.block import attn_block_l, attn_block_plain
-from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
-from yalm_tpu_torch.ops.cuda.gemv import bf16f, gemm_l, gemm_l_plain, gemv_l_plain, launch_gemv
+from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
+from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_l, ffn_plain
+from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm_l,
+                                          gemm_l_plain, gemv4, gemv4_l, gemv_l_plain,
+                                          launch_gemv)
 from yalm_tpu_torch.ops.core import silu
+from yalm_tpu_torch.ops.int4 import int4_group
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-3
@@ -45,6 +49,8 @@ def close(got, want):
 
 
 def weights(shape, wt, dev, gen):
+    if wt == torch.uint8:   # packed int4: random bytes are random nibbles
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
     if wt == torch.int8:
         return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
     return (torch.randn(shape, generator=gen, device=dev) / math.sqrt(shape[-1])).to(wt)
@@ -151,3 +157,135 @@ def test_ffn_kernels(dev, B, act):
     s2 = torch.rand(L, dim, generator=gen, device=dev) * 0.01
     kw = dict(norm_eps=1e-5, act=act)
     close(ffn_l(x, nw, w13, w2, 1, s13, s2, **kw), ffn_plain(x, nw, w13, w2, 1, s13, s2, **kw))
+
+
+def gscales(L, K, N, dev, gen):
+    """(L, K // group, N) int4 group scales around 0.02 / 4.6 (std of q - 8)."""
+    G = K // int4_group(K)
+    return (torch.rand(L, G, N, generator=gen, device=dev) + 0.5) * 4e-3
+
+
+@pytest.mark.parametrize("nb,N,K,epi", [(1, 100, 256, "norm+res"), (3, 37, 768, "bias+clip"),
+                                        (5, 200, 512, "glu"), (8, 64, 14336, "norm+glu"),
+                                        (2, 300, 768, "norm+res")])
+def test_gemv4_kernel(dev, nb, N, K, epi):
+    """csrc/gemv.cu on packed int4: G = 1 (K 256, 512), 3 (K 768, group
+    256) and 28 (K 14336, group 512)."""
+    gen = torch.Generator(device=dev).manual_seed(nb * N + K)
+    L = 3
+    w = weights((L, N, K // 2), torch.uint8, dev, gen)
+    gs = gscales(L, K, N, dev, gen)
+    x = torch.randn(nb, K, generator=gen, device=dev) * 2
+    nw = 1 + 0.1 * torch.randn(L, K, generator=gen, device=dev) if "norm" in epi else None
+    b = torch.randn(L, N, generator=gen, device=dev) if "bias" in epi else None
+    glu = "silu" if "glu" in epi else None
+    n_out = N // 2 if glu else N
+    res = torch.randn(nb, n_out, generator=gen, device=dev) if "res" in epi else None
+    clip = 0.7 if "clip" in epi else math.inf
+    got = launch_gemv("test", x, w, 2, norm_w=nw, scale=gs, bias=b, clip=clip,
+                      residual=res, glu_act=glu)
+    want = torch.stack([gemv_l_plain(x[i], w, 2, norm_w=nw, scale=gs) for i in range(nb)])
+    if b is not None:
+        want = torch.clamp(want + b[2], -clip, clip)
+    if glu:
+        want = bf16f(silu(want[:, :n_out]) * want[:, n_out:])
+        assert torch.equal(got, bf16f(got))   # the GLU output is rounded to bf16
+    if res is not None:
+        want = want + res
+    close(got, want)
+
+
+@pytest.mark.parametrize("M,N,K", [(1, 100, 256), (17, 300, 768), (64, 129, 512),
+                                   (256, 200, 14336)])
+def test_gemm4_kernel(dev, M, N, K):
+    gen = torch.Generator(device=dev).manual_seed(M + N)
+    w = weights((2, N, K // 2), torch.uint8, dev, gen)
+    gs = gscales(2, K, N, dev, gen)
+    x = torch.randn(M, K, generator=gen, device=dev)
+    close(gemm4_l(x, w, 1, gs), gemm4_l_plain(x, w, 1, gs))
+    assert _build.LAUNCHES["gemm4_l"] > 0
+
+
+@pytest.mark.parametrize("N,K", [(100, 256), (300, 768), (64, 14336)])
+def test_int4_public_wrappers(dev, N, K):
+    """gemv4_l, gemv4 and gemm4 launch their kernels on CUDA tensors (and
+    count them) and agree with the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(N + K)
+    w = weights((2, N, K // 2), torch.uint8, dev, gen)
+    gs = gscales(2, K, N, dev, gen)
+    x = torch.randn(K, generator=gen, device=dev)
+    x3 = torch.randn(3, K, generator=gen, device=dev)
+    _build.LAUNCHES.clear()
+    close(gemv4_l(x, w, 1, gs), gemm4_l_plain(x[None], w, 1, gs)[0])
+    close(gemv4(x, w[0], gs[0]), gemm4_l_plain(x[None], w, 0, gs)[0])
+    close(gemm4(x3, w[1], gs[1]), gemm4_l_plain(x3, w, 1, gs))
+    assert _build.LAUNCHES["gemv4_l"] == 2 and _build.LAUNCHES["gemm4_l"] == 1
+
+
+# f32 values whose e5m2 rounding is delicate: ties, the largest finite
+# value, the overflow threshold (61440 rounds to inf), subnormals, zeros
+E5M2_EDGES = [0.0, -0.0, 1.0, 1.125, 1.375, -1.625, 57344.0, 61439.0, 61440.0, -61440.0,
+              1e6, 2.0 ** -16, 2.0 ** -17, 3 * 2.0 ** -18, 1.5e-5, -2.0 ** -15]
+
+
+@pytest.mark.parametrize("qpk,D,S,pos", [(4, 128, 100, 70), (3, 64, 100, 250),
+                                         (8, 128, 7000, 7100)])
+def test_attention_kernel_e5m2(dev, qpk, D, S, pos):
+    """The e5m2 cache: the written k/v rows equal the plain version's byte
+    for byte (one f32 -> e5m2 rounding, edge values included), the rest of
+    the cache is untouched, and the mix agrees (scores in shared memory,
+    and past it in global scratch)."""
+    gen = torch.Generator(device=dev).manual_seed(pos + qpk)
+    L, Hk = 2, 3
+    e5 = torch.float8_e5m2
+    k_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(e5)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(e5)
+    q = torch.randn(Hk, qpk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(Hk, D, generator=gen, device=dev)
+    vn = torch.randn(Hk, D, generator=gen, device=dev)
+    edges = torch.tensor(E5M2_EDGES, device=dev)
+    vn.view(-1)[:len(edges)] = edges
+    vn.view(-1)[len(edges):2 * len(edges)] = edges * 1.0000001
+    kv_sink = 2 if pos >= S else 0
+    kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+    kv_len = min(pos + 1, S)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_plain(q, kn, vn, k2, v2, 1, kv_pos, kv_len, kv_sink, pos, **rope)
+    got = attend_step_l(q, kn, vn, k_all, v_all, 1, kv_pos, kv_len, kv_sink, pos, **rope)
+    torch.cuda.synchronize()
+    assert torch.equal(k_all.view(torch.uint8), k2.view(torch.uint8))
+    assert torch.equal(v_all.view(torch.uint8), v2.view(torch.uint8))
+    assert got.shape == want.shape
+    vn.view(-1)[:2 * len(edges)] = 0.0   # the edge values' inf makes that mix inf
+    k2, v2 = k_all.clone(), v_all.clone()
+    close(attend_step_l(q, kn, vn, k_all, v_all, 1, kv_pos, kv_len, kv_sink, pos, **rope),
+          attend_step_plain(q, kn, vn, k2, v2, 1, kv_pos, kv_len, kv_sink, pos, **rope))
+
+
+@pytest.mark.parametrize("pos", [5, 40])
+def test_int4_block_and_ffn_kernels(dev, pos):
+    """attn_block4_l (e5m2 cache) and ffn4_l: the int4 launch sequences."""
+    gen = torch.Generator(device=dev).manual_seed(pos)
+    L, S, Hk, qpk, D, dim, H = 2, 32, 2, 2, 128, 256, 768
+    Nqkv, q_dim = (Hk * qpk + 2 * Hk) * D, Hk * qpk * D
+    x = torch.randn(dim, generator=gen, device=dev)
+    nw = 1 + 0.1 * torch.randn(L, dim, generator=gen, device=dev)
+    u8 = torch.uint8
+    wqkv, wo = weights((L, Nqkv, dim // 2), u8, dev, gen), weights((L, dim, q_dim // 2), u8, dev, gen)
+    sqkv, so = gscales(L, dim, Nqkv, dev, gen), gscales(L, q_dim, dim, dev, gen)
+    k_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(torch.float8_e5m2)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(torch.float8_e5m2)
+    kv_sink = 2 if pos >= S else 0
+    kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+    kw = dict(n_heads=Hk * qpk, kv_sinks=2, theta=1e4, rotary_dim=D, norm_eps=1e-5,
+              qkv_clip=3.0, add_residual=False)
+    sl = (1, kv_pos, min(pos + 1, S), kv_sink, pos)
+    want = attn_block_plain(x, nw, wqkv, wo, k_all.clone(), v_all.clone(), *sl,
+                            scale_qkv=sqkv, scale_o=so, **kw)
+    close(attn_block4_l(x, nw, wqkv, wo, k_all, v_all, *sl, scale_qkv=sqkv, scale_o=so, **kw),
+          want)
+    w13, w2 = weights((L, 2 * H, dim // 2), u8, dev, gen), weights((L, dim, H // 2), u8, dev, gen)
+    s13, s2 = gscales(L, dim, 2 * H, dev, gen), gscales(L, H, dim, dev, gen)
+    fk = dict(norm_eps=1e-5, act="silu", add_residual=False)
+    close(ffn4_l(x, nw, w13, w2, 1, s13, s2, **fk), ffn_plain(x, nw, w13, w2, 1, s13, s2, **fk))

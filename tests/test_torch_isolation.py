@@ -11,9 +11,9 @@ import pytest
 import torch
 
 from yalm_tpu_torch.ops.cuda.attention import attend_step_l
-from yalm_tpu_torch.ops.cuda.block import attn_block_l
-from yalm_tpu_torch.ops.cuda.ffn import ffn_l
-from yalm_tpu_torch.ops.cuda.gemv import gemm_l, gemv, gemv_l
+from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block4_l, attn_block_l
+from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l
+from yalm_tpu_torch.ops.cuda.gemv import gemm4, gemm4_l, gemm_l, gemv, gemv4, gemv4_l, gemv_l
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +38,8 @@ def test_port_and_chip_smoke_import_no_jax():
 
 def _calls(dev):
     t = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)  # noqa: E731
-    cache = lambda: t(2, 16, 2, 128, dt=torch.bfloat16)  # noqa: E731
+    cache = lambda dt=torch.bfloat16: t(2, 16, 2, 128, dt=dt)  # noqa: E731
+    u8 = torch.uint8   # packed int4 weights, (L, G, N) group scales
     rope = dict(kv_sinks=2, theta=1e4, rotary_dim=128)
     return {
         "gemv": lambda: gemv(t(64), t(32, 64)),
@@ -51,6 +52,28 @@ def _calls(dev):
                                              norm_eps=1e-5, **rope),
         "ffn_l": lambda: ffn_l(t(64), t(2, 64), t(2, 96, 64), t(2, 64, 48), 0,
                                norm_eps=1e-5, act="silu"),
+        "attend_step_l e5m2": lambda: attend_step_l(
+            t(2, 2, 128), t(2, 128), t(2, 128), cache(torch.float8_e5m2),
+            cache(torch.float8_e5m2), 0, 0, 1, 0, 0, **rope),
+        "gemv4_l": lambda: gemv4_l(t(256), t(2, 32, 128, dt=u8), 0, t(2, 1, 32)),
+        "gemm4_l": lambda: gemm4_l(t(4, 256), t(2, 32, 128, dt=u8), 0, t(2, 1, 32)),
+        "gemv4": lambda: gemv4(t(768), t(32, 384, dt=u8), t(3, 32)),
+        "gemm4": lambda: gemm4(t(4, 768), t(32, 384, dt=u8), t(3, 32)),
+        "attn_block4_l": lambda: attn_block4_l(
+            t(256), t(2, 256), t(2, 1024, 128, dt=u8), t(2, 256, 256, dt=u8),
+            cache(torch.float8_e5m2), cache(torch.float8_e5m2), 0, 0, 1, 0, 0,
+            scale_qkv=t(2, 1, 1024), scale_o=t(2, 1, 256), n_heads=4, norm_eps=1e-5, **rope),
+        "ffn4_l": lambda: ffn4_l(t(256), t(2, 256), t(2, 1024, 128, dt=u8),
+                                 t(2, 256, 256, dt=u8), 0, t(2, 1, 1024), t(2, 2, 256),
+                                 norm_eps=1e-5, act="silu"),
+        # the decode path's route, which picks the twin by weight type
+        "attn_block int4": lambda: attn_block(
+            t(256), t(2, 256), t(2, 1024, 128, dt=u8), t(2, 256, 256, dt=u8),
+            cache(torch.float8_e5m2), cache(torch.float8_e5m2), 0, 0, 1, 0, 0,
+            scale_qkv=t(2, 1, 1024), scale_o=t(2, 1, 256), n_heads=4, norm_eps=1e-5, **rope),
+        "ffn int4": lambda: ffn(t(256), t(2, 256), t(2, 1024, 128, dt=u8),
+                                t(2, 256, 256, dt=u8), 0, t(2, 1, 1024), t(2, 2, 256),
+                                norm_eps=1e-5, act="silu"),
     }
 
 
@@ -79,6 +102,23 @@ def test_entry_points_do_not_fall_back_to_cpu(tmp_path):
                                        max_seq_len=32, rotary_dim=128))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         Engine.from_checkpoint(path)   # device="cuda" by default
+
+
+def test_int4_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    """An int4 checkpoint with the e5m2 cache on the default device."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from yalm_tpu_torch import cli
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "m4.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128,
+                                       n_heads=4, n_kv_heads=2, vocab_size=512,
+                                       max_seq_len=32, rotary_dim=128, weight_dtype="int4"))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        Engine.from_checkpoint(path, kv_dtype=torch.float8_e5m2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main([path, "-C", "fp8", "-i", "hello"])
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):

@@ -12,10 +12,10 @@ Usage: python -m yalm_tpu_torch.cli <checkpoint.yalm> [options]
   -s <int>       RNG seed
   -k <int>       top-k sampling cut (0 = full vocab)
   -p <float>     nucleus (top-p) sampling cut (1.0 = off)
-  -C f16|bf16    KV-cache dtype (both run as bf16)
-The JAX CLI's speculation flags (-D, -K, -u, -L), the fp8 KV cache
-(-C fp8) and device meshes (-M) are not in this slice of the port and are
-refused.
+  -C f16|bf16|fp8   KV-cache dtype (f16 and bf16 run as bf16; fp8 is the
+                 e5m2 cache, half the cache bytes)
+The JAX CLI's speculation flags (-D, -K, -u, -L) and device meshes (-M)
+are not in this slice of the port and are refused.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def _parse_args(argv: list[str]) -> dict:
         "checkpoint": argv[0], "device": "cuda", "mode": "completion",
         "prompt": None, "prompt_path": None, "context": 0, "num_steps": 256,
         "temperature": 1.0, "n_junk": 250, "passkey_pos": -1, "seed": None,
-        "top_k": 0, "top_p": 1.0,
+        "top_k": 0, "top_p": 1.0, "kv": "bf16",
     }
     i = 1
 
@@ -100,10 +100,9 @@ def _parse_args(argv: list[str]) -> dict:
             opts["top_p"] = float(need(i))
         elif c == "C":
             v = need(i)
-            if v == "fp8":
-                error_usage("-C fp8 (e5m2 KV cache) is not in this slice of the PyTorch port")
-            if v not in ("f16", "bf16"):   # both are the bf16 cache
+            if v not in ("f16", "bf16", "fp8"):
                 error_usage()
+            opts["kv"] = v
         else:
             error_usage()
         i += 2
@@ -111,9 +110,12 @@ def _parse_args(argv: list[str]) -> dict:
 
 
 def _build_engine(opts):
+    import torch
+
     from .engine import Engine
+    kv = torch.float8_e5m2 if opts["kv"] == "fp8" else torch.bfloat16   # f16 runs as bf16
     return Engine.from_checkpoint(opts["checkpoint"], context=opts["context"],
-                                  device=opts["device"])
+                                  device=opts["device"], kv_dtype=kv)
 
 
 def _encode_prompt(eng, prompt: str):

@@ -1,4 +1,5 @@
-// Fused decode attention step over the layer-stacked bf16 KV ring buffer.
+// Fused decode attention step over the layer-stacked KV ring buffer, a bf16
+// or an fp8-e5m2 cache (template parameter T).
 //
 // Replaces yalm_tpu/ops/pallas/attention.py:attend_step_l (body
 // _fused_attn_body, _flash_heads, _lazy_sink_rotate; numerics reference
@@ -8,11 +9,14 @@
 //      from a (D/2,) f32 pair-frequency table computed on the host (so every
 //      rope scaling kind lives in ops/core.py) and `mscale`; accurate
 //      sinf/cosf, since angles reach pos * freq ~ 4e3 rad.
-//   2. The rounded k/v rows go into ring slot kv_pos of head h, IN PLACE.
-//      Only this block reads head h, so after __syncthreads() the block's
-//      own reads see the row (no other block races it).
+//   2. The rounded k/v rows go into ring slot kv_pos of head h, IN PLACE:
+//      rounded from f32 to the cache type in one step (for e5m2 not through
+//      bf16, which would round twice; _attn_step_ref :790-793). Only this
+//      block reads head h, so after __syncthreads() the block's own reads
+//      see the row (no other block races it).
 //   3. Pass 1 streams the K rows of slots < kv_len in tiles of 64 through
-//      shared memory: bf16 q . bf16 k summed in f32, every score kept --
+//      shared memory, widened to bf16 there (exact from e5m2): bf16 q .
+//      bf16 k summed in f32, every score kept --
 //      in shared memory while its kv_len * qpk floats fit (64 KB at 4096 x
 //      4; up to 13310 slots at qpk 4 and 6590 at qpk 8, D 128), else in a
 //      global (Hk, kv_len, qpk) f32 scratch the caller passes as `scores`
@@ -20,7 +24,8 @@
 //      L2 hits), so the window has no limit of its own.
 //   4. Ring regime (kv_sink > 0): the first kv_sink rows of tile 0 are
 //      rotated by max(0, pos - S + 1) positions (mscale 1) and rounded to
-//      bf16 in shared memory only -- the lazy StreamingLLM sink view; the
+//      bf16 in shared memory only -- the lazy StreamingLLM sink view, in the
+//      working type bf16 for both caches (_sink_view_ref :706-721); the
 //      cache keeps the sink keys as written.
 //   5. The softmax over all scores in f32 (max, exp, sum, divide), each
 //      normalised p rounded to bf16; pass 2 streams the V rows and sums
@@ -32,10 +37,14 @@
 // ~1% of the logits, the emulation's way is the reference, and the stored
 // scores cost no extra device-memory traffic.
 //
+// Rotations are written as separate f32 products and a difference
+// (__fmul_rn, __fsub_rn), never contracted into an fma, so they round as
+// torch's and XLA's elementwise ops do and the written rows match theirs.
+//
 // Bound on this card: bytes (the K/V rows of slots < kv_len, 16 MB per layer
-// at 4096 slots x 8 heads x 128 x bf16 x 2). Only Hk = 8 blocks run, so a
-// handful of SMs stream the cache: split-K over the sequence
-// (flash-decoding) is the known next step.
+// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2). Only Hk = 8
+// blocks run, so a handful of SMs stream the cache: split-K over the
+// sequence (flash-decoding) is the known next step.
 #include "common.cuh"
 
 using namespace yt;
@@ -48,12 +57,52 @@ constexpr int TILE = 64;
 constexpr int KPAD = 8;      // bf16 padding per shared K row (bank spread)
 constexpr int MAX_OUT = 8;   // output elements per thread: qpk * D <= 2048
 
+// The cache element types: the row write from f32, and 8 elements widened
+// to 8 bf16 (16 bytes of shared memory).
+template <typename T> struct KV;
+
+template <> struct KV<__nv_bfloat16> {
+  __device__ __forceinline__ static __nv_bfloat16 from_float(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  __device__ __forceinline__ static void load8(const __nv_bfloat16* p, __nv_bfloat16* dst) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+  }
+};
+
+template <> struct KV<uint8_t> {  // fp8 e5m2
+  __device__ __forceinline__ static uint8_t from_float(float x) { return float_to_e5m2(x); }
+  __device__ __forceinline__ static void load8(const uint8_t* p, __nv_bfloat16* dst) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const uint32_t w[2] = {u.x, u.y};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(e5m2_to_float(w[i] >> (16 * j)),
+                                                       e5m2_to_float(w[i] >> (16 * j + 8)));
+        o[2 * i + j] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// x0 * c - x1 * s and x0 * s + x1 * c, each product rounded (no fma)
+__device__ __forceinline__ float rot_re(float x0, float x1, float c, float s) {
+  return __fsub_rn(__fmul_rn(x0, c), __fmul_rn(x1, s));
+}
+__device__ __forceinline__ float rot_im(float x0, float x1, float c, float s) {
+  return __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
+}
+
+template <typename T>
 struct AttnArgs {
   const float* q;        // (Hk, qpk, D) unrotated, unscaled
   const float* k_new;    // (Hk, D) unrotated
   const float* v_new;    // (Hk, D)
-  __nv_bfloat16* k_all;  // (L, S, Hk, D), updated in place
-  __nv_bfloat16* v_all;  // (L, S, Hk, D), updated in place
+  T* k_all;              // (L, S, Hk, D), updated in place
+  T* v_all;              // (L, S, Hk, D), updated in place
   const float* freq;     // (D/2,) rope pair frequencies
   float* out;            // (Hk, qpk, D)
   float* scores;         // (Hk, kv_len, qpk) scratch, or null: scores in smem
@@ -77,8 +126,8 @@ __host__ __device__ inline size_t smem_bytes(int qpk, int D, int kv_len) {
 // kGlobalScores: the scores are in a.scores. A template parameter, not a
 // runtime choice, so the shared-memory instance keeps shared-memory loads
 // (a pointer that may be either is read through slower generic loads).
-template <bool kGlobalScores>
-__global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
+template <typename T, bool kGlobalScores>
+__global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, qpk = a.qpk, h = blockIdx.x, half = D / 2, n = a.kv_len;
   const int QS = D + 2, KS = D + KPAD;
@@ -99,19 +148,19 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
     const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
     const float* qr = a.q + ((size_t)h * qpk + j) * D;
     const float x0 = qr[2 * p], x1 = qr[2 * p + 1];
-    qs[j * QS + 2 * p] = bf16_round((x0 * c - x1 * s) * a.inv_sqrt_d);
-    qs[j * QS + 2 * p + 1] = bf16_round((x0 * s + x1 * c) * a.inv_sqrt_d);
+    qs[j * QS + 2 * p] = bf16_round(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
+    qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
   }
   const size_t new_row = (((size_t)a.layer * a.S + a.kv_pos) * a.Hk + h) * D;
   for (int p = tid; p < half; p += THREADS) {
     const float ang = posf * a.freq[p];
     const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
     const float x0 = a.k_new[(size_t)h * D + 2 * p], x1 = a.k_new[(size_t)h * D + 2 * p + 1];
-    a.k_all[new_row + 2 * p] = __float2bfloat16_rn(x0 * c - x1 * s);
-    a.k_all[new_row + 2 * p + 1] = __float2bfloat16_rn(x0 * s + x1 * c);
+    a.k_all[new_row + 2 * p] = KV<T>::from_float(rot_re(x0, x1, c, s));
+    a.k_all[new_row + 2 * p + 1] = KV<T>::from_float(rot_im(x0, x1, c, s));
   }
   for (int d = tid; d < D; d += THREADS)
-    a.v_all[new_row + d] = __float2bfloat16_rn(a.v_new[(size_t)h * D + d]);
+    a.v_all[new_row + d] = KV<T>::from_float(a.v_new[(size_t)h * D + d]);
   __syncthreads();
 
   // 3-4: pass 1, every score of slots < kv_len
@@ -121,8 +170,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
       const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      *reinterpret_cast<uint4*>(tile + r * KS + 8 * c) =
-          *reinterpret_cast<const uint4*>(a.k_all + off);
+      KV<T>::load8(a.k_all + off, tile + r * KS + 8 * c);
     }
     __syncthreads();
     if (t0 == 0 && a.kv_sink > 0) {  // the lazy sink view (tile 0 holds the sinks)
@@ -133,8 +181,8 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
         const float c = cosf(ang), s = sinf(ang);
         const float x0 = __bfloat162float(tile[r * KS + 2 * p]);
         const float x1 = __bfloat162float(tile[r * KS + 2 * p + 1]);
-        tile[r * KS + 2 * p] = __float2bfloat16_rn(x0 * c - x1 * s);
-        tile[r * KS + 2 * p + 1] = __float2bfloat16_rn(x0 * s + x1 * c);
+        tile[r * KS + 2 * p] = __float2bfloat16_rn(rot_re(x0, x1, c, s));
+        tile[r * KS + 2 * p + 1] = __float2bfloat16_rn(rot_im(x0, x1, c, s));
       }
       __syncthreads();
     }
@@ -180,8 +228,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
       const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      *reinterpret_cast<uint4*>(tile + r * D + 8 * c) =
-          *reinterpret_cast<const uint4*>(a.v_all + off);
+      KV<T>::load8(a.v_all + off, tile + r * D + 8 * c);
     }
     if (kGlobalScores)
       for (int i = tid; i < nt * qpk; i += THREADS) ps[i] = sc[(size_t)t0 * qpk + i];
@@ -210,30 +257,43 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   }
 }
 
+template <typename T>
+int launch(const AttnArgs<T>& a, size_t smem, cudaStream_t st) {
+  const auto kern = a.scores ? attend_step_kernel<T, true> : attend_step_kernel<T, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<a.Hk, THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int yt_attend_step(const float* q, const float* k_new, const float* v_new,
-                              void* k_all, void* v_all, const float* freq,
-                              float mscale, float inv_sqrt_d, float* out,
-                              float* scores, int layer, int S, int Hk, int qpk, int D,
-                              int kv_pos, int kv_len, int kv_sink, int pos,
-                              int kv_sinks, void* stream) {
+// kv_type: W_BF16 or W_E5M2 (common.cuh), the type of k_all and v_all.
+extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
+                              const float* v_new, void* k_all, void* v_all,
+                              const float* freq, float mscale, float inv_sqrt_d,
+                              float* out, float* scores, int layer, int S, int Hk,
+                              int qpk, int D, int kv_pos, int kv_len, int kv_sink,
+                              int pos, int kv_sinks, void* stream) {
   if (D < 8 || D % 8 || qpk < 1 || qpk * D > THREADS * MAX_OUT || Hk < 1 ||
       layer < 0 || kv_len < 1 || kv_len > S || kv_pos < 0 || kv_pos >= S ||
       kv_sink < 0 || kv_sink > kv_sinks)
     return ERR_ARGS;
   const size_t smem = smem_bytes(qpk, D, scores ? TILE : kv_len);
   if (smem > 227 * 1024) return ERR_ARGS;
-  const auto kern = scores ? attend_step_kernel<true> : attend_step_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const AttnArgs a{q, k_new, v_new,
-                   static_cast<__nv_bfloat16*>(k_all), static_cast<__nv_bfloat16*>(v_all),
-                   freq, out, scores, mscale, inv_sqrt_d,
-                   layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks};
-  kern<<<Hk, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_type == W_BF16)
+    return launch(AttnArgs<__nv_bfloat16>{
+        q, k_new, v_new, static_cast<__nv_bfloat16*>(k_all),
+        static_cast<__nv_bfloat16*>(v_all), freq, out, scores, mscale, inv_sqrt_d,
+        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks}, smem, st);
+  if (kv_type == W_E5M2)
+    return launch(AttnArgs<uint8_t>{
+        q, k_new, v_new, static_cast<uint8_t*>(k_all), static_cast<uint8_t*>(v_all),
+        freq, out, scores, mscale, inv_sqrt_d,
+        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks}, smem, st);
+  return ERR_ARGS;
 }

@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -16,7 +17,9 @@
 namespace yt {
 
 // Weight type codes; yalm_tpu_torch/ops/cuda/_build.py holds the same table.
-enum WType { W_F32 = 0, W_BF16 = 1, W_E5M2 = 2, W_I8 = 3 };
+// W_I4: planar-packed int4 (uint8 storage, see WChunk<W_I4>) with per-group
+// scales. The KV-cache type codes are W_BF16 and W_E5M2.
+enum WType { W_F32 = 0, W_BF16 = 1, W_E5M2 = 2, W_I8 = 3, W_I4 = 4 };
 
 // Error codes returned for arguments the kernels do not take (positive
 // codes are cudaError_t values).
@@ -30,6 +33,12 @@ __device__ __forceinline__ float bf16_round(float x) {
 // exact, and so is the value in bf16 (2 mantissa bits, 5 exponent bits).
 __device__ __forceinline__ float e5m2_to_float(uint32_t b) {
   return __half2float(__ushort_as_half((unsigned short)((b & 0xffu) << 8)));
+}
+
+// f32 -> e5m2 in ONE rounding (nearest even, overflow to inf), as torch's
+// and JAX's casts do; through bf16 it would round twice.
+__device__ __forceinline__ uint8_t float_to_e5m2(float x) {
+  return (uint8_t)__nv_cvt_float_to_fp8(x, __NV_NOSAT, __NV_E5M2);
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -84,6 +93,26 @@ template <> struct WChunk<W_I8> {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[4 * i + j] = (float)(int8_t)((w[i] >> (8 * j)) & 0xffu);
+  }
+};
+
+// Packed int4 (yalm_tpu_torch/ops/int4.py): within a group of `group`
+// columns, byte t holds column t in its low nibble and column t + group/2 in
+// its high nibble, offset 8. One 16-byte chunk of bytes t0..t0+15 gives
+// o[j] = column t0 + j and o[16 + j] = column t0 + group/2 + j, as exact
+// bf16 values q - 8 in -8..7. The group scale multiplies the f32 partial
+// sum of the products, never the weight.
+template <> struct WChunk<W_I4> {
+  static constexpr int PER16 = 32;
+  __device__ __forceinline__ static void unpack(uint4 v, float* o) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[4 * i + j] = (float)((int)((w[i] >> (8 * j)) & 0xfu) - 8);
+        o[16 + 4 * i + j] = (float)((int)((w[i] >> (8 * j + 4)) & 0xfu) - 8);
+      }
   }
 };
 

@@ -3,7 +3,8 @@
 //
 // Replaces yalm_tpu/ops/pallas/gemv.py:gemm_l (and :gemm, its 2-D form):
 // the prefill chunk projections, M = 16/64/256 rows against one weight
-// stream.
+// stream. gemm4_kernel below replaces :gemm4_l (and :gemm4) for packed int4
+// weights.
 //
 // Bound on this card: at M = 256 the flops (2*M*N*K, e.g. 60 GFLOP for a
 // Mistral-7B w13) outweigh the fp8 weight bytes (117 MB) by ~500 flops/byte,
@@ -132,6 +133,130 @@ int launch(const void* w, const float* x, const float* scale, float* y,
   return (int)cudaGetLastError();
 }
 
+// Packed int4 weights (L, N, K/2) with group scales (L, G, N):
+//   Y[m, n] = sum_g gscale[layer, g, n] * sum_{k in g} bf16(X[m, k]) * (q[n, k] - 8)
+// Same tiles and mma.sync as gemm_kernel. Each K step takes 32 packed bytes
+// of every row of the tile -- 64 columns, 32 low nibbles and the 32 high
+// nibbles group/2 columns further on -- and stages them, with the matching
+// 64 columns of X, in one "virtual" 64-wide order (a dot product does not
+// care about the order of its terms), so every weight byte is read once.
+// Each group sums into a fresh fragment `part`; at the group's end
+// acc += part * gscale[g, n] (the scale multiplies the f32 partial).
+constexpr int BK4 = 64;
+
+__global__ void __launch_bounds__(THREADS)
+gemm4_kernel(const uint8_t* __restrict__ w, const float* __restrict__ x,
+             const float* __restrict__ gscale, float* __restrict__ y,
+             int layer, int M, int N, int K, int group) {
+  __shared__ __align__(16) __nv_bfloat16 xs[BM][BK4 + PAD];
+  __shared__ __align__(16) __nv_bfloat16 ws[BN][BK4 + PAD];
+  using C = WChunk<W_I4>;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int G = K / group, half = group / 2;  // half: packed bytes of a group row
+  const size_t row_bytes = (size_t)K / 2;
+  const uint8_t* wl = w + (size_t)layer * N * row_bytes;
+  const float* gl = gscale + (size_t)layer * G * N;
+
+  float acc[2][4][4], part[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+
+    for (int b0 = 0; b0 < half; b0 += BK4 / 2) {
+      // virtual column v = 32 * c + j: c picks the 16-byte chunk at byte
+      // b0 + 16c of the group, j < 16 its low nibbles (column b0 + 16c + j
+      // of the group), j >= 16 its high nibbles (column half + b0 + 16c + j - 16)
+      for (int i = tid; i < BM * BK4 / 4; i += THREADS) {
+        const int r = i / (BK4 / 4), v = 4 * (i % (BK4 / 4));
+        const int c = v >> 5, j = v & 31;
+        const int col = g * group + b0 + 16 * c + (j < 16 ? j : half + j - 16);
+        float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (m0 + r < M) val = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + col);
+        *reinterpret_cast<__nv_bfloat162*>(&xs[r][v]) = __floats2bfloat162_rn(val.x, val.y);
+        *reinterpret_cast<__nv_bfloat162*>(&xs[r][v + 2]) = __floats2bfloat162_rn(val.z, val.w);
+      }
+      for (int i = tid; i < BN * 2; i += THREADS) {
+        const int r = i >> 1, c = i & 1;
+        float f[C::PER16];
+        if (n0 + r < N) {
+          C::unpack(__ldg(reinterpret_cast<const uint4*>(
+                        wl + (size_t)(n0 + r) * row_bytes + (size_t)g * half + b0 + 16 * c)), f);
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::PER16; ++j) f[j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < C::PER16; j += 2)
+          *reinterpret_cast<__nv_bfloat162*>(&ws[r][32 * c + j]) =
+              __floats2bfloat162_rn(f[j], f[j + 1]);
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int kk = 0; kk < BK4; kk += 16) {
+        uint32_t af[2][4], bfr[4][2];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const int r = wm * 32 + mi * 16 + g8;
+          af[mi][0] = ld32(&xs[r][kk + 2 * t]);
+          af[mi][1] = ld32(&xs[r + 8][kk + 2 * t]);
+          af[mi][2] = ld32(&xs[r][kk + 2 * t + 8]);
+          af[mi][3] = ld32(&xs[r + 8][kk + 2 * t + 8]);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = wn * 32 + ni * 8 + g8;
+          bfr[ni][0] = ld32(&ws[c][kk + 2 * t]);
+          bfr[ni][1] = ld32(&ws[c][kk + 2 * t + 8]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(part[mi][ni], af[mi], bfr[ni]);
+      }
+      __syncthreads();
+    }
+
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int c = n0 + wn * 32 + ni * 8 + 2 * t + e1;
+        const float s = c < N ? __ldg(gl + (size_t)g * N + c) : 0.f;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          acc[mi][ni][e1] = fmaf(part[mi][ni][e1], s, acc[mi][ni][e1]);
+          acc[mi][ni][2 + e1] = fmaf(part[mi][ni][2 + e1], s, acc[mi][ni][2 + e1]);
+        }
+      }
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm * 32 + mi * 16 + g8 + 8 * (e >> 1);
+        const int c = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
+        if (r < M && c < N) y[(size_t)r * N + c] = acc[mi][ni][e];
+      }
+}
+
 }  // namespace
 
 extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K,
@@ -147,4 +272,17 @@ extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K,
     case W_I8: return launch<W_I8>(w, x, scale, y, layer, M, N, K, st);
     default: return ERR_ARGS;
   }
+}
+
+// Packed int4 (ops/cuda/gemv.py checks types, shapes and 16-byte alignment).
+extern "C" int yt_gemm4(const void* w, int layer, int N, int K, int group,
+                        const float* x, int M, const float* gscale, float* y,
+                        void* stream) {
+  if (M < 1 || N < 1 || layer < 0 || (group != 256 && group != 512) || K < group ||
+      K % group || (N + BN - 1) / BN > 65535 || !gscale)
+    return ERR_ARGS;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  gemm4_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(w), x, gscale, y, layer, M, N, K, group);
+  return (int)cudaGetLastError();
 }

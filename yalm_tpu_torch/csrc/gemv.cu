@@ -1,9 +1,17 @@
 // Dequant GEMV over layer-stacked weights, with fused prologue/epilogues.
 //
-// Replaces yalm_tpu/ops/pallas/gemv.py:gemv_l and :gemv, and serves both
-// projections of ops/pallas/block.py:attn_block_l and ops/pallas/ffn.py:ffn_l.
+// Replaces yalm_tpu/ops/pallas/gemv.py:gemv_l and :gemv, and the packed
+// int4 gemv4_l/gemv4 (:776, :791; body dot4_tile :797), and serves both
+// projections of ops/pallas/block.py:attn_block_l and :attn_block4_l and of
+// ops/pallas/ffn.py:ffn_l and :ffn4_l.
 //
 //   out[b, n] = epi( sum_k bf16(W[layer, n, k]) * bf16(pro(x[b])[k]) )
+//
+// int4 weights (W_I4, planar nibbles, WChunk<W_I4>): each 16-byte chunk
+// lies in one group g and pairs with two 16-column slices of x, group/2
+// apart; its f32 partial is multiplied by gscale[layer, g, n] before it
+// joins the row sum (gemv.py:583-596: the scale multiplies an f32 partial,
+// never the weight). The per-row scale is then absent.
 //
 // pro: optional rmsnorm against norm_w[layer] (x * rsqrt(mean(x^2) + eps)
 //      * w, in f32, then rounded to bf16 -- gemv.py:229-235).
@@ -34,10 +42,12 @@ struct GemvArgs {
   const float* x;        // (nb, K)
   const float* norm_w;   // (L, K) or null
   const float* scale;    // (L, N) or null
+  const float* gscale;   // (L, K / group, N): int4 group scales, or null
   const float* bias;     // (L, N) or null
   const float* residual; // (nb, n_out) or null
   float* out;            // (nb, n_out); n_out = N, or N/2 for the GLU pair
   int layer, N, K, nb;
+  int group;             // int4 group width (256 or 512)
   float eps, clip;       // clip <= 0: no clip
   int act;               // GLU activation: 0 silu, 1 gelu
 };
@@ -116,20 +126,57 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
 #pragma unroll
     for (int b = 0; b < MAXB; ++b) acc1[b] = acc3[b] = 0.f;
 
+    if constexpr (WT == W_I4) {
+      const int cpg = a.group / PER;  // chunks per group
+      const int half = a.group / 2;
+      const float* gs1 = a.gscale + (size_t)a.layer * (K / a.group) * a.N + n;
+      const float* gs3 = gs1 + n_out;
+#pragma unroll 2
+      for (int c = lane; c < nchunks; c += 32) {
+        const int g = c / cpg;
+        const int k0 = g * a.group + (c - g * cpg) * 16;  // column of o[0]
+        float f1[PER], f3[PER];
+        C::unpack(__ldg(w1 + c), f1);
+        if (GLU) C::unpack(__ldg(w3 + c), f3);
+        const float s1 = __ldg(gs1 + (size_t)g * a.N);
+        const float s3 = GLU ? __ldg(gs3 + (size_t)g * a.N) : 0.f;
+#pragma unroll
+        for (int b = 0; b < MAXB; ++b) {
+          if (b < nb) {
+            float xl[16], xh[16];
+            load_xs<16>(xs + (size_t)b * K + k0, xl);
+            load_xs<16>(xs + (size_t)b * K + k0 + half, xh);
+            float p1 = 0.f, p3 = 0.f;
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              p1 = fmaf(f1[j], xl[j], p1);
+              p1 = fmaf(f1[16 + j], xh[j], p1);
+              if (GLU) {
+                p3 = fmaf(f3[j], xl[j], p3);
+                p3 = fmaf(f3[16 + j], xh[j], p3);
+              }
+            }
+            acc1[b] = fmaf(p1, s1, acc1[b]);
+            if (GLU) acc3[b] = fmaf(p3, s3, acc3[b]);
+          }
+        }
+      }
+    } else {
 #pragma unroll 4
-    for (int c = lane; c < nchunks; c += 32) {
-      float f1[PER], f3[PER];
-      C::unpack(__ldg(w1 + c), f1);
-      if (GLU) C::unpack(__ldg(w3 + c), f3);
+      for (int c = lane; c < nchunks; c += 32) {
+        float f1[PER], f3[PER];
+        C::unpack(__ldg(w1 + c), f1);
+        if (GLU) C::unpack(__ldg(w3 + c), f3);
 #pragma unroll
-      for (int b = 0; b < MAXB; ++b) {
-        if (b < nb) {
-          float xv[PER];
-          load_xs<PER>(xs + (size_t)b * K + (size_t)c * PER, xv);
+        for (int b = 0; b < MAXB; ++b) {
+          if (b < nb) {
+            float xv[PER];
+            load_xs<PER>(xs + (size_t)b * K + (size_t)c * PER, xv);
 #pragma unroll
-          for (int j = 0; j < PER; ++j) {
-            acc1[b] = fmaf(f1[j], xv[j], acc1[b]);
-            if (GLU) acc3[b] = fmaf(f3[j], xv[j], acc3[b]);
+            for (int j = 0; j < PER; ++j) {
+              acc1[b] = fmaf(f1[j], xv[j], acc1[b]);
+              if (GLU) acc3[b] = fmaf(f3[j], xv[j], acc3[b]);
+            }
           }
         }
       }
@@ -189,20 +236,24 @@ int launch_wt(const GemvArgs& a, bool glu, cudaStream_t st) {
 // checks types, shapes, contiguity and 16-byte alignment before the call.
 extern "C" int yt_gemv(int wtype, const void* w, int layer, int N, int K,
                        const float* x, int nb, const float* norm_w, float eps,
-                       const float* scale, const float* bias, float clip,
+                       const float* scale, const float* gscale, int group,
+                       const float* bias, float clip,
                        const float* residual, float* out, int glu, int act,
                        void* stream) {
   if (nb < 1 || nb > 8 || N < 1 || K < 1 || layer < 0 || (glu && N % 2))
     return ERR_ARGS;
   if ((size_t)nb * K * sizeof(__nv_bfloat16) > 227 * 1024) return ERR_ARGS;
-  const GemvArgs a{w, x, norm_w, scale, bias, residual, out,
-                   layer, N, K, nb, eps, clip, act};
+  if (wtype == W_I4 && (!gscale || scale || (group != 256 && group != 512) || K % group))
+    return ERR_ARGS;
+  const GemvArgs a{w, x, norm_w, scale, gscale, bias, residual, out,
+                   layer, N, K, nb, group, eps, clip, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wtype) {
     case W_F32: return launch_wt<W_F32>(a, glu != 0, st);
     case W_BF16: return launch_wt<W_BF16>(a, glu != 0, st);
     case W_E5M2: return launch_wt<W_E5M2>(a, glu != 0, st);
     case W_I8: return launch_wt<W_I8>(a, glu != 0, st);
+    case W_I4: return launch_wt<W_I4>(a, glu != 0, st);
     default: return ERR_ARGS;
   }
 }

@@ -88,10 +88,10 @@ class Engine:
         if why:
             raise ValueError(f"this model's shapes do not fit the port's kernels: {why}")
         if kv_dtype == torch.float16:
-            kv_dtype = torch.bfloat16   # the fast path's cache is bf16
-        if kv_dtype != torch.bfloat16:
+            kv_dtype = torch.bfloat16   # the fast path's cache is bf16 or e5m2
+        if kv_dtype not in (torch.bfloat16, torch.float8_e5m2):
             raise NotImplementedError(
-                f"KV cache {kv_dtype}: only bf16 is in this slice of the port")
+                f"KV cache {kv_dtype}: the port's caches are bf16 and float8_e5m2")
         if weights.wqkv.device.type != self.device.type:
             raise ValueError(f"weights on {weights.wqkv.device}, engine on {self.device}")
         self.cfg = cfg

@@ -1,5 +1,7 @@
 """KV cache: one stacked K and one V tensor of shape
-(n_layers, max_seq_len, n_kv_heads, head_dim) on a given device.
+(n_layers, max_seq_len, n_kv_heads, head_dim) on a given device, of type
+bf16 or fp8 e5m2 (`-C fp8`: half the bytes; rows are rounded to it from
+f32, and attention reads them widened to bf16, which is exact).
 
 The decode and prefill paths update these tensors IN PLACE (slot writes
 into the ring buffer), where the JAX package donated and aliased its

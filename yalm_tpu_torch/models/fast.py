@@ -6,9 +6,12 @@ block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
 residual) and the FFN (`ffn_l`: norm + w13 GEMV with GLU, w2 GEMV +
 residual), then the final norm and the LM-head `gemv`. Prefill runs the
 layer-indexed `gemm_l` for every projection of a chunk and leaves the chunk
-attention to plain torch (as the JAX package leaves it to XLA). The KV
-cache is updated IN PLACE. Models outside this slice (MoE, int4, qk-norm,
-sandwich norms, softcaps, sliding layers) raise NotImplementedError.
+attention to plain torch (as the JAX package leaves it to XLA). int4
+checkpoints (packed uint8 layer weights with group scales; int8 embedding
+and LM head) take `attn_block4_l`, `ffn4_l` and `gemm4_l` on the same
+route. The KV cache (bf16 or e5m2) is updated IN PLACE. Models outside
+this slice (MoE, qk-norm, sandwich norms, softcaps, sliding layers) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,22 +26,26 @@ import torch
 from ..codec.format import numpy_to_torch, tag_for_numpy
 from ..config import KV_SINKS, ModelConfig
 from ..ops.core import NEG_INF, apply_rope, gelu, rmsnorm, silu
-from ..ops.cuda.block import attn_block_l
-from ..ops.cuda.ffn import ffn_l
-from ..ops.cuda.gemv import bf16f, gemm, gemm_l, gemv
+from ..ops.cuda.block import attn_block
+from ..ops.cuda.ffn import ffn
+from ..ops.cuda.gemv import bf16f, gemm, gemm4_l, gemm_l, gemv, is_int4
+from ..ops.int4 import int4_group
 from .cache import KVCache
 
 
 @dataclass
 class FastScales:
     """Per-output-channel dequant scales of int8 checkpoints, in the row
-    order of FastWeights' concatenated projections (y = (W_q @ x) * s)."""
+    order of FastWeights' concatenated projections (y = (W_q @ x) * s). For
+    int4 checkpoints the layer fields hold group scales (n_layers, G, N),
+    concatenated along N as the packed rows are; embed and lm_head stay
+    per-row (int8)."""
 
     embed: torch.Tensor    # (vocab,) f32
-    wqkv: torch.Tensor     # (n_layers, q_dim + 2*kv_dim) f32
-    wo: torch.Tensor       # (n_layers, dim) f32
-    w13: torch.Tensor      # (n_layers, 2*hidden_dim) f32
-    w2: torch.Tensor       # (n_layers, dim) f32
+    wqkv: torch.Tensor     # (n_layers, [G,] q_dim + 2*kv_dim) f32
+    wo: torch.Tensor       # (n_layers, [G,] dim) f32
+    w13: torch.Tensor      # (n_layers, [G,] 2*hidden_dim) f32
+    w2: torch.Tensor       # (n_layers, [G,] dim) f32
     lm_head: torch.Tensor  # (vocab,) f32
 
 
@@ -49,6 +56,8 @@ class FastWeights:
     embed: torch.Tensor       # (vocab, dim)
     rms_att: torch.Tensor     # (n_layers, dim) f32
     rms_ffn: torch.Tensor     # (n_layers, dim) f32
+    # layer weights; packed int4 checkpoints hold uint8 with the last
+    # dimension halved (ops/int4.py)
     wqkv: torch.Tensor        # (n_layers, q_dim + 2*kv_dim, dim)
     wo: torch.Tensor          # (n_layers, dim, q_dim)
     w13: torch.Tensor         # (n_layers, 2*hidden_dim, dim)
@@ -56,7 +65,7 @@ class FastWeights:
     final_norm: torch.Tensor  # (dim,) f32
     lm_head: torch.Tensor     # (vocab, dim)
     bqkv: Optional[torch.Tensor] = None    # (n_layers, q_dim + 2*kv_dim) f32
-    scales: Optional[FastScales] = None    # int8 checkpoints only
+    scales: Optional[FastScales] = None    # int8 and int4 checkpoints only
 
     def to(self, device) -> "FastWeights":
         """A copy on `device` (the lm_head stays shared with embed when tied)."""
@@ -80,7 +89,6 @@ def _check_slice(cfg: ModelConfig) -> None:
     """Raise for model features that later slices of the port bring."""
     missing = [name for name, on in (
         ("MoE experts", cfg.is_moe),
-        ("int4 weights", cfg.weight_dtype == "int4"),
         ("qk-norm", cfg.has_qk_norm),
         ("sandwich norms", cfg.has_post_norms),
         ("attention softcap", bool(cfg.attn_softcap)),
@@ -94,7 +102,8 @@ def _check_slice(cfg: ModelConfig) -> None:
 
 
 def _itemsize(cfg: ModelConfig) -> int:
-    # fp16 checkpoints load as bf16
+    # fp16 checkpoints load as bf16; int4 layer weights are packed (K % 256
+    # is their rule) and the int8 LM head takes 1-byte rows
     return {"fp32": 4, "fp16": 2, "bf16": 2, "fp8": 1, "int8": 1}.get(cfg.weight_dtype, 1)
 
 
@@ -115,13 +124,24 @@ def attention_supported(cfg: ModelConfig) -> bool:
     return cfg.head_dim % 8 == 0 and qpk * cfg.head_dim <= 2048
 
 
+def int4_kernels_supported(K: int) -> bool:
+    """csrc/gemv.cu and csrc/gemm.cu on packed int4: whole groups of 256 or
+    512 columns, x staged in shared memory as bf16."""
+    return K % 256 == 0 and K * 2 <= 227 * 1024
+
+
 def fast_unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why this model's shapes do not fit the port's Hopper kernels, or None."""
     isz = _itemsize(cfg)
+    int4 = cfg.weight_dtype == "int4"
     for name, n, k in (("wqkv", cfg.q_dim + 2 * cfg.kv_dim, cfg.dim),
                        ("wo", cfg.dim, cfg.q_dim), ("w13", 2 * cfg.hidden_dim, cfg.dim),
                        ("w2", cfg.dim, cfg.hidden_dim), ("lm_head", cfg.vocab_size, cfg.dim)):
-        if not (gemv_supported(n, k, isz) and gemm_supported(k, isz)):
+        if int4 and name != "lm_head":
+            if not int4_kernels_supported(k):
+                return (f"{name} ({n}x{k}, packed int4): the int4 GEMV/GEMM kernels take "
+                        "K a multiple of 256, K <= 116224")
+        elif not (gemv_supported(n, k, isz) and gemm_supported(k, isz)):
             return (f"{name} ({n}x{k}, {isz}-byte weights): the GEMV/GEMM kernels take "
                     "K a multiple of 32 whose rows are 16-byte chunks, K <= 116224")
     if not attention_supported(cfg):
@@ -155,11 +175,17 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
 
     Each layer's tensors are copied out of the checkpoint mmap, concatenated
     on the host and written into a preallocated device stack, so neither the
-    host nor the device holds a second copy of the whole model."""
+    host nor the device holds a second copy of the whole model. int8
+    checkpoints bring per-row `.scale`s, concatenated as their rows are.
+    int4 checkpoints (yalm_tpu/models/fast.py:174-256 without TP and MoE)
+    bring packed uint8 layer weights (rows half as wide) with (G, N)
+    `.gscale`s, concatenated along N, and an int8 embedding and LM head."""
     _check_slice(cfg)
     device = torch.device(device)
     t = yf.tensors
     d, h, q, kd = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
+    int4 = "model.layers.0.attn.wq.weight.gscale" in t
+    row = (lambda k: k // 2) if int4 else (lambda k: k)   # stored row width
 
     def get(name, shape):
         if tuple(t[name].shape) != shape:
@@ -174,14 +200,25 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
             _bits(out[l]).copy_(_bits(first if l == 0 else parts_of_layer(l)))
         return out
 
-    def layer_cat(specs):
-        return lambda l: torch.cat([get(f.format(l), s) for f, s in specs])
-
-    def one(name, shape):
-        return lambda l: get(name.format(l), shape)
+    def layer_cat(specs, dim=0):
+        return lambda l: torch.cat([get(f.format(l), s) for f, s in specs], dim=dim)
 
     def put(x):
         return _bits(torch.empty_like(x, device=device)).copy_(_bits(x)).view(x.dtype)
+
+    def proj(names, n_rows, k):
+        """One projection's layer stack: the named tensors' rows concatenated
+        (n_rows each), then their scales the same way, or None."""
+        def specs(suffix, shape):
+            return [(f"model.layers.{{}}.{nm}.weight{suffix}", shape(n))
+                    for nm, n in zip(names, n_rows)]
+        w = stack(layer_cat(specs("", lambda n: (n, row(k)))))
+        if int4:
+            G = k // int4_group(k)
+            return w, stack(layer_cat(specs(".gscale", lambda n: (G, n)), dim=1))
+        if "model.embed.weight.scale" in t:
+            return w, stack(layer_cat(specs(".scale", lambda n: (n,))))
+        return w, None
 
     embed = put(get("model.embed.weight", (cfg.vocab_size, d)))
     lm = (put(get("model.output.weight", (cfg.vocab_size, d)))
@@ -191,31 +228,22 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
         bqkv = stack(layer_cat([("model.layers.{}.attn.wq.bias", (q,)),
                                 ("model.layers.{}.attn.wk.bias", (kd,)),
                                 ("model.layers.{}.attn.wv.bias", (kd,))])).float()
+    wqkv, sqkv = proj(("attn.wq", "attn.wk", "attn.wv"), (q, kd, kd), d)
+    wo, so = proj(("attn.wo",), (d,), q)
+    w13, s13 = proj(("mlp.w1", "mlp.w3"), (h, h), d)
+    w2, s2 = proj(("mlp.w2",), (d,), h)
     scales = None
-    if "model.embed.weight.scale" in t:   # int8 checkpoint
+    if "model.embed.weight.scale" in t:   # int8 and int4 checkpoints
         semb = put(get("model.embed.weight.scale", (cfg.vocab_size,)))
         scales = FastScales(
-            embed=semb,
-            wqkv=stack(layer_cat([("model.layers.{}.attn.wq.weight.scale", (q,)),
-                                  ("model.layers.{}.attn.wk.weight.scale", (kd,)),
-                                  ("model.layers.{}.attn.wv.weight.scale", (kd,))])),
-            wo=stack(one("model.layers.{}.attn.wo.weight.scale", (d,))),
-            w13=stack(layer_cat([("model.layers.{}.mlp.w1.weight.scale", (h,)),
-                                 ("model.layers.{}.mlp.w3.weight.scale", (h,))])),
-            w2=stack(one("model.layers.{}.mlp.w2.weight.scale", (d,))),
+            embed=semb, wqkv=sqkv, wo=so, w13=s13, w2=s2,
             lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,)))
                      if "model.output.weight.scale" in t else semb))
     return FastWeights(
         embed=embed,
-        rms_att=stack(one("model.layers.{}.attn.norm.weight", (d,))),
-        rms_ffn=stack(one("model.layers.{}.mlp.norm.weight", (d,))),
-        wqkv=stack(layer_cat([("model.layers.{}.attn.wq.weight", (q, d)),
-                              ("model.layers.{}.attn.wk.weight", (kd, d)),
-                              ("model.layers.{}.attn.wv.weight", (kd, d))])),
-        wo=stack(one("model.layers.{}.attn.wo.weight", (d, q))),
-        w13=stack(layer_cat([("model.layers.{}.mlp.w1.weight", (h, d)),
-                             ("model.layers.{}.mlp.w3.weight", (h, d))])),
-        w2=stack(one("model.layers.{}.mlp.w2.weight", (d, h))),
+        rms_att=stack(layer_cat([("model.layers.{}.attn.norm.weight", (d,))])),
+        rms_ffn=stack(layer_cat([("model.layers.{}.mlp.norm.weight", (d,))])),
+        wqkv=wqkv, wo=wo, w13=w13, w2=w2,
         final_norm=put(get("model.norm.weight", (d,))),
         lm_head=lm, bqkv=bqkv, scales=scales)
 
@@ -225,7 +253,8 @@ def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
     """The port's FastWeights from the JAX package's FastWeights fields given
     as numpy arrays (`arrays["scales"]`, if present, a mapping of the
     FastScales fields). bf16/fp8 arrays of ml_dtypes' types are recognised
-    by dtype name and reinterpreted through same-width integer views."""
+    by dtype name and reinterpreted through same-width integer views;
+    packed int4 weights are uint8 with (L, G, N) group scales."""
     _check_slice(cfg)
 
     def conv(a):
@@ -282,17 +311,20 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
     x = _embed(cfg, fw, token)[0]
     kv_sink, kv_pos, kv_len = ring_slots(pos, cfg.max_seq_len)
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    # one route for every weight type: attn_block/ffn run the int4 twins of
+    # the same launch sequences for packed int4 weights (the JAX package's
+    # unfused int4 fork exists for Mosaic's tiling rules only)
 
     for i in range(cfg.n_layers):
-        x = attn_block_l(
+        x = attn_block(
             x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, i,
             kv_pos, kv_len, kv_sink, pos, n_heads=cfg.n_heads,
             norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
             scale_qkv=sc.wqkv if sc else None,
             scale_o=sc.wo if sc else None, **rope)
-        x = ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, i,
-                  sc.w13 if sc else None, sc.w2 if sc else None,
-                  norm_eps=cfg.norm_eps, act=cfg.act_type)
+        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i,
+                sc.w13 if sc else None, sc.w2 if sc else None,
+                norm_eps=cfg.norm_eps, act=cfg.act_type)
 
     if not output_logits:
         return None, cache
@@ -311,6 +343,14 @@ def _attend_chunk_bf16(q4, kc, vc, mask, D):
     scores = torch.where(mask[None, None], scores, torch.full_like(scores, NEG_INF))
     att = torch.softmax(scores, dim=-1)
     return torch.einsum("gqtl,lgd->tgqd", bf16f(att), bf16f(vc))
+
+
+def _proj_l(x2d, w_all, layer, scale):
+    """Layer-indexed projection of a chunk: packed int4 weights take the
+    group-scale kernel, every other type the per-row dequant GEMM."""
+    if is_int4(w_all):
+        return gemm4_l(x2d, w_all, layer, scale)
+    return gemm_l(x2d, w_all, layer, scale)
 
 
 def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
@@ -344,7 +384,7 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
 
     for i in range(cfg.n_layers):
         xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
-        qkv = gemm_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
         if fw.bqkv is not None:
             qkv = qkv + fw.bqkv[i]
         qkv = _clip(cfg, qkv)
@@ -357,11 +397,11 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
         cache.v[i, pos0: pos0 + valid_len] = v[:valid_len].to(cache.v.dtype)
         mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), cache.k[i, :S],
                                    cache.v[i, :S], att_mask, D)
-        x = x + gemm_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
+        x = x + _proj_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
         xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
-        h13 = gemm_l(xb2, fw.w13, i, sc.w13 if sc else None)
+        h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
         h = act(h13[:, :H]) * h13[:, H:]
-        x = x + gemm_l(h, fw.w2, i, sc.w2 if sc else None)
+        x = x + _proj_l(h, fw.w2, i, sc.w2 if sc else None)
 
     if logits_mode == "none":
         return None, cache

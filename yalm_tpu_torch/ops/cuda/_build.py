@@ -32,16 +32,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # CPU path; chip_smoke.py zeroes it before the main path and reads it after.
 LAUNCHES: collections.Counter = collections.Counter()
 
-# weight type codes of csrc/common.cuh
-WTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2, torch.int8: 3}
+# weight type codes of csrc/common.cuh (uint8 weights are packed int4); the
+# KV cache takes the bf16 and e5m2 codes
+WTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e5m2: 2, torch.int8: 3,
+         torch.uint8: 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _F, _P, _P, _I, _I, _P],
+    "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _I, _P, _F, _P, _P,
+                _I, _I, _P],
     "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _P, _P, _P],
-    "yt_attend_step": [_P, _P, _P, _P, _P, _P, _F, _F, _P, _P,
+    "yt_gemm4": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P],
+    "yt_attend_step": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -5,8 +5,11 @@ One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
 `kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
 aliased its buffers), the lazy StreamingLLM sink view in the ring regime,
 then GQA attention over slots < kv_len. Kernel: `csrc/attention.cu`. The
-cache is bf16; the e5m2 cache, softcap, sliding window and Gemma3's
-alternate rope are later slices and raise here.
+cache is bf16 or fp8 e5m2 (`-C fp8`): the new row is rounded from f32 to
+the cache type in one step, attention reads the cache widened to bf16
+(exact), and the sink view is rounded to bf16, the working type, for
+both. Softcap, sliding window and Gemma3's alternate rope are later slices
+and raise here.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .gemv import bf16f
 
 
 SMEM_MAX = 227 * 1024
+KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 
 
 def smem_bytes(qpk: int, D: int, kv_len: int) -> int:
@@ -45,26 +49,38 @@ def _rot(rows: torch.Tensor, theta, rotary_dim: int, pos) -> torch.Tensor:
     return rotate_pairs(rows.float(), ang, rope_mscale(theta))
 
 
+def sink_view(k: torch.Tensor, kv_sink: int, pos: int, *, theta,
+              rotary_dim: int) -> torch.Tensor:
+    """What attention reads of one layer's keys k (S, Hk, D), as f32: the
+    lazy StreamingLLM sink view (`_sink_view_ref`, attention.py:706-721).
+    The first kv_sink rows are rotated forward by max(0, pos - S + 1) and
+    rounded to the working type: the cache type, or bf16 for a 1-byte
+    cache (an e5m2 cache is staged as bf16). The cache keeps them as
+    written."""
+    kf = k.float()
+    if kv_sink == 0:
+        return kf
+    rot = max(0, int(pos) - k.shape[0] + 1)
+    rows = _rot(kf[:kv_sink], rope_rotation_param(theta), rotary_dim, rot)
+    wd = k.dtype if k.element_size() >= 2 else torch.bfloat16
+    kf = kf.clone()
+    kf[:kv_sink] = rows.to(wd).float()
+    return kf
+
+
 def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
                       kv_sink, pos, *, kv_sinks, theta, rotary_dim):
     """The JAX emulation `_attn_step_ref` (attention.py:775-802): mutates
-    k_all/v_all in place, returns mix (Hk, qpk, D) f32. Normalises the
-    softmax before the bf16 cast of p, as the emulation and the CUDA kernel
-    do (the Pallas kernel's online softmax normalises after)."""
+    k_all/v_all in place, returns mix (Hk, qpk, D) f32. The new rows are
+    rounded from f32 to the cache type in one step. Normalises the softmax
+    before the bf16 cast of p, as the emulation and the CUDA kernel do (the
+    Pallas kernel's online softmax normalises after)."""
     L, S, Hk, D = k_all.shape
     _, qpk, _ = q.shape
     q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos) * (1.0 / math.sqrt(D))
     k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
     v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
-    k = k_all[layer].float()
-    if kv_sink > 0:
-        # lazy sink view: the first kv_sink rows rotated forward by
-        # max(0, pos - S + 1), rounded to the cache type; the cache keeps
-        # them as written
-        rot = max(0, int(pos) - S + 1)
-        rows = _rot(k[:kv_sink], rope_rotation_param(theta), rotary_dim, rot)
-        k = k.clone()
-        k[:kv_sink] = rows.to(k_all.dtype).float()
+    k = sink_view(k_all[layer], kv_sink, pos, theta=theta, rotary_dim=rotary_dim)
     q3 = bf16f(q2).reshape(Hk, qpk, D)
     scores = torch.einsum("gpd,sgd->gps", q3, bf16f(k))
     valid = torch.arange(S, device=k.device) < kv_len
@@ -80,8 +96,8 @@ def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     LAUNCHES["attend_step_l"])."""
     L, S, Hk, D = k_all.shape
     _, qpk, _ = q.shape
-    B.require(k_all.dtype == torch.bfloat16 and v_all.dtype == torch.bfloat16,
-              "attend_step_l: the kernel takes a bf16 cache (e5m2 is a later slice)")
+    B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
+              f"attend_step_l: the kernel takes a bf16 or e5m2 cache, got {k_all.dtype}")
     B.require(k_all.is_contiguous() and v_all.is_contiguous() and v_all.shape == k_all.shape,
               "attend_step_l: k_all/v_all must be contiguous (L, S, Hk, D)")
     B.require(D % 8 == 0 and qpk * D <= 2048,
@@ -98,7 +114,7 @@ def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
               torch.empty((Hk, kv_len, qpk), dtype=torch.float32, device=q.device))
     code = B.lib().yt_attend_step(
-        B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all), B.ptr(freq),
+        B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all), B.ptr(freq),
         rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
         layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos), kv_sinks,
         B.stream_ptr())

@@ -1,15 +1,18 @@
 """Dequant GEMV / GEMM over layer-stacked weights (port of
-`yalm_tpu/ops/pallas/gemv.py`: gemv, gemv_l, gemm_l, gemm).
+`yalm_tpu/ops/pallas/gemv.py`: gemv, gemv_l, gemm_l, gemm, and the packed
+int4 gemm4_l, gemv4_l, gemm4, gemv4).
 
 Kernels: `csrc/gemv.cu` (one warp per output row, fused rmsnorm prologue,
-scale/bias/clip/residual or GLU-pair epilogue) and `csrc/gemm.cu`
-(mma.sync bf16 tiles for the prefill chunks). Each public function chooses
-by its tensors' device: on the CPU it runs the plain version beside it, on
-CUDA it launches the kernel or raises.
+scale/bias/clip/residual or GLU-pair epilogue; int4 weights with their
+group scales too) and `csrc/gemm.cu` (mma.sync bf16 tiles for the prefill
+chunks; `gemm4_kernel` for int4). Each public function chooses by its
+tensors' device: on the CPU it runs the plain version beside it, on CUDA it
+launches the kernel or raises.
 
 Numerics contract (gemv.py:69-77): bf16 operands, f32 accumulation, the
-dequant scale applied to the f32 result. fp16 weights never reach here:
-the loader turns them into bf16 on the host.
+dequant scale applied to the f32 result -- for int4 (`ops/int4.py`) the
+group scale multiplies each group's f32 partial (gemv.py:583-596). fp16
+weights never reach here: the loader turns them into bf16 on the host.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 
 import torch
 
+from ..int4 import int4_group
 from . import _build as B
 
 
@@ -26,9 +30,46 @@ def bf16f(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+def is_int4(w: torch.Tensor) -> bool:
+    """Packed int4 weights are uint8 with a halved last dimension; their
+    scales are per group, (L, G, N), not per row."""
+    return w.dtype == torch.uint8
+
+
 # ---------------------------------------------------------------------------
-# plain versions (the JAX emulation branches, gemv.py:172-182 and :442-450)
+# plain versions (the JAX emulation branches, gemv.py:172-182, :442-450 and
+# _gemm4_ref :583-596)
 # ---------------------------------------------------------------------------
+
+def gemm_l_plain(x, w_all, layer, scale=None):
+    out = bf16f(x) @ bf16f(w_all[layer]).T
+    if scale is not None:
+        out = out * scale[layer].float()[None]
+    return out
+
+
+def gemm4_l_plain(x, w4_all, layer, gscale):
+    """x (B, K) against packed int4 W4_all[layer] (N, K/2) with group scales
+    gscale[layer] (G, N): per-group bf16 x bf16 products summed in f32, the
+    group scale on each group's f32 partial."""
+    Bn, K = x.shape
+    p = w4_all[layer]
+    N = p.shape[0]
+    group = int4_group(K)
+    G = K // group
+    p = p.reshape(N, G, group // 2)
+    q = torch.cat([(p & 0xF).float() - 8.0, (p >> 4).float() - 8.0], dim=-1)
+    parts = torch.einsum("bgk,ngk->bgn", bf16f(x).reshape(Bn, G, group), q)
+    return torch.einsum("bgn,gn->bn", parts, gscale[layer].float())
+
+
+def proj_plain(x, w_all, layer, scale=None):
+    """x (B, K) @ dequant(W_all[layer])^T: per-row scales (L, N) or, for
+    packed int4 weights, group scales (L, G, N)."""
+    if is_int4(w_all):
+        return gemm4_l_plain(x, w_all, layer, scale)
+    return gemm_l_plain(x, w_all, layer, scale)
+
 
 def gemv_l_plain(x, w_all, layer, *, norm_w=None, norm_eps=1e-5,
                  residual=None, scale=None):
@@ -36,17 +77,8 @@ def gemv_l_plain(x, w_all, layer, *, norm_w=None, norm_eps=1e-5,
     if norm_w is not None:
         ms = torch.mean(xv * xv)
         xv = xv * torch.rsqrt(ms + norm_eps) * norm_w[layer].float()
-    out = bf16f(w_all[layer]) @ bf16f(xv)
-    if scale is not None:
-        out = out * scale[layer].float()
+    out = proj_plain(xv[None], w_all, layer, scale)[0]
     return out + residual if residual is not None else out
-
-
-def gemm_l_plain(x, w_all, layer, scale=None):
-    out = bf16f(x) @ bf16f(w_all[layer]).T
-    if scale is not None:
-        out = out * scale[layer].float()[None]
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +88,11 @@ def gemm_l_plain(x, w_all, layer, scale=None):
 def _check_weights(w_all: torch.Tensor, K: int, what: str) -> None:
     B.require(w_all.dtype in B.WTYPE, f"{what}: no kernel for {w_all.dtype} weights")
     B.require(w_all.is_contiguous(), f"{what}: weights must be contiguous")
-    B.require(K * w_all.element_size() % 16 == 0,
-              f"{what}: K * itemsize must be a multiple of 16 bytes (K={K})")
+    if is_int4(w_all):
+        B.require(K % 256 == 0, f"{what}: int4 weights need K % 256 == 0 (K={K})")
+    else:
+        B.require(K * w_all.element_size() % 16 == 0,
+                  f"{what}: K * itemsize must be a multiple of 16 bytes (K={K})")
 
 
 def _f32(t, what):
@@ -68,13 +103,28 @@ def _f32(t, what):
     return t
 
 
+def _gscale(w_all, gscale, K: int, what: str):
+    """The int4 group scales' check: (L, K // group, N) f32."""
+    L, N = w_all.shape[:2]
+    G = K // int4_group(K)
+    B.require(gscale is not None, f"{what}: int4 weights need their group scales")
+    _f32(gscale, f"{what} gscale")
+    B.require(tuple(gscale.shape) == (L, G, N),
+              f"{what}: gscale shape {tuple(gscale.shape)} != {(L, G, N)}")
+    return gscale
+
+
 def launch_gemv(count: str, x, w_all, layer: int, *, norm_w=None,
                 norm_eps: float = 1e-5, scale=None, bias=None,
                 clip: float = math.inf, residual=None, glu_act: str | None = None):
     """One launch of csrc/gemv.cu on CUDA tensors (adds one to
     LAUNCHES[count]). x: (K,) or (nb, K); returns float32 of shape
-    (..., N) or, for the GLU pair, (..., N // 2) holding bf16 values."""
-    L, N, K = w_all.shape
+    (..., N) or, for the GLU pair, (..., N // 2) holding bf16 values.
+    `scale` is per row (L, N), or for packed int4 weights (uint8, (L, N,
+    K/2)) the group scales (L, G, N)."""
+    L, N, Kw = w_all.shape
+    int4 = is_int4(w_all)
+    K = 2 * Kw if int4 else Kw
     _check_weights(w_all, K, count)
     x2 = _f32(x.reshape(-1, K), count)
     nb = x2.shape[0]
@@ -82,6 +132,9 @@ def launch_gemv(count: str, x, w_all, layer: int, *, norm_w=None,
     B.require(nb * K * 2 <= 227 * 1024, f"{count}: {nb} rows of K={K} exceed shared memory")
     B.require(0 <= layer < L, f"{count}: layer {layer} out of range")
     n_out = N // 2 if glu_act else N
+    gscale = _gscale(w_all, scale, K, count) if int4 else None
+    if int4:
+        scale = None
     for t, shape, nm in ((norm_w, (L, K), "norm_w"), (scale, (L, N), "scale"),
                          (bias, (L, N), "bias")):
         if t is not None:
@@ -93,7 +146,8 @@ def launch_gemv(count: str, x, w_all, layer: int, *, norm_w=None,
     out = torch.empty((nb, n_out), dtype=torch.float32, device=x.device)
     code = B.lib().yt_gemv(
         B.WTYPE[w_all.dtype], B.ptr(w_all), layer, N, K, B.ptr(x2), nb,
-        B.ptr(norm_w), norm_eps, B.ptr(scale), B.ptr(bias),
+        B.ptr(norm_w), norm_eps, B.ptr(scale), B.ptr(gscale),
+        int4_group(K) if int4 else 0, B.ptr(bias),
         clip if math.isfinite(clip) else 0.0, B.ptr(residual), B.ptr(out),
         1 if glu_act else 0, 1 if glu_act == "gelu" else 0, B.stream_ptr())
     B.check(code, count)
@@ -120,6 +174,23 @@ def _launch_gemm(x, w_all, layer: int, scale=None):
     return y
 
 
+def _launch_gemm4(x, w4_all, layer: int, gscale):
+    L, N, Kp = w4_all.shape
+    K = 2 * Kp
+    _check_weights(w4_all, K, "gemm4_l")
+    x = _f32(x, "gemm4_l x")
+    _gscale(w4_all, gscale, K, "gemm4_l")
+    B.require(0 <= layer < L, f"gemm4_l: layer {layer} out of range")
+    B.require(B.aligned16(w4_all, x), "gemm4_l: weights and x must be 16-byte aligned")
+    M = x.shape[0]
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    code = B.lib().yt_gemm4(B.ptr(w4_all), layer, N, K, int4_group(K), B.ptr(x), M,
+                            B.ptr(gscale), B.ptr(y), B.stream_ptr())
+    B.check(code, "gemm4_l")
+    B.LAUNCHES["gemm4_l"] += 1
+    return y
+
+
 # ---------------------------------------------------------------------------
 # public functions (signatures of the JAX package's)
 # ---------------------------------------------------------------------------
@@ -141,8 +212,9 @@ def gemv_l(x: torch.Tensor, w_all: torch.Tensor, layer: int, *,
            scale: torch.Tensor | None = None) -> torch.Tensor:
     """y[N] = W_all[layer] @ maybe_rmsnorm(x) [* scale[layer]] (+ residual)."""
     L, N, K = w_all.shape
-    if tuple(x.shape) != (K,):
-        raise ValueError(f"gemv_l: x {tuple(x.shape)} vs w_all {tuple(w_all.shape)}")
+    if tuple(x.shape) != (K,) or is_int4(w_all):
+        raise ValueError(f"gemv_l: x {tuple(x.shape)} vs w_all {tuple(w_all.shape)} "
+                         f"{w_all.dtype} (packed int4 goes to gemv4_l)")
     if B.device_kind(x, w_all, norm_w, residual, scale) == "cpu":
         return gemv_l_plain(x, w_all, layer, norm_w=norm_w, norm_eps=norm_eps,
                             residual=residual, scale=scale)
@@ -153,8 +225,9 @@ def gemv_l(x: torch.Tensor, w_all: torch.Tensor, layer: int, *,
 def gemm_l(x: torch.Tensor, w_all: torch.Tensor, layer: int,
            scale: torch.Tensor | None = None) -> torch.Tensor:
     """y[B, N] = x[B, K] @ W_all[layer]^T [* scale[layer]]."""
-    if x.dim() != 2 or x.shape[1] != w_all.shape[2]:
-        raise ValueError(f"gemm_l: x {tuple(x.shape)} vs w_all {tuple(w_all.shape)}")
+    if x.dim() != 2 or x.shape[1] != w_all.shape[2] or is_int4(w_all):
+        raise ValueError(f"gemm_l: x {tuple(x.shape)} vs w_all {tuple(w_all.shape)} "
+                         f"{w_all.dtype} (packed int4 goes to gemm4_l)")
     if B.device_kind(x, w_all, scale) == "cpu":
         return gemm_l_plain(x, w_all, layer, scale)
     return _launch_gemm(x, w_all, layer, scale)
@@ -163,3 +236,38 @@ def gemm_l(x: torch.Tensor, w_all: torch.Tensor, layer: int,
 def gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
     """y[B, N] = x[B, K] @ W[N, K]^T [* scale] (2-D weights, e.g. the LM head)."""
     return gemm_l(x, w[None], 0, scale[None] if scale is not None else None)
+
+
+def gemm4_l(x: torch.Tensor, w4_all: torch.Tensor, layer: int,
+            gscale: torch.Tensor) -> torch.Tensor:
+    """y[B, N] = x[B, K] @ dequant4(W4_all[layer])^T over packed int4
+    weights (L, N, K/2) uint8 with group scales (L, G, N); any B on the
+    CPU, B rows in 64-row tiles on CUDA."""
+    if (x.dim() != 2 or not is_int4(w4_all) or x.shape[1] != 2 * w4_all.shape[2]
+            or x.shape[1] % 256):
+        raise ValueError(f"gemm4_l: x {tuple(x.shape)} vs packed w4_all "
+                         f"{tuple(w4_all.shape)} {w4_all.dtype} (K % 256 == 0)")
+    if B.device_kind(x, w4_all, gscale) == "cpu":
+        return gemm4_l_plain(x, w4_all, layer, gscale)
+    return _launch_gemm4(x, w4_all, layer, gscale)
+
+
+def gemv4_l(x: torch.Tensor, w4_all: torch.Tensor, layer: int,
+            gscale: torch.Tensor) -> torch.Tensor:
+    """Single-token int4 GEMV (x (K,) -> y (N,)), on csrc/gemv.cu."""
+    K = 2 * w4_all.shape[2]
+    if tuple(x.shape) != (K,) or not is_int4(w4_all) or K % 256:
+        raise ValueError(f"gemv4_l: x {tuple(x.shape)} vs packed w4_all "
+                         f"{tuple(w4_all.shape)} {w4_all.dtype} (K % 256 == 0)")
+    if B.device_kind(x, w4_all, gscale) == "cpu":
+        return gemm4_l_plain(x[None], w4_all, layer, gscale)[0]
+    return launch_gemv("gemv4_l", x, w4_all, layer, scale=gscale)
+
+
+def gemm4(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    """2-D packed weights (N, K/2), scales (G, N)."""
+    return gemm4_l(x, w4[None], 0, gscale[None])
+
+
+def gemv4(x: torch.Tensor, w4: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+    return gemv4_l(x, w4[None], 0, gscale[None])

@@ -13,6 +13,7 @@ import torch
 
 from ..codec.format import DTYPE_STR_TO_TAG, torch_dtype_for, write_yalm
 from ..config import ModelConfig
+from ..ops.int4 import pack_int4
 
 
 def tiny_config(**overrides) -> ModelConfig:
@@ -53,20 +54,25 @@ def synth_vocab(vocab_size: int) -> list[bytes]:
 def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
                      vocab: list[bytes] | None = None) -> None:
     """Write a random-but-deterministic `.yalm` checkpoint for a dense `cfg`
-    (weight dtypes fp32/fp16/bf16/fp8/int8; int4 and MoE are not ported)."""
-    if cfg.weight_dtype == "int4" or cfg.is_moe:
-        raise NotImplementedError(
-            "int4 and MoE checkpoints belong to later slices of the port")
+    (weight dtypes fp32/fp16/bf16/fp8/int8/int4; MoE is not ported). int4
+    packs the layer matrices (`ops.int4.pack_int4`, `.gscale` beside each)
+    and keeps the embedding and LM head int8 with a `.scale`."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE checkpoints belong to a later slice of the port")
     rng = np.random.default_rng(seed)
+    int4 = cfg.weight_dtype == "int4"
     int8 = cfg.weight_dtype == "int8"
-    tdt = torch_dtype_for(DTYPE_STR_TO_TAG[cfg.weight_dtype])
+    tdt = None if int4 else torch_dtype_for(DTYPE_STR_TO_TAG[cfg.weight_dtype])
     scales: dict[str, np.ndarray] = {}
 
-    def w(name, *shape, scale=None):
+    def w(name, *shape, scale=None, head=False):
         if scale is None:
             scale = 1.0 / np.sqrt(shape[-1])
         f = rng.standard_normal(shape, dtype=np.float32) * scale
-        if int8 and len(shape) > 1:
+        if int4 and len(shape) > 1 and not head:
+            q, scales[name + ".gscale"] = pack_int4(f)
+            return q
+        if (int8 or int4) and len(shape) > 1:
             s = np.abs(f).max(axis=-1) / 127.0
             s = np.where(s == 0.0, 1.0, s).astype(np.float32)
             scales[name + ".scale"] = s
@@ -77,12 +83,13 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
 
     tensors: dict = {}
 
-    def put(name, *shape, scale=None):
-        tensors[name] = w(name, *shape, scale=scale)
-        if name + ".scale" in scales:
-            tensors[name + ".scale"] = scales.pop(name + ".scale")
+    def put(name, *shape, scale=None, head=False):
+        tensors[name] = w(name, *shape, scale=scale, head=head)
+        for suffix in (".scale", ".gscale"):
+            if name + suffix in scales:
+                tensors[name + suffix] = scales.pop(name + suffix)
 
-    put("model.embed.weight", cfg.vocab_size, cfg.dim, scale=0.02)
+    put("model.embed.weight", cfg.vocab_size, cfg.dim, scale=0.02, head=True)
     for l in range(cfg.n_layers):
         p = f"model.layers.{l}"
         tensors[f"{p}.attn.norm.weight"] = np.ones(cfg.dim, np.float32)
@@ -91,12 +98,12 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
         put(f"{p}.attn.wv.weight", cfg.kv_dim, cfg.dim)
         put(f"{p}.attn.wo.weight", cfg.dim, cfg.q_dim)
         if cfg.has_qkv_bias:
-            # biases pass through the weight type and back to f32 (an int8
-            # checkpoint truncates them), exactly as the JAX fixture does
+            # biases pass through the weight type and back to f32 (int8 and
+            # int4 checkpoints truncate them), exactly as the JAX fixture does
             for nm, n in (("wq", cfg.q_dim), ("wk", cfg.kv_dim), ("wv", cfg.kv_dim)):
                 b = rng.standard_normal((n,), dtype=np.float32) * 0.05
                 tensors[f"{p}.attn.{nm}.bias"] = (
-                    b.astype(np.int8).astype(np.float32) if int8
+                    b.astype(np.int8).astype(np.float32) if int8 or int4
                     else b.astype(np.float16).astype(np.float32)
                     if tdt == torch.float16
                     else torch.from_numpy(b).to(tdt).float().numpy())
@@ -116,7 +123,7 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
         put(f"{p}.mlp.w3.weight", cfg.hidden_dim, cfg.dim)
     tensors["model.norm.weight"] = np.ones(cfg.dim, np.float32)
     if not cfg.tie_word_embeddings:
-        put("model.output.weight", cfg.vocab_size, cfg.dim, scale=0.02)
+        put("model.output.weight", cfg.vocab_size, cfg.dim, scale=0.02, head=True)
 
     vocab = vocab if vocab is not None else synth_vocab(cfg.vocab_size)
     blob = b"".join(t.replace(b"\0", b"\7") + b"\0" for t in vocab)
