@@ -16,11 +16,23 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    (T 0.8, top-p 0.9), 4090 + 16 across the 4096 window, then an 8-token
    follow-up hydrated token by token in the ring regime -- with every
    kernel's launch count over that run;
+   then continuous-batching serving through ServingEngine (batch 16, the
+   server's defaults: batched admission, the dense prefix cache, top-5
+   logprobs): 24 requests of 64-2048 prompt tokens, greedy and sampled,
+   two sharing a 512-token prefix, one past the window, plus four over
+   HTTP on 127.0.0.1, with the batched kernels' launch counts, TTFT and
+   aggregate decode rate, and a torch.profiler window of 16 ticks with 16
+   busy lanes;
 4. the same model at depth 2 on the card against the plain versions on the
-   CPU: a 64-token prefill and 8 teacher-forced decode steps;
+   CPU: a 64-token prefill and 8 teacher-forced decode steps; then the
+   batched path: one batched chunk sweep and 8 teacher-forced ticks over 16
+   lanes at mixed positions (ring lanes, write-masked lanes), the argmax
+   held on every lane whose top two logits lie more than twice the
+   tolerance apart;
 then phases 2-4 again for the int4 path (packed int4 layer weights with
 group scales, int8 embedding and LM head, fp8-e5m2 KV cache: the
-configuration of `bench.py`'s defaults), after the fp8 weights are freed;
+configuration of `bench.py`'s defaults), after the fp8 weights are freed,
+with a lighter serving run (16 requests, no HTTP);
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, as subprocesses.
 
@@ -194,7 +206,10 @@ class Bench:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
     def case(self, name, label, got, want, tol_rel, *, kernel, plain,
-             library=None, bytes_=0, flops=0, json_row=False):
+             library=None, bytes_=0, flops=0, json_row=False, run="serve"):
+        """One case; `run` names the main-path run whose launch counts the
+        kernels line reports for it ("serve": phase 3's Engine requests,
+        "batched": the serving run)."""
         import torch
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
@@ -203,7 +218,7 @@ class Bench:
         row = dict(name=name, path=self.path, case=label, max_abs_err=err, tol=tol,
                    ms=self.time_ms(kernel), plain_ms=self.time_ms(plain),
                    library_ms=self.time_ms(library) if library else None,
-                   bytes=bytes_, flops=flops, json=json_row)
+                   bytes=bytes_, flops=flops, json=json_row, run=run)
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
@@ -303,7 +318,8 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     del w_i8, s_i8
 
     # K1: gemm_l, the prefill chunks
-    for B, nm, w, N, K in ((16, "wqkv", fw.wqkv, Nqkv, d), (64, "wqkv", fw.wqkv, Nqkv, d),
+    for B, nm, w, N, K in ((16, "wqkv", fw.wqkv, Nqkv, d), (16, "w13", fw.w13, 2 * h, d),
+                           (64, "wqkv", fw.wqkv, Nqkv, d),
                            (256, "wqkv", fw.wqkv, Nqkv, d), (256, "wo", fw.wo, d, q_dim),
                            (256, "w2", fw.w2, d, h), (256, "w13", fw.w13, 2 * h, d)):
         xb = randn(B, K)
@@ -314,7 +330,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                    plain=lambda r, xb=xb, w=w: G.gemm_l_plain(xb, w, lay(r)),
                    library=lambda r, xb=xb, wl=wl: F.linear(xb.to(torch.bfloat16), wl[r % 4]),
                    bytes_=N * K + 4 * B * (K + N), flops=2 * B * N * K,
-                   json_row=(B == 256 and nm == "w13"))
+                   json_row=nm == "w13" and B in (16, 256), run="batched" if B == 16 else "serve")
         del wl
 
     # K2: attend_step_l against a random full-size bf16 cache
@@ -397,6 +413,8 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                    plain=lambda r, xf=xf: ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
                    bytes_=3 * h * d + 8 * B * d + 4 * d, flops=B * 6 * h * d,
                    json_row=(B == 1))
+    phase_ffn_rows(bench, cfg, fw, dev, (16, 64))
+    phase_batched_attention(bench, cfg, dev, torch.bfloat16)
 
 
 def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
@@ -578,6 +596,125 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                                          **kw),
                bytes_=w4_bytes(2 * h, d) + w4_bytes(d, h) + 12 * d, flops=6 * h * d,
                json_row=True)
+    phase_ffn_rows(bench, cfg, fw, dev, (16,))
+    phase_batched_attention(bench, cfg, dev, torch.float8_e5m2)
+
+
+def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list) -> None:
+    """K4/K7 past 8 rows, the batched tick's FFN: the GEMM route (row norm,
+    w13 GEMM with the GLU-pair epilogue, w2 GEMM), without the residual.
+    The GLU output, an intermediate, is checked bit for bit: every value
+    the w13 GEMM writes is a bf16 value, and within 2e-3 of the plain GLU."""
+    import torch
+    from yalm_tpu_torch.ops.core import silu
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
+    sc = fw.scales
+    s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
+    int4 = G.is_int4(fw.w13)
+    name = "ffn4_l" if int4 else "ffn_l"
+    wbytes = (fw.w13[0].numel() + fw.w2[0].numel()
+              + (4 * (s13[0].numel() + s2[0].numel()) if int4 else 0))
+    lay = lambda r: r % L  # noqa: E731
+    kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
+    for B in rows_list:
+        x = torch.randn(B, d, generator=gen, device=dev) * 3.0
+        xb = G.bf16f(x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps)
+                     * fw.rms_ffn[2])
+        glu = G.launch_gemm("check", xb, fw.w13, 2, s13, glu_act="silu")
+        h13 = G.proj_plain(xb, fw.w13, 2, s13)
+        torch.cuda.synchronize()
+        if not torch.equal(glu, G.bf16f(glu)):
+            raise AssertionError(f"{name} B={B}: the w13 GEMM's GLU output is not bf16-rounded")
+        ref = G.bf16f(silu(h13[:, :h]) * h13[:, h:])
+        gerr = float((glu - ref).abs().max())
+        if gerr > 2e-3 * max(1.0, float(ref.abs().max())):
+            raise AssertionError(f"{name} B={B}: GLU output differs from the plain GLU by {gerr}")
+        log(f"  {name} B={B}: GLU output bf16-rounded bit for bit, max |err| {gerr:.3e}")
+        bench.case(f"{name}_gemm", f"B={B} (GEMM route)" + ("" if int4 else " e5m2"),
+                   ffn(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw),
+                   ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw), 2e-3,
+                   kernel=lambda r, x=x: ffn(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw),
+                   plain=lambda r, x=x: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2,
+                                                  **kw),
+                   bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
+                   json_row=B == 16, run="batched")
+
+
+def batched_lanes(S: int):
+    """16 lanes of a batched tick: kv_len from 1 to the window, one lane in
+    the ring regime (sinks), two write-masked lanes."""
+    pos = [0, 1, 63, 64, 199, 511, 998, 1499, 2047, 2600, 3071, 3500, 3999, 4094, S - 1,
+           S + 1903]
+    sink = [2 if p >= S else 0 for p in pos]
+    kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+    kv_len = [min(p + 1, S) for p in pos]
+    write = [1] * 16
+    write[3] = write[11] = 0
+    return kv_pos, kv_len, sink, pos, write
+
+
+def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
+    """K8 at B 16 on a 4-layer cache of the model's window: every lane's
+    written rows equal the plain version's byte for byte, write-masked
+    lanes change nothing; the library yardstick is SDPA over the padded
+    batch (a mask per lane)."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    Hq, Hk, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
+    B, L4 = 16, 4
+    cache = KVCache.init(dataclasses.replace(cfg, n_layers=L4), kv_dtype, dev, batch=B)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype))
+    kv_pos, kv_len, sink, pos, write = batched_lanes(S)
+    lanes = A.lane_scalars(kv_pos, kv_len, sink, pos, write, S=S, kv_sinks=2, device=dev)
+    lanes_cpu = lanes.cpu()
+    q = torch.randn(B, Hk, Hq // Hk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    k2, v2 = cache.k.clone(), cache.v.clone()
+    want = A.attend_step_batched_plain(q, kn, vn, k2, v2, 1, lanes_cpu, **rope)
+    got = A.attend_step_batched(q, kn, vn, cache.k, cache.v, 1, lanes, **rope)
+    torch.cuda.synchronize()
+    bits = torch.uint8 if kv_dtype.itemsize == 1 else torch.int16
+    for t, ref in ((cache.k, k2), (cache.v, v2)):
+        if not torch.equal(t.view(bits), ref.view(bits)):
+            raise AssertionError(f"attend_step_batched_l {kv_dtype}: the cache differs from the "
+                                 "plain version's (written rows or a masked lane)")
+    del k2, v2
+    wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
+    log(f"  attend_step_batched_l {wd}: 14 written rows and 2 write-masked lanes equal the "
+        "plain version's cache byte for byte")
+    # SDPA over the padded batch: (B, Hk, S, D) bf16 copies of 4 layers and
+    # a mask of each lane's kv_len (no sink view: a yardstick of speed)
+    kk = [cache.k[:, l].transpose(1, 2).to(torch.bfloat16) for l in range(L4)]
+    vv = [cache.v[:, l].transpose(1, 2).to(torch.bfloat16) for l in range(L4)]
+    mask = (torch.arange(S, device=dev)[None, :] < torch.tensor(kv_len, device=dev)[:, None])
+    qq = q.reshape(B, Hq, 1, D).to(torch.bfloat16)
+    item = kv_dtype.itemsize
+    bench.case("attend_step_batched_l", f"B=16 {wd} kv_len 1..{S}, ring + 2 read-only lanes",
+               got, want, 2e-3,
+               kernel=lambda r: A.attend_step_batched(q, kn, vn, cache.k, cache.v, r % L4,
+                                                      lanes, **rope),
+               plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cache.k, cache.v, r % L4,
+                                                           lanes_cpu, **rope),
+               library=lambda r: F.scaled_dot_product_attention(
+                   qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
+                   enable_gqa=True),
+               bytes_=2 * sum(kv_len) * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+               + 4 * 5 * B,
+               flops=4 * sum(kv_len) * Hq * D, json_row=True, run="batched")
+    del kk, vv, cache
 
 
 # the kernels each path must launch in its phase-3 run
@@ -649,6 +786,294 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str) -> dict:
     return dict(requests=reqs, launches=launches, decode_profile=profile)
 
 
+# the kernels each path's serving run must launch
+SERVING_KERNELS = {"fp8": ("gemm_l", "attend_step_batched_l", "ffn_l_gemm", "rmsnorm_rows",
+                           "attn_block_l", "gemv"),
+                   "int4": ("gemm4_l", "attend_step_batched_l", "ffn4_l_gemm", "rmsnorm_rows")}
+
+
+def http_requests(base: str) -> list[dict]:
+    """Four requests over HTTP, as clients send them: a completion with
+    top-5 logprobs, a chat turn, an SSE stream and a sampled completion."""
+    import urllib.request
+    text = "hello world the key is 12345. " * 40
+    bodies = [("/v1/completions", {"prompt": text, "max_tokens": 32, "temperature": 0.0,
+                                   "logprobs": 5}),
+              ("/v1/chat/completions", {"messages": [{"role": "user", "content": text}],
+                                        "max_tokens": 32, "temperature": 0.0,
+                                        "logprobs": True, "top_logprobs": 3}),
+              ("/v1/completions", {"prompt": text[:600], "max_tokens": 32,
+                                   "temperature": 0.0, "stream": True}),
+              ("/v1/completions", {"prompt": text[:900], "max_tokens": 48, "temperature": 0.8,
+                                   "top_p": 0.9, "top_k": 40, "seed": 7})]
+    out = []
+    for path, body in bodies:
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw = r.read().decode()
+            status = r.status
+        if body.get("stream"):
+            events = [line for line in raw.splitlines() if line.startswith("data: ")]
+            ok = status == 200 and events[-1] == "data: [DONE]" and len(events) >= 2
+            n = len(events) - 1
+        else:
+            choice = json.loads(raw)["choices"][0]
+            ok = status == 200 and isinstance(choice.get("text", choice.get("message")),
+                                              (str, dict))
+            if "logprobs" in body:
+                lp = choice["logprobs"]
+                ok = ok and bool(lp.get("token_logprobs") or lp.get("content"))
+            n = json.loads(raw)["usage"]["completion_tokens"]
+        if not ok:
+            raise AssertionError(f"HTTP {path}: bad response {raw[:300]}")
+        out.append(dict(path=path, stream=bool(body.get("stream")), tokens=n,
+                        wall_s=time.perf_counter() - t0))
+    return out
+
+
+def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool) -> dict:
+    """Continuous batching through ServingEngine at batch 16 with the
+    server's defaults: n_requests tokenized requests (64-2048 prompt
+    tokens, 32-128 new, greedy and sampled at T 0.8 top-p 0.9 top-k 40; two
+    share a 512-token prefix, one runs past the window), and with `http`
+    four more over HTTP on 127.0.0.1; then 16 ticks with 16 busy lanes
+    under torch.profiler."""
+    import threading
+
+    import numpy as np
+    import torch
+    from yalm_tpu_torch import server as srv
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.scheduler import Request
+    from yalm_tpu_torch.tokenizer import Tokenizer
+    from yalm_tpu_torch.utils.testing import synth_vocab
+
+    tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
+    rng = np.random.default_rng(1)
+
+    def rand_tokens(n):
+        return rng.integers(3, cfg.vocab_size, n).tolist()
+
+    S = cfg.max_seq_len
+    prefix = [cfg.bos_token_id] + rand_tokens(min(512, S // 8) - 1)
+    specs = []   # (prompt, max_new, sampled)
+    for i in range(n_requests):
+        n = int(rng.integers(64, min(2048, S // 2) + 1))
+        specs.append(([cfg.bos_token_id] + rand_tokens(n - 1), int(rng.integers(32, 129)),
+                      i % 2 == 1))
+    specs[0] = (prefix + rand_tokens(100), 128, False)          # registers the prefix
+    specs[16] = (prefix + rand_tokens(300), 64, True)           # admitted later: a hit
+    specs[5] = ([cfg.bos_token_id] + rand_tokens(S + 103), 32, False)
+
+    engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev)
+    httpd = srv.serve(engine, host="127.0.0.1", port=0) if http else None
+    if httpd:
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    reqs, first, last = [], {}, {}
+    t0 = time.perf_counter()
+    for i, (prompt, n, sampled) in enumerate(specs):
+        r = Request(prompt_tokens=prompt, max_new_tokens=n,
+                    temperature=0.8 if sampled else 0.0, top_p=0.9 if sampled else 1.0,
+                    top_k=40 if sampled else 0, seed=100 + i)
+        r.on_token = lambda t, i=i: (first.setdefault(i, time.perf_counter()),
+                                     last.__setitem__(i, time.perf_counter()))
+        reqs.append(r)
+        engine.submit(r)
+    web = http_requests(f"http://127.0.0.1:{httpd.server_address[1]}") if httpd else []
+    while not all(r.done for r in reqs):
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if httpd:
+        httpd.shutdown()
+        httpd.server_close()
+    engine.close()
+    sched = engine.sched
+    bad = [(i, r.error, len(r.generated)) for i, r in enumerate(reqs)
+           if r.error or not 1 <= len(r.generated) <= r.max_new_tokens
+           or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+    if bad:
+        raise AssertionError(f"serving ({path}): failed requests {bad}")
+    stats = sched.prefix_stats
+    if stats["hits"] < 1:
+        raise AssertionError(f"serving ({path}): the shared 512-token prefix was never reused")
+    gen = sum(len(r.generated) for r in reqs) + sum(w["tokens"] for w in web)
+    ttft = sorted(first[i] - t0 for i in range(len(reqs)))
+    # decode: every token after a request's first, over the span from the
+    # first first token to the last token of the tokenized requests
+    decode_tok_s = (sum(len(r.generated) - 1 for r in reqs)
+                    / (max(last.values()) - min(first.values())))
+    r = dict(requests=len(reqs) + len(web), prompt_tokens=sum(len(p) for p, _, _ in specs),
+             generated_tokens=gen, wall_s=wall, aggregate_tok_s=gen / wall,
+             aggregate_decode_tok_s=decode_tok_s,
+             ttft_p50_s=float(np.median(ttft)), ttft_max_s=ttft[-1],
+             ticks=engine.metrics["ticks_total"], admit_sweeps=sched.admit_sweeps,
+             prefix=dict(stats), http=web, launches=launches)
+    log(f"  served {r['requests']} requests ({len(web)} over HTTP) in {wall:.2f} s: "
+        f"{r['prompt_tokens']} prompt tokens, {gen} generated ({r['aggregate_tok_s']:.1f} "
+        f"tok/s over the run), aggregate decode {decode_tok_s:.1f} tok/s; "
+        f"TTFT p50 {r['ttft_p50_s']:.3f} s, max "
+        f"{r['ttft_max_s']:.3f} s; {r['ticks']} ticks, {r['admit_sweeps']} batched admission "
+        f"sweeps, prefix hits {stats['hits']} ({stats['hit_tokens']} tokens)")
+    for w in web:
+        log(f"    HTTP {w['path']}{' (SSE)' if w['stream'] else ''}: {w['tokens']} tokens "
+            f"in {w['wall_s']:.2f} s")
+    log(f"  launches over the {path} serving run: {launches}")
+    missing = [k for k in SERVING_KERNELS[path] if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the {path} serving run: {missing}")
+    r["tick_profile"] = profile_ticks(sched, cfg, 16)
+    del engine, sched
+    torch.cuda.empty_cache()
+    return r
+
+
+def profile_ticks(sched, cfg, n: int) -> dict:
+    """torch.profiler over n ticks of the scheduler with every lane busy
+    decoding (prompts of 64 tokens admitted first)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from yalm_tpu_torch.scheduler import Request
+
+    rng = np.random.default_rng(2)
+    for i in range(sched.B):
+        sched.submit(Request(prompt_tokens=[cfg.bos_token_id]
+                             + rng.integers(3, cfg.vocab_size, 63).tolist(),
+                             max_new_tokens=n + 8, temperature=0.0,
+                             stop_tokens=frozenset()))
+    while not all(s.decoding for s in sched.slots):
+        sched.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if sched.step() != sched.B:
+                raise AssertionError("a lane went idle inside the profiled ticks")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = device_us(prof)
+    busy = sum(dev_us.values()) / 1e6
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    r = dict(ticks=n, lanes=sched.B, wall_ms_per_tick=wall / n * 1e3,
+             device_ms_per_tick=busy / n * 1e3, idle_share=(1 - busy / wall) if busy else None,
+             tok_s=sched.B * n / wall, top=[(k[:60], v / n / 1e3) for k, v in top])
+    log(f"  tick profile, {sched.B} busy lanes: {r['wall_ms_per_tick']:.3f} ms/tick wall, "
+        f"{r['device_ms_per_tick']:.3f} ms/tick on the device, idle share {r['idle_share']}, "
+        f"{r['tok_s']:.1f} tok/s")
+    for k, ms in r["top"]:
+        log(f"    {ms:8.4f} ms/tick  {k}")
+    for s in sched.slots:
+        if s.request is not None:
+            s.request.cancelled = True
+    sched.run()
+    return r
+
+
+def depth2(fw):
+    """The first two layers of FastWeights (views)."""
+    from yalm_tpu_torch.models.fast import FastScales, FastWeights
+    sc = fw.scales
+    return FastWeights(embed=fw.embed, rms_att=fw.rms_att[:2], rms_ffn=fw.rms_ffn[:2],
+                       wqkv=fw.wqkv[:2], wo=fw.wo[:2], w13=fw.w13[:2], w2=fw.w2[:2],
+                       final_norm=fw.final_norm, lm_head=fw.lm_head,
+                       scales=None if sc is None else FastScales(
+                           embed=sc.embed, wqkv=sc.wqkv[:2], wo=sc.wo[:2], w13=sc.w13[:2],
+                           w2=sc.w2[:2], lm_head=sc.lm_head))
+
+
+def phase_batched_parity(cfg, fw, dev, kv_dtype) -> dict:
+    """Phase 4, batched: the depth-2 model over 16 lanes, card (kernels) vs
+    CPU (plain versions), on caches that start random and equal: one
+    prefill_chunk_fast_batched sweep (12 lanes at offsets up to the window's
+    end, 4 disabled), then 8 teacher-forced ticks at mixed positions (two
+    lanes in the ring regime, two write-masked). Logits within 1e-2 of
+    max(1, max|logit|), argmax equal on every lane that is not a near-tie."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast_batched, prefill_chunk_fast_batched
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    fw2 = depth2(fw)
+    fw_cpu = fw2.to("cpu")
+    B, T, S = 16, 16, cfg.max_seq_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    card = KVCache.init(cfg, kv_dtype, dev, batch=B)
+    for t in (card.k, card.v):
+        t.copy_((torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                 * 0.5).to(kv_dtype))
+    cpu = KVCache(k=card.k.to("cpu", copy=True), v=card.v.to("cpu", copy=True))
+    rng = np.random.default_rng(6)
+    toks = rng.integers(3, cfg.vocab_size, (B, T))
+    frac = np.array([0, .004, .025, .08, .25, .37, .5, .61, .73, .85, .98, 1.0])
+    pos0 = np.concatenate([(frac * (S - T)).astype(np.int64), np.zeros(4, np.int64)])
+    valid = rng.integers(1, T + 1, B)
+    enable = np.array([1] * 12 + [0] * 4)
+    positions = np.concatenate([(frac * (S - 8)).astype(np.int64) + 5,
+                                [S + 10, S + S // 2, S // 6, 50]])
+    write = np.ones(B, np.int64)
+    write[[7, 14]] = 0
+    runs = {}
+    for name, w, c in (("cuda", fw2, card), ("cpu", fw_cpu, cpu)):
+        out, _ = prefill_chunk_fast_batched(cfg, w, toks, pos0, valid, enable, c,
+                                            attend_len=S, logits_mode="lastv")
+        outs = [out]
+        p = positions.copy()
+        for i in range(8):
+            tk = rng.integers(3, cfg.vocab_size, B) if name == "cuda" else runs["ticks"][i]
+            if name == "cuda":
+                runs.setdefault("ticks", []).append(tk)
+            outs.append(decode_step_fast_batched(cfg, w, tk, p, c, write)[0])
+            p = p + write
+        runs[name] = [o.float().cpu() for o in outs]
+    worst, ties = 0.0, 0
+    for step, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        err = float((g - c).abs().max())
+        tol = 1e-2 * max(1.0, float(c.abs().max()))
+        worst = max(worst, err / tol)
+        # argmax on every lane whose top two CPU logits are more than 2 tol
+        # apart; closer pairs are near-ties that an error inside the
+        # tolerance may flip (16 lanes x 9 steps of 32000 random logits)
+        top2 = c.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        ties += int((~decided).sum())
+        flips = g.argmax(-1) != c.argmax(-1)
+        if err > tol or bool((flips & decided).any()):
+            raise AssertionError(f"batched depth-2 parity step {step}: max |err| {err:.3e} "
+                                 f"(tol {tol:.3e}), argmax {g.argmax(-1).tolist()} vs "
+                                 f"{c.argmax(-1).tolist()}")
+    kerr = float((card.k.cpu().float() - cpu.k.float()).abs().max())
+    log(f"  batched depth-2 logits, card vs CPU plain: 1 chunk sweep + 8 ticks x 16 lanes "
+        f"agree; argmax equal on all {9 * B - ties} decided lanes ({ties} near-ties within "
+        f"2 tol); worst err/tol {worst:.3f}; cache max |err| {kerr:.3e}")
+    return dict(steps=9, lanes=B, worst_err_over_tol=worst, near_ties=ties,
+                cache_max_err=kerr)
+
+
+def device_us(prof) -> dict:
+    """Device time (us) by name from a torch.profiler run, of the device's
+    own events only: the row of an aten op repeats the time of the kernels
+    it launched, and summing both counted that time twice."""
+    from torch.autograd import DeviceType
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = out.get(e.key, 0) + us
+    return out
+
+
 def profile_decode(eng, n: int) -> dict:
     """torch.profiler over n greedy decode steps (continuing the engine's
     sequence): wall time, device time by kernel, and the device's idle share."""
@@ -663,13 +1088,7 @@ def profile_decode(eng, n: int) -> dict:
             tok = int(torch.argmax(eng._step(tok)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            dev_us[e.key] = dev_us.get(e.key, 0) + us
+    dev_us = device_us(prof)
     busy = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     r = dict(steps=n, context=eng.pos, wall_ms_per_step=wall / n * 1e3,
@@ -690,17 +1109,10 @@ def phase_parity(cfg, fw, dev, kv_dtype) -> dict:
     import numpy as np
     import torch
     from yalm_tpu_torch.models.cache import KVCache
-    from yalm_tpu_torch.models.fast import (FastScales, FastWeights, decode_step_fast,
-                                            prefill_fast)
+    from yalm_tpu_torch.models.fast import decode_step_fast, prefill_fast
 
     cfg = dataclasses.replace(cfg, n_layers=2)
-    sc = fw.scales
-    fw2 = FastWeights(embed=fw.embed, rms_att=fw.rms_att[:2], rms_ffn=fw.rms_ffn[:2],
-                      wqkv=fw.wqkv[:2], wo=fw.wo[:2], w13=fw.w13[:2], w2=fw.w2[:2],
-                      final_norm=fw.final_norm, lm_head=fw.lm_head,
-                      scales=None if sc is None else FastScales(
-                          embed=sc.embed, wqkv=sc.wqkv[:2], wo=sc.wo[:2], w13=sc.w13[:2],
-                          w2=sc.w2[:2], lm_head=sc.lm_head))
+    fw2 = depth2(fw)
     fw_cpu = fw2.to("cpu")
     rng = np.random.default_rng(5)
     toks = rng.integers(3, cfg.vocab_size, 64 + 8)
@@ -812,8 +1224,13 @@ def main() -> int:
         phase_kernels(bench, cfg, fw, dev)
     with phase("phase 3 (fp8 path, bf16 cache): the slice end to end (32 layers)"):
         summary["fp8"]["serve"] = phase_serve(cfg, fw, dev, torch.bfloat16, "fp8")
+    with phase("phase 3 (fp8 path, bf16 cache): continuous-batching serving, batch 16 "
+               "(32 layers)"):
+        summary["fp8"]["batched"] = phase_serving(cfg, fw, dev, torch.bfloat16, "fp8",
+                                                  n_requests=24, http=True)
     with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
         summary["fp8"]["parity"] = phase_parity(cfg, fw, dev, torch.bfloat16)
+        summary["fp8"]["batched_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16)
     del fw
     torch.cuda.empty_cache()
 
@@ -828,8 +1245,13 @@ def main() -> int:
         phase_kernels4(bench, cfg4, fw4, dev)
     with phase("phase 3 (int4 path, e5m2 cache): the slice end to end (32 layers)"):
         summary["int4"]["serve"] = phase_serve(cfg4, fw4, dev, e5, "int4")
+    with phase("phase 3 (int4 path, e5m2 cache): continuous-batching serving, batch 16 "
+               "(32 layers)"):
+        summary["int4"]["batched"] = phase_serving(cfg4, fw4, dev, e5, "int4",
+                                                   n_requests=20, http=False)
     with phase("phase 4 (int4 path, e5m2 cache): depth-2 parity, card vs CPU"):
         summary["int4"]["parity"] = phase_parity(cfg4, fw4, dev, e5)
+        summary["int4"]["batched_parity"] = phase_batched_parity(cfg4, fw4, dev, e5)
     del fw4
     torch.cuda.empty_cache()
     with phase("phase 5: CLI modes"):
@@ -846,7 +1268,11 @@ def main() -> int:
                "gemv4_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:776"),
                "gemm4_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:600"),
                "attn_block4_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:365"),
-               "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227")}
+               "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227"),
+               "attend_step_batched_l": ("csrc/attention.cu",
+                                         "yalm_tpu/ops/pallas/attention.py:538"),
+               "ffn_l_gemm": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),
+               "ffn4_l_gemm": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227")}
     kernels = []
     for r in bench.rows:
         if not r["json"]:
@@ -854,8 +1280,8 @@ def main() -> int:
         src, rep = sources[r["name"]]
         kernels.append(dict(
             name=r["name"], route="cuda", source="yalm_tpu_torch/" + src, replaces=rep,
-            path=r["path"], case=r["case"],
-            launches=summary[r["path"]]["serve"]["launches"][r["name"]],
+            path=r["path"], case=r["case"], run=r["run"],
+            launches=summary[r["path"]][r["run"]]["launches"][r["name"]],
             max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

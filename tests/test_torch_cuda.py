@@ -3,7 +3,10 @@ small and ragged shapes the Mistral-7B main path never gives them (odd row
 counts, N not a multiple of the tile, head_dim 64, qpk 1 and 3, windows
 that are not a multiple of the attention tile, a window whose scores
 overflow shared memory; int4 weights with 1, 3 and 28 groups; an e5m2
-cache, whose written rows must equal the plain version's byte for byte).
+cache, whose written rows must equal the plain version's byte for byte;
+the batched attention over 3 lanes with their own positions, write masks
+and a window whose scores live in global scratch; the FFN's many-row GEMM
+route at 9, 33 and 64 rows on every weight type).
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -20,12 +23,13 @@ import pytest
 import torch
 
 from yalm_tpu_torch.ops.cuda import _build
-from yalm_tpu_torch.ops.cuda.attention import attend_step_l, attend_step_plain
+from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched_l, attend_step_batched_plain,
+                                               attend_step_l, attend_step_plain, lane_scalars)
 from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
-from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_l, ffn_plain
+from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l, ffn_plain
 from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm_l,
                                           gemm_l_plain, gemv4, gemv4_l, gemv_l_plain,
-                                          launch_gemv)
+                                          launch_gemm, launch_gemv, proj_plain)
 from yalm_tpu_torch.ops.core import silu
 from yalm_tpu_torch.ops.int4 import int4_group
 
@@ -289,3 +293,68 @@ def test_int4_block_and_ffn_kernels(dev, pos):
     s13, s2 = gscales(L, dim, 2 * H, dev, gen), gscales(L, H, dim, dev, gen)
     fk = dict(norm_eps=1e-5, act="silu", add_residual=False)
     close(ffn4_l(x, nw, w13, w2, 1, s13, s2, **fk), ffn_plain(x, nw, w13, w2, 1, s13, s2, **fk))
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("qpk,D,S", [(1, 64, 100), (2, 128, 200), (8, 128, 7000)])
+def test_batched_attention_kernel(dev, kv, qpk, D, S):
+    """K8 over 3 lanes: random kv_len (one ring lane with sinks), one
+    write-masked lane; at S 7000 x qpk 8 the scores of every lane live in
+    global scratch. The written rows equal the plain version's byte for
+    byte and the masked lane's cache is untouched."""
+    gen = torch.Generator(device=dev).manual_seed(S + qpk)
+    B, L, Hk = 3, 2, 3
+    k_all = torch.randn(B, L, S, Hk, D, generator=gen, device=dev).to(kv)
+    v_all = torch.randn(B, L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(B, Hk, qpk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    pos = [int(torch.randint(0, S, (1,), generator=gen, device=dev)), S + 37, S // 3]
+    sink = [2 if p >= S else 0 for p in pos]
+    kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+    kv_len = [min(p + 1, S) for p in pos]
+    write = [1, 1, 0]
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    k2, v2 = k_all.clone(), v_all.clone()
+    lanes = lane_scalars(kv_pos, kv_len, sink, pos, write, S=S, kv_sinks=2, device=dev)
+    want = attend_step_batched_plain(q, kn, vn, k2, v2, 1, lanes, **rope)
+    _build.LAUNCHES.clear()
+    got = attend_step_batched_l(q, kn, vn, k_all, v_all, 1, kv_pos, kv_len, sink, pos, write,
+                                **rope)
+    close(got, want)
+    bits = torch.uint8 if kv == torch.float8_e5m2 else torch.int16
+    assert torch.equal(k_all.view(bits), k2.view(bits))
+    assert torch.equal(v_all.view(bits), v2.view(bits))
+    assert _build.LAUNCHES["attend_step_batched_l"] == 1
+
+
+@pytest.mark.parametrize("wt", WTYPES[1:] + [torch.uint8], ids=["bf16", "e5m2", "int8", "int4"])
+@pytest.mark.parametrize("rows", [9, 33, 64])
+def test_ffn_many_rows(dev, wt, rows):
+    """The FFN's GEMM route (row norm, w13 GEMM with the GLU-pair epilogue,
+    w2 GEMM with the residual), past the GEMV route's 8 rows; the GLU
+    output is rounded to bf16 bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    L, dim, H = 2, 256, 768
+    int4 = wt == torch.uint8
+    x = torch.randn(rows, dim, generator=gen, device=dev) * 3
+    nw = 1 + 0.1 * torch.randn(L, dim, generator=gen, device=dev)
+    w13 = weights((L, 2 * H, dim // 2 if int4 else dim), wt, dev, gen)
+    w2 = weights((L, dim, H // 2 if int4 else H), wt, dev, gen)
+    if int4:
+        s13, s2 = gscales(L, dim, 2 * H, dev, gen), gscales(L, H, dim, dev, gen)
+    elif wt == torch.int8:
+        s13 = torch.rand(L, 2 * H, generator=gen, device=dev) * 0.01
+        s2 = torch.rand(L, dim, generator=gen, device=dev) * 0.01
+    else:
+        s13 = s2 = None
+    kw = dict(norm_eps=1e-5, act="silu")
+    _build.LAUNCHES.clear()
+    close(ffn(x, nw, w13, w2, 1, s13, s2, **kw), ffn_plain(x, nw, w13, w2, 1, s13, s2, **kw))
+    assert _build.LAUNCHES["ffn4_l_gemm" if int4 else "ffn_l_gemm"] == 1
+    xb = bf16f(x * torch.rsqrt((x * x).mean(-1, keepdim=True) + 1e-5) * nw[1])
+    h = launch_gemm("test", xb, w13, 1, s13, glu_act="gelu")
+    assert torch.equal(h, bf16f(h))
+    h13 = proj_plain(xb, w13, 1, s13)
+    from yalm_tpu_torch.ops.core import gelu
+    close(h, bf16f(gelu(h13[:, :H]) * h13[:, H:]))

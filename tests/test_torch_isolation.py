@@ -10,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from yalm_tpu_torch.ops.cuda.attention import attend_step_l
+from yalm_tpu_torch.ops.cuda.attention import attend_step_batched_l, attend_step_l
 from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block4_l, attn_block_l
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l
 from yalm_tpu_torch.ops.cuda.gemv import gemm4, gemm4_l, gemm_l, gemv, gemv4, gemv4_l, gemv_l
@@ -27,6 +27,17 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "yalm_tpu"))
 print("BAD", bad)
 """
+
+
+@pytest.mark.parametrize("module", ["scheduler", "server", "chat"])
+def test_serving_modules_import_no_jax(module):
+    code = (f"import sys, yalm_tpu_torch.{module}\n"
+            "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'yalm_tpu')))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -74,6 +85,16 @@ def _calls(dev):
         "ffn int4": lambda: ffn(t(256), t(2, 256), t(2, 1024, 128, dt=u8),
                                 t(2, 256, 256, dt=u8), 0, t(2, 1, 1024), t(2, 2, 256),
                                 norm_eps=1e-5, act="silu"),
+        # the batched tick's kernels: K8 and the many-row FFN (GEMM route)
+        "attend_step_batched_l": lambda: attend_step_batched_l(
+            t(3, 2, 2, 128), t(3, 2, 128), t(3, 2, 128), t(3, 2, 16, 2, 128, dt=torch.bfloat16),
+            t(3, 2, 16, 2, 128, dt=torch.bfloat16), 1, [0, 3, 15], [1, 4, 16], [0, 0, 0],
+            [0, 3, 15], [1, 0, 1], **rope),
+        "ffn_l 9 rows": lambda: ffn_l(t(9, 64), t(2, 64), t(2, 96, 64), t(2, 64, 48), 0,
+                                      norm_eps=1e-5, act="silu"),
+        "ffn4_l 16 rows": lambda: ffn4_l(t(16, 256), t(2, 256), t(2, 1024, 128, dt=u8),
+                                         t(2, 256, 256, dt=u8), 0, t(2, 1, 1024), t(2, 2, 256),
+                                         norm_eps=1e-5, act="silu"),
     }
 
 
@@ -119,6 +140,26 @@ def test_int4_entry_points_do_not_fall_back_to_cpu(tmp_path):
         Engine.from_checkpoint(path, kv_dtype=torch.float8_e5m2)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main([path, "-C", "fp8", "-i", "hello"])
+
+
+def test_serving_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    """Scheduler and ServingEngine default to the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from yalm_tpu_torch.models.fast import FastWeights
+    from yalm_tpu_torch.scheduler import Scheduler
+    from yalm_tpu_torch.server import ServingEngine
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    cfg = tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, max_seq_len=32, rotary_dim=128)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        Scheduler(cfg, FastWeights(*(torch.zeros(1),) * 9))
+    path = str(tmp_path / "m.yalm")
+    synth_checkpoint(path, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine.from_checkpoint(path)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine(cfg, FastWeights(*(torch.zeros(1),) * 9), None)
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):

@@ -1,10 +1,15 @@
 // Fused decode attention step over the layer-stacked KV ring buffer, a bf16
-// or an fp8-e5m2 cache (template parameter T).
+// or an fp8-e5m2 cache (template parameter T), for one sequence or for B
+// lanes of a continuous batch in one launch.
 //
 // Replaces yalm_tpu/ops/pallas/attention.py:attend_step_l (body
 // _fused_attn_body, _flash_heads, _lazy_sink_rotate; numerics reference
 // _attn_step_ref) and is the middle of ops/pallas/block.py:attn_block_l.
-// One launch, one block per kv head h:
+// The batched entry replaces :attend_step_batched_l (kernel
+// _attn_step_batched_kernel; numerics reference its emulation branch,
+// per-lane _attn_step_ref, and for write-masked lanes _attend_ref over the
+// unwritten cache with the sink view).
+// One launch, one block per (kv head h, lane b):
 //   1. RoPE on q (then * 1/sqrt(D), rounded to bf16) and on k_new at `pos`,
 //      from a (D/2,) f32 pair-frequency table computed on the host (so every
 //      rope scaling kind lives in ops/core.py) and `mscale`; accurate
@@ -12,16 +17,18 @@
 //   2. The rounded k/v rows go into ring slot kv_pos of head h, IN PLACE:
 //      rounded from f32 to the cache type in one step (for e5m2 not through
 //      bf16, which would round twice; _attn_step_ref :790-793). Only this
-//      block reads head h, so after __syncthreads() the block's own reads
-//      see the row (no other block races it).
+//      block reads head h of lane b, so after __syncthreads() the block's
+//      own reads see the row (no other block races it). A lane whose
+//      `write` is 0 writes nothing and attends the cache as it is.
 //   3. Pass 1 streams the K rows of slots < kv_len in tiles of 64 through
 //      shared memory, widened to bf16 there (exact from e5m2): bf16 q .
 //      bf16 k summed in f32, every score kept --
 //      in shared memory while its kv_len * qpk floats fit (64 KB at 4096 x
 //      4; up to 13310 slots at qpk 4 and 6590 at qpk 8, D 128), else in a
-//      global (Hk, kv_len, qpk) f32 scratch the caller passes as `scores`
+//      global (B, Hk, slots, qpk) f32 scratch the caller passes as `scores`
 //      (16 B per slot at qpk 4 beside the 512 B of its K/V rows, mostly
-//      L2 hits), so the window has no limit of its own.
+//      L2 hits), so the window has no limit of its own. The batched launch
+//      sizes both from the window S (its kv_len lives on the device).
 //   4. Ring regime (kv_sink > 0): the first kv_sink rows of tile 0 are
 //      rotated by max(0, pos - S + 1) positions (mscale 1) and rounded to
 //      bf16 in shared memory only -- the lazy StreamingLLM sink view, in the
@@ -41,10 +48,16 @@
 // (__fmul_rn, __fsub_rn), never contracted into an fma, so they round as
 // torch's and XLA's elementwise ops do and the written rows match theirs.
 //
+// The batched launch reads each lane's (kv_pos, kv_len, kv_sink, pos,
+// write) from a (5, B) int32 device array uploaded once per tick, so no
+// layer waits for the host. Lane offsets are 64-bit: a (16, 32, 4096, 8,
+// 128) cache holds 2^31 elements.
+//
 // Bound on this card: bytes (the K/V rows of slots < kv_len, 16 MB per layer
-// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2). Only Hk = 8
-// blocks run, so a handful of SMs stream the cache: split-K over the
-// sequence (flash-decoding) is the known next step.
+// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2). One lane
+// runs only Hk = 8 blocks, so a handful of SMs stream its cache: split-K
+// over the sequence (flash-decoding) is the known next step; a batch of B
+// lanes runs 8 B blocks.
 #include "common.cuh"
 
 using namespace yt;
@@ -98,28 +111,32 @@ __device__ __forceinline__ float rot_im(float x0, float x1, float c, float s) {
 
 template <typename T>
 struct AttnArgs {
-  const float* q;        // (Hk, qpk, D) unrotated, unscaled
-  const float* k_new;    // (Hk, D) unrotated
-  const float* v_new;    // (Hk, D)
-  T* k_all;              // (L, S, Hk, D), updated in place
-  T* v_all;              // (L, S, Hk, D), updated in place
+  const float* q;        // (B, Hk, qpk, D) unrotated, unscaled
+  const float* k_new;    // (B, Hk, D) unrotated
+  const float* v_new;    // (B, Hk, D)
+  T* k_all;              // (B, L, S, Hk, D), updated in place
+  T* v_all;              // (B, L, S, Hk, D), updated in place
   const float* freq;     // (D/2,) rope pair frequencies
-  float* out;            // (Hk, qpk, D)
-  float* scores;         // (Hk, kv_len, qpk) scratch, or null: scores in smem
+  float* out;            // (B, Hk, qpk, D)
+  float* scores;         // (B, Hk, slots, qpk) scratch, or null: scores in smem
+  const int* lanes;      // (5, B) kv_pos, kv_len, kv_sink, pos, write; or null:
+                         // one lane (B = 1) with the scalars below, writing
+  size_t lane_stride;    // elements of one lane's cache, L * S * Hk * D
   float mscale, inv_sqrt_d;
   int layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks;
+  int B, slots;          // slots: score capacity per (lane, head), >= kv_len
 };
 
-// shared memory: q (qpk, D + 2) f32 | scores (kv_len, qpk) f32, or with
+// shared memory: q (qpk, D + 2) f32 | scores (slots, qpk) f32, or with
 // global scores one tile's p (TILE, qpk) | one K or V tile (TILE, D + KPAD)
 // bf16, 16-byte aligned
-__host__ __device__ inline size_t float_words(int qpk, int D, int kv_len) {
-  const size_t n = (size_t)qpk * (D + 2) + (size_t)kv_len * qpk;
+__host__ __device__ inline size_t float_words(int qpk, int D, int slots) {
+  const size_t n = (size_t)qpk * (D + 2) + (size_t)slots * qpk;
   return (n + 3) & ~(size_t)3;
 }
 
-__host__ __device__ inline size_t smem_bytes(int qpk, int D, int kv_len) {
-  return float_words(qpk, D, kv_len) * sizeof(float) +
+__host__ __device__ inline size_t smem_bytes(int qpk, int D, int slots) {
+  return float_words(qpk, D, slots) * sizeof(float) +
          (size_t)TILE * (D + KPAD) * sizeof(__nv_bfloat16);
 }
 
@@ -129,52 +146,75 @@ __host__ __device__ inline size_t smem_bytes(int qpk, int D, int kv_len) {
 template <typename T, bool kGlobalScores>
 __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int D = a.D, qpk = a.qpk, h = blockIdx.x, half = D / 2, n = a.kv_len;
+  const int D = a.D, qpk = a.qpk, h = blockIdx.x, b = blockIdx.y, half = D / 2;
   const int QS = D + 2, KS = D + KPAD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, vpr = D / 8;
+  int kv_pos = a.kv_pos, n = a.kv_len, kv_sink = a.kv_sink, pos = a.pos;
+  bool write = true;
+  if (a.lanes) {
+    kv_pos = a.lanes[b];
+    n = a.lanes[a.B + b];
+    kv_sink = a.lanes[2 * a.B + b];
+    pos = a.lanes[3 * a.B + b];
+    write = a.lanes[4 * a.B + b] != 0;
+  }
+  const float* q = a.q + (size_t)b * a.Hk * qpk * D;
+  float* out = a.out + ((size_t)b * a.Hk + h) * qpk * D;
+  T* k_all = a.k_all + (size_t)b * a.lane_stride;
+  T* v_all = a.v_all + (size_t)b * a.lane_stride;
+  if (n < 1 || n > a.slots || kv_pos < 0 || kv_pos >= a.S || kv_sink < 0 ||
+      kv_sink > a.kv_sinks) {
+    // lane scalars the kernel does not take (the host checks the ones it
+    // uploads): touch no cache row, give the lane a NaN output
+    for (int i = tid; i < qpk * D; i += THREADS) out[i] = __int_as_float(0x7fc00000);
+    return;
+  }
   float* qs = reinterpret_cast<float*>(smem);  // (qpk, QS)
-  // (kv_len, qpk): scores, then bf16(p). Only this block touches its part of
+  // (slots, qpk): scores, then bf16(p). Only this block touches its part of
   // the global scratch, so __syncthreads() orders it as it does shared memory.
   float* ps = qs + qpk * QS;  // shared: every score, or one tile's p
-  float* sc = kGlobalScores ? a.scores + (size_t)h * n * qpk : ps;
+  float* sc = kGlobalScores ? a.scores + ((size_t)b * a.Hk + h) * a.slots * qpk : ps;
   __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(
-      reinterpret_cast<float*>(smem) + float_words(qpk, D, kGlobalScores ? TILE : n));  // (TILE, KS)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, vpr = D / 8;
-  const float posf = (float)a.pos;
+      reinterpret_cast<float*>(smem) + float_words(qpk, D, kGlobalScores ? TILE : a.slots));
+  const float posf = (float)pos;
 
   // 1-2: rope, scale, and the in-place row write
   for (int i = tid; i < qpk * half; i += THREADS) {
     const int j = i / half, p = i - j * half;
     const float ang = posf * a.freq[p];
     const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
-    const float* qr = a.q + ((size_t)h * qpk + j) * D;
+    const float* qr = q + ((size_t)h * qpk + j) * D;
     const float x0 = qr[2 * p], x1 = qr[2 * p + 1];
     qs[j * QS + 2 * p] = bf16_round(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
     qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
   }
-  const size_t new_row = (((size_t)a.layer * a.S + a.kv_pos) * a.Hk + h) * D;
-  for (int p = tid; p < half; p += THREADS) {
-    const float ang = posf * a.freq[p];
-    const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
-    const float x0 = a.k_new[(size_t)h * D + 2 * p], x1 = a.k_new[(size_t)h * D + 2 * p + 1];
-    a.k_all[new_row + 2 * p] = KV<T>::from_float(rot_re(x0, x1, c, s));
-    a.k_all[new_row + 2 * p + 1] = KV<T>::from_float(rot_im(x0, x1, c, s));
+  if (write) {
+    const size_t new_row = (((size_t)a.layer * a.S + kv_pos) * a.Hk + h) * D;
+    const float* kn = a.k_new + ((size_t)b * a.Hk + h) * D;
+    const float* vn = a.v_new + ((size_t)b * a.Hk + h) * D;
+    for (int p = tid; p < half; p += THREADS) {
+      const float ang = posf * a.freq[p];
+      const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+      const float x0 = kn[2 * p], x1 = kn[2 * p + 1];
+      k_all[new_row + 2 * p] = KV<T>::from_float(rot_re(x0, x1, c, s));
+      k_all[new_row + 2 * p + 1] = KV<T>::from_float(rot_im(x0, x1, c, s));
+    }
+    for (int d = tid; d < D; d += THREADS) v_all[new_row + d] = KV<T>::from_float(vn[d]);
   }
-  for (int d = tid; d < D; d += THREADS)
-    a.v_all[new_row + d] = KV<T>::from_float(a.v_new[(size_t)h * D + d]);
   __syncthreads();
 
   // 3-4: pass 1, every score of slots < kv_len
-  const float rot = (float)max(0, a.pos - a.S + 1);
+  const float rot = (float)max(0, pos - a.S + 1);
   for (int t0 = 0; t0 < n; t0 += TILE) {
     const int nt = min(TILE, n - t0);
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
       const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      KV<T>::load8(a.k_all + off, tile + r * KS + 8 * c);
+      KV<T>::load8(k_all + off, tile + r * KS + 8 * c);
     }
     __syncthreads();
-    if (t0 == 0 && a.kv_sink > 0) {  // the lazy sink view (tile 0 holds the sinks)
-      const int nsink = min(min(a.kv_sink, a.kv_sinks), nt);
+    if (t0 == 0 && kv_sink > 0) {  // the lazy sink view (tile 0 holds the sinks)
+      const int nsink = min(kv_sink, nt);
       for (int i = tid; i < nsink * half; i += THREADS) {
         const int r = i / half, p = i - r * half;
         const float ang = rot * a.freq[p];
@@ -228,7 +268,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
       const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      KV<T>::load8(a.v_all + off, tile + r * D + 8 * c);
+      KV<T>::load8(v_all + off, tile + r * D + 8 * c);
     }
     if (kGlobalScores)
       for (int i = tid; i < nt * qpk; i += THREADS) ps[i] = sc[(size_t)t0 * qpk + i];
@@ -250,10 +290,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
 #pragma unroll
   for (int i = 0; i < MAX_OUT; ++i) {
     const int idx = tid + i * THREADS;
-    if (idx < nout) {
-      const int j = idx / D, d = idx - j * D;
-      a.out[((size_t)h * qpk + j) * D + d] = acc[i];
-    }
+    if (idx < nout) out[idx] = acc[i];
   }
 }
 
@@ -265,35 +302,68 @@ int launch(const AttnArgs<T>& a, size_t smem, cudaStream_t st) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kern<<<a.Hk, THREADS, smem, st>>>(a);
+  kern<<<dim3(a.Hk, a.B), THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_typed(const float* q, const float* k_new, const float* v_new, void* k_all,
+                 void* v_all, const float* freq, float mscale, float inv_sqrt_d,
+                 float* out, float* scores, const int* lanes, size_t lane_stride,
+                 int layer, int S, int Hk, int qpk, int D, int kv_pos, int kv_len,
+                 int kv_sink, int pos, int kv_sinks, int B, int slots, cudaStream_t st) {
+  const size_t smem = smem_bytes(qpk, D, scores ? TILE : slots);
+  if (smem > 227 * 1024) return ERR_ARGS;
+  return launch(AttnArgs<T>{q, k_new, v_new, static_cast<T*>(k_all), static_cast<T*>(v_all),
+                            freq, out, scores, lanes, lane_stride, mscale, inv_sqrt_d,
+                            layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks,
+                            B, slots}, smem, st);
+}
+
+template <typename... Args>
+int dispatch(int kv_type, Args... args) {
+  if (kv_type == W_BF16) return launch_typed<__nv_bfloat16>(args...);
+  if (kv_type == W_E5M2) return launch_typed<uint8_t>(args...);
+  return ERR_ARGS;
+}
+
+bool shape_ok(int S, int Hk, int qpk, int D, int layer, int kv_sinks) {
+  return D >= 8 && D % 8 == 0 && qpk >= 1 && qpk * D <= THREADS * MAX_OUT && Hk >= 1 &&
+         layer >= 0 && S >= 1 && kv_sinks >= 0 && kv_sinks <= TILE;
 }
 
 }  // namespace
 
-// kv_type: W_BF16 or W_E5M2 (common.cuh), the type of k_all and v_all.
+// One lane: kv_type W_BF16 or W_E5M2 (common.cuh), the type of k_all and
+// v_all, (L, S, Hk, D); the scalars come by value and the row is written.
 extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
                               const float* v_new, void* k_all, void* v_all,
                               const float* freq, float mscale, float inv_sqrt_d,
                               float* out, float* scores, int layer, int S, int Hk,
                               int qpk, int D, int kv_pos, int kv_len, int kv_sink,
                               int pos, int kv_sinks, void* stream) {
-  if (D < 8 || D % 8 || qpk < 1 || qpk * D > THREADS * MAX_OUT || Hk < 1 ||
-      layer < 0 || kv_len < 1 || kv_len > S || kv_pos < 0 || kv_pos >= S ||
-      kv_sink < 0 || kv_sink > kv_sinks)
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || kv_len < 1 || kv_len > S || kv_pos < 0 ||
+      kv_pos >= S || kv_sink < 0 || kv_sink > kv_sinks)
     return ERR_ARGS;
-  const size_t smem = smem_bytes(qpk, D, scores ? TILE : kv_len);
-  if (smem > 227 * 1024) return ERR_ARGS;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kv_type == W_BF16)
-    return launch(AttnArgs<__nv_bfloat16>{
-        q, k_new, v_new, static_cast<__nv_bfloat16*>(k_all),
-        static_cast<__nv_bfloat16*>(v_all), freq, out, scores, mscale, inv_sqrt_d,
-        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks}, smem, st);
-  if (kv_type == W_E5M2)
-    return launch(AttnArgs<uint8_t>{
-        q, k_new, v_new, static_cast<uint8_t*>(k_all), static_cast<uint8_t*>(v_all),
-        freq, out, scores, mscale, inv_sqrt_d,
-        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks}, smem, st);
-  return ERR_ARGS;
+  const int* no_lanes = nullptr;
+  return dispatch(kv_type, q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
+                  scores, no_lanes, (size_t)0, layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink,
+                  pos, kv_sinks, 1, kv_len, static_cast<cudaStream_t>(stream));
+}
+
+// B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the device. The
+// score space is sized from the window: shared memory if S slots fit, else
+// `scores` (B, Hk, S, qpk).
+extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* k_new,
+                                      const float* v_new, void* k_all, void* v_all,
+                                      const float* freq, float mscale, float inv_sqrt_d,
+                                      float* out, float* scores, const int* lanes, int B,
+                                      int L, int layer, int S, int Hk, int qpk, int D,
+                                      int kv_sinks, void* stream) {
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 || !lanes)
+    return ERR_ARGS;
+  const size_t lane_stride = (size_t)L * S * Hk * D;
+  return dispatch(kv_type, q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
+                  scores, lanes, lane_stride, layer, S, Hk, qpk, D, 0, 1, 0, 0, kv_sinks, B,
+                  S, static_cast<cudaStream_t>(stream));
 }

@@ -116,6 +116,13 @@ template <> struct WChunk<W_I4> {
   }
 };
 
+// The GLU activation of the fused FFN epilogues (ffn.py:95-101): 0 silu,
+// 1 tanh-approximated gelu with the reference's constants.
+__device__ __forceinline__ float glu_act(float h, int act) {
+  if (act == 0) return h * (1.0f / (1.0f + expf(-h)));
+  return 0.5f * h * (1.0f + tanhf(0.797885f * (h + 0.044715f * h * h * h)));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -3,8 +3,17 @@
 //
 // Replaces yalm_tpu/ops/pallas/gemv.py:gemm_l (and :gemm, its 2-D form):
 // the prefill chunk projections, M = 16/64/256 rows against one weight
-// stream. gemm4_kernel below replaces :gemm4_l (and :gemm4) for packed int4
-// weights.
+// stream, and the batched tick's projections at M = batch rows.
+// gemm4_kernel below replaces :gemm4_l (and :gemm4) for packed int4 weights.
+//
+// Epilogues (both kernels): + residual[m, n]; or the GLU pair, which makes
+// them the two weight sweeps of ops/pallas/ffn.py:ffn_l and :ffn4_l for any
+// number of rows (the GEMV route takes <= 8): rows n and H + n of W13 give
+// h1, h3 (each * its scale) and Y[m, n] = bf16(act(h1) * h3), (M, H). A GLU
+// tile stages 64 pairs: warp column w holds W13 rows n0+16w..n0+16w+15 (h1)
+// in its first 16 tile rows and the matching H + n rows (h3) in its last
+// 16, so each thread's mma fragments hold both halves of its pairs.
+// rmsnorm_rows_kernel is the route's prologue (ffn.py:46-50).
 //
 // Bound on this card: at M = 256 the flops (2*M*N*K, e.g. 60 GFLOP for a
 // Mistral-7B w13) outweigh the fp8 weight bytes (117 MB) by ~500 flops/byte,
@@ -35,11 +44,82 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int WT>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const void* __restrict__ w, const float* __restrict__ x,
-            const float* __restrict__ scale, float* __restrict__ y,
-            int layer, int M, int N, int K) {
+// The W row staged at row r (0..BN-1) of the tile that starts at n0, and
+// whether it exists. Plain tiles: rows n0..n0+BN-1 of N. GLU tiles (n0 a
+// pair index, H = N/2 pairs): see the file comment.
+template <bool GLU>
+__device__ __forceinline__ int tile_row(int n0, int r, int N, bool* ok) {
+  if (!GLU) {
+    *ok = n0 + r < N;
+    return n0 + r;
+  }
+  const int H = N / 2, w = r >> 5, j = r & 31, p = n0 + 16 * w + (j & 15);
+  *ok = p < H;
+  return j < 16 ? p : H + p;
+}
+
+struct GemmArgs {
+  const void* w;          // (L, N, K) of the weight type; int4: (L, N, K/2) packed
+  const float* x;         // (M, K)
+  const float* scale;     // (L, N) per-row scales, or null
+  const float* gscale;    // (L, K / group, N) int4 group scales
+  const float* residual;  // (M, N) or null (not with the GLU pair)
+  float* y;               // (M, N), or (M, N/2) for the GLU pair
+  int layer, M, N, K, group, act;
+};
+
+// The epilogue of one thread's 2 x 4 fragments (acc[mi][ni][e]: row
+// wm*32 + mi*16 + g + 8*(e>>1), tile column wn*32 + ni*8 + 2t + (e&1)).
+template <bool GLU>
+__device__ __forceinline__ void store(const GemmArgs& a, float (&acc)[2][4][4], int m0,
+                                      int n0, int wm, int wn, int g, int t) {
+  const size_t srow = (size_t)a.layer * a.N;
+  if (GLU) {
+    const int H = a.N / 2;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
+          const int p = n0 + 16 * wn + ni * 8 + 2 * t + (e & 1);
+          if (r < a.M && p < H) {
+            float h1 = acc[mi][ni][e], h3 = acc[mi][ni + 2][e];
+            if (a.scale) {
+              h1 *= a.scale[srow + p];
+              h3 *= a.scale[srow + H + p];
+            }
+            a.y[(size_t)r * H + p] = bf16_round(glu_act(h1, a.act) * h3);
+          }
+        }
+    return;
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
+        const int c = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
+        if (r < a.M && c < a.N) {
+          float v = acc[mi][ni][e];
+          if (a.scale) v *= a.scale[srow + c];
+          if (a.residual) v += a.residual[(size_t)r * a.N + c];
+          a.y[(size_t)r * a.N + c] = v;
+        }
+      }
+}
+
+// first output column (or pair) of this block's tile
+template <bool GLU>
+__device__ __forceinline__ int tile_n0() {
+  return blockIdx.y * (GLU ? BN / 2 : BN);
+}
+
+template <int WT, bool GLU>
+__global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   __shared__ __align__(16) __nv_bfloat16 xs[BM][BK + PAD];
   __shared__ __align__(16) __nv_bfloat16 ws[BN][BK + PAD];
   using C = WChunk<WT>;
@@ -48,9 +128,10 @@ gemm_kernel(const void* __restrict__ w, const float* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 32 x 32
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = a.M, N = a.N, K = a.K;
+  const int m0 = blockIdx.x * BM, n0 = tile_n0<GLU>();
   const size_t row_chunks = (size_t)K / PER;
-  const uint4* wl = reinterpret_cast<const uint4*>(w) + (size_t)layer * N * row_chunks;
+  const uint4* wl = reinterpret_cast<const uint4*>(a.w) + (size_t)a.layer * N * row_chunks;
 
   float acc[2][4][4];
 #pragma unroll
@@ -65,15 +146,17 @@ gemm_kernel(const void* __restrict__ w, const float* __restrict__ x,
       const int r = i / (BK / 4), c4 = i % (BK / 4);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m0 + r < M)
-        v = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + k0 + 4 * c4);
+        v = *reinterpret_cast<const float4*>(a.x + (size_t)(m0 + r) * K + k0 + 4 * c4);
       *reinterpret_cast<__nv_bfloat162*>(&xs[r][4 * c4]) = __floats2bfloat162_rn(v.x, v.y);
       *reinterpret_cast<__nv_bfloat162*>(&xs[r][4 * c4 + 2]) = __floats2bfloat162_rn(v.z, v.w);
     }
     for (int i = tid; i < BN * CPR; i += THREADS) {
       const int r = i / CPR, c = i % CPR;
+      bool ok;
+      const int wr = tile_row<GLU>(n0, r, N, &ok);
       float f[PER];
-      if (n0 + r < N) {
-        C::unpack(__ldg(wl + (size_t)(n0 + r) * row_chunks + k0 / PER + c), f);
+      if (ok) {
+        C::unpack(__ldg(wl + (size_t)wr * row_chunks + k0 / PER + c), f);
       } else {
 #pragma unroll
         for (int j = 0; j < PER; ++j) f[j] = 0.f;
@@ -108,29 +191,7 @@ gemm_kernel(const void* __restrict__ w, const float* __restrict__ x,
     }
     __syncthreads();
   }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
-        const int c = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
-        if (r < M && c < N) {
-          float v = acc[mi][ni][e];
-          if (scale) v *= scale[(size_t)layer * N + c];
-          y[(size_t)r * N + c] = v;
-        }
-      }
-}
-
-template <int WT>
-int launch(const void* w, const float* x, const float* scale, float* y,
-           int layer, int M, int N, int K, cudaStream_t st) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_kernel<WT><<<grid, THREADS, 0, st>>>(w, x, scale, y, layer, M, N, K);
-  return (int)cudaGetLastError();
+  store<GLU>(a, acc, m0, n0, wm, wn, g, t);
 }
 
 // Packed int4 weights (L, N, K/2) with group scales (L, G, N):
@@ -144,21 +205,20 @@ int launch(const void* w, const float* x, const float* scale, float* y,
 // acc += part * gscale[g, n] (the scale multiplies the f32 partial).
 constexpr int BK4 = 64;
 
-__global__ void __launch_bounds__(THREADS)
-gemm4_kernel(const uint8_t* __restrict__ w, const float* __restrict__ x,
-             const float* __restrict__ gscale, float* __restrict__ y,
-             int layer, int M, int N, int K, int group) {
+template <bool GLU>
+__global__ void __launch_bounds__(THREADS) gemm4_kernel(GemmArgs a) {
   __shared__ __align__(16) __nv_bfloat16 xs[BM][BK4 + PAD];
   __shared__ __align__(16) __nv_bfloat16 ws[BN][BK4 + PAD];
   using C = WChunk<W_I4>;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int g8 = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int M = a.M, N = a.N, K = a.K, group = a.group;
+  const int m0 = blockIdx.x * BM, n0 = tile_n0<GLU>();
   const int G = K / group, half = group / 2;  // half: packed bytes of a group row
   const size_t row_bytes = (size_t)K / 2;
-  const uint8_t* wl = w + (size_t)layer * N * row_bytes;
-  const float* gl = gscale + (size_t)layer * G * N;
+  const uint8_t* wl = static_cast<const uint8_t*>(a.w) + (size_t)a.layer * N * row_bytes;
+  const float* gl = a.gscale + (size_t)a.layer * G * N;
 
   float acc[2][4][4], part[2][4][4];
 #pragma unroll
@@ -185,16 +245,18 @@ gemm4_kernel(const uint8_t* __restrict__ w, const float* __restrict__ x,
         const int c = v >> 5, j = v & 31;
         const int col = g * group + b0 + 16 * c + (j < 16 ? j : half + j - 16);
         float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (m0 + r < M) val = *reinterpret_cast<const float4*>(x + (size_t)(m0 + r) * K + col);
+        if (m0 + r < M) val = *reinterpret_cast<const float4*>(a.x + (size_t)(m0 + r) * K + col);
         *reinterpret_cast<__nv_bfloat162*>(&xs[r][v]) = __floats2bfloat162_rn(val.x, val.y);
         *reinterpret_cast<__nv_bfloat162*>(&xs[r][v + 2]) = __floats2bfloat162_rn(val.z, val.w);
       }
       for (int i = tid; i < BN * 2; i += THREADS) {
         const int r = i >> 1, c = i & 1;
+        bool ok;
+        const int wr = tile_row<GLU>(n0, r, N, &ok);
         float f[C::PER16];
-        if (n0 + r < N) {
+        if (ok) {
           C::unpack(__ldg(reinterpret_cast<const uint4*>(
-                        wl + (size_t)(n0 + r) * row_bytes + (size_t)g * half + b0 + 16 * c)), f);
+                        wl + (size_t)wr * row_bytes + (size_t)g * half + b0 + 16 * c)), f);
         } else {
 #pragma unroll
           for (int j = 0; j < C::PER16; ++j) f[j] = 0.f;
@@ -235,8 +297,9 @@ gemm4_kernel(const uint8_t* __restrict__ w, const float* __restrict__ x,
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int e1 = 0; e1 < 2; ++e1) {
-        const int c = n0 + wn * 32 + ni * 8 + 2 * t + e1;
-        const float s = c < N ? __ldg(gl + (size_t)g * N + c) : 0.f;
+        bool ok;
+        const int wr = tile_row<GLU>(n0, wn * 32 + ni * 8 + 2 * t + e1, N, &ok);
+        const float s = ok ? __ldg(gl + (size_t)g * N + wr) : 0.f;
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           acc[mi][ni][e1] = fmaf(part[mi][ni][e1], s, acc[mi][ni][e1]);
@@ -244,45 +307,87 @@ gemm4_kernel(const uint8_t* __restrict__ w, const float* __restrict__ x,
         }
       }
   }
+  store<GLU>(a, acc, m0, n0, wm, wn, g8, t);
+}
 
+// The FFN route's prologue: one block per row,
+//   out[m, k] = bf16(x[m, k] * rsqrt(mean(x[m]^2) + eps) * norm_w[layer, k])
+// as f32 (ffn.py:46-50), the sum of squares in f32 as csrc/gemv.cu's norm.
+__global__ void __launch_bounds__(THREADS)
+rmsnorm_rows_kernel(const float* __restrict__ x, const float* __restrict__ norm_w,
+                    float* __restrict__ out, int K, float eps) {
+  __shared__ float part[THREADS / 32];
+  const float* xr = x + (size_t)blockIdx.x * K;
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < K; k += THREADS) ss = fmaf(xr[k], xr[k], ss);
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float tot = 0.f;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = m0 + wm * 32 + mi * 16 + g8 + 8 * (e >> 1);
-        const int c = n0 + wn * 32 + ni * 8 + 2 * t + (e & 1);
-        if (r < M && c < N) y[(size_t)r * N + c] = acc[mi][ni][e];
-      }
+  for (int i = 0; i < THREADS / 32; ++i) tot += part[i];
+  const float rs = 1.0f / sqrtf(tot / (float)K + eps);
+  float* orow = out + (size_t)blockIdx.x * K;
+  for (int k = threadIdx.x; k < K; k += THREADS) orow[k] = bf16_round(xr[k] * rs * norm_w[k]);
+}
+
+dim3 grid_of(int M, int N, bool glu) {
+  return dim3((M + BM - 1) / BM, glu ? (N / 2 + BN / 2 - 1) / (BN / 2) : (N + BN - 1) / BN);
+}
+
+template <int WT>
+int launch(const GemmArgs& a, bool glu, cudaStream_t st) {
+  if (glu)
+    gemm_kernel<WT, true><<<grid_of(a.M, a.N, true), THREADS, 0, st>>>(a);
+  else
+    gemm_kernel<WT, false><<<grid_of(a.M, a.N, false), THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool args_ok(int M, int N, int layer, bool glu, const float* residual) {
+  return M >= 1 && M <= 65535 * BM && N >= 1 && layer >= 0 && (!glu || (N % 2 == 0 && !residual)) &&
+         grid_of(M, N, glu).y <= 65535;
 }
 
 }  // namespace
 
-extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K,
-                       const float* x, int M, const float* scale, float* y,
-                       void* stream) {
-  if (M < 1 || N < 1 || K < BK || K % BK || layer < 0 || (N + BN - 1) / BN > 65535)
-    return ERR_ARGS;
+// glu: 1 for the GLU-pair epilogue (act 0 silu, 1 gelu; y is (M, N/2)).
+extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K, const float* x,
+                       int M, const float* scale, const float* residual, float* y, int glu,
+                       int act, void* stream) {
+  if (!args_ok(M, N, layer, glu, residual) || K < BK || K % BK) return ERR_ARGS;
+  const GemmArgs a{w, x, scale, nullptr, residual, y, layer, M, N, K, 0, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wtype) {
-    case W_F32: return launch<W_F32>(w, x, scale, y, layer, M, N, K, st);
-    case W_BF16: return launch<W_BF16>(w, x, scale, y, layer, M, N, K, st);
-    case W_E5M2: return launch<W_E5M2>(w, x, scale, y, layer, M, N, K, st);
-    case W_I8: return launch<W_I8>(w, x, scale, y, layer, M, N, K, st);
+    case W_F32: return launch<W_F32>(a, glu != 0, st);
+    case W_BF16: return launch<W_BF16>(a, glu != 0, st);
+    case W_E5M2: return launch<W_E5M2>(a, glu != 0, st);
+    case W_I8: return launch<W_I8>(a, glu != 0, st);
     default: return ERR_ARGS;
   }
 }
 
 // Packed int4 (ops/cuda/gemv.py checks types, shapes and 16-byte alignment).
-extern "C" int yt_gemm4(const void* w, int layer, int N, int K, int group,
-                        const float* x, int M, const float* gscale, float* y,
-                        void* stream) {
-  if (M < 1 || N < 1 || layer < 0 || (group != 256 && group != 512) || K < group ||
-      K % group || (N + BN - 1) / BN > 65535 || !gscale)
+extern "C" int yt_gemm4(const void* w, int layer, int N, int K, int group, const float* x,
+                        int M, const float* gscale, const float* residual, float* y, int glu,
+                        int act, void* stream) {
+  if (!args_ok(M, N, layer, glu, residual) || (group != 256 && group != 512) || K < group ||
+      K % group || !gscale)
     return ERR_ARGS;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm4_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(w), x, gscale, y, layer, M, N, K, group);
+  const GemmArgs a{w, x, nullptr, gscale, residual, y, layer, M, N, K, group, act};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (glu)
+    gemm4_kernel<true><<<grid_of(M, N, true), THREADS, 0, st>>>(a);
+  else
+    gemm4_kernel<false><<<grid_of(M, N, false), THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// norm_w: the layer's (K,) row of the stacked norm weights.
+extern "C" int yt_rmsnorm_rows(const float* x, int M, int K, const float* norm_w, float eps,
+                               float* out, void* stream) {
+  if (M < 1 || K < 1) return ERR_ARGS;
+  rmsnorm_rows_kernel<<<M, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, norm_w, out,
+                                                                          K, eps);
   return (int)cudaGetLastError();
 }

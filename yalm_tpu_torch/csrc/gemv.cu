@@ -73,11 +73,6 @@ __device__ __forceinline__ void load_xs(const __nv_bfloat16* p, float* o) {
   }
 }
 
-__device__ __forceinline__ float glu_act(float h, int act) {
-  if (act == 0) return h * (1.0f / (1.0f + expf(-h)));
-  return 0.5f * h * (1.0f + tanhf(0.797885f * (h + 0.044715f * h * h * h)));
-}
-
 template <int WT, int MAXB, bool GLU>
 __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];

@@ -1,5 +1,8 @@
 """Fast decode and chunked prefill on the hand-written kernels (port of
-`yalm_tpu/models/fast.py`, dense models on one device).
+`yalm_tpu/models/fast.py`, dense models on one device), single-sequence and
+for the continuous-batching scheduler (`decode_step_fast_batched`: one tick
+for B lanes of a batched cache; `prefill_chunk_fast_batched`: every
+admitting lane's next prompt chunk in one weight sweep).
 
 One decode step per token: embedding gather, then per layer the attention
 block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
@@ -9,7 +12,9 @@ layer-indexed `gemm_l` for every projection of a chunk and leaves the chunk
 attention to plain torch (as the JAX package leaves it to XLA). int4
 checkpoints (packed uint8 layer weights with group scales; int8 embedding
 and LM head) take `attn_block4_l`, `ffn4_l` and `gemm4_l` on the same
-route. The KV cache (bf16 or e5m2) is updated IN PLACE. Models outside
+route. The batched paths run `gemm_l`/`gemm4_l` over the B (or B*T) rows,
+`attend_step_batched_l` and the many-row `ffn`. The KV cache (bf16 or
+e5m2) is updated IN PLACE. Models outside
 this slice (MoE, qk-norm, sandwich norms, softcaps, sliding layers) raise
 NotImplementedError.
 """
@@ -26,9 +31,11 @@ import torch
 from ..codec.format import numpy_to_torch, tag_for_numpy
 from ..config import KV_SINKS, ModelConfig
 from ..ops.core import NEG_INF, apply_rope, gelu, rmsnorm, silu
+from ..ops.cuda import _build
+from ..ops.cuda.attention import attend_step_batched, lane_scalars
 from ..ops.cuda.block import attn_block
 from ..ops.cuda.ffn import ffn
-from ..ops.cuda.gemv import bf16f, gemm, gemm4_l, gemm_l, gemv, is_int4
+from ..ops.cuda.gemv import bf16f, gemm, gemv, is_int4, launch_gemm, proj_plain
 from ..ops.int4 import int4_group
 from .cache import KVCache
 
@@ -153,6 +160,13 @@ def fast_unsupported(cfg: ModelConfig) -> Optional[str]:
 def fast_supported(cfg: ModelConfig) -> bool:
     """Whether this model's shapes fit the port's Hopper kernels."""
     return fast_unsupported(cfg) is None
+
+
+def fast_batched_supported(cfg: ModelConfig) -> bool:
+    """Batched tick support: the same kernels with more rows (the batched
+    attention takes any window, its scores past shared memory in global
+    scratch, and the FFN's GEMM route any row count)."""
+    return fast_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -345,12 +359,15 @@ def _attend_chunk_bf16(q4, kc, vc, mask, D):
     return torch.einsum("gqtl,lgd->tgqd", bf16f(att), bf16f(vc))
 
 
-def _proj_l(x2d, w_all, layer, scale):
-    """Layer-indexed projection of a chunk: packed int4 weights take the
-    group-scale kernel, every other type the per-row dequant GEMM."""
-    if is_int4(w_all):
-        return gemm4_l(x2d, w_all, layer, scale)
-    return gemm_l(x2d, w_all, layer, scale)
+def _proj_l(x2d, w_all, layer, scale, residual=None):
+    """Layer-indexed projection of a chunk (gemm_l, or gemm4_l for packed
+    int4 weights), + residual in the kernel's epilogue."""
+    if _build.device_kind(x2d, w_all, scale, residual) == "cpu":
+        out = proj_plain(x2d, w_all, layer, scale)
+        return out if residual is None else residual + out
+    return launch_gemm("gemm4_l" if is_int4(w_all) else "gemm_l", x2d.contiguous(), w_all,
+                       layer, scale,
+                       residual=None if residual is None else residual.contiguous())
 
 
 def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
@@ -412,3 +429,159 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
         xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
         return gemm(xn, fw.lm_head, sc.lm_head if sc else None), cache
     raise ValueError(f"bad logits_mode {logits_mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: the batched tick and batched chunk admission
+# ---------------------------------------------------------------------------
+
+def _host_ints(a, n: int | None = None) -> np.ndarray:
+    """Per-lane host integers (the scheduler's positions live on the host,
+    so no device value is read back)."""
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    out = np.asarray(a, np.int64).reshape(-1)
+    if n is not None and out.shape != (n,):
+        raise ValueError(f"expected {n} per-lane values, got {out.shape}")
+    return out
+
+
+def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, positions,
+                             cache: KVCache, write_mask=None
+                             ) -> tuple[torch.Tensor, KVCache]:
+    """One decode tick for B independent sequences sharing the weights
+    (fast.py:802-876). tokens (B,) ids; positions (B,) absolute positions
+    and write_mask (B,) (0 = read-only lane; default every lane writes) on
+    the host; cache batched (B, L, S, Hk, D), updated IN PLACE. Per layer:
+    rmsnorm, the wqkv GEMM over the B rows, bias and clip, the batched
+    attention step, the wo GEMM + residual, the many-row FFN; then the
+    final norm and the LM-head GEMM. Returns (logits (B, vocab) f32, cache)."""
+    _check_slice(cfg)
+    sc = fw.scales
+    dev = fw.wqkv.device
+    pos = _host_ints(positions)
+    Bn = pos.shape[0]
+    if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
+        raise ValueError(f"decode_step_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
+    L = cfg.max_seq_len
+    Hk, D = cfg.n_kv_heads, cfg.head_dim
+    qpk = cfg.n_heads // Hk
+    kv_sink = np.where(pos >= L, KV_SINKS, 0)
+    kv_pos = kv_sink + (pos - kv_sink) % (L - kv_sink)
+    kv_len = np.minimum(pos + 1, L)
+    write = None if write_mask is None else _host_ints(write_mask, Bn)
+    lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=L, kv_sinks=KV_SINKS,
+                         device=dev)
+    rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    x = _embed(cfg, fw, tokens)                        # (B, dim)
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv)
+        mixed = attend_step_batched(
+            qkv[:, :q_dim].reshape(Bn, Hk, qpk, D),
+            qkv[:, q_dim:q_dim + kv_dim].reshape(Bn, Hk, D),
+            qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D),
+            cache.k, cache.v, i, lanes, **rope)
+        x = _proj_l(mixed.reshape(Bn, q_dim), fw.wo, i, sc.wo if sc else None, residual=x)
+        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
+                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+
+    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemm(x, fw.lm_head, sc.lm_head if sc else None), cache
+
+
+def _attend_chunk_batched(q5, kc, vc, mask, D):
+    """Batched chunk attention (fast.py:1332-1342): q5 (B, T, Hk, qpk, D),
+    kc/vc (B, S, Hk, D), mask (B, T, S); bf16 operands, f32 sums and an f32
+    softmax; plain torch on every device."""
+    scores = torch.einsum("btgqd,bsgd->bgqts", bf16f(q5), bf16f(kc)) / math.sqrt(D)
+    scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    return torch.einsum("bgqts,bsgd->btgqd", bf16f(att), bf16f(vc))
+
+
+def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len,
+                               enable, cache: KVCache, *, attend_len: int = 0,
+                               logits_mode: str = "lastv"
+                               ) -> tuple[Optional[torch.Tensor], KVCache]:
+    """Batched chunked admission (fast.py:1283, 1307-1426): every enabled
+    lane's next prompt chunk -- tokens (B, T) padded, its first valid_len[b]
+    rows real, at positions pos0[b].. -- hydrates in ONE weight sweep. The
+    valid rows of enabled lanes are written into the batched cache IN PLACE;
+    other lanes change nothing. pos0/valid_len/enable are host values.
+    attend_len (0 = the window) bounds the attention width; it must cover
+    every enabled lane's pos0 + T.
+
+    logits_mode: "lastv" -> (B, vocab) logits of each lane's last valid
+    row; "none" -> None; "all" -> (B, T, vocab). ("all_h", Medusa's, comes
+    with speculation.)"""
+    _check_slice(cfg)
+    sc = fw.scales
+    dev = fw.wqkv.device
+    tok = np.asarray(tokens, np.int64)
+    if tok.ndim != 2:
+        raise ValueError(f"prefill_chunk_fast_batched: tokens must be (B, T), got {tok.shape}")
+    Bn, T = tok.shape
+    p0, vlen = _host_ints(pos0, Bn), _host_ints(valid_len, Bn)
+    en = _host_ints(enable, Bn) != 0
+    L = cfg.max_seq_len
+    S = attend_len or L
+    if S % 8 or S > L:
+        raise ValueError(f"prefill_chunk_fast_batched: attend_len {S} vs window {L}")
+    if en.any() and ((p0[en] < 0).any() or (p0[en] + T > S).any()
+                     or (vlen[en] < 0).any() or (vlen[en] > T).any()):
+        raise ValueError(f"prefill_chunk_fast_batched: chunks at {p0[en].tolist()} of {T} rows "
+                         f"(valid {vlen[en].tolist()}) vs attend_len {S}")
+    if logits_mode not in ("none", "lastv", "all"):
+        raise ValueError(f"bad logits_mode {logits_mode!r}")
+    if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
+        raise ValueError(f"prefill_chunk_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qpk = Hq // Hk
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+
+    p0 = np.where(en, p0, 0)   # disabled lanes compute from slot 0 and write nothing
+    positions = torch.as_tensor(p0[:, None] + np.arange(T)[None, :], device=dev)  # (B, T)
+    att_mask = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
+    # the rows to write: (lane, chunk row) of every valid row of an enabled lane
+    li, ti = np.nonzero(en[:, None] & (np.arange(T)[None, :] < vlen[:, None]))
+    li_t, ti_t = torch.as_tensor(li, device=dev), torch.as_tensor(ti, device=dev)
+    slots_t = torch.as_tensor(p0[li] + ti, device=dev)
+    x = _embed(cfg, fw, tok.reshape(-1))               # (B*T, dim)
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv).reshape(Bn, T, -1)
+        q = apply_rope(qkv[..., :q_dim].reshape(Bn, T, Hq, D), positions,
+                       cfg.rope_param, cfg.rotary_dim)
+        k = apply_rope(qkv[..., q_dim:q_dim + kv_dim].reshape(Bn, T, Hk, D), positions,
+                       cfg.rope_param, cfg.rotary_dim)
+        v = qkv[..., q_dim + kv_dim:].reshape(Bn, T, Hk, D)
+        if len(li):
+            for c, rows in ((cache.k, k), (cache.v, v)):
+                # through same-width integer views: not every backend indexes fp8
+                _bits(c[:, i])[li_t, slots_t] = _bits(rows[li_t, ti_t].to(c.dtype))
+        mixed = _attend_chunk_batched(q.reshape(Bn, T, Hk, qpk, D), cache.k[:, i, :S],
+                                      cache.v[:, i, :S], att_mask, D)
+        x = _proj_l(mixed.reshape(Bn * T, q_dim), fw.wo, i, sc.wo if sc else None,
+                    residual=x)
+        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
+                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+
+    if logits_mode == "none":
+        return None, cache
+    if logits_mode == "lastv":
+        last = torch.as_tensor(np.maximum(vlen, 1) - 1, device=dev)
+        x = x.reshape(Bn, T, -1)[torch.arange(Bn, device=dev), last]
+        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+        return gemm(xn, fw.lm_head, sc.lm_head if sc else None), cache
+    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemm(xn, fw.lm_head, sc.lm_head if sc else None).reshape(Bn, T, -1), cache

@@ -1,10 +1,14 @@
-"""Fused decode attention step (port of `attend_step_l`,
+"""Fused decode attention step (port of `attend_step_l` and its
+continuous-batching form `attend_step_batched_l`,
 `yalm_tpu/ops/pallas/attention.py`).
 
 One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
 `kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
 aliased its buffers), the lazy StreamingLLM sink view in the ring regime,
-then GQA attention over slots < kv_len. Kernel: `csrc/attention.cu`. The
+then GQA attention over slots < kv_len. The batched form does this for B
+lanes of a (B, L, S, Hk, D) cache in one launch, each lane with its own
+scalars; a lane whose `write` is 0 changes nothing and attends the cache as
+it is (lanes mid-admission). Kernel: `csrc/attention.cu`. The
 cache is bf16 or fp8 e5m2 (`-C fp8`): the new row is rounded from f32 to
 the cache type in one step, attention reads the cache widened to bf16
 (exact), and the sink view is rounded to bf16, the working type, for
@@ -69,17 +73,19 @@ def sink_view(k: torch.Tensor, kv_sink: int, pos: int, *, theta,
 
 
 def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
-                      kv_sink, pos, *, kv_sinks, theta, rotary_dim):
+                      kv_sink, pos, *, kv_sinks, theta, rotary_dim, write=True):
     """The JAX emulation `_attn_step_ref` (attention.py:775-802): mutates
     k_all/v_all in place, returns mix (Hk, qpk, D) f32. The new rows are
     rounded from f32 to the cache type in one step. Normalises the softmax
     before the bf16 cast of p, as the emulation and the CUDA kernel do (the
-    Pallas kernel's online softmax normalises after)."""
+    Pallas kernel's online softmax normalises after). write=False changes
+    nothing and attends the cache as it is (attention.py:571-588)."""
     L, S, Hk, D = k_all.shape
     _, qpk, _ = q.shape
     q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos) * (1.0 / math.sqrt(D))
-    k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
-    v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
+    if write:
+        k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
+        v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
     k = sink_view(k_all[layer], kv_sink, pos, theta=theta, rotary_dim=rotary_dim)
     q3 = bf16f(q2).reshape(Hk, qpk, D)
     scores = torch.einsum("gpd,sgd->gps", q3, bf16f(k))
@@ -142,3 +148,112 @@ def attend_step_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if B.device_kind(q, k_new, v_new, k_all, v_all) == "cpu":
         return attend_step_plain(*args, **kw)
     return launch_attend_step(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching: B lanes in one launch
+# ---------------------------------------------------------------------------
+
+LANE_FIELDS = ("kv_pos", "kv_len", "kv_sink", "pos", "write")
+
+
+def lane_scalars(kv_pos, kv_len, kv_sink, pos, write=None, *, S: int, kv_sinks: int,
+                 device) -> torch.Tensor:
+    """The (5, B) int32 lane scalars (kv_pos, kv_len, kv_sink, pos, write)
+    on `device`, uploaded once: the batched step reads them on the device,
+    so no layer waits for the host. Values given on the host are checked
+    here (1 <= kv_len <= S, 0 <= kv_pos < S, 0 <= kv_sink <= kv_sinks);
+    the kernel gives a lane it cannot take a NaN output and writes nothing."""
+    cols = [kv_pos, kv_len, kv_sink, pos,
+            torch.ones(len(pos), dtype=torch.int32) if write is None else write]
+    if all(isinstance(c, torch.Tensor) and c.device.type != "cpu" for c in cols):
+        return torch.stack([c.to(torch.int32) for c in cols])
+    host = torch.stack([torch.as_tensor(c).cpu().to(torch.int32).reshape(-1) for c in cols])
+    kp, kl, ks = host[0], host[1], host[2]
+    if not (bool(((kl >= 1) & (kl <= S)).all()) and bool(((kp >= 0) & (kp < S)).all())
+            and bool(((ks >= 0) & (ks <= kv_sinks)).all())):
+        raise ValueError(f"lane scalars out of range for a window of {S}: "
+                         f"{dict(zip(LANE_FIELDS, host.tolist()))}")
+    return host.to(device)
+
+
+def attend_step_batched_plain(q, k_new, v_new, k_all, v_all, layer, lanes, *,
+                              kv_sinks, theta, rotary_dim):
+    """The JAX emulation branch (attention.py:564-590): `attend_step_plain`
+    per lane on views of the lane's cache, which it mutates in place unless
+    the lane's write is 0. Returns mix (B, Hk, qpk, D) f32."""
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for b, (kp, kl, ks, p, wr) in enumerate(lanes.T.tolist()):
+        out[b] = attend_step_plain(q[b], k_new[b], v_new[b], k_all[b], v_all[b], layer,
+                                   kp, kl, ks, p, kv_sinks=kv_sinks, theta=theta,
+                                   rotary_dim=rotary_dim, write=wr != 0)
+    return out
+
+
+def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
+                               kv_sinks, theta, rotary_dim):
+    """One launch of csrc/attention.cu over B lanes on CUDA tensors (adds
+    one to LAUNCHES["attend_step_batched_l"])."""
+    Bn, L, S, Hk, D = k_all.shape
+    qpk = q.shape[2]
+    B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
+              f"attend_step_batched_l: the kernel takes a bf16 or e5m2 cache, got {k_all.dtype}")
+    B.require(k_all.is_contiguous() and v_all.is_contiguous() and v_all.shape == k_all.shape,
+              "attend_step_batched_l: k_all/v_all must be contiguous (B, L, S, Hk, D)")
+    B.require(tuple(q.shape) == (Bn, Hk, qpk, D) and D % 8 == 0 and qpk * D <= 2048,
+              f"attend_step_batched_l: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}")
+    B.require(tuple(k_new.shape) == (Bn, Hk, D) and tuple(v_new.shape) == (Bn, Hk, D),
+              "attend_step_batched_l: k_new/v_new must be (B, Hk, D)")
+    B.require(lanes.dtype == torch.int32 and tuple(lanes.shape) == (5, Bn)
+              and lanes.is_contiguous(), "attend_step_batched_l: lanes must be (5, B) int32")
+    B.require(0 <= layer < L, "attend_step_batched_l: layer out of range")
+    B.require(B.aligned16(k_all, v_all), "attend_step_batched_l: cache must be 16-byte aligned")
+    qc = q.float().contiguous()
+    kn = k_new.float().contiguous()
+    vn = v_new.float().contiguous()
+    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
+    # a lane's kv_len lives on the device: the score space holds the window
+    scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
+              torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
+    code = B.lib().yt_attend_step_batched(
+        B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all),
+        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
+        B.ptr(lanes), Bn, L, layer, S, Hk, qpk, D, kv_sinks, B.stream_ptr())
+    B.check(code, "attend_step_batched_l")
+    B.LAUNCHES["attend_step_batched_l"] += 1
+    return out
+
+
+def attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *, kv_sinks,
+                        theta, rotary_dim):
+    """The batched step with the lane scalars already packed by
+    `lane_scalars` (the tick packs them once for every layer)."""
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    args = (q, k_new, v_new, k_all, v_all, layer, lanes)
+    if B.device_kind(q, k_new, v_new, k_all, v_all, lanes) == "cpu":
+        return attend_step_batched_plain(*args, **kw)
+    return launch_attend_step_batched(*args, **kw)
+
+
+def attend_step_batched_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                          k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
+                          kv_pos, kv_len, kv_sink, pos, write=None, win=None, alt=None, *,
+                          kv_sinks: int, theta, rotary_dim: int,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Batched attend_step_l for the continuous-batching tick.
+
+    q: (B, Hk, qpk, D) f32 unrotated, unscaled; k_new/v_new: (B, Hk, D) f32.
+    k_all/v_all: (B, L, S, Hk, D), updated IN PLACE at each writing lane's
+    slot kv_pos. kv_pos/kv_len/kv_sink/pos/write: (B,) ints per lane (write
+    0 = read-only lane; default: every lane writes). Returns mix (B, Hk,
+    qpk, D) f32. (The JAX function also returns the caches, which are the
+    same tensors here.)"""
+    if win is not None or alt is not None or softcap:
+        raise NotImplementedError(
+            "attend_step_batched_l: sliding window, alternate rope and softcap are a later "
+            "slice (see ROADMAP.md)")
+    lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=k_all.shape[2],
+                         kv_sinks=kv_sinks, device=k_all.device)
+    return attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes,
+                               kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)

@@ -5,12 +5,20 @@
 
 The TPU runs this as ONE Pallas kernel with both weight streams inside; on
 Hopper that would need a grid-wide barrier between the w13 and the w2 sweep,
-so on CUDA this wrapper launches two hand-written kernels in a row
-(csrc/gemv.cu twice): norm + w13 GEMV with the GLU-pair epilogue, which
-writes the bf16 GLU output, then the w2 GEMV with scale + residual. For
-int4 weights both launches take csrc/gemv.cu's int4 path, with the group
-scales of w1 and w3 concatenated along N ((L, G, 2H)). One persistent
-launch is later work.
+so on CUDA this wrapper launches hand-written kernels in a row, by row count:
+
+- up to 8 rows whose bf16 copies fit shared memory (decode, 1 row): the
+  GEMV route, csrc/gemv.cu twice -- norm + w13 GEMV with the GLU-pair
+  epilogue, which writes the bf16 GLU output, then the w2 GEMV with scale +
+  residual;
+- more rows (the batched tick, chunks): the GEMM route, csrc/gemm.cu three
+  times -- the row norm, the w13 GEMM with the GLU-pair epilogue, the w2
+  GEMM with scale + residual.
+
+Both routes round the same operands (ffn.py:47, :188), so they agree to the
+f32 summation order. For int4 weights every launch takes the kernels'
+int4 path, with the group scales of w1 and w3 concatenated along N ((L, G,
+2H)). One persistent launch is later work.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import torch
 
 from ..core import gelu, silu
 from . import _build as B
-from .gemv import bf16f, is_int4, launch_gemv, proj_plain
+from .gemv import bf16f, is_int4, launch_gemm, launch_gemv, launch_rmsnorm_rows, proj_plain
+
+SMEM_MAX = 227 * 1024
 
 
 def ffn_plain(x, norm_w, w13_all, w2_all, layer, scale13=None, scale2=None, *,
@@ -39,12 +49,18 @@ def ffn_plain(x, norm_w, w13_all, w2_all, layer, scale13=None, scale2=None, *,
     return out.reshape(x.shape)
 
 
+def gemv_route(rows: int, K: int, H: int) -> bool:
+    """Whether csrc/gemv.cu takes these rows: <= 8, staged in shared memory
+    as bf16 (x for w13, the GLU output for w2)."""
+    return rows <= 8 and rows * max(K, H) * 2 <= SMEM_MAX
+
+
 def ffn(x, norm_w, w13_all, w2_all, layer, scale13=None, scale2=None, *,
         norm_eps, act, add_residual=True):
-    """ffn_l or ffn4_l, as the weight type says (the decode path's one
-    route): per-row scales (L, N) for dense/int8 weights, group scales (L,
-    G, N) for packed int4 (uint8) ones. Launches are counted under the JAX
-    name of the twin that matches the weights."""
+    """ffn_l or ffn4_l, as the weight type says: per-row scales (L, N) for
+    dense/int8 weights, group scales (L, G, N) for packed int4 (uint8) ones.
+    Launches are counted under the JAX name of the twin that matches the
+    weights, with "_gemm" for the many-row route."""
     L, H2, K = w13_all.shape
     int4 = is_int4(w13_all)
     name = "ffn4_l" if int4 else "ffn_l"
@@ -59,11 +75,19 @@ def ffn(x, norm_w, w13_all, w2_all, layer, scale13=None, scale2=None, *,
     if B.device_kind(x, norm_w, w13_all, w2_all, scale13, scale2) == "cpu":
         return ffn_plain(x, norm_w, w13_all, w2_all, layer, scale13, scale2,
                          norm_eps=norm_eps, act=act, add_residual=add_residual)
-    gemv_name = "gemv4_l" if int4 else "gemv_l"
-    h = launch_gemv(gemv_name, x.float(), w13_all, layer, norm_w=norm_w,
-                    norm_eps=norm_eps, scale=scale13, glu_act=act)
-    out = launch_gemv(gemv_name, h, w2_all, layer, scale=scale2,
-                      residual=x.float() if add_residual else None)
+    x2 = x.float().reshape(-1, K).contiguous()
+    res = x2 if add_residual else None
+    if gemv_route(x2.shape[0], K, H2 // 2):
+        gemv_name = "gemv4_l" if int4 else "gemv_l"
+        h = launch_gemv(gemv_name, x2, w13_all, layer, norm_w=norm_w,
+                        norm_eps=norm_eps, scale=scale13, glu_act=act)
+        out = launch_gemv(gemv_name, h, w2_all, layer, scale=scale2, residual=res)
+    else:
+        gemm_name = "gemm4_l" if int4 else "gemm_l"
+        xb = launch_rmsnorm_rows(x2, norm_w, layer, norm_eps)
+        h = launch_gemm(gemm_name, xb, w13_all, layer, scale13, glu_act=act)
+        out = launch_gemm(gemm_name, h, w2_all, layer, scale2, residual=res)
+        name += "_gemm"
     B.LAUNCHES[name] += 1
     return out.reshape(x.shape)
 
@@ -73,8 +97,8 @@ def ffn_l(x: torch.Tensor, norm_w: torch.Tensor, w13_all: torch.Tensor,
           scale13: torch.Tensor | None = None,
           scale2: torch.Tensor | None = None, *,
           norm_eps: float, act: str, add_residual: bool = True) -> torch.Tensor:
-    """x: (dim,) or (B, dim) f32 residual stream(s); returns the same shape.
-    On CUDA, B <= 8 rows (the decode path has 1)."""
+    """x: (dim,) or (B, dim) f32 residual stream(s), any B; returns the
+    same shape."""
     if is_int4(w13_all):
         raise ValueError("ffn_l: packed int4 weights go to ffn4_l")
     return ffn(x, norm_w, w13_all, w2_all, layer, scale13, scale2,

@@ -5,9 +5,10 @@ int4 gemm4_l, gemv4_l, gemm4, gemv4).
 Kernels: `csrc/gemv.cu` (one warp per output row, fused rmsnorm prologue,
 scale/bias/clip/residual or GLU-pair epilogue; int4 weights with their
 group scales too) and `csrc/gemm.cu` (mma.sync bf16 tiles for the prefill
-chunks; `gemm4_kernel` for int4). Each public function chooses by its
-tensors' device: on the CPU it runs the plain version beside it, on CUDA it
-launches the kernel or raises.
+chunks and the batched tick; `gemm4_kernel` for int4; a residual or
+GLU-pair epilogue and a row-norm kernel for the many-row FFN). Each public
+function chooses by its tensors' device: on the CPU it runs the plain
+version beside it, on CUDA it launches the kernel or raises.
 
 Numerics contract (gemv.py:69-77): bf16 operands, f32 accumulation, the
 dequant scale applied to the f32 result -- for int4 (`ops/int4.py`) the
@@ -155,40 +156,61 @@ def launch_gemv(count: str, x, w_all, layer: int, *, norm_w=None,
     return out.reshape(*x.shape[:-1], n_out)
 
 
-def _launch_gemm(x, w_all, layer: int, scale=None):
-    L, N, K = w_all.shape
-    _check_weights(w_all, K, "gemm_l")
-    B.require(K % 32 == 0, f"gemm_l: K must be a multiple of 32 (K={K})")
-    x = _f32(x, "gemm_l x")
-    B.require(0 <= layer < L, f"gemm_l: layer {layer} out of range")
-    if scale is not None:
-        _f32(scale, "gemm_l scale")
-        B.require(tuple(scale.shape) == (L, N), "gemm_l: scale must be (L, N)")
-    B.require(B.aligned16(w_all, x), "gemm_l: weights and x must be 16-byte aligned")
+def launch_gemm(count: str, x, w_all, layer: int, scale=None, *, residual=None,
+                glu_act: str | None = None):
+    """One launch of csrc/gemm.cu (gemm_kernel, or gemm4_kernel for packed
+    int4 weights) on CUDA tensors (adds one to LAUNCHES[count]). x: (M, K)
+    f32; returns (M, N) f32, + residual (M, N) if given, or for the GLU
+    pair (M, N // 2) holding bf16 values. `scale` is per row (L, N), or the
+    group scales (L, G, N) of packed int4 weights."""
+    L, N, Kw = w_all.shape
+    int4 = is_int4(w_all)
+    K = 2 * Kw if int4 else Kw
+    _check_weights(w_all, K, count)
+    B.require(int4 or K % 32 == 0, f"{count}: K must be a multiple of 32 (K={K})")
+    x = _f32(x, f"{count} x")
+    B.require(x.dim() == 2 and x.shape[1] == K, f"{count}: x {tuple(x.shape)} vs K={K}")
+    B.require(0 <= layer < L, f"{count}: layer {layer} out of range")
     M = x.shape[0]
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    code = B.lib().yt_gemm(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, N, K,
-                           B.ptr(x), M, B.ptr(scale), B.ptr(y), B.stream_ptr())
-    B.check(code, "gemm_l")
-    B.LAUNCHES["gemm_l"] += 1
+    n_out = N // 2 if glu_act else N
+    if int4:
+        _gscale(w_all, scale, K, count)
+    elif scale is not None:
+        _f32(scale, f"{count} scale")
+        B.require(tuple(scale.shape) == (L, N), f"{count}: scale must be (L, N)")
+    B.require(not (glu_act and residual is not None), f"{count}: GLU output takes no residual")
+    if residual is not None:
+        residual = _f32(residual, f"{count} residual")
+        B.require(tuple(residual.shape) == (M, N), f"{count}: residual must be (M, N)")
+    B.require(B.aligned16(w_all, x), f"{count}: weights and x must be 16-byte aligned")
+    y = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
+    glu, act = (1, 1 if glu_act == "gelu" else 0) if glu_act else (0, 0)
+    if int4:
+        code = B.lib().yt_gemm4(B.ptr(w_all), layer, N, K, int4_group(K), B.ptr(x), M,
+                                B.ptr(scale), B.ptr(residual), B.ptr(y), glu, act,
+                                B.stream_ptr())
+    else:
+        code = B.lib().yt_gemm(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, N, K, B.ptr(x), M,
+                               B.ptr(scale), B.ptr(residual), B.ptr(y), glu, act,
+                               B.stream_ptr())
+    B.check(code, count)
+    B.LAUNCHES[count] += 1
     return y
 
 
-def _launch_gemm4(x, w4_all, layer: int, gscale):
-    L, N, Kp = w4_all.shape
-    K = 2 * Kp
-    _check_weights(w4_all, K, "gemm4_l")
-    x = _f32(x, "gemm4_l x")
-    _gscale(w4_all, gscale, K, "gemm4_l")
-    B.require(0 <= layer < L, f"gemm4_l: layer {layer} out of range")
-    B.require(B.aligned16(w4_all, x), "gemm4_l: weights and x must be 16-byte aligned")
-    M = x.shape[0]
-    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    code = B.lib().yt_gemm4(B.ptr(w4_all), layer, N, K, int4_group(K), B.ptr(x), M,
-                            B.ptr(gscale), B.ptr(y), B.stream_ptr())
-    B.check(code, "gemm4_l")
-    B.LAUNCHES["gemm4_l"] += 1
-    return y
+def launch_rmsnorm_rows(x, norm_w, layer: int, eps: float):
+    """One launch of csrc/gemm.cu's rmsnorm_rows_kernel (adds one to
+    LAUNCHES["rmsnorm_rows"]): x (M, K) f32 -> (M, K) f32 holding the
+    bf16-rounded normalised rows against norm_w[layer]."""
+    x = _f32(x, "rmsnorm_rows x")
+    M, K = x.shape
+    nw = _f32(norm_w[layer], "rmsnorm_rows norm_w")
+    B.require(nw.shape == (K,), f"rmsnorm_rows: norm_w row {tuple(nw.shape)} vs K={K}")
+    out = torch.empty_like(x)
+    B.check(B.lib().yt_rmsnorm_rows(B.ptr(x), M, K, B.ptr(nw), eps, B.ptr(out),
+                                    B.stream_ptr()), "rmsnorm_rows")
+    B.LAUNCHES["rmsnorm_rows"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +252,7 @@ def gemm_l(x: torch.Tensor, w_all: torch.Tensor, layer: int,
                          f"{w_all.dtype} (packed int4 goes to gemm4_l)")
     if B.device_kind(x, w_all, scale) == "cpu":
         return gemm_l_plain(x, w_all, layer, scale)
-    return _launch_gemm(x, w_all, layer, scale)
+    return launch_gemm("gemm_l", x, w_all, layer, scale)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -249,7 +271,7 @@ def gemm4_l(x: torch.Tensor, w4_all: torch.Tensor, layer: int,
                          f"{tuple(w4_all.shape)} {w4_all.dtype} (K % 256 == 0)")
     if B.device_kind(x, w4_all, gscale) == "cpu":
         return gemm4_l_plain(x, w4_all, layer, gscale)
-    return _launch_gemm4(x, w4_all, layer, gscale)
+    return launch_gemm("gemm4_l", x, w4_all, layer, gscale)
 
 
 def gemv4_l(x: torch.Tensor, w4_all: torch.Tensor, layer: int,
