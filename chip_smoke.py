@@ -9,7 +9,9 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
 2. each kernel against its plain PyTorch version on the card, at
    Mistral-7B shapes with fp8-e5m2 weights (bf16 and int8+scale as well on
    gemv_l), with its time, its plain version's time, its bound and, where
-   one PyTorch call computes the same function, that call's time;
+   one PyTorch call computes the same function, that call's time; the
+   paged attention also bit for bit against the batched one on the cache
+   gathered from its pool;
 3. the slice end to end at full width and depth (Mistral-7B shapes, random
    fp8 weights made on the card from a seed, bf16 cache): three requests
    through Engine.generate -- 200 tokens + 64 greedy, 1500 + 64 sampled
@@ -22,13 +24,17 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    two sharing a 512-token prefix, one past the window, plus four over
    HTTP on 127.0.0.1, with the batched kernels' launch counts, TTFT and
    aggregate decode rate, and a torch.profiler window of 16 ticks with 16
-   busy lanes;
+   busy lanes; then the same mix through a paged pool of 65 pages of 256
+   slots (2.18 GB of bf16 K/V where the dense cache holds 8.59 GB), which
+   must preempt and resume at least one lane with every stream exactly
+   max_new_tokens long, the paged attention launched once per layer per
+   tick and the dense one never;
 4. the same model at depth 2 on the card against the plain versions on the
    CPU: a 64-token prefill and 8 teacher-forced decode steps; then the
    batched path: one batched chunk sweep and 8 teacher-forced ticks over 16
    lanes at mixed positions (ring lanes, write-masked lanes), the argmax
    held on every lane whose top two logits lie more than twice the
-   tolerance apart;
+   tolerance apart; and the same over a paged pool through shuffled tables;
 then phases 2-4 again for the int4 path (packed int4 layer weights with
 group scales, int8 embedding and LM head, fp8-e5m2 KV cache: the
 configuration of `bench.py`'s defaults), after the fp8 weights are freed,
@@ -415,6 +421,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                    json_row=(B == 1))
     phase_ffn_rows(bench, cfg, fw, dev, (16, 64))
     phase_batched_attention(bench, cfg, dev, torch.bfloat16)
+    phase_paged_attention(bench, cfg, dev, torch.bfloat16)
 
 
 def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
@@ -598,6 +605,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                json_row=True)
     phase_ffn_rows(bench, cfg, fw, dev, (16,))
     phase_batched_attention(bench, cfg, dev, torch.float8_e5m2)
+    phase_paged_attention(bench, cfg, dev, torch.float8_e5m2)
 
 
 def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list) -> None:
@@ -656,6 +664,108 @@ def batched_lanes(S: int):
     write = [1] * 16
     write[3] = write[11] = 0
     return kv_pos, kv_len, sink, pos, write
+
+
+def shuffled_tables(B: int, nblk: int, seed: int):
+    """(B, nblk) int32 page tables over a pool of 1 + B * nblk pages: a
+    random permutation of pages 1.., so no lane's pages are contiguous and
+    page 0 stays unmapped."""
+    import torch
+    perm = torch.randperm(B * nblk, generator=torch.Generator().manual_seed(seed)) + 1
+    return perm.reshape(B, nblk).to(torch.int32)
+
+
+def gathered(pool, tables):
+    """Each lane's pages of a pool (n_pages, L, page, Hk, D) in the dense
+    batched layout (B, L, S, Hk, D)."""
+    g = pool[tables.long()]                          # (B, nblk, L, page, Hk, D)
+    return g.transpose(1, 2).reshape(g.shape[0], g.shape[2], -1, *g.shape[4:]).contiguous()
+
+
+def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
+    """K9 at B 16 over pools of 257 pages of 256 slots through shuffled
+    tables, at the lanes of batched_lanes: the output against the plain
+    version, the pool byte for byte (written rows, untouched pages, the
+    masked lanes), and K9 equal to K8 bit for bit on the same cache gathered
+    into the dense layout. First at the model's depth (a bf16 pool of
+    2.16e9 elements: offsets past 2^31), then on 4 layers, the footprint of
+    K8's case, whose row the kernels line reports; the library yardstick is
+    SDPA over the gathered padded batch."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    Hq, Hk, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
+    B, page = 16, 256
+    nblk = S // page
+    tables_cpu = shuffled_tables(B, nblk, seed=13)
+    tables = tables_cpu.to(dev)
+    kv_pos, kv_len, sink, pos, write = batched_lanes(S)
+    lanes = A.lane_scalars(kv_pos, kv_len, sink, pos, write, S=S, kv_sinks=2, device=dev)
+    lanes_cpu = lanes.cpu()
+    q = torch.randn(B, Hk, Hq // Hk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
+    bits = torch.uint8 if kv_dtype.itemsize == 1 else torch.int16
+    mask = (torch.arange(S, device=dev)[None, :] < torch.tensor(kv_len, device=dev)[:, None])
+    qq = q.reshape(B, Hq, 1, D).to(torch.bfloat16)
+    L4 = 4
+    for L in (cfg.n_layers, L4):
+        shape = (1 + B * nblk, L, page, Hk, D)
+        k_pool = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype)
+        v_pool = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype)
+        top = L - 1   # the last layer: the highest pool offsets
+        k2, v2 = k_pool.clone(), v_pool.clone()
+        want = A.attend_step_paged_plain(q, kn, vn, k2, v2, tables_cpu, top, lanes_cpu, **rope)
+        got = A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables, top, lanes, **rope)
+        torch.cuda.synchronize()
+        for t, ref in ((k_pool, k2), (v_pool, v2)):
+            if not torch.equal(t.view(bits), ref.view(bits)):
+                raise AssertionError(f"attend_step_paged_l {wd}: the pool differs from the plain "
+                                     "version's (written rows, untouched pages or a masked lane)")
+        del k2, v2
+        # K8 on the gathered cache: the same arithmetic, so any difference is
+        # an addressing fault (the rows K9 wrote are written again, the same)
+        k_all, v_all = gathered(k_pool, tables), gathered(v_pool, tables)
+        again = A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables, top, lanes, **rope)
+        dense = A.attend_step_batched(q, kn, vn, k_all, v_all, top, lanes, **rope)
+        torch.cuda.synchronize()
+        if not (torch.equal(again, dense) and torch.equal(again, got)):
+            raise AssertionError(f"attend_step_paged_l {wd}: differs from attend_step_batched_l "
+                                 "on the gathered cache")
+        for pool, dense_c in ((k_pool, k_all), (v_pool, v_all)):
+            if not torch.equal(gathered(pool, tables).view(bits), dense_c.view(bits)):
+                raise AssertionError(f"attend_step_paged_l {wd}: written rows differ from "
+                                     "attend_step_batched_l's")
+        del k_all, v_all
+        log(f"  attend_step_paged_l {wd}, {L} layers ({k_pool.numel() / 1e9:.2f}e9 elements): "
+            "pool byte for byte as the plain version's (14 written rows, 2 write-masked "
+            "lanes), outputs and rows bit for bit as attend_step_batched_l's on the gathered "
+            "cache")
+        kk = [gathered(k_pool[:, top - l: top - l + 1], tables)[:, 0].transpose(1, 2)
+              .to(torch.bfloat16) for l in range(L4)]
+        vv = [gathered(v_pool[:, top - l: top - l + 1], tables)[:, 0].transpose(1, 2)
+              .to(torch.bfloat16) for l in range(L4)]
+        item = kv_dtype.itemsize
+        bench.case("attend_step_paged_l", f"B=16 {wd} {L} layers, pages of 256 shuffled, kv_len "
+                   f"1..{S}, ring + 2 read-only lanes", got, want, 2e-3,
+                   kernel=lambda r: A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables,
+                                                        top - r % L4, lanes, **rope),
+                   plain=lambda r: A.attend_step_paged_plain(q, kn, vn, k_pool, v_pool,
+                                                             tables_cpu, top - r % L4,
+                                                             lanes_cpu, **rope),
+                   library=lambda r: F.scaled_dot_product_attention(
+                       qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
+                       enable_gqa=True),
+                   bytes_=2 * sum(kv_len) * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+                   + 4 * 5 * B + 4 * B * nblk,
+                   flops=4 * sum(kv_len) * Hq * D, json_row=L == L4, run="paged")
+        del kk, vv, k_pool, v_pool
+        torch.cuda.empty_cache()
 
 
 def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
@@ -786,10 +896,18 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str) -> dict:
     return dict(requests=reqs, launches=launches, decode_profile=profile)
 
 
-# the kernels each path's serving run must launch
-SERVING_KERNELS = {"fp8": ("gemm_l", "attend_step_batched_l", "ffn_l_gemm", "rmsnorm_rows",
-                           "attn_block_l", "gemv"),
-                   "int4": ("gemm4_l", "attend_step_batched_l", "ffn4_l_gemm", "rmsnorm_rows")}
+# the kernels each (path, paged) serving run must launch: the tick's
+# attention is K8 on the dense cache and K9 on a paged pool (the other
+# never runs); the dense ring admission hydrates through the single-lane
+# step (attn_block_l), the paged one through masked ticks
+SERVING_KERNELS = {
+    ("fp8", False): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows", "attn_block_l", "gemv"),
+    ("int4", False): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows"),
+    ("fp8", True): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
+    ("int4", True): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows")}
+TICK_ATTENTION = {False: "attend_step_batched_l", True: "attend_step_paged_l"}
+PAGE = 256
+PAGED_PAGES = 65   # page 0 reserved: 64 usable pages, 16384 slots for 16 lanes
 
 
 def http_requests(base: str) -> list[dict]:
@@ -833,13 +951,17 @@ def http_requests(base: str) -> list[dict]:
     return out
 
 
-def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool) -> dict:
+def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool,
+                  paged_pages: int = 0) -> dict:
     """Continuous batching through ServingEngine at batch 16 with the
     server's defaults: n_requests tokenized requests (64-2048 prompt
     tokens, 32-128 new, greedy and sampled at T 0.8 top-p 0.9 top-k 40; two
     share a 512-token prefix, one runs past the window), and with `http`
     four more over HTTP on 127.0.0.1; then 16 ticks with 16 busy lanes
-    under torch.profiler."""
+    under torch.profiler. With paged_pages, from a pool of that many pages
+    of 256 slots: the mix must preempt at least one lane, and every
+    request, preempted ones included, gets exactly max_new_tokens tokens
+    (no stop tokens), each delivered once."""
     import threading
 
     import numpy as np
@@ -867,20 +989,31 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool
     specs[16] = (prefix + rand_tokens(300), 64, True)           # admitted later: a hit
     specs[5] = ([cfg.bos_token_id] + rand_tokens(S + 103), 32, False)
 
-    engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev)
+    engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev,
+                               paged_pages=paged_pages, page_size=PAGE)
+    sched = engine.sched
+    preempted = set()   # ids of the requests a lane preemption requeued
+    if paged_pages:
+        preempt = sched._preempt
+
+        def watch(b):
+            preempted.add(id(sched.slots[b].request))
+            preempt(b)
+        sched._preempt = watch
     httpd = srv.serve(engine, host="127.0.0.1", port=0) if http else None
     if httpd:
         threading.Thread(target=httpd.serve_forever, daemon=True).start()
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
-    reqs, first, last = [], {}, {}
+    reqs, first, last, delivered = [], {}, {}, {}
     t0 = time.perf_counter()
     for i, (prompt, n, sampled) in enumerate(specs):
         r = Request(prompt_tokens=prompt, max_new_tokens=n,
                     temperature=0.8 if sampled else 0.0, top_p=0.9 if sampled else 1.0,
                     top_k=40 if sampled else 0, seed=100 + i)
         r.on_token = lambda t, i=i: (first.setdefault(i, time.perf_counter()),
-                                     last.__setitem__(i, time.perf_counter()))
+                                     last.__setitem__(i, time.perf_counter()),
+                                     delivered.__setitem__(i, delivered.get(i, 0) + 1))
         reqs.append(r)
         engine.submit(r)
     web = http_requests(f"http://127.0.0.1:{httpd.server_address[1]}") if httpd else []
@@ -893,15 +1026,19 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool
         httpd.shutdown()
         httpd.server_close()
     engine.close()
-    sched = engine.sched
-    bad = [(i, r.error, len(r.generated)) for i, r in enumerate(reqs)
-           if r.error or not 1 <= len(r.generated) <= r.max_new_tokens
+    # no request has a stop token: each gets exactly its max_new_tokens
+    bad = [(i, r.error, len(r.generated), delivered.get(i)) for i, r in enumerate(reqs)
+           if r.error or len(r.generated) != r.max_new_tokens
+           or delivered.get(i) != len(r.generated)
            or not all(0 <= t < cfg.vocab_size for t in r.generated)]
     if bad:
         raise AssertionError(f"serving ({path}): failed requests {bad}")
     stats = sched.prefix_stats
     if stats["hits"] < 1:
         raise AssertionError(f"serving ({path}): the shared 512-token prefix was never reused")
+    if paged_pages and not (sched.preemptions >= 1 and sched.resumes >= 1 and preempted):
+        raise AssertionError(f"serving ({path}, {paged_pages} pages): the mix preempted no "
+                             f"lane ({sched.preemptions} preemptions, {sched.resumes} resumes)")
     gen = sum(len(r.generated) for r in reqs) + sum(w["tokens"] for w in web)
     ttft = sorted(first[i] - t0 for i in range(len(reqs)))
     # decode: every token after a request's first, over the span from the
@@ -914,19 +1051,34 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: bool
              ttft_p50_s=float(np.median(ttft)), ttft_max_s=ttft[-1],
              ticks=engine.metrics["ticks_total"], admit_sweeps=sched.admit_sweeps,
              prefix=dict(stats), http=web, launches=launches)
+    if paged_pages:
+        r.update(pages=paged_pages, page_size=PAGE, preemptions=sched.preemptions,
+                 resumes=sched.resumes, preempted_requests=len(preempted),
+                 pages_free_end=sched.alloc.n_free,
+                 pool_bytes=2 * sched.cache.k.numel() * sched.cache.k.element_size())
     log(f"  served {r['requests']} requests ({len(web)} over HTTP) in {wall:.2f} s: "
         f"{r['prompt_tokens']} prompt tokens, {gen} generated ({r['aggregate_tok_s']:.1f} "
         f"tok/s over the run), aggregate decode {decode_tok_s:.1f} tok/s; "
         f"TTFT p50 {r['ttft_p50_s']:.3f} s, max "
         f"{r['ttft_max_s']:.3f} s; {r['ticks']} ticks, {r['admit_sweeps']} batched admission "
         f"sweeps, prefix hits {stats['hits']} ({stats['hit_tokens']} tokens)")
+    if paged_pages:
+        log(f"  paged: {paged_pages} pages of {PAGE} ({r['pool_bytes'] / 1e9:.3f} GB of K/V), "
+            f"{sched.preemptions} preemptions of {len(preempted)} requests, {sched.resumes} "
+            f"resumes, every preempted stream exactly max_new_tokens long; "
+            f"{r['pages_free_end']} pages free at the end")
     for w in web:
         log(f"    HTTP {w['path']}{' (SSE)' if w['stream'] else ''}: {w['tokens']} tokens "
             f"in {w['wall_s']:.2f} s")
     log(f"  launches over the {path} serving run: {launches}")
-    missing = [k for k in SERVING_KERNELS[path] if launches.get(k, 0) <= 0]
+    attention = TICK_ATTENTION[bool(paged_pages)]
+    missing = [k for k in SERVING_KERNELS[path, bool(paged_pages)] + (attention,)
+               if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels never launched in the {path} serving run: {missing}")
+    if launches.get(TICK_ATTENTION[not paged_pages], 0):
+        raise AssertionError(f"{TICK_ATTENTION[not paged_pages]} launched in the {path} "
+                             f"{'paged' if paged_pages else 'dense'} serving run")
     r["tick_profile"] = profile_ticks(sched, cfg, 16)
     del engine, sched
     torch.cuda.empty_cache()
@@ -939,6 +1091,7 @@ def profile_ticks(sched, cfg, n: int) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from yalm_tpu_torch.ops.cuda import _build
     from yalm_tpu_torch.scheduler import Request
 
     rng = np.random.default_rng(2)
@@ -950,6 +1103,8 @@ def profile_ticks(sched, cfg, n: int) -> dict:
     while not all(s.decoding for s in sched.slots):
         sched.step()
     torch.cuda.synchronize()
+    attention = TICK_ATTENTION[sched.paged]
+    before = _build.LAUNCHES[attention]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
@@ -957,13 +1112,18 @@ def profile_ticks(sched, cfg, n: int) -> dict:
                 raise AssertionError("a lane went idle inside the profiled ticks")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    per_tick = (_build.LAUNCHES[attention] - before) / n
+    if per_tick != cfg.n_layers:
+        raise AssertionError(f"{attention}: {per_tick} launches per tick, not {cfg.n_layers}")
     dev_us = device_us(prof)
     busy = sum(dev_us.values()) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     r = dict(ticks=n, lanes=sched.B, wall_ms_per_tick=wall / n * 1e3,
              device_ms_per_tick=busy / n * 1e3, idle_share=(1 - busy / wall) if busy else None,
-             tok_s=sched.B * n / wall, top=[(k[:60], v / n / 1e3) for k, v in top])
-    log(f"  tick profile, {sched.B} busy lanes: {r['wall_ms_per_tick']:.3f} ms/tick wall, "
+             tok_s=sched.B * n / wall, top=[(k[:60], v / n / 1e3) for k, v in top],
+             attention_launches_per_tick=per_tick)
+    log(f"  tick profile, {sched.B} busy lanes, {per_tick:.0f} {attention} launches per tick: "
+        f"{r['wall_ms_per_tick']:.3f} ms/tick wall, "
         f"{r['device_ms_per_tick']:.3f} ms/tick on the device, idle share {r['idle_share']}, "
         f"{r['tok_s']:.1f} tok/s")
     for k, ms in r["top"]:
@@ -987,17 +1147,21 @@ def depth2(fw):
                            w2=sc.w2[:2], lm_head=sc.lm_head))
 
 
-def phase_batched_parity(cfg, fw, dev, kv_dtype) -> dict:
+def phase_batched_parity(cfg, fw, dev, kv_dtype, paged: bool = False) -> dict:
     """Phase 4, batched: the depth-2 model over 16 lanes, card (kernels) vs
     CPU (plain versions), on caches that start random and equal: one
     prefill_chunk_fast_batched sweep (12 lanes at offsets up to the window's
     end, 4 disabled), then 8 teacher-forced ticks at mixed positions (two
     lanes in the ring regime, two write-masked). Logits within 1e-2 of
-    max(1, max|logit|), argmax equal on every lane that is not a near-tie."""
+    max(1, max|logit|), argmax equal on every lane that is not a near-tie.
+    `paged`: the same over a pool of 257 pages of 256 slots through
+    shuffled tables (prefill_chunk_fast_batched_paged, then
+    decode_step_fast_batched_paged)."""
     import numpy as np
     import torch
+    from yalm_tpu_torch.models import fast as M
     from yalm_tpu_torch.models.cache import KVCache
-    from yalm_tpu_torch.models.fast import decode_step_fast_batched, prefill_chunk_fast_batched
+    from yalm_tpu_torch.models.paged import PagedKVPool
 
     cfg = dataclasses.replace(cfg, n_layers=2)
     fw2 = depth2(fw)
@@ -1005,11 +1169,17 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype) -> dict:
     B, T, S = 16, 16, cfg.max_seq_len
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    card = KVCache.init(cfg, kv_dtype, dev, batch=B)
+    if paged:
+        tables = shuffled_tables(B, S // PAGE, seed=11).numpy()
+        card = PagedKVPool.init(cfg, kv_dtype, 1 + B * (S // PAGE), PAGE, dev)
+        Cache = PagedKVPool
+    else:
+        card = KVCache.init(cfg, kv_dtype, dev, batch=B)
+        Cache = KVCache
     for t in (card.k, card.v):
         t.copy_((torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16)
                  * 0.5).to(kv_dtype))
-    cpu = KVCache(k=card.k.to("cpu", copy=True), v=card.v.to("cpu", copy=True))
+    cpu = Cache(k=card.k.to("cpu", copy=True), v=card.v.to("cpu", copy=True))
     rng = np.random.default_rng(6)
     toks = rng.integers(3, cfg.vocab_size, (B, T))
     frac = np.array([0, .004, .025, .08, .25, .37, .5, .61, .73, .85, .98, 1.0])
@@ -1022,15 +1192,23 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype) -> dict:
     write[[7, 14]] = 0
     runs = {}
     for name, w, c in (("cuda", fw2, card), ("cpu", fw_cpu, cpu)):
-        out, _ = prefill_chunk_fast_batched(cfg, w, toks, pos0, valid, enable, c,
-                                            attend_len=S, logits_mode="lastv")
+        if paged:
+            out, _ = M.prefill_chunk_fast_batched_paged(cfg, w, toks, pos0, valid, enable, c,
+                                                        tables, page_size=PAGE, attend_len=S)
+        else:
+            out, _ = M.prefill_chunk_fast_batched(cfg, w, toks, pos0, valid, enable, c,
+                                                  attend_len=S, logits_mode="lastv")
         outs = [out]
         p = positions.copy()
         for i in range(8):
             tk = rng.integers(3, cfg.vocab_size, B) if name == "cuda" else runs["ticks"][i]
             if name == "cuda":
                 runs.setdefault("ticks", []).append(tk)
-            outs.append(decode_step_fast_batched(cfg, w, tk, p, c, write)[0])
+            if paged:
+                outs.append(M.decode_step_fast_batched_paged(cfg, w, tk, p, c, tables, write,
+                                                             page_size=PAGE)[0])
+            else:
+                outs.append(M.decode_step_fast_batched(cfg, w, tk, p, c, write)[0])
             p = p + write
         runs[name] = [o.float().cpu() for o in outs]
     worst, ties = 0.0, 0
@@ -1050,7 +1228,8 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype) -> dict:
                                  f"(tol {tol:.3e}), argmax {g.argmax(-1).tolist()} vs "
                                  f"{c.argmax(-1).tolist()}")
     kerr = float((card.k.cpu().float() - cpu.k.float()).abs().max())
-    log(f"  batched depth-2 logits, card vs CPU plain: 1 chunk sweep + 8 ticks x 16 lanes "
+    log(f"  {'paged' if paged else 'batched'} depth-2 logits, card vs CPU plain: 1 chunk sweep "
+        f"+ 8 ticks x 16 lanes "
         f"agree; argmax equal on all {9 * B - ties} decided lanes ({ties} near-ties within "
         f"2 tol); worst err/tol {worst:.3f}; cache max |err| {kerr:.3e}")
     return dict(steps=9, lanes=B, worst_err_over_tol=worst, near_ties=ties,
@@ -1228,9 +1407,16 @@ def main() -> int:
                "(32 layers)"):
         summary["fp8"]["batched"] = phase_serving(cfg, fw, dev, torch.bfloat16, "fp8",
                                                   n_requests=24, http=True)
+    with phase(f"phase 3 (fp8 path, bf16 pool): paged serving, batch 16, {PAGED_PAGES} pages "
+               "of 256 (32 layers)"):
+        summary["fp8"]["paged"] = phase_serving(cfg, fw, dev, torch.bfloat16, "fp8",
+                                                n_requests=24, http=True,
+                                                paged_pages=PAGED_PAGES)
     with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
         summary["fp8"]["parity"] = phase_parity(cfg, fw, dev, torch.bfloat16)
         summary["fp8"]["batched_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16)
+        summary["fp8"]["paged_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16,
+                                                              paged=True)
     del fw
     torch.cuda.empty_cache()
 
@@ -1249,9 +1435,14 @@ def main() -> int:
                "(32 layers)"):
         summary["int4"]["batched"] = phase_serving(cfg4, fw4, dev, e5, "int4",
                                                    n_requests=20, http=False)
+    with phase(f"phase 3 (int4 path, e5m2 pool): paged serving, batch 16, {PAGED_PAGES} pages "
+               "of 256 (32 layers)"):
+        summary["int4"]["paged"] = phase_serving(cfg4, fw4, dev, e5, "int4", n_requests=20,
+                                                 http=False, paged_pages=PAGED_PAGES)
     with phase("phase 4 (int4 path, e5m2 cache): depth-2 parity, card vs CPU"):
         summary["int4"]["parity"] = phase_parity(cfg4, fw4, dev, e5)
         summary["int4"]["batched_parity"] = phase_batched_parity(cfg4, fw4, dev, e5)
+        summary["int4"]["paged_parity"] = phase_batched_parity(cfg4, fw4, dev, e5, paged=True)
     del fw4
     torch.cuda.empty_cache()
     with phase("phase 5: CLI modes"):
@@ -1271,6 +1462,8 @@ def main() -> int:
                "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227"),
                "attend_step_batched_l": ("csrc/attention.cu",
                                          "yalm_tpu/ops/pallas/attention.py:538"),
+               "attend_step_paged_l": ("csrc/attention.cu",
+                                       "yalm_tpu/ops/pallas/attention.py:1093"),
                "ffn_l_gemm": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),
                "ffn4_l_gemm": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227")}
     kernels = []

@@ -5,8 +5,11 @@ that are not a multiple of the attention tile, a window whose scores
 overflow shared memory; int4 weights with 1, 3 and 28 groups; an e5m2
 cache, whose written rows must equal the plain version's byte for byte;
 the batched attention over 3 lanes with their own positions, write masks
-and a window whose scores live in global scratch; the FFN's many-row GEMM
-route at 9, 33 and 64 rows on every weight type).
+and a window whose scores live in global scratch; the paged attention over
+shuffled page tables of pages of 16, 48, 64 and 256, a shared page, a page id
+outside the pool, and bit for bit against the batched kernel on the
+gathered cache; the FFN's many-row GEMM route at 9, 33 and 64 rows on every
+weight type).
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -23,8 +26,11 @@ import pytest
 import torch
 
 from yalm_tpu_torch.ops.cuda import _build
-from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched_l, attend_step_batched_plain,
-                                               attend_step_l, attend_step_plain, lane_scalars)
+from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched, attend_step_batched_l,
+                                               attend_step_batched_plain, attend_step_l,
+                                               attend_step_paged, attend_step_paged_l,
+                                               attend_step_paged_plain, attend_step_plain,
+                                               lane_scalars)
 from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l, ffn_plain
 from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm_l,
@@ -358,3 +364,101 @@ def test_ffn_many_rows(dev, wt, rows):
     h13 = proj_plain(xb, w13, 1, s13)
     from yalm_tpu_torch.ops.core import gelu
     close(h, bf16f(gelu(h13[:, :H]) * h13[:, H:]))
+
+
+def paged_case(dev, kv, qpk, D, page, nblk, seed):
+    """3 lanes over a pool of 1 + 3 * nblk pages through a random
+    permutation of its pages (no lane's pages contiguous, page 0 unmapped):
+    lane 0 writes past its first block, which it shares with lane 1 (a
+    prefix page); lane 1 is write-masked; lane 2 is in the ring regime with
+    sinks."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, L, Hk = 3, 2, 3
+    S = page * nblk
+    n_pages = 1 + B * nblk
+    k_pool = torch.randn(n_pages, L, page, Hk, D, generator=gen, device=dev).to(kv)
+    v_pool = torch.randn(n_pages, L, page, Hk, D, generator=gen, device=dev).to(kv)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = perm.reshape(B, nblk).to(torch.int32)
+    tables[1, 0] = tables[0, 0]
+    pos = [int(torch.randint(page, S, (1,), generator=gen, device=dev)), S // 3, S + 37]
+    sink = [2 if p >= S else 0 for p in pos]
+    kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+    kv_len = [min(p + 1, S) for p in pos]
+    lanes = lane_scalars(kv_pos, kv_len, sink, pos, [1, 0, 1], S=S, kv_sinks=2, device=dev)
+    q = torch.randn(B, Hk, qpk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    return q, kn, vn, k_pool, v_pool, tables.to(dev), lanes
+
+
+PAGED_SHAPES = [(1, 64, 16, 7), (4, 128, 64, 4), (8, 128, 256, 2),
+                # a page that is not a power of two: the block index by division
+                (4, 128, 48, 5),
+                # 7168 slots at qpk 8: the scores past shared memory, in global scratch
+                (8, 128, 256, 28)]
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+@pytest.mark.parametrize("qpk,D,page,nblk", PAGED_SHAPES)
+def test_paged_attention_kernel(dev, kv, qpk, D, page, nblk):
+    """K9 against its plain version: the output within the tolerance, the
+    pool byte for byte (written rows, the masked lane, untouched pages)."""
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, kv, qpk, D, page, nblk,
+                                                          seed=page + nblk + qpk)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    want = attend_step_paged_plain(q, kn, vn, k2, v2, tables, 1, lanes.cpu(), **rope)
+    _build.LAUNCHES.clear()
+    sc = lanes.cpu().tolist()
+    got = attend_step_paged_l(q, kn, vn, k_pool, v_pool, tables.cpu().numpy(), 1, *sc,
+                              window=page * nblk, **rope)
+    close(got, want)
+    bits = torch.uint8 if kv == torch.float8_e5m2 else torch.int16
+    assert torch.equal(k_pool.view(bits), k2.view(bits))
+    assert torch.equal(v_pool.view(bits), v2.view(bits))
+    assert _build.LAUNCHES["attend_step_paged_l"] == 1
+
+
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.float8_e5m2], ids=["bf16", "e5m2"])
+def test_paged_attention_equals_batched_on_the_gathered_cache(dev, kv):
+    """The same arithmetic over two layouts: K9 on the pool and K8 on each
+    lane's pages gathered into a dense (B, L, S, Hk, D) cache give the same
+    output bit for bit and write the same rows."""
+    qpk, D, page, nblk = 4, 128, 64, 6
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, kv, qpk, D, page, nblk, seed=5)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+
+    def gathered(pool):   # (B, L, S, Hk, D)
+        g = pool[tables.long()]                   # (B, nblk, L, page, Hk, D)
+        return g.transpose(1, 2).reshape(g.shape[0], g.shape[2], -1, *g.shape[4:]).contiguous()
+    k_all, v_all = gathered(k_pool), gathered(v_pool)
+    paged = attend_step_paged(q, kn, vn, k_pool, v_pool, tables, 1, lanes, **rope)
+    dense = attend_step_batched(q, kn, vn, k_all, v_all, 1, lanes, **rope)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
+    bits = torch.uint8 if kv == torch.float8_e5m2 else torch.int16
+    assert torch.equal(gathered(k_pool).view(bits), k_all.view(bits))
+    assert torch.equal(gathered(v_pool).view(bits), v_all.view(bits))
+
+
+def test_paged_attention_page_outside_the_pool(dev):
+    """A page id outside [0, n_pages) in a block the lane reads gives that
+    lane a NaN output and no write; the other lanes are unaffected."""
+    qpk, D, page, nblk = 4, 128, 16, 4
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, torch.bfloat16, qpk, D, page,
+                                                          nblk, seed=9)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    bad = tables.clone()
+    bad[2, 1] = k_pool.shape[0]           # the ring lane reads every block
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    want = attend_step_paged_plain(q[:2], kn[:2], vn[:2], k2, v2, tables[:2], 0,
+                                   lanes.cpu()[:, :2].contiguous(), **rope)
+    got = attend_step_paged(q, kn, vn, k_pool, v_pool, bad, 0, lanes, **rope)
+    close(got[:2], want)
+    assert bool(torch.isnan(got[2]).all())
+    assert torch.equal(k_pool.view(torch.int16), k2.view(torch.int16))
+    assert torch.equal(v_pool.view(torch.int16), v2.view(torch.int16))
+    with pytest.raises(ValueError, match="page ids out of range"):
+        attend_step_paged_l(q, kn, vn, k_pool, v_pool, bad.cpu().numpy(), 0,
+                            *lanes.cpu().tolist(), window=page * nblk, **rope)

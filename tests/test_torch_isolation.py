@@ -10,7 +10,8 @@ import sys
 import pytest
 import torch
 
-from yalm_tpu_torch.ops.cuda.attention import attend_step_batched_l, attend_step_l
+from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched_l, attend_step_l,
+                                               attend_step_paged_l)
 from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block4_l, attn_block_l
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l
 from yalm_tpu_torch.ops.cuda.gemv import gemm4, gemm4_l, gemm_l, gemv, gemv4, gemv4_l, gemv_l
@@ -29,7 +30,7 @@ print("BAD", bad)
 """
 
 
-@pytest.mark.parametrize("module", ["scheduler", "server", "chat"])
+@pytest.mark.parametrize("module", ["scheduler", "server", "chat", "models.paged"])
 def test_serving_modules_import_no_jax(module):
     code = (f"import sys, yalm_tpu_torch.{module}\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -90,6 +91,11 @@ def _calls(dev):
             t(3, 2, 2, 128), t(3, 2, 128), t(3, 2, 128), t(3, 2, 16, 2, 128, dt=torch.bfloat16),
             t(3, 2, 16, 2, 128, dt=torch.bfloat16), 1, [0, 3, 15], [1, 4, 16], [0, 0, 0],
             [0, 3, 15], [1, 0, 1], **rope),
+        # the paged tick's attention: K9 over a pool, through page tables
+        "attend_step_paged_l": lambda: attend_step_paged_l(
+            t(3, 2, 2, 128), t(3, 2, 128), t(3, 2, 128), t(5, 2, 8, 2, 128, dt=torch.bfloat16),
+            t(5, 2, 8, 2, 128, dt=torch.bfloat16), [[1, 2], [3, 4], [0, 0]], 1, [0, 3, 15],
+            [1, 4, 16], [0, 0, 0], [0, 3, 15], [1, 0, 1], window=16, **rope),
         "ffn_l 9 rows": lambda: ffn_l(t(9, 64), t(2, 64), t(2, 96, 64), t(2, 64, 48), 0,
                                       norm_eps=1e-5, act="silu"),
         "ffn4_l 16 rows": lambda: ffn4_l(t(16, 256), t(2, 256), t(2, 1024, 128, dt=u8),

@@ -212,12 +212,23 @@ def test_poisoned_request_isolation_and_recover(model):
     assert queued.error is None and queued.generated == solo.generated
 
 
-@pytest.mark.parametrize("kw", [dict(paged_pages=8), dict(spec_lookup=True),
+@pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_lookup=True),
                                 dict(mesh=object())])
 def test_later_slices_raise(model, kw):
+    """Speculation and meshes are later slices and raise; paged KV came
+    with its slice and serves (tests/test_torch_paged.py holds its streams
+    to the JAX paged scheduler's)."""
     _, _, tw, cfg = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cfg, tw, device="cpu", **kw)
+    if "paged_pages" in kw:
+        sched = Scheduler(cfg, tw, device="cpu", **kw)
+        req = greedy(CASES[1][0], 6)
+        run(tw, cfg, [req], paged_pages=8, page_size=16)
+        dense = greedy(CASES[1][0], 6)
+        run(tw, cfg, [dense])
+        assert sched.paged and sched.alloc.n_free == 7 and req.generated == dense.generated
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Scheduler(cfg, tw, device="cpu", **kw)
     with pytest.raises(ValueError, match="at most 16"):
         Scheduler(cfg, tw, device="cpu").submit(
             greedy([1], 2, logit_bias={i: 1.0 for i in range(17)}))

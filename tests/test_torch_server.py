@@ -152,11 +152,59 @@ def test_sampled_requests_and_bad_requests(server):
         assert e.value.code == 400
 
 
-@pytest.mark.parametrize("flag", [["--paged-pages", "8"], ["--draft", "d.yalm"],
+def test_server_paged(ckpt):
+    """The port's counterpart of tests/test_paged.py's HTTP test: a paged
+    server (pages of 16) completes, a repeated prompt maps the first's
+    pages and streams the same, and /metrics shows the free pages (all of
+    them once the requests are done) and the prefix-cache counters."""
+    engine = srv.ServingEngine.from_checkpoint(ckpt, batch=4, device="cpu", paged_pages=33,
+                                               page_size=16)
+    httpd = srv.serve(engine, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    prompt = "hello world, the key is 12345. " * 3
+    try:
+        assert engine.sched.paged
+        texts = [json.loads(post(base + "/v1/completions", {
+            "prompt": prompt, "max_tokens": 5, "temperature": 0.0})[1])["choices"][0]["text"]
+            for _ in range(2)]
+        vals = dict(line.rsplit(" ", 1) for line in get(base + "/metrics")[1].decode()
+                    .splitlines() if line and not line.startswith("#"))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+    assert texts[0] == texts[1]          # the second maps the first's pages
+    assert float(vals["yalm_pages_free"]) == 32
+    assert float(vals["yalm_prefix_cache_hits_total"]) >= 1
+    assert float(vals["yalm_prefix_cache_registered_total"]) >= 1
+
+
+@pytest.mark.parametrize("flag", [["--paged-pages", "9", "--page-size", "16"],
+                                  ["--draft", "d.yalm"],
                                   ["--spec-lookup"], ["--spec-k", "4"], ["--medusa"],
                                   ["--medusa-tree", "4,2"], ["--mesh", "1,1,2"],
                                   ["--distributed"]])
-def test_later_slice_flags_are_refused(ckpt, flag, capsys):
+def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch):
+    """The flags of later slices are refused; --paged-pages came with its
+    slice and starts a paged server (stopped here at once)."""
+    if flag[0] == "--paged-pages":
+        started = []
+
+        def serve(engine, host, port):
+            httpd = srv.ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(engine))
+            started.append(engine)
+
+            def stop():
+                raise KeyboardInterrupt
+            httpd.serve_forever = stop
+            return httpd
+        monkeypatch.setattr(srv, "serve", serve)
+        srv.main([ckpt, "--device", "cpu", "--port", "0", *flag])
+        sched = started[0].sched
+        assert sched.paged and sched.alloc.n_pages == 9 and sched.page_size == 16
+        assert "9 pages of 16" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit) as e:
         srv.main([ckpt, "--device", "cpu", *flag])
     assert e.value.code == 2

@@ -1,6 +1,6 @@
 // Fused decode attention step over the layer-stacked KV ring buffer, a bf16
-// or an fp8-e5m2 cache (template parameter T), for one sequence or for B
-// lanes of a continuous batch in one launch.
+// or an fp8-e5m2 cache (template parameter T), for one sequence, for B
+// lanes of a continuous batch in one launch, or for B lanes over a page pool.
 //
 // Replaces yalm_tpu/ops/pallas/attention.py:attend_step_l (body
 // _fused_attn_body, _flash_heads, _lazy_sink_rotate; numerics reference
@@ -8,7 +8,18 @@
 // The batched entry replaces :attend_step_batched_l (kernel
 // _attn_step_batched_kernel; numerics reference its emulation branch,
 // per-lane _attn_step_ref, and for write-masked lanes _attend_ref over the
-// unwritten cache with the sink view).
+// unwritten cache with the sink view). The paged entry replaces
+// :attend_step_paged_l (kernel _attn_step_paged_kernel; numerics reference
+// its emulation branch :1119-1159, the batched step on each lane's
+// gathered view): the same kernel, with lane b's logical slot s at pool row
+// (tables[b, s / page], layer, s % page) of a (n_pages, L, page, Hk, D)
+// pool. The addressing is a template parameter (kPaged), so the dense
+// instances keep their code; the page is resolved per row (any page size
+// that divides the window), with 64-bit pool offsets (a bf16 pool of 257
+// pages at 7B shapes holds 2.16e9 elements). Before anything else a block
+// checks every page id its lane reads or writes (blocks below
+// ceil(max(kv_len, kv_pos + 1) / page)); one outside [0, n_pages) gives the
+// lane a NaN output and no write, as a bad lane scalar does.
 // One launch, one block per (kv head h, lane b):
 //   1. RoPE on q (then * 1/sqrt(D), rounded to bf16) and on k_new at `pos`,
 //      from a (D/2,) f32 pair-frequency table computed on the host (so every
@@ -54,10 +65,10 @@
 // 128) cache holds 2^31 elements.
 //
 // Bound on this card: bytes (the K/V rows of slots < kv_len, 16 MB per layer
-// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2). One lane
-// runs only Hk = 8 blocks, so a handful of SMs stream its cache: split-K
-// over the sequence (flash-decoding) is the known next step; a batch of B
-// lanes runs 8 B blocks.
+// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2; the paged
+// launch adds its tables). One lane runs only Hk = 8 blocks, so a handful of
+// SMs stream its cache: split-K over the sequence (flash-decoding) is the
+// known next step; a batch of B lanes runs 8 B blocks.
 #include "common.cuh"
 
 using namespace yt;
@@ -109,22 +120,23 @@ __device__ __forceinline__ float rot_im(float x0, float x1, float c, float s) {
   return __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
 }
 
-template <typename T>
 struct AttnArgs {
   const float* q;        // (B, Hk, qpk, D) unrotated, unscaled
   const float* k_new;    // (B, Hk, D) unrotated
   const float* v_new;    // (B, Hk, D)
-  T* k_all;              // (B, L, S, Hk, D), updated in place
-  T* v_all;              // (B, L, S, Hk, D), updated in place
+  void* k_all;           // (B, L, S, Hk, D), or a pool (n_pages, L, page, Hk, D);
+  void* v_all;           // of the cache type T, updated in place
   const float* freq;     // (D/2,) rope pair frequencies
   float* out;            // (B, Hk, qpk, D)
   float* scores;         // (B, Hk, slots, qpk) scratch, or null: scores in smem
   const int* lanes;      // (5, B) kv_pos, kv_len, kv_sink, pos, write; or null:
                          // one lane (B = 1) with the scalars below, writing
-  size_t lane_stride;    // elements of one lane's cache, L * S * Hk * D
+  const int* tables;     // (B, S / page) page ids of the paged launch, else null
+  size_t lane_stride;    // elements of one lane's dense cache, L * S * Hk * D
   float mscale, inv_sqrt_d;
   int layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks;
   int B, slots;          // slots: score capacity per (lane, head), >= kv_len
+  int L, page, n_pages;  // the paged launch's pool: layers, slots per page, pages
 };
 
 // shared memory: q (qpk, D + 2) f32 | scores (slots, qpk) f32, or with
@@ -143,8 +155,9 @@ __host__ __device__ inline size_t smem_bytes(int qpk, int D, int slots) {
 // kGlobalScores: the scores are in a.scores. A template parameter, not a
 // runtime choice, so the shared-memory instance keeps shared-memory loads
 // (a pointer that may be either is read through slower generic loads).
-template <typename T, bool kGlobalScores>
-__global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
+// kPaged: rows are addressed through a.tables in a pool (see the top).
+template <typename T, bool kGlobalScores, bool kPaged>
+__global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, qpk = a.qpk, h = blockIdx.x, b = blockIdx.y, half = D / 2;
   const int QS = D + 2, KS = D + KPAD;
@@ -160,15 +173,32 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
   }
   const float* q = a.q + (size_t)b * a.Hk * qpk * D;
   float* out = a.out + ((size_t)b * a.Hk + h) * qpk * D;
-  T* k_all = a.k_all + (size_t)b * a.lane_stride;
-  T* v_all = a.v_all + (size_t)b * a.lane_stride;
-  if (n < 1 || n > a.slots || kv_pos < 0 || kv_pos >= a.S || kv_sink < 0 ||
-      kv_sink > a.kv_sinks) {
-    // lane scalars the kernel does not take (the host checks the ones it
-    // uploads): touch no cache row, give the lane a NaN output
+  T* k_all = static_cast<T*>(a.k_all) + (kPaged ? 0 : (size_t)b * a.lane_stride);
+  T* v_all = static_cast<T*>(a.v_all) + (kPaged ? 0 : (size_t)b * a.lane_stride);
+  const int* tab = kPaged ? a.tables + (size_t)b * (a.S / a.page) : nullptr;
+  bool bad = n < 1 || n > a.slots || kv_pos < 0 || kv_pos >= a.S || kv_sink < 0 ||
+             kv_sink > a.kv_sinks;
+  if (kPaged && !bad) {  // every page the lane reads or writes lies in the pool
+    const int nb = (max(n, write ? kv_pos + 1 : 0) + a.page - 1) / a.page;
+    int out_of_pool = 0;
+    for (int i = tid; i < nb; i += THREADS)
+      out_of_pool |= (unsigned)tab[i] >= (unsigned)a.n_pages;
+    bad = __syncthreads_or(out_of_pool) != 0;
+  }
+  if (bad) {
+    // lane scalars or page ids the kernel does not take (the host checks the
+    // ones it uploads): touch no cache row, give the lane a NaN output
     for (int i = tid; i < qpk * D; i += THREADS) out[i] = __int_as_float(0x7fc00000);
     return;
   }
+  // element offset of head h's row at logical slot s
+  const int layer = a.layer, S = a.S, Hk = a.Hk, L = a.L, page = a.page;
+  const auto row = [layer, S, Hk, L, page, tab, h, D](int s) -> size_t {
+    if constexpr (kPaged)
+      return ((((size_t)tab[s / page] * L + layer) * page + s % page) * Hk + h) * D;
+    else
+      return (((size_t)layer * S + s) * Hk + h) * D;
+  };
   float* qs = reinterpret_cast<float*>(smem);  // (qpk, QS)
   // (slots, qpk): scores, then bf16(p). Only this block touches its part of
   // the global scratch, so __syncthreads() orders it as it does shared memory.
@@ -189,7 +219,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
     qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
   }
   if (write) {
-    const size_t new_row = (((size_t)a.layer * a.S + kv_pos) * a.Hk + h) * D;
+    const size_t new_row = row(kv_pos);
     const float* kn = a.k_new + ((size_t)b * a.Hk + h) * D;
     const float* vn = a.v_new + ((size_t)b * a.Hk + h) * D;
     for (int p = tid; p < half; p += THREADS) {
@@ -209,8 +239,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
     const int nt = min(TILE, n - t0);
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
-      const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      KV<T>::load8(k_all + off, tile + r * KS + 8 * c);
+      KV<T>::load8(k_all + row(t0 + r) + 8 * c, tile + r * KS + 8 * c);
     }
     __syncthreads();
     if (t0 == 0 && kv_sink > 0) {  // the lazy sink view (tile 0 holds the sinks)
@@ -267,8 +296,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
     const int nt = min(TILE, n - t0);
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
-      const size_t off = (((size_t)a.layer * a.S + t0 + r) * a.Hk + h) * D + 8 * c;
-      KV<T>::load8(v_all + off, tile + r * D + 8 * c);
+      KV<T>::load8(v_all + row(t0 + r) + 8 * c, tile + r * D + 8 * c);
     }
     if (kGlobalScores)
       for (int i = tid; i < nt * qpk; i += THREADS) ps[i] = sc[(size_t)t0 * qpk + i];
@@ -294,9 +322,10 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs<T> a) {
   }
 }
 
-template <typename T>
-int launch(const AttnArgs<T>& a, size_t smem, cudaStream_t st) {
-  const auto kern = a.scores ? attend_step_kernel<T, true> : attend_step_kernel<T, false>;
+template <typename T, bool kPaged>
+int launch_as(const AttnArgs& a, size_t smem, cudaStream_t st) {
+  const auto kern = a.scores ? attend_step_kernel<T, true, kPaged>
+                             : attend_step_kernel<T, false, kPaged>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -306,25 +335,43 @@ int launch(const AttnArgs<T>& a, size_t smem, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_typed(const float* q, const float* k_new, const float* v_new, void* k_all,
-                 void* v_all, const float* freq, float mscale, float inv_sqrt_d,
-                 float* out, float* scores, const int* lanes, size_t lane_stride,
-                 int layer, int S, int Hk, int qpk, int D, int kv_pos, int kv_len,
-                 int kv_sink, int pos, int kv_sinks, int B, int slots, cudaStream_t st) {
-  const size_t smem = smem_bytes(qpk, D, scores ? TILE : slots);
+// kv_type W_BF16 or W_E5M2 (common.cuh), the type of the cache or pool; the
+// paged instance when a.tables is set
+int launch(int kv_type, const AttnArgs& a, cudaStream_t st) {
+  const size_t smem = smem_bytes(a.qpk, a.D, a.scores ? TILE : a.slots);
   if (smem > 227 * 1024) return ERR_ARGS;
-  return launch(AttnArgs<T>{q, k_new, v_new, static_cast<T*>(k_all), static_cast<T*>(v_all),
-                            freq, out, scores, lanes, lane_stride, mscale, inv_sqrt_d,
-                            layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks,
-                            B, slots}, smem, st);
+  const bool paged = a.tables != nullptr;
+  if (kv_type == W_BF16)
+    return paged ? launch_as<__nv_bfloat16, true>(a, smem, st)
+                 : launch_as<__nv_bfloat16, false>(a, smem, st);
+  if (kv_type == W_E5M2)
+    return paged ? launch_as<uint8_t, true>(a, smem, st) : launch_as<uint8_t, false>(a, smem, st);
+  return ERR_ARGS;
 }
 
-template <typename... Args>
-int dispatch(int kv_type, Args... args) {
-  if (kv_type == W_BF16) return launch_typed<__nv_bfloat16>(args...);
-  if (kv_type == W_E5M2) return launch_typed<uint8_t>(args...);
-  return ERR_ARGS;
+// the fields every entry point sets; the rest stay 0 / null
+AttnArgs common_args(const float* q, const float* k_new, const float* v_new, void* k_all,
+                     void* v_all, const float* freq, float mscale, float inv_sqrt_d,
+                     float* out, float* scores, int layer, int S, int Hk, int qpk, int D,
+                     int kv_sinks) {
+  AttnArgs a{};
+  a.q = q;
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.k_all = k_all;
+  a.v_all = v_all;
+  a.freq = freq;
+  a.mscale = mscale;
+  a.inv_sqrt_d = inv_sqrt_d;
+  a.out = out;
+  a.scores = scores;
+  a.layer = layer;
+  a.S = S;
+  a.Hk = Hk;
+  a.qpk = qpk;
+  a.D = D;
+  a.kv_sinks = kv_sinks;
+  return a;
 }
 
 bool shape_ok(int S, int Hk, int qpk, int D, int layer, int kv_sinks) {
@@ -334,8 +381,8 @@ bool shape_ok(int S, int Hk, int qpk, int D, int layer, int kv_sinks) {
 
 }  // namespace
 
-// One lane: kv_type W_BF16 or W_E5M2 (common.cuh), the type of k_all and
-// v_all, (L, S, Hk, D); the scalars come by value and the row is written.
+// One lane: k_all and v_all (L, S, Hk, D) of kv_type; the scalars come by
+// value and the row is written.
 extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
                               const float* v_new, void* k_all, void* v_all,
                               const float* freq, float mscale, float inv_sqrt_d,
@@ -345,10 +392,15 @@ extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
   if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || kv_len < 1 || kv_len > S || kv_pos < 0 ||
       kv_pos >= S || kv_sink < 0 || kv_sink > kv_sinks)
     return ERR_ARGS;
-  const int* no_lanes = nullptr;
-  return dispatch(kv_type, q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
-                  scores, no_lanes, (size_t)0, layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink,
-                  pos, kv_sinks, 1, kv_len, static_cast<cudaStream_t>(stream));
+  AttnArgs a = common_args(q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
+                           scores, layer, S, Hk, qpk, D, kv_sinks);
+  a.kv_pos = kv_pos;
+  a.kv_len = kv_len;
+  a.kv_sink = kv_sink;
+  a.pos = pos;
+  a.B = 1;
+  a.slots = kv_len;
+  return launch(kv_type, a, static_cast<cudaStream_t>(stream));
 }
 
 // B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the device. The
@@ -362,8 +414,39 @@ extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* 
                                       int kv_sinks, void* stream) {
   if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 || !lanes)
     return ERR_ARGS;
-  const size_t lane_stride = (size_t)L * S * Hk * D;
-  return dispatch(kv_type, q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
-                  scores, lanes, lane_stride, layer, S, Hk, qpk, D, 0, 1, 0, 0, kv_sinks, B,
-                  S, static_cast<cudaStream_t>(stream));
+  AttnArgs a = common_args(q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
+                           scores, layer, S, Hk, qpk, D, kv_sinks);
+  a.lanes = lanes;
+  a.lane_stride = (size_t)L * S * Hk * D;
+  a.B = B;
+  a.slots = S;
+  return launch(kv_type, a, static_cast<cudaStream_t>(stream));
+}
+
+// B lanes over a page pool: k_pool and v_pool (n_pages, L, page, Hk, D);
+// tables (B, nblk) int32 page ids and lanes (5, B) int32 on the device; the
+// window is S = nblk * page, and the score space is sized from it as above.
+extern "C" int yt_attend_step_paged(int kv_type, const float* q, const float* k_new,
+                                    const float* v_new, void* k_pool, void* v_pool,
+                                    const float* freq, float mscale, float inv_sqrt_d,
+                                    float* out, float* scores, const int* lanes,
+                                    const int* tables, int B, int n_pages, int L, int layer,
+                                    int page, int nblk, int Hk, int qpk, int D, int kv_sinks,
+                                    void* stream) {
+  if (page < 1 || nblk < 1 || (long long)page * nblk > (1 << 30))
+    return ERR_ARGS;
+  const int S = page * nblk;
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 ||
+      n_pages < 1 || !lanes || !tables)
+    return ERR_ARGS;
+  AttnArgs a = common_args(q, k_new, v_new, k_pool, v_pool, freq, mscale, inv_sqrt_d, out,
+                           scores, layer, S, Hk, qpk, D, kv_sinks);
+  a.lanes = lanes;
+  a.tables = tables;
+  a.B = B;
+  a.slots = S;
+  a.L = L;
+  a.page = page;
+  a.n_pages = n_pages;
+  return launch(kv_type, a, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,9 @@
 `yalm_tpu/models/fast.py`, dense models on one device), single-sequence and
 for the continuous-batching scheduler (`decode_step_fast_batched`: one tick
 for B lanes of a batched cache; `prefill_chunk_fast_batched`: every
-admitting lane's next prompt chunk in one weight sweep).
+admitting lane's next prompt chunk in one weight sweep), and the same over a
+paged KV pool (`decode_step_fast_batched_paged`, `prefill_fast_paged`,
+`prefill_chunk_fast_batched_paged`; models/paged.py).
 
 One decode step per token: embedding gather, then per layer the attention
 block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
@@ -13,10 +15,10 @@ attention to plain torch (as the JAX package leaves it to XLA). int4
 checkpoints (packed uint8 layer weights with group scales; int8 embedding
 and LM head) take `attn_block4_l`, `ffn4_l` and `gemm4_l` on the same
 route. The batched paths run `gemm_l`/`gemm4_l` over the B (or B*T) rows,
-`attend_step_batched_l` and the many-row `ffn`. The KV cache (bf16 or
-e5m2) is updated IN PLACE. Models outside
-this slice (MoE, qk-norm, sandwich norms, softcaps, sliding layers) raise
-NotImplementedError.
+`attend_step_batched_l` (`attend_step_paged_l` over a pool) and the
+many-row `ffn`. The KV cache or pool (bf16 or e5m2) is updated IN PLACE.
+Models outside this slice (MoE, qk-norm, sandwich norms, softcaps, sliding
+layers) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,14 +32,16 @@ import torch
 
 from ..codec.format import numpy_to_torch, tag_for_numpy
 from ..config import KV_SINKS, ModelConfig
-from ..ops.core import NEG_INF, apply_rope, gelu, rmsnorm, silu
+from ..ops.core import NEG_INF, apply_rope, gelu, int_view, rmsnorm, silu
 from ..ops.cuda import _build
-from ..ops.cuda.attention import attend_step_batched, lane_scalars
+from ..ops.cuda.attention import (attend_step_batched, attend_step_paged, gather_pages,
+                                  lane_scalars, page_tables)
 from ..ops.cuda.block import attn_block
 from ..ops.cuda.ffn import ffn
 from ..ops.cuda.gemv import bf16f, gemm, gemv, is_int4, launch_gemm, proj_plain
 from ..ops.int4 import int4_group
 from .cache import KVCache
+from .paged import PagedKVPool
 
 
 @dataclass
@@ -178,12 +182,6 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16) if t.dtype == torch.float16 else t
 
 
-def _bits(t: torch.Tensor) -> torch.Tensor:
-    """A same-width integer view (copies of fp8 tensors go through it)."""
-    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
-                   8: torch.int64}[t.element_size()])
-
-
 def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
     """Load a dense checkpoint straight into the decode layout on `device`.
 
@@ -211,14 +209,14 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
         out = torch.empty((cfg.n_layers,) + tuple(first.shape), dtype=first.dtype,
                           device=device)
         for l in range(cfg.n_layers):
-            _bits(out[l]).copy_(_bits(first if l == 0 else parts_of_layer(l)))
+            int_view(out[l]).copy_(int_view(first if l == 0 else parts_of_layer(l)))
         return out
 
     def layer_cat(specs, dim=0):
         return lambda l: torch.cat([get(f.format(l), s) for f, s in specs], dim=dim)
 
     def put(x):
-        return _bits(torch.empty_like(x, device=device)).copy_(_bits(x)).view(x.dtype)
+        return int_view(torch.empty_like(x, device=device)).copy_(int_view(x)).view(x.dtype)
 
     def proj(names, n_rows, k):
         """One projection's layer stack: the named tensors' rows concatenated
@@ -291,7 +289,7 @@ def _embed(cfg: ModelConfig, fw: FastWeights, tokens) -> torch.Tensor:
     """(T, dim) f32 embedding rows, gathered through an integer view of the
     table (not every backend indexes fp8 tensors)."""
     idx = torch.as_tensor(tokens, dtype=torch.long, device=fw.embed.device).reshape(-1)
-    x = _bits(fw.embed).index_select(0, idx).view(fw.embed.dtype).float()
+    x = int_view(fw.embed).index_select(0, idx).view(fw.embed.dtype).float()
     if cfg.embed_scale != 1.0:
         x = x * cfg.embed_scale
     if fw.scales is not None:
@@ -370,16 +368,13 @@ def _proj_l(x2d, w_all, layer, scale, residual=None):
                        residual=None if residual is None else residual.contiguous())
 
 
-def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
-                 valid_len: int, cache: KVCache, *, logits_mode: str = "last",
-                 attend_len: int = 0) -> tuple[Optional[torch.Tensor], KVCache]:
-    """Chunked prefill of `tokens` (a padded chunk of T ids; the first
-    valid_len are real) at positions pos0.., inside the window. Writes the
-    valid rows' k/v into the cache in place. attend_len (0 = the window)
-    bounds the attention width; it must cover pos0 + T.
-
-    logits_mode: "none" -> None; "last" -> (vocab,) logits of the last valid
-    token; "all" -> (T, vocab)."""
+def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
+                     attend_len: int, layers, rows_at, view_of, logits_mode: str, what: str):
+    """One lane's chunked prefill (fast.py:884-1000, 1511-1621): per layer
+    the projections on gemm_l, RoPE, the valid rows' k/v written IN PLACE
+    at `rows_at` of the layer's cache view `layers(i)` = (k, v), chunk
+    attention over `view_of(view)` (the lane's slots < S, (S, Hk, D)), wo and
+    the FFN. Returns the logits of `logits_mode`."""
     _check_slice(cfg)
     dev = fw.wqkv.device
     tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev).reshape(-1)
@@ -387,8 +382,10 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
     L = cfg.max_seq_len
     S = attend_len or L
     if S % 8 or S > L or pos0 + T > S or not 0 < valid_len <= T:
-        raise ValueError(f"prefill_fast: chunk {pos0}+{T} (valid {valid_len}) "
+        raise ValueError(f"{what}: chunk {pos0}+{T} (valid {valid_len}) "
                          f"vs attend_len {S}, window {L}")
+    if logits_mode not in ("none", "last", "all"):
+        raise ValueError(f"bad logits_mode {logits_mode!r}")
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qpk = Hq // Hk
     H = cfg.hidden_dim
@@ -410,10 +407,11 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
         k = apply_rope(qkv[:, cfg.q_dim: cfg.q_dim + cfg.kv_dim].reshape(T, Hk, D),
                        positions, cfg.rope_param, cfg.rotary_dim)
         v = qkv[:, cfg.q_dim + cfg.kv_dim:].reshape(T, Hk, D)
-        cache.k[i, pos0: pos0 + valid_len] = k[:valid_len].to(cache.k.dtype)
-        cache.v[i, pos0: pos0 + valid_len] = v[:valid_len].to(cache.v.dtype)
-        mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), cache.k[i, :S],
-                                   cache.v[i, :S], att_mask, D)
+        kl, vl = layers(i)
+        for c, rows in ((kl, k), (vl, v)):
+            int_view(c)[rows_at] = int_view(rows[:valid_len].to(c.dtype))
+        mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), view_of(kl), view_of(vl),
+                                   att_mask, D)
         x = x + _proj_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
         xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
         h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
@@ -421,14 +419,60 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
         x = x + _proj_l(h, fw.w2, i, sc.w2 if sc else None)
 
     if logits_mode == "none":
-        return None, cache
+        return None
     if logits_mode == "last":
         xl = rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps)
-        return gemv(xl, fw.lm_head, sc.lm_head if sc else None), cache
-    if logits_mode == "all":
-        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-        return gemm(xn, fw.lm_head, sc.lm_head if sc else None), cache
-    raise ValueError(f"bad logits_mode {logits_mode!r}")
+        return gemv(xl, fw.lm_head, sc.lm_head if sc else None)
+    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemm(xn, fw.lm_head, sc.lm_head if sc else None)
+
+
+def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
+                 valid_len: int, cache: KVCache, *, logits_mode: str = "last",
+                 attend_len: int = 0) -> tuple[Optional[torch.Tensor], KVCache]:
+    """Chunked prefill of `tokens` (a padded chunk of T ids; the first
+    valid_len are real) at positions pos0.., inside the window. Writes the
+    valid rows' k/v into the cache in place. attend_len (0 = the window)
+    bounds the attention width; it must cover pos0 + T.
+
+    logits_mode: "none" -> None; "last" -> (vocab,) logits of the last valid
+    token; "all" -> (T, vocab)."""
+    S = attend_len or cfg.max_seq_len
+    out = _prefill_forward(cfg, fw, tokens, pos0, valid_len, attend_len,
+                           lambda i: (cache.k[i], cache.v[i]),
+                           slice(pos0, pos0 + valid_len), lambda c: c[:S], logits_mode,
+                           "prefill_fast")
+    return out, cache
+
+
+def prefill_fast_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
+                       pool: PagedKVPool, table_b, page: int, row0: int, *,
+                       logits_mode: str = "last", page_size: int = 256, attend_len: int = 0
+                       ) -> tuple[Optional[torch.Tensor], PagedKVPool]:
+    """Chunked prefill of ONE lane through its page table (fast.py:1511-1621):
+    the chunk's valid rows land in one page, rows row0.. of (page, layer),
+    IN PLACE; attention gathers the lane's pages (`table_b`, (window //
+    page_size,) ids) covering attend_len (0 = the window; slots past a
+    lane's history are masked causally). Other arguments as prefill_fast."""
+    nblk = cfg.max_seq_len // page_size
+    if pool.page_size != page_size or cfg.max_seq_len % page_size:
+        raise ValueError(f"prefill_fast_paged: pool pages of {pool.page_size} vs page_size "
+                         f"{page_size}, window {cfg.max_seq_len}")
+    if not (0 <= row0 and row0 + valid_len <= page_size and pos0 % page_size == row0):
+        raise ValueError(f"prefill_fast_paged: rows {row0}+{valid_len} at {pos0} do not fit "
+                         f"one page of {page_size}")
+    tab = page_tables(torch.as_tensor(table_b).reshape(1, -1), n_pages=pool.k.shape[0],
+                      nblk=nblk, device=pool.k.device)[0]
+    if not 0 <= page < pool.k.shape[0]:
+        raise ValueError(f"prefill_fast_paged: page {page} outside the pool")
+    S = attend_len or cfg.max_seq_len
+    nb = -(-S // page_size)
+    out = _prefill_forward(cfg, fw, tokens, pos0, valid_len, attend_len,
+                           lambda i: (pool.k[:, i], pool.v[:, i]),
+                           (page, slice(row0, row0 + valid_len)),
+                           lambda c: gather_pages(c, tab[:nb])[:S], logits_mode,
+                           "prefill_fast_paged")
+    return out, pool
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +490,49 @@ def _host_ints(a, n: int | None = None) -> np.ndarray:
     return out
 
 
+def _tick_lanes(cfg: ModelConfig, positions, write_mask, device) -> torch.Tensor:
+    """The tick's (5, B) lane scalars from host positions (fast.py:823-826):
+    ring slot, length and sinks of every lane, uploaded once."""
+    pos = _host_ints(positions)
+    L = cfg.max_seq_len
+    kv_sink = np.where(pos >= L, KV_SINKS, 0)
+    kv_pos = kv_sink + (pos - kv_sink) % (L - kv_sink)
+    kv_len = np.minimum(pos + 1, L)
+    write = None if write_mask is None else _host_ints(write_mask, pos.shape[0])
+    return lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=L, kv_sinks=KV_SINKS,
+                        device=device)
+
+
+def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Tensor:
+    """The tick's body (fast.py:802-876, 1434-1507): per layer rmsnorm, the
+    wqkv GEMM over the B rows, bias and clip, `attend(i, q, k, v)` (the
+    batched or paged attention step), the wo GEMM + residual, the many-row
+    FFN; then the final norm and the LM-head GEMM. Returns (B, vocab)."""
+    _check_slice(cfg)
+    sc = fw.scales
+    Hk, D = cfg.n_kv_heads, cfg.head_dim
+    qpk = cfg.n_heads // Hk
+    x = _embed(cfg, fw, tokens)                        # (B, dim)
+    Bn = x.shape[0]
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv)
+        mixed = attend(i, qkv[:, :q_dim].reshape(Bn, Hk, qpk, D),
+                       qkv[:, q_dim:q_dim + kv_dim].reshape(Bn, Hk, D),
+                       qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D))
+        x = _proj_l(mixed.reshape(Bn, q_dim), fw.wo, i, sc.wo if sc else None, residual=x)
+        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
+                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+
+    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemm(x, fw.lm_head, sc.lm_head if sc else None)
+
+
 def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, positions,
                              cache: KVCache, write_mask=None
                              ) -> tuple[torch.Tensor, KVCache]:
@@ -456,43 +543,38 @@ def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, position
     rmsnorm, the wqkv GEMM over the B rows, bias and clip, the batched
     attention step, the wo GEMM + residual, the many-row FFN; then the
     final norm and the LM-head GEMM. Returns (logits (B, vocab) f32, cache)."""
-    _check_slice(cfg)
-    sc = fw.scales
-    dev = fw.wqkv.device
-    pos = _host_ints(positions)
-    Bn = pos.shape[0]
+    Bn = _host_ints(positions).shape[0]
     if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
         raise ValueError(f"decode_step_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
-    L = cfg.max_seq_len
-    Hk, D = cfg.n_kv_heads, cfg.head_dim
-    qpk = cfg.n_heads // Hk
-    kv_sink = np.where(pos >= L, KV_SINKS, 0)
-    kv_pos = kv_sink + (pos - kv_sink) % (L - kv_sink)
-    kv_len = np.minimum(pos + 1, L)
-    write = None if write_mask is None else _host_ints(write_mask, Bn)
-    lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=L, kv_sinks=KV_SINKS,
-                         device=dev)
+    lanes = _tick_lanes(cfg, positions, write_mask, fw.wqkv.device)
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
-    x = _embed(cfg, fw, tokens)                        # (B, dim)
-    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v: attend_step_batched(
+        q, k, v, cache.k, cache.v, i, lanes, **rope))
+    return logits, cache
 
-    for i in range(cfg.n_layers):
-        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
-        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
-        if fw.bqkv is not None:
-            qkv = qkv + fw.bqkv[i]
-        qkv = _clip(cfg, qkv)
-        mixed = attend_step_batched(
-            qkv[:, :q_dim].reshape(Bn, Hk, qpk, D),
-            qkv[:, q_dim:q_dim + kv_dim].reshape(Bn, Hk, D),
-            qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D),
-            cache.k, cache.v, i, lanes, **rope)
-        x = _proj_l(mixed.reshape(Bn, q_dim), fw.wo, i, sc.wo if sc else None, residual=x)
-        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
-                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
 
-    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemm(x, fw.lm_head, sc.lm_head if sc else None), cache
+def decode_step_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, positions,
+                                   pool: PagedKVPool, tables, write_mask=None, *,
+                                   page_size: int = 256) -> tuple[torch.Tensor, PagedKVPool]:
+    """decode_step_fast_batched over a PAGED pool (fast.py:1434-1507): lane
+    b's logical slots resolve through tables[b] ((B, window // page_size)
+    page ids) into the shared pool, updated IN PLACE. The lane scalars and
+    the tables are uploaded once per tick; each layer runs the paged
+    attention step. Returns (logits (B, vocab) f32, pool)."""
+    if pool.page_size != page_size or cfg.max_seq_len % page_size:
+        raise ValueError(f"decode_step_fast_batched_paged: pool pages of {pool.page_size} vs "
+                         f"page_size {page_size}, window {cfg.max_seq_len}")
+    dev = fw.wqkv.device
+    lanes = _tick_lanes(cfg, positions, write_mask, dev)
+    tab = page_tables(tables, n_pages=pool.k.shape[0], nblk=cfg.max_seq_len // page_size,
+                      device=dev)
+    if tab.shape[0] != lanes.shape[1]:
+        raise ValueError(f"decode_step_fast_batched_paged: tables {tuple(tab.shape)} vs "
+                         f"{lanes.shape[1]} lanes")
+    rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v: attend_step_paged(
+        q, k, v, pool.k, pool.v, tab, i, lanes, **rope))
+    return logits, pool
 
 
 def _attend_chunk_batched(q5, kc, vc, mask, D):
@@ -503,6 +585,79 @@ def _attend_chunk_batched(q5, kc, vc, mask, D):
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     att = torch.softmax(scores, dim=-1)
     return torch.einsum("bgqts,bsgd->btgqd", bf16f(att), bf16f(vc))
+
+
+def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, enable,
+                   attend_len: int, layers, dest, view_of, logits_mode: str, what: str):
+    """Batched chunked admission's body (fast.py:1307-1426, 1680-1787):
+    every enabled lane's next prompt chunk in ONE weight sweep. Per layer
+    the valid rows of enabled lanes are written IN PLACE into the layer's
+    cache view `layers(i)` = (k, v) at `dest(lane ids, slots)` (an index
+    tuple), and chunk attention reads `view_of(view)` ((B, S, Hk, D), the
+    lanes' slots < S); other lanes change nothing."""
+    _check_slice(cfg)
+    sc = fw.scales
+    dev = fw.wqkv.device
+    tok = np.asarray(tokens, np.int64)
+    if tok.ndim != 2:
+        raise ValueError(f"{what}: tokens must be (B, T), got {tok.shape}")
+    Bn, T = tok.shape
+    p0, vlen = _host_ints(pos0, Bn), _host_ints(valid_len, Bn)
+    en = _host_ints(enable, Bn) != 0
+    L = cfg.max_seq_len
+    S = attend_len or L
+    if S % 8 or S > L:
+        raise ValueError(f"{what}: attend_len {S} vs window {L}")
+    if en.any() and ((p0[en] < 0).any() or (p0[en] + T > S).any()
+                     or (vlen[en] < 0).any() or (vlen[en] > T).any()):
+        raise ValueError(f"{what}: chunks at {p0[en].tolist()} of {T} rows "
+                         f"(valid {vlen[en].tolist()}) vs attend_len {S}")
+    if logits_mode not in ("none", "lastv", "all"):
+        raise ValueError(f"bad logits_mode {logits_mode!r}")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qpk = Hq // Hk
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+
+    p0 = np.where(en, p0, 0)   # disabled lanes compute from slot 0 and write nothing
+    positions = torch.as_tensor(p0[:, None] + np.arange(T)[None, :], device=dev)  # (B, T)
+    att_mask = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
+    # the rows to write: (lane, chunk row) of every valid row of an enabled lane
+    li, ti = np.nonzero(en[:, None] & (np.arange(T)[None, :] < vlen[:, None]))
+    li_t, ti_t = torch.as_tensor(li, device=dev), torch.as_tensor(ti, device=dev)
+    at = dest(li, p0[li] + ti)
+    x = _embed(cfg, fw, tok.reshape(-1))               # (B*T, dim)
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv).reshape(Bn, T, -1)
+        q = apply_rope(qkv[..., :q_dim].reshape(Bn, T, Hq, D), positions,
+                       cfg.rope_param, cfg.rotary_dim)
+        k = apply_rope(qkv[..., q_dim:q_dim + kv_dim].reshape(Bn, T, Hk, D), positions,
+                       cfg.rope_param, cfg.rotary_dim)
+        v = qkv[..., q_dim + kv_dim:].reshape(Bn, T, Hk, D)
+        kl, vl = layers(i)
+        if len(li):
+            for c, rows in ((kl, k), (vl, v)):
+                int_view(c)[at] = int_view(rows[li_t, ti_t].to(c.dtype))
+        mixed = _attend_chunk_batched(q.reshape(Bn, T, Hk, qpk, D), view_of(kl), view_of(vl),
+                                      att_mask, D)
+        x = _proj_l(mixed.reshape(Bn * T, q_dim), fw.wo, i, sc.wo if sc else None,
+                    residual=x)
+        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
+                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+
+    if logits_mode == "none":
+        return None
+    if logits_mode == "lastv":
+        last = torch.as_tensor(np.maximum(vlen, 1) - 1, device=dev)
+        x = x.reshape(Bn, T, -1)[torch.arange(Bn, device=dev), last]
+        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+        return gemm(xn, fw.lm_head, sc.lm_head if sc else None)
+    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    return gemm(xn, fw.lm_head, sc.lm_head if sc else None).reshape(Bn, T, -1)
 
 
 def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len,
@@ -520,68 +675,49 @@ def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, 
     logits_mode: "lastv" -> (B, vocab) logits of each lane's last valid
     row; "none" -> None; "all" -> (B, T, vocab). ("all_h", Medusa's, comes
     with speculation.)"""
-    _check_slice(cfg)
-    sc = fw.scales
-    dev = fw.wqkv.device
-    tok = np.asarray(tokens, np.int64)
-    if tok.ndim != 2:
-        raise ValueError(f"prefill_chunk_fast_batched: tokens must be (B, T), got {tok.shape}")
-    Bn, T = tok.shape
-    p0, vlen = _host_ints(pos0, Bn), _host_ints(valid_len, Bn)
-    en = _host_ints(enable, Bn) != 0
-    L = cfg.max_seq_len
-    S = attend_len or L
-    if S % 8 or S > L:
-        raise ValueError(f"prefill_chunk_fast_batched: attend_len {S} vs window {L}")
-    if en.any() and ((p0[en] < 0).any() or (p0[en] + T > S).any()
-                     or (vlen[en] < 0).any() or (vlen[en] > T).any()):
-        raise ValueError(f"prefill_chunk_fast_batched: chunks at {p0[en].tolist()} of {T} rows "
-                         f"(valid {vlen[en].tolist()}) vs attend_len {S}")
-    if logits_mode not in ("none", "lastv", "all"):
-        raise ValueError(f"bad logits_mode {logits_mode!r}")
+    Bn = np.asarray(tokens).shape[0]
     if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
         raise ValueError(f"prefill_chunk_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
-    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    qpk = Hq // Hk
-    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+    dev = cache.k.device
+    S = attend_len or cfg.max_seq_len
+    out = _chunk_forward(cfg, fw, tokens, pos0, valid_len, enable, attend_len,
+                         lambda i: (cache.k[:, i], cache.v[:, i]),
+                         lambda li, slots: (torch.as_tensor(li, device=dev),
+                                            torch.as_tensor(slots, device=dev)),
+                         lambda c: c[:, :S], logits_mode, "prefill_chunk_fast_batched")
+    return out, cache
 
-    p0 = np.where(en, p0, 0)   # disabled lanes compute from slot 0 and write nothing
-    positions = torch.as_tensor(p0[:, None] + np.arange(T)[None, :], device=dev)  # (B, T)
-    att_mask = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
-    # the rows to write: (lane, chunk row) of every valid row of an enabled lane
-    li, ti = np.nonzero(en[:, None] & (np.arange(T)[None, :] < vlen[:, None]))
-    li_t, ti_t = torch.as_tensor(li, device=dev), torch.as_tensor(ti, device=dev)
-    slots_t = torch.as_tensor(p0[li] + ti, device=dev)
-    x = _embed(cfg, fw, tok.reshape(-1))               # (B*T, dim)
 
-    for i in range(cfg.n_layers):
-        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
-        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
-        if fw.bqkv is not None:
-            qkv = qkv + fw.bqkv[i]
-        qkv = _clip(cfg, qkv).reshape(Bn, T, -1)
-        q = apply_rope(qkv[..., :q_dim].reshape(Bn, T, Hq, D), positions,
-                       cfg.rope_param, cfg.rotary_dim)
-        k = apply_rope(qkv[..., q_dim:q_dim + kv_dim].reshape(Bn, T, Hk, D), positions,
-                       cfg.rope_param, cfg.rotary_dim)
-        v = qkv[..., q_dim + kv_dim:].reshape(Bn, T, Hk, D)
-        if len(li):
-            for c, rows in ((cache.k, k), (cache.v, v)):
-                # through same-width integer views: not every backend indexes fp8
-                _bits(c[:, i])[li_t, slots_t] = _bits(rows[li_t, ti_t].to(c.dtype))
-        mixed = _attend_chunk_batched(q.reshape(Bn, T, Hk, qpk, D), cache.k[:, i, :S],
-                                      cache.v[:, i, :S], att_mask, D)
-        x = _proj_l(mixed.reshape(Bn * T, q_dim), fw.wo, i, sc.wo if sc else None,
-                    residual=x)
-        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
-                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
-
-    if logits_mode == "none":
-        return None, cache
-    if logits_mode == "lastv":
-        last = torch.as_tensor(np.maximum(vlen, 1) - 1, device=dev)
-        x = x.reshape(Bn, T, -1)[torch.arange(Bn, device=dev), last]
-        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-        return gemm(xn, fw.lm_head, sc.lm_head if sc else None), cache
-    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemm(xn, fw.lm_head, sc.lm_head if sc else None).reshape(Bn, T, -1), cache
+def prefill_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0,
+                                     valid_len, enable, pool: PagedKVPool, tables, *,
+                                     page_size: int = 256, logits_mode: str = "lastv",
+                                     attend_len: int = 0
+                                     ) -> tuple[Optional[torch.Tensor], PagedKVPool]:
+    """prefill_chunk_fast_batched over a PAGED pool (fast.py:1653,
+    1680-1787): each enabled lane's valid chunk rows scatter through its
+    page table (a chunk may straddle pages) into the pool IN PLACE, and
+    chunk attention gathers each lane's pages covering attend_len (0 = the
+    window). Enabled lanes must have their pages mapped through pos0 +
+    valid_len (the scheduler's _ensure_pages). tables: (B, window //
+    page_size) page ids on the host. Other arguments as
+    prefill_chunk_fast_batched."""
+    nblk = cfg.max_seq_len // page_size
+    if pool.page_size != page_size or cfg.max_seq_len % page_size:
+        raise ValueError(f"prefill_chunk_fast_batched_paged: pool pages of {pool.page_size} "
+                         f"vs page_size {page_size}, window {cfg.max_seq_len}")
+    tab_host = np.asarray(tables.cpu() if isinstance(tables, torch.Tensor) else tables)
+    tab = page_tables(tab_host, n_pages=pool.k.shape[0], nblk=nblk, device=pool.k.device)
+    if tab.shape[0] != np.asarray(tokens).shape[0]:
+        raise ValueError(f"prefill_chunk_fast_batched_paged: tables {tuple(tab.shape)} vs "
+                         f"tokens {np.asarray(tokens).shape}")
+    dev = pool.k.device
+    S = attend_len or cfg.max_seq_len
+    nb = -(-S // page_size)
+    out = _chunk_forward(cfg, fw, tokens, pos0, valid_len, enable, attend_len,
+                         lambda i: (pool.k[:, i], pool.v[:, i]),
+                         lambda li, slots: (torch.as_tensor(tab_host[li, slots // page_size],
+                                                            dtype=torch.long, device=dev),
+                                            torch.as_tensor(slots % page_size, device=dev)),
+                         lambda c: gather_pages(c, tab[:, :nb])[:, :S], logits_mode,
+                         "prefill_chunk_fast_batched_paged")
+    return out, pool

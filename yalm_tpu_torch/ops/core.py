@@ -15,6 +15,13 @@ import torch
 NEG_INF = -1e30  # the masking constant of every attention path (not -inf)
 
 
+def int_view(t: torch.Tensor) -> torch.Tensor:
+    """A same-width integer view: copies, gathers and scatters of fp8
+    tensors go through it (not every backend indexes fp8)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMS norm over the last axis: x * rsqrt(mean(x^2) + eps) * weight
     (eps inside the root, as the reference does)."""

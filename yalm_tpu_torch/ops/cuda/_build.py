@@ -50,6 +50,8 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "yt_attend_step_batched": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "yt_attend_step_paged": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,6 +1,6 @@
-"""Fused decode attention step (port of `attend_step_l` and its
-continuous-batching form `attend_step_batched_l`,
-`yalm_tpu/ops/pallas/attention.py`).
+"""Fused decode attention step (port of `attend_step_l`, its
+continuous-batching form `attend_step_batched_l` and its paged form
+`attend_step_paged_l`, `yalm_tpu/ops/pallas/attention.py`).
 
 One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
 `kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
@@ -8,7 +8,9 @@ aliased its buffers), the lazy StreamingLLM sink view in the ring regime,
 then GQA attention over slots < kv_len. The batched form does this for B
 lanes of a (B, L, S, Hk, D) cache in one launch, each lane with its own
 scalars; a lane whose `write` is 0 changes nothing and attends the cache as
-it is (lanes mid-admission). Kernel: `csrc/attention.cu`. The
+it is (lanes mid-admission). The paged form does it over a page pool
+(n_pages, L, page, Hk, D), lane b's slot s at (tables[b, s // page], layer,
+s % page). Kernel: `csrc/attention.cu`. The
 cache is bf16 or fp8 e5m2 (`-C fp8`): the new row is rounded from f32 to
 the cache type in one step, attention reads the cache widened to bf16
 (exact), and the sink view is rounded to bf16, the working type, for
@@ -23,7 +25,7 @@ import math
 
 import torch
 
-from ..core import (NEG_INF, rope_freq_table, rope_mscale, rope_rotation_param,
+from ..core import (NEG_INF, int_view, rope_freq_table, rope_mscale, rope_rotation_param,
                     rotate_pairs)
 from . import _build as B
 from .gemv import bf16f
@@ -257,3 +259,137 @@ def attend_step_batched_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Ten
                          kv_sinks=kv_sinks, device=k_all.device)
     return attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes,
                                kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+
+
+# ---------------------------------------------------------------------------
+# paged KV: B lanes over a page pool through per-lane page tables
+# ---------------------------------------------------------------------------
+
+def page_tables(tables, *, n_pages: int, nblk: int, device) -> torch.Tensor:
+    """The (B, nblk) int32 page tables on `device`, uploaded once per tick.
+    Tables given on the host are checked here (every id in [0, n_pages));
+    the kernel gives a lane whose ids it cannot take a NaN output and
+    writes nothing."""
+    if isinstance(tables, torch.Tensor) and tables.device.type != "cpu":
+        out = tables.to(torch.int32).contiguous()
+    else:
+        out = torch.as_tensor(tables).to(torch.int32).contiguous()
+        if out.numel() and not bool(((out >= 0) & (out < n_pages)).all()):
+            raise ValueError(f"page ids out of range for a pool of {n_pages} pages: "
+                             f"{out.tolist()}")
+        out = out.to(device)
+    if out.dim() != 2 or out.shape[1] != nblk:
+        raise ValueError(f"page tables must be (B, {nblk}), got {tuple(out.shape)}")
+    return out
+
+
+def gather_pages(pool_layer: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Lanes' views of one pool layer (n_pages, page, Hk, D) through their
+    (..., nblk) tables: (..., nblk * page, Hk, D), gathered through integer
+    views (`_gather_lane`, attention.py:1074)."""
+    idx = tables.to(device=pool_layer.device, dtype=torch.long)
+    rows = int_view(pool_layer).index_select(0, idx.reshape(-1)).view(pool_layer.dtype)
+    return rows.reshape(*idx.shape[:-1], -1, *pool_layer.shape[2:])
+
+
+def attend_step_paged_plain(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *,
+                            kv_sinks, theta, rotary_dim):
+    """The JAX emulation branch (attention.py:1119-1159) for one layer: per
+    lane in order, gather the lane's view of layer `layer` through its
+    table, run `attend_step_plain` on it (write 0: attend it as it is),
+    and write the one new row back to its page. Returns mix (B, Hk, qpk, D)
+    f32. (The emulation scatters the whole view back; only the new row
+    differs from what was gathered, except on page 0, where unmapped blocks
+    of several lanes collide.)"""
+    page = k_pool.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    tab = tables.cpu()
+    for b, (kp, kl, ks, p, wr) in enumerate(lanes.T.tolist()):
+        views = [gather_pages(pool[:, layer], tab[b])[None] for pool in (k_pool, v_pool)]
+        out[b] = attend_step_plain(q[b], k_new[b], v_new[b], *views, 0, kp, kl, ks, p,
+                                   kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim,
+                                   write=wr != 0)
+        if wr:
+            pg = int(tab[b, kp // page])
+            for pool, view in zip((k_pool, v_pool), views):
+                int_view(pool[pg, layer, kp % page]).copy_(int_view(view[0, kp]))
+    return out
+
+
+def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *,
+                             kv_sinks, theta, rotary_dim):
+    """One launch of csrc/attention.cu over B lanes of a page pool on CUDA
+    tensors (adds one to LAUNCHES["attend_step_paged_l"])."""
+    n_pages, L, page, Hk, D = k_pool.shape
+    Bn, nblk = tables.shape
+    qpk = q.shape[2]
+    S = nblk * page
+    B.require(k_pool.dtype in KV_DTYPES and v_pool.dtype == k_pool.dtype,
+              f"attend_step_paged_l: the kernel takes a bf16 or e5m2 pool, got {k_pool.dtype}")
+    B.require(k_pool.is_contiguous() and v_pool.is_contiguous()
+              and v_pool.shape == k_pool.shape,
+              "attend_step_paged_l: k_pool/v_pool must be contiguous (n_pages, L, page, Hk, D)")
+    B.require(tuple(q.shape) == (Bn, Hk, qpk, D) and D % 8 == 0 and qpk * D <= 2048,
+              f"attend_step_paged_l: q {tuple(q.shape)} vs pool {tuple(k_pool.shape)}")
+    B.require(tuple(k_new.shape) == (Bn, Hk, D) and tuple(v_new.shape) == (Bn, Hk, D),
+              "attend_step_paged_l: k_new/v_new must be (B, Hk, D)")
+    B.require(lanes.dtype == torch.int32 and tuple(lanes.shape) == (5, Bn)
+              and lanes.is_contiguous(), "attend_step_paged_l: lanes must be (5, B) int32")
+    B.require(tables.dtype == torch.int32 and tables.is_contiguous(),
+              "attend_step_paged_l: tables must be (B, nblk) int32")
+    B.require(0 <= layer < L, "attend_step_paged_l: layer out of range")
+    B.require(B.aligned16(k_pool, v_pool), "attend_step_paged_l: pool must be 16-byte aligned")
+    qc = q.float().contiguous()
+    kn = k_new.float().contiguous()
+    vn = v_new.float().contiguous()
+    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
+    scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
+              torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
+    code = B.lib().yt_attend_step_paged(
+        B.WTYPE[k_pool.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_pool), B.ptr(v_pool),
+        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
+        B.ptr(lanes), B.ptr(tables), Bn, n_pages, L, layer, page, nblk, Hk, qpk, D, kv_sinks,
+        B.stream_ptr())
+    B.check(code, "attend_step_paged_l")
+    B.LAUNCHES["attend_step_paged_l"] += 1
+    return out
+
+
+def attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *, kv_sinks,
+                      theta, rotary_dim):
+    """The paged step with the lane scalars and the tables already on the
+    device (`lane_scalars`, `page_tables`: the tick uploads them once for
+    every layer)."""
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    args = (q, k_new, v_new, k_pool, v_pool, tables, layer, lanes)
+    if B.device_kind(q, k_new, v_new, k_pool, v_pool, tables, lanes) == "cpu":
+        return attend_step_paged_plain(*args, **kw)
+    return launch_attend_step_paged(*args, **kw)
+
+
+def attend_step_paged_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                        k_pool: torch.Tensor, v_pool: torch.Tensor, tables, layer: int,
+                        kv_pos, kv_len, kv_sink, pos, write=None, win=None, alt=None, *,
+                        kv_sinks: int, theta, rotary_dim: int, window: int,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Paged attend_step_batched_l.
+
+    k_pool/v_pool: (n_pages, L, page, Hk, D), updated IN PLACE at each
+    writing lane's row (tables[b, kv_pos // page], layer, kv_pos % page);
+    tables: (B, window // page) page ids (unmapped blocks may point at any
+    page in the pool: slots >= kv_len are never read). Other arguments as
+    attend_step_batched_l. Returns mix (B, Hk, qpk, D) f32. (The JAX
+    function also returns the pools, which are the same tensors here.)"""
+    if win is not None or alt is not None or softcap:
+        raise NotImplementedError(
+            "attend_step_paged_l: sliding window, alternate rope and softcap are a later "
+            "slice (see ROADMAP.md)")
+    n_pages, _, page, _, _ = k_pool.shape
+    if window % page:
+        raise ValueError(f"attend_step_paged_l: page {page} does not divide window {window}")
+    tab = page_tables(tables, n_pages=n_pages, nblk=window // page, device=k_pool.device)
+    lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=window, kv_sinks=kv_sinks,
+                         device=k_pool.device)
+    return attend_step_paged(q, k_new, v_new, k_pool, v_pool, tab, layer, lanes,
+                             kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)

@@ -16,10 +16,18 @@
 - Optional dense prefix cache: a finished admission registers its prompt;
   a later one copies the best-matching lane's rows and skips the common
   prefix.
+- Paged KV (`paged_pages`): the cache is a pool of pages (models/paged.py)
+  mapped through per-lane tables, so its memory scales with the tokens in
+  flight. Pages are mapped lazily (the first chunk's at admission, then
+  chunk by chunk and at block boundaries); new requests wait for free
+  pages, and a lane that must grow in an exhausted pool preempts the
+  newest lane, which is requeued with an exact resume point. Full prompt
+  pages are shared read-only between identical prefixes (automatic prefix
+  caching, LRU eviction of unreferenced pages).
 - Completion: EOS/stop/max-tokens frees the slot at the tick boundary.
 
-The paged pool (`paged_pages`), speculation (`spec_*`) and meshes come in
-later slices of the port (ROADMAP.md) and raise NotImplementedError.
+Speculation (`spec_*`) and meshes come in later slices of the port
+(ROADMAP.md) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,7 +42,10 @@ from .config import ModelConfig
 from .engine import PREFILL_BUCKETS, _bucket_for, attend_bucket, resolve_device
 from .models.cache import KVCache
 from .models.fast import (FastWeights, decode_step_fast, decode_step_fast_batched,
-                          fast_unsupported, prefill_chunk_fast_batched, prefill_fast)
+                          decode_step_fast_batched_paged, fast_unsupported,
+                          prefill_chunk_fast_batched, prefill_chunk_fast_batched_paged,
+                          prefill_fast, prefill_fast_paged)
+from .models.paged import PageAllocator, PagedKVPool
 from .sampler import sample_rows
 
 _NBIAS = 16  # static per-request logit_bias capacity (OpenAI logit_bias)
@@ -152,6 +163,10 @@ class Request:
     done: bool = False
     error: Optional[str] = None   # set when the request failed (isolation)
     on_token: Optional[Callable[[int], None]] = None
+    # paged-preemption resume point: (prefix_tokens, last_token) -- the lane
+    # re-hydrates prefix_tokens WITHOUT re-emitting, then resumes decoding
+    # from last_token (Scheduler._preempt / _advance_admission)
+    _resume: Optional[tuple[list[int], int]] = None
 
     def _emit(self, tok: int, lp: float | None = None, top=None) -> None:
         self.generated.append(tok)
@@ -169,6 +184,8 @@ class _Slot:
     admitting: bool = False  # prompt still hydrating (chunked, interleaved)
     admit_i: int = 0         # prompt tokens consumed so far
     admit_tokens: list[int] = dataclasses.field(default_factory=list)
+    resuming: bool = False   # admission is a preemption-resume re-hydration
+    seq: int = 0             # admission order (paged preemption picks the newest)
 
     @property
     def free(self) -> bool:
@@ -191,16 +208,19 @@ class Scheduler:
     def __init__(self, cfg: ModelConfig, weights: FastWeights, *, batch: int = 8,
                  kv_dtype: torch.dtype = torch.bfloat16, batched_admission: bool = False,
                  prefix_cache: bool = False, top_logprobs: int = 0, device="cuda",
-                 paged_pages: int = 0, mesh=None, spec_draft=None, spec_lookup: bool = False,
-                 spec_medusa=None, spec_tree=None):
+                 paged_pages: int = 0, page_size: int = 256, mesh=None, spec_draft=None,
+                 spec_lookup: bool = False, spec_medusa=None, spec_tree=None):
         """batched_admission: all admitting lanes' chunks hydrate in ONE
         weight sweep (the chunk pads to the group's bucket, so a lane's
         prefill rounding depends on its co-admitted traffic; the per-slot
         path keeps streams identical to a solo run). prefix_cache: dense
         prompt reuse by lane copy (copied rows carry the source's chunking).
-        The server turns both on."""
+        The server turns both on. paged_pages > 0: the cache is a pool of
+        that many pages of page_size slots (page_size must divide the
+        window); the pool shares prompt pages natively, so the dense
+        registry stays off."""
         later = [name for name, on in (
-            ("paged KV (paged_pages)", paged_pages > 0), ("a device mesh", mesh is not None),
+            ("a device mesh", mesh is not None),
             ("scheduler speculation (spec_*)",
              any(a is not None for a in (spec_draft, spec_medusa, spec_tree)) or spec_lookup),
         ) if on]
@@ -220,17 +240,34 @@ class Scheduler:
             raise ValueError(f"weights on {weights.wqkv.device}, scheduler on {self.device}")
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
+        self.paged = paged_pages > 0
+        self.page_size = page_size
+        if self.paged and (page_size < 1 or cfg.max_seq_len % page_size):
+            raise ValueError(f"page_size {page_size} must divide the window {cfg.max_seq_len}")
         self.cfg = cfg
         self.weights = weights
         self.B = batch
         self.kv_dtype = kv_dtype
         self.topn = int(top_logprobs)
-        self.cache = KVCache.init(cfg, kv_dtype, self.device, batch=batch)
+        self.n_pages = paged_pages
+        self._new_cache()
         self.slots = [_Slot() for _ in range(batch)]
         self.queue: list[Request] = []
+        self._admit_seq = 0
+        self.preemptions = self.resumes = 0  # paged preemptions and resumes (stats)
         self.batched_admission = bool(batched_admission)
         self.admit_sweeps = 0  # batched-admission weight sweeps (stats)
-        self.dense_prefix = _DensePrefixRegistry() if prefix_cache else None
+        self.dense_prefix = (_DensePrefixRegistry() if prefix_cache and not self.paged
+                             else None)
+
+    def _new_cache(self) -> None:
+        """A zeroed cache (a pool and its allocator when paged)."""
+        if self.paged:
+            self.cache = PagedKVPool.init(self.cfg, self.kv_dtype, self.n_pages,
+                                          self.page_size, self.device)
+            self.alloc = PageAllocator(self.cfg, self.n_pages, self.B, self.page_size)
+        else:
+            self.cache = KVCache.init(self.cfg, self.kv_dtype, self.device, batch=self.B)
 
     # ------------------------------------------------------------------
     def submit(self, request: Request) -> Request:
@@ -248,24 +285,70 @@ class Scheduler:
 
     @property
     def prefix_stats(self) -> Optional[dict]:
-        """Prompt-reuse counters of the dense lane-copy registry, if on."""
+        """Prompt-reuse counters: the paged pool's shared pages, or the
+        dense lane-copy registry, if on."""
+        if self.paged:
+            return self.alloc.prefix_stats
         return self.dense_prefix.stats if self.dense_prefix is not None else None
 
     def _admit(self) -> None:
         """Assign queued requests to free slots; their prompts hydrate in
-        bounded chunks interleaved with decode ticks (_advance_admission)."""
+        bounded chunks interleaved with decode ticks (_advance_admission).
+
+        Paged mode maps only the first chunk's page here (after the prefix
+        match, whose shared pages draw nothing from the free list); when the
+        pool is exhausted new requests wait in the queue (admission never
+        preempts), and a request whose worst case exceeds a lane's capacity
+        fails at once instead of preempting itself forever."""
+        window = self.cfg.max_seq_len
         for b, slot in enumerate(self.slots):
             if not self.queue or not slot.free:
                 continue
-            req = self.queue.pop(0)
+            req = self.queue[0]
+            if self.paged:
+                worst = self.alloc.pages_for(min(
+                    window, len(req.prompt_tokens) + req.max_new_tokens + 1))
+                if worst > self.alloc.lane_capacity:
+                    self.queue.pop(0)
+                    req.error = (f"request needs {worst} pages; a lane's "
+                                 f"pool holds {self.alloc.lane_capacity}")
+                    req.done = True
+                    continue
+                if not self.alloc.can_grow(b, min(window, self.page_size)):
+                    continue
+            self.queue.pop(0)
             slot.request = req
             slot.admitting = True
             slot.pos = 0
             slot.admit_i = 0
-            slot.admit_tokens = req.prompt_tokens
+            self._admit_seq += 1
+            slot.seq = self._admit_seq
+            if req._resume is not None:
+                slot.admit_tokens, slot.last_token = req._resume
+                slot.resuming = True
+            else:
+                slot.admit_tokens = req.prompt_tokens
+                slot.resuming = False
+            if self.paged:
+                matched = 0
+                if not slot.resuming and self._prefix_cacheable(slot):
+                    # automatic prefix caching: a cached full-page prefix maps
+                    # read-only shared pages and skips their prefill
+                    matched = self.alloc.match_prefix(b, slot.admit_tokens)
+                    slot.pos = slot.admit_i = matched
+                # the earlier can_grow may have counted evictable cached pages
+                # that the match itself just re-referenced: un-admit cleanly
+                if not self.alloc.can_grow(b, min(window, matched + 1)):
+                    self.alloc.release(b)   # drops the matched references
+                    slot.request = None
+                    slot.admitting = False
+                    self.queue.insert(0, req)
+                    continue
+                self.alloc.grow(b, min(window, matched + 1))
+                continue
             if self.dense_prefix is None:
                 continue
-            if self._prefix_cacheable(slot):
+            if not slot.resuming and self._prefix_cacheable(slot):
                 # copy the best-matching lane's cache and skip prefilling the
                 # common prefix (always leaving >= 1 token for the logits)
                 limit = min(len(slot.admit_tokens) - 1, self.cfg.max_seq_len - 1)
@@ -339,16 +422,92 @@ class Scheduler:
                                 top=None) -> None:
         slot.admitting = False
         slot.last_token = first
-        if self.dense_prefix is not None and self._prefix_cacheable(slot):
-            self.dense_prefix.register(self.slots.index(slot), slot.admit_tokens)
+        if not slot.resuming and self._prefix_cacheable(slot):
+            # the prompt's rows are all written now: publish them (the
+            # pool's full pages, or the dense lane)
+            if self.paged:
+                self.alloc.register_prefix(self.slots.index(slot), slot.admit_tokens)
+            elif self.dense_prefix is not None:
+                self.dense_prefix.register(self.slots.index(slot), slot.admit_tokens)
         if self._emit_checked(slot, first, lp, top):
             self._maybe_finish(slot, first)
+
+    def _finish_resume(self, slot: _Slot) -> None:
+        """End a preemption-resume re-hydration: the stream's tokens were all
+        emitted before the preemption, so nothing is emitted here; the lane
+        rejoins the batched decode at its old position (admit_tokens is
+        prompt + generated[:-1], last_token generated[-1])."""
+        slot.admitting = False
+        slot.resuming = False
+        slot.request._resume = None
+        self.resumes += 1
+        self._maybe_finish(slot, slot.last_token)
+
+    def _finish_chunk(self, slot: _Slot, logits) -> None:
+        """The last prompt chunk landed: sample the first token, or, for a
+        resumed lane, rejoin the decode silently."""
+        if slot.resuming:
+            self._finish_resume(slot)
+        else:
+            self._finish_admission(slot, logits)
+
+    # -- paged lazy growth / preemption --------------------------------
+    def _preempt(self, b: int) -> None:
+        """Release lane b's pages and requeue its request at the FRONT with a
+        resume point, so its stream continues without re-emitting: the lane
+        re-hydrates prompt + generated[:-1] silently, then decodes from
+        generated[-1]. Sampling keys derive from (seed, position), so the
+        resumed stream equals the uninterrupted one."""
+        slot = self.slots[b]
+        req = slot.request
+        if not slot.admitting and req.generated:
+            req._resume = (list(req.prompt_tokens) + req.generated[:-1], req.generated[-1])
+        # an admitting lane restarts its (possibly resumed) hydration: its
+        # partial pass emitted nothing, so a plain retry is safe
+        self.alloc.release(b)
+        slot.request = None
+        slot.admitting = False
+        self.queue.insert(0, req)
+        self.preemptions += 1
+
+    def _ensure_pages(self, b: int, target_len: int) -> bool:
+        """Grow lane b's table to hold target_len tokens, preempting the
+        newest busy lane(s) while the pool is exhausted. Returns False if
+        lane b itself was the newest and got preempted (callers skip it)."""
+        while not self.alloc.can_grow(b, target_len):
+            victim, vseq = None, -1
+            for i, s in enumerate(self.slots):
+                if s.request is not None and s.seq > vseq and self.alloc.same_pool(b, i):
+                    victim, vseq = i, s.seq
+            if victim is None:
+                raise RuntimeError("page pool exhausted with no lane to preempt")
+            self._preempt(victim)
+            if victim == b:
+                return False
+        self.alloc.grow(b, target_len)
+        return True
+
+    def _hydrate_paged_lane(self, b: int, token: int, pos: int) -> torch.Tensor:
+        """Ring-regime hydration of ONE paged lane: one masked tick in which
+        only lane b writes. Returns the lane's logits row."""
+        tokens = np.zeros(self.B, np.int64)
+        tokens[b] = token
+        positions = np.array([s.pos for s in self.slots], np.int64)
+        positions[b] = pos
+        write = np.zeros(self.B, np.int64)
+        write[b] = 1
+        logits, _ = decode_step_fast_batched_paged(
+            self.cfg, self.weights, tokens, positions, self.cache, self.alloc.table_array(),
+            write, page_size=self.page_size)
+        return logits[b]
 
     def _advance_admission(self) -> None:
         """Advance every admitting slot by at most ONE prefill chunk (or a
         bounded number of ring-regime tokens), while decode lanes keep
-        producing a token every tick."""
+        producing a token every tick. Paged chunks stop at the page
+        boundary, and their page is mapped first (which may preempt)."""
         window = self.cfg.max_seq_len
+        ps = self.page_size
         handled = (self._advance_admission_batched(window)
                    if self.batched_admission else set())
         for b, slot in enumerate(self.slots):
@@ -356,41 +515,59 @@ class Scheduler:
                 continue
             toks = slot.admit_tokens
             n = len(toks)
-            lane = self.cache.lane(b)
             if slot.pos < window and slot.admit_i < n:
                 room = window - slot.pos
                 take = min(n - slot.admit_i, PREFILL_BUCKETS[-1], room)
+                if self.paged:
+                    take = min(take, ps - slot.pos % ps)
+                    if not self._ensure_pages(b, min(window, slot.pos + take)):
+                        continue  # this lane was the preemption victim
                 bucket = _bucket_for(take)
-                if bucket > room:
+                if bucket > room or (self.paged and slot.pos % ps + bucket > ps):
                     bucket = take
                 padded = np.zeros(bucket, np.int64)
                 padded[:take] = toks[slot.admit_i: slot.admit_i + take]
                 last = slot.admit_i + take >= n
-                out, _ = prefill_fast(self.cfg, self.weights, padded, slot.pos, take, lane,
-                                      logits_mode="last" if last else "none",
-                                      attend_len=attend_bucket(slot.pos + bucket, window))
+                mode = "last" if last and not slot.resuming else "none"
+                attend = attend_bucket(slot.pos + bucket, window)
+                if self.paged:
+                    out, _ = prefill_fast_paged(
+                        self.cfg, self.weights, padded, slot.pos, take, self.cache,
+                        self.alloc.tables[b], int(self.alloc.tables[b, slot.pos // ps]),
+                        slot.pos % ps, logits_mode=mode, page_size=ps, attend_len=attend)
+                else:
+                    out, _ = prefill_fast(self.cfg, self.weights, padded, slot.pos, take,
+                                          self.cache.lane(b), logits_mode=mode,
+                                          attend_len=attend)
                 slot.pos += take
                 slot.admit_i += take
                 if last:
-                    self._finish_admission(slot, out)
+                    self._finish_chunk(slot, out)
                 continue
             # ring-buffer regime: bounded per-token hydration
             budget = self.RING_HYDRATE_PER_TICK
             while budget > 0 and slot.admit_i < n:
                 last = slot.admit_i + 1 >= n
-                out, _ = decode_step_fast(self.cfg, self.weights, toks[slot.admit_i],
-                                          slot.pos, lane, output_logits=last)
+                if self.paged:
+                    out = self._hydrate_paged_lane(b, toks[slot.admit_i], slot.pos)
+                else:
+                    out, _ = decode_step_fast(self.cfg, self.weights, toks[slot.admit_i],
+                                              slot.pos, self.cache.lane(b),
+                                              output_logits=last and not slot.resuming)
                 slot.pos += 1
                 slot.admit_i += 1
                 budget -= 1
                 if last:
-                    self._finish_admission(slot, out)
+                    self._finish_chunk(slot, out)
 
     def _advance_admission_batched(self, window: int) -> set[int]:
         """Advance every groupable admitting slot by one chunk in ONE batched
-        weight sweep (prefill_chunk_fast_batched). Returns the slots handled;
-        lanes whose shared padded bucket would cross the window edge, and a
-        lone admission (the per-slot program is cheaper), stay per slot."""
+        weight sweep (prefill_chunk_fast_batched[_paged]). Returns the slots
+        handled; lanes whose shared padded bucket would cross the window
+        edge, and a lone admission (the per-slot program is cheaper), stay
+        per slot. Paged: every lane's chunk pages are mapped before the
+        sweep; that may preempt the newest lane, possibly one of the work
+        list, which is then re-validated."""
         work: list[tuple[int, _Slot, int]] = []
         bucket = 0
         for b, slot in enumerate(self.slots):
@@ -405,6 +582,18 @@ class Scheduler:
         work = [(b, s, t) for b, s, t in work if s.pos + bucket <= window]
         if len(work) < 2:
             return set()
+        if self.paged:
+            for b, slot, take in work:
+                # skip a lane an earlier growth preempted: growing its free
+                # slot would map pages nobody releases (the JAX scheduler's
+                # loop, scheduler.py:1460-1461, grows it all the same)
+                if slot.admitting:
+                    self._ensure_pages(b, min(window, slot.pos + take))
+            work = [(b, s, t) for b, s, t in work
+                    if s.request is not None and s.admitting
+                    and self.alloc.mapped_through(b, min(window, s.pos + t))]
+            if not work:
+                return set()
         tokens = np.zeros((self.B, bucket), np.int64)
         pos0 = np.zeros(self.B, np.int64)
         vlen = np.zeros(self.B, np.int64)
@@ -415,14 +604,25 @@ class Scheduler:
             pos0[b], vlen[b], enable[b] = slot.pos, take, 1
             attend = max(attend, attend_bucket(slot.pos + bucket, window))
         self.admit_sweeps += 1
-        out, _ = prefill_chunk_fast_batched(self.cfg, self.weights, tokens, pos0, vlen, enable,
-                                            self.cache, attend_len=attend, logits_mode="lastv")
+        if self.paged:
+            out, _ = prefill_chunk_fast_batched_paged(
+                self.cfg, self.weights, tokens, pos0, vlen, enable, self.cache,
+                self.alloc.table_array(), page_size=self.page_size, attend_len=attend)
+        else:
+            out, _ = prefill_chunk_fast_batched(self.cfg, self.weights, tokens, pos0, vlen,
+                                                enable, self.cache, attend_len=attend)
         for b, slot, take in work:
             slot.pos += take
             slot.admit_i += take
             if slot.admit_i >= len(slot.admit_tokens):
-                self._finish_admission(slot, out[b])
+                self._finish_chunk(slot, out[b])
         return {b for b, _, _ in work}
+
+    def _free_slot(self, slot: _Slot) -> None:
+        slot.request = None
+        slot.admitting = False
+        if self.paged:
+            self.alloc.release(self.slots.index(slot))
 
     def _maybe_finish(self, slot: _Slot, tok: int) -> None:
         req = slot.request
@@ -430,8 +630,7 @@ class Scheduler:
             return
         if req.cancelled or tok in req.stop_tokens or len(req.generated) >= req.max_new_tokens:
             req.done = True
-            slot.request = None
-            slot.admitting = False
+            self._free_slot(slot)
 
     def _fail_slot(self, slot: _Slot, err: Exception) -> None:
         """Fail ONE request (e.g. its on_token callback raised) without
@@ -440,8 +639,7 @@ class Scheduler:
         if req is not None:
             req.error = f"{type(err).__name__}: {err}"
             req.done = True
-        slot.request = None
-        slot.admitting = False
+        self._free_slot(slot)
 
     def _emit_checked(self, slot: _Slot, tok: int, lp: float | None = None, top=None) -> bool:
         """Emit a token to a request, failing only that request if its
@@ -455,9 +653,9 @@ class Scheduler:
 
     def recover(self, err: Exception | None = None) -> None:
         """Recover from a failed tick: fail every ACTIVE request (its cache
-        lane may hold a half-written step), free the cache before a new one
-        is allocated, and keep all QUEUED requests, which never touched the
-        device."""
+        lane may hold a half-written step), free the cache (the pool and its
+        allocator when paged) before a new one is allocated, and keep all
+        QUEUED requests, which never touched the device."""
         msg = f"{type(err).__name__}: {err}" if err is not None else "tick failed"
         for slot in self.slots:
             if slot.request is not None:
@@ -470,7 +668,7 @@ class Scheduler:
         self.cache = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
-        self.cache = KVCache.init(self.cfg, self.kv_dtype, self.device, batch=self.B)
+        self._new_cache()
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -479,13 +677,25 @@ class Scheduler:
         busy slots (decoding or admitting)."""
         self._admit()
         self._advance_admission()
+        window = self.cfg.max_seq_len
+        if self.paged:
+            # lazy growth at block boundaries: map the page the next write
+            # lands in (a lane in the ring regime is fully mapped already)
+            for b, slot in enumerate(self.slots):
+                if slot.decoding and slot.pos < window:
+                    self._ensure_pages(b, slot.pos + 1)
         decoding = [s.decoding for s in self.slots]
         if any(decoding):
             rows = [self._sampling_row(s.request, s.pos) if s.decoding else (0, s.pos, 0.0, 0, 1.0)
                     for s in self.slots]
-            logits, _ = decode_step_fast_batched(
-                self.cfg, self.weights, [s.last_token for s in self.slots],
-                [s.pos for s in self.slots], self.cache, [int(d) for d in decoding])
+            args = (self.cfg, self.weights, [s.last_token for s in self.slots],
+                    [s.pos for s in self.slots], self.cache)
+            write = [int(d) for d in decoding]
+            if self.paged:
+                logits, _ = decode_step_fast_batched_paged(
+                    *args, self.alloc.table_array(), write, page_size=self.page_size)
+            else:
+                logits, _ = decode_step_fast_batched(*args, write)
             packed = self._pack(logits, rows, self._bias_arrays())
             nxt, lps, tops = _unpack_sample(packed, self.topn)
             for b, slot in enumerate(self.slots):

@@ -11,9 +11,10 @@
 - Pure stdlib (http.server + json + threading).
 
 Run: python -m yalm_tpu_torch.server model.yalm --port 8080 --batch 8
-(`--device cpu` runs the kernels' plain versions). The paged cache,
-speculation and meshes come in later slices of the port: their flags are
-refused.
+(`--device cpu` runs the kernels' plain versions; `--paged-pages N` serves
+from a pool of N pages of `--page-size` slots, with automatic prefix
+caching). Speculation and meshes come in later slices of the port: their
+flags are refused.
 """
 
 from __future__ import annotations
@@ -41,13 +42,15 @@ _SENTINEL = object()
 
 class ServingEngine:
     """Owns the scheduler and the thread that ticks it; thread-safe
-    submission. Serving defaults: batched admission, the dense prefix
-    cache, top-5 logprobs."""
+    submission. Serving defaults: batched admission, prefix caching (the
+    dense registry, or the paged pool's shared pages with paged_pages > 0),
+    top-5 logprobs."""
 
     def __init__(self, cfg: ModelConfig, weights, tokenizer: Tokenizer, *,
                  batch: int = 8, kv_dtype: torch.dtype = torch.bfloat16,
                  max_prompt_tokens: int | None = None, chat_template: str = "chatml",
-                 top_logprobs: int = 5, device="cuda"):
+                 top_logprobs: int = 5, paged_pages: int = 0, page_size: int = 256,
+                 device="cuda"):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.chat_template = chat_template
@@ -58,7 +61,10 @@ class ServingEngine:
                                # serving optimizes TTFT under load: all
                                # admitting lanes hydrate in one weight sweep
                                batched_admission=True,
+                               # prompt reuse for dense deployments too (a
+                               # paged pool shares pages natively)
                                prefix_cache=True,
+                               paged_pages=paged_pages, page_size=page_size,
                                # OpenAI top-N logprobs ride the tick's one
                                # packed read
                                top_logprobs=top_logprobs, device=device)
@@ -228,6 +234,9 @@ def make_handler(engine: ServingEngine):
                               round(time.time() - engine._start_time, 3))):
                     lines.append(f"# TYPE yalm_{k} gauge")
                     lines.append(f"yalm_{k} {v}")
+                if engine.sched.paged:
+                    lines.append("# TYPE yalm_pages_free gauge")
+                    lines.append(f"yalm_pages_free {engine.sched.alloc.n_free}")
                 ps = engine.sched.prefix_stats
                 if ps:
                     for k, v in ps.items():
@@ -543,7 +552,7 @@ def serve(engine: ServingEngine, host: str = "0.0.0.0", port: int = 8080
 
 
 # flags of the JAX server that later slices of the port bring
-_LATER_FLAGS = {"paged_pages": "--paged-pages", "draft": "--draft",
+_LATER_FLAGS = {"draft": "--draft",
                 "spec_lookup": "--spec-lookup", "spec_k": "--spec-k",
                 "spec_ngram": "--spec-ngram", "medusa": "--medusa",
                 "medusa_tree": "--medusa-tree", "mesh": "--mesh",
@@ -567,6 +576,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda runs the kernels (and fails without a GPU); cpu their "
                          "plain versions")
+    ap.add_argument("--paged-pages", type=int, default=0,
+                    help="paged KV: a pool of this many pages (page 0 reserved) instead "
+                         "of a full window per lane, with automatic prefix caching")
+    ap.add_argument("--page-size", type=int, default=256,
+                    help="slots per page (must divide the context window)")
     for dest, flag in _LATER_FLAGS.items():
         store = "store_true" if dest in ("spec_lookup", "medusa", "distributed") else "store"
         ap.add_argument(flag, dest=dest, action=store, default=None,
@@ -575,15 +589,17 @@ def main(argv=None) -> None:
     given = [flag for dest, flag in _LATER_FLAGS.items() if getattr(args, dest)]
     if given:
         ap.error(f"{', '.join(given)}: not in this slice of the PyTorch port "
-                 "(paged KV, speculation and meshes come later; see ROADMAP.md)")
+                 "(speculation and meshes come later; see ROADMAP.md)")
 
     kv_dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[args.kv]
     engine = ServingEngine.from_checkpoint(
         args.checkpoint, context=args.context, batch=args.batch, device=args.device,
         kv_dtype=kv_dtype, max_prompt_tokens=args.max_prompt_tokens,
-        chat_template=args.chat_template)
+        chat_template=args.chat_template, paged_pages=args.paged_pages,
+        page_size=args.page_size)
     httpd = serve(engine, args.host, args.port)
-    print(f"serving on http://{args.host}:{args.port} (batch={args.batch}, "
+    paged = f", {args.paged_pages} pages of {args.page_size}" if args.paged_pages else ""
+    print(f"serving on http://{args.host}:{args.port} (batch={args.batch}{paged}, "
           f"device={engine.sched.device})", flush=True)
     try:
         httpd.serve_forever()
