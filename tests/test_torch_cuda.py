@@ -9,7 +9,10 @@ and a window whose scores live in global scratch; the paged attention over
 shuffled page tables of pages of 16, 48, 64 and 256, a shared page, a page id
 outside the pool, and bit for bit against the batched kernel on the
 gathered cache; the FFN's many-row GEMM route at 9, 33 and 64 rows on every
-weight type).
+weight type; the MoE routed-expert kernels over 2, 4 and 8 experts at 1 to
+300 rows, the expert from the host and from a device tensor, the GLU
+epilogue, an expert id outside the stack, and bit for bit against the
+dense kernels on the copied expert).
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -33,9 +36,10 @@ from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched, attend_step_
                                                lane_scalars)
 from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l, ffn_plain
-from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm_l,
-                                          gemm_l_plain, gemv4, gemv4_l, gemv_l_plain,
-                                          launch_gemm, launch_gemv, proj_plain)
+from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm4_le,
+                                          gemm_l, gemm_l_plain, gemm_le, gemm_le_plain, gemv4,
+                                          gemv4_l, gemv4_le, gemv_l_plain, gemv_le,
+                                          gemv_le_plain, launch_gemm, launch_gemv, proj_plain)
 from yalm_tpu_torch.ops.core import silu
 from yalm_tpu_torch.ops.int4 import int4_group
 
@@ -56,6 +60,17 @@ def close(got, want):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     assert err <= TOL * max(1.0, float(want.abs().max())), err
+
+
+def close_bf16(got, want):
+    """close() for bf16 outputs (the GLU epilogue's): an element may also
+    differ by one bf16 ulp, where the two f32 values straddle a rounding
+    boundary."""
+    torch.cuda.synchronize()
+    assert torch.equal(got, bf16f(got))
+    tol = TOL * max(1.0, float(want.abs().max()))
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs()).exponent - 8)
+    assert bool(((got - want).abs() <= torch.clamp(ulp, min=tol)).all())
 
 
 def weights(shape, wt, dev, gen):
@@ -462,3 +477,67 @@ def test_paged_attention_page_outside_the_pool(dev):
     with pytest.raises(ValueError, match="page ids out of range"):
         attend_step_paged_l(q, kn, vn, k_pool, v_pool, bad.cpu().numpy(), 0,
                             *lanes.cpu().tolist(), window=page * nblk, **rope)
+
+
+# (E, M, N, K): M 1 also runs the GEMV kernel; N not a tile multiple; int4
+# groups of 256 (K 256, 768: G 1 and 3) and 512 (K 512)
+ROUTED_SHAPES = [(2, 1, 100, 256), (4, 3, 37, 512), (8, 16, 129, 768), (4, 65, 300, 512),
+                 (2, 300, 64, 256)]
+
+
+@pytest.mark.parametrize("wt", WTYPES[1:] + [torch.uint8], ids=["bf16", "e5m2", "int8", "int4"])
+@pytest.mark.parametrize("E,M,N,K", ROUTED_SHAPES)
+def test_routed_expert_kernels(dev, wt, E, M, N, K):
+    """K10/K11 at every (layer, expert) of an (L, E, N, K) stack with its
+    per-row or group scales: against the plain version; bit for bit against
+    the dense kernel on the copied expert stack (the same arithmetic, so a
+    difference is an addressing fault); the id from the host and from a
+    device tensor alike; the GLU epilogue (2N rows; with the rmsnorm
+    prologue on the GEMV); NaN for an id outside the stack."""
+    gen = torch.Generator(device=dev).manual_seed(E * M + N)
+    L, int4 = 2, wt == torch.uint8
+    w = weights((L, E, 2 * N, K // 2 if int4 else K), wt, dev, gen)
+    if int4:
+        G = K // int4_group(K)
+        sc = (torch.rand(L, E, G, 2 * N, generator=gen, device=dev) + 0.5) * 4e-3
+        le, dense = gemm4_le, gemm4_l
+    else:
+        sc = torch.rand(L, E, 2 * N, generator=gen, device=dev) + 0.5
+        le, dense = gemm_le, gemm_l
+    w_e = lambda e: w[:, e].contiguous()  # noqa: E731  (the copied expert stack)
+    s_e = lambda e: sc[:, e].contiguous()  # noqa: E731
+    # the plain (N) projection: the first N rows (and their scales) of the stack
+    wn = w[:, :, :N].contiguous()
+    sn = sc[..., :N].contiguous()
+    x = torch.randn(M, K, generator=gen, device=dev)
+    nw = 1 + 0.1 * torch.randn(L, K, generator=gen, device=dev)
+    for layer in range(L):
+        for e in range(E):
+            got = le(x, wn, layer, e, sn)
+            close(got, gemm_le_plain(x, wn, layer, e, sn))
+            e_dev = torch.tensor([e], device=dev)
+            assert torch.equal(le(x, wn, layer, e_dev[0], sn), got)
+            assert torch.equal(got, dense(x, wn[:, e].contiguous(), layer, sn[:, e].contiguous()))
+            glu = le(x, w, layer, e_dev, sc, glu_act="silu")
+            close_bf16(glu, gemm_le_plain(x, w, layer, e, sc, glu_act="silu"))
+            assert torch.equal(glu, launch_gemm("check", x, w_e(e), layer, s_e(e),
+                                                glu_act="silu"))
+            if M == 1:
+                gv = (gemv4_le if int4 else gemv_le)
+                got1 = gv(x[0], wn, layer, e_dev[0], sn)
+                close(got1, gemv_le_plain(x[0], wn, layer, e, sn))
+                assert torch.equal(got1, launch_gemv("check", x[0], wn[:, e].contiguous(), layer,
+                                                     scale=sn[:, e].contiguous()))
+                g1 = gv(x[0], w, layer, e_dev[0], sc, norm_w=nw, glu_act="gelu")
+                close_bf16(g1, gemv_le_plain(x[0], w, layer, e, sc, norm_w=nw, glu_act="gelu"))
+                assert torch.equal(g1, launch_gemv("check", x[0], w_e(e), layer, norm_w=nw,
+                                                   scale=s_e(e), glu_act="gelu"))
+    for bad in (E, -1):
+        e_bad = torch.tensor(bad, device=dev)
+        assert bool(torch.isnan(le(x, wn, 1, e_bad, sn)).all())
+        assert bool(torch.isnan(le(x, w, 0, e_bad, sc, glu_act="silu")).all())
+        if M == 1:
+            gv = gemv4_le if int4 else gemv_le
+            assert bool(torch.isnan(gv(x[0], wn, 1, e_bad, sn)).all())
+    with pytest.raises(ValueError, match="out of range"):
+        le(x, wn, 0, E, sn)                      # a host id is checked on the host

@@ -206,10 +206,19 @@ def test_sample_ext_distribution(top_k, top_p):
                                      dict(attn_softcap=50.0),
                                      dict(n_experts=4, n_experts_active=2)])
 def test_later_slices_raise(tmp_path, feature):
+    """Features of later slices raise; MoE came with its slice: the JAX
+    fixture's MoE checkpoint loads and decodes (tests/test_torch_moe.py
+    holds it to the JAX package)."""
     path = str(tmp_path / "m.yalm")
     jax_synth(path, jax_tiny(**fast_kw(**feature)), seed=0)
     yf = read_yalm(path)
     cfg = dataclasses.replace(tiny_config(**fast_kw()), **feature)
-    with pytest.raises(NotImplementedError):
-        load_fast_weights(yf, cfg, "cpu")
+    if cfg.is_moe:
+        fw = load_fast_weights(yf, cfg, "cpu")
+        logits, _ = decode_step_fast(cfg, fw, 5, 0, KVCache.init(cfg, torch.bfloat16, "cpu"))
+        assert fw.w13.shape == (2, 4, 1024, 256) and fw.moegate.shape == (2, 4, 256)
+        assert logits.shape == (cfg.vocab_size,) and bool(torch.isfinite(logits).all())
+    else:
+        with pytest.raises(NotImplementedError):
+            load_fast_weights(yf, cfg, "cpu")
     yf.close()

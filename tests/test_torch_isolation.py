@@ -14,7 +14,8 @@ from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched_l, attend_ste
                                                attend_step_paged_l)
 from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block4_l, attn_block_l
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l
-from yalm_tpu_torch.ops.cuda.gemv import gemm4, gemm4_l, gemm_l, gemv, gemv4, gemv4_l, gemv_l
+from yalm_tpu_torch.ops.cuda.gemv import (gemm4, gemm4_l, gemm4_le, gemm_l, gemm_le, gemv,
+                                          gemv4, gemv4_l, gemv4_le, gemv_l, gemv_le)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,6 +102,15 @@ def _calls(dev):
         "ffn4_l 16 rows": lambda: ffn4_l(t(16, 256), t(2, 256), t(2, 1024, 128, dt=u8),
                                          t(2, 256, 256, dt=u8), 0, t(2, 1, 1024), t(2, 2, 256),
                                          norm_eps=1e-5, act="silu"),
+        # the MoE routed-expert kernels (K10, K11) over (L, E, N, K) expert
+        # stacks; the expert a host int or an id on the weights' device
+        "gemv_le": lambda: gemv_le(t(64), t(2, 3, 32, 64), 1, t(1, dt=torch.int64)[0],
+                                   t(2, 3, 32), norm_w=t(2, 64), glu_act="silu"),
+        "gemm_le": lambda: gemm_le(t(4, 64), t(2, 3, 32, 64), 0, 2, t(2, 3, 32)),
+        "gemm4_le": lambda: gemm4_le(t(4, 256), t(2, 3, 32, 128, dt=u8), 1, 0, t(2, 3, 1, 32),
+                                     glu_act="gelu"),
+        "gemv4_le": lambda: gemv4_le(t(256), t(2, 3, 32, 128, dt=u8), 0,
+                                     t(1, dt=torch.int64)[0], t(2, 3, 1, 32)),
     }
 
 
@@ -111,6 +121,27 @@ def test_wrappers_dispatch_by_device(name):
     # a device with neither a kernel nor a plain version raises
     with pytest.raises(ValueError, match="no kernel or plain version"):
         _calls("meta")[name]()
+
+
+class _DeviceOnly(torch.Tensor):
+    """An expert id that fails if its value is read on the host: its repr,
+    str, int, index, bool or item would copy a CUDA tensor back and
+    synchronize every routed launch of the decode step."""
+
+    def _read(self, *a, **k):
+        raise AssertionError("the expert id was read on the host")
+
+    __repr__ = __str__ = __int__ = __index__ = __bool__ = __float__ = item = tolist = _read
+
+
+def test_routed_expert_ids_are_not_read_on_the_host():
+    from yalm_tpu_torch.ops.cuda.gemv import _addressing
+    e = torch.tensor([2]).as_subclass(_DeviceOnly)
+    for w in (torch.zeros(2, 3, 32, 64), torch.zeros(2, 3, 32, 128, dtype=torch.uint8)):
+        L, N, Kw, E, e_host, e_dev = _addressing(w, 1, e, "gemv_le")
+        assert (L, N, Kw, E, e_host) == (2, 32, w.shape[-1], 3, 0) and e_dev.dtype == torch.int64
+    with pytest.raises(ValueError, match="out of range"):
+        _addressing(torch.zeros(2, 3, 32, 64), 0, 3, "gemm_le")    # a host id is checked
 
 
 def test_mixed_devices_raise():
@@ -146,6 +177,28 @@ def test_int4_entry_points_do_not_fall_back_to_cpu(tmp_path):
         Engine.from_checkpoint(path, kv_dtype=torch.float8_e5m2)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         cli.main([path, "-C", "fp8", "-i", "hello"])
+
+
+def test_moe_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    """An MoE checkpoint on the default device: the engine, the CLI and the
+    serving engine raise rather than run the plain versions."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from yalm_tpu_torch import cli
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.server import ServingEngine
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "moe.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4,
+                                       n_kv_heads=2, vocab_size=512, max_seq_len=32,
+                                       rotary_dim=128, weight_dtype="fp8", n_experts=4,
+                                       n_experts_active=2))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        Engine.from_checkpoint(path)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main([path, "-i", "hello"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ServingEngine.from_checkpoint(path, paged_pages=9, page_size=16)
 
 
 def test_serving_entry_points_do_not_fall_back_to_cpu(tmp_path):

@@ -5,6 +5,11 @@
 // the prefill chunk projections, M = 16/64/256 rows against one weight
 // stream, and the batched tick's projections at M = batch rows.
 // gemm4_kernel below replaces :gemm4_l (and :gemm4) for packed int4 weights.
+// With an expert axis, weights (L, E, N, K), both replace the MoE gemm_le
+// (:344) and gemm4_le (:688): every tile is addressed at (layer, expert),
+// so only that expert's bytes are read and no copy of it is made. The
+// expert comes from the host (the batched sweep's loop over every expert)
+// or a device int64; an id outside [0, E) reads nothing and gives NaN.
 //
 // Epilogues (both kernels): + residual[m, n]; or the GLU pair, which makes
 // them the two weight sweeps of ops/pallas/ffn.py:ffn_l and :ffn4_l for any
@@ -59,21 +64,41 @@ __device__ __forceinline__ int tile_row(int n0, int r, int N, bool* ok) {
 }
 
 struct GemmArgs {
-  const void* w;          // (L, N, K) of the weight type; int4: (L, N, K/2) packed
+  const void* w;          // (L, E, N, K) of the weight type; int4: (L, E, N, K/2) packed
   const float* x;         // (M, K)
-  const float* scale;     // (L, N) per-row scales, or null
-  const float* gscale;    // (L, K / group, N) int4 group scales
+  const float* scale;     // (L, E, N) per-row scales, or null
+  const float* gscale;    // (L, E, K / group, N) int4 group scales
   const float* residual;  // (M, N) or null (not with the GLU pair)
   float* y;               // (M, N), or (M, N/2) for the GLU pair
-  int layer, M, N, K, group, act;
+  const long long* expert_id;  // device expert id, or null: `expert` is used
+  int layer, E, expert, M, N, K, group, act;
 };
+
+// The (layer, expert) matrix index of this launch, or false for an expert
+// id outside [0, E) (a dense stack is E = 1, expert 0).
+__device__ __forceinline__ bool routed(const GemmArgs& a, size_t* le) {
+  const long long e = a.expert_id ? *a.expert_id : a.expert;
+  *le = (size_t)a.layer * a.E + (size_t)e;
+  return e >= 0 && e < a.E;
+}
+
+// NaN over this block's output tile (n0: first column, or pair for GLU).
+template <bool GLU>
+__device__ void nan_tile(const GemmArgs& a, int m0, int n0) {
+  constexpr int cols = GLU ? BN / 2 : BN;
+  const int n_out = GLU ? a.N / 2 : a.N;
+  for (int i = threadIdx.x; i < BM * cols; i += THREADS) {
+    const int r = m0 + i / cols, c = n0 + i % cols;
+    if (r < a.M && c < n_out) a.y[(size_t)r * n_out + c] = __int_as_float(0x7fc00000);
+  }
+}
 
 // The epilogue of one thread's 2 x 4 fragments (acc[mi][ni][e]: row
 // wm*32 + mi*16 + g + 8*(e>>1), tile column wn*32 + ni*8 + 2t + (e&1)).
 template <bool GLU>
-__device__ __forceinline__ void store(const GemmArgs& a, float (&acc)[2][4][4], int m0,
-                                      int n0, int wm, int wn, int g, int t) {
-  const size_t srow = (size_t)a.layer * a.N;
+__device__ __forceinline__ void store(const GemmArgs& a, float (&acc)[2][4][4], size_t le,
+                                      int m0, int n0, int wm, int wn, int g, int t) {
+  const size_t srow = le * a.N;
   if (GLU) {
     const int H = a.N / 2;
 #pragma unroll
@@ -130,8 +155,13 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
   const int g = lane >> 2, t = lane & 3;
   const int M = a.M, N = a.N, K = a.K;
   const int m0 = blockIdx.x * BM, n0 = tile_n0<GLU>();
+  size_t le;
+  if (!routed(a, &le)) {
+    nan_tile<GLU>(a, m0, n0);
+    return;
+  }
   const size_t row_chunks = (size_t)K / PER;
-  const uint4* wl = reinterpret_cast<const uint4*>(a.w) + (size_t)a.layer * N * row_chunks;
+  const uint4* wl = reinterpret_cast<const uint4*>(a.w) + le * N * row_chunks;
 
   float acc[2][4][4];
 #pragma unroll
@@ -191,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs a) {
     }
     __syncthreads();
   }
-  store<GLU>(a, acc, m0, n0, wm, wn, g, t);
+  store<GLU>(a, acc, le, m0, n0, wm, wn, g, t);
 }
 
 // Packed int4 weights (L, N, K/2) with group scales (L, G, N):
@@ -215,10 +245,15 @@ __global__ void __launch_bounds__(THREADS) gemm4_kernel(GemmArgs a) {
   const int g8 = lane >> 2, t = lane & 3;
   const int M = a.M, N = a.N, K = a.K, group = a.group;
   const int m0 = blockIdx.x * BM, n0 = tile_n0<GLU>();
+  size_t le;
+  if (!routed(a, &le)) {
+    nan_tile<GLU>(a, m0, n0);
+    return;
+  }
   const int G = K / group, half = group / 2;  // half: packed bytes of a group row
   const size_t row_bytes = (size_t)K / 2;
-  const uint8_t* wl = static_cast<const uint8_t*>(a.w) + (size_t)a.layer * N * row_bytes;
-  const float* gl = a.gscale + (size_t)a.layer * G * N;
+  const uint8_t* wl = static_cast<const uint8_t*>(a.w) + le * N * row_bytes;
+  const float* gl = a.gscale + le * G * N;
 
   float acc[2][4][4], part[2][4][4];
 #pragma unroll
@@ -307,7 +342,7 @@ __global__ void __launch_bounds__(THREADS) gemm4_kernel(GemmArgs a) {
         }
       }
   }
-  store<GLU>(a, acc, m0, n0, wm, wn, g8, t);
+  store<GLU>(a, acc, le, m0, n0, wm, wn, g8, t);
 }
 
 // The FFN route's prologue: one block per row,
@@ -344,19 +379,22 @@ int launch(const GemmArgs& a, bool glu, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-bool args_ok(int M, int N, int layer, bool glu, const float* residual) {
-  return M >= 1 && M <= 65535 * BM && N >= 1 && layer >= 0 && (!glu || (N % 2 == 0 && !residual)) &&
-         grid_of(M, N, glu).y <= 65535;
+bool args_ok(int M, int N, int layer, int E, bool glu, const float* residual) {
+  return M >= 1 && M <= 65535 * BM && N >= 1 && layer >= 0 && E >= 1 &&
+         (!glu || (N % 2 == 0 && !residual)) && grid_of(M, N, glu).y <= 65535;
 }
 
 }  // namespace
 
 // glu: 1 for the GLU-pair epilogue (act 0 silu, 1 gelu; y is (M, N/2)).
-extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K, const float* x,
+// E, expert, expert_id: the expert axis (E = 1, expert 0, null for a dense
+// stack); a non-null expert_id is read on the device in place of expert.
+extern "C" int yt_gemm(int wtype, const void* w, int layer, int E, int expert,
+                       const long long* expert_id, int N, int K, const float* x,
                        int M, const float* scale, const float* residual, float* y, int glu,
                        int act, void* stream) {
-  if (!args_ok(M, N, layer, glu, residual) || K < BK || K % BK) return ERR_ARGS;
-  const GemmArgs a{w, x, scale, nullptr, residual, y, layer, M, N, K, 0, act};
+  if (!args_ok(M, N, layer, E, glu, residual) || K < BK || K % BK) return ERR_ARGS;
+  const GemmArgs a{w, x, scale, nullptr, residual, y, expert_id, layer, E, expert, M, N, K, 0, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wtype) {
     case W_F32: return launch<W_F32>(a, glu != 0, st);
@@ -368,13 +406,14 @@ extern "C" int yt_gemm(int wtype, const void* w, int layer, int N, int K, const 
 }
 
 // Packed int4 (ops/cuda/gemv.py checks types, shapes and 16-byte alignment).
-extern "C" int yt_gemm4(const void* w, int layer, int N, int K, int group, const float* x,
-                        int M, const float* gscale, const float* residual, float* y, int glu,
-                        int act, void* stream) {
-  if (!args_ok(M, N, layer, glu, residual) || (group != 256 && group != 512) || K < group ||
+extern "C" int yt_gemm4(const void* w, int layer, int E, int expert, const long long* expert_id,
+                        int N, int K, int group, const float* x, int M, const float* gscale,
+                        const float* residual, float* y, int glu, int act, void* stream) {
+  if (!args_ok(M, N, layer, E, glu, residual) || (group != 256 && group != 512) || K < group ||
       K % group || !gscale)
     return ERR_ARGS;
-  const GemmArgs a{w, x, nullptr, gscale, residual, y, layer, M, N, K, group, act};
+  const GemmArgs a{w, x, nullptr, gscale, residual, y, expert_id, layer, E, expert, M, N, K,
+                   group, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (glu)
     gemm4_kernel<true><<<grid_of(M, N, true), THREADS, 0, st>>>(a);

@@ -3,9 +3,17 @@
 // Replaces yalm_tpu/ops/pallas/gemv.py:gemv_l and :gemv, and the packed
 // int4 gemv4_l/gemv4 (:776, :791; body dot4_tile :797), and serves both
 // projections of ops/pallas/block.py:attn_block_l and :attn_block4_l and of
-// ops/pallas/ffn.py:ffn_l and :ffn4_l.
+// ops/pallas/ffn.py:ffn_l and :ffn4_l. With an expert axis it replaces the
+// MoE gemv_le (:265) and gemv4_le (:768, through gemm4_le :688): the
+// weights are (L, E, N, K) and only the routed expert's rows are read.
 //
-//   out[b, n] = epi( sum_k bf16(W[layer, n, k]) * bf16(pro(x[b])[k]) )
+//   out[b, n] = epi( sum_k bf16(W[layer, e, n, k]) * bf16(pro(x[b])[k]) )
+//
+// The expert e comes from the host or from a device int64 (the decode
+// step's top-k ids, which never reach the host: the counterpart of the TPU
+// kernel's scalar-prefetch channel). A dense stack is E = 1, e = 0. An id
+// outside [0, E) reads no weight and gives NaN outputs (the host cannot
+// check a device id without a sync).
 //
 // int4 weights (W_I4, planar nibbles, WChunk<W_I4>): each 16-byte chunk
 // lies in one group g and pairs with two 16-column slices of x, group/2
@@ -25,7 +33,8 @@
 // one warp per output row (two rows for the GLU pair), lanes stride over K
 // with 16-byte loads, 4 loads in flight per lane; x is staged once per
 // block in shared memory as bf16; the row sum is a warp shuffle reduction.
-// Layer and row offsets are 64-bit (L*N*K reaches 3.8e9 for w13).
+// Layer and row offsets are 64-bit (L*N*K reaches 3.8e9 for w13, and
+// L*E*N*K 3.0e10 for a Mixtral-8x7B w13).
 #include "common.cuh"
 
 using namespace yt;
@@ -38,15 +47,16 @@ constexpr int ROWS_PER_WARP = 4;
 constexpr int ROWS_PER_BLOCK = WARPS * ROWS_PER_WARP;
 
 struct GemvArgs {
-  const void* w;         // (L, N, K) of the weight type
+  const void* w;         // (L, E, N, K) of the weight type
   const float* x;        // (nb, K)
   const float* norm_w;   // (L, K) or null
-  const float* scale;    // (L, N) or null
-  const float* gscale;   // (L, K / group, N): int4 group scales, or null
-  const float* bias;     // (L, N) or null
+  const float* scale;    // (L, E, N) or null
+  const float* gscale;   // (L, E, K / group, N): int4 group scales, or null
+  const float* bias;     // (L, N) or null (E = 1)
   const float* residual; // (nb, n_out) or null
   float* out;            // (nb, n_out); n_out = N, or N/2 for the GLU pair
-  int layer, N, K, nb;
+  const long long* expert_id;  // device expert id, or null: `expert` is used
+  int layer, E, expert, N, K, nb;
   int group;             // int4 group width (256 or 512)
   float eps, clip;       // clip <= 0: no clip
   int act;               // GLU activation: 0 silu, 1 gelu
@@ -82,6 +92,17 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   constexpr int PER = C::PER16;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int K = a.K, nb = a.nb;
+  const int n_out = GLU ? a.N / 2 : a.N;
+
+  const long long e = a.expert_id ? *a.expert_id : a.expert;
+  if (e < 0 || e >= a.E) {  // uniform across the block: nothing is read
+    for (int i = tid; i < ROWS_PER_BLOCK * nb; i += THREADS) {
+      const int n = blockIdx.x * ROWS_PER_BLOCK + i % ROWS_PER_BLOCK;
+      if (n < n_out) a.out[(size_t)(i / ROWS_PER_BLOCK) * n_out + n] = __int_as_float(0x7fc00000);
+    }
+    return;
+  }
+  const size_t le = (size_t)a.layer * a.E + (size_t)e;  // the (layer, expert) matrix
 
   // prologue: x (RMS-normalized when norm_w is given) as bf16 in smem
   const float* nw = a.norm_w ? a.norm_w + (size_t)a.layer * K : nullptr;
@@ -107,9 +128,8 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   }
   __syncthreads();
 
-  const int n_out = GLU ? a.N / 2 : a.N;
   const int nchunks = K / PER;
-  const size_t row0 = (size_t)a.layer * a.N;  // first row of this layer
+  const size_t row0 = le * a.N;  // first row of this (layer, expert)
   const uint4* wb = reinterpret_cast<const uint4*>(a.w);
 
   for (int r = 0; r < ROWS_PER_WARP; ++r) {
@@ -124,7 +144,7 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
     if constexpr (WT == W_I4) {
       const int cpg = a.group / PER;  // chunks per group
       const int half = a.group / 2;
-      const float* gs1 = a.gscale + (size_t)a.layer * (K / a.group) * a.N + n;
+      const float* gs1 = a.gscale + le * (K / a.group) * a.N + n;
       const float* gs3 = gs1 + n_out;
 #pragma unroll 2
       for (int c = lane; c < nchunks; c += 32) {
@@ -229,19 +249,23 @@ int launch_wt(const GemvArgs& a, bool glu, cudaStream_t st) {
 
 // Returns 0, a cudaError_t, or ERR_ARGS. The wrapper (ops/cuda/gemv.py)
 // checks types, shapes, contiguity and 16-byte alignment before the call.
-extern "C" int yt_gemv(int wtype, const void* w, int layer, int N, int K,
+// E, expert, expert_id: the expert axis (E = 1, expert 0, null for a dense
+// stack); a non-null expert_id is read on the device in place of expert.
+extern "C" int yt_gemv(int wtype, const void* w, int layer, int E, int expert,
+                       const long long* expert_id, int N, int K,
                        const float* x, int nb, const float* norm_w, float eps,
                        const float* scale, const float* gscale, int group,
                        const float* bias, float clip,
                        const float* residual, float* out, int glu, int act,
                        void* stream) {
-  if (nb < 1 || nb > 8 || N < 1 || K < 1 || layer < 0 || (glu && N % 2))
+  if (nb < 1 || nb > 8 || N < 1 || K < 1 || layer < 0 || E < 1 || (glu && N % 2) ||
+      (bias && E != 1))
     return ERR_ARGS;
   if ((size_t)nb * K * sizeof(__nv_bfloat16) > 227 * 1024) return ERR_ARGS;
   if (wtype == W_I4 && (!gscale || scale || (group != 256 && group != 512) || K % group))
     return ERR_ARGS;
-  const GemvArgs a{w, x, norm_w, scale, gscale, bias, residual, out,
-                   layer, N, K, nb, group, eps, clip, act};
+  const GemvArgs a{w, x, norm_w, scale, gscale, bias, residual, out, expert_id,
+                   layer, E, expert, N, K, nb, group, eps, clip, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (wtype) {
     case W_F32: return launch_wt<W_F32>(a, glu != 0, st);

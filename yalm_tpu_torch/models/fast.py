@@ -1,5 +1,5 @@
 """Fast decode and chunked prefill on the hand-written kernels (port of
-`yalm_tpu/models/fast.py`, dense models on one device), single-sequence and
+`yalm_tpu/models/fast.py`, dense and MoE models on one device), single-sequence and
 for the continuous-batching scheduler (`decode_step_fast_batched`: one tick
 for B lanes of a batched cache; `prefill_chunk_fast_batched`: every
 admitting lane's next prompt chunk in one weight sweep), and the same over a
@@ -17,8 +17,16 @@ and LM head) take `attn_block4_l`, `ffn4_l` and `gemm4_l` on the same
 route. The batched paths run `gemm_l`/`gemm4_l` over the B (or B*T) rows,
 `attend_step_batched_l` (`attend_step_paged_l` over a pool) and the
 many-row `ffn`. The KV cache or pool (bf16 or e5m2) is updated IN PLACE.
-Models outside this slice (MoE, qk-norm, sandwich norms, softcaps, sliding
-layers) raise NotImplementedError.
+
+MoE models (Mixtral-style: a router and E experts of which k run per
+token) replace the FFN: single-stream decode runs the router GEMV, the
+top-k gate on the device and, per routed expert in rank order, the
+(layer, expert)-addressed `gemv_le`/`gemv4_le` pair with the ids read on
+the card (none reaches the host); every chunk path (prefill, the tick, the
+chunk sweep, dense and paged) shares `_moe_ffn_batched`, the masked
+all-expert sweep on `gemm_le`/`gemm4_le`. Models outside this slice
+(qk-norm, sandwich norms, softcaps, sliding layers) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,13 +40,14 @@ import torch
 
 from ..codec.format import numpy_to_torch, tag_for_numpy
 from ..config import KV_SINKS, ModelConfig
-from ..ops.core import NEG_INF, apply_rope, gelu, int_view, rmsnorm, silu
+from ..ops.core import NEG_INF, apply_rope, gelu, int_view, moe_gate, rmsnorm, silu
 from ..ops.cuda import _build
 from ..ops.cuda.attention import (attend_step_batched, attend_step_paged, gather_pages,
                                   lane_scalars, page_tables)
 from ..ops.cuda.block import attn_block
 from ..ops.cuda.ffn import ffn
-from ..ops.cuda.gemv import bf16f, gemm, gemv, is_int4, launch_gemm, proj_plain
+from ..ops.cuda.gemv import (bf16f, gemm, gemm4_le, gemm_le, gemv, gemv4_le, gemv_l, gemv_le,
+                             is_int4, launch_gemm, proj_plain)
 from ..ops.int4 import int4_group
 from .cache import KVCache
 from .paged import PagedKVPool
@@ -49,20 +58,24 @@ class FastScales:
     """Per-output-channel dequant scales of int8 checkpoints, in the row
     order of FastWeights' concatenated projections (y = (W_q @ x) * s). For
     int4 checkpoints the layer fields hold group scales (n_layers, G, N),
-    concatenated along N as the packed rows are; embed and lm_head stay
-    per-row (int8)."""
+    concatenated along N as the packed rows are; embed, lm_head and the MoE
+    router stay per-row (int8). MoE experts carry an expert axis after the
+    layer axis."""
 
     embed: torch.Tensor    # (vocab,) f32
     wqkv: torch.Tensor     # (n_layers, [G,] q_dim + 2*kv_dim) f32
     wo: torch.Tensor       # (n_layers, [G,] dim) f32
-    w13: torch.Tensor      # (n_layers, [G,] 2*hidden_dim) f32
-    w2: torch.Tensor       # (n_layers, [G,] dim) f32
+    w13: torch.Tensor      # (n_layers, [n_experts,] [G,] 2*hidden_dim) f32
+    w2: torch.Tensor       # (n_layers, [n_experts,] [G,] dim) f32
     lm_head: torch.Tensor  # (vocab,) f32
+    moegate: Optional[torch.Tensor] = None  # (n_layers, n_experts) f32, MoE only
 
 
 @dataclass
 class FastWeights:
-    """Decode layout: per-layer stacks, [wq;wk;wv] and [w1;w3] concatenated."""
+    """Decode layout: per-layer stacks, [wq;wk;wv] and [w1;w3] concatenated
+    (per expert, for MoE models, whose w13/w2 carry an expert axis and whose
+    router is `moegate`; dense models have moegate None)."""
 
     embed: torch.Tensor       # (vocab, dim)
     rms_att: torch.Tensor     # (n_layers, dim) f32
@@ -71,12 +84,13 @@ class FastWeights:
     # dimension halved (ops/int4.py)
     wqkv: torch.Tensor        # (n_layers, q_dim + 2*kv_dim, dim)
     wo: torch.Tensor          # (n_layers, dim, q_dim)
-    w13: torch.Tensor         # (n_layers, 2*hidden_dim, dim)
-    w2: torch.Tensor          # (n_layers, dim, hidden_dim)
+    w13: torch.Tensor         # (n_layers, [n_experts,] 2*hidden_dim, dim)
+    w2: torch.Tensor          # (n_layers, [n_experts,] dim, hidden_dim)
     final_norm: torch.Tensor  # (dim,) f32
     lm_head: torch.Tensor     # (vocab, dim)
     bqkv: Optional[torch.Tensor] = None    # (n_layers, q_dim + 2*kv_dim) f32
     scales: Optional[FastScales] = None    # int8 and int4 checkpoints only
+    moegate: Optional[torch.Tensor] = None  # (n_layers, n_experts, dim), MoE only
 
     def to(self, device) -> "FastWeights":
         """A copy on `device` (the lm_head stays shared with embed when tied)."""
@@ -85,8 +99,9 @@ class FastWeights:
         for f in fields(self):
             t = getattr(self, f.name)
             if isinstance(t, FastScales):
-                out[f.name] = FastScales(**{g.name: getattr(t, g.name).to(device)
-                                            for g in fields(t)})
+                out[f.name] = FastScales(**{
+                    g.name: None if getattr(t, g.name) is None else getattr(t, g.name).to(device)
+                    for g in fields(t)})
             elif t is not None:
                 if id(t) not in moved:
                     moved[id(t)] = t.to(device)
@@ -99,7 +114,6 @@ class FastWeights:
 def _check_slice(cfg: ModelConfig) -> None:
     """Raise for model features that later slices of the port bring."""
     missing = [name for name, on in (
-        ("MoE experts", cfg.is_moe),
         ("qk-norm", cfg.has_qk_norm),
         ("sandwich norms", cfg.has_post_norms),
         ("attention softcap", bool(cfg.attn_softcap)),
@@ -145,10 +159,14 @@ def fast_unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why this model's shapes do not fit the port's Hopper kernels, or None."""
     isz = _itemsize(cfg)
     int4 = cfg.weight_dtype == "int4"
+    if cfg.is_moe and not 1 <= cfg.n_experts_active <= cfg.n_experts:
+        return f"{cfg.n_experts_active} active of {cfg.n_experts} experts"
+    # the MoE router stays int8 (per-row scales) on int4 checkpoints, as the LM head
     for name, n, k in (("wqkv", cfg.q_dim + 2 * cfg.kv_dim, cfg.dim),
                        ("wo", cfg.dim, cfg.q_dim), ("w13", 2 * cfg.hidden_dim, cfg.dim),
-                       ("w2", cfg.dim, cfg.hidden_dim), ("lm_head", cfg.vocab_size, cfg.dim)):
-        if int4 and name != "lm_head":
+                       ("w2", cfg.dim, cfg.hidden_dim), ("lm_head", cfg.vocab_size, cfg.dim),
+                       *((("moegate", cfg.n_experts, cfg.dim),) if cfg.is_moe else ())):
+        if int4 and name not in ("lm_head", "moegate"):
             if not int4_kernels_supported(k):
                 return (f"{name} ({n}x{k}, packed int4): the int4 GEMV/GEMM kernels take "
                         "K a multiple of 256, K <= 116224")
@@ -189,15 +207,21 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
     on the host and written into a preallocated device stack, so neither the
     host nor the device holds a second copy of the whole model. int8
     checkpoints bring per-row `.scale`s, concatenated as their rows are.
-    int4 checkpoints (yalm_tpu/models/fast.py:174-256 without TP and MoE)
-    bring packed uint8 layer weights (rows half as wide) with (G, N)
-    `.gscale`s, concatenated along N, and an int8 embedding and LM head."""
+    int4 checkpoints (yalm_tpu/models/fast.py:174-256 without TP) bring
+    packed uint8 layer weights (rows half as wide) with (G, N) `.gscale`s,
+    concatenated along N, and an int8 embedding and LM head. MoE checkpoints
+    (:179-219, :242-254, :261-288) bring per-expert w1/w2/w3 ((E, N, K),
+    stacked to (L, E, 2H, dim) and (L, E, dim, H) with the scales' N axes
+    concatenated the same way) and the router (L, E, dim), int8 with
+    per-row scales on int8 and int4 checkpoints."""
     _check_slice(cfg)
     device = torch.device(device)
     t = yf.tensors
     d, h, q, kd = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
     int4 = "model.layers.0.attn.wq.weight.gscale" in t
+    scaled = "model.embed.weight.scale" in t   # int8 and int4 checkpoints
     row = (lambda k: k // 2) if int4 else (lambda k: k)   # stored row width
+    experts = (cfg.n_experts,) if cfg.is_moe else ()
 
     def get(name, shape):
         if tuple(t[name].shape) != shape:
@@ -218,18 +242,20 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
     def put(x):
         return int_view(torch.empty_like(x, device=device)).copy_(int_view(x)).view(x.dtype)
 
-    def proj(names, n_rows, k):
+    def proj(names, n_rows, k, lead=()):
         """One projection's layer stack: the named tensors' rows concatenated
-        (n_rows each), then their scales the same way, or None."""
+        (n_rows each, after the `lead` axes: the experts), then their scales
+        the same way, or None."""
         def specs(suffix, shape):
-            return [(f"model.layers.{{}}.{nm}.weight{suffix}", shape(n))
+            return [(f"model.layers.{{}}.{nm}.weight{suffix}", lead + shape(n))
                     for nm, n in zip(names, n_rows)]
-        w = stack(layer_cat(specs("", lambda n: (n, row(k)))))
+        ax = len(lead)
+        w = stack(layer_cat(specs("", lambda n: (n, row(k))), dim=ax))
         if int4:
             G = k // int4_group(k)
-            return w, stack(layer_cat(specs(".gscale", lambda n: (G, n)), dim=1))
-        if "model.embed.weight.scale" in t:
-            return w, stack(layer_cat(specs(".scale", lambda n: (n,))))
+            return w, stack(layer_cat(specs(".gscale", lambda n: (G, n)), dim=ax + 1))
+        if scaled:
+            return w, stack(layer_cat(specs(".scale", lambda n: (n,)), dim=ax))
         return w, None
 
     embed = put(get("model.embed.weight", (cfg.vocab_size, d)))
@@ -242,22 +268,29 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
                                 ("model.layers.{}.attn.wv.bias", (kd,))])).float()
     wqkv, sqkv = proj(("attn.wq", "attn.wk", "attn.wv"), (q, kd, kd), d)
     wo, so = proj(("attn.wo",), (d,), q)
-    w13, s13 = proj(("mlp.w1", "mlp.w3"), (h, h), d)
-    w2, s2 = proj(("mlp.w2",), (d,), h)
+    w13, s13 = proj(("mlp.w1", "mlp.w3"), (h, h), d, experts)
+    w2, s2 = proj(("mlp.w2",), (d,), h, experts)
+    moegate = smoe = None
+    if cfg.is_moe:   # the router: never packed, int8 + scale on int8/int4 checkpoints
+        moegate = stack(layer_cat([("model.layers.{}.moegate.weight", (cfg.n_experts, d))]))
+        if scaled:
+            smoe = stack(layer_cat([("model.layers.{}.moegate.weight.scale",
+                                     (cfg.n_experts,))]))
     scales = None
-    if "model.embed.weight.scale" in t:   # int8 and int4 checkpoints
+    if scaled:
         semb = put(get("model.embed.weight.scale", (cfg.vocab_size,)))
         scales = FastScales(
             embed=semb, wqkv=sqkv, wo=so, w13=s13, w2=s2,
             lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,)))
-                     if "model.output.weight.scale" in t else semb))
+                     if "model.output.weight.scale" in t else semb),
+            moegate=smoe)
     return FastWeights(
         embed=embed,
         rms_att=stack(layer_cat([("model.layers.{}.attn.norm.weight", (d,))])),
         rms_ffn=stack(layer_cat([("model.layers.{}.mlp.norm.weight", (d,))])),
         wqkv=wqkv, wo=wo, w13=w13, w2=w2,
         final_norm=put(get("model.norm.weight", (d,))),
-        lm_head=lm, bqkv=bqkv, scales=scales)
+        lm_head=lm, bqkv=bqkv, scales=scales, moegate=moegate)
 
 
 def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
@@ -266,7 +299,8 @@ def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
     as numpy arrays (`arrays["scales"]`, if present, a mapping of the
     FastScales fields). bf16/fp8 arrays of ml_dtypes' types are recognised
     by dtype name and reinterpreted through same-width integer views;
-    packed int4 weights are uint8 with (L, G, N) group scales."""
+    packed int4 weights are uint8 with (L, [E,] G, N) group scales; MoE
+    models bring the expert stacks (L, E, N, K) and the router `moegate`."""
     _check_slice(cfg)
 
     def conv(a):
@@ -277,7 +311,8 @@ def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
           if f.name != "scales" and arrays.get(f.name) is not None}
     if scales is not None:
         kw["scales"] = FastScales(**{f.name: conv(scales[f.name])
-                                     for f in fields(FastScales)})
+                                     for f in fields(FastScales)
+                                     if scales.get(f.name) is not None})
     return FastWeights(**kw)
 
 
@@ -316,7 +351,8 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
                      ) -> tuple[Optional[torch.Tensor], KVCache]:
     """One decode step at absolute position `pos`; updates `cache` in place
     and returns (logits (vocab,) f32 or None, cache). `token` is an int or a
-    one-element tensor on the weights' device."""
+    one-element tensor on the weights' device. MoE layers run the routed
+    experts only (`_moe_ffn_one`)."""
     _check_slice(cfg)
     sc = fw.scales
     pos = int(pos)
@@ -334,14 +370,41 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
             norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
             scale_qkv=sc.wqkv if sc else None,
             scale_o=sc.wo if sc else None, **rope)
-        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i,
-                sc.w13 if sc else None, sc.w2 if sc else None,
-                norm_eps=cfg.norm_eps, act=cfg.act_type)
+        if cfg.is_moe:
+            x = _moe_ffn_one(cfg, fw, x, i)
+        else:
+            x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i,
+                    sc.w13 if sc else None, sc.w2 if sc else None,
+                    norm_eps=cfg.norm_eps, act=cfg.act_type)
 
     if not output_logits:
         return None, cache
     x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
     return gemv(x, fw.lm_head, sc.lm_head if sc else None), cache
+
+
+def _proj1_le(x1d, w_all, layer, expert, scale, **kw):
+    """Routed-expert GEMV of one token (gemv_le, or gemv4_le for packed int4
+    experts; fast.py:366-369); kw: the rmsnorm prologue, the GLU epilogue."""
+    return (gemv4_le if is_int4(w_all) else gemv_le)(x1d, w_all, layer, expert, scale, **kw)
+
+
+def _moe_ffn_one(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """One token's MoE FFN (fast.py:765-778): the router GEMV on rmsnorm(x),
+    the top-k gate, then per routed expert j in rank order x += gates[j] *
+    W2_e @ bf16(act(h1) * h3), [h1; h3] = W13_e @ rmsnorm(x) (the norm in
+    each GEMV's prologue, the GLU in the w13 GEMV's epilogue). The expert
+    ids stay on the device: the kernels read them there."""
+    sc = fw.scales
+    s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
+    norm = dict(norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
+    router = gemv_l(x, fw.moegate, layer, scale=sc.moegate if sc else None, **norm)
+    gates, idx = moe_gate(router, cfg.n_experts_active)
+    out = x
+    for j in range(cfg.n_experts_active):
+        h = _proj1_le(x, fw.w13, layer, idx[j], s13, glu_act=cfg.act_type, **norm)
+        out = out + gates[j] * _proj1_le(h, fw.w2, layer, idx[j], s2)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +429,45 @@ def _proj_l(x2d, w_all, layer, scale, residual=None):
     return launch_gemm("gemm4_l" if is_int4(w_all) else "gemm_l", x2d.contiguous(), w_all,
                        layer, scale,
                        residual=None if residual is None else residual.contiguous())
+
+
+def _proj_le(x2d, w_all, layer, expert, scale, glu_act=None):
+    """Routed-expert projection of a chunk's rows (gemm_le, or gemm4_le for
+    packed int4 experts; fast.py:359-363), with the GLU-pair epilogue."""
+    return (gemm4_le if is_int4(w_all) else gemm_le)(x2d, w_all, layer, expert, scale,
+                                                      glu_act=glu_act)
+
+
+def _moe_ffn_batched(cfg: ModelConfig, fw: FastWeights, x2d: torch.Tensor,
+                     layer: int) -> torch.Tensor:
+    """The MoE FFN of a block of rows (fast.py:478-500), shared by every
+    chunk path (prefill, the tick, the chunk sweep; dense and paged), so
+    their streams agree: rmsnorm, the router GEMM, the top-k gate per row,
+    then EVERY expert streamed once over all rows with each row's gate for
+    it (0 where the expert is not routed), summed from zero in expert order;
+    x2d + delta last. (Single-stream decode adds its experts to x in rank
+    order instead, as JAX's does.)"""
+    sc = fw.scales
+    s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
+    xb2 = rmsnorm(x2d, fw.rms_ffn[layer], cfg.norm_eps)
+    router = _proj_l(xb2, fw.moegate, layer, sc.moegate if sc else None)
+    gates, idx = moe_gate(router, cfg.n_experts_active)        # (rows, k) each
+    delta = torch.zeros_like(x2d)
+    for e in range(cfg.n_experts):
+        gate_e = torch.sum(torch.where(idx == e, gates, torch.zeros_like(gates)), dim=-1)
+        h = _proj_le(xb2, fw.w13, layer, e, s13, glu_act=cfg.act_type)
+        delta = delta + gate_e[:, None] * _proj_le(h, fw.w2, layer, e, s2)
+    return x2d + delta
+
+
+def _ffn_rows(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
+    """x + FFN(x) of a tick's or a chunk sweep's rows: the all-expert sweep
+    for MoE models, else the many-row `ffn`."""
+    if cfg.is_moe:
+        return _moe_ffn_batched(cfg, fw, x, layer)
+    sc = fw.scales
+    return ffn(x, fw.rms_ffn, fw.w13, fw.w2, layer, sc.w13 if sc else None,
+               sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
 
 
 def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
@@ -413,10 +515,13 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
         mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), view_of(kl), view_of(vl),
                                    att_mask, D)
         x = x + _proj_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
-        xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
-        h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
-        h = act(h13[:, :H]) * h13[:, H:]
-        x = x + _proj_l(h, fw.w2, i, sc.w2 if sc else None)
+        if cfg.is_moe:
+            x = _moe_ffn_batched(cfg, fw, x, i)
+        else:
+            xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
+            h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
+            h = act(h13[:, :H]) * h13[:, H:]
+            x = x + _proj_l(h, fw.w2, i, sc.w2 if sc else None)
 
     if logits_mode == "none":
         return None
@@ -507,7 +612,8 @@ def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Te
     """The tick's body (fast.py:802-876, 1434-1507): per layer rmsnorm, the
     wqkv GEMM over the B rows, bias and clip, `attend(i, q, k, v)` (the
     batched or paged attention step), the wo GEMM + residual, the many-row
-    FFN; then the final norm and the LM-head GEMM. Returns (B, vocab)."""
+    FFN (the all-expert sweep for MoE); then the final norm and the LM-head
+    GEMM. Returns (B, vocab)."""
     _check_slice(cfg)
     sc = fw.scales
     Hk, D = cfg.n_kv_heads, cfg.head_dim
@@ -526,8 +632,7 @@ def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Te
                        qkv[:, q_dim:q_dim + kv_dim].reshape(Bn, Hk, D),
                        qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D))
         x = _proj_l(mixed.reshape(Bn, q_dim), fw.wo, i, sc.wo if sc else None, residual=x)
-        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
-                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+        x = _ffn_rows(cfg, fw, x, i)
 
     x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
     return gemm(x, fw.lm_head, sc.lm_head if sc else None)
@@ -646,8 +751,7 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
                                       att_mask, D)
         x = _proj_l(mixed.reshape(Bn * T, q_dim), fw.wo, i, sc.wo if sc else None,
                     residual=x)
-        x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i, sc.w13 if sc else None,
-                sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+        x = _ffn_rows(cfg, fw, x, i)
 
     if logits_mode == "none":
         return None

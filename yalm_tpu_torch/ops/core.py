@@ -1,9 +1,9 @@
 """Core numeric ops in plain PyTorch (port of `yalm_tpu/ops/core.py`).
 
 RMSNorm, interleaved-pair RoPE with every packed `rope_param` scaling kind,
-and the activations. Everything computes in float32, with the same order of
-operations as the JAX functions, so the two packages agree to float32
-rounding on the same inputs.
+the activations and the MoE router's top-k gate. Everything computes in
+float32, with the same order of operations as the JAX functions, so the
+two packages agree to float32 rounding on the same inputs.
 """
 
 from __future__ import annotations
@@ -151,3 +151,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def act_fn(name: str):
     return {"gelu": gelu, "silu": silu}[name]
+
+
+def moe_gate(router_logits: torch.Tensor, n_active: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing with a softmax over the chosen experts only (the
+    reference's normalise-over-top-k, src/infer.cpp:100-132).
+
+    Returns (weights[..., n_active], indices[..., n_active]) ranked highest
+    first, as jax.lax.top_k ranks them: single-stream decode adds the
+    experts to the residual in that order. exp(top - global max) keeps it
+    stable."""
+    top_vals, top_idx = torch.topk(router_logits, n_active, dim=-1, sorted=True)
+    m = torch.amax(router_logits, dim=-1, keepdim=True)
+    e = torch.exp(top_vals - m)
+    return e / torch.sum(e, dim=-1, keepdim=True), top_idx

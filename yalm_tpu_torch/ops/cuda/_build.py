@@ -41,10 +41,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _P, _F, _P, _P, _I, _P, _F, _P, _P,
-                _I, _I, _P],
-    "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
-    "yt_gemm4": [_P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # (layer, E, expert, expert_id) address a matrix of an (L, E, N, K) stack
+    "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _F, _P, _P, _I, _P, _F,
+                _P, _P, _I, _I, _P],
+    "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    "yt_gemm4": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     "yt_rmsnorm_rows": [_P, _I, _I, _P, _F, _P, _P],
     "yt_attend_step": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -25,6 +25,10 @@
   pages are shared read-only between identical prefixes (automatic prefix
   caching, LRU eviction of unreferenced pages).
 - Completion: EOS/stop/max-tokens frees the slot at the tick boundary.
+- MoE models run every chunk path (the tick, per-slot and batched
+  admission, dense and paged) through one all-expert FFN
+  (`models/fast.py:_moe_ffn_batched`), so their streams agree; ring
+  hydration of a dense lane routes its token's experts alone.
 
 Speculation (`spec_*`) and meshes come in later slices of the port
 (ROADMAP.md) and raise NotImplementedError.

@@ -1,7 +1,7 @@
 """Test fixtures: synthesize tiny configs and random `.yalm` checkpoints.
 
-The port's copy of `yalm_tpu/utils/testing.py` (dense checkpoints only),
-without ml_dtypes: bf16 and fp8 tensors are rounded from f32 by torch, which
+The port's copy of `yalm_tpu/utils/testing.py` (dense and MoE checkpoints,
+no Medusa heads), without ml_dtypes: bf16 and fp8 tensors are rounded from f32 by torch, which
 rounds to nearest-even like ml_dtypes, so the same seed writes the same
 checkpoint bytes as the JAX package's `synth_checkpoint`.
 """
@@ -53,12 +53,12 @@ def synth_vocab(vocab_size: int) -> list[bytes]:
 
 def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
                      vocab: list[bytes] | None = None) -> None:
-    """Write a random-but-deterministic `.yalm` checkpoint for a dense `cfg`
-    (weight dtypes fp32/fp16/bf16/fp8/int8/int4; MoE is not ported). int4
-    packs the layer matrices (`ops.int4.pack_int4`, `.gscale` beside each)
-    and keeps the embedding and LM head int8 with a `.scale`."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE checkpoints belong to a later slice of the port")
+    """Write a random-but-deterministic `.yalm` checkpoint for `cfg` (weight
+    dtypes fp32/fp16/bf16/fp8/int8/int4, dense or MoE). int4 packs the layer
+    matrices (`ops.int4.pack_int4`, `.gscale` beside each; MoE experts pack
+    over their leading expert axis) and keeps the embedding, LM head and
+    MoE router int8 with a `.scale`. The RNG draws in the JAX fixture's
+    order, so the same seed writes the same bytes."""
     rng = np.random.default_rng(seed)
     int4 = cfg.weight_dtype == "int4"
     int8 = cfg.weight_dtype == "int8"
@@ -118,9 +118,12 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
                 1.0 + 0.1 * rng.standard_normal(cfg.dim).astype(np.float32)
             tensors[f"{p}.mlp.post_norm.weight"] = \
                 1.0 + 0.1 * rng.standard_normal(cfg.dim).astype(np.float32)
-        put(f"{p}.mlp.w1.weight", cfg.hidden_dim, cfg.dim)
-        put(f"{p}.mlp.w2.weight", cfg.dim, cfg.hidden_dim)
-        put(f"{p}.mlp.w3.weight", cfg.hidden_dim, cfg.dim)
+        E = (cfg.n_experts,) if cfg.is_moe else ()
+        if cfg.is_moe:
+            put(f"{p}.moegate.weight", cfg.n_experts, cfg.dim, head=True)
+        put(f"{p}.mlp.w1.weight", *E, cfg.hidden_dim, cfg.dim)
+        put(f"{p}.mlp.w2.weight", *E, cfg.dim, cfg.hidden_dim)
+        put(f"{p}.mlp.w3.weight", *E, cfg.hidden_dim, cfg.dim)
     tensors["model.norm.weight"] = np.ones(cfg.dim, np.float32)
     if not cfg.tie_word_embeddings:
         put("model.output.weight", cfg.vocab_size, cfg.dim, scale=0.02, head=True)
