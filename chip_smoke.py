@@ -46,14 +46,30 @@ versions and bit for bit against the dense kernels on the copied expert
 stack; single stream (200+64 greedy, 1500+32 sampled; on fp8 also 4090+16
 and the ring follow-up) with the routed GEMV launched 128 times per decode
 token and the routed GEMM 512 times per prefill chunk, and one decode step
-free of host synchronization (the routed ids stay on the card); serving, fp8 on the
-dense cache (17 requests of 64-1024 tokens and 2 over HTTP) and int4 on a
-paged pool of 65 pages of 256 (17 requests of 256-1536 tokens, which must
-preempt), the routed GEMM 512 times per tick; depth-2 parity as above with
-a 32-token prefill, the batched one over 8 lanes of 8-row chunks (the CPU's
-plain experts set the pace); a row may route differently on the card only
-where the CPU's router logits near-tie, and the outputs such a row or a
-near-tie reaches are held to nothing and counted;
+free of host synchronization (the routed ids stay on the card); serving at
+depth 8 (PERF.md keeps the 32-layer runs), fp8 on the dense cache (17
+requests of 64-1024 tokens and 2 over HTTP) and int4 on a paged pool of 65
+pages of 256 (17 requests of 256-1536 tokens, which must preempt), the
+routed GEMM 2 x 8 x depth times per tick; depth-2 parity as above, the
+batched one over 8 lanes of 8-row chunks (the CPU's plain experts set the
+pace); a row may route differently on the card only where the CPU's router
+logits near-tie, and the outputs such a row or a near-tie reaches are held
+to nothing and counted; on an e5m2 cache, the outputs past the tolerance
+that a cache byte rounded across a boundary reaches are held and counted
+(phase_parity);
+then phases 2-4 for Gemma3-12B (48 layers, bf16 cache) and Gemma2-9B (42
+layers, window 8192, e5m2 cache) at full width and depth, fp8 weights: the
+tied 256k-row LM-head GEMV, the gelu GLU on the GEMV and the GEMM route,
+and K2, K8 and K9 in the path's form (sliding window 1024 + Gemma3's local
+rope; sliding window 4096 + Gemma2's softcap 50) in the linear and the ring
+regime; single stream (Gemma3 200+64, 1500+64 sampled, 4090+16 and the ring
+follow-up; Gemma2 200+64, 6000+32 sampled, 8190+16 and the ring follow-up)
+on the unfused decode route, with the attention launches counted by form;
+serving (Gemma3 dense, 17 requests of 64-2048 tokens and 2 over HTTP;
+Gemma2 paged from 65 pages of 256, 17 requests of 256-1536 tokens, which
+must preempt); depth-2 parity with layer_sliding (1, 0) and a window of 48;
+K12 (attend_one_l, which no model path runs) at Mistral-7B shapes on each
+cache type in phase 2 of the fp8 and the int4 path;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -111,6 +127,43 @@ def mixtral8x7b(n_layers: int = 32, weight_dtype: str = "fp8"):
                                n_experts_active=2)
 
 
+def gemma3_12b(n_layers: int = 48):
+    """Gemma3-12B's text shapes, bench.py:129-145's configuration exactly:
+    a 5:1 sliding pattern with a 1024 window, dual per-layer rope (global
+    theta 1e6 / 8, local 1e4), qk-norm, sandwich norms, gelu, a tied head,
+    window 4096; fp8-e5m2 weights."""
+    from yalm_tpu_torch.config import ModelConfig
+    return ModelConfig(dim=3840, hidden_dim=15360, head_dim=256, n_layers=n_layers, n_heads=16,
+                       n_kv_heads=8, vocab_size=262144, max_seq_len=4096, bos_token_id=2,
+                       eos_token_id=1, rope_theta=1e6, rotary_dim=256, norm_eps=1e-6,
+                       act_type="gelu", weight_dtype="fp8", embed_scale=3840.0 ** 0.5,
+                       tie_word_embeddings=True, has_post_norms=True, has_qk_norm=True,
+                       sliding_window=1024,
+                       layer_sliding=tuple(0 if (i + 1) % 6 == 0 else 1 for i in range(n_layers)),
+                       rope_scale=("gemma3", 8.0, 10000.0))
+
+
+def gemma2_9b(n_layers: int = 42):
+    """Gemma2-9B's shapes, bench.py:114-128's configuration at the public
+    model's 8192-token window (at bench.py's 4096 the 4096-slot sliding
+    window would never be live, bench.py:410): 1:1 sliding layers, the
+    attention softcap 50 and the final softcap 30, sandwich norms, gelu, a
+    tied head; fp8-e5m2 weights."""
+    from yalm_tpu_torch.config import ModelConfig
+    return ModelConfig(dim=3584, hidden_dim=14336, head_dim=256, n_layers=n_layers, n_heads=16,
+                       n_kv_heads=8, vocab_size=256128, max_seq_len=8192, bos_token_id=2,
+                       eos_token_id=1, rope_theta=10000.0, rotary_dim=256, norm_eps=1e-6,
+                       act_type="gelu", weight_dtype="fp8", embed_scale=3584.0 ** 0.5,
+                       has_post_norms=True, attn_softcap=50.0, final_softcap=30.0,
+                       sliding_window=4096, tie_word_embeddings=True,
+                       layer_sliding=tuple(1 if i % 2 == 0 else 0 for i in range(n_layers)))
+
+
+def with_layers(cfg, n: int, **kw):
+    """cfg at depth n (its first n layers' sliding flags), other fields as kw."""
+    return dataclasses.replace(cfg, n_layers=n, layer_sliding=cfg.layer_sliding[:n], **kw)
+
+
 def synth_moe_weights(cfg, device, seed: int):
     """Random weights of an MoE cfg on the card: synth_fast_weights (fp8) or
     synth_int4_weights (int4, an int8 router with per-row scales)."""
@@ -121,7 +174,9 @@ def synth_moe_weights(cfg, device, seed: int):
 def synth_fast_weights(cfg, device, seed: int):
     """Random fp8-e5m2 weights (std 0.02) made on the card in the decode
     layout, chunk by chunk so no full-size bf16 temporary exists; an MoE cfg
-    gets its expert stacks (L, E, ...) and the router (L, E, dim)."""
+    gets its expert stacks (L, E, ...) and the router (L, E, dim); a tied
+    cfg shares the embedding as its head; qk-norm and sandwich-norm cfgs get
+    their norms, 1 + 0.1 * N(0, 1), drawn last."""
     import torch
     from yalm_tpu_torch.models.fast import FastWeights
     gen = torch.Generator(device=device)
@@ -141,11 +196,21 @@ def synth_fast_weights(cfg, device, seed: int):
     L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
     E = (cfg.n_experts,) if cfg.is_moe else ()
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
-    return FastWeights(
+    fw = FastWeights(
         embed=mk(cfg.vocab_size, d), rms_att=ones(L, d), rms_ffn=ones(L, d),
         wqkv=mk(L, cfg.q_dim + 2 * cfg.kv_dim, d), wo=mk(L, d, cfg.q_dim),
         w13=mk(L, *E, 2 * h, d), w2=mk(L, *E, d, h), final_norm=ones(d),
-        lm_head=mk(cfg.vocab_size, d), moegate=mk(L, *E, d) if E else None)
+        lm_head=None, moegate=None)
+    fw.lm_head = fw.embed if cfg.tie_word_embeddings else mk(cfg.vocab_size, d)
+    fw.moegate = mk(L, *E, d) if E else None
+
+    def norm(n):
+        return 1 + 0.1 * torch.randn(L, n, generator=gen, device=device)
+    if cfg.has_qk_norm:
+        fw.qnorm, fw.knorm = norm(cfg.head_dim), norm(cfg.head_dim)
+    if cfg.has_post_norms:
+        fw.pa, fw.pf = norm(d), norm(d)
+    return fw
 
 
 def synth_int4_weights(cfg, device, seed: int):
@@ -480,6 +545,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     phase_ffn_rows(bench, cfg, fw, dev, (16, 64))
     phase_batched_attention(bench, cfg, dev, torch.bfloat16)
     phase_paged_attention(bench, cfg, dev, torch.bfloat16)
+    phase_attend_one(bench, cfg, dev, torch.bfloat16)
 
 
 def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
@@ -664,6 +730,151 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     phase_ffn_rows(bench, cfg, fw, dev, (16,))
     phase_batched_attention(bench, cfg, dev, torch.float8_e5m2)
     phase_paged_attention(bench, cfg, dev, torch.float8_e5m2)
+    phase_attend_one(bench, cfg, dev, torch.float8_e5m2)
+
+
+def phase_attend_one(bench: Bench, cfg, dev, kv_dtype) -> None:
+    """K12 (attend_one_l; no model path runs it, in the JAX package
+    neither) at the model's shapes over a 4-layer cache of its window, every
+    slot attended: against its plain version, the cache unwritten; the
+    kernels line reports its launches in this phase; the library yardstick
+    is SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    Hq, Hk, D, S, L4 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len, 4
+    cache = KVCache.init(with_layers(cfg, L4), kv_dtype, dev)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype))
+    k0 = cache.k.clone()
+    q = torch.randn(Hk, Hq // Hk, D, generator=gen, device=dev) * 2
+    n0 = _build.LAUNCHES["attend_one_l"]
+    want = A.attend_one_plain(q, cache.k, cache.v, 1, S)
+    got = A.attend_one_l(q, cache.k, cache.v, 1, S)
+    kk = [cache.k[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]   # (Hk, S, D)
+    vv = [cache.v[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]
+    qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+    wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
+    bench.case("attend_one_l", f"{wd} kv_len={S}, {Hk}x{Hq // Hk} heads, D {D}", got, want,
+               2e-3,
+               kernel=lambda r: A.attend_one_l(q, cache.k, cache.v, r % L4, S),
+               plain=lambda r: A.attend_one_plain(q, cache.k, cache.v, r % L4, S),
+               library=lambda r: F.scaled_dot_product_attention(
+                   qq, kk[r % L4][None], vv[r % L4][None], enable_gqa=True),
+               bytes_=2 * S * Hk * D * kv_dtype.itemsize + 4 * 2 * Hq * D,
+               flops=4 * S * Hq * D, json_row=True, run="phase2")
+    torch.cuda.synchronize()
+    bench.rows[-1]["phase2_launches"] = _build.LAUNCHES["attend_one_l"] - n0
+    if not torch.equal(cache.k.view(torch.uint8), k0.view(torch.uint8)):
+        raise AssertionError("attend_one_l wrote to the cache")
+    log(f"  attend_one_l {wd}: {bench.rows[-1]['phase2_launches']} launches, the cache unwritten")
+
+
+def phase_sliding_step(bench: Bench, cfg, dev, kv_dtype, form: dict) -> None:
+    """K2 in the path's Gemma form on a 4-layer cache of its window: a lane
+    past the sliding window in the linear regime (the kernel's tile loop
+    starts at the window) and one in the ring regime (the sinks fall out of
+    the window), against the plain version, the written rows byte for byte;
+    the bound and SDPA's mask take the slots inside the window."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    Hq, Hk, D, S, L4 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len, 4
+    cache = KVCache.init(with_layers(cfg, L4), kv_dtype, dev)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype))
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim, **form)
+    wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
+    bits = torch.uint8 if kv_dtype.itemsize == 1 else torch.int16
+    for pos in (S - 100, S + 1903):
+        kv_sink = 2 if pos >= S else 0
+        kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+        kv_len = min(pos + 1, S)
+        q = torch.randn(Hk, Hq // Hk, D, generator=gen, device=dev) * 2
+        kn = torch.randn(Hk, D, generator=gen, device=dev) * 2
+        vn = torch.randn(Hk, D, generator=gen, device=dev)
+        sl = (kv_pos, kv_len, kv_sink, pos)
+        k2, v2 = cache.k.clone(), cache.v.clone()
+        want = A.attend_step_plain(q, kn, vn, k2, v2, 3, *sl, **rope)
+        got = A.attend_step_l(q, kn, vn, cache.k, cache.v, 3, *sl, **rope)
+        torch.cuda.synchronize()
+        if not (torch.equal(cache.k.view(bits), k2.view(bits))
+                and torch.equal(cache.v.view(bits), v2.view(bits))):
+            raise AssertionError(f"attend_step_l {wd} pos {pos}: the written rows differ from "
+                                 "the plain version's")
+        del k2, v2
+        mask, rows = window_rows(S, [kv_pos], [kv_len], [kv_sink], form.get("win"))
+        mask = mask.to(dev)[:, None, None, :]
+        kk = [cache.k[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]
+        vv = [cache.v[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]
+        qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+        bench.case("attend_step_l", f"{wd} kv_len={kv_len} pos={pos}"
+                   + (" ring+sinks" if kv_sink else "") + form_label(form), got, want, 2e-3,
+                   kernel=lambda r, a=(q, kn, vn), s=sl: A.attend_step_l(
+                       *a, cache.k, cache.v, r % L4, *s, **rope),
+                   plain=lambda r, a=(q, kn, vn), s=sl: A.attend_step_plain(
+                       *a, cache.k, cache.v, r % L4, *s, **rope),
+                   library=lambda r, qq=qq, kk=kk, vv=vv, m=mask: F.scaled_dot_product_attention(
+                       qq, kk[r % L4][None], vv[r % L4][None], attn_mask=m, enable_gqa=True),
+                   bytes_=2 * rows * Hk * D * kv_dtype.itemsize + 4 * (2 * Hq * D + 2 * Hk * D),
+                   flops=4 * rows * Hq * D, json_row=kv_sink > 0)
+        del kk, vv
+    log(f"  attend_step_l {wd}{form_label(form)}: written rows equal the plain version's byte "
+        "for byte")
+
+
+def phase_gemma_kernels(bench: Bench, cfg, fw, dev, kv_dtype, form: dict) -> None:
+    """Phase 2 of a Gemma path at its shapes: the LM-head GEMV over the
+    tied 256k-row embedding; the gelu GLU on the GEMV route (one row) and
+    the GEMM route (16 rows), each GLU output against ops/core.gelu's to
+    one bf16 ulp; K2, K8 (B 16) and K9 (B 16, shuffled pages of 256) in the
+    path's Gemma form, linear and ring lanes, on the path's cache type."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    x = torch.randn(d, generator=gen, device=dev)
+    lm_bf16 = fw.lm_head.to(torch.bfloat16)
+    bench.case("gemv", f"lm_head e5m2 ({V}x{d}, tied)", G.gemv(x, fw.lm_head),
+               G.gemv_l_plain(x, fw.lm_head[None], 0), 2e-3,
+               kernel=lambda r: G.gemv(x, fw.lm_head),
+               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0),
+               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+               bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
+    del lm_bf16
+    act = cfg.act_type
+    x = torch.randn(d, generator=gen, device=dev) * 3.0
+    glu = G.launch_gemv("check", x, fw.w13, 1, norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps,
+                        glu_act=act)
+    ref = G.gemv_l_plain(x, fw.w13, 1, norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
+    gerr = glu_holds(f"ffn_l B=1 {act}", glu, G.glu_plain(ref, act))
+    log(f"  ffn_l B=1: the w13 GEMV's {act} GLU output bf16-rounded bit for bit, max |err| "
+        f"{gerr:.3e}")
+    kw = dict(norm_eps=cfg.norm_eps, act=act, add_residual=False)
+    bench.case("ffn_l", f"B=1 e5m2 {act}", ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, 2, **kw),
+               ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, 2, **kw), 2e-3,
+               kernel=lambda r: ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, r % L, **kw),
+               plain=lambda r: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, r % L, **kw),
+               bytes_=3 * h * d + 8 * d + 4 * d, flops=6 * h * d, json_row=True)
+    # the kernels line reports the serving run the path has (dense or paged)
+    dense = bench.path == "gemma3"
+    phase_ffn_rows(bench, cfg, fw, dev, (16,), run="batched" if dense else "paged")
+    phase_sliding_step(bench, cfg, dev, kv_dtype, form)
+    phase_batched_attention(bench, cfg, dev, kv_dtype, form, json=dense)
+    phase_paged_attention(bench, cfg, dev, kv_dtype, form, depths=(4,), json=not dense)
 
 
 def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
@@ -786,13 +997,33 @@ def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
         f"ids from the card; NaN for ids {E} and -1")
 
 
-def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list) -> None:
-    """K4/K7 past 8 rows, the batched tick's FFN: the GEMM route (row norm,
-    w13 GEMM with the GLU-pair epilogue, w2 GEMM), without the residual.
-    The GLU output, an intermediate, is checked bit for bit: every value
-    the w13 GEMM writes is a bf16 value, and within 2e-3 of the plain GLU."""
+def glu_holds(name: str, glu, ref) -> float:
+    """A GLU epilogue's output against the plain GLU: every value a bf16
+    value, each within 2e-3 of max(1, max|ref|) or one bf16 ulp of its
+    reference (where the f32 values straddle a rounding boundary). Raises
+    otherwise; returns the max |err|."""
     import torch
-    from yalm_tpu_torch.ops.core import silu
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    torch.cuda.synchronize()
+    if not torch.equal(glu, G.bf16f(glu)):
+        raise AssertionError(f"{name}: the GLU output is not bf16-rounded")
+    diff = (glu - ref).abs()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs()).exponent - 8)
+    tol = 2e-3 * max(1.0, float(ref.abs().max()))
+    if not bool((diff <= torch.clamp(ulp, min=tol)).all()):
+        raise AssertionError(f"{name}: GLU output differs from the plain GLU by more than one "
+                             f"bf16 ulp and the tolerance (max {float(diff.max())})")
+    return float(diff.max())
+
+
+def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list, run: str = "batched") -> None:
+    """K4/K7 past 8 rows, the batched tick's FFN: the GEMM route (row norm,
+    w13 GEMM with the GLU-pair epilogue, w2 GEMM), without the residual,
+    with the model's activation. The GLU output, an intermediate, is
+    checked bit for bit: every value the w13 GEMM writes is a bf16 value,
+    within 2e-3 of the plain GLU or one bf16 ulp of it (glu_holds). `run`:
+    the serving run whose launches the kernels line reports for it."""
+    import torch
     from yalm_tpu_torch.ops.cuda import gemv as G
     from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn_plain
 
@@ -806,36 +1037,32 @@ def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list) -> None:
     wbytes = (fw.w13[0].numel() + fw.w2[0].numel()
               + (4 * (s13[0].numel() + s2[0].numel()) if int4 else 0))
     lay = lambda r: r % L  # noqa: E731
-    kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
+    act = cfg.act_type
+    kw = dict(norm_eps=cfg.norm_eps, act=act, add_residual=False)
     for B in rows_list:
         x = torch.randn(B, d, generator=gen, device=dev) * 3.0
         xb = G.bf16f(x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps)
                      * fw.rms_ffn[2])
-        glu = G.launch_gemm("check", xb, fw.w13, 2, s13, glu_act="silu")
-        h13 = G.proj_plain(xb, fw.w13, 2, s13)
-        torch.cuda.synchronize()
-        if not torch.equal(glu, G.bf16f(glu)):
-            raise AssertionError(f"{name} B={B}: the w13 GEMM's GLU output is not bf16-rounded")
-        ref = G.bf16f(silu(h13[:, :h]) * h13[:, h:])
-        gerr = float((glu - ref).abs().max())
-        if gerr > 2e-3 * max(1.0, float(ref.abs().max())):
-            raise AssertionError(f"{name} B={B}: GLU output differs from the plain GLU by {gerr}")
-        log(f"  {name} B={B}: GLU output bf16-rounded bit for bit, max |err| {gerr:.3e}")
-        bench.case(f"{name}_gemm", f"B={B} (GEMM route)" + ("" if int4 else " e5m2"),
+        glu = G.launch_gemm("check", xb, fw.w13, 2, s13, glu_act=act)
+        gerr = glu_holds(f"{name} B={B}", glu, G.glu_plain(G.proj_plain(xb, fw.w13, 2, s13), act))
+        log(f"  {name} B={B}: {act} GLU output bf16-rounded bit for bit, max |err| {gerr:.3e}")
+        bench.case(f"{name}_gemm", f"B={B} (GEMM route)" + ("" if int4 else " e5m2")
+                   + (f" {act}" if act != "silu" else ""),
                    ffn(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw),
                    ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw), 2e-3,
                    kernel=lambda r, x=x: ffn(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw),
                    plain=lambda r, x=x: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2,
                                                   **kw),
                    bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
-                   json_row=B == 16, run="batched")
+                   json_row=B == 16, run=run)
 
 
 def batched_lanes(S: int):
-    """16 lanes of a batched tick: kv_len from 1 to the window, one lane in
-    the ring regime (sinks), two write-masked lanes."""
-    pos = [0, 1, 63, 64, 199, 511, 998, 1499, 2047, 2600, 3071, 3500, 3999, 4094, S - 1,
-           S + 1903]
+    """16 lanes of a batched tick: kv_len from 1 to the window (positions
+    of a 4096-slot window, scaled to S), one lane in the ring regime
+    (sinks), two write-masked lanes."""
+    pos = [p * S // 4096 for p in (0, 1, 63, 64, 199, 511, 998, 1499, 2047, 2600, 3071, 3500,
+                                   3999, 4094)] + [S - 1, S + 1903]
     sink = [2 if p >= S else 0 for p in pos]
     kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
     kv_len = [min(p + 1, S) for p in pos]
@@ -860,7 +1087,32 @@ def gathered(pool, tables):
     return g.transpose(1, 2).reshape(g.shape[0], g.shape[2], -1, *g.shape[4:]).contiguous()
 
 
-def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
+def window_rows(S: int, kv_pos, kv_len, kv_sink, win) -> tuple:
+    """Per lane, the (S,) bool mask of the slots attention reads (slot <
+    kv_len, and on a sliding layer age < win) and their count: what a
+    sliding row's bound and its SDPA yardstick take."""
+    import torch
+    from yalm_tpu_torch.ops.cuda.attention import slot_age
+    masks = []
+    for kp, kl, ks in zip(kv_pos, kv_len, kv_sink):
+        m = torch.arange(S) < kl
+        if win is not None:
+            m &= slot_age(S, kp, ks, "cpu") < win
+        masks.append(m)
+    masks = torch.stack(masks)
+    return masks, int(masks.sum())
+
+
+def form_label(form: dict) -> str:
+    """The Gemma forms of an attention case, as its label says them."""
+    parts = ([f"softcap {form['softcap']:g}"] if form.get("softcap") else []) + \
+        ([f"win {form['win']}"] if form.get("win") is not None else []) + \
+        (["local rope"] if form.get("alt") else [])
+    return (", " + " + ".join(parts)) if parts else ""
+
+
+def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=None,
+                          json: bool = True) -> None:
     """K9 at B 16 over pools of 257 pages of 256 slots through shuffled
     tables, at the lanes of batched_lanes: the output against the plain
     version, the pool byte for byte (written rows, untouched pages, the
@@ -868,11 +1120,16 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
     into the dense layout. First at the model's depth (a bf16 pool of
     2.16e9 elements: offsets past 2^31), then on 4 layers, the footprint of
     K8's case, whose row the kernels line reports; the library yardstick is
-    SDPA over the gathered padded batch."""
+    SDPA over the gathered padded batch. `form`: the Gemma forms (softcap,
+    win, alt), with the bound and SDPA's mask over the slots inside the
+    window; `depths`: the pool depths run (default the model's and 4);
+    `json`: whether the kernels line reports the 4-layer row (a path whose
+    serving runs K8 has no K9 launches to report)."""
     import torch
     import torch.nn.functional as F
     from yalm_tpu_torch.ops.cuda import attention as A
 
+    form = form or {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     Hq, Hk, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
@@ -886,13 +1143,14 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
     q = torch.randn(B, Hk, Hq // Hk, D, generator=gen, device=dev) * 2
     kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
     vn = torch.randn(B, Hk, D, generator=gen, device=dev)
-    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim, **form)
     wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
     bits = torch.uint8 if kv_dtype.itemsize == 1 else torch.int16
-    mask = (torch.arange(S, device=dev)[None, :] < torch.tensor(kv_len, device=dev)[:, None])
+    mask, rows = window_rows(S, kv_pos, kv_len, sink, form.get("win"))
+    mask = mask.to(dev)
     qq = q.reshape(B, Hq, 1, D).to(torch.bfloat16)
     L4 = 4
-    for L in (cfg.n_layers, L4):
+    for L in depths or (cfg.n_layers, L4):
         shape = (1 + B * nblk, L, page, Hk, D)
         k_pool = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype)
         v_pool = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype)
@@ -930,7 +1188,7 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
               .to(torch.bfloat16) for l in range(L4)]
         item = kv_dtype.itemsize
         bench.case("attend_step_paged_l", f"B=16 {wd} {L} layers, pages of 256 shuffled, kv_len "
-                   f"1..{S}, ring + 2 read-only lanes", got, want, 2e-3,
+                   f"1..{S}, ring + 2 read-only lanes{form_label(form)}", got, want, 2e-3,
                    kernel=lambda r: A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables,
                                                         top - r % L4, lanes, **rope),
                    plain=lambda r: A.attend_step_paged_plain(q, kn, vn, k_pool, v_pool,
@@ -939,28 +1197,30 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
                    library=lambda r: F.scaled_dot_product_attention(
                        qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
                        enable_gqa=True),
-                   bytes_=2 * sum(kv_len) * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+                   bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                    + 4 * 5 * B + 4 * B * nblk,
-                   flops=4 * sum(kv_len) * Hq * D, json_row=L == L4, run="paged")
+                   flops=4 * rows * Hq * D, json_row=json and L == L4, run="paged")
         del kk, vv, k_pool, v_pool
         torch.cuda.empty_cache()
 
 
-def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
+def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype, form=None,
+                            json: bool = True) -> None:
     """K8 at B 16 on a 4-layer cache of the model's window: every lane's
     written rows equal the plain version's byte for byte, write-masked
     lanes change nothing; the library yardstick is SDPA over the padded
-    batch (a mask per lane)."""
+    batch (a mask per lane). `form`, `json`: as phase_paged_attention's."""
     import torch
     import torch.nn.functional as F
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.ops.cuda import attention as A
 
+    form = form or {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     Hq, Hk, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
     B, L4 = 16, 4
-    cache = KVCache.init(dataclasses.replace(cfg, n_layers=L4), kv_dtype, dev, batch=B)
+    cache = KVCache.init(with_layers(cfg, L4), kv_dtype, dev, batch=B)
     for t in (cache.k, cache.v):
         t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype))
     kv_pos, kv_len, sink, pos, write = batched_lanes(S)
@@ -969,7 +1229,7 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
     q = torch.randn(B, Hk, Hq // Hk, D, generator=gen, device=dev) * 2
     kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
     vn = torch.randn(B, Hk, D, generator=gen, device=dev)
-    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim, **form)
     k2, v2 = cache.k.clone(), cache.v.clone()
     want = A.attend_step_batched_plain(q, kn, vn, k2, v2, 1, lanes_cpu, **rope)
     got = A.attend_step_batched(q, kn, vn, cache.k, cache.v, 1, lanes, **rope)
@@ -987,11 +1247,12 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
     # a mask of each lane's kv_len (no sink view: a yardstick of speed)
     kk = [cache.k[:, l].transpose(1, 2).to(torch.bfloat16) for l in range(L4)]
     vv = [cache.v[:, l].transpose(1, 2).to(torch.bfloat16) for l in range(L4)]
-    mask = (torch.arange(S, device=dev)[None, :] < torch.tensor(kv_len, device=dev)[:, None])
+    mask, rows = window_rows(S, kv_pos, kv_len, sink, form.get("win"))
+    mask = mask.to(dev)
     qq = q.reshape(B, Hq, 1, D).to(torch.bfloat16)
     item = kv_dtype.itemsize
-    bench.case("attend_step_batched_l", f"B=16 {wd} kv_len 1..{S}, ring + 2 read-only lanes",
-               got, want, 2e-3,
+    bench.case("attend_step_batched_l", f"B=16 {wd} kv_len 1..{S}, ring + 2 read-only lanes"
+               f"{form_label(form)}", got, want, 2e-3,
                kernel=lambda r: A.attend_step_batched(q, kn, vn, cache.k, cache.v, r % L4,
                                                       lanes, **rope),
                plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cache.k, cache.v, r % L4,
@@ -999,9 +1260,9 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype) -> None:
                library=lambda r: F.scaled_dot_product_attention(
                    qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
                    enable_gqa=True),
-               bytes_=2 * sum(kv_len) * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+               bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                + 4 * 5 * B,
-               flops=4 * sum(kv_len) * Hq * D, json_row=True, run="batched")
+               flops=4 * rows * Hq * D, json_row=json, run="batched")
     del kk, vv, cache
 
 
@@ -1014,7 +1275,11 @@ PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block
                             "gemv_le", "gemm_le"),
                 "moe_int4": ("gemv", "gemv_l", "gemm_l", "gemv4_l", "gemm4_l", "attend_step_l",
                              "attn_block4_l", "gemv4_le", "gemm4_le")}
-PATH_ABSENT = {"moe_fp8": ("ffn_l", "ffn_l_gemm"), "moe_int4": ("ffn4_l", "ffn4_l_gemm")}
+PATH_KERNELS.update({g: ("gemv", "gemv_l", "gemm_l", "attend_step_l", "ffn_l")
+                     for g in ("gemma3", "gemma2")})
+# the Gemma paths take the unfused route: no fused attention block
+PATH_ABSENT = {"moe_fp8": ("ffn_l", "ffn_l_gemm"), "moe_int4": ("ffn4_l", "ffn4_l_gemm"),
+               "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
 # (name, prompt tokens, new tokens, sampled); a "ring" request continues the
 # one before it past the window
 SERVE_REQUESTS = (("greedy 200+64", 200, 64, False), ("sampled 1500+64", 1500, 64, True),
@@ -1025,6 +1290,55 @@ MOE_SERVE_REQUESTS = {"moe_fp8": (("greedy 200+64", 200, 64, False),
                                   ("ring follow-up 8+8", 8, 8, False)),
                       "moe_int4": (("greedy 200+64", 200, 64, False),
                                    ("sampled 1500+32", 1500, 32, True))}
+# past each sliding window (1024 / 4096), then across the model's window
+GEMMA_SERVE_REQUESTS = {"gemma3": (("greedy 200+64", 200, 64, False),
+                                   ("sampled 1500+64", 1500, 64, True),
+                                   ("window 4090+16", 4090, 16, False),
+                                   ("ring follow-up 8+8", 8, 8, False)),
+                        "gemma2": (("greedy 200+64", 200, 64, False),
+                                   ("sampled 6000+32", 6000, 32, True),
+                                   ("window 8190+16", 8190, 16, False),
+                                   ("ring follow-up 8+8", 8, 8, False))}
+
+
+@contextlib.contextmanager
+def attention_forms():
+    """While active: every attention launch (K2, K8, K9) counted by its
+    Gemma form, (launcher, softcap, win, alt) -- the wrappers' launch
+    counts do not say which form ran."""
+    import collections
+    from yalm_tpu_torch.ops.cuda import attention as A
+    tally: collections.Counter = collections.Counter()
+    saved = {n: getattr(A, n) for n in ("launch_attend_step", "launch_attend_step_batched",
+                                        "launch_attend_step_paged")}
+
+    def counting(name, fn):
+        def launch(*a, softcap=0.0, win=None, alt=None, **k):
+            tally[(name, float(softcap), None if win is None else int(win), int(alt or 0))] += 1
+            return fn(*a, softcap=softcap, win=win, alt=alt, **k)
+        return launch
+    for name, fn in saved.items():
+        setattr(A, name, counting(name, fn))
+    try:
+        yield tally
+    finally:
+        for name, fn in saved.items():
+            setattr(A, name, fn)
+
+
+def forms_hold(cfg, tally, what: str) -> None:
+    """A Gemma run's attention launches took the model's forms: its
+    sliding window on the sliding layers (with the local rope on Gemma3),
+    the whole window on the others, its softcap on all. Raises otherwise."""
+    alt = int(bool(cfg.rope_scale) and cfg.rope_scale[0] == "gemma3")
+    want = {(float(cfg.attn_softcap), cfg.sliding_window, alt),
+            (float(cfg.attn_softcap), cfg.max_seq_len, 0)}
+    seen = {k[1:] for k in tally}
+    log(f"  attention launches by form (launcher, softcap, win, alt) over the {what}: "
+        f"{dict(tally)}")
+    if seen != want:
+        raise AssertionError(f"{what}: attention forms {sorted(seen, key=str)}, expected "
+                             f"{sorted(want, key=str)}")
 
 
 def routed_names(fw):
@@ -1087,17 +1401,20 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
     _build.LAUNCHES.clear()
     reqs = []
     profile = None
-    for name, n_prompt, n_new, sampled in requests:
-        # a follow-up turn starts past the window: per-token hydration in the
-        # ring regime, sinks active
-        if not name.startswith("ring"):
-            eng.reset()
-        kw = dict(temperature=0.8, top_p=0.9, seed=1234) if sampled else dict(temperature=0.0)
-        reqs.append(serve(name, prompt(n_prompt), n_new, **kw))
-        if profile is None:
-            profile = profile_decode(eng, 16)
-    torch.cuda.synchronize()
+    with attention_forms() as forms:
+        for name, n_prompt, n_new, sampled in requests:
+            # a follow-up turn starts past the window: per-token hydration in
+            # the ring regime, sinks active
+            if not name.startswith("ring"):
+                eng.reset()
+            kw = dict(temperature=0.8, top_p=0.9, seed=1234) if sampled else dict(temperature=0.0)
+            reqs.append(serve(name, prompt(n_prompt), n_new, **kw))
+            if profile is None:
+                profile = profile_decode(eng, 16)
+        torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
+    if any(cfg.layer_sliding):
+        forms_hold(cfg, forms, f"{path} path's requests")
     log(f"  launches over the {path} path's requests ({calls['_step']} decode steps, "
         f"{calls['_prefill']} prefill chunks): {launches}")
     missing = [k for k in PATH_KERNELS[path] if launches.get(k, 0) <= 0]
@@ -1162,10 +1479,15 @@ SERVING_KERNELS = {
     # MoE: the router on gemm_l, every expert of every row on the routed GEMM
     # (the single-token gemv_le/gemv4_le and the dense FFN never run)
     ("moe_fp8", False): ("gemm_l", "gemm_le"),
-    ("moe_int4", True): ("gemm_l", "gemm4_l", "gemm4_le")}
-SERVING_ABSENT = {"moe_fp8": ("gemv_le", "ffn_l_gemm"), "moe_int4": ("gemv4_le", "ffn4_l_gemm")}
+    ("moe_int4", True): ("gemm_l", "gemm4_l", "gemm4_le"),
+    # Gemma: the tick's FFN without its residual, then the post-norm
+    ("gemma3", False): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows"),
+    ("gemma2", True): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows")}
+SERVING_ABSENT = {"moe_fp8": ("gemv_le", "ffn_l_gemm"), "moe_int4": ("gemv4_le", "ffn4_l_gemm"),
+                  "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
 TICK_ATTENTION = {False: "attend_step_batched_l", True: "attend_step_paged_l"}
 MISTRAL_SERVING_LAYERS = 8
+MIXTRAL_SERVING_LAYERS = 8
 PAGE = 256
 PAGED_PAGES = 65   # page 0 reserved: 64 usable pages, 16384 slots for 16 lanes
 
@@ -1271,21 +1593,24 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: int,
     _build.LAUNCHES.clear()
     reqs, first, last, delivered = [], {}, {}, {}
     t0 = time.perf_counter()
-    for i, (prompt, n, sampled) in enumerate(specs):
-        r = Request(prompt_tokens=prompt, max_new_tokens=n,
-                    temperature=0.8 if sampled else 0.0, top_p=0.9 if sampled else 1.0,
-                    top_k=40 if sampled else 0, seed=100 + i)
-        r.on_token = lambda t, i=i: (first.setdefault(i, time.perf_counter()),
-                                     last.__setitem__(i, time.perf_counter()),
-                                     delivered.__setitem__(i, delivered.get(i, 0) + 1))
-        reqs.append(r)
-        engine.submit(r)
-    web = http_requests(f"http://127.0.0.1:{httpd.server_address[1]}", http) if httpd else []
-    while not all(r.done for r in reqs):
-        time.sleep(0.01)
-    torch.cuda.synchronize()
+    with attention_forms() as forms:
+        for i, (prompt, n, sampled) in enumerate(specs):
+            r = Request(prompt_tokens=prompt, max_new_tokens=n,
+                        temperature=0.8 if sampled else 0.0, top_p=0.9 if sampled else 1.0,
+                        top_k=40 if sampled else 0, seed=100 + i)
+            r.on_token = lambda t, i=i: (first.setdefault(i, time.perf_counter()),
+                                         last.__setitem__(i, time.perf_counter()),
+                                         delivered.__setitem__(i, delivered.get(i, 0) + 1))
+            reqs.append(r)
+            engine.submit(r)
+        web = http_requests(f"http://127.0.0.1:{httpd.server_address[1]}", http) if httpd else []
+        while not all(r.done for r in reqs):
+            time.sleep(0.01)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    if any(cfg.layer_sliding):
+        forms_hold(cfg, forms, f"{path} serving run")
     if httpd:
         httpd.shutdown()
         httpd.server_close()
@@ -1513,9 +1838,70 @@ def first_layers(fw, n: int):
     return FastWeights(embed=fw.embed, rms_att=fw.rms_att[:n], rms_ffn=fw.rms_ffn[:n],
                        wqkv=fw.wqkv[:n], wo=fw.wo[:n], w13=fw.w13[:n], w2=fw.w2[:n],
                        final_norm=fw.final_norm, lm_head=fw.lm_head, moegate=cut(fw.moegate),
+                       bqkv=cut(fw.bqkv), qnorm=cut(fw.qnorm), knorm=cut(fw.knorm),
+                       pa=cut(fw.pa), pf=cut(fw.pf),
                        scales=None if sc is None else FastScales(
                            embed=sc.embed, wqkv=sc.wqkv[:n], wo=sc.wo[:n], w13=sc.w13[:n],
                            w2=sc.w2[:n], lm_head=sc.lm_head, moegate=cut(sc.moegate)))
+
+
+def depth2(cfg):
+    """The parity phases' depth-2 model: the first two layers; a model with
+    sliding layers takes them as (sliding, global) with a window of 48, so
+    a 64-token prompt and its steps cross the window on the card (the one
+    change to a configuration, which the log states)."""
+    if not any(cfg.layer_sliding):
+        return with_layers(cfg, 2)
+    log("  depth 2: layer_sliding (1, 0) and sliding_window 48 (the one change to the "
+        "configuration)")
+    return dataclasses.replace(cfg, n_layers=2, layer_sliding=(1, 0), sliding_window=48)
+
+
+def argmax_holds(g, c, tol: float, capped: bool) -> bool:
+    """The card's argmax against the CPU's: equal; under a final softcap,
+    which flattens the top of the logits, within the tolerance of the CPU's
+    maximum (CLAUDE.md:170-172)."""
+    if capped:
+        return float(c[int(g.argmax())]) >= float(c.max()) - tol
+    return int(g.argmax()) == int(c.argmax())
+
+
+def e5m2_step(x):
+    """The e5m2 rounding step at each value's magnitude (2 mantissa bits;
+    2^-16 below the normal range)."""
+    import torch
+    return torch.clamp(torch.ldexp(torch.ones_like(x), torch.frexp(x.abs()).exponent - 3),
+                       min=2.0 ** -16)
+
+
+def e5m2_divergence(card, cpu):
+    """The first slot at which a depth-2 run's e5m2 caches differ between
+    the card and the CPU, or None, and the number of differing bytes. In
+    causal order (slot, then layer) the first row that differs has inputs
+    that the two sides compute with different f32 summation orders (and
+    bf16 roundings of intermediates that these move across a boundary), so
+    each of its bytes must be within 2e-3 of max(1, max|row|) plus one
+    e5m2 step of the other side's: f32 values within the tolerance that
+    round across a boundary (tests/test_torch_cuda.py::test_e5m2_cache_
+    bytes_differ_only_across_rounding_boundaries proves it for the rows of
+    a prefill, each side's byte its own f32 row rounded); more raises. A
+    step is 25% of the element, and every later position attends to that
+    row."""
+    import torch
+    pairs = [(a.cpu(), b) for a, b in ((card.k, cpu.k), (card.v, cpu.v))]
+    diffs = [a.view(torch.uint8) != b.view(torch.uint8) for a, b in pairs]   # (L, S, Hk, D)
+    rows = torch.stack([d.flatten(2).any(-1) for d in diffs]).any(0)        # (L, S)
+    if not bool(rows.any()):
+        return None, 0
+    slot, layer = min((int(s_), int(l_)) for l_, s_ in rows.nonzero().tolist())
+    for a, b in pairs:
+        a, b = a[layer, slot].float(), b[layer, slot].float()
+        tol = 2e-3 * max(1.0, float(b.abs().max()))
+        if bool(((a - b).abs() > tol + e5m2_step(b)).any()):
+            raise AssertionError(f"the first e5m2 cache row that differs from the CPU's (slot "
+                                 f"{slot}, layer {layer}) is further from it than the tolerance "
+                                 "and one rounding step")
+    return slot, int(sum(int(d.sum()) for d in diffs))
 
 
 def phase_batched_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 16,
@@ -1537,7 +1923,7 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 1
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.models.paged import PagedKVPool
 
-    cfg = dataclasses.replace(cfg, n_layers=2)
+    cfg = depth2(cfg)
     fw2 = first_layers(fw, 2)
     fw_cpu = fw2.to("cpu")
     S = cfg.max_seq_len
@@ -1677,23 +2063,30 @@ def profile_decode(eng, n: int) -> dict:
 
 def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> dict:
     """Phase 4: depth-2 model, card (kernels) vs CPU (plain versions): a
-    prompt-token prefill chunk and `steps` teacher-forced decode steps; MoE
-    steps that routing_holds names are held to nothing and counted."""
+    prompt-token prefill chunk and `steps` teacher-forced decode steps,
+    logits within 1e-2 of max(1, max|logit|) and the argmax held
+    (argmax_holds). MoE steps that routing_holds names are held to nothing
+    and counted. On an e5m2 cache a byte may differ between the two sides
+    where the f32 rows straddle a rounding boundary (e5m2_divergence; a
+    step is 25% of the element): an output outside the tolerance that such
+    a byte reaches (its position at or past the first slot that differs)
+    is held and counted; any other output outside it raises. The tolerance
+    is the same for every output."""
     import numpy as np
     import torch
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.models.fast import decode_step_fast, prefill_fast
 
-    cfg = dataclasses.replace(cfg, n_layers=2)
+    cfg = depth2(cfg)
     fw2 = first_layers(fw, 2)
     fw_cpu = fw2.to("cpu")
     rng = np.random.default_rng(5)
     toks = rng.integers(3, cfg.vocab_size, prompt + steps)
-    worst = 0.0
-    runs = {}
+    worst = worst_flip = 0.0
+    runs, caches = {}, {}
     with routing_log(cfg) as take:
         for name, w, d in (("cuda", fw2, dev), ("cpu", fw_cpu, torch.device("cpu"))):
-            cache = KVCache.init(cfg, kv_dtype, d)
+            cache = caches[name] = KVCache.init(cfg, kv_dtype, d)
             out = [prefill_fast(cfg, w, toks[:prompt], 0, prompt, cache, logits_mode="last")[0]]
             routes = [take()]
             for i in range(steps):  # teacher-forced decode
@@ -1701,8 +2094,10 @@ def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> di
                 routes.append(take())
             runs[name] = [o.float().cpu() for o in out]
             runs["routes " + name] = routes
+    first, n_flip = (e5m2_divergence(caches["cuda"], caches["cpu"]) if kv_dtype.itemsize == 1
+                     else (None, 0))
     tainted = np.zeros(1, bool)
-    ties = held_n = 0
+    ties = held_n = flip_held = 0
     for step, (g, c, rc, rp) in enumerate(zip(runs["cuda"], runs["cpu"], runs["routes cuda"],
                                                runs["routes cpu"])):
         lanes = [(slice(0, prompt), prompt - 1)] if step == 0 else [(slice(0, 1), 0)]
@@ -1713,16 +2108,25 @@ def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> di
             continue
         err = float((g - c).abs().max())
         tol = 1e-2 * max(1.0, float(c.abs().max()))
+        ok = err <= tol and argmax_holds(g, c, tol, bool(cfg.final_softcap))
+        if not ok and first is not None and first <= prompt - 1 + step:
+            flip_held += 1
+            worst_flip = max(worst_flip, err / tol)
+            continue
         worst = max(worst, err / tol)
-        if err > tol or int(g.argmax()) != int(c.argmax()):
+        if not ok:
             raise AssertionError(f"depth-2 parity step {step}: max |err| {err:.3e} "
                                  f"(tol {tol:.3e}), argmax {int(g.argmax())} vs {int(c.argmax())}")
     log(f"  depth-2 logits, card vs CPU plain: {steps + 1} steps ({prompt}-token prefill) agree"
         + (f" ({held_n} held for routing: {ties} output rows routed near a tie, the rest "
            "reached by a row that routed differently)" if cfg.is_moe else "")
+        + (f"; {n_flip} e5m2 cache bytes differ, the first at slot {first}, "
+           f"{flip_held} outputs past the tolerance held for them (worst err/tol "
+           f"{worst_flip:.3f})" if kv_dtype.itemsize == 1 else "")
         + f"; worst err/tol {worst:.3f}")
     return dict(steps=steps + 1, prompt=prompt, routing_near_ties=ties, routing_held=held_n,
-                worst_err_over_tol=worst)
+                e5m2_first_flip=first, e5m2_bytes_differ=n_flip, e5m2_flip_held=flip_held,
+                e5m2_flip_worst_err_over_tol=worst_flip, worst_err_over_tol=worst)
 
 
 def phase_cli(dev) -> None:
@@ -1759,8 +2163,10 @@ def phase_cli(dev) -> None:
 
 
 def weight_gb(fw) -> float:
-    return sum(t.numel() * t.element_size() for t in (
-        fw.embed, fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head, fw.moegate) if t is not None) / 1e9
+    """The weights' GB (a tied head counted once)."""
+    ts = {id(t): t for t in (fw.embed, fw.wqkv, fw.wo, fw.w13, fw.w2, fw.lm_head, fw.moegate)
+          if t is not None}
+    return sum(t.numel() * t.element_size() for t in ts.values()) / 1e9
 
 
 def log_token_bytes(cfg, fw, ceiling: float) -> None:
@@ -1823,7 +2229,7 @@ def main() -> int:
     log_token_bytes(cfg, fw, ceiling)
 
     bench = Bench(ceiling)
-    summary: dict = {"fp8": {}, "int4": {}, "moe_fp8": {}, "moe_int4": {}}
+    summary: dict = {p: {} for p in ("fp8", "int4", "moe_fp8", "moe_int4", "gemma3", "gemma2")}
     # the Mistral-7B serving runs at depth 8 (PERF.md keeps their 32-layer
     # numbers), so the Mixtral phases fit the time limit
     lay_s = MISTRAL_SERVING_LAYERS
@@ -1831,7 +2237,7 @@ def main() -> int:
         phase_kernels(bench, cfg, fw, dev)
     with phase("phase 3 (fp8 path, bf16 cache): the slice end to end (32 layers)"):
         summary["fp8"]["serve"] = phase_serve(cfg, fw, dev, torch.bfloat16, "fp8")
-    cfg_s, fw_s = dataclasses.replace(cfg, n_layers=lay_s), first_layers(fw, lay_s)
+    cfg_s, fw_s = with_layers(cfg, lay_s), first_layers(fw, lay_s)
     with phase(f"phase 3 (fp8 path, bf16 cache): continuous-batching serving, batch 16 "
                f"({lay_s} layers)"):
         summary["fp8"]["batched"] = phase_serving(cfg_s, fw_s, dev, torch.bfloat16, "fp8",
@@ -1860,7 +2266,7 @@ def main() -> int:
         phase_kernels4(bench, cfg4, fw4, dev)
     with phase("phase 3 (int4 path, e5m2 cache): the slice end to end (32 layers)"):
         summary["int4"]["serve"] = phase_serve(cfg4, fw4, dev, e5, "int4")
-    cfg_s, fw_s = dataclasses.replace(cfg4, n_layers=lay_s), first_layers(fw4, lay_s)
+    cfg_s, fw_s = with_layers(cfg4, lay_s), first_layers(fw4, lay_s)
     with phase("phase 3 (int4 path, e5m2 cache): continuous-batching serving, batch 16 "
                f"({lay_s} layers)"):
         summary["int4"]["batched"] = phase_serving(cfg_s, fw_s, dev, e5, "int4",
@@ -1892,28 +2298,69 @@ def main() -> int:
         with phase(f"phase 3 ({path} path, {cache}): single stream (32 layers)"):
             summary[path]["serve"] = phase_serve(cfgm, fwm, dev, kv, path,
                                                  MOE_SERVE_REQUESTS[path])
+        # the serving runs at depth 8 (PERF.md keeps the 32-layer runs), so
+        # the Gemma paths fit the time limit
+        lay_m = MIXTRAL_SERVING_LAYERS
+        cfg_s, fw_s = with_layers(cfgm, lay_m), first_layers(fwm, lay_m)
         if path == "moe_fp8":
             with phase(f"phase 3 ({path} path, {cache}): continuous-batching serving, "
-                       "batch 16 (32 layers)"):
+                       f"batch 16 ({lay_m} layers)"):
                 summary[path]["batched"] = phase_serving(
-                    cfgm, fwm, dev, kv, path, n_requests=17, http=2, prompts=(64, 1024),
+                    cfg_s, fw_s, dev, kv, path, n_requests=17, http=2, prompts=(64, 1024),
                     new=(32, 64), past_window=False)
         else:
             with phase(f"phase 3 ({path} path, e5m2 pool): paged serving, batch 16, "
-                       f"{PAGED_PAGES} pages of 256 (32 layers)"):
+                       f"{PAGED_PAGES} pages of 256 ({lay_m} layers)"):
                 summary[path]["paged"] = phase_serving(
-                    cfgm, fwm, dev, kv, path, n_requests=17, http=0,
+                    cfg_s, fw_s, dev, kv, path, n_requests=17, http=0,
                     paged_pages=PAGED_PAGES, prompts=(256, 1536), new=(32, 64),
                     past_window=False)
         with phase(f"phase 4 ({path} path, {cache}): depth-2 parity, card vs CPU"):
-            # a 32-token prefill and 8 lanes of 8-row chunks: the CPU's plain
-            # experts set the pace (PERF.md: at 64 tokens the int4 path stands
-            # at 1.11x the tolerance, from its e5m2 cache's rounding)
-            summary[path]["parity"] = phase_parity(cfgm, fwm, dev, kv, prompt=32)
+            # 8 lanes of 8-row chunks: the CPU's plain experts set the pace
+            summary[path]["parity"] = phase_parity(cfgm, fwm, dev, kv)
             key = "batched_parity" if path == "moe_fp8" else "paged_parity"
             summary[path][key] = phase_batched_parity(cfgm, fwm, dev, kv,
                                                       paged=path == "moe_int4", B=8, T=8)
-        del fwm
+        del fwm, fw_s
+        torch.cuda.empty_cache()
+
+    # Gemma3-12B (bf16 cache) and Gemma2-9B (e5m2 cache) at full depth: the
+    # Gemma forms of K2, K8 and K9 on the unfused decode route
+    for path, cfgg, kv, seed, form in (
+            ("gemma3", gemma3_12b(), torch.bfloat16, 4, dict(win=1024, alt=1)),
+            ("gemma2", gemma2_9b(), e5, 5, dict(win=4096, softcap=50.0))):
+        t0 = time.perf_counter()
+        fwg = synth_fast_weights(cfgg, dev, seed=seed)
+        torch.cuda.synchronize()
+        log(f"{path} fp8 weights made on the card in {time.perf_counter() - t0:.1f} s "
+            f"({weight_gb(fwg):.2f} GB)")
+        log_token_bytes(cfgg, fwg, ceiling)
+        cache = "bf16 cache" if kv == torch.bfloat16 else "e5m2 cache"
+        bench.path = path
+        with phase(f"phase 2 ({path} path): the LM head, the gelu GLU and the attention "
+                   f"steps in the Gemma form{form_label(form)} vs plain versions"):
+            phase_gemma_kernels(bench, cfgg, fwg, dev, kv, form)
+        with phase(f"phase 3 ({path} path, {cache}): single stream ({cfgg.n_layers} layers)"):
+            summary[path]["serve"] = phase_serve(cfgg, fwg, dev, kv, path,
+                                                 GEMMA_SERVE_REQUESTS[path])
+        if path == "gemma3":
+            with phase(f"phase 3 ({path} path, {cache}): continuous-batching serving, batch 16 "
+                       f"({cfgg.n_layers} layers)"):
+                summary[path]["batched"] = phase_serving(
+                    cfgg, fwg, dev, kv, path, n_requests=17, http=2, prompts=(64, 2048),
+                    new=(32, 64), past_window=False)
+        else:
+            with phase(f"phase 3 ({path} path, e5m2 pool): paged serving, batch 16, "
+                       f"{PAGED_PAGES} pages of 256 ({cfgg.n_layers} layers)"):
+                summary[path]["paged"] = phase_serving(
+                    cfgg, fwg, dev, kv, path, n_requests=17, http=0, paged_pages=PAGED_PAGES,
+                    prompts=(256, 1536), new=(32, 64), past_window=False)
+        with phase(f"phase 4 ({path} path, {cache}): depth-2 parity, card vs CPU"):
+            summary[path]["parity"] = phase_parity(cfgg, fwg, dev, kv)
+            key = "batched_parity" if path == "gemma3" else "paged_parity"
+            summary[path][key] = phase_batched_parity(cfgg, fwg, dev, kv,
+                                                      paged=path == "gemma2", B=8, T=8)
+        del fwg
         torch.cuda.empty_cache()
     with phase("phase 5: CLI modes"):
         phase_cli(dev)
@@ -1939,16 +2386,20 @@ def main() -> int:
                "gemv_le": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:265"),
                "gemm_le": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:344"),
                "gemm4_le": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:688"),
-               "gemv4_le": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:768")}
+               "gemv4_le": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:768"),
+               "attend_one_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:85")}
     kernels = []
     for r in bench.rows:
         if not r["json"]:
             continue
         src, rep = sources[r["name"]]
+        # K12 runs on no model path (in the JAX package neither): its phase-2 launches
+        launches = (r["phase2_launches"] if r["run"] == "phase2"
+                    else summary[r["path"]][r["run"]]["launches"][r["name"]])
         kernels.append(dict(
             name=r["name"], route="cuda", source="yalm_tpu_torch/" + src, replaces=rep,
             path=r["path"], case=r["case"], run=r["run"],
-            launches=summary[r["path"]][r["run"]]["launches"][r["name"]],
+            launches=launches,
             max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -10,8 +10,6 @@ order, rare bf16 flips of a GLU output); whole-model logits and caches
 within 1e-2 of max(1, max|ref|) (tests/test_torch_fast.py says why).
 """
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,6 +166,23 @@ def test_batched_paths_refuse_bad_lanes():
         attend_step_batched_l(torch.zeros(2, 2, 2, 128), torch.zeros(2, 2, 128),
                               torch.zeros(2, 2, 128), cache.k, cache.v, 0, [0, 0], [0, 1],
                               [0, 0], [0, 0], kv_sinks=2, theta=1e4, rotary_dim=128)
-    cfg2 = dataclasses.replace(cfg, attn_softcap=30.0)
-    with pytest.raises(NotImplementedError):
-        decode_step_fast_batched(cfg2, fw, [1, 2], [0, 1], cache)
+    # the softcap form runs and equals the JAX emulation's (tolerance 2e-3 of
+    # max(1, max|ref|)); with the cap the scores ~+-60 of these inputs change
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((2, 2, 2, 128), np.float32) * 4
+    kn = rng.standard_normal((2, 2, 128), np.float32) * 4
+    vn = rng.standard_normal((2, 2, 128), np.float32)
+    k0 = rng.standard_normal((2, 2, 32, 2, 128), np.float32) * 4
+    lanes = ([3, 31], [4, 32], [0, 0], [3, 31])
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=128)
+    outs = {}
+    for cap in (0.0, 30.0):
+        tc = KVCache.from_numpy(k0, k0)
+        outs[cap] = attend_step_batched_l(torch.from_numpy(q), torch.from_numpy(kn),
+                                          torch.from_numpy(vn), tc.k, tc.v, 1, *lanes,
+                                          softcap=cap, **rope)
+    want, _, _ = jax_attend(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                            jnp.asarray(k0, jnp.bfloat16), jnp.asarray(k0, jnp.bfloat16), 1,
+                            *(jnp.asarray(a, jnp.int32) for a in lanes), softcap=30.0, **rope)
+    close(outs[30.0], want, 2e-3)
+    assert not torch.allclose(outs[30.0], outs[0.0], atol=1e-2)

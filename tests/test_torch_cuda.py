@@ -12,7 +12,14 @@ gathered cache; the FFN's many-row GEMM route at 9, 33 and 64 rows on every
 weight type; the MoE routed-expert kernels over 2, 4 and 8 experts at 1 to
 300 rows, the expert from the host and from a device tensor, the GLU
 epilogue, an expert id outside the stack, and bit for bit against the
-dense kernels on the copied expert).
+dense kernels on the copied expert); the Gemma forms of K2, K8 and K9
+(Gemma2's score softcap, a sliding window by slot age, Gemma3's local-theta
+rope, alone and together) at head_dim 128 and 256 in the linear and the
+ring regime; K12 (attend_one_l) on bf16 and e5m2 caches, and equal to K2's
+output on the rotated view K2 attends; and the e5m2 cache of a depth-2
+Mixtral-shape int4 prefill of 64 tokens, card against CPU, whose differing
+bytes must all come from f32 inputs on the two sides of an e5m2 rounding
+boundary.
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -29,11 +36,12 @@ import pytest
 import torch
 
 from yalm_tpu_torch.ops.cuda import _build
-from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched, attend_step_batched_l,
+from yalm_tpu_torch.ops.cuda.attention import (_rot, attend_one_l, attend_one_plain,
+                                               attend_step_batched, attend_step_batched_l,
                                                attend_step_batched_plain, attend_step_l,
                                                attend_step_paged, attend_step_paged_l,
                                                attend_step_paged_plain, attend_step_plain,
-                                               lane_scalars)
+                                               lane_scalars, sink_view)
 from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l, ffn_plain
 from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm4_le,
@@ -541,3 +549,231 @@ def test_routed_expert_kernels(dev, wt, E, M, N, K):
             assert bool(torch.isnan(gv(x[0], wn, 1, e_bad, sn)).all())
     with pytest.raises(ValueError, match="out of range"):
         le(x, wn, 0, E, sn)                      # a host id is checked on the host
+
+
+# ---------------------------------------------------------------------------
+# the Gemma forms of K2, K8 and K9; K12
+# ---------------------------------------------------------------------------
+
+GEMMA3_ROPE = ("gemma3", 1e6, 8.0, 1e4)
+# (softcap, win, alt): Gemma2's cap, a sliding window, Gemma3's local rope, all three
+FORMS = [(50.0, None, None), (0.0, 24, None), (0.0, None, 1), (30.0, 40, 1)]
+FORM_IDS = ["softcap", "win", "alt", "all"]
+KV_IDS = ["bf16", "e5m2"]
+KVS = [torch.bfloat16, torch.float8_e5m2]
+
+
+def _bits(t):
+    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("form", FORMS, ids=FORM_IDS)
+@pytest.mark.parametrize("qpk,D,S,pos", [(2, 256, 100, 70),      # linear, window below 64
+                                         (2, 256, 300, 250),     # linear, loop from a tile
+                                         (2, 256, 300, 500),     # ring: sinks older than win
+                                         (4, 128, 300, 299),
+                                         # scores past shared memory, in global scratch
+                                         (8, 128, 7000, 7100)])
+def test_attention_kernel_gemma_forms(dev, kv, form, qpk, D, S, pos):
+    """K2 with softcap, win and alt against its plain version: the mix
+    within the tolerance, the written rows byte for byte."""
+    softcap, win, alt = form
+    gen = torch.Generator(device=dev).manual_seed(pos + qpk + D)
+    L, Hk = 2, 3
+    k_all = (torch.randn(L, S, Hk, D, generator=gen, device=dev) * 3).to(kv)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(Hk, qpk, D, generator=gen, device=dev) * 4
+    kn, vn = torch.randn(Hk, D, generator=gen, device=dev) * 3, torch.randn(Hk, D, generator=gen, device=dev)
+    kv_sink = 2 if pos >= S else 0
+    kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+    kv_len = min(pos + 1, S)
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE, rotary_dim=D, softcap=softcap)
+    sl = (1, kv_pos, kv_len, kv_sink, pos)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_plain(q, kn, vn, k2, v2, *sl, win=win, alt=alt, **kw)
+    _build.LAUNCHES.clear()
+    got = attend_step_l(q, kn, vn, k_all, v_all, *sl, win, alt, **kw)
+    close(got, want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+    assert _build.LAUNCHES["attend_step_l"] == 1
+    if win is not None:   # the window changes the mix
+        plain_all = attend_step_plain(q, kn, vn, k2.clone(), v2.clone(), *sl, alt=alt, **kw)
+        assert float((plain_all - want).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("form", FORMS, ids=FORM_IDS)
+@pytest.mark.parametrize("qpk,D,S", [(2, 256, 200), (4, 128, 300)])
+def test_batched_attention_kernel_gemma_forms(dev, kv, form, qpk, D, S):
+    """K8 with softcap, win and alt over 4 lanes: linear past the window,
+    linear inside it, a ring lane, a write-masked lane."""
+    softcap, win, alt = form
+    gen = torch.Generator(device=dev).manual_seed(S + qpk + D)
+    B, L, Hk = 4, 2, 3
+    k_all = (torch.randn(B, L, S, Hk, D, generator=gen, device=dev) * 3).to(kv)
+    v_all = torch.randn(B, L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(B, Hk, qpk, D, generator=gen, device=dev) * 4
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 3
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    pos = [S - 20, 10, S + 37, S // 2]
+    sink = [2 if p >= S else 0 for p in pos]
+    kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+    kv_len = [min(p + 1, S) for p in pos]
+    write = [1, 1, 1, 0]
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE, rotary_dim=D, softcap=softcap, win=win, alt=alt)
+    k2, v2 = k_all.clone(), v_all.clone()
+    lanes = lane_scalars(kv_pos, kv_len, sink, pos, write, S=S, kv_sinks=2, device=dev)
+    want = attend_step_batched_plain(q, kn, vn, k2, v2, 1, lanes, **kw)
+    got = attend_step_batched_l(q, kn, vn, k_all, v_all, 1, kv_pos, kv_len, sink, pos, write,
+                                **kw)
+    close(got, want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("form", FORMS, ids=FORM_IDS)
+@pytest.mark.parametrize("qpk,D,page,nblk", [(2, 256, 16, 12), (4, 128, 64, 5)])
+def test_paged_attention_kernel_gemma_forms(dev, kv, form, qpk, D, page, nblk):
+    """K9 with softcap, win and alt through shuffled tables (ages over each
+    lane's logical slots); bit for bit as K8 on the gathered cache."""
+    softcap, win, alt = form
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, kv, qpk, D, page, nblk,
+                                                          seed=page + qpk)
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE, rotary_dim=D, softcap=softcap, win=win, alt=alt)
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    want = attend_step_paged_plain(q, kn, vn, k2, v2, tables, 1, lanes.cpu(), **kw)
+
+    def gathered(pool):
+        g = pool[tables.long()]
+        return g.transpose(1, 2).reshape(g.shape[0], g.shape[2], -1, *g.shape[4:]).contiguous()
+    k_all, v_all = gathered(k_pool), gathered(v_pool)
+    got = attend_step_paged_l(q, kn, vn, k_pool, v_pool, tables.cpu().numpy(), 1,
+                              *lanes.cpu().tolist(), window=page * nblk, **kw)
+    close(got, want)
+    assert torch.equal(_bits(k_pool), _bits(k2)) and torch.equal(_bits(v_pool), _bits(v2))
+    assert torch.equal(got, attend_step_batched(q, kn, vn, k_all, v_all, 1, lanes, **kw))
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("qpk,D,S,kv_len", [(1, 64, 100, 1), (3, 64, 100, 37),
+                                            (2, 256, 300, 299), (4, 128, 4096, 4096),
+                                            # scores past shared memory, in global scratch
+                                            (8, 128, 7000, 6999)])
+def test_attend_one_kernel(dev, kv, qpk, D, S, kv_len):
+    """K12 against its plain version; it writes nothing and takes only bf16
+    and e5m2 caches."""
+    gen = torch.Generator(device=dev).manual_seed(kv_len + qpk)
+    L, Hk = 3, 2
+    k_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    k0, v0 = k_all.clone(), v_all.clone()
+    q = torch.randn(Hk, qpk, D, generator=gen, device=dev) * 3
+    _build.LAUNCHES.clear()
+    for layer in range(L):
+        close(attend_one_l(q, k_all, v_all, layer, kv_len),
+              attend_one_plain(q, k_all, v_all, layer, kv_len))
+    assert _build.LAUNCHES["attend_one_l"] == L
+    assert torch.equal(_bits(k_all), _bits(k0)) and torch.equal(_bits(v_all), _bits(v0))
+    with pytest.raises(ValueError, match="float32"):
+        attend_one_l(q, k_all.float(), v_all.float(), 0, kv_len)
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("kv_pos,kv_len,kv_sink,pos", [(5, 6, 0, 5), (3, 64, 2, 67),
+                                                       (0, 1, 0, 0)])
+def test_attend_one_equals_attend_step_on_the_rotated_view(dev, kv, kv_pos, kv_len, kv_sink,
+                                                           pos):
+    """The composition of tests/test_fast_path.py:123-160 on the card: K2's
+    output equals K12's on the view K2 attends -- q rotated, the cache with
+    K2's new row, its sink rows rotated forward by max(0, pos - S + 1) and
+    rounded to bf16 -- within the tolerance (q is scaled by a product in K2
+    and by a quotient in K12, and rotated by two cos/sin implementations)."""
+    L, S, Hk, D, qpk, theta = 2, 64, 2, 128, 2, 1e4
+    gen = torch.Generator(device=dev).manual_seed(pos)
+    k_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(Hk, qpk, D, generator=gen, device=dev)
+    kn, vn = torch.randn(Hk, D, generator=gen, device=dev), torch.randn(Hk, D, generator=gen, device=dev)
+    rope = dict(kv_sinks=2, theta=theta, rotary_dim=D)
+    got = attend_step_l(q, kn, vn, k_all, v_all, 0, kv_pos, kv_len, kv_sink, pos, **rope)
+    view = sink_view(k_all[0], kv_sink, pos, theta=theta, rotary_dim=D).to(torch.bfloat16)
+    q_rot = _rot(q.reshape(Hk * qpk, D), theta, D, pos).reshape(Hk, qpk, D)
+    want = attend_one_l(q_rot, view[None].contiguous(),
+                        v_all[0:1].to(torch.bfloat16).contiguous(), 0, kv_len)
+    close(got, want)
+
+
+def test_e5m2_cache_bytes_differ_only_across_rounding_boundaries(dev):
+    """The Mixtral int4 + e5m2 depth-2 parity of chip_smoke.py (phase 4,
+    the same seed-made weights and tokens) at a 64-token prefill: the card
+    and the CPU compute the pre-rounding f32 k/v rows of every layer with
+    different f32 summation orders (and bf16 roundings of intermediates
+    that these move across a boundary). Each side's cache bytes must be its
+    own f32 rows rounded to e5m2, so every byte that differs comes from f32
+    inputs on the two sides of at least one e5m2 rounding boundary. In
+    causal order (slot, then layer) the first row that differs must agree
+    in f32 within 2e-3 of max(1, max|row|), each of its bytes within that
+    and one rounding step of the other side's. A step is 25% of the
+    element, and every later position attends to that row, so what differs
+    after it differs by more (chip_smoke.py's phase 4 holds the outputs such
+    a byte reaches)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from yalm_tpu_torch.models import fast as M
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.core import apply_rope
+
+    cfg32 = cs.mixtral8x7b(weight_dtype="int4")
+    fw = cs.first_layers(cs.synth_moe_weights(cfg32, dev, seed=3), 2)
+    cfg = cs.dataclasses.replace(cfg32, n_layers=2)
+    prompt = 64
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, prompt + 8)[:prompt]
+    e5 = torch.float8_e5m2
+    q_dim, kv_dim, Hk, D = cfg.q_dim, cfg.kv_dim, cfg.n_kv_heads, cfg.head_dim
+    proj = M._proj_l
+    rows, caches = {}, {}
+    try:
+        for side, w, d in (("cuda", fw, dev), ("cpu", fw.to("cpu"), torch.device("cpu"))):
+            seen = []
+
+            def recording(x2d, w_all, layer, *a, _w=w, _seen=seen, **k):
+                out = proj(x2d, w_all, layer, *a, **k)
+                if w_all is _w.wqkv:
+                    _seen.append(out)
+                return out
+            M._proj_l = recording
+            cache = KVCache.init(cfg, e5, d)
+            M.prefill_fast(cfg, w, toks, 0, prompt, cache, logits_mode="none")
+            pos = torch.arange(prompt, device=d)
+            rows[side] = [(apply_rope(qkv[:, q_dim:q_dim + kv_dim].reshape(prompt, Hk, D), pos,
+                                      cfg.rope_param, cfg.rotary_dim).cpu(),
+                           qkv[:, q_dim + kv_dim:].reshape(prompt, Hk, D).cpu()) for qkv in seen]
+            caches[side] = (cache.k[:, :prompt].cpu(), cache.v[:, :prompt].cpu())
+    finally:
+        M._proj_l = proj
+    diff_rows = torch.zeros(2, prompt, dtype=torch.bool)       # (layer, slot)
+    for layer in range(2):
+        for j, kind in enumerate("kv"):
+            a_f32, b_f32 = rows["cuda"][layer][j], rows["cpu"][layer][j]
+            a, b = caches["cuda"][j][layer], caches["cpu"][j][layer]
+            assert torch.equal(a_f32.to(e5).view(torch.uint8), a.view(torch.uint8)), (layer, kind)
+            assert torch.equal(b_f32.to(e5).view(torch.uint8), b.view(torch.uint8)), (layer, kind)
+            diff = a.view(torch.uint8) != b.view(torch.uint8)
+            diff_rows[layer] |= diff.flatten(1).any(-1)
+            rel = float((a_f32 - b_f32).abs().max()) / max(1.0, float(b_f32.abs().max()))
+            print(f"layer {layer} {kind}: {int(diff.sum())} of {diff.numel()} e5m2 bytes differ "
+                  f"in {int(diff.flatten(1).any(-1).sum())} slots; f32 rows differ by {rel:.3e} "
+                  "of max(1, max|row|)")
+    if not bool(diff_rows.any()):
+        return
+    slot, layer = min((int(s_), int(l_)) for l_, s_ in diff_rows.nonzero().tolist())
+    for j, kind in enumerate("kv"):
+        a_f32, b_f32 = rows["cuda"][layer][j][slot], rows["cpu"][layer][j][slot]
+        tol = 2e-3 * max(1.0, float(b_f32.abs().max()))
+        assert float((a_f32 - b_f32).abs().max()) <= tol, (slot, layer, kind)
+        a, b = a_f32.to(e5).float(), b_f32.to(e5).float()
+        assert bool(((a - b).abs() <= tol + cs.e5m2_step(b)).all()), (slot, layer, kind)
+        print(f"first differing row: slot {slot}, layer {layer}, {kind}: "
+              f"{int((a != b).sum())} bytes, each within the tolerance and one rounding step")

@@ -10,8 +10,8 @@ import sys
 import pytest
 import torch
 
-from yalm_tpu_torch.ops.cuda.attention import (attend_step_batched_l, attend_step_l,
-                                               attend_step_paged_l)
+from yalm_tpu_torch.ops.cuda.attention import (attend_one_l, attend_step_batched_l,
+                                               attend_step_l, attend_step_paged_l)
 from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block4_l, attn_block_l
 from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l
 from yalm_tpu_torch.ops.cuda.gemv import (gemm4, gemm4_l, gemm4_le, gemm_l, gemm_le, gemv,
@@ -111,6 +111,11 @@ def _calls(dev):
                                      glu_act="gelu"),
         "gemv4_le": lambda: gemv4_le(t(256), t(2, 3, 32, 128, dt=u8), 0,
                                      t(1, dt=torch.int64)[0], t(2, 3, 1, 32)),
+        # K12: one query, read only; and K2 in its Gemma forms
+        "attend_one_l": lambda: attend_one_l(t(2, 2, 128), cache(), cache(), 1, 9),
+        "attend_step_l gemma forms": lambda: attend_step_l(
+            t(2, 2, 128), t(2, 128), t(2, 128), cache(), cache(), 0, 5, 6, 0, 5, 4, 1,
+            kv_sinks=2, theta=("gemma3", 1e6, 8.0, 1e4), rotary_dim=128, softcap=30.0),
     }
 
 

@@ -167,8 +167,27 @@ def test_attend_step_paged_refuses_bad_tables():
         attend_step_paged_l(*args, [[1, 2, 3], [3, 4, 1]], 0, *sc, window=32, **rope)
     with pytest.raises(ValueError, match="does not divide"):
         attend_step_paged_l(*args, [[1, 2], [3, 4]], 0, *sc, window=40, **rope)
-    with pytest.raises(NotImplementedError):
-        attend_step_paged_l(*args, [[1, 2], [3, 4]], 0, *sc, window=32, softcap=30.0, **rope)
+    # the softcap form runs and equals the JAX emulation's (tolerance 2e-3 of
+    # max(1, max|ref|)), and the cap changes the output
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((2, 2, 2, 128), np.float32) * 4
+    kn = rng.standard_normal((2, 2, 128), np.float32) * 4
+    vn = rng.standard_normal((2, 2, 128), np.float32)
+    p0 = rng.standard_normal((5, 2, PAGE, 2, 128), np.float32) * 4
+    tab = [[1, 2], [3, 4]]
+    outs = {}
+    for cap in (0.0, 30.0):
+        pools = [torch.from_numpy(p0).to(torch.bfloat16) for _ in range(2)]
+        outs[cap] = attend_step_paged_l(torch.from_numpy(q), torch.from_numpy(kn),
+                                        torch.from_numpy(vn), *pools, tab, 0, *sc, window=32,
+                                        softcap=cap, **rope)
+    want, _, _ = jax_attend(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn),
+                            jnp.asarray(p0, jnp.bfloat16), jnp.asarray(p0, jnp.bfloat16),
+                            jnp.asarray(tab, jnp.int32), 0,
+                            *(jnp.asarray(a, jnp.int32) for a in sc), window=32, softcap=30.0,
+                            **rope)
+    close(outs[30.0], want, 2e-3)
+    assert not torch.allclose(outs[30.0], outs[0.0], atol=1e-2)
 
 
 # ---------------------------------------------------------------- (c) the model

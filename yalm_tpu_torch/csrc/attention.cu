@@ -49,6 +49,25 @@
 //      normalised p rounded to bf16; pass 2 streams the V rows and sums
 //      bf16(p) . bf16(v) in f32 (with global scores, each tile's p is first
 //      staged in shared memory, where the scores region then holds one tile).
+// The Gemma forms (attend_step_l's softcap, win and alt arguments):
+//   - softcap > 0: each scaled score s becomes cap * tanhf(s / cap), IEEE
+//     division and the accurate tanhf, BEFORE the validity mask (a masked
+//     slot stays at the mask value, not at -cap), as _flash_heads and
+//     _attend_ref do;
+//   - win > 0 (a sliding layer): slot s is attended iff s < kv_len and its
+//     age < win, the age as _slot_age (:197-205) computes it -- a sink slot
+//     S-1-s, any other (kv_pos - s) mod (S - kv_sink), over the lane's
+//     logical slots (so in the ring regime the sinks, older than any window
+//     shorter than S, drop out). In the linear regime (kv_sink 0, the lane's
+//     own slot its newest) the tile loops start at max(kv_len - win, 0)
+//     rounded down to a tile, as the TPU kernel skips the blocks below the
+//     window (:295-306): a sliding layer reads ~win rows, not kv_len;
+//   - alt (Gemma3's local rope): the host passes the local-theta table as
+//     `freq`, for q, k_new and the sink view alike.
+// kOne (K12, attend_one_l :85): q is taken as it is (no RoPE), divided by
+// sqrt(D) as the emulation branch does (:98-102), nothing is written and
+// there are no sinks: GQA attention of one query over slots < kv_len.
+//
 // This is the JAX emulation's numerics exactly (_attend_ref: normalise,
 // then cast p to bf16), not the Pallas kernel's online softmax, which
 // normalises after the cast: across a 32-layer model the two differ by
@@ -80,6 +99,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;
 constexpr int KPAD = 8;      // bf16 padding per shared K row (bank spread)
 constexpr int MAX_OUT = 8;   // output elements per thread: qpk * D <= 2048
+constexpr float NEG_BIG = -1e30f;  // a masked score (the reference's _NEG_INF)
 
 // The cache element types: the row write from f32, and 8 elements widened
 // to 8 bf16 (16 bytes of shared memory).
@@ -134,6 +154,9 @@ struct AttnArgs {
   const int* tables;     // (B, S / page) page ids of the paged launch, else null
   size_t lane_stride;    // elements of one lane's dense cache, L * S * Hk * D
   float mscale, inv_sqrt_d;
+  float sqrt_d;          // kOne: q is divided by this (f32 sqrt(D))
+  float softcap;         // > 0: Gemma2's score cap
+  int win;               // > 0: the layer's sliding window (age < win)
   int layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos, kv_sinks;
   int B, slots;          // slots: score capacity per (lane, head), >= kv_len
   int L, page, n_pages;  // the paged launch's pool: layers, slots per page, pages
@@ -156,14 +179,15 @@ __host__ __device__ inline size_t smem_bytes(int qpk, int D, int slots) {
 // runtime choice, so the shared-memory instance keeps shared-memory loads
 // (a pointer that may be either is read through slower generic loads).
 // kPaged: rows are addressed through a.tables in a pool (see the top).
-template <typename T, bool kGlobalScores, bool kPaged>
+// kOne: attend_one_l (see the top).
+template <typename T, bool kGlobalScores, bool kPaged, bool kOne>
 __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.D, qpk = a.qpk, h = blockIdx.x, b = blockIdx.y, half = D / 2;
   const int QS = D + 2, KS = D + KPAD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, vpr = D / 8;
   int kv_pos = a.kv_pos, n = a.kv_len, kv_sink = a.kv_sink, pos = a.pos;
-  bool write = true;
+  bool write = !kOne;
   if (a.lanes) {
     kv_pos = a.lanes[b];
     n = a.lanes[a.B + b];
@@ -209,14 +233,21 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   const float posf = (float)pos;
 
   // 1-2: rope, scale, and the in-place row write
-  for (int i = tid; i < qpk * half; i += THREADS) {
-    const int j = i / half, p = i - j * half;
-    const float ang = posf * a.freq[p];
-    const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
-    const float* qr = q + ((size_t)h * qpk + j) * D;
-    const float x0 = qr[2 * p], x1 = qr[2 * p + 1];
-    qs[j * QS + 2 * p] = bf16_round(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
-    qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
+  if (kOne) {
+    for (int i = tid; i < qpk * D; i += THREADS) {
+      const int j = i / D, d = i - j * D;
+      qs[j * QS + d] = bf16_round(__fdiv_rn(q[((size_t)h * qpk + j) * D + d], a.sqrt_d));
+    }
+  } else {
+    for (int i = tid; i < qpk * half; i += THREADS) {
+      const int j = i / half, p = i - j * half;
+      const float ang = posf * a.freq[p];
+      const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+      const float* qr = q + ((size_t)h * qpk + j) * D;
+      const float x0 = qr[2 * p], x1 = qr[2 * p + 1];
+      qs[j * QS + 2 * p] = bf16_round(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
+      qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
+    }
   }
   if (write) {
     const size_t new_row = row(kv_pos);
@@ -233,9 +264,12 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   }
   __syncthreads();
 
-  // 3-4: pass 1, every score of slots < kv_len
+  // 3-4: pass 1, every score of slots < kv_len (from lo on a sliding layer
+  // in the linear regime: the slots below it are older than the window)
   const float rot = (float)max(0, pos - a.S + 1);
-  for (int t0 = 0; t0 < n; t0 += TILE) {
+  const int win = a.win, ring = max(S - kv_sink, 1);
+  const int lo = (win > 0 && kv_sink == 0 && kv_pos + 1 >= n) ? max(n - win, 0) / TILE * TILE : 0;
+  for (int t0 = lo; t0 < n; t0 += TILE) {
     const int nt = min(TILE, n - t0);
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
@@ -266,6 +300,12 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
         dot = fmaf(qf.x, kf.x, dot);
         dot = fmaf(qf.y, kf.y, dot);
       }
+      if (a.softcap > 0.f) dot = __fmul_rn(a.softcap, tanhf(__fdiv_rn(dot, a.softcap)));
+      if (win > 0) {  // the age mask (_slot_age)
+        const int s = t0 + r;
+        const int age = s < kv_sink ? S - 1 - s : ((kv_pos - s) % ring + ring) % ring;
+        if (age >= win) dot = NEG_BIG;
+      }
       sc[(t0 + r) * qpk + j] = dot;
     }
     __syncthreads();
@@ -274,16 +314,16 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   // 5: softmax per query row, one warp each: p = bf16(exp(s - max) / sum)
   for (int j = warp; j < qpk; j += WARPS) {
     float m = -INFINITY;
-    for (int r = lane; r < n; r += 32) m = fmaxf(m, sc[r * qpk + j]);
+    for (int r = lo + lane; r < n; r += 32) m = fmaxf(m, sc[r * qpk + j]);
     m = warp_max(m);
     float l = 0.f;
-    for (int r = lane; r < n; r += 32) {
+    for (int r = lo + lane; r < n; r += 32) {
       const float e = expf(sc[r * qpk + j] - m);
       sc[r * qpk + j] = e;
       l += e;
     }
     l = warp_sum(l);
-    for (int r = lane; r < n; r += 32) sc[r * qpk + j] = bf16_round(sc[r * qpk + j] / l);
+    for (int r = lo + lane; r < n; r += 32) sc[r * qpk + j] = bf16_round(sc[r * qpk + j] / l);
   }
   __syncthreads();
 
@@ -292,7 +332,7 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
 #pragma unroll
   for (int i = 0; i < MAX_OUT; ++i) acc[i] = 0.f;
   const int nout = qpk * D;
-  for (int t0 = 0; t0 < n; t0 += TILE) {
+  for (int t0 = lo; t0 < n; t0 += TILE) {
     const int nt = min(TILE, n - t0);
     for (int i = tid; i < nt * vpr; i += THREADS) {
       const int r = i / vpr, c = i - r * vpr;
@@ -322,10 +362,10 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   }
 }
 
-template <typename T, bool kPaged>
+template <typename T, bool kPaged, bool kOne>
 int launch_as(const AttnArgs& a, size_t smem, cudaStream_t st) {
-  const auto kern = a.scores ? attend_step_kernel<T, true, kPaged>
-                             : attend_step_kernel<T, false, kPaged>;
+  const auto kern = a.scores ? attend_step_kernel<T, true, kPaged, kOne>
+                             : attend_step_kernel<T, false, kPaged, kOne>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -335,17 +375,19 @@ int launch_as(const AttnArgs& a, size_t smem, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_kind(const AttnArgs& a, bool one, size_t smem, cudaStream_t st) {
+  if (one) return launch_as<T, false, true>(a, smem, st);
+  return a.tables ? launch_as<T, true, false>(a, smem, st) : launch_as<T, false, false>(a, smem, st);
+}
+
 // kv_type W_BF16 or W_E5M2 (common.cuh), the type of the cache or pool; the
-// paged instance when a.tables is set
-int launch(int kv_type, const AttnArgs& a, cudaStream_t st) {
+// paged instance when a.tables is set, attend_one_l's when `one`
+int launch(int kv_type, const AttnArgs& a, cudaStream_t st, bool one = false) {
   const size_t smem = smem_bytes(a.qpk, a.D, a.scores ? TILE : a.slots);
-  if (smem > 227 * 1024) return ERR_ARGS;
-  const bool paged = a.tables != nullptr;
-  if (kv_type == W_BF16)
-    return paged ? launch_as<__nv_bfloat16, true>(a, smem, st)
-                 : launch_as<__nv_bfloat16, false>(a, smem, st);
-  if (kv_type == W_E5M2)
-    return paged ? launch_as<uint8_t, true>(a, smem, st) : launch_as<uint8_t, false>(a, smem, st);
+  if (smem > 227 * 1024 || !(a.softcap >= 0.f)) return ERR_ARGS;
+  if (kv_type == W_BF16) return launch_kind<__nv_bfloat16>(a, one, smem, st);
+  if (kv_type == W_E5M2) return launch_kind<uint8_t>(a, one, smem, st);
   return ERR_ARGS;
 }
 
@@ -388,7 +430,7 @@ extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
                               const float* freq, float mscale, float inv_sqrt_d,
                               float* out, float* scores, int layer, int S, int Hk,
                               int qpk, int D, int kv_pos, int kv_len, int kv_sink,
-                              int pos, int kv_sinks, void* stream) {
+                              int pos, int kv_sinks, float softcap, int win, void* stream) {
   if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || kv_len < 1 || kv_len > S || kv_pos < 0 ||
       kv_pos >= S || kv_sink < 0 || kv_sink > kv_sinks)
     return ERR_ARGS;
@@ -400,7 +442,26 @@ extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
   a.pos = pos;
   a.B = 1;
   a.slots = kv_len;
+  a.softcap = softcap;
+  a.win = win;
   return launch(kv_type, a, static_cast<cudaStream_t>(stream));
+}
+
+// attend_one_l: q (Hk, qpk, D) f32 as it is (divided by sqrt_d), k_all and
+// v_all (L, S, Hk, D) of kv_type, read only; slots < kv_len attended.
+extern "C" int yt_attend_one(int kv_type, const float* q, const void* k_all, const void* v_all,
+                             float sqrt_d, float* out, float* scores, int layer, int S, int Hk,
+                             int qpk, int D, int kv_len, void* stream) {
+  if (!shape_ok(S, Hk, qpk, D, layer, 0) || kv_len < 1 || kv_len > S || !(sqrt_d > 0.f))
+    return ERR_ARGS;
+  AttnArgs a = common_args(q, nullptr, nullptr, const_cast<void*>(k_all),
+                           const_cast<void*>(v_all), nullptr, 1.f, 1.f, out, scores, layer, S,
+                           Hk, qpk, D, 0);
+  a.kv_len = kv_len;
+  a.B = 1;
+  a.slots = kv_len;
+  a.sqrt_d = sqrt_d;
+  return launch(kv_type, a, static_cast<cudaStream_t>(stream), true);
 }
 
 // B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the device. The
@@ -411,7 +472,7 @@ extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* 
                                       const float* freq, float mscale, float inv_sqrt_d,
                                       float* out, float* scores, const int* lanes, int B,
                                       int L, int layer, int S, int Hk, int qpk, int D,
-                                      int kv_sinks, void* stream) {
+                                      int kv_sinks, float softcap, int win, void* stream) {
   if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 || !lanes)
     return ERR_ARGS;
   AttnArgs a = common_args(q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
@@ -420,6 +481,8 @@ extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* 
   a.lane_stride = (size_t)L * S * Hk * D;
   a.B = B;
   a.slots = S;
+  a.softcap = softcap;
+  a.win = win;
   return launch(kv_type, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -432,7 +495,7 @@ extern "C" int yt_attend_step_paged(int kv_type, const float* q, const float* k_
                                     float* out, float* scores, const int* lanes,
                                     const int* tables, int B, int n_pages, int L, int layer,
                                     int page, int nblk, int Hk, int qpk, int D, int kv_sinks,
-                                    void* stream) {
+                                    float softcap, int win, void* stream) {
   if (page < 1 || nblk < 1 || (long long)page * nblk > (1 << 30))
     return ERR_ARGS;
   const int S = page * nblk;
@@ -448,5 +511,7 @@ extern "C" int yt_attend_step_paged(int kv_type, const float* q, const float* k_
   a.L = L;
   a.page = page;
   a.n_pages = n_pages;
+  a.softcap = softcap;
+  a.win = win;
   return launch(kv_type, a, static_cast<cudaStream_t>(stream));
 }

@@ -24,9 +24,18 @@ top-k gate on the device and, per routed expert in rank order, the
 (layer, expert)-addressed `gemv_le`/`gemv4_le` pair with the ids read on
 the card (none reaches the host); every chunk path (prefill, the tick, the
 chunk sweep, dense and paged) shares `_moe_ffn_batched`, the masked
-all-expert sweep on `gemm_le`/`gemm4_le`. Models outside this slice
-(qk-norm, sandwich norms, softcaps, sliding layers) raise
-NotImplementedError.
+all-expert sweep on `gemm_le`/`gemm4_le`.
+
+Gemma2, Gemma3 and Qwen3 (qk-norm, sandwich norms, the attention and final
+softcaps, sliding-window layers, Gemma3's per-layer local rope) take the
+JAX package's forms on every path: a decode step the fused block cannot
+take (qk-norm, sandwich norms, a softcap or a sliding layer) runs the
+unfused route -- the wqkv GEMV with the norm prologue, qk-norm, the
+attention step with the layer's window, rope and cap, the wo GEMV, the
+post-norm and the add; the FFN without its residual, then its post-norm --
+and the chunk paths apply the same forms around their projections, the
+softcap and the sliding mask in the chunk attention. Qwen3-MoE is qk-norm
+over the MoE FFN.
 """
 
 from __future__ import annotations
@@ -42,12 +51,12 @@ from ..codec.format import numpy_to_torch, tag_for_numpy
 from ..config import KV_SINKS, ModelConfig
 from ..ops.core import NEG_INF, apply_rope, gelu, int_view, moe_gate, rmsnorm, silu
 from ..ops.cuda import _build
-from ..ops.cuda.attention import (attend_step_batched, attend_step_paged, gather_pages,
-                                  lane_scalars, page_tables)
+from ..ops.cuda.attention import (attend_step_batched, attend_step_l, attend_step_paged,
+                                  gather_pages, lane_scalars, page_tables)
 from ..ops.cuda.block import attn_block
 from ..ops.cuda.ffn import ffn
-from ..ops.cuda.gemv import (bf16f, gemm, gemm4_le, gemm_le, gemv, gemv4_le, gemv_l, gemv_le,
-                             is_int4, launch_gemm, proj_plain)
+from ..ops.cuda.gemv import (bf16f, gemm, gemm4_le, gemm_le, gemv, gemv4_l, gemv4_le, gemv_l,
+                             gemv_le, is_int4, launch_gemm, proj_plain)
 from ..ops.int4 import int4_group
 from .cache import KVCache
 from .paged import PagedKVPool
@@ -91,6 +100,10 @@ class FastWeights:
     bqkv: Optional[torch.Tensor] = None    # (n_layers, q_dim + 2*kv_dim) f32
     scales: Optional[FastScales] = None    # int8 and int4 checkpoints only
     moegate: Optional[torch.Tensor] = None  # (n_layers, n_experts, dim), MoE only
+    qnorm: Optional[torch.Tensor] = None    # (n_layers, head_dim) f32, qk-norm only
+    knorm: Optional[torch.Tensor] = None    # (n_layers, head_dim) f32, qk-norm only
+    pa: Optional[torch.Tensor] = None       # (n_layers, dim) f32, sandwich norms only
+    pf: Optional[torch.Tensor] = None       # (n_layers, dim) f32, sandwich norms only
 
     def to(self, device) -> "FastWeights":
         """A copy on `device` (the lm_head stays shared with embed when tied)."""
@@ -109,21 +122,6 @@ class FastWeights:
             else:
                 out[f.name] = None
         return FastWeights(**out)
-
-
-def _check_slice(cfg: ModelConfig) -> None:
-    """Raise for model features that later slices of the port bring."""
-    missing = [name for name, on in (
-        ("qk-norm", cfg.has_qk_norm),
-        ("sandwich norms", cfg.has_post_norms),
-        ("attention softcap", bool(cfg.attn_softcap)),
-        ("final softcap", bool(cfg.final_softcap)),
-        ("sliding-window layers", any(cfg.layer_sliding)),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{', '.join(missing)}: not in this slice of the PyTorch port "
-            "(see ROADMAP.md, Queue 1)")
 
 
 def _itemsize(cfg: ModelConfig) -> int:
@@ -213,8 +211,8 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
     (:179-219, :242-254, :261-288) bring per-expert w1/w2/w3 ((E, N, K),
     stacked to (L, E, 2H, dim) and (L, E, dim, H) with the scales' N axes
     concatenated the same way) and the router (L, E, dim), int8 with
-    per-row scales on int8 and int4 checkpoints."""
-    _check_slice(cfg)
+    per-row scales on int8 and int4 checkpoints. qk-norm and sandwich-norm
+    models bring (L, head_dim) q/k norms and (L, dim) post-norms."""
     device = torch.device(device)
     t = yf.tensors
     d, h, q, kd = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
@@ -284,13 +282,18 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
             lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,)))
                      if "model.output.weight.scale" in t else semb),
             moegate=smoe)
+    def norms(name, n, on):
+        return stack(layer_cat([(f"model.layers.{{}}.{name}.weight", (n,))])) if on else None
+
     return FastWeights(
-        embed=embed,
-        rms_att=stack(layer_cat([("model.layers.{}.attn.norm.weight", (d,))])),
-        rms_ffn=stack(layer_cat([("model.layers.{}.mlp.norm.weight", (d,))])),
+        embed=embed, rms_att=norms("attn.norm", d, True), rms_ffn=norms("mlp.norm", d, True),
         wqkv=wqkv, wo=wo, w13=w13, w2=w2,
         final_norm=put(get("model.norm.weight", (d,))),
-        lm_head=lm, bqkv=bqkv, scales=scales, moegate=moegate)
+        lm_head=lm, bqkv=bqkv, scales=scales, moegate=moegate,
+        qnorm=norms("attn.q_norm", cfg.head_dim, cfg.has_qk_norm),
+        knorm=norms("attn.k_norm", cfg.head_dim, cfg.has_qk_norm),
+        pa=norms("attn.post_norm", d, cfg.has_post_norms),
+        pf=norms("mlp.post_norm", d, cfg.has_post_norms))
 
 
 def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
@@ -300,8 +303,8 @@ def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
     FastScales fields). bf16/fp8 arrays of ml_dtypes' types are recognised
     by dtype name and reinterpreted through same-width integer views;
     packed int4 weights are uint8 with (L, [E,] G, N) group scales; MoE
-    models bring the expert stacks (L, E, N, K) and the router `moegate`."""
-    _check_slice(cfg)
+    models bring the expert stacks (L, E, N, K) and the router `moegate`;
+    qk-norm and sandwich-norm models their norms."""
 
     def conv(a):
         return _host(numpy_to_torch(a, tag_for_numpy(a))).to(device)
@@ -346,14 +349,113 @@ def ring_slots(pos: int, window: int) -> tuple[int, int, int]:
     return kv_sink, kv_pos, min(pos + 1, window)
 
 
+def _layer_win(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer i's sliding window for the attention kernels (fast.py:372-381):
+    cfg.sliding_window on sliding layers, the full window on the others, or
+    None when no layer slides."""
+    if not any(cfg.layer_sliding):
+        return None
+    return cfg.sliding_window if cfg.layer_sliding[i] else cfg.max_seq_len
+
+
+def _layer_alt(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Gemma3's dual rope (fast.py:384-393): the sliding flag selects the
+    local theta; None unless the packed rope kind is "gemma3" and a layer
+    slides."""
+    if not (cfg.rope_scale and cfg.rope_scale[0] == "gemma3") or not any(cfg.layer_sliding):
+        return None
+    return int(cfg.layer_sliding[i])
+
+
+def _attn_kw(cfg: ModelConfig, i: int) -> dict:
+    """Layer i's Gemma forms of the attention steps."""
+    return dict(win=_layer_win(cfg, i), alt=_layer_alt(cfg, i), softcap=cfg.attn_softcap)
+
+
+def _sliding_mask_fn(cfg: ModelConfig, positions, att_mask, S: int):
+    """mask_of(i) for the chunk paths (fast.py:396-407): att_mask on global
+    layers, bounded by the sliding window on sliding ones. positions (T,)
+    or (B, T); att_mask broadcasts with them."""
+    if not any(cfg.layer_sliding):
+        return lambda i: att_mask
+    slide = att_mask & (positions[..., None] - torch.arange(S, device=att_mask.device)
+                        < cfg.sliding_window)
+    return lambda i: slide if cfg.layer_sliding[i] else att_mask
+
+
+def _post_norm(delta, w_all, i: int, eps: float):
+    """Gemma2's sandwich norm on a residual delta (w_all None: identity)."""
+    return delta if w_all is None else rmsnorm(delta, w_all[i], eps)
+
+
+def _cap_logits(cfg: ModelConfig, logits):
+    if cfg.final_softcap:
+        return cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def _softcap_scores(cfg: ModelConfig, scores):
+    """Gemma2's score cap, after the 1/sqrt(D) scale and before the mask."""
+    if cfg.attn_softcap:
+        return cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    return scores
+
+
+def _qk_norm(q, k, fw: FastWeights, layer: int, cfg: ModelConfig):
+    """Qwen3's per-head RMSNorm on flat q (..., q_dim) and k (..., kv_dim),
+    between the projection and RoPE (fast.py:503-516); the query scale is
+    folded into the q-norm weight. No-op without qk-norm weights."""
+    if fw.qnorm is None:
+        return q, k
+    D = cfg.head_dim
+    q = rmsnorm(q.reshape(*q.shape[:-1], -1, D), fw.qnorm[layer], cfg.norm_eps).reshape(q.shape)
+    k = rmsnorm(k.reshape(*k.shape[:-1], -1, D), fw.knorm[layer], cfg.norm_eps).reshape(k.shape)
+    return q, k
+
+
+def _block_ok(cfg: ModelConfig, fw: FastWeights) -> bool:
+    """Whether the fused attention block takes this model (fast.py:686-688)."""
+    return (fw.qnorm is None and fw.pa is None and not cfg.attn_softcap
+            and not any(cfg.layer_sliding))
+
+
+def _attn_unfused(cfg: ModelConfig, fw: FastWeights, x, i: int, kv_pos: int, kv_len: int,
+                  kv_sink: int, pos: int, cache: KVCache):
+    """One token's attention on the unfused route (fast.py:714-751): the
+    wqkv GEMV with the norm prologue (packed int4: rmsnorm, then gemv4_l),
+    bias, clip and qk-norm, the attention step with the layer's window,
+    rope and cap, the wo GEMV, the post-norm and the residual add."""
+    sc = fw.scales
+    Hk, D = cfg.n_kv_heads, cfg.head_dim
+    if is_int4(fw.wqkv):
+        qkv = gemv4_l(rmsnorm(x, fw.rms_att[i], cfg.norm_eps), fw.wqkv, i, sc.wqkv)
+    else:
+        qkv = gemv_l(x, fw.wqkv, i, norm_w=fw.rms_att, norm_eps=cfg.norm_eps,
+                     scale=sc.wqkv if sc else None)
+    if fw.bqkv is not None:
+        qkv = qkv + fw.bqkv[i]
+    qkv = _clip(cfg, qkv)
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+    q, k = _qk_norm(qkv[:q_dim], qkv[q_dim:q_dim + kv_dim], fw, i, cfg)
+    mixed = attend_step_l(q.reshape(Hk, -1, D), k.reshape(Hk, D),
+                          qkv[q_dim + kv_dim:].reshape(Hk, D), cache.k, cache.v, i, kv_pos,
+                          kv_len, kv_sink, pos, kv_sinks=KV_SINKS, theta=cfg.rope_param,
+                          rotary_dim=cfg.rotary_dim, **_attn_kw(cfg, i)).reshape(q_dim)
+    if is_int4(fw.wo) or fw.pa is not None:
+        wo = (gemv4_l(mixed, fw.wo, i, sc.wo) if is_int4(fw.wo)
+              else gemv_l(mixed, fw.wo, i, scale=sc.wo if sc else None))
+        return x + _post_norm(wo, fw.pa, i, cfg.norm_eps)
+    return gemv_l(mixed, fw.wo, i, residual=x, scale=sc.wo if sc else None)
+
+
 def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
                      cache: KVCache, *, output_logits: bool = True
                      ) -> tuple[Optional[torch.Tensor], KVCache]:
     """One decode step at absolute position `pos`; updates `cache` in place
     and returns (logits (vocab,) f32 or None, cache). `token` is an int or a
     one-element tensor on the weights' device. MoE layers run the routed
-    experts only (`_moe_ffn_one`)."""
-    _check_slice(cfg)
+    experts only (`_moe_ffn_one`); models the fused block cannot take run
+    the unfused route (`_attn_unfused`)."""
     sc = fw.scales
     pos = int(pos)
     x = _embed(cfg, fw, token)[0]
@@ -362,25 +464,27 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
     # one route for every weight type: attn_block/ffn run the int4 twins of
     # the same launch sequences for packed int4 weights (the JAX package's
     # unfused int4 fork exists for Mosaic's tiling rules only)
+    fused = _block_ok(cfg, fw)
 
     for i in range(cfg.n_layers):
-        x = attn_block(
-            x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, i,
-            kv_pos, kv_len, kv_sink, pos, n_heads=cfg.n_heads,
-            norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
-            scale_qkv=sc.wqkv if sc else None,
-            scale_o=sc.wo if sc else None, **rope)
+        if fused:
+            x = attn_block(
+                x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, i,
+                kv_pos, kv_len, kv_sink, pos, n_heads=cfg.n_heads,
+                norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
+                scale_qkv=sc.wqkv if sc else None,
+                scale_o=sc.wo if sc else None, **rope)
+        else:
+            x = _attn_unfused(cfg, fw, x, i, kv_pos, kv_len, kv_sink, pos, cache)
         if cfg.is_moe:
             x = _moe_ffn_one(cfg, fw, x, i)
         else:
-            x = ffn(x, fw.rms_ffn, fw.w13, fw.w2, i,
-                    sc.w13 if sc else None, sc.w2 if sc else None,
-                    norm_eps=cfg.norm_eps, act=cfg.act_type)
+            x = _ffn_rows(cfg, fw, x, i)
 
     if not output_logits:
         return None, cache
     x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemv(x, fw.lm_head, sc.lm_head if sc else None), cache
+    return _cap_logits(cfg, gemv(x, fw.lm_head, sc.lm_head if sc else None)), cache
 
 
 def _proj1_le(x1d, w_all, layer, expert, scale, **kw):
@@ -411,10 +515,12 @@ def _moe_ffn_one(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int)
 # chunked prefill
 # ---------------------------------------------------------------------------
 
-def _attend_chunk_bf16(q4, kc, vc, mask, D):
+def _attend_chunk_bf16(cfg, q4, kc, vc, mask, D):
     """Chunk attention with bf16 operands, f32 sums and an f32 softmax
-    (fast.py:943-955); plain torch on every device."""
+    (fast.py:943-955), the softcap before the mask; plain torch on every
+    device."""
     scores = torch.einsum("tgqd,lgd->gqtl", bf16f(q4), bf16f(kc)) / math.sqrt(D)
+    scores = _softcap_scores(cfg, scores)
     scores = torch.where(mask[None, None], scores, torch.full_like(scores, NEG_INF))
     att = torch.softmax(scores, dim=-1)
     return torch.einsum("gqtl,lgd->tgqd", bf16f(att), bf16f(vc))
@@ -461,13 +567,27 @@ def _moe_ffn_batched(cfg: ModelConfig, fw: FastWeights, x2d: torch.Tensor,
 
 
 def _ffn_rows(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
-    """x + FFN(x) of a tick's or a chunk sweep's rows: the all-expert sweep
-    for MoE models, else the many-row `ffn`."""
+    """x + FFN(x) of a token or of a tick's or a chunk's rows: the
+    all-expert sweep for MoE models, else `ffn`; with sandwich norms the FFN
+    without its residual, then the post-norm and the add (`_ffn2_l`,
+    fast.py:448-475)."""
     if cfg.is_moe:
         return _moe_ffn_batched(cfg, fw, x, layer)
     sc = fw.scales
-    return ffn(x, fw.rms_ffn, fw.w13, fw.w2, layer, sc.w13 if sc else None,
-               sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type)
+    out = ffn(x, fw.rms_ffn, fw.w13, fw.w2, layer, sc.w13 if sc else None,
+              sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type,
+              add_residual=fw.pf is None)
+    return out if fw.pf is None else x + _post_norm(out, fw.pf, layer, cfg.norm_eps)
+
+
+def _wo_rows(cfg: ModelConfig, fw: FastWeights, mixed, x, layer: int):
+    """x + Wo @ mixed of a chunk's or a tick's rows: the residual in the
+    GEMM's epilogue, or with sandwich norms the post-norm before the add."""
+    sc = fw.scales
+    s = sc.wo if sc else None
+    if fw.pa is None:
+        return _proj_l(mixed, fw.wo, layer, s, residual=x)
+    return x + _post_norm(_proj_l(mixed, fw.wo, layer, s), fw.pa, layer, cfg.norm_eps)
 
 
 def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
@@ -477,7 +597,6 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
     at `rows_at` of the layer's cache view `layers(i)` = (k, v), chunk
     attention over `view_of(view)` (the lane's slots < S, (S, Hk, D)), wo and
     the FFN. Returns the logits of `logits_mode`."""
-    _check_slice(cfg)
     dev = fw.wqkv.device
     tok = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=dev).reshape(-1)
     T = tok.shape[0]
@@ -496,6 +615,8 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
 
     positions = pos0 + torch.arange(T, device=dev)
     att_mask = torch.arange(S, device=dev)[None, :] <= positions[:, None]
+    # sliding layers: no ring during prefill, the slot index is the position
+    mask_of = _sliding_mask_fn(cfg, positions, att_mask, S)
     x = _embed(cfg, fw, tok)                           # (T, dim)
 
     for i in range(cfg.n_layers):
@@ -504,32 +625,34 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
         if fw.bqkv is not None:
             qkv = qkv + fw.bqkv[i]
         qkv = _clip(cfg, qkv)
-        q = apply_rope(qkv[:, : cfg.q_dim].reshape(T, Hq, D), positions,
-                       cfg.rope_param, cfg.rotary_dim)
-        k = apply_rope(qkv[:, cfg.q_dim: cfg.q_dim + cfg.kv_dim].reshape(T, Hk, D),
-                       positions, cfg.rope_param, cfg.rotary_dim)
+        qf, kf = _qk_norm(qkv[:, :cfg.q_dim], qkv[:, cfg.q_dim: cfg.q_dim + cfg.kv_dim],
+                          fw, i, cfg)
+        alt = _layer_alt(cfg, i)
+        q = apply_rope(qf.reshape(T, Hq, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
+        k = apply_rope(kf.reshape(T, Hk, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
         v = qkv[:, cfg.q_dim + cfg.kv_dim:].reshape(T, Hk, D)
         kl, vl = layers(i)
         for c, rows in ((kl, k), (vl, v)):
             int_view(c)[rows_at] = int_view(rows[:valid_len].to(c.dtype))
-        mixed = _attend_chunk_bf16(q.reshape(T, Hk, qpk, D), view_of(kl), view_of(vl),
-                                   att_mask, D)
-        x = x + _proj_l(mixed.reshape(T, cfg.q_dim), fw.wo, i, sc.wo if sc else None)
+        mixed = _attend_chunk_bf16(cfg, q.reshape(T, Hk, qpk, D), view_of(kl), view_of(vl),
+                                   mask_of(i), D)
+        x = _wo_rows(cfg, fw, mixed.reshape(T, cfg.q_dim), x, i)
         if cfg.is_moe:
             x = _moe_ffn_batched(cfg, fw, x, i)
         else:
             xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
             h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
             h = act(h13[:, :H]) * h13[:, H:]
-            x = x + _proj_l(h, fw.w2, i, sc.w2 if sc else None)
+            x = x + _post_norm(_proj_l(h, fw.w2, i, sc.w2 if sc else None), fw.pf, i,
+                               cfg.norm_eps)
 
     if logits_mode == "none":
         return None
     if logits_mode == "last":
         xl = rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps)
-        return gemv(xl, fw.lm_head, sc.lm_head if sc else None)
+        return _cap_logits(cfg, gemv(xl, fw.lm_head, sc.lm_head if sc else None))
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemm(xn, fw.lm_head, sc.lm_head if sc else None)
+    return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
 
 
 def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
@@ -613,8 +736,8 @@ def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Te
     wqkv GEMM over the B rows, bias and clip, `attend(i, q, k, v)` (the
     batched or paged attention step), the wo GEMM + residual, the many-row
     FFN (the all-expert sweep for MoE); then the final norm and the LM-head
-    GEMM. Returns (B, vocab)."""
-    _check_slice(cfg)
+    GEMM. `attend` takes layer i's Gemma forms as keywords. Returns (B,
+    vocab)."""
     sc = fw.scales
     Hk, D = cfg.n_kv_heads, cfg.head_dim
     qpk = cfg.n_heads // Hk
@@ -628,14 +751,14 @@ def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Te
         if fw.bqkv is not None:
             qkv = qkv + fw.bqkv[i]
         qkv = _clip(cfg, qkv)
-        mixed = attend(i, qkv[:, :q_dim].reshape(Bn, Hk, qpk, D),
-                       qkv[:, q_dim:q_dim + kv_dim].reshape(Bn, Hk, D),
-                       qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D))
-        x = _proj_l(mixed.reshape(Bn, q_dim), fw.wo, i, sc.wo if sc else None, residual=x)
+        q, k = _qk_norm(qkv[:, :q_dim], qkv[:, q_dim:q_dim + kv_dim], fw, i, cfg)
+        mixed = attend(i, q.reshape(Bn, Hk, qpk, D), k.reshape(Bn, Hk, D),
+                       qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D), **_attn_kw(cfg, i))
+        x = _wo_rows(cfg, fw, mixed.reshape(Bn, q_dim), x, i)
         x = _ffn_rows(cfg, fw, x, i)
 
     x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemm(x, fw.lm_head, sc.lm_head if sc else None)
+    return _cap_logits(cfg, gemm(x, fw.lm_head, sc.lm_head if sc else None))
 
 
 def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, positions,
@@ -653,8 +776,8 @@ def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, position
         raise ValueError(f"decode_step_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
     lanes = _tick_lanes(cfg, positions, write_mask, fw.wqkv.device)
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
-    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v: attend_step_batched(
-        q, k, v, cache.k, cache.v, i, lanes, **rope))
+    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v, **kw: attend_step_batched(
+        q, k, v, cache.k, cache.v, i, lanes, **rope, **kw))
     return logits, cache
 
 
@@ -677,16 +800,18 @@ def decode_step_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, po
         raise ValueError(f"decode_step_fast_batched_paged: tables {tuple(tab.shape)} vs "
                          f"{lanes.shape[1]} lanes")
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
-    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v: attend_step_paged(
-        q, k, v, pool.k, pool.v, tab, i, lanes, **rope))
+    logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v, **kw: attend_step_paged(
+        q, k, v, pool.k, pool.v, tab, i, lanes, **rope, **kw))
     return logits, pool
 
 
-def _attend_chunk_batched(q5, kc, vc, mask, D):
+def _attend_chunk_batched(cfg, q5, kc, vc, mask, D):
     """Batched chunk attention (fast.py:1332-1342): q5 (B, T, Hk, qpk, D),
-    kc/vc (B, S, Hk, D), mask (B, T, S); bf16 operands, f32 sums and an f32
-    softmax; plain torch on every device."""
+    kc/vc (B, S, Hk, D), mask (B, T, S); bf16 operands, f32 sums, the
+    softcap before the mask and an f32 softmax; plain torch on every
+    device."""
     scores = torch.einsum("btgqd,bsgd->bgqts", bf16f(q5), bf16f(kc)) / math.sqrt(D)
+    scores = _softcap_scores(cfg, scores)
     scores = torch.where(mask[:, None, None], scores, torch.full_like(scores, NEG_INF))
     att = torch.softmax(scores, dim=-1)
     return torch.einsum("bgqts,bsgd->btgqd", bf16f(att), bf16f(vc))
@@ -700,7 +825,6 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
     cache view `layers(i)` = (k, v) at `dest(lane ids, slots)` (an index
     tuple), and chunk attention reads `view_of(view)` ((B, S, Hk, D), the
     lanes' slots < S); other lanes change nothing."""
-    _check_slice(cfg)
     sc = fw.scales
     dev = fw.wqkv.device
     tok = np.asarray(tokens, np.int64)
@@ -726,6 +850,7 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
     p0 = np.where(en, p0, 0)   # disabled lanes compute from slot 0 and write nothing
     positions = torch.as_tensor(p0[:, None] + np.arange(T)[None, :], device=dev)  # (B, T)
     att_mask = torch.arange(S, device=dev)[None, None, :] <= positions[:, :, None]
+    mask_of = _sliding_mask_fn(cfg, positions, att_mask, S)
     # the rows to write: (lane, chunk row) of every valid row of an enabled lane
     li, ti = np.nonzero(en[:, None] & (np.arange(T)[None, :] < vlen[:, None]))
     li_t, ti_t = torch.as_tensor(li, device=dev), torch.as_tensor(ti, device=dev)
@@ -738,19 +863,18 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
         if fw.bqkv is not None:
             qkv = qkv + fw.bqkv[i]
         qkv = _clip(cfg, qkv).reshape(Bn, T, -1)
-        q = apply_rope(qkv[..., :q_dim].reshape(Bn, T, Hq, D), positions,
-                       cfg.rope_param, cfg.rotary_dim)
-        k = apply_rope(qkv[..., q_dim:q_dim + kv_dim].reshape(Bn, T, Hk, D), positions,
-                       cfg.rope_param, cfg.rotary_dim)
+        qf, kf = _qk_norm(qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim], fw, i, cfg)
+        alt = _layer_alt(cfg, i)
+        q = apply_rope(qf.reshape(Bn, T, Hq, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
+        k = apply_rope(kf.reshape(Bn, T, Hk, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
         v = qkv[..., q_dim + kv_dim:].reshape(Bn, T, Hk, D)
         kl, vl = layers(i)
         if len(li):
             for c, rows in ((kl, k), (vl, v)):
                 int_view(c)[at] = int_view(rows[li_t, ti_t].to(c.dtype))
-        mixed = _attend_chunk_batched(q.reshape(Bn, T, Hk, qpk, D), view_of(kl), view_of(vl),
-                                      att_mask, D)
-        x = _proj_l(mixed.reshape(Bn * T, q_dim), fw.wo, i, sc.wo if sc else None,
-                    residual=x)
+        mixed = _attend_chunk_batched(cfg, q.reshape(Bn, T, Hk, qpk, D), view_of(kl),
+                                      view_of(vl), mask_of(i), D)
+        x = _wo_rows(cfg, fw, mixed.reshape(Bn * T, q_dim), x, i)
         x = _ffn_rows(cfg, fw, x, i)
 
     if logits_mode == "none":
@@ -759,9 +883,9 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
         last = torch.as_tensor(np.maximum(vlen, 1) - 1, device=dev)
         x = x.reshape(Bn, T, -1)[torch.arange(Bn, device=dev), last]
         xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-        return gemm(xn, fw.lm_head, sc.lm_head if sc else None)
+        return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return gemm(xn, fw.lm_head, sc.lm_head if sc else None).reshape(Bn, T, -1)
+    return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None)).reshape(Bn, T, -1)
 
 
 def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len,

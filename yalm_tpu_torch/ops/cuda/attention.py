@@ -1,6 +1,7 @@
 """Fused decode attention step (port of `attend_step_l`, its
 continuous-batching form `attend_step_batched_l` and its paged form
-`attend_step_paged_l`, `yalm_tpu/ops/pallas/attention.py`).
+`attend_step_paged_l`, `yalm_tpu/ops/pallas/attention.py`), and the
+read-only attention of one query (`attend_one_l`).
 
 One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
 `kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
@@ -14,8 +15,11 @@ s % page). Kernel: `csrc/attention.cu`. The
 cache is bf16 or fp8 e5m2 (`-C fp8`): the new row is rounded from f32 to
 the cache type in one step, attention reads the cache widened to bf16
 (exact), and the sink view is rounded to bf16, the working type, for
-both. Softcap, sliding window and Gemma3's alternate rope are later slices
-and raise here.
+both. The Gemma forms ride along: `softcap` (Gemma2's score cap, before
+the mask), `win` (a sliding layer's window, by slot age) and `alt`
+(Gemma3's local-theta rope). `attend_one_l` is the same kernel with no
+RoPE, no write and no sinks. Every plain version runs `attend_ref`, the
+port's one plain attention core.
 """
 
 from __future__ import annotations
@@ -43,20 +47,21 @@ def smem_bytes(qpk: int, D: int, kv_len: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _freq_table(theta, D: int, rotary_dim: int, device: str) -> torch.Tensor:
-    # one (D/2,) table per model and device; the kernel reads it every step
-    return rope_freq_table(theta, D, rotary_dim, device=torch.device(device))
+def _freq_table(theta, D: int, rotary_dim: int, device: str, alt: bool = False) -> torch.Tensor:
+    # one (D/2,) table per model, device and rope (Gemma3's local theta when
+    # alt); the kernel reads it every step
+    return rope_freq_table(theta, D, rotary_dim, 1 if alt else None, device=torch.device(device))
 
 
-def _rot(rows: torch.Tensor, theta, rotary_dim: int, pos) -> torch.Tensor:
+def _rot(rows: torch.Tensor, theta, rotary_dim: int, pos, alt=None) -> torch.Tensor:
     """RoPE rows[..., D] forward by `pos` positions (f32)."""
-    freq = _freq_table(theta, rows.shape[-1], rotary_dim, str(rows.device))
+    freq = _freq_table(theta, rows.shape[-1], rotary_dim, str(rows.device), bool(alt))
     ang = freq * float(pos)   # f32 product, as pos_f32 * freq
     return rotate_pairs(rows.float(), ang, rope_mscale(theta))
 
 
 def sink_view(k: torch.Tensor, kv_sink: int, pos: int, *, theta,
-              rotary_dim: int) -> torch.Tensor:
+              rotary_dim: int, alt=None) -> torch.Tensor:
     """What attention reads of one layer's keys k (S, Hk, D), as f32: the
     lazy StreamingLLM sink view (`_sink_view_ref`, attention.py:706-721).
     The first kv_sink rows are rotated forward by max(0, pos - S + 1) and
@@ -67,15 +72,46 @@ def sink_view(k: torch.Tensor, kv_sink: int, pos: int, *, theta,
     if kv_sink == 0:
         return kf
     rot = max(0, int(pos) - k.shape[0] + 1)
-    rows = _rot(kf[:kv_sink], rope_rotation_param(theta), rotary_dim, rot)
+    rows = _rot(kf[:kv_sink], rope_rotation_param(theta), rotary_dim, rot, alt)
     wd = k.dtype if k.element_size() >= 2 else torch.bfloat16
     kf = kf.clone()
     kf[:kv_sink] = rows.to(wd).float()
     return kf
 
 
+def slot_age(S: int, kv_pos: int, kv_sink: int, device) -> torch.Tensor:
+    """(S,) age of every slot of a lane (`_slot_age`, attention.py:197-205):
+    a sink slot S-1-s, any other (kv_pos - s) mod (S - kv_sink). A sliding
+    layer attends slots younger than its window."""
+    s = torch.arange(S, device=device)
+    return torch.where(s < kv_sink, S - 1 - s, torch.remainder(kv_pos - s, max(S - kv_sink, 1)))
+
+
+def attend_ref(q2, k, v, kv_len, softcap: float = 0.0, extra_valid=None) -> torch.Tensor:
+    """The plain attention core (`_attend_ref`, attention.py:36-59): q2
+    (rows, D) pre-scaled f32, k/v (S, Hk, D) one layer of any type, rows =
+    Hk * P. bf16 dot operands and f32 scores; Gemma2's softcap before the
+    mask; slots >= kv_len, and those extra_valid ((S,) bool, the sliding
+    window) excludes, at -1e30; an f32 softmax normalised before the bf16
+    cast of p; f32 out (rows, D)."""
+    S, Hk, D = k.shape
+    P = q2.shape[0] // Hk
+    q3 = bf16f(q2.float()).reshape(Hk, P, D)
+    scores = torch.einsum("gpd,sgd->gps", q3, bf16f(k.float()))
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    valid = torch.arange(S, device=k.device) < kv_len
+    if extra_valid is not None:
+        valid = valid & extra_valid
+    scores = torch.where(valid[None, None], scores, torch.full_like(scores, NEG_INF))
+    att = torch.softmax(scores, dim=-1)
+    out = torch.einsum("gps,sgd->gpd", bf16f(att), bf16f(v.float()))
+    return out.reshape(Hk * P, D)
+
+
 def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
-                      kv_sink, pos, *, kv_sinks, theta, rotary_dim, write=True):
+                      kv_sink, pos, *, kv_sinks, theta, rotary_dim, write=True,
+                      softcap=0.0, win=None, alt=None):
     """The JAX emulation `_attn_step_ref` (attention.py:775-802): mutates
     k_all/v_all in place, returns mix (Hk, qpk, D) f32. The new rows are
     rounded from f32 to the cache type in one step. Normalises the softmax
@@ -84,22 +120,24 @@ def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     nothing and attends the cache as it is (attention.py:571-588)."""
     L, S, Hk, D = k_all.shape
     _, qpk, _ = q.shape
-    q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos) * (1.0 / math.sqrt(D))
+    q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos, alt) * (1.0 / math.sqrt(D))
     if write:
-        k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
+        k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos, alt).to(k_all.dtype)
         v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
-    k = sink_view(k_all[layer], kv_sink, pos, theta=theta, rotary_dim=rotary_dim)
-    q3 = bf16f(q2).reshape(Hk, qpk, D)
-    scores = torch.einsum("gpd,sgd->gps", q3, bf16f(k))
-    valid = torch.arange(S, device=k.device) < kv_len
-    scores = torch.where(valid[None, None], scores, torch.full_like(scores, NEG_INF))
-    att = torch.softmax(scores, dim=-1)
-    out = torch.einsum("gps,sgd->gpd", bf16f(att), bf16f(v_all[layer].float()))
-    return out
+    k = sink_view(k_all[layer], kv_sink, pos, theta=theta, rotary_dim=rotary_dim, alt=alt)
+    extra = None if win is None else slot_age(S, kv_pos, kv_sink, k.device) < win
+    return attend_ref(q2, k, v_all[layer], kv_len, softcap, extra).reshape(Hk, qpk, D)
+
+
+def _win_arg(win, S: int, what: str) -> int:
+    """The kernels' window argument: 0 for none (a window >= S masks nothing)."""
+    B.require(win is None or int(win) >= 1, f"{what}: a window of at least 1 slot")
+    return 0 if win is None or int(win) >= S else int(win)
 
 
 def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
-                       kv_sink, pos, *, kv_sinks, theta, rotary_dim):
+                       kv_sink, pos, *, kv_sinks, theta, rotary_dim, softcap=0.0, win=None,
+                       alt=None):
     """One launch of csrc/attention.cu on CUDA tensors (adds one to
     LAUNCHES["attend_step_l"])."""
     L, S, Hk, D = k_all.shape
@@ -116,7 +154,7 @@ def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     qc = q.float().contiguous()
     kn = k_new.float().contiguous()
     vn = v_new.float().contiguous()
-    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Hk, qpk, D), dtype=torch.float32, device=q.device)
     # the scores of a window too long for shared memory go to global scratch
     scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
@@ -124,8 +162,8 @@ def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     code = B.lib().yt_attend_step(
         B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all), B.ptr(freq),
         rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
-        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos), kv_sinks,
-        B.stream_ptr())
+        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos), kv_sinks, float(softcap),
+        _win_arg(win, S, "attend_step_l"), B.stream_ptr())
     B.check(code, "attend_step_l")
     B.LAUNCHES["attend_step_l"] += 1
     return out
@@ -140,16 +178,71 @@ def attend_step_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 
     q: (Hk, qpk, D) f32 unrotated, unscaled; k_new/v_new: (Hk, D) f32.
     k_all/v_all: (L, S, Hk, D), updated IN PLACE at slot kv_pos.
+    win: this layer's sliding window (Gemma2/3; None: every slot < kv_len);
+    alt != 0: Gemma3's local-theta rope; softcap: Gemma2's score cap.
     Returns mix (Hk, qpk, D) f32. (The JAX function also returns the
     caches, which are the same tensors here.)"""
-    if win is not None or alt is not None or softcap:
-        raise NotImplementedError(
-            "attend_step_l: sliding window, alternate rope and softcap are a later slice")
     args = (q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len, kv_sink, pos)
-    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim, softcap=softcap, win=win,
+              alt=alt)
     if B.device_kind(q, k_new, v_new, k_all, v_all) == "cpu":
         return attend_step_plain(*args, **kw)
     return launch_attend_step(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# attend_one_l: one query, read only
+# ---------------------------------------------------------------------------
+
+def attend_one_plain(q, k_all, v_all, layer, kv_len):
+    """The JAX emulation branch (attention.py:98-102): q / sqrt(D), then
+    `attend_ref` on layer `layer`. Returns (Hk, qpk, D) f32."""
+    L, S, Hk, D = k_all.shape
+    qpk = q.shape[1]
+    q2 = (q.float() / math.sqrt(D)).reshape(Hk * qpk, D)
+    return attend_ref(q2, k_all[layer], v_all[layer], kv_len).reshape(Hk, qpk, D)
+
+
+def launch_attend_one(q, k_all, v_all, layer, kv_len):
+    """One launch of csrc/attention.cu in its attend_one_l form (no RoPE, no
+    write, no sinks) on CUDA tensors (adds one to LAUNCHES["attend_one_l"])."""
+    L, S, Hk, D = k_all.shape
+    qpk = q.shape[1]
+    B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
+              f"attend_one_l: the kernel takes a bf16 or e5m2 cache, got {k_all.dtype} "
+              f"and {v_all.dtype}")
+    B.require(k_all.is_contiguous() and v_all.is_contiguous() and v_all.shape == k_all.shape,
+              "attend_one_l: k_all/v_all must be contiguous (L, S, Hk, D)")
+    B.require(D % 8 == 0 and qpk * D <= 2048, f"attend_one_l: head_dim {D} x qpk {qpk} unsupported")
+    B.require(0 <= layer < L and 1 <= kv_len <= S, "attend_one_l: layer or kv_len out of range")
+    B.require(B.aligned16(k_all, v_all), "attend_one_l: cache must be 16-byte aligned")
+    qc = q.float().contiguous()
+    out = torch.empty((Hk, qpk, D), dtype=torch.float32, device=q.device)
+    scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
+              torch.empty((Hk, kv_len, qpk), dtype=torch.float32, device=q.device))
+    code = B.lib().yt_attend_one(
+        B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(k_all), B.ptr(v_all), math.sqrt(D), B.ptr(out),
+        B.ptr(scores), layer, S, Hk, qpk, D, kv_len, B.stream_ptr())
+    B.check(code, "attend_one_l")
+    B.LAUNCHES["attend_one_l"] += 1
+    return out
+
+
+def attend_one_l(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: int,
+                 kv_len: int) -> torch.Tensor:
+    """Single-position GQA attention against layer `layer` of the cache.
+
+    q: (Hk, qpk, D) f32, unscaled (1/sqrt(D) is applied here); k_all/v_all:
+    (L, S, Hk, D), bf16 or e5m2 on the card (any type on the CPU); slots <
+    kv_len are attended and nothing is written. Returns (Hk, qpk, D) f32."""
+    L, S, Hk, D = k_all.shape
+    if q.dim() != 3 or (q.shape[0], q.shape[2]) != (Hk, D) or v_all.shape != k_all.shape:
+        raise ValueError(f"attend_one_l: q {tuple(q.shape)} vs cache {tuple(k_all.shape)}, "
+                         f"{tuple(v_all.shape)}")
+    layer, kv_len = int(layer), int(kv_len)
+    if B.device_kind(q, k_all, v_all) == "cpu":
+        return attend_one_plain(q, k_all, v_all, layer, kv_len)
+    return launch_attend_one(q, k_all, v_all, layer, kv_len)
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +273,7 @@ def lane_scalars(kv_pos, kv_len, kv_sink, pos, write=None, *, S: int, kv_sinks: 
 
 
 def attend_step_batched_plain(q, k_new, v_new, k_all, v_all, layer, lanes, *,
-                              kv_sinks, theta, rotary_dim):
+                              kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """The JAX emulation branch (attention.py:564-590): `attend_step_plain`
     per lane on views of the lane's cache, which it mutates in place unless
     the lane's write is 0. Returns mix (B, Hk, qpk, D) f32."""
@@ -188,12 +281,13 @@ def attend_step_batched_plain(q, k_new, v_new, k_all, v_all, layer, lanes, *,
     for b, (kp, kl, ks, p, wr) in enumerate(lanes.T.tolist()):
         out[b] = attend_step_plain(q[b], k_new[b], v_new[b], k_all[b], v_all[b], layer,
                                    kp, kl, ks, p, kv_sinks=kv_sinks, theta=theta,
-                                   rotary_dim=rotary_dim, write=wr != 0)
+                                   rotary_dim=rotary_dim, write=wr != 0, softcap=softcap,
+                                   win=win, alt=alt)
     return out
 
 
 def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
-                               kv_sinks, theta, rotary_dim):
+                               kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """One launch of csrc/attention.cu over B lanes on CUDA tensors (adds
     one to LAUNCHES["attend_step_batched_l"])."""
     Bn, L, S, Hk, D = k_all.shape
@@ -213,7 +307,7 @@ def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
     qc = q.float().contiguous()
     kn = k_new.float().contiguous()
     vn = v_new.float().contiguous()
-    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
     # a lane's kv_len lives on the device: the score space holds the window
     scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
@@ -221,17 +315,19 @@ def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
     code = B.lib().yt_attend_step_batched(
         B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all),
         B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
-        B.ptr(lanes), Bn, L, layer, S, Hk, qpk, D, kv_sinks, B.stream_ptr())
+        B.ptr(lanes), Bn, L, layer, S, Hk, qpk, D, kv_sinks, float(softcap),
+        _win_arg(win, S, "attend_step_batched_l"), B.stream_ptr())
     B.check(code, "attend_step_batched_l")
     B.LAUNCHES["attend_step_batched_l"] += 1
     return out
 
 
 def attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *, kv_sinks,
-                        theta, rotary_dim):
+                        theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """The batched step with the lane scalars already packed by
     `lane_scalars` (the tick packs them once for every layer)."""
-    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim, softcap=softcap, win=win,
+              alt=alt)
     args = (q, k_new, v_new, k_all, v_all, layer, lanes)
     if B.device_kind(q, k_new, v_new, k_all, v_all, lanes) == "cpu":
         return attend_step_batched_plain(*args, **kw)
@@ -249,16 +345,14 @@ def attend_step_batched_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Ten
     k_all/v_all: (B, L, S, Hk, D), updated IN PLACE at each writing lane's
     slot kv_pos. kv_pos/kv_len/kv_sink/pos/write: (B,) ints per lane (write
     0 = read-only lane; default: every lane writes). Returns mix (B, Hk,
-    qpk, D) f32. (The JAX function also returns the caches, which are the
-    same tensors here.)"""
-    if win is not None or alt is not None or softcap:
-        raise NotImplementedError(
-            "attend_step_batched_l: sliding window, alternate rope and softcap are a later "
-            "slice (see ROADMAP.md)")
+    qpk, D) f32; win, alt and softcap as attend_step_l's (a read-only lane's
+    slot ages count from the kv_pos it was given). (The JAX function also
+    returns the caches, which are the same tensors here.)"""
     lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=k_all.shape[2],
                          kv_sinks=kv_sinks, device=k_all.device)
     return attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes,
-                               kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+                               kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim,
+                               softcap=softcap, win=win, alt=alt)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +387,7 @@ def gather_pages(pool_layer: torch.Tensor, tables: torch.Tensor) -> torch.Tensor
 
 
 def attend_step_paged_plain(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *,
-                            kv_sinks, theta, rotary_dim):
+                            kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """The JAX emulation branch (attention.py:1119-1159) for one layer: per
     lane in order, gather the lane's view of layer `layer` through its
     table, run `attend_step_plain` on it (write 0: attend it as it is),
@@ -308,7 +402,7 @@ def attend_step_paged_plain(q, k_new, v_new, k_pool, v_pool, tables, layer, lane
         views = [gather_pages(pool[:, layer], tab[b])[None] for pool in (k_pool, v_pool)]
         out[b] = attend_step_plain(q[b], k_new[b], v_new[b], *views, 0, kp, kl, ks, p,
                                    kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim,
-                                   write=wr != 0)
+                                   write=wr != 0, softcap=softcap, win=win, alt=alt)
         if wr:
             pg = int(tab[b, kp // page])
             for pool, view in zip((k_pool, v_pool), views):
@@ -317,7 +411,7 @@ def attend_step_paged_plain(q, k_new, v_new, k_pool, v_pool, tables, layer, lane
 
 
 def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *,
-                             kv_sinks, theta, rotary_dim):
+                             kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """One launch of csrc/attention.cu over B lanes of a page pool on CUDA
     tensors (adds one to LAUNCHES["attend_step_paged_l"])."""
     n_pages, L, page, Hk, D = k_pool.shape
@@ -342,7 +436,7 @@ def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lan
     qc = q.float().contiguous()
     kn = k_new.float().contiguous()
     vn = v_new.float().contiguous()
-    freq = _freq_table(theta, D, rotary_dim, str(q.device))
+    freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
     scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
               torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
@@ -350,18 +444,19 @@ def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lan
         B.WTYPE[k_pool.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_pool), B.ptr(v_pool),
         B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
         B.ptr(lanes), B.ptr(tables), Bn, n_pages, L, layer, page, nblk, Hk, qpk, D, kv_sinks,
-        B.stream_ptr())
+        float(softcap), _win_arg(win, S, "attend_step_paged_l"), B.stream_ptr())
     B.check(code, "attend_step_paged_l")
     B.LAUNCHES["attend_step_paged_l"] += 1
     return out
 
 
 def attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *, kv_sinks,
-                      theta, rotary_dim):
+                      theta, rotary_dim, softcap=0.0, win=None, alt=None):
     """The paged step with the lane scalars and the tables already on the
     device (`lane_scalars`, `page_tables`: the tick uploads them once for
     every layer)."""
-    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    kw = dict(kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim, softcap=softcap, win=win,
+              alt=alt)
     args = (q, k_new, v_new, k_pool, v_pool, tables, layer, lanes)
     if B.device_kind(q, k_new, v_new, k_pool, v_pool, tables, lanes) == "cpu":
         return attend_step_paged_plain(*args, **kw)
@@ -379,12 +474,9 @@ def attend_step_paged_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
     writing lane's row (tables[b, kv_pos // page], layer, kv_pos % page);
     tables: (B, window // page) page ids (unmapped blocks may point at any
     page in the pool: slots >= kv_len are never read). Other arguments as
-    attend_step_batched_l. Returns mix (B, Hk, qpk, D) f32. (The JAX
-    function also returns the pools, which are the same tensors here.)"""
-    if win is not None or alt is not None or softcap:
-        raise NotImplementedError(
-            "attend_step_paged_l: sliding window, alternate rope and softcap are a later "
-            "slice (see ROADMAP.md)")
+    attend_step_batched_l (a sliding window counts ages over the lane's
+    logical slots). Returns mix (B, Hk, qpk, D) f32. (The JAX function also
+    returns the pools, which are the same tensors here.)"""
     n_pages, _, page, _, _ = k_pool.shape
     if window % page:
         raise ValueError(f"attend_step_paged_l: page {page} does not divide window {window}")
@@ -392,4 +484,5 @@ def attend_step_paged_l(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tenso
     lanes = lane_scalars(kv_pos, kv_len, kv_sink, pos, write, S=window, kv_sinks=kv_sinks,
                          device=k_pool.device)
     return attend_step_paged(q, k_new, v_new, k_pool, v_pool, tab, layer, lanes,
-                             kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+                             kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim,
+                             softcap=softcap, win=win, alt=alt)

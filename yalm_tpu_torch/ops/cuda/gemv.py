@@ -56,8 +56,14 @@ def _bf16_weights(w: torch.Tensor) -> torch.Tensor:
     return bf16f(w)
 
 
+PLAIN_ROWS = 1 << 16   # weight rows widened at a time (a 256k-row LM head: 4 blocks)
+
+
 def gemm_l_plain(x, w_all, layer, scale=None):
-    out = bf16f(x) @ _bf16_weights(w_all[layer]).T
+    w = w_all[layer]
+    xb = bf16f(x)
+    out = torch.cat([xb @ _bf16_weights(w[i:i + PLAIN_ROWS]).T
+                     for i in range(0, w.shape[0], PLAIN_ROWS)], dim=-1)
     if scale is not None:
         out = out * scale[layer].float()[None]
     return out
