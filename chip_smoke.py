@@ -17,7 +17,9 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    through Engine.generate at depth 32 -- 200 tokens + 64 greedy, 1500 + 64
    sampled (T 0.8, top-p 0.9), 4090 + 16 across the 4096 window, then an
    8-token follow-up hydrated token by token in the ring regime -- with
-   every kernel's launch count over that run;
+   every kernel's launch count over that run, and a torch.profiler window
+   of 16 decode steps after the first request (context 280) and after the
+   window request (the full window: the attention's share at long context);
    then continuous-batching serving through ServingEngine at depth 8 (PERF.md
    keeps the 32-layer runs; the Mixtral phases need the time) (batch 16,
    the server's defaults: batched admission, the dense prefix cache, top-5
@@ -43,8 +45,8 @@ then phases 2-4 for Mixtral-8x7B shapes at depth 32 (8 experts, 2 active),
 fp8 (bf16 cache) and then int4 (int8 router, e5m2 cache): the routed-expert
 kernels (K10 gemv_le/gemm_le, K11 gemv4_le/gemm4_le) against their plain
 versions and bit for bit against the dense kernels on the copied expert
-stack; single stream (200+64 greedy, 1500+32 sampled; on fp8 also 4090+16
-and the ring follow-up) with the routed GEMV launched 128 times per decode
+stack; single stream (200+64 greedy, 1500+32 sampled, 4090+16; on fp8 also the ring
+follow-up) with the routed GEMV launched 128 times per decode
 token and the routed GEMM 512 times per prefill chunk, and one decode step
 free of host synchronization (the routed ids stay on the card); serving at
 depth 8 (PERF.md keeps the 32-layer runs), fp8 on the dense cache (17
@@ -69,7 +71,13 @@ serving (Gemma3 dense, 17 requests of 64-2048 tokens and 2 over HTTP;
 Gemma2 paged from 65 pages of 256, 17 requests of 256-1536 tokens, which
 must preempt); depth-2 parity with layer_sliding (1, 0) and a window of 48;
 K12 (attend_one_l, which no model path runs) at Mistral-7B shapes on each
-cache type in phase 2 of the fp8 and the int4 path;
+cache type in phase 2 of the fp8 and the int4 path. K2 and K12 run split
+over the slots (two launches per call); every K2 case in phase 2 also
+times the same function on the one-block-per-kv-head design they replaced
+(attend_step_batched_l with one lane), in the same run, as do K3 and K6
+(attn_block's middle launch on it), and the fp8 path
+adds a lane one slot past a chunk boundary and one whose kv_pos lies in a
+middle chunk;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -316,10 +324,14 @@ class Bench:
         return statistics.median(s.elapsed_time(e) for s, e in ev)
 
     def case(self, name, label, got, want, tol_rel, *, kernel, plain,
-             library=None, bytes_=0, flops=0, json_row=False, run="serve", bf16_out=False):
+             library=None, bytes_=0, flops=0, json_row=False, run="serve", bf16_out=False,
+             old=None):
         """One case; `run` names the main-path run whose launch counts the
         kernels line reports for it ("serve": phase 3's Engine requests,
-        "batched": the serving run). bf16_out: the outputs are bf16 values
+        "batched": the serving run). old: the same function on the design
+        it replaced, timed in the same run (K2: the one-block-per-kv-head
+        kernel of PR 1-6, which attend_step_batched_l keeps, with one
+        lane). bf16_out: the outputs are bf16 values
         (the GLU epilogue's), and an element may also differ by one bf16 ulp
         of the reference, where the two f32 values straddle a rounding
         boundary (at M 256 x 14336 outputs some always do, and one ulp of
@@ -346,6 +358,7 @@ class Bench:
                    bf16_ulp_flips=flips,
                    ms=self.time_ms(kernel), plain_ms=self.time_ms(plain),
                    library_ms=self.time_ms(library) if library else None,
+                   old_ms=self.time_ms(old) if old else None,
                    bytes=bytes_, flops=flops, json=json_row, run=run)
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
@@ -357,10 +370,46 @@ class Bench:
         log(f"  {name:14s} {label:34s} err {err:.3e} tol {tol:.3e}"
             + (f" ({flips} one-ulp bf16 flips past it)" if flips else "")
             + f"  ms {row['ms']:.4f} plain {row['plain_ms']:.4f} lib {lib} "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+            + (f" old design {row['old_ms']:.4f}" if old else ""))
         if not (finite and err_ok):
             raise AssertionError(f"{name} {label}: kernel disagrees with its plain "
                                  f"version (max |err| {err:.3e} > tol {tol:.3e}, finite={finite})")
+
+
+def one_block_per_head(k_all, v_all, kv_pos, kv_len, kv_sink, pos, rope):
+    """K2's function on the design it replaced (one block per kv head,
+    PR 1-6), for the same-run timing: attend_step_batched_l with one lane
+    over a (1, L, S, Hk, D) view of the cache. Returns fn(q, kn, vn,
+    layer)."""
+    from yalm_tpu_torch.ops.cuda import attention as A
+    lanes = A.lane_scalars([kv_pos], [kv_len], [kv_sink], [pos], [1], S=k_all.shape[1],
+                           kv_sinks=rope["kv_sinks"], device=k_all.device)
+    return lambda q, kn, vn, layer: A.attend_step_batched(
+        q[None], kn[None], vn[None], k_all[None], v_all[None], layer, lanes, **rope)
+
+
+def on_old_k2(old, fn):
+    """fn() with attn_block's middle launch on `old` (one_block_per_head's
+    function): K3/K6 on the design K2 replaced, for the same-run time."""
+    from yalm_tpu_torch.ops.cuda import block
+    saved = block.launch_attend_step
+    block.launch_attend_step = lambda q, k, v, _k, _v, layer, *a, **kw: old(q, k, v, layer)[0]
+    try:
+        return fn()
+    finally:
+        block.launch_attend_step = saved
+
+
+def split_label(Hk, S, kv_pos, kv_len, kv_sink, win=0) -> str:
+    """Where the one-lane split puts a K2 case (win: a window shorter than
+    the cache's): its chunks, how many it reads, the chunk holding kv_pos."""
+    from yalm_tpu_torch.ops.cuda.attention import chunk_live, split_plan
+    lo, chunk, nsplit, skip = split_plan(kv_len, Hk, kv_pos=kv_pos, kv_sink=kv_sink, win=win)
+    live = sum(not skip or chunk_live(lo + c * chunk, min(lo + (c + 1) * chunk, kv_len), kv_pos,
+                                      kv_sink, S, win) for c in range(nsplit))
+    return (f", {nsplit}x{chunk} from {lo} ({live} read), kv_pos in chunk "
+            f"{(kv_pos - lo) // chunk}")
 
 
 def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
@@ -468,12 +517,18 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     cache.v.copy_(torch.randn(cache.v.shape, generator=gen, device=dev, dtype=torch.bfloat16))
     rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
     S = cfg.max_seq_len
-    for pos in (0, 999, 4095, 6000):
+    # 3968: kv_len 3969, one slot past a chunk boundary (32 chunks of 128);
+    # 5095 and 6000: the ring regime, kv_pos in a middle chunk
+    for pos in (0, 999, 3968, 4095, 5095, 6000):
         kv_sink = 2 if pos >= S else 0
         kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
         kv_len = min(pos + 1, S)
         q, kn, vn = randn(Hk, Hq // Hk, D, scale=2.0), randn(Hk, D, scale=2.0), randn(Hk, D)
         sl = (3, kv_len, kv_sink, pos)
+        plan = A.split_plan(kv_len, Hk, kv_pos=kv_pos, kv_sink=kv_sink)
+        if pos == 3968 and (kv_len - plan.lo) % plan.chunk != 1:
+            raise AssertionError(f"kv_len {kv_len} is not one slot past a chunk boundary: {plan}")
+        old = one_block_per_head(cache.k, cache.v, kv_pos, kv_len, kv_sink, pos, rope)
         want = A.attend_step_plain(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl[1:], **rope)
         row_plain = cache.k[3, kv_pos].clone()
         got = A.attend_step_l(q, kn, vn, cache.k, cache.v, 3, kv_pos, *sl[1:], **rope)
@@ -485,7 +540,8 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
         qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
         att_bytes = 2 * kv_len * Hk * D * 2 + 4 * (2 * Hq * D + 2 * Hk * D)
         bench.case("attend_step_l",
-                   f"kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else ""),
+                   f"kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else "")
+                   + split_label(Hk, S, kv_pos, kv_len, kv_sink),
                    got, want, 2e-3,
                    kernel=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl[1:]: A.attend_step_l(
                        *a, cache.k, cache.v, lay(r), kp, *s, **rope),
@@ -493,12 +549,12 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                        *a, cache.k, cache.v, lay(r), kp, *s, **rope),
                    library=lambda r, qq=qq, kk=kk, vv=vv: F.scaled_dot_product_attention(
                        qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
+                   old=lambda r, a=(q, kn, vn), o=old: o(*a, lay(r)),
                    bytes_=att_bytes, flops=4 * kv_len * Hq * D,
                    json_row=(pos == 6000))
         del kk, vv
 
-    # K2 past shared memory: a 32768-slot window (Mistral-7B v0.2's) keeps
-    # its scores in global scratch
+    # K2 at a 32768-slot window (Mistral-7B v0.2's): chunks of 1024 slots
     big = KVCache.init(dataclasses.replace(cfg, n_layers=1, max_seq_len=32768),
                        torch.bfloat16, dev)
     big.k.copy_(torch.randn(big.k.shape, generator=gen, device=dev, dtype=torch.bfloat16))
@@ -509,9 +565,12 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     sl = (kv_pos, Sb, 2, pos)
     want = A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope)
     got = A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope)
-    bench.case("attend_step_l", f"kv_len={Sb} pos={pos} scores in global", got, want, 2e-3,
+    old = one_block_per_head(big.k, big.v, *sl, rope)
+    bench.case("attend_step_l", f"kv_len={Sb} pos={pos}" + split_label(Hk, Sb, *sl[:3]), got,
+               want, 2e-3,
                kernel=lambda r: A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope),
                plain=lambda r: A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               old=lambda r: old(q, kn, vn, 0),
                bytes_=2 * Sb * Hk * D * 2 + 4 * (2 * Hq * D + 2 * Hk * D),
                flops=4 * Sb * Hq * D)
     del big
@@ -525,9 +584,11 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                       pos, pos + 1, 0, pos)
     want = attn_block_plain(*args(5), **blk)
     got = attn_block_l(*args(5), **blk)
+    old = one_block_per_head(cache.k, cache.v, pos, pos + 1, 0, pos, rope)
     bench.case("attn_block_l", "kv_len=1000 e5m2", got, want, 2e-3,
                kernel=lambda r: attn_block_l(*args(lay(r)), **blk),
                plain=lambda r: attn_block_plain(*args(lay(r)), **blk),
+               old=lambda r: on_old_k2(old, lambda: attn_block_l(*args(lay(r)), **blk)),
                bytes_=Nqkv * d + d * q_dim + 2 * (pos + 1) * Hk * D * 2 + 12 * d,
                flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
     del cache
@@ -673,8 +734,10 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
         kk = cache.k[:4, :kv_len].transpose(1, 2).to(torch.bfloat16)   # (4, Hk, kv_len, D)
         vv = cache.v[:4, :kv_len].transpose(1, 2).to(torch.bfloat16)
         qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+        old = one_block_per_head(cache.k, cache.v, kv_pos, kv_len, kv_sink, pos, rope)
         bench.case("attend_step_l",
-                   f"e5m2 kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else ""),
+                   f"e5m2 kv_len={kv_len} pos={pos}" + (" ring+sinks" if kv_sink else "")
+                   + split_label(Hk, S, kv_pos, kv_len, kv_sink),
                    got, want, 2e-3,
                    kernel=lambda r, a=(q, kn, vn), kp=kv_pos, s=sl: A.attend_step_l(
                        *a, cache.k, cache.v, lay(r), kp, *s, **rope),
@@ -682,6 +745,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                        *a, cache.k, cache.v, lay(r), kp, *s, **rope),
                    library=lambda r, qq=qq, kk=kk, vv=vv: F.scaled_dot_product_attention(
                        qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
+                   old=lambda r, a=(q, kn, vn), o=old: o(*a, lay(r)),
                    bytes_=2 * kv_len * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D),
                    flops=4 * kv_len * Hq * D, json_row=(pos == 6000))
         del kk, vv
@@ -695,9 +759,12 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     sl = (2 + (pos - 2) % (Sb - 2), Sb, 2, pos)
     want = A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope)
     got = A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope)
-    bench.case("attend_step_l", f"e5m2 kv_len={Sb} pos={pos} scores in global", got, want, 2e-3,
+    old = one_block_per_head(big.k, big.v, *sl, rope)
+    bench.case("attend_step_l", f"e5m2 kv_len={Sb} pos={pos}" + split_label(Hk, Sb, *sl[:3]), got,
+               want, 2e-3,
                kernel=lambda r: A.attend_step_l(q, kn, vn, big.k, big.v, 0, *sl, **rope),
                plain=lambda r: A.attend_step_plain(q, kn, vn, big.k, big.v, 0, *sl, **rope),
+               old=lambda r: old(q, kn, vn, 0),
                bytes_=2 * Sb * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D), flops=4 * Sb * Hq * D)
     del big
 
@@ -708,11 +775,13 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     args = lambda l: (x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l,  # noqa: E731
                       pos, pos + 1, 0, pos)
     sc4 = dict(scale_qkv=sc.wqkv, scale_o=sc.wo)
+    old = one_block_per_head(cache.k, cache.v, pos, pos + 1, 0, pos, rope)
     bench.case("attn_block4_l", "kv_len=1000 e5m2 cache",
                attn_block4_l(*args(5), **sc4, **blk), attn_block_plain(*args(5), **sc4, **blk),
                2e-3,
                kernel=lambda r: attn_block4_l(*args(lay(r)), **sc4, **blk),
                plain=lambda r: attn_block_plain(*args(lay(r)), **sc4, **blk),
+               old=lambda r: on_old_k2(old, lambda: attn_block4_l(*args(lay(r)), **sc4, **blk)),
                bytes_=w4_bytes(Nqkv, d) + w4_bytes(d, q_dim) + 2 * (pos + 1) * Hk * D + 12 * d,
                flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
     del cache
@@ -817,14 +886,18 @@ def phase_sliding_step(bench: Bench, cfg, dev, kv_dtype, form: dict) -> None:
         kk = [cache.k[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]
         vv = [cache.v[l].transpose(0, 1).to(torch.bfloat16) for l in range(L4)]
         qq = q.reshape(1, Hq, 1, D).to(torch.bfloat16)
+        old = one_block_per_head(cache.k, cache.v, *sl, rope)
         bench.case("attend_step_l", f"{wd} kv_len={kv_len} pos={pos}"
-                   + (" ring+sinks" if kv_sink else "") + form_label(form), got, want, 2e-3,
+                   + (" ring+sinks" if kv_sink else "") + form_label(form)
+                   + split_label(Hk, S, kv_pos, kv_len, kv_sink, form.get("win") or 0), got,
+                   want, 2e-3,
                    kernel=lambda r, a=(q, kn, vn), s=sl: A.attend_step_l(
                        *a, cache.k, cache.v, r % L4, *s, **rope),
                    plain=lambda r, a=(q, kn, vn), s=sl: A.attend_step_plain(
                        *a, cache.k, cache.v, r % L4, *s, **rope),
                    library=lambda r, qq=qq, kk=kk, vv=vv, m=mask: F.scaled_dot_product_attention(
                        qq, kk[r % L4][None], vv[r % L4][None], attn_mask=m, enable_gqa=True),
+                   old=lambda r, a=(q, kn, vn), o=old: o(*a, r % L4),
                    bytes_=2 * rows * Hk * D * kv_dtype.itemsize + 4 * (2 * Hq * D + 2 * Hk * D),
                    flops=4 * rows * Hq * D, json_row=kv_sink > 0)
         del kk, vv
@@ -1289,7 +1362,8 @@ MOE_SERVE_REQUESTS = {"moe_fp8": (("greedy 200+64", 200, 64, False),
                                   ("window 4090+16", 4090, 16, False),
                                   ("ring follow-up 8+8", 8, 8, False)),
                       "moe_int4": (("greedy 200+64", 200, 64, False),
-                                   ("sampled 1500+32", 1500, 32, True))}
+                                   ("sampled 1500+32", 1500, 32, True),
+                                   ("window 4090+16", 4090, 16, False))}
 # past each sliding window (1024 / 4096), then across the model's window
 GEMMA_SERVE_REQUESTS = {"gemma3": (("greedy 200+64", 200, 64, False),
                                    ("sampled 1500+64", 1500, 64, True),
@@ -1400,7 +1474,7 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
         setattr(eng, nm, counted)
     _build.LAUNCHES.clear()
     reqs = []
-    profile = None
+    profile = window_profile = None
     with attention_forms() as forms:
         for name, n_prompt, n_new, sampled in requests:
             # a follow-up turn starts past the window: per-token hydration in
@@ -1409,8 +1483,12 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
                 eng.reset()
             kw = dict(temperature=0.8, top_p=0.9, seed=1234) if sampled else dict(temperature=0.0)
             reqs.append(serve(name, prompt(n_prompt), n_new, **kw))
+            # decode profiled after the first request (context 280) and at
+            # the full window (the follow-up continues past it)
             if profile is None:
                 profile = profile_decode(eng, 16)
+            elif name.startswith("window"):
+                window_profile = profile_decode(eng, 16)
         torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     if any(cfg.layer_sliding):
@@ -1424,7 +1502,8 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
     if present:
         raise AssertionError(f"dense-FFN kernels launched on the {path} path: {present}")
     out = dict(requests=reqs, launches=launches, decode_profile=profile,
-               decode_steps=calls["_step"], prefill_chunks=calls["_prefill"])
+               window_decode_profile=window_profile, decode_steps=calls["_step"],
+               prefill_chunks=calls["_prefill"])
     if cfg.is_moe:
         gv, gm = routed_names(fw)
         per_step = launches[gv] / calls["_step"]
@@ -2403,7 +2482,7 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"], tol=r["tol"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
-            ceiling_ms=r["ceiling_ms"]))
+            ceiling_ms=r["ceiling_ms"], old_design_ms=r["old_ms"]))
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"cases": bench.rows, "footprint": bench.footprint, **summary}), flush=True)
     print(smi, flush=True)

@@ -16,7 +16,12 @@ dense kernels on the copied expert); the Gemma forms of K2, K8 and K9
 (Gemma2's score softcap, a sliding window by slot age, Gemma3's local-theta
 rope, alone and together) at head_dim 128 and 256 in the linear and the
 ring regime; K12 (attend_one_l) on bf16 and e5m2 caches, and equal to K2's
-output on the rotated view K2 attends; and the e5m2 cache of a depth-2
+output on the rotated view K2 attends; K2 and K12 split over the slots
+(split_plan's chunks) at kv_len 1, 63, 64, 65, a slot before, at and past
+a chunk boundary and the whole window, kv_pos in the first, a middle and
+the last chunk, ring windows whose chunks are skipped, two calls giving the
+same bits, the per-head counters back at 0 after calls at other head
+counts and splits, and a 32768-slot window; and the e5m2 cache of a depth-2
 Mixtral-shape int4 prefill of 64 tokens, card against CPU, whose differing
 bytes must all come from f32 inputs on the two sides of an e5m2 rounding
 boundary.
@@ -134,7 +139,7 @@ ROPE = [1e4, ("yarn", 1e4, 4.0, 10.0, 40.0, 1.2)]
 @pytest.mark.parametrize("qpk,D,S,pos", [(1, 64, 100, 0), (3, 64, 100, 70),
                                          (4, 128, 100, 99), (3, 128, 100, 250),
                                          (8, 128, 200, 1000),
-                                         # scores past shared memory, in global scratch
+                                         # a long ring window: 7000 slots
                                          (8, 128, 7000, 7100)])
 def test_attention_kernel(dev, theta, qpk, D, S, pos):
     gen = torch.Generator(device=dev).manual_seed(pos + qpk)
@@ -266,8 +271,7 @@ E5M2_EDGES = [0.0, -0.0, 1.0, 1.125, 1.375, -1.625, 57344.0, 61439.0, 61440.0, -
 def test_attention_kernel_e5m2(dev, qpk, D, S, pos):
     """The e5m2 cache: the written k/v rows equal the plain version's byte
     for byte (one f32 -> e5m2 rounding, edge values included), the rest of
-    the cache is untouched, and the mix agrees (scores in shared memory,
-    and past it in global scratch)."""
+    the cache is untouched, and the mix agrees (at 100 and 7000 slots)."""
     gen = torch.Generator(device=dev).manual_seed(pos + qpk)
     L, Hk = 2, 3
     e5 = torch.float8_e5m2
@@ -573,7 +577,7 @@ def _bits(t):
                                          (2, 256, 300, 250),     # linear, loop from a tile
                                          (2, 256, 300, 500),     # ring: sinks older than win
                                          (4, 128, 300, 299),
-                                         # scores past shared memory, in global scratch
+                                         # a long ring window: 7000 slots
                                          (8, 128, 7000, 7100)])
 def test_attention_kernel_gemma_forms(dev, kv, form, qpk, D, S, pos):
     """K2 with softcap, win and alt against its plain version: the mix
@@ -658,7 +662,6 @@ def test_paged_attention_kernel_gemma_forms(dev, kv, form, qpk, D, page, nblk):
 @pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
 @pytest.mark.parametrize("qpk,D,S,kv_len", [(1, 64, 100, 1), (3, 64, 100, 37),
                                             (2, 256, 300, 299), (4, 128, 4096, 4096),
-                                            # scores past shared memory, in global scratch
                                             (8, 128, 7000, 6999)])
 def test_attend_one_kernel(dev, kv, qpk, D, S, kv_len):
     """K12 against its plain version; it writes nothing and takes only bf16
@@ -777,3 +780,141 @@ def test_e5m2_cache_bytes_differ_only_across_rounding_boundaries(dev):
         assert bool(((a - b).abs() <= tol + cs.e5m2_step(b)).all()), (slot, layer, kind)
         print(f"first differing row: slot {slot}, layer {layer}, {kind}: "
               f"{int((a != b).sum())} bytes, each within the tolerance and one rounding step")
+
+
+# ---------------------------------------------------------------------------
+# the one-lane split of K2 and K12 (split_plan's chunks, the ring window's
+# skipped chunks, the per-head counters of the second launch)
+# ---------------------------------------------------------------------------
+
+NOFORM = (0.0, None, None)
+# (qpk, D, Hk, S, pos, (softcap, win, alt)): kv_len 1, 63, 64 and 65 (one or
+# two chunks of 64); at 4096 slots x 8 heads the chunk is 128, so kv_len
+# 3967 / 3968 / 3969 lie a slot before, at and past a chunk boundary; S;
+# kv_pos in the last (4095), a middle (pos 5095: slot 905) and the first
+# chunk (pos 4146: slot 52) with sinks; linear and ring sliding windows
+# (5999: most chunks skipped; 4100: the window wraps around the ring);
+# softcap and the local rope
+SPLIT_CASES = [(1, 64, 3, 300, 0, NOFORM), (8, 128, 3, 300, 62, NOFORM),
+               (1, 256, 2, 300, 63, NOFORM), (8, 64, 3, 300, 64, NOFORM),
+               (4, 128, 8, 4096, 3966, NOFORM), (4, 128, 8, 4096, 3967, NOFORM),
+               (4, 128, 8, 4096, 3968, NOFORM), (2, 256, 8, 4096, 4095, NOFORM),
+               (4, 128, 8, 4096, 5095, NOFORM), (4, 128, 8, 4096, 4146, NOFORM),
+               (2, 256, 8, 4096, 3995, (0.0, 1024, 1)), (2, 256, 8, 4096, 5999, (0.0, 1024, 1)),
+               (4, 128, 8, 4096, 4100, (50.0, 1024, None)), (8, 128, 3, 1000, 1700, (30.0, 100, 1)),
+               (1, 64, 8, 8192, 12000, (50.0, 4096, None)), (8, 64, 3, 300, 250, (50.0, None, 1))]
+SPLIT_IDS = [f"qpk{c[0]}-D{c[1]}-Hk{c[2]}-S{c[3]}-pos{c[4]}" + ("-form" if c[5] != NOFORM else "")
+             for c in SPLIT_CASES]
+
+
+def split_inputs(dev, kv, qpk, D, Hk, S, seed, L=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k_all = (torch.randn(L, S, Hk, D, generator=gen, device=dev) * 2).to(kv)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(Hk, qpk, D, generator=gen, device=dev) * 3
+    kn = torch.randn(Hk, D, generator=gen, device=dev) * 2
+    vn = torch.randn(Hk, D, generator=gen, device=dev)
+    return q, kn, vn, k_all, v_all
+
+
+def split_slots(S, pos):
+    kv_sink = 2 if pos >= S else 0
+    return kv_sink + (pos - kv_sink) % (S - kv_sink), min(pos + 1, S), kv_sink
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("qpk,D,Hk,S,pos,form", SPLIT_CASES, ids=SPLIT_IDS)
+def test_split_attention_kernel(dev, kv, qpk, D, Hk, S, pos, form):
+    """K2's split against its plain version at ragged shapes: the output
+    within the tolerance, every cache byte as the plain version leaves it,
+    one counted call; a ring window's plan skips chunks."""
+    from yalm_tpu_torch.ops.cuda.attention import chunk_live, split_plan
+    softcap, win, alt = form
+    q, kn, vn, k_all, v_all = split_inputs(dev, kv, qpk, D, Hk, S, seed=pos + D + Hk)
+    kv_pos, kv_len, kv_sink = split_slots(S, pos)
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE if alt else 1e4, rotary_dim=D, softcap=softcap)
+    sl = (1, kv_pos, kv_len, kv_sink, pos)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_plain(q, kn, vn, k2, v2, *sl, win=win, alt=alt, **kw)
+    _build.LAUNCHES.clear()
+    got = attend_step_l(q, kn, vn, k_all, v_all, *sl, win, alt, **kw)
+    close(got, want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+    assert _build.LAUNCHES["attend_step_l"] == 1
+    plan = split_plan(kv_len, Hk, kv_pos=kv_pos, kv_sink=kv_sink, win=win or 0)
+    if win and kv_sink:
+        live = [chunk_live(c * plan.chunk, min((c + 1) * plan.chunk, kv_len), kv_pos, kv_sink,
+                           S, win) for c in range(plan.nsplit)]
+        assert not all(live)
+
+
+# (qpk, D, Hk, S, kv_len): 1, 63, 64, 65, past a chunk boundary (3969 at
+# 8 heads: chunks of 128), the whole window
+ONE_SPLIT_CASES = [(1, 64, 3, 300, 1), (8, 128, 3, 300, 63), (1, 256, 2, 300, 64),
+                   (8, 64, 3, 300, 65), (4, 128, 8, 4096, 3969), (8, 256, 8, 4096, 4096),
+                   (1, 64, 8, 4096, 4096)]
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("qpk,D,Hk,S,kv_len", ONE_SPLIT_CASES)
+def test_split_attend_one_kernel(dev, kv, qpk, D, Hk, S, kv_len):
+    """K12's split against its plain version; the cache unwritten."""
+    q, _, _, k_all, v_all = split_inputs(dev, kv, qpk, D, Hk, S, seed=kv_len + D)
+    k0, v0 = k_all.clone(), v_all.clone()
+    _build.LAUNCHES.clear()
+    close(attend_one_l(q, k_all, v_all, 1, kv_len), attend_one_plain(q, k_all, v_all, 1, kv_len))
+    assert _build.LAUNCHES["attend_one_l"] == 1
+    assert torch.equal(_bits(k_all), _bits(k0)) and torch.equal(_bits(v_all), _bits(v0))
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+def test_split_attention_is_deterministic(dev, kv):
+    """Two calls on the same inputs give the same bits (the second writes
+    the same row again): the partials are summed in chunk order, whichever
+    block of the head arrives last; K2 with a ring window, and K12."""
+    q, kn, vn, k_all, v_all = split_inputs(dev, kv, 4, 128, 8, 4096, seed=3)
+    kv_pos, kv_len, kv_sink = split_slots(4096, 7000)
+    args = (q, kn, vn, k_all, v_all, 1, kv_pos, kv_len, kv_sink, 7000)
+    kw = dict(kv_sinks=2, theta=1e4, rotary_dim=128, softcap=50.0)
+    for win in (None, 1024):
+        outs = [attend_step_l(*args, win, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    ones = [attend_one_l(q, k_all, v_all, 0, 4000) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, ones[0]) for o in ones[1:])
+
+
+def test_split_counters_return_to_zero(dev):
+    """A call after calls at other head counts and splits (8 heads x 32
+    chunks, 3 heads x 1 chunk, 8 heads x 5 chunks, K12 at 2 heads) is still
+    right: each head's last block left its counter at 0."""
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=128)
+    runs = [(8, 4096, 4095), (3, 100, 40), (8, 4096, 600), (2, 300, 299), (8, 4096, 4095)]
+    for i, (Hk, S, pos) in enumerate(runs):
+        q, kn, vn, k_all, v_all = split_inputs(dev, torch.bfloat16, 4, 128, Hk, S, seed=i)
+        if i == 3:
+            close(attend_one_l(q, k_all, v_all, 0, pos + 1),
+                  attend_one_plain(q, k_all, v_all, 0, pos + 1))
+            continue
+        kv_pos, kv_len, kv_sink = split_slots(S, pos)
+        k2, v2 = k_all.clone(), v_all.clone()
+        want = attend_step_plain(q, kn, vn, k2, v2, 0, kv_pos, kv_len, kv_sink, pos, **rope)
+        close(attend_step_l(q, kn, vn, k_all, v_all, 0, kv_pos, kv_len, kv_sink, pos, **rope),
+              want)
+    from yalm_tpu_torch.ops.cuda.attention import _counter
+    assert int(_counter(dev, 8).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+def test_split_attention_32768_slot_window(dev, kv):
+    """Mistral-7B v0.2's 32768-slot window in the ring regime at 8 heads:
+    chunks of 1024 slots, the scores in the L2-resident scratch."""
+    S, pos = 32768, 40000
+    q, kn, vn, k_all, v_all = split_inputs(dev, kv, 4, 128, 8, S, seed=11, L=1)
+    kv_pos, kv_len, kv_sink = split_slots(S, pos)
+    rope = dict(kv_sinks=2, theta=1e6, rotary_dim=128)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_plain(q, kn, vn, k2, v2, 0, kv_pos, kv_len, kv_sink, pos, **rope)
+    close(attend_step_l(q, kn, vn, k_all, v_all, 0, kv_pos, kv_len, kv_sink, pos, **rope), want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))

@@ -1,93 +1,125 @@
 // Fused decode attention step over the layer-stacked KV ring buffer, a bf16
-// or an fp8-e5m2 cache (template parameter T), for one sequence, for B
-// lanes of a continuous batch in one launch, or for B lanes over a page pool.
+// or an fp8-e5m2 cache (template parameter T): for one sequence split over
+// its slots (flash-decoding), for B lanes of a continuous batch in one
+// launch, or for B lanes over a page pool.
 //
 // Replaces yalm_tpu/ops/pallas/attention.py:attend_step_l (body
 // _fused_attn_body, _flash_heads, _lazy_sink_rotate; numerics reference
-// _attn_step_ref) and is the middle of ops/pallas/block.py:attn_block_l.
-// The batched entry replaces :attend_step_batched_l (kernel
-// _attn_step_batched_kernel; numerics reference its emulation branch,
-// per-lane _attn_step_ref, and for write-masked lanes _attend_ref over the
-// unwritten cache with the sink view). The paged entry replaces
-// :attend_step_paged_l (kernel _attn_step_paged_kernel; numerics reference
-// its emulation branch :1119-1159, the batched step on each lane's
-// gathered view): the same kernel, with lane b's logical slot s at pool row
-// (tables[b, s / page], layer, s % page) of a (n_pages, L, page, Hk, D)
-// pool. The addressing is a template parameter (kPaged), so the dense
-// instances keep their code; the page is resolved per row (any page size
-// that divides the window), with 64-bit pool offsets (a bf16 pool of 257
-// pages at 7B shapes holds 2.16e9 elements). Before anything else a block
-// checks every page id its lane reads or writes (blocks below
-// ceil(max(kv_len, kv_pos + 1) / page)); one outside [0, n_pages) gives the
-// lane a NaN output and no write, as a bad lane scalar does.
-// One launch, one block per (kv head h, lane b):
+// _attn_step_ref :775-802) and is the middle of ops/pallas/block.py:attn_block_l;
+// :attend_one_l (:85; numerics reference its emulation branch :98-102) is
+// the one-lane split with no RoPE, no write and no sinks. The batched entry
+// replaces :attend_step_batched_l (kernel _attn_step_batched_kernel;
+// numerics reference its emulation branch, per-lane _attn_step_ref, and for
+// write-masked lanes _attend_ref over the unwritten cache with the sink
+// view). The paged entry replaces :attend_step_paged_l (kernel
+// _attn_step_paged_kernel; numerics reference its emulation branch
+// :1119-1159, the batched step on each lane's gathered view): the batched
+// kernel, with lane b's logical slot s at pool row (tables[b, s / page],
+// layer, s % page) of a (n_pages, L, page, Hk, D) pool. The addressing is a
+// template parameter (kPaged), so the dense instance keeps its code; the
+// page is resolved per row (any page size that divides the window), with
+// 64-bit pool offsets (a bf16 pool of 257 pages at 7B shapes holds 2.16e9
+// elements). Before anything else a block checks every page id its lane
+// reads or writes (blocks below ceil(max(kv_len, kv_pos + 1) / page)); one
+// outside [0, n_pages) gives the lane a NaN output and no write, as a bad
+// lane scalar does.
+//
+// The numerics, every entry alike (the JAX emulation's exactly, _attend_ref:
+// normalise, then cast p to bf16 -- not the Pallas kernel's online softmax,
+// which normalises after the cast: across a 32-layer model the two differ
+// by ~1% of the logits, and the emulation's way is the reference):
 //   1. RoPE on q (then * 1/sqrt(D), rounded to bf16) and on k_new at `pos`,
 //      from a (D/2,) f32 pair-frequency table computed on the host (so every
 //      rope scaling kind lives in ops/core.py) and `mscale`; accurate
-//      sinf/cosf, since angles reach pos * freq ~ 4e3 rad.
+//      sinf/cosf, since angles reach pos * freq ~ 4e3 rad. Rotations are
+//      separate f32 products and a difference (__fmul_rn, __fsub_rn), never
+//      contracted into an fma, so they round as torch's and XLA's
+//      elementwise ops do and the written rows match theirs.
 //   2. The rounded k/v rows go into ring slot kv_pos of head h, IN PLACE:
 //      rounded from f32 to the cache type in one step (for e5m2 not through
-//      bf16, which would round twice; _attn_step_ref :790-793). Only this
-//      block reads head h of lane b, so after __syncthreads() the block's
-//      own reads see the row (no other block races it). A lane whose
-//      `write` is 0 writes nothing and attends the cache as it is.
-//   3. Pass 1 streams the K rows of slots < kv_len in tiles of 64 through
-//      shared memory, widened to bf16 there (exact from e5m2): bf16 q .
-//      bf16 k summed in f32, every score kept --
-//      in shared memory while its kv_len * qpk floats fit (64 KB at 4096 x
-//      4; up to 13310 slots at qpk 4 and 6590 at qpk 8, D 128), else in a
-//      global (B, Hk, slots, qpk) f32 scratch the caller passes as `scores`
-//      (16 B per slot at qpk 4 beside the 512 B of its K/V rows, mostly
-//      L2 hits), so the window has no limit of its own. The batched launch
-//      sizes both from the window S (its kv_len lives on the device).
-//   4. Ring regime (kv_sink > 0): the first kv_sink rows of tile 0 are
-//      rotated by max(0, pos - S + 1) positions (mscale 1) and rounded to
-//      bf16 in shared memory only -- the lazy StreamingLLM sink view, in the
-//      working type bf16 for both caches (_sink_view_ref :706-721); the
-//      cache keeps the sink keys as written.
-//   5. The softmax over all scores in f32 (max, exp, sum, divide), each
-//      normalised p rounded to bf16; pass 2 streams the V rows and sums
-//      bf16(p) . bf16(v) in f32 (with global scores, each tile's p is first
-//      staged in shared memory, where the scores region then holds one tile).
-// The Gemma forms (attend_step_l's softcap, win and alt arguments):
-//   - softcap > 0: each scaled score s becomes cap * tanhf(s / cap), IEEE
-//     division and the accurate tanhf, BEFORE the validity mask (a masked
-//     slot stays at the mask value, not at -cap), as _flash_heads and
-//     _attend_ref do;
-//   - win > 0 (a sliding layer): slot s is attended iff s < kv_len and its
-//     age < win, the age as _slot_age (:197-205) computes it -- a sink slot
-//     S-1-s, any other (kv_pos - s) mod (S - kv_sink), over the lane's
-//     logical slots (so in the ring regime the sinks, older than any window
-//     shorter than S, drop out). In the linear regime (kv_sink 0, the lane's
-//     own slot its newest) the tile loops start at max(kv_len - win, 0)
-//     rounded down to a tile, as the TPU kernel skips the blocks below the
-//     window (:295-306): a sliding layer reads ~win rows, not kv_len;
-//   - alt (Gemma3's local rope): the host passes the local-theta table as
-//     `freq`, for q, k_new and the sink view alike.
-// kOne (K12, attend_one_l :85): q is taken as it is (no RoPE), divided by
-// sqrt(D) as the emulation branch does (:98-102), nothing is written and
-// there are no sinks: GQA attention of one query over slots < kv_len.
+//      bf16, which would round twice; _attn_step_ref :790-793). A lane whose
+//      `write` is 0 (batched entries) writes nothing and attends the cache
+//      as it is.
+//   3. Scores of the slots < kv_len: bf16 q . bf16 k (the cache widened to
+//      bf16, exact from e5m2) summed in f32. In the ring regime (kv_sink >
+//      0) the first kv_sink rows are read through the lazy StreamingLLM sink
+//      view: rotated by max(0, pos - S + 1) positions (mscale 1) and rounded
+//      to bf16, the working type for both caches (_sink_view_ref :706-721);
+//      the cache keeps the sink keys as written.
+//   4. The Gemma forms (attend_step_l's softcap, win and alt arguments):
+//      softcap > 0: each scaled score s becomes cap * tanhf(s / cap), IEEE
+//      division and the accurate tanhf, BEFORE the validity mask (a masked
+//      slot stays at the mask value, -1e30, not at -cap); win > 0 (a sliding
+//      layer): slot s is attended iff s < kv_len and its age < win, the age
+//      as _slot_age (:197-205) computes it -- a sink slot S-1-s, any other
+//      (kv_pos - s) mod (S - kv_sink), over the lane's logical slots (so in
+//      the ring regime the sinks, older than any window shorter than S, drop
+//      out); in the linear regime (kv_sink 0, the lane's own slot its
+//      newest) reading starts at lo = max(kv_len - win, 0) rounded down to
+//      a tile, as the TPU kernel skips the blocks below the window
+//      (:295-306); alt (Gemma3's local rope): the host passes the
+//      local-theta table as `freq`, for q, k_new and the sink view alike.
+//   5. An f32 softmax over the scores (max, exp, sum, divide), each
+//      normalised p rounded to bf16; out = sum over slots of bf16(p) .
+//      bf16(v) in f32.
 //
-// This is the JAX emulation's numerics exactly (_attend_ref: normalise,
-// then cast p to bf16), not the Pallas kernel's online softmax, which
-// normalises after the cast: across a 32-layer model the two differ by
-// ~1% of the logits, the emulation's way is the reference, and the stored
-// scores cost no extra device-memory traffic.
+// ONE LANE (yt_attend_step, K2; yt_attend_one, K12): split over its slots.
+//   Bound on this card: bytes, the K/V rows attended (16 MB per layer at
+//   4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2; a sliding
+//   layer only its window's). Per slot and kv head the step reads 2 D cache
+//   elements and does 4 qpk D flops: 4 flops per byte on bf16, 8 on e5m2,
+//   against the ~295 at which the tensor cores would bind. So q . k and p .
+//   v run on the CUDA cores (no mma.sync: an m16n8k16 tile would waste half
+//   its rows at qpk <= 8 and save nothing the memory is not already
+//   waiting for), and what the design buys is many blocks and loads in
+//   flight. The one-block-per-kv-head kernel of PR 1-6 (the batched one
+//   below, with B = 1) ran 8 blocks on 132 SMs, each streaming its head's
+//   rows one synchronous tile at a time: ~49 GB/s for the card.
+//   The host (ops/cuda/attention.py:split_plan) cuts [lo, kv_len) into
+//   nsplit chunks of `chunk` slots, a multiple of the 64-row tile, sized so
+//   that Hk x the live chunks is about two waves of 132 SMs (32 chunks of
+//   128 slots x 8 heads = 256 blocks at 4096 slots). Two launches on a
+//   (nsplit, Hk) grid, on one stream:
+//   Pass 1 (split_scores_kernel), block (c, h): the block whose chunk holds
+//     kv_pos writes head h's new k/v rows first, then __syncthreads(): only
+//     that block reads that row in pass 1 (pass 2, a later launch, reads the
+//     v row). If kv_pos lies outside every chunk (kv_pos >= kv_len or below
+//     lo), block (0, h) writes it and no block reads it. Each block ropes
+//     and scales q itself; the chunk holding slot 0 applies the sink view
+//     (rows read from the cache into a bf16 buffer). K rows stream through
+//     a double-buffered cp.async pipeline of 64-row tiles: the next tile is
+//     in flight while this one is scored. The f32 scores go to an
+//     L2-resident global scratch (Hk, kv_len - lo, qpk), and the chunk's
+//     m_c = max and l_c = sum exp(s - m_c) per query to (Hk, nsplit, qpk, 2).
+//   Pass 2 (split_values_kernel), block (c, h): reads the nsplit pairs of
+//     its head in a fixed order (lane-strided, then a butterfly) and forms m
+//     = max m_c, l = sum l_c exp(m_c - m) -- every block the same bits; p =
+//     bf16(exp(s - m) / l), the reference's normalise-then-cast (only the
+//     order of the f32 sum differs); streams its V rows through the same
+//     pipeline and writes a partial (qpk, D) f32 sum. The last block of the
+//     head to arrive (__threadfence() and atomicInc on a per-head counter
+//     that the wrapper holds; atomicInc wraps it back to 0, so every call
+//     leaves it at 0) sums the partials in chunk order: the result is
+//     deterministic, two calls give the same bits.
+//   A sliding layer in the ring regime reads only its window: a chunk in
+//   which no slot has age < win (chunk_live, O(1)) reads no K/V row and
+//   contributes m_c = -inf, l_c = 0 and a zero partial. That is exact: a
+//   masked slot's p is bf16(exp(-1e30 - m) / l) = 0. The host turns the
+//   skip off unless kv_pos is a live slot (kv_sink <= kv_pos < kv_len), so
+//   some chunk is always live.
 //
-// Rotations are written as separate f32 products and a difference
-// (__fmul_rn, __fsub_rn), never contracted into an fma, so they round as
-// torch's and XLA's elementwise ops do and the written rows match theirs.
-//
-// The batched launch reads each lane's (kv_pos, kv_len, kv_sink, pos,
-// write) from a (5, B) int32 device array uploaded once per tick, so no
-// layer waits for the host. Lane offsets are 64-bit: a (16, 32, 4096, 8,
-// 128) cache holds 2^31 elements.
-//
-// Bound on this card: bytes (the K/V rows of slots < kv_len, 16 MB per layer
-// at 4096 slots x 8 heads x 128 x bf16 x 2, half that for e5m2; the paged
-// launch adds its tables). One lane runs only Hk = 8 blocks, so a handful of
-// SMs stream its cache: split-K over the sequence (flash-decoding) is the
-// known next step; a batch of B lanes runs 8 B blocks.
+// B LANES (K8, K9): one launch, one block per (kv head h, lane b), each
+// streaming its lane's rows in tiles of 64 through shared memory: every
+// score kept in shared memory while its kv_len * qpk floats fit, else in a
+// global (B, Hk, S, qpk) scratch the caller passes as `scores`; each lane's
+// (kv_pos, kv_len, kv_sink, pos, write) comes from a (5, B) int32 device
+// array uploaded once per tick, so no layer waits for the host; lane offsets
+// are 64-bit (a (16, 32, 4096, 8, 128) cache holds 2^31 elements). Only
+// block (h, b) reads head h of lane b, so after __syncthreads() its reads
+// see the row it wrote. Bound: bytes, as above for every lane. A batch of B
+// lanes runs 8 B blocks; the split over slots is the next step for it. This
+// kernel's text is PR 6's, unlaunched one-lane branches included (see
+// attend_step_kernel).
 #include "common.cuh"
 
 using namespace yt;
@@ -97,13 +129,21 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;
-constexpr int KPAD = 8;      // bf16 padding per shared K row (bank spread)
+constexpr int KPAD = 8;      // padding elements per shared K/V row (bank spread)
 constexpr int MAX_OUT = 8;   // output elements per thread: qpk * D <= 2048
+constexpr int MAX_SPLIT = 1024;            // chunks per head of a split launch
+constexpr size_t SMEM_MAX = 227 * 1024;    // dynamic shared memory a block may take
 constexpr float NEG_BIG = -1e30f;  // a masked score (the reference's _NEG_INF)
 
-// The cache element types: the row write from f32, and 8 elements widened
-// to 8 bf16 (16 bytes of shared memory).
+// The cache element types: the row write from f32; 8 elements widened to 8
+// bf16 (the batched kernel's staging); 8 elements in shared memory widened
+// to f32 (exact); one element to f32; 8 elements copied global -> shared
+// without the registers (cp.async: 16 bytes of bf16, 8 of e5m2).
 template <typename T> struct KV;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
 template <> struct KV<__nv_bfloat16> {
   __device__ __forceinline__ static __nv_bfloat16 from_float(float x) {
@@ -111,6 +151,20 @@ template <> struct KV<__nv_bfloat16> {
   }
   __device__ __forceinline__ static void load8(const __nv_bfloat16* p, __nv_bfloat16* dst) {
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ static void widen8(const __nv_bfloat16* p, float* o) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o[2 * i] = bf16_lo(w[i]);
+      o[2 * i + 1] = bf16_hi(w[i]);
+    }
+  }
+  __device__ __forceinline__ static float widen1(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ __forceinline__ static void copy8_async(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
   }
 };
 
@@ -130,7 +184,27 @@ template <> struct KV<uint8_t> {  // fp8 e5m2
       }
     *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
   }
+  __device__ __forceinline__ static void widen8(const uint8_t* p, float* o) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[j] = e5m2_to_float(u.x >> (8 * j));
+      o[4 + j] = e5m2_to_float(u.y >> (8 * j));
+    }
+  }
+  __device__ __forceinline__ static float widen1(uint8_t x) { return e5m2_to_float(x); }
+  __device__ __forceinline__ static void copy8_async(uint8_t* dst, const uint8_t* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+  }
 };
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // x0 * c - x1 * s and x0 * s + x1 * c, each product rounded (no fma)
 __device__ __forceinline__ float rot_re(float x0, float x1, float c, float s) {
@@ -139,6 +213,368 @@ __device__ __forceinline__ float rot_re(float x0, float x1, float c, float s) {
 __device__ __forceinline__ float rot_im(float x0, float x1, float c, float s) {
   return __fadd_rn(__fmul_rn(x0, s), __fmul_rn(x1, c));
 }
+
+// _slot_age: a sink slot S-1-s, any other (kv_pos - s) mod ring
+__device__ __forceinline__ int slot_age(int s, int kv_pos, int kv_sink, int S, int ring) {
+  return s < kv_sink ? S - 1 - s : ((kv_pos - s) % ring + ring) % ring;
+}
+
+// ---------------------------------------------------------------------------
+// One lane, split over its slots (K2, K12)
+// ---------------------------------------------------------------------------
+
+struct SplitArgs {
+  const float* q;        // (Hk, qpk, D) unrotated, unscaled (K12: as it is)
+  const float* k_new;    // (Hk, D) unrotated
+  const float* v_new;    // (Hk, D)
+  void* k_all;           // (L, S, Hk, D) of the cache type T, updated in place
+  void* v_all;
+  const float* freq;     // (D/2,) rope pair frequencies
+  float* out;            // (Hk, qpk, D)
+  float* scores;         // (Hk, kv_len - lo, qpk)
+  float* ml;             // (Hk, nsplit, qpk, 2): each chunk's max and sum
+  float* part;           // (Hk, nsplit, qpk, D): each chunk's partial output
+  unsigned* counter;     // (Hk,) pass-2 arrivals, 0 between calls
+  float mscale, inv_sqrt_d;
+  float sqrt_d;          // K12: q is divided by this (f32 sqrt(D))
+  float softcap;         // > 0: Gemma2's score cap
+  int win;               // > 0: the layer's sliding window (age < win)
+  int layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, pos;
+  int lo, chunk, nsplit; // the split: chunk c holds slots [lo + c chunk, ...) < kv_len
+  int skip;              // 1: a chunk with no slot of age < win reads nothing
+};
+
+// Whether slots [c0, c1) hold one a sliding layer attends (age < win), in
+// O(1): the sinks' ages S-1-s fall as s rises; going back from c1 - 1 the
+// other slots' ages rise by one per slot and wrap to 0 at most once.
+// ops/cuda/attention.py:chunk_live is the same rule.
+__host__ __device__ inline bool chunk_live(int c0, int c1, int kv_pos, int kv_sink, int S,
+                                           int win) {
+  if (win <= 0) return true;
+  if (c0 < kv_sink && S - min(c1, kv_sink) < win) return true;
+  const int a = max(c0, kv_sink);
+  if (a >= c1) return false;
+  const int ring = max(S - kv_sink, 1);
+  const int d_end = ((kv_pos - (c1 - 1)) % ring + ring) % ring;
+  return d_end < win || ring - d_end < c1 - a;
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// the split's shared memory. Pass 1: q (qpk, D + KPAD) bf16 | the sink view
+// (kv_sink, D + KPAD) bf16 | two K tiles (TILE, D + KPAD) of T. Pass 2: m
+// and l (2 qpk) f32 | one tile's p (TILE, qpk) f32 | the row slices' sums
+// (THREADS x 8) f32 | two V tiles.
+__host__ __device__ inline size_t tiles_bytes(int D, size_t elem) {
+  return 2 * align16((size_t)TILE * (D + KPAD) * elem);
+}
+__host__ __device__ inline size_t scores_smem(int qpk, int D, int kv_sink, size_t elem) {
+  return align16((size_t)qpk * (D + KPAD) * 2) + align16((size_t)kv_sink * (D + KPAD) * 2) +
+         tiles_bytes(D, elem);
+}
+__host__ __device__ inline size_t values_smem(int qpk, int D, size_t elem) {
+  return align16(2 * qpk * 4) + align16((size_t)TILE * qpk * 4) + (size_t)THREADS * 8 * 4 +
+         tiles_bytes(D, elem);
+}
+
+// Rows [t0, t0 + nt) of one head into a shared tile (stride D + KPAD), 8
+// elements per cp.async; every thread commits one group per call.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* head_rows, size_t row_stride, int t0,
+                                          int nt, int D) {
+  const int vpr = D / 8;
+  for (int i = threadIdx.x; i < nt * vpr; i += THREADS) {
+    const int r = i / vpr, c = i - r * vpr;
+    KV<T>::copy8_async(dst + r * (D + KPAD) + 8 * c,
+                       head_rows + (size_t)(t0 + r) * row_stride + 8 * c);
+  }
+  cp_async_commit();
+}
+
+// bf16 q row . one shared row of E (bf16 or e5m2), summed in f32 in order
+template <typename E>
+__device__ __forceinline__ float dot_row(const E* k, const __nv_bfloat16* q, int D) {
+  float dot = 0.f;
+  for (int d = 0; d < D; d += 8) {
+    float kf[8], qf[8];
+    KV<E>::widen8(k + d, kf);
+    KV<__nv_bfloat16>::widen8(q + d, qf);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+  }
+  return dot;
+}
+
+template <typename T, bool kOne>
+__global__ void __launch_bounds__(THREADS) split_scores_kernel(SplitArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, qpk = a.qpk, half = D / 2, ci = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, RS = D + KPAD;
+  const int n = a.kv_len, lo = a.lo, S = a.S;
+  const int c0 = lo + ci * a.chunk, c1 = min(c0 + a.chunk, n);
+  const size_t stride = (size_t)a.Hk * D;  // elements from one slot's row to the next
+  T* k_all = static_cast<T*>(a.k_all);
+  T* v_all = static_cast<T*>(a.v_all);
+  const size_t head = ((size_t)a.layer * S * a.Hk + h) * D;  // slot 0 of head h
+  const float posf = (float)a.pos;
+
+  if (!kOne) {
+    const int writer = (a.kv_pos >= lo && a.kv_pos < n) ? (a.kv_pos - lo) / a.chunk : 0;
+    if (ci == writer) {  // 2: the new rows, before this block reads its chunk
+      const size_t new_row = head + (size_t)a.kv_pos * stride;
+      const float* kn = a.k_new + (size_t)h * D;
+      const float* vn = a.v_new + (size_t)h * D;
+      for (int p = tid; p < half; p += THREADS) {
+        const float ang = posf * a.freq[p];
+        const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+        const float x0 = kn[2 * p], x1 = kn[2 * p + 1];
+        k_all[new_row + 2 * p] = KV<T>::from_float(rot_re(x0, x1, c, s));
+        k_all[new_row + 2 * p + 1] = KV<T>::from_float(rot_im(x0, x1, c, s));
+      }
+      for (int d = tid; d < D; d += THREADS) v_all[new_row + d] = KV<T>::from_float(vn[d]);
+      __syncthreads();
+    }
+  }
+  float* ml = a.ml + ((size_t)h * a.nsplit + ci) * qpk * 2;
+  if (a.skip && !chunk_live(c0, c1, a.kv_pos, a.kv_sink, S, a.win)) {
+    for (int j = tid; j < qpk; j += THREADS) {
+      ml[2 * j] = -INFINITY;
+      ml[2 * j + 1] = 0.f;
+    }
+    return;
+  }
+
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // (qpk, RS)
+  const int nsink = (!kOne && c0 == 0) ? a.kv_sink : 0;        // the sink view's rows here
+  __nv_bfloat16* sinks = reinterpret_cast<__nv_bfloat16*>(smem + align16((size_t)qpk * RS * 2));
+  T* tiles = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sinks) +
+                                  align16((size_t)(kOne ? 0 : a.kv_sink) * RS * 2));
+  const int tile_elems = (int)(align16((size_t)TILE * RS * sizeof(T)) / sizeof(T));
+  const int ntiles = (c1 - c0 + TILE - 1) / TILE;
+  load_tile(tiles, k_all + head, stride, c0, min(TILE, c1 - c0), D);
+  if (ntiles > 1) load_tile(tiles + tile_elems, k_all + head, stride, c0 + TILE,
+                            min(TILE, c1 - c0 - TILE), D);
+
+  // 1: q, roped and scaled (K12: divided by sqrt(D)), rounded to bf16
+  const float* q = a.q + (size_t)h * qpk * D;
+  if (kOne) {
+    for (int i = tid; i < qpk * D; i += THREADS) {
+      const int j = i / D, d = i - j * D;
+      qs[j * RS + d] = __float2bfloat16_rn(__fdiv_rn(q[i], a.sqrt_d));
+    }
+  } else {
+    for (int i = tid; i < qpk * half; i += THREADS) {
+      const int j = i / half, p = i - j * half;
+      const float ang = posf * a.freq[p];
+      const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+      const float x0 = q[j * D + 2 * p], x1 = q[j * D + 2 * p + 1];
+      qs[j * RS + 2 * p] = __float2bfloat16_rn(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
+      qs[j * RS + 2 * p + 1] = __float2bfloat16_rn(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
+    }
+    // 3: the lazy sink view, from the cache (this block wrote any sink row
+    // it holds before the barrier above)
+    const float rot = (float)max(0, a.pos - S + 1);
+    for (int i = tid; i < nsink * half; i += THREADS) {
+      const int r = i / half, p = i - r * half;
+      const float ang = rot * a.freq[p];
+      const float c = cosf(ang), s = sinf(ang);
+      const T* kr = k_all + head + (size_t)r * stride;
+      const float x0 = KV<T>::widen1(kr[2 * p]), x1 = KV<T>::widen1(kr[2 * p + 1]);
+      sinks[r * RS + 2 * p] = __float2bfloat16_rn(rot_re(x0, x1, c, s));
+      sinks[r * RS + 2 * p + 1] = __float2bfloat16_rn(rot_im(x0, x1, c, s));
+    }
+  }
+
+  // 3-4: the chunk's scores, one (slot, query) dot per thread
+  float* sc = a.scores + (size_t)h * (n - lo) * qpk;  // slot s at (s - lo) * qpk
+  const int ring = max(S - a.kv_sink, 1);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const int t0 = c0 + t * TILE, nt = min(TILE, c1 - t0);
+    const T* tile = tiles + (t & 1) * tile_elems;
+    for (int i = tid; i < nt * qpk; i += THREADS) {
+      const int r = i / qpk, j = i - r * qpk, s = t0 + r;
+      float dot = s < nsink ? dot_row(sinks + s * RS, qs + j * RS, D)
+                            : dot_row(tile + r * RS, qs + j * RS, D);
+      if (a.softcap > 0.f) dot = __fmul_rn(a.softcap, tanhf(__fdiv_rn(dot, a.softcap)));
+      if (a.win > 0 && slot_age(s, a.kv_pos, a.kv_sink, S, ring) >= a.win) dot = NEG_BIG;
+      sc[(size_t)(s - lo) * qpk + j] = dot;
+    }
+    __syncthreads();
+    if (t + 2 < ntiles) load_tile(tiles + (t & 1) * tile_elems, k_all + head, stride,
+                                  t0 + 2 * TILE, min(TILE, c1 - t0 - 2 * TILE), D);
+  }
+
+  // 5 (this chunk's share): m_c and l_c per query, one warp each. Only this
+  // block wrote these scores, so __syncthreads() ordered them.
+  for (int j = warp; j < qpk; j += WARPS) {
+    float m = -INFINITY;
+    for (int r = c0 - lo + lane; r < c1 - lo; r += 32) m = fmaxf(m, sc[(size_t)r * qpk + j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int r = c0 - lo + lane; r < c1 - lo; r += 32) l += expf(sc[(size_t)r * qpk + j] - m);
+    l = warp_sum(l);
+    if (lane == 0) {
+      ml[2 * j] = m;
+      ml[2 * j + 1] = l;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) split_values_kernel(SplitArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int D = a.D, qpk = a.qpk, ci = blockIdx.x, h = blockIdx.y, nsplit = a.nsplit;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, RS = D + KPAD;
+  const int n = a.kv_len, lo = a.lo, nout = qpk * D;
+  const int c0 = lo + ci * a.chunk, c1 = min(c0 + a.chunk, n);
+  const size_t stride = (size_t)a.Hk * D;
+  const T* v_all = static_cast<const T*>(a.v_all);
+  const size_t head = ((size_t)a.layer * a.S * a.Hk + h) * D;
+  const float* mlh = a.ml + (size_t)h * nsplit * qpk * 2;
+  float* part = a.part + ((size_t)h * nsplit + ci) * nout;
+  // p . v: thread (slice sl, group g) sums the rows r = sl mod R of output
+  // columns 8g..8g+7 (query j = 8g / D) in registers
+  const int G = nout / 8, R = THREADS / G, g = tid % G, sl = tid / G;
+  const int j = 8 * g / D, d0 = 8 * g - j * D;
+  float* ms = reinterpret_cast<float*>(smem);             // (qpk) m, then (qpk) l
+  float* ps = reinterpret_cast<float*>(smem + align16(2 * qpk * 4));     // (TILE, qpk)
+  float* red = ps + align16((size_t)TILE * qpk * 4) / 4;                 // (R, G, 8)
+  T* tiles = reinterpret_cast<T*>(red + THREADS * 8);
+  const int tile_elems = (int)(align16((size_t)TILE * RS * sizeof(T)) / sizeof(T));
+
+  if (a.skip && !chunk_live(c0, c1, a.kv_pos, a.kv_sink, a.S, a.win)) {
+    for (int i = tid; i < nout; i += THREADS) part[i] = 0.f;
+  } else {
+    const int ntiles = (c1 - c0 + TILE - 1) / TILE;
+    load_tile(tiles, v_all + head, stride, c0, min(TILE, c1 - c0), D);
+    if (ntiles > 1) load_tile(tiles + tile_elems, v_all + head, stride, c0 + TILE,
+                              min(TILE, c1 - c0 - TILE), D);
+    // m and l over the head's chunks, the same order in every block
+    for (int jj = warp; jj < qpk; jj += WARPS) {
+      float m = -INFINITY;
+      for (int c = lane; c < nsplit; c += 32) m = fmaxf(m, mlh[(c * qpk + jj) * 2]);
+      m = warp_max(m);
+      float l = 0.f;
+      for (int c = lane; c < nsplit; c += 32) {
+        const float* e = mlh + (c * qpk + jj) * 2;
+        l = fmaf(e[1], expf(e[0] - m), l);
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        ms[jj] = m;
+        ms[qpk + jj] = l;
+      }
+    }
+    const float* sc = a.scores + (size_t)h * (n - lo) * qpk;
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      const int t0 = c0 + t * TILE, nt = min(TILE, c1 - t0);
+      __syncthreads();   // m and l are in; the last tile's p is no longer read
+      const float* st = sc + (size_t)(t0 - lo) * qpk;
+      for (int i = tid; i < nt * qpk; i += THREADS) {
+        const int jj = i % qpk;
+        ps[i] = bf16_round(__fdiv_rn(expf(st[i] - ms[jj]), ms[qpk + jj]));
+      }
+      if (t + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+      const T* tile = tiles + (t & 1) * tile_elems;
+      if (sl < R) {
+        for (int r = sl; r < nt; r += R) {
+          float vf[8];
+          KV<T>::widen8(tile + r * RS + d0, vf);
+          const float p = ps[r * qpk + j];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) acc[k] = fmaf(p, vf[k], acc[k]);
+        }
+      }
+      __syncthreads();
+      if (t + 2 < ntiles) load_tile(tiles + (t & 1) * tile_elems, v_all + head, stride,
+                                    t0 + 2 * TILE, min(TILE, c1 - t0 - 2 * TILE), D);
+    }
+    if (sl < R)
+#pragma unroll
+      for (int k = 0; k < 8; ++k) red[(sl * G + g) * 8 + k] = acc[k];
+    __syncthreads();
+    for (int i = tid; i < nout; i += THREADS) {  // the row slices, in order
+      const int gi = i / 8, k = i - gi * 8;
+      float o = 0.f;
+      for (int s = 0; s < R; ++s) o += red[(s * G + gi) * 8 + k];
+      part[i] = o;
+    }
+  }
+
+  // the head's last block to arrive sums the partials in chunk order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicInc(a.counter + h, nsplit - 1u) == nsplit - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* parts = a.part + (size_t)h * nsplit * nout;
+  float* out = a.out + (size_t)h * nout;
+  for (int i = 4 * tid; i < nout; i += 4 * THREADS) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < nsplit; ++c) {
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(parts + (size_t)c * nout + i));
+      o.x += p.x;
+      o.y += p.y;
+      o.z += p.z;
+      o.w += p.w;
+    }
+    *reinterpret_cast<float4*>(out + i) = o;
+  }
+}
+
+template <typename T, bool kOne>
+int launch_split(const SplitArgs& a, cudaStream_t st) {
+  const size_t s1 = scores_smem(a.qpk, a.D, kOne ? 0 : a.kv_sink, sizeof(T));
+  const size_t s2 = values_smem(a.qpk, a.D, sizeof(T));
+  if (s1 > SMEM_MAX || s2 > SMEM_MAX) return ERR_ARGS;
+  const auto k1 = split_scores_kernel<T, kOne>;
+  const auto k2 = split_values_kernel<T>;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e;
+  if (s1 > 48 * 1024 && (e = cudaFuncSetAttribute(k1, attr, (int)s1)) != cudaSuccess) return (int)e;
+  if (s2 > 48 * 1024 && (e = cudaFuncSetAttribute(k2, attr, (int)s2)) != cudaSuccess) return (int)e;
+  const dim3 grid(a.nsplit, a.Hk);
+  k1<<<grid, THREADS, s1, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  k2<<<grid, THREADS, s2, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the split's checks and scratch layout (ops/cuda/attention.py:split_scratch
+// lays it out the same): scores | ml, padded to 4 floats | partials
+int split(int kv_type, SplitArgs& a, float* scratch, unsigned* counter, bool one,
+          cudaStream_t st) {
+  const long long rows = (long long)a.kv_len - a.lo;
+  if (!scratch || !counter || a.chunk < TILE || a.chunk % TILE || a.nsplit < 1 ||
+      a.nsplit > MAX_SPLIT || a.lo < 0 || rows < 1 || a.lo % TILE ||
+      (long long)(a.nsplit - 1) * a.chunk >= rows || (long long)a.nsplit * a.chunk < rows ||
+      (a.skip != 0 && a.skip != 1) || (a.skip && a.win <= 0) || !(a.softcap >= 0.f))
+    return ERR_ARGS;
+  const size_t head = (size_t)a.Hk * rows * a.qpk + (size_t)a.Hk * a.nsplit * a.qpk * 2;
+  a.scores = scratch;
+  a.ml = scratch + (size_t)a.Hk * rows * a.qpk;
+  a.part = scratch + ((head + 3) & ~(size_t)3);
+  a.counter = counter;
+  using BF = __nv_bfloat16;
+  if (kv_type == W_BF16)
+    return one ? launch_split<BF, true>(a, st) : launch_split<BF, false>(a, st);
+  if (kv_type == W_E5M2)
+    return one ? launch_split<uint8_t, true>(a, st) : launch_split<uint8_t, false>(a, st);
+  return ERR_ARGS;
+}
+
+// ---------------------------------------------------------------------------
+// B lanes, one block per (kv head, lane) (K8, K9)
+// ---------------------------------------------------------------------------
 
 struct AttnArgs {
   const float* q;        // (B, Hk, qpk, D) unrotated, unscaled
@@ -179,7 +615,11 @@ __host__ __device__ inline size_t smem_bytes(int qpk, int D, int slots) {
 // runtime choice, so the shared-memory instance keeps shared-memory loads
 // (a pointer that may be either is read through slower generic loads).
 // kPaged: rows are addressed through a.tables in a pool (see the top).
-// kOne: attend_one_l (see the top).
+// kOne, and a null a.lanes (one lane, its scalars by value): the branches
+// of K12 and K2 before the split, launched by nothing now. The text stays
+// as it was so that K8 and K9 compile to the same code: taking the
+// branches out moved their bf16 times by +-15% on the card (PERF.md,
+// PR 7). The redesign of K8/K9 removes them.
 template <typename T, bool kGlobalScores, bool kPaged, bool kOne>
 __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -362,10 +802,10 @@ __global__ void __launch_bounds__(THREADS) attend_step_kernel(AttnArgs a) {
   }
 }
 
-template <typename T, bool kPaged, bool kOne>
+template <typename T, bool kPaged>
 int launch_as(const AttnArgs& a, size_t smem, cudaStream_t st) {
-  const auto kern = a.scores ? attend_step_kernel<T, true, kPaged, kOne>
-                             : attend_step_kernel<T, false, kPaged, kOne>;
+  const auto kern = a.scores ? attend_step_kernel<T, true, kPaged, false>
+                             : attend_step_kernel<T, false, kPaged, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -375,23 +815,21 @@ int launch_as(const AttnArgs& a, size_t smem, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_kind(const AttnArgs& a, bool one, size_t smem, cudaStream_t st) {
-  if (one) return launch_as<T, false, true>(a, smem, st);
-  return a.tables ? launch_as<T, true, false>(a, smem, st) : launch_as<T, false, false>(a, smem, st);
-}
-
 // kv_type W_BF16 or W_E5M2 (common.cuh), the type of the cache or pool; the
-// paged instance when a.tables is set, attend_one_l's when `one`
-int launch(int kv_type, const AttnArgs& a, cudaStream_t st, bool one = false) {
+// paged instance when a.tables is set
+int launch(int kv_type, const AttnArgs& a, cudaStream_t st) {
   const size_t smem = smem_bytes(a.qpk, a.D, a.scores ? TILE : a.slots);
-  if (smem > 227 * 1024 || !(a.softcap >= 0.f)) return ERR_ARGS;
-  if (kv_type == W_BF16) return launch_kind<__nv_bfloat16>(a, one, smem, st);
-  if (kv_type == W_E5M2) return launch_kind<uint8_t>(a, one, smem, st);
+  if (smem > SMEM_MAX || !(a.softcap >= 0.f)) return ERR_ARGS;
+  if (kv_type == W_BF16)
+    return a.tables ? launch_as<__nv_bfloat16, true>(a, smem, st)
+                    : launch_as<__nv_bfloat16, false>(a, smem, st);
+  if (kv_type == W_E5M2)
+    return a.tables ? launch_as<uint8_t, true>(a, smem, st)
+                    : launch_as<uint8_t, false>(a, smem, st);
   return ERR_ARGS;
 }
 
-// the fields every entry point sets; the rest stay 0 / null
+// the fields every batched entry point sets; the rest stay 0 / null
 AttnArgs common_args(const float* q, const float* k_new, const float* v_new, void* k_all,
                      void* v_all, const float* freq, float mscale, float inv_sqrt_d,
                      float* out, float* scores, int layer, int S, int Hk, int qpk, int D,
@@ -424,44 +862,72 @@ bool shape_ok(int S, int Hk, int qpk, int D, int layer, int kv_sinks) {
 }  // namespace
 
 // One lane: k_all and v_all (L, S, Hk, D) of kv_type; the scalars come by
-// value and the row is written.
+// value and the row is written. The split (lo, chunk, nsplit, skip) comes
+// from ops/cuda/attention.py:split_plan; scratch holds split_scratch floats
+// and counter Hk uint32 zeros. Two launches on `stream`.
 extern "C" int yt_attend_step(int kv_type, const float* q, const float* k_new,
                               const float* v_new, void* k_all, void* v_all,
                               const float* freq, float mscale, float inv_sqrt_d,
-                              float* out, float* scores, int layer, int S, int Hk,
-                              int qpk, int D, int kv_pos, int kv_len, int kv_sink,
-                              int pos, int kv_sinks, float softcap, int win, void* stream) {
-  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || kv_len < 1 || kv_len > S || kv_pos < 0 ||
-      kv_pos >= S || kv_sink < 0 || kv_sink > kv_sinks)
+                              float* out, float* scratch, unsigned* counter, int layer, int S,
+                              int Hk, int qpk, int D, int kv_pos, int kv_len, int kv_sink,
+                              int pos, int kv_sinks, float softcap, int win, int lo, int chunk,
+                              int nsplit, int skip, void* stream) {
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || Hk > 65535 || kv_len < 1 || kv_len > S ||
+      kv_pos < 0 || kv_pos >= S || kv_sink < 0 || kv_sink > kv_sinks || win < 0)
     return ERR_ARGS;
-  AttnArgs a = common_args(q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out,
-                           scores, layer, S, Hk, qpk, D, kv_sinks);
+  SplitArgs a{};
+  a.q = q;
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.k_all = k_all;
+  a.v_all = v_all;
+  a.freq = freq;
+  a.out = out;
+  a.mscale = mscale;
+  a.inv_sqrt_d = inv_sqrt_d;
+  a.softcap = softcap;
+  a.win = win;
+  a.layer = layer;
+  a.S = S;
+  a.Hk = Hk;
+  a.qpk = qpk;
+  a.D = D;
   a.kv_pos = kv_pos;
   a.kv_len = kv_len;
   a.kv_sink = kv_sink;
   a.pos = pos;
-  a.B = 1;
-  a.slots = kv_len;
-  a.softcap = softcap;
-  a.win = win;
-  return launch(kv_type, a, static_cast<cudaStream_t>(stream));
+  a.lo = lo;
+  a.chunk = chunk;
+  a.nsplit = nsplit;
+  a.skip = skip;
+  return split(kv_type, a, scratch, counter, false, static_cast<cudaStream_t>(stream));
 }
 
 // attend_one_l: q (Hk, qpk, D) f32 as it is (divided by sqrt_d), k_all and
-// v_all (L, S, Hk, D) of kv_type, read only; slots < kv_len attended.
+// v_all (L, S, Hk, D) of kv_type, read only; slots < kv_len attended. The
+// split (chunk, nsplit) and the scratch as yt_attend_step's.
 extern "C" int yt_attend_one(int kv_type, const float* q, const void* k_all, const void* v_all,
-                             float sqrt_d, float* out, float* scores, int layer, int S, int Hk,
-                             int qpk, int D, int kv_len, void* stream) {
-  if (!shape_ok(S, Hk, qpk, D, layer, 0) || kv_len < 1 || kv_len > S || !(sqrt_d > 0.f))
+                             float sqrt_d, float* out, float* scratch, unsigned* counter,
+                             int layer, int S, int Hk, int qpk, int D, int kv_len, int chunk,
+                             int nsplit, void* stream) {
+  if (!shape_ok(S, Hk, qpk, D, layer, 0) || Hk > 65535 || kv_len < 1 || kv_len > S ||
+      !(sqrt_d > 0.f))
     return ERR_ARGS;
-  AttnArgs a = common_args(q, nullptr, nullptr, const_cast<void*>(k_all),
-                           const_cast<void*>(v_all), nullptr, 1.f, 1.f, out, scores, layer, S,
-                           Hk, qpk, D, 0);
-  a.kv_len = kv_len;
-  a.B = 1;
-  a.slots = kv_len;
+  SplitArgs a{};
+  a.q = q;
+  a.k_all = const_cast<void*>(k_all);
+  a.v_all = const_cast<void*>(v_all);
+  a.out = out;
   a.sqrt_d = sqrt_d;
-  return launch(kv_type, a, static_cast<cudaStream_t>(stream), true);
+  a.layer = layer;
+  a.S = S;
+  a.Hk = Hk;
+  a.qpk = qpk;
+  a.D = D;
+  a.kv_len = kv_len;
+  a.chunk = chunk;
+  a.nsplit = nsplit;
+  return split(kv_type, a, scratch, counter, true, static_cast<cudaStream_t>(stream));
 }
 
 // B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the device. The

@@ -47,14 +47,15 @@ _SIGNATURES = {
     "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     "yt_gemm4": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     "yt_rmsnorm_rows": [_P, _I, _I, _P, _F, _P, _P],
-    # (..., softcap, win, stream): Gemma2's score cap, a sliding layer's window
-    "yt_attend_step": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # (..., scratch, counter, ..., softcap, win, lo, chunk, nsplit, skip, stream):
+    # Gemma2's score cap, a sliding layer's window, the split of the slots
+    "yt_attend_step": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "yt_attend_step_batched": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "yt_attend_step_paged": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "yt_attend_one": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "yt_attend_one": [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

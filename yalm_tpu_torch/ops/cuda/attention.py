@@ -11,21 +11,32 @@ lanes of a (B, L, S, Hk, D) cache in one launch, each lane with its own
 scalars; a lane whose `write` is 0 changes nothing and attends the cache as
 it is (lanes mid-admission). The paged form does it over a page pool
 (n_pages, L, page, Hk, D), lane b's slot s at (tables[b, s // page], layer,
-s % page). Kernel: `csrc/attention.cu`. The
+s % page). Kernels: `csrc/attention.cu`. The
 cache is bf16 or fp8 e5m2 (`-C fp8`): the new row is rounded from f32 to
 the cache type in one step, attention reads the cache widened to bf16
 (exact), and the sink view is rounded to bf16, the working type, for
 both. The Gemma forms ride along: `softcap` (Gemma2's score cap, before
 the mask), `win` (a sliding layer's window, by slot age) and `alt`
-(Gemma3's local-theta rope). `attend_one_l` is the same kernel with no
+(Gemma3's local-theta rope). `attend_one_l` is the one-lane step with no
 RoPE, no write and no sinks. Every plain version runs `attend_ref`, the
 port's one plain attention core.
+
+The one-lane step and `attend_one_l` are bound by the bytes of the rows
+they attend and run split over the slots (flash-decoding): `split_plan`
+cuts [lo, kv_len) into chunks of a multiple of 64 slots, so that about two
+waves of the H100's 132 SMs stream the cache at once, and each call makes
+two launches -- chunk scores with each chunk's max and sum, then each
+chunk's p . v with the partials summed in chunk order by the head's last
+block (`csrc/attention.cu`'s note). A sliding layer in the ring regime
+reads only the chunks that hold a slot of its window (`chunk_live`). The
+batched and paged forms run one block per (kv head, lane).
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,13 +48,90 @@ from .gemv import bf16f
 
 SMEM_MAX = 227 * 1024
 KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
+TILE = 64                 # the kernels' tile of slots
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+SPLIT_BLOCKS = 2 * SMS    # the one-lane split's target blocks: two waves
+MAX_SPLIT = 1024          # chunks per kv head a split launch takes
 
 
-def smem_bytes(qpk: int, D: int, kv_len: int) -> int:
-    """Shared memory of csrc/attention.cu: q, every score (one tile's, 64,
-    when the scores go to global scratch), one K/V tile."""
-    words = qpk * (D + 2) + kv_len * qpk
+def smem_bytes(qpk: int, D: int, S: int) -> int:
+    """Shared memory of csrc/attention.cu's batched and paged kernel for a
+    window of S slots: q, every score (one tile's, 64, when the scores go
+    to global scratch), one K/V tile."""
+    words = qpk * (D + 2) + S * qpk
     return (words + 3) // 4 * 16 + 64 * (D + 8) * 2
+
+
+class SplitPlan(NamedTuple):
+    """How a one-lane launch cuts its slots: chunk c holds [lo + c * chunk,
+    lo + (c + 1) * chunk) below kv_len; skip: a chunk with no slot of the
+    sliding window (`chunk_live`) reads nothing."""
+    lo: int
+    chunk: int
+    nsplit: int
+    skip: bool
+
+
+def split_plan(kv_len: int, Hk: int, *, kv_pos: int = 0, kv_sink: int = 0,
+               win: int = 0) -> SplitPlan:
+    """The one-lane split of [lo, kv_len) for Hk kv heads. win: the
+    kernel's window argument (0 for none). A sliding layer in the linear
+    regime (kv_sink 0, kv_pos its newest slot) starts at lo, the window's
+    start rounded down to a tile, as the TPU kernel skips the blocks below
+    it; in the ring regime its chunks that hold no window slot are skipped
+    (only while kv_pos is a slot it attends, so some chunk always is). The
+    chunk is a multiple of the tile, the smallest that gives each head
+    about SPLIT_BLOCKS / Hk chunks of the rows it attends, and no more than
+    MAX_SPLIT chunks in all; every kv_len, down to 1, takes this path."""
+    linear = win > 0 and kv_sink == 0 and kv_pos + 1 >= kv_len
+    lo = max(kv_len - win, 0) // TILE * TILE if linear else 0
+    rows = kv_len - lo
+    skip = win > 0 and kv_sink <= kv_pos < kv_len
+    attended = min(rows, win) if skip else rows
+    chunk = max(-(-attended // max(1, SPLIT_BLOCKS // Hk)), -(-rows // MAX_SPLIT), 1)
+    chunk = -(-chunk // TILE) * TILE
+    return SplitPlan(lo, chunk, -(-rows // chunk), skip)
+
+
+def chunk_live(c0: int, c1: int, kv_pos: int, kv_sink: int, S: int, win: int) -> bool:
+    """Whether slots [c0, c1) hold one that a sliding layer attends (age <
+    win, `slot_age`), in O(1) -- csrc/attention.cu's rule for skipping a
+    chunk: the sinks' ages S-1-s fall as s rises; going back from c1 - 1
+    the other slots' ages rise by one per slot and wrap to 0 at most once."""
+    if win <= 0:
+        return True
+    if c0 < kv_sink and S - min(c1, kv_sink) < win:
+        return True
+    a = max(c0, kv_sink)
+    if a >= c1:
+        return False
+    ring = max(S - kv_sink, 1)
+    d_end = (kv_pos - (c1 - 1)) % ring
+    return d_end < win or ring - d_end < c1 - a
+
+
+def split_scratch(plan: SplitPlan, kv_len: int, Hk: int, qpk: int, D: int, device) -> torch.Tensor:
+    """The f32 scratch of a one-lane launch, laid out as csrc/attention.cu's
+    `split` reads it: the scores (Hk, kv_len - lo, qpk) | each chunk's max
+    and sum (Hk, nsplit, qpk, 2), padded to 4 floats | the partial outputs
+    (Hk, nsplit, qpk, D)."""
+    head = Hk * (kv_len - plan.lo) * qpk + Hk * plan.nsplit * qpk * 2
+    return torch.empty((head + 3) // 4 * 4 + Hk * plan.nsplit * qpk * D, dtype=torch.float32,
+                       device=device)
+
+
+_COUNTERS: dict = {}
+
+
+def _counter(device: torch.device, Hk: int) -> torch.Tensor:
+    """The per-head arrival counters of the split's second launch, one
+    zeroed int32 buffer per (device, stream), held across calls: the
+    kernel's last block of each head leaves its counter at 0 again."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ctr = _COUNTERS.get(key)
+    if ctr is None or ctr.numel() < Hk:
+        ctr = _COUNTERS[key] = torch.zeros(max(Hk, 64), dtype=torch.int32, device=device)
+    return ctr
 
 
 @functools.lru_cache(maxsize=64)
@@ -138,8 +226,8 @@ def _win_arg(win, S: int, what: str) -> int:
 def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
                        kv_sink, pos, *, kv_sinks, theta, rotary_dim, softcap=0.0, win=None,
                        alt=None):
-    """One launch of csrc/attention.cu on CUDA tensors (adds one to
-    LAUNCHES["attend_step_l"])."""
+    """csrc/attention.cu's one-lane split on CUDA tensors: two launches on
+    the current stream (adds one to LAUNCHES["attend_step_l"])."""
     L, S, Hk, D = k_all.shape
     _, qpk, _ = q.shape
     B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
@@ -156,14 +244,15 @@ def launch_attend_step(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     vn = v_new.float().contiguous()
     freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Hk, qpk, D), dtype=torch.float32, device=q.device)
-    # the scores of a window too long for shared memory go to global scratch
-    scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
-              torch.empty((Hk, kv_len, qpk), dtype=torch.float32, device=q.device))
+    w = _win_arg(win, S, "attend_step_l")
+    plan = split_plan(kv_len, Hk, kv_pos=kv_pos, kv_sink=kv_sink, win=w)
+    scratch = split_scratch(plan, kv_len, Hk, qpk, D, q.device)
     code = B.lib().yt_attend_step(
         B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all), B.ptr(freq),
-        rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
-        layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos), kv_sinks, float(softcap),
-        _win_arg(win, S, "attend_step_l"), B.stream_ptr())
+        rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scratch),
+        B.ptr(_counter(q.device, Hk)), layer, S, Hk, qpk, D, kv_pos, kv_len, kv_sink, int(pos),
+        kv_sinks, float(softcap), w, plan.lo, plan.chunk, plan.nsplit, int(plan.skip),
+        B.stream_ptr())
     B.check(code, "attend_step_l")
     B.LAUNCHES["attend_step_l"] += 1
     return out
@@ -204,8 +293,9 @@ def attend_one_plain(q, k_all, v_all, layer, kv_len):
 
 
 def launch_attend_one(q, k_all, v_all, layer, kv_len):
-    """One launch of csrc/attention.cu in its attend_one_l form (no RoPE, no
-    write, no sinks) on CUDA tensors (adds one to LAUNCHES["attend_one_l"])."""
+    """csrc/attention.cu's one-lane split in its attend_one_l form (no RoPE,
+    no write, no sinks) on CUDA tensors: two launches on the current stream
+    (adds one to LAUNCHES["attend_one_l"])."""
     L, S, Hk, D = k_all.shape
     qpk = q.shape[1]
     B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
@@ -218,11 +308,12 @@ def launch_attend_one(q, k_all, v_all, layer, kv_len):
     B.require(B.aligned16(k_all, v_all), "attend_one_l: cache must be 16-byte aligned")
     qc = q.float().contiguous()
     out = torch.empty((Hk, qpk, D), dtype=torch.float32, device=q.device)
-    scores = (None if smem_bytes(qpk, D, kv_len) <= SMEM_MAX else
-              torch.empty((Hk, kv_len, qpk), dtype=torch.float32, device=q.device))
+    plan = split_plan(kv_len, Hk)
+    scratch = split_scratch(plan, kv_len, Hk, qpk, D, q.device)
     code = B.lib().yt_attend_one(
         B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(k_all), B.ptr(v_all), math.sqrt(D), B.ptr(out),
-        B.ptr(scores), layer, S, Hk, qpk, D, kv_len, B.stream_ptr())
+        B.ptr(scratch), B.ptr(_counter(q.device, Hk)), layer, S, Hk, qpk, D, kv_len,
+        plan.chunk, plan.nsplit, B.stream_ptr())
     B.check(code, "attend_one_l")
     B.LAUNCHES["attend_one_l"] += 1
     return out
