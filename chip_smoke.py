@@ -77,7 +77,12 @@ times the same function on the one-block-per-kv-head design they replaced
 (attend_step_batched_l with one lane), in the same run, as do K3 and K6
 (attn_block's middle launch on it), and the fp8 path
 adds a lane one slot past a chunk boundary and one whose kv_pos lies in a
-middle chunk;
+middle chunk. K1 gemm_l and K10 gemm_le run on the wgmma gemm_kernel
+(round_rows_bf16 first; `gemm_plan`); every case of theirs in
+phase 2 (K1 also at the tick's M 16 for w2 and wo, with F.linear beside
+it) also times the mma.sync design it replaced (gemm_kernel_v1, through
+`gemm_v1`) in the same run, as do K4's GEMM-route rows, and phase 2 checks
+`cuobjdump -sass` for HGMMA in every gemm_kernel instance;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -377,6 +382,67 @@ class Bench:
                                  f"version (max |err| {err:.3e} > tol {tol:.3e}, finite={finite})")
 
 
+def gemm_v1(x, w_all, layer, scale=None, *, expert=None, residual=None, glu_act=None):
+    """K1/K10's function on gemm_kernel_v1, the mma.sync design gemm_kernel
+    replaced (synchronous loads, f32 X rounded in every block, no split),
+    for the same-run timing: csrc/gemm.cu's yt_gemm_v1, which no
+    wrapper of the port reaches. Arguments as launch_gemm's."""
+    import ctypes
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build as B
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    fn = B.lib().yt_gemm_v1
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 3, ctypes.c_void_p,
+                   *[ctypes.c_int] * 2, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3,
+                   *[ctypes.c_int] * 2, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    L, N, K, E, e_host, e_dev = G._addressing(w_all, layer, expert, "gemm_v1")
+    M = x.shape[0]
+    y = torch.empty((M, N // 2 if glu_act else N), dtype=torch.float32, device=x.device)
+    B.check(fn(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K,
+               B.ptr(x), M, B.ptr(scale), B.ptr(residual), B.ptr(y), 1 if glu_act else 0,
+               1 if glu_act == "gelu" else 0, B.stream_ptr()), "gemm_v1")
+    return y
+
+
+def on_old_gemm(fn):
+    """fn() with the FFN's GEMM route on gemm_v1 (K4's many-row route on the
+    design gemm_kernel replaced), for the same-run time."""
+    from yalm_tpu_torch.ops.cuda import ffn
+    saved = ffn.launch_gemm
+    ffn.launch_gemm = lambda count, x, w_all, layer, scale=None, **kw: gemm_v1(
+        x, w_all, layer, scale, **kw)
+    try:
+        return fn()
+    finally:
+        ffn.launch_gemm = saved
+
+
+def check_hgmma() -> None:
+    """cuobjdump -sass of the built library: every instance of the new
+    gemm_kernel issues HGMMA (wgmma), and gemm_kernel_v1 none."""
+    from yalm_tpu_torch.ops.cuda import _build as B
+    tool = os.path.join(os.path.dirname(B.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(B.build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    new = {f: c for f, c in counts.items() if "11gemm_kernelI" in f}
+    old = {f: c for f, c in counts.items() if "14gemm_kernel_v1I" in f}
+    if len(new) != 40 or min(new.values()) < 1 or any(old.values()):
+        raise AssertionError(f"cuobjdump: HGMMA in the gemm_kernel instances {new}, "
+                             f"in gemm_kernel_v1 {old}")
+    log(f"  cuobjdump -sass: HGMMA in all {len(new)} gemm_kernel instances "
+        f"({min(new.values())}-{max(new.values())} each), none in gemm_kernel_v1's "
+        f"{len(old)}")
+
+
 def one_block_per_head(k_all, v_all, kv_pos, kv_len, kv_sink, pos, rope):
     """K2's function on the design it replaced (one block per kv head,
     PR 1-6), for the same-run timing: attend_step_batched_l with one lane
@@ -495,21 +561,36 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                bytes_=Nqkv * d + 4 * d + 8 * Nqkv, flops=2 * Nqkv * d)
     del w_i8, s_i8
 
-    # K1: gemm_l, the prefill chunks
+    # K1: gemm_l, the batched tick (M 16) and the prefill chunks; each case
+    # also on gemm_kernel_v1, the design it replaced (old design)
     for B, nm, w, N, K in ((16, "wqkv", fw.wqkv, Nqkv, d), (16, "w13", fw.w13, 2 * h, d),
+                           (16, "wo", fw.wo, d, q_dim), (16, "w2", fw.w2, d, h),
                            (64, "wqkv", fw.wqkv, Nqkv, d),
                            (256, "wqkv", fw.wqkv, Nqkv, d), (256, "wo", fw.wo, d, q_dim),
                            (256, "w2", fw.w2, d, h), (256, "w13", fw.w13, 2 * h, d)):
         xb = randn(B, K)
         wl = w[:4].to(torch.bfloat16)
-        bench.case("gemm_l", f"B={B} {nm} e5m2 ({N}x{K})", G.gemm_l(xb, w, 0),
-                   G.gemm_l_plain(xb, w, 0), 2e-3,
+        plan = G.gemm_plan(B, N, K)
+        bench.case("gemm_l", f"B={B} {nm} e5m2 ({N}x{K}), mt {plan.mt} split {plan.split}",
+                   G.gemm_l(xb, w, 0), G.gemm_l_plain(xb, w, 0), 2e-3,
                    kernel=lambda r, xb=xb, w=w: G.gemm_l(xb, w, lay(r)),
                    plain=lambda r, xb=xb, w=w: G.gemm_l_plain(xb, w, lay(r)),
                    library=lambda r, xb=xb, wl=wl: F.linear(xb.to(torch.bfloat16), wl[r % 4]),
+                   old=lambda r, xb=xb, w=w: gemm_v1(xb, w, lay(r)),
                    bytes_=N * K + 4 * B * (K + N), flops=2 * B * N * K,
-                   json_row=nm == "w13" and B in (16, 256), run="batched" if B == 16 else "serve")
+                   json_row=True, run="batched" if B == 16 else "serve")
         del wl
+    # the rounding of X that every gemm_l launch begins with (w2's at M 256)
+    xr = randn(256, h)
+    got = G.launch_round_rows(xr)
+    torch.cuda.synchronize()
+    if not torch.equal(got.float(), G.bf16f(xr)):
+        raise AssertionError("round_rows_bf16: not bf16f's bits")
+    bench.case("round_rows_bf16", f"M=256 K={h}", got.float(), G.bf16f(xr), 2e-3,
+               kernel=lambda r: G.launch_round_rows(xr), plain=lambda r: G.bf16f(xr),
+               library=lambda r: xr.to(torch.bfloat16),
+               bytes_=6 * 256 * h, json_row=True)
+    check_hgmma()
 
     # K2: attend_step_l against a random full-size bf16 cache
     cache = KVCache.init(cfg, torch.bfloat16, dev)
@@ -1014,15 +1095,21 @@ def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
                                    ("w2", fw.w2, s2, d, h, {})):
             xm = randn(M, K)
             wl = lib_copies(w, s)
-            bench.case(gm, f"M={M} {nm} ({N}x{K})", gemm_fn(xm, w, 0, 1, s, **kw),
-                       G.gemm_le_plain(xm, w, 0, 1, s, **kw), 2e-3,
+            # K10 also on gemm_kernel_v1, the design it replaced (K11 keeps its body)
+            old = None if int4 else (lambda r, xm=xm, w=w, s=s, kw=kw: gemm_v1(
+                xm, w, lay(r), s, expert=r % E, **kw))
+            plan = G.gemm_plan(M, N, K, bool(kw))
+            bench.case(gm, f"M={M} {nm} ({N}x{K})"
+                       + ("" if int4 else f", mt {plan.mt} split {plan.split}"),
+                       gemm_fn(xm, w, 0, 1, s, **kw), G.gemm_le_plain(xm, w, 0, 1, s, **kw), 2e-3,
                        kernel=lambda r, xm=xm, w=w, s=s, kw=kw: gemm_fn(xm, w, lay(r), r % E, s,
                                                                         **kw),
                        plain=lambda r, xm=xm, w=w, s=s, kw=kw: G.gemm_le_plain(
                            xm, w, lay(r), r % E, s, **kw),
                        library=lambda r, xm=xm, wl=wl: F.linear(xm.to(torch.bfloat16), wl[r % 4]),
-                       bytes_=wbytes(N, K) + 4 * M * (K + (N // 2 if kw else N)),
-                       flops=2 * M * N * K, json_row=bool(kw), bf16_out=bool(kw),
+                       old=old, bytes_=wbytes(N, K) + 4 * M * (K + (N // 2 if kw else N)),
+                       flops=2 * M * N * K, json_row=bool(kw) or not int4 or M == 16,
+                       bf16_out=bool(kw),
                        run="serve" if M == 256 else ("paged" if int4 else "batched"))
             del wl
 
@@ -1126,6 +1213,8 @@ def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list, run: str = "batched") 
                    kernel=lambda r, x=x: ffn(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw),
                    plain=lambda r, x=x: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2,
                                                   **kw),
+                   old=None if int4 else (lambda r, x=x: on_old_gemm(lambda: ffn(
+                       x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw))),
                    bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
                    json_row=B == 16, run=run)
 
@@ -1341,15 +1430,16 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype, form=None,
 
 # the kernels each path must launch in its phase-3 run (the Mixtral paths'
 # router is gemv_l/gemm_l on every weight type), and those it must not
-PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block_l", "ffn_l"),
+PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
+                        "attn_block_l", "ffn_l"),
                 "int4": ("gemv", "gemv4_l", "gemm4_l", "attend_step_l", "attn_block4_l",
                          "ffn4_l"),
-                "moe_fp8": ("gemv", "gemv_l", "gemm_l", "attend_step_l", "attn_block_l",
-                            "gemv_le", "gemm_le"),
-                "moe_int4": ("gemv", "gemv_l", "gemm_l", "gemv4_l", "gemm4_l", "attend_step_l",
-                             "attn_block4_l", "gemv4_le", "gemm4_le")}
-PATH_KERNELS.update({g: ("gemv", "gemv_l", "gemm_l", "attend_step_l", "ffn_l")
-                     for g in ("gemma3", "gemma2")})
+                "moe_fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
+                            "attn_block_l", "gemv_le", "gemm_le"),
+                "moe_int4": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "gemv4_l", "gemm4_l",
+                             "attend_step_l", "attn_block4_l", "gemv4_le", "gemm4_le")}
+PATH_KERNELS.update({g: ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
+                         "ffn_l") for g in ("gemma3", "gemma2")})
 # the Gemma paths take the unfused route: no fused attention block
 PATH_ABSENT = {"moe_fp8": ("ffn_l", "ffn_l_gemm"), "moe_int4": ("ffn4_l", "ffn4_l_gemm"),
                "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
@@ -1550,18 +1640,20 @@ def decode_syncs(cfg, fw, eng) -> int:
 # attention is K8 on the dense cache and K9 on a paged pool (the other
 # never runs); the dense ring admission hydrates through the single-lane
 # step (attn_block_l), the paged one through masked ticks
+# (round_rows_bf16: the rounding of X before every gemm_l/gemm_le launch)
 SERVING_KERNELS = {
-    ("fp8", False): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows", "attn_block_l", "gemv"),
+    ("fp8", False): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "attn_block_l",
+                     "gemv"),
     ("int4", False): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows"),
-    ("fp8", True): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
+    ("fp8", True): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
     ("int4", True): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows"),
     # MoE: the router on gemm_l, every expert of every row on the routed GEMM
     # (the single-token gemv_le/gemv4_le and the dense FFN never run)
-    ("moe_fp8", False): ("gemm_l", "gemm_le"),
-    ("moe_int4", True): ("gemm_l", "gemm4_l", "gemm4_le"),
+    ("moe_fp8", False): ("gemm_l", "round_rows_bf16", "gemm_le"),
+    ("moe_int4", True): ("gemm_l", "round_rows_bf16", "gemm4_l", "gemm4_le"),
     # Gemma: the tick's FFN without its residual, then the post-norm
-    ("gemma3", False): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows"),
-    ("gemma2", True): ("gemm_l", "ffn_l_gemm", "rmsnorm_rows")}
+    ("gemma3", False): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows"),
+    ("gemma2", True): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows")}
 SERVING_ABSENT = {"moe_fp8": ("gemv_le", "ffn_l_gemm"), "moe_int4": ("gemv4_le", "ffn4_l_gemm"),
                   "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
 TICK_ATTENTION = {False: "attend_step_batched_l", True: "attend_step_paged_l"}
@@ -2263,6 +2355,44 @@ def log_token_bytes(cfg, fw, ceiling: float) -> None:
         f"{wbytes / ceiling * 1e3:.3f} ms at the measured ceiling")
 
 
+def gemm_phases() -> int:
+    """The GEMM phases alone, for a short card call: phase 2 of the fp8
+    path (every K1 gemm_l case and K4's GEMM route beside the design
+    gemm_kernel replaced, with the other fp8 kernels) and of the Mixtral
+    fp8 path (K10 gemm_le), at full width. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gemm_phases())"
+    Prints the cases as one JSON line, then the card's name and power
+    limit."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(HBM_BYTES_PER_S)
+    cfg = mistral7b()
+    fw = synth_fast_weights(cfg, dev, seed=0)
+    with phase("phase 2 (fp8 path): kernels vs plain versions on the card"):
+        phase_kernels(bench, cfg, fw, dev)
+    del fw
+    torch.cuda.empty_cache()
+    cfgm = mixtral8x7b(weight_dtype="fp8")
+    fwm = synth_moe_weights(cfgm, dev, seed=2)
+    with phase("phase 2 (moe_fp8 path): K10 vs plain versions"):
+        phase_moe_kernels(bench, cfgm, fwm, dev)
+    print(json.dumps({"cases": bench.rows}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     try:
@@ -2449,6 +2579,8 @@ def main() -> int:
     sources = {"gemv": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:81"),
                "gemv_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:148"),
                "gemm_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:426"),
+               # gemm_l's kernel rounds each X tile to bf16 as it reads it
+               "round_rows_bf16": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:476"),
                "attend_step_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:808"),
                "attn_block_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:554"),
                "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),

@@ -918,3 +918,138 @@ def test_split_attention_32768_slot_window(dev, kv):
     want = attend_step_plain(q, kn, vn, k2, v2, 0, kv_pos, kv_len, kv_sink, pos, **rope)
     close(attend_step_l(q, kn, vn, k_all, v_all, 0, kv_pos, kv_len, kv_sink, pos, **rope), want)
     assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+
+
+# ---------------------------------------------------------------------------
+# gemm_kernel (K1 gemm_l / K10 gemm_le): wgmma over a cp.async ring, split K
+# ---------------------------------------------------------------------------
+
+def gemm_v1(*args, **kw):
+    """The same launch on gemm_kernel_v1, the design gemm_kernel replaced
+    (chip_smoke.py's same-run yardstick)."""
+    import chip_smoke
+    return chip_smoke.gemm_v1(*args, **kw)
+
+
+GEMM_NK = [(8, 64), (100, 96), (129, 1024), (1000, 64), (1000, 1024), (129, 14336)]
+
+
+def forced_split(monkeypatch, split: bool | None):
+    """gemm_plan with its K split forced on (as many one-stage slices as
+    MAX_SPLIT allows) or off; None keeps the plan's own choice."""
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    plan = G.gemm_plan
+    if split is not None:
+        def forced(M, N, K, glu=False):
+            p = plan(M, N, K, glu)
+            nk = -(-K // G.GEMM_KT)
+            kchunk = -(-nk // min(nk, G.MAX_SPLIT)) if split else nk
+            return G.GemmPlan(p.mt, kchunk, -(-nk // kchunk))
+        monkeypatch.setattr(G, "gemm_plan", forced)
+
+
+@pytest.mark.parametrize("wt", WTYPES)
+@pytest.mark.parametrize("M", [1, 8, 15, 16, 17, 64, 255, 256, 257])
+def test_gemm_hopper_shapes(dev, wt, M):
+    """gemm_kernel against its plain version at every token tile and its
+    ragged edges, N from the router's 8 to 1000 (ragged row tiles), K a
+    multiple of 32 and not of 64 (96) and one of 14336 (16 slices), the
+    plan's split, with scale and residual; and against gemm_kernel_v1."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    for N, K in GEMM_NK:
+        w = weights((2, N, K), wt, dev, gen)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        sc = torch.rand(2, N, generator=gen, device=dev) + 0.5
+        res = torch.randn(M, N, generator=gen, device=dev)
+        got = launch_gemm("test", x, w, 1, sc, residual=res)
+        close(got, gemm_l_plain(x, w, 1, sc) + res)
+        close(got, gemm_v1(x, w, 1, sc, residual=res))   # the same sums, another order
+
+
+@pytest.mark.parametrize("wt", WTYPES)
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_gemm_hopper_glu(dev, monkeypatch, wt, split, act):
+    """The GLU-pair epilogue (the row map of glu_rows) with the split
+    forced off and on: bf16 outputs within the tolerance or one ulp."""
+    forced_split(monkeypatch, split)
+    gen = torch.Generator(device=dev).manual_seed(len(act) + split)
+    for M, H, K in [(1, 64, 64), (17, 100, 96), (64, 200, 1024), (257, 1000, 256)]:
+        w = weights((2, 2 * H, K), wt, dev, gen)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        sc = torch.rand(2, 2 * H, generator=gen, device=dev) + 0.5
+        got = launch_gemm("test", x, w, 0, sc, glu_act=act)
+        from yalm_tpu_torch.ops.cuda.gemv import glu_plain
+        close_bf16(got, glu_plain(gemm_l_plain(x, w, 0, sc), act))
+        close_bf16(got, gemm_v1(x, w, 0, sc, glu_act=act))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+def test_gemm_hopper_split_residual(dev, monkeypatch, split):
+    """Split forced off and on, with the residual epilogue, every type."""
+    forced_split(monkeypatch, split)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for wt in WTYPES:
+        for M, N, K in [(16, 4100, 1024), (100, 300, 2048)]:
+            w = weights((1, N, K), wt, dev, gen)
+            x = torch.randn(M, K, generator=gen, device=dev)
+            res = torch.randn(M, N, generator=gen, device=dev)
+            close(launch_gemm("test", x, w, 0, residual=res), gemm_l_plain(x, w, 0) + res)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+def test_gemm_hopper_deterministic(dev, monkeypatch, split):
+    """Two launches on the same inputs give the same bits, split K too (the
+    slices are summed in slice order), and the arrival counters are back at
+    0 after each."""
+    forced_split(monkeypatch, split)
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = weights((1, 4096, 14336), torch.float8_e5m2, dev, gen)
+    for M in (16, 256):
+        x = torch.randn(M, 14336, generator=gen, device=dev)
+        a, b = launch_gemm("test", x, w, 0), launch_gemm("test", x, w, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        close(a, gemm_l_plain(x, w, 0))
+    for _, ctr in G._SPLIT_BUFFERS.values():
+        assert int(ctr.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("wt", WTYPES[1:])
+def test_gemm_le_hopper(dev, wt):
+    """gemm_le on gemm_kernel: the expert a host int and a device int64, bit
+    for bit as gemm_l on the copied expert stack (split or not, GLU or not),
+    and NaN over the output for an id outside [0, E)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    L, E = 2, 4
+    for M, N, K, glu in [(16, 256, 1024, None), (16, 512, 512, "silu"), (256, 4096, 512, None),
+                         (33, 1000, 96, "gelu")]:
+        w = weights((L, E, N, K), wt, dev, gen)
+        sc = torch.rand(L, E, N, generator=gen, device=dev) + 0.5
+        x = torch.randn(M, K, generator=gen, device=dev)
+        we, se = w[:, 3].contiguous(), sc[:, 3].contiguous()
+        got = gemm_le(x, w, 1, torch.tensor(3, device=dev), sc, glu_act=glu)
+        assert torch.equal(got, gemm_le(x, w, 1, 3, sc, glu_act=glu))
+        assert torch.equal(got, launch_gemm("test", x, we, 1, se, glu_act=glu))
+        want = gemm_le_plain(x, w, 1, 3, sc, glu_act=glu)
+        (close_bf16 if glu else close)(got, want)
+        for bad in (E, -1):
+            out = gemm_le(x, w, 1, torch.tensor(bad, device=dev), sc, glu_act=glu)
+            torch.cuda.synchronize()
+            assert bool(torch.isnan(out).all())
+
+
+def test_round_rows_bf16(dev):
+    """round_rows_kernel gives bf16f's bits, ties and specials included."""
+    from yalm_tpu_torch.ops.cuda.gemv import launch_round_rows
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(257, 96, generator=gen, device=dev) * 100
+    x[0, :8] = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0, -0.0, 1e-40,
+                             1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8], device=dev)
+    _build.LAUNCHES.clear()
+    got = launch_round_rows(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _build.LAUNCHES["round_rows_bf16"] == 1
+    assert torch.equal(got.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(got.float()[1:], bf16f(x)[1:])

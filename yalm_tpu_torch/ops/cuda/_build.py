@@ -44,7 +44,9 @@ _SIGNATURES = {
     # (layer, E, expert, expert_id) address a matrix of an (L, E, N, K) stack
     "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _F, _P, _P, _I, _P, _F,
                 _P, _P, _I, _I, _P],
-    "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # (..., glu, act, mt, kchunk, scratch, counter, stream): gemv.py:gemm_plan
+    "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "yt_round_rows_bf16": [_P, ctypes.c_longlong, _P, _P],
     "yt_gemm4": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     "yt_rmsnorm_rows": [_P, _I, _I, _P, _F, _P, _P],
     # (..., scratch, counter, ..., softcap, win, lo, chunk, nsplit, skip, stream):

@@ -43,13 +43,12 @@ import torch
 from ..core import (NEG_INF, int_view, rope_freq_table, rope_mscale, rope_rotation_param,
                     rotate_pairs)
 from . import _build as B
-from .gemv import bf16f
+from .gemv import SMS, bf16f
 
 
 SMEM_MAX = 227 * 1024
 KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 TILE = 64                 # the kernels' tile of slots
-SMS = 132                 # streaming multiprocessors of an H100 SXM
 SPLIT_BLOCKS = 2 * SMS    # the one-lane split's target blocks: two waves
 MAX_SPLIT = 1024          # chunks per kv head a split launch takes
 

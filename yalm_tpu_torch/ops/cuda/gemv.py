@@ -5,9 +5,12 @@ gemm4_le, gemv4_le over (L, E, N, K) expert stacks).
 
 Kernels: `csrc/gemv.cu` (one warp per output row, fused rmsnorm prologue,
 scale/bias/clip/residual or GLU-pair epilogue; int4 weights with their
-group scales too) and `csrc/gemm.cu` (mma.sync bf16 tiles for the prefill
-chunks and the batched tick; `gemm4_kernel` for int4; a residual or
-GLU-pair epilogue and a row-norm kernel for the many-row FFN). The
+group scales too) and `csrc/gemm.cu` (for the prefill chunks and the
+batched tick: `gemm_kernel`, wgmma with the widened weights in registers
+over a cp.async ring, X rounded to bf16 once by `round_rows_kernel`, split
+K where the grid would starve (`gemm_plan`); `gemm4_kernel`, mma.sync
+tiles, for int4; a residual or GLU-pair epilogue and a row-norm kernel for
+the many-row FFN). The
 routed-expert functions launch the same kernels addressed at (layer,
 expert); the expert is a host int or a one-element integer tensor on the
 card, read there (the decode step's top-k ids never reach the host). Each
@@ -23,6 +26,7 @@ weights never reach here: the loader turns them into bf16 on the host.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -141,6 +145,83 @@ def gemv_le_plain(x, w_all, layer, expert, scale=None, *, norm_w=None, norm_eps=
 
 
 # ---------------------------------------------------------------------------
+# csrc/gemm.cu's gemm_kernel: its plan and its arithmetic, in Python
+# ---------------------------------------------------------------------------
+
+GEMM_ROWS = 128                       # weight rows per block: two warpgroups of 64
+GEMM_KT = 64                          # K per ring stage
+GEMM_MT = (16, 32, 64, 128, 256)      # tokens per block: wgmma's N
+SMS = 132                             # streaming multiprocessors of an H100 SXM
+MAX_SPLIT = 16                        # K slices a launch takes at most
+
+
+class GemmPlan(NamedTuple):
+    """How gemm_kernel cuts a launch: mt tokens per block; K in slices of
+    kchunk stages of GEMM_KT (the last may be shorter), `split` of them."""
+    mt: int
+    kchunk: int
+    split: int
+
+
+def gemm_row_tiles(N: int, glu: bool) -> int:
+    """Blocks along the weight rows: 128 rows, or 64 GLU pairs (128 rows of
+    W13, `glu_rows`)."""
+    return -(-N // 2 // (GEMM_ROWS // 2)) if glu else -(-N // GEMM_ROWS)
+
+
+def gemm_plan(M: int, N: int, K: int, glu: bool = False) -> GemmPlan:
+    """The plan of an (M, K) x (N, K)^T launch: the smallest token tile that
+    holds M (256 past it, or 128 where 256-token tiles leave the card's
+    SMs short of blocks); K split only where one slice gives fewer blocks
+    than the card has SMs, into enough slices to fill them (at most
+    MAX_SPLIT, at least one stage each). The slices cover the ceil(K / 64)
+    stages exactly once."""
+    mt = next((m for m in GEMM_MT if m >= M), GEMM_MT[-1])
+    rows = gemm_row_tiles(N, glu)
+    if mt == GEMM_MT[-1] and rows * -(-M // mt) < SMS:
+        mt = GEMM_MT[-2]   # narrow N: more token tiles before K is split
+    blocks = rows * -(-M // mt)
+    nk = -(-K // GEMM_KT)
+    split = 1 if blocks >= SMS else min(nk, MAX_SPLIT, -(-SMS // blocks))
+    kchunk = -(-nk // split)
+    return GemmPlan(mt, kchunk, -(-nk // kchunk))
+
+
+def glu_rows(p0: int, H: int) -> list[int]:
+    """The W13 row each of a GLU block's 128 rows holds, -1 past the pairs
+    (csrc/gemm.cu's `wrow`): in warp w's 16-row slab, rows 0-7 hold h1 of
+    pairs p0+8w..p0+8w+7 and rows 8-15 their h3 (row H + p), so a thread's
+    accumulator rows g and g+8 are one pair's two halves."""
+    rows = []
+    for r in range(GEMM_ROWS):
+        j = r % 16
+        p = p0 + 8 * (r // 16) + j % 8
+        rows.append(-1 if p >= H else (p if j < 8 else H + p))
+    return rows
+
+
+def gemm_split_plain(x, w_all, layer, scale=None, *, expert=None, residual=None, glu_act=None):
+    """gemm_kernel's arithmetic, plainly: bf16 operands, each K slice of
+    gemm_plan summed in f32, the slices' partials added in slice order, then
+    the scale, the residual or the GLU pair on the full sum."""
+    w = w_all[layer] if expert is None else w_all[layer][expert]
+    s = None if scale is None else (scale[layer] if expert is None else scale[layer][expert])
+    M, K = x.shape
+    plan = gemm_plan(M, w.shape[0], K, glu_act is not None)
+    xb, wb = bf16f(x), _bf16_weights(w)
+    step = plan.kchunk * GEMM_KT
+    out = None
+    for k0 in range(0, K, step):
+        part = xb[:, k0:k0 + step] @ wb[:, k0:k0 + step].T
+        out = part if out is None else out + part
+    if s is not None:
+        out = out * s.float()[None]
+    if glu_act:
+        return glu_plain(out, glu_act)
+    return out if residual is None else out + residual
+
+
+# ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
 
@@ -238,14 +319,44 @@ def launch_gemv(count: str, x, w_all, layer: int, *, expert=None, norm_w=None,
     return out.reshape(*x.shape[:-1], n_out)
 
 
+_SPLIT_BUFFERS: dict = {}
+
+
+def _split_buffers(device: torch.device, floats: int, tiles: int):
+    """gemm_kernel's split-K scratch (f32) and per-tile arrival counters
+    (int32 zeros; the kernel's last slice leaves each at 0 again), one pair
+    per (device, stream), grown as needed and held across calls."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    scratch, ctr = _SPLIT_BUFFERS.get(key, (None, None))
+    if scratch is None or scratch.numel() < floats:
+        scratch = torch.empty(floats, dtype=torch.float32, device=device)
+    if ctr is None or ctr.numel() < tiles:
+        ctr = torch.zeros(max(tiles, 256), dtype=torch.int32, device=device)
+    _SPLIT_BUFFERS[key] = (scratch, ctr)
+    return scratch, ctr
+
+
+def launch_round_rows(x):
+    """One launch of csrc/gemm.cu's round_rows_kernel (adds one to
+    LAUNCHES["round_rows_bf16"]): contiguous f32 -> bf16 of the same shape,
+    rounded to nearest even (bf16f's bits)."""
+    x = _f32(x, "round_rows_bf16 x")
+    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    B.require(x.numel() % 4 == 0 and B.aligned16(x), "round_rows_bf16: n % 4 == 0, 16-byte aligned")
+    B.check(B.lib().yt_round_rows_bf16(B.ptr(x), x.numel(), B.ptr(out), B.stream_ptr()),
+            "round_rows_bf16")
+    B.LAUNCHES["round_rows_bf16"] += 1
+    return out
+
+
 def launch_gemm(count: str, x, w_all, layer: int, scale=None, *, expert=None, residual=None,
                 glu_act: str | None = None):
-    """One launch of csrc/gemm.cu (gemm_kernel, or gemm4_kernel for packed
-    int4 weights) on CUDA tensors (adds one to LAUNCHES[count]). x: (M, K)
-    f32; returns (M, N) f32, + residual (M, N) if given, or for the GLU
-    pair (M, N // 2) holding bf16 values. `scale` is per row (L, [E,] N),
-    or the group scales (L, [E,] G, N) of packed int4 weights; `expert` as
-    launch_gemv's."""
+    """One launch of csrc/gemm.cu (gemm_kernel after round_rows_kernel, or
+    gemm4_kernel for packed int4 weights) on CUDA tensors (adds one to
+    LAUNCHES[count]). x: (M, K) f32; returns (M, N) f32, + residual (M, N)
+    if given, or for the GLU pair (M, N // 2) holding bf16 values. `scale`
+    is per row (L, [E,] N), or the group scales (L, [E,] G, N) of packed
+    int4 weights; `expert` as launch_gemv's."""
     L, N, Kw, E, e_host, e_dev = _addressing(w_all, layer, expert, count)
     int4 = is_int4(w_all)
     K = 2 * Kw if int4 else Kw
@@ -273,9 +384,17 @@ def launch_gemm(count: str, x, w_all, layer: int, scale=None, *, expert=None, re
                                 int4_group(K), B.ptr(x), M, B.ptr(scale), B.ptr(residual),
                                 B.ptr(y), glu, act, B.stream_ptr())
     else:
+        xb = launch_round_rows(x)
+        plan = gemm_plan(M, N, K, bool(glu_act))
+        scratch = ctr = None
+        if plan.split > 1:
+            tiles = gemm_row_tiles(N, bool(glu_act)) * -(-M // plan.mt)
+            scratch, ctr = _split_buffers(x.device, tiles * plan.split * GEMM_ROWS * plan.mt,
+                                          tiles)
         code = B.lib().yt_gemm(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host,
-                               B.ptr(e_dev), N, K, B.ptr(x), M, B.ptr(scale),
-                               B.ptr(residual), B.ptr(y), glu, act, B.stream_ptr())
+                               B.ptr(e_dev), N, K, B.ptr(xb), M, B.ptr(scale),
+                               B.ptr(residual), B.ptr(y), glu, act, plan.mt, plan.kchunk,
+                               B.ptr(scratch), B.ptr(ctr), B.stream_ptr())
     B.check(code, count)
     B.LAUNCHES[count] += 1
     return y
