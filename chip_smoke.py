@@ -77,12 +77,14 @@ times the same function on the one-block-per-kv-head design they replaced
 (attend_step_batched_l with one lane), in the same run, as do K3 and K6
 (attn_block's middle launch on it), and the fp8 path
 adds a lane one slot past a chunk boundary and one whose kv_pos lies in a
-middle chunk. K1 gemm_l and K10 gemm_le run on the wgmma gemm_kernel
-(round_rows_bf16 first; `gemm_plan`); every case of theirs in
-phase 2 (K1 also at the tick's M 16 for w2 and wo, with F.linear beside
-it) also times the mma.sync design it replaced (gemm_kernel_v1, through
-`gemm_v1`) in the same run, as do K4's GEMM-route rows, and phase 2 checks
-`cuobjdump -sass` for HGMMA in every gemm_kernel instance;
+middle chunk. K1 gemm_l, K10 gemm_le and, on packed int4 weights, K5
+gemm4_l and K11 gemm4_le run on the wgmma gemm_kernel (round_rows_bf16
+first; `gemm_plan`); every case of theirs in phase 2 (K1 and K5 also at
+the tick's M 16 for w2 and wo, with F.linear beside it) also times the
+mma.sync design it replaced (gemm_kernel_v1 or gemm4_kernel_v1, through
+`gemm_v1`) in the same run, as do K4's and K7's GEMM-route rows, and
+phase 2 checks `cuobjdump -sass` for HGMMA in every gemm_kernel instance,
+the int4 ones among them;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -383,31 +385,38 @@ class Bench:
 
 
 def gemm_v1(x, w_all, layer, scale=None, *, expert=None, residual=None, glu_act=None):
-    """K1/K10's function on gemm_kernel_v1, the mma.sync design gemm_kernel
-    replaced (synchronous loads, f32 X rounded in every block, no split),
-    for the same-run timing: csrc/gemm.cu's yt_gemm_v1, which no
+    """K1/K10's function on gemm_kernel_v1, or for packed int4 weights
+    K5/K11's on gemm4_kernel_v1: the mma.sync designs gemm_kernel replaced
+    (synchronous loads, f32 X rounded in every block, no split), for the
+    same-run timing: csrc/gemm.cu's yt_gemm_v1 / yt_gemm4_v1, which no
     wrapper of the port reaches. Arguments as launch_gemm's."""
     import ctypes
     import torch
     from yalm_tpu_torch.ops.cuda import _build as B
     from yalm_tpu_torch.ops.cuda import gemv as G
-    fn = B.lib().yt_gemm_v1
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 3, ctypes.c_void_p,
-                   *[ctypes.c_int] * 2, ctypes.c_void_p, ctypes.c_int, *[ctypes.c_void_p] * 3,
-                   *[ctypes.c_int] * 2, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    L, N, K, E, e_host, e_dev = G._addressing(w_all, layer, expert, "gemm_v1")
+    from yalm_tpu_torch.ops.int4 import int4_group
+    P, I = ctypes.c_void_p, ctypes.c_int
+    L, N, Kw, E, e_host, e_dev = G._addressing(w_all, layer, expert, "gemm_v1")
     M = x.shape[0]
     y = torch.empty((M, N // 2 if glu_act else N), dtype=torch.float32, device=x.device)
-    B.check(fn(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K,
-               B.ptr(x), M, B.ptr(scale), B.ptr(residual), B.ptr(y), 1 if glu_act else 0,
-               1 if glu_act == "gelu" else 0, B.stream_ptr()), "gemm_v1")
+    glu, act = 1 if glu_act else 0, 1 if glu_act == "gelu" else 0
+    if G.is_int4(w_all):
+        fn = B.lib().yt_gemm4_v1
+        fn.argtypes = [P, I, I, I, P, I, I, I, P, I, P, P, P, I, I, P]
+        lead = (B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, 2 * Kw, int4_group(2 * Kw))
+    else:
+        fn = B.lib().yt_gemm_v1
+        fn.argtypes = [I, P, I, I, I, P, I, I, P, I, P, P, P, I, I, P]
+        lead = (B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, Kw)
+    fn.restype = I
+    B.check(fn(*lead, B.ptr(x), M, B.ptr(scale), B.ptr(residual), B.ptr(y), glu, act,
+               B.stream_ptr()), "gemm_v1")
     return y
 
 
 def on_old_gemm(fn):
-    """fn() with the FFN's GEMM route on gemm_v1 (K4's many-row route on the
-    design gemm_kernel replaced), for the same-run time."""
+    """fn() with the FFN's GEMM route on gemm_v1 (K4's or K7's many-row route
+    on the design gemm_kernel replaced), for the same-run time."""
     from yalm_tpu_torch.ops.cuda import ffn
     saved = ffn.launch_gemm
     ffn.launch_gemm = lambda count, x, w_all, layer, scale=None, **kw: gemm_v1(
@@ -420,7 +429,8 @@ def on_old_gemm(fn):
 
 def check_hgmma() -> None:
     """cuobjdump -sass of the built library: every instance of the new
-    gemm_kernel issues HGMMA (wgmma), and gemm_kernel_v1 none."""
+    gemm_kernel (the 8 of packed int4 among them) issues HGMMA (wgmma), and
+    gemm_kernel_v1 and gemm4_kernel_v1 none."""
     from yalm_tpu_torch.ops.cuda import _build as B
     tool = os.path.join(os.path.dirname(B.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(B.build())], capture_output=True, text=True,
@@ -434,13 +444,16 @@ def check_hgmma() -> None:
         elif fn and "HGMMA" in line:
             counts[fn] += 1
     new = {f: c for f, c in counts.items() if "11gemm_kernelI" in f}
-    old = {f: c for f, c in counts.items() if "14gemm_kernel_v1I" in f}
-    if len(new) != 40 or min(new.values()) < 1 or any(old.values()):
+    int4 = {f: c for f, c in new.items() if "11gemm_kernelILi4E" in f}
+    old = {f: c for f, c in counts.items() if "14gemm_kernel_v1I" in f or "15gemm4_kernel_v1I" in f}
+    if (len(new) != 48 or len(int4) != 8 or min(new.values()) < 1 or len(old) != 10
+            or any(old.values())):
         raise AssertionError(f"cuobjdump: HGMMA in the gemm_kernel instances {new}, "
-                             f"in gemm_kernel_v1 {old}")
+                             f"in gemm_kernel_v1 and gemm4_kernel_v1 {old}")
     log(f"  cuobjdump -sass: HGMMA in all {len(new)} gemm_kernel instances "
-        f"({min(new.values())}-{max(new.values())} each), none in gemm_kernel_v1's "
-        f"{len(old)}")
+        f"({min(new.values())}-{max(new.values())} each; the {len(int4)} int4 ones "
+        f"{min(int4.values())}-{max(int4.values())}), none in the {len(old)} of "
+        f"gemm_kernel_v1 and gemm4_kernel_v1")
 
 
 def one_block_per_head(k_all, v_all, kv_pos, kv_len, kv_sink, pos, rope):
@@ -701,6 +714,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     from yalm_tpu_torch.ops.cuda import gemv as G
     from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_plain
     from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_plain
+    from yalm_tpu_torch.ops.int4 import int4_group
 
     bench.path = "int4"
     gen = torch.Generator(device=dev)
@@ -761,19 +775,24 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                    flops=2 * N * K, json_row=nm == "wqkv + rmsnorm")
         del wl
 
-    # K5: gemm4_l, the prefill chunks (csrc/gemm.cu)
+    # K5: gemm4_l on gemm_kernel (round_rows_bf16 first), the batched tick
+    # (M 16) and the prefill chunks; each case also on gemm4_kernel_v1, the
+    # design it replaced (old design)
     for nm, w, s, N, K in (("wqkv", fw.wqkv, sc.wqkv, Nqkv, d), ("w13", fw.w13, sc.w13, 2 * h, d),
-                           ("w2", fw.w2, sc.w2, d, h)):
+                           ("w2", fw.w2, sc.w2, d, h), ("wo", fw.wo, sc.wo, d, q_dim)):
         wl = dequant4(w[:4], s[:4])
-        for B in (16, 64, 256):
+        for B in (16,) if nm == "wo" else (16, 64, 256):
             xb = randn(B, K)
-            bench.case("gemm4_l", f"B={B} {nm} ({N}x{K})", G.gemm4_l(xb, w, 0, s),
-                       G.gemm4_l_plain(xb, w, 0, s), 2e-3,
+            plan = G.gemm_plan(B, N, K, group=int4_group(K))
+            bench.case("gemm4_l", f"B={B} {nm} ({N}x{K}), mt {plan.mt} split {plan.split}",
+                       G.gemm4_l(xb, w, 0, s), G.gemm4_l_plain(xb, w, 0, s), 2e-3,
                        kernel=lambda r, xb=xb, w=w, s=s: G.gemm4_l(xb, w, lay(r), s),
                        plain=lambda r, xb=xb, w=w, s=s: G.gemm4_l_plain(xb, w, lay(r), s),
                        library=lambda r, xb=xb, wl=wl: F.linear(xb.to(torch.bfloat16), wl[r % 4]),
+                       old=lambda r, xb=xb, w=w, s=s: gemm_v1(xb, w, lay(r), s),
                        bytes_=w4_bytes(N, K) + 4 * B * (K + N), flops=2 * B * N * K,
-                       json_row=(B == 256 and nm == "w13"))
+                       json_row=(B, nm) in ((256, "w13"), (16, "w2")),
+                       run="batched" if B == 16 else "serve")
         del wl
 
     # K2 with the e5m2 cache: the f32 -> e5m2 row write rounds once, as
@@ -1095,12 +1114,11 @@ def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
                                    ("w2", fw.w2, s2, d, h, {})):
             xm = randn(M, K)
             wl = lib_copies(w, s)
-            # K10 also on gemm_kernel_v1, the design it replaced (K11 keeps its body)
-            old = None if int4 else (lambda r, xm=xm, w=w, s=s, kw=kw: gemm_v1(
-                xm, w, lay(r), s, expert=r % E, **kw))
-            plan = G.gemm_plan(M, N, K, bool(kw))
-            bench.case(gm, f"M={M} {nm} ({N}x{K})"
-                       + ("" if int4 else f", mt {plan.mt} split {plan.split}"),
+            # also on gemm_kernel_v1 / gemm4_kernel_v1, the design it replaced
+            old = (lambda r, xm=xm, w=w, s=s, kw=kw: gemm_v1(xm, w, lay(r), s, expert=r % E,
+                                                              **kw))
+            plan = G.gemm_plan(M, N, K, bool(kw), int4_group(K) if int4 else 0)
+            bench.case(gm, f"M={M} {nm} ({N}x{K}), mt {plan.mt} split {plan.split}",
                        gemm_fn(xm, w, 0, 1, s, **kw), G.gemm_le_plain(xm, w, 0, 1, s, **kw), 2e-3,
                        kernel=lambda r, xm=xm, w=w, s=s, kw=kw: gemm_fn(xm, w, lay(r), r % E, s,
                                                                         **kw),
@@ -1213,8 +1231,8 @@ def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list, run: str = "batched") 
                    kernel=lambda r, x=x: ffn(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw),
                    plain=lambda r, x=x: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2,
                                                   **kw),
-                   old=None if int4 else (lambda r, x=x: on_old_gemm(lambda: ffn(
-                       x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw))),
+                   old=lambda r, x=x: on_old_gemm(lambda: ffn(
+                       x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw)),
                    bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
                    json_row=B == 16, run=run)
 
@@ -1432,8 +1450,8 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype, form=None,
 # router is gemv_l/gemm_l on every weight type), and those it must not
 PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
                         "attn_block_l", "ffn_l"),
-                "int4": ("gemv", "gemv4_l", "gemm4_l", "attend_step_l", "attn_block4_l",
-                         "ffn4_l"),
+                "int4": ("gemv", "gemv4_l", "gemm4_l", "round_rows_bf16", "attend_step_l",
+                         "attn_block4_l", "ffn4_l"),
                 "moe_fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
                             "attn_block_l", "gemv_le", "gemm_le"),
                 "moe_int4": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "gemv4_l", "gemm4_l",
@@ -1640,13 +1658,13 @@ def decode_syncs(cfg, fw, eng) -> int:
 # attention is K8 on the dense cache and K9 on a paged pool (the other
 # never runs); the dense ring admission hydrates through the single-lane
 # step (attn_block_l), the paged one through masked ticks
-# (round_rows_bf16: the rounding of X before every gemm_l/gemm_le launch)
+# (round_rows_bf16: the rounding of X before every gemm_kernel launch)
 SERVING_KERNELS = {
     ("fp8", False): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "attn_block_l",
                      "gemv"),
-    ("int4", False): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows"),
+    ("int4", False): ("gemm4_l", "round_rows_bf16", "ffn4_l_gemm", "rmsnorm_rows"),
     ("fp8", True): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
-    ("int4", True): ("gemm4_l", "ffn4_l_gemm", "rmsnorm_rows"),
+    ("int4", True): ("gemm4_l", "round_rows_bf16", "ffn4_l_gemm", "rmsnorm_rows"),
     # MoE: the router on gemm_l, every expert of every row on the routed GEMM
     # (the single-token gemv_le/gemv4_le and the dense FFN never run)
     ("moe_fp8", False): ("gemm_l", "round_rows_bf16", "gemm_le"),
@@ -2358,8 +2376,10 @@ def log_token_bytes(cfg, fw, ceiling: float) -> None:
 def gemm_phases() -> int:
     """The GEMM phases alone, for a short card call: phase 2 of the fp8
     path (every K1 gemm_l case and K4's GEMM route beside the design
-    gemm_kernel replaced, with the other fp8 kernels) and of the Mixtral
-    fp8 path (K10 gemm_le), at full width. Run from the repository root:
+    gemm_kernel replaced, with the other fp8 kernels), of the int4 path
+    (every K5 gemm4_l case and K7's GEMM route beside gemm4_kernel_v1, with
+    the other int4 kernels) and of the Mixtral fp8 and int4 paths (K10
+    gemm_le, K11 gemm4_le), at full width. Run from the repository root:
         python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gemm_phases())"
     Prints the cases as one JSON line, then the card's name and power
     limit."""
@@ -2378,16 +2398,17 @@ def gemm_phases() -> int:
     _build.lib()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     bench = Bench(HBM_BYTES_PER_S)
-    cfg = mistral7b()
-    fw = synth_fast_weights(cfg, dev, seed=0)
-    with phase("phase 2 (fp8 path): kernels vs plain versions on the card"):
-        phase_kernels(bench, cfg, fw, dev)
-    del fw
-    torch.cuda.empty_cache()
-    cfgm = mixtral8x7b(weight_dtype="fp8")
-    fwm = synth_moe_weights(cfgm, dev, seed=2)
-    with phase("phase 2 (moe_fp8 path): K10 vs plain versions"):
-        phase_moe_kernels(bench, cfgm, fwm, dev)
+    for path, cfg, synth, phase_fn in (
+            ("fp8", mistral7b(), synth_fast_weights, phase_kernels),
+            ("int4", mistral7b(weight_dtype="int4"), synth_int4_weights, phase_kernels4),
+            ("moe_fp8", mixtral8x7b(weight_dtype="fp8"), synth_moe_weights, phase_moe_kernels),
+            ("moe_int4", mixtral8x7b(weight_dtype="int4"), synth_moe_weights,
+             phase_moe_kernels)):
+        fw = synth(cfg, dev, seed={"fp8": 0, "int4": 1, "moe_fp8": 2, "moe_int4": 3}[path])
+        with phase(f"phase 2 ({path} path): kernels vs plain versions on the card"):
+            phase_fn(bench, cfg, fw, dev)
+        del fw
+        torch.cuda.empty_cache()
     print(json.dumps({"cases": bench.rows}), flush=True)
     print(smi, flush=True)
     return 0

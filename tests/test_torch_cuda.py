@@ -21,10 +21,16 @@ output on the rotated view K2 attends; K2 and K12 split over the slots
 a chunk boundary and the whole window, kv_pos in the first, a middle and
 the last chunk, ring windows whose chunks are skipped, two calls giving the
 same bits, the per-head counters back at 0 after calls at other head
-counts and splits, and a 32768-slot window; and the e5m2 cache of a depth-2
+counts and splits, and a 32768-slot window; the e5m2 cache of a depth-2
 Mixtral-shape int4 prefill of 64 tokens, card against CPU, whose differing
 bytes must all come from f32 inputs on the two sides of an e5m2 rounding
-boundary.
+boundary; and the wgmma GEMM (gemm_kernel) on every weight type, packed
+int4 included (every token tile and its ragged edges, ragged row tiles,
+both int4 group widths, the GLU pair and the residual with the K split
+forced off and on, two calls giving the same bits with the arrival
+counters back at 0, the routed form bit for bit as the dense one on the
+copied expert and NaN for an expert id outside the stack), against its
+plain version and the mma.sync design it replaced.
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -935,16 +941,18 @@ GEMM_NK = [(8, 64), (100, 96), (129, 1024), (1000, 64), (1000, 1024), (129, 1433
 
 
 def forced_split(monkeypatch, split: bool | None):
-    """gemm_plan with its K split forced on (as many one-stage slices as
-    MAX_SPLIT allows) or off; None keeps the plan's own choice."""
+    """gemm_plan with its K split forced on (as many one-stage slices, or
+    for int4 one-group slices, as MAX_SPLIT allows) or off; None keeps the
+    plan's own choice."""
     from yalm_tpu_torch.ops.cuda import gemv as G
     plan = G.gemm_plan
     if split is not None:
-        def forced(M, N, K, glu=False):
-            p = plan(M, N, K, glu)
-            nk = -(-K // G.GEMM_KT)
-            kchunk = -(-nk // min(nk, G.MAX_SPLIT)) if split else nk
-            return G.GemmPlan(p.mt, kchunk, -(-nk // kchunk))
+        def forced(M, N, K, glu=False, group=0):
+            p = plan(M, N, K, glu, group)
+            unit = group // (2 * G.gemm4_stage_bytes(p.mt)) if group else 1   # stages a unit
+            units = K // group if group else -(-K // G.GEMM_KT)
+            kchunk = (-(-units // min(units, G.MAX_SPLIT)) if split else units) * unit
+            return G.GemmPlan(p.mt, kchunk, -(-units * unit // kchunk))
         monkeypatch.setattr(G, "gemm_plan", forced)
 
 
@@ -1053,3 +1061,103 @@ def test_round_rows_bf16(dev):
     assert got.dtype == torch.bfloat16 and _build.LAUNCHES["round_rows_bf16"] == 1
     assert torch.equal(got.view(torch.int16), x.to(torch.bfloat16).view(torch.int16))
     assert torch.equal(got.float()[1:], bf16f(x)[1:])
+
+
+# ---------------------------------------------------------------------------
+# gemm_kernel on packed int4 (K5 gemm4_l / K11 gemm4_le): the nibbles
+# widened in registers, group scales on each group's f32 partial
+# ---------------------------------------------------------------------------
+
+GEMM4_NK = [(100, 256), (300, 768), (1000, 1024), (100, 14336)]   # group 256, 256, 512, 512
+
+
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 64, 127, 128, 129, 257])
+def test_gemm4_hopper_shapes(dev, M):
+    """gemm_kernel's int4 instances against gemm4_l_plain at every token
+    tile and its ragged edges, ragged row tiles (N 100, 300, 1000), K 256,
+    768 (group 256), 1024 and 14336 (group 512; 14 slices at small M),
+    the plan's split, with the residual; and against gemm4_kernel_v1."""
+    gen = torch.Generator(device=dev).manual_seed(M)
+    for N, K in GEMM4_NK:
+        w = weights((2, N, K // 2), torch.uint8, dev, gen)
+        gs = gscales(2, K, N, dev, gen)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        res = torch.randn(M, N, generator=gen, device=dev)
+        got = launch_gemm("test", x, w, 1, gs, residual=res)
+        close(got, gemm4_l_plain(x, w, 1, gs) + res)
+        close(got, gemm_v1(x, w, 1, gs, residual=res))   # the same sums, another order
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_gemm4_hopper_glu(dev, monkeypatch, split, act):
+    """The GLU-pair epilogue on int4 (each half's group scales by glu_rows'
+    row map) with the split forced off and on: bf16 outputs within the
+    tolerance or one ulp."""
+    forced_split(monkeypatch, split)
+    gen = torch.Generator(device=dev).manual_seed(len(act) + split)
+    for M, H, K in [(1, 64, 256), (17, 100, 768), (64, 200, 1024), (129, 1000, 512),
+                    (16, 300, 14336)]:
+        w = weights((2, 2 * H, K // 2), torch.uint8, dev, gen)
+        gs = gscales(2, K, 2 * H, dev, gen)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        got = launch_gemm("test", x, w, 0, gs, glu_act=act)
+        from yalm_tpu_torch.ops.cuda.gemv import glu_plain
+        close_bf16(got, glu_plain(gemm4_l_plain(x, w, 0, gs), act))
+        close_bf16(got, gemm_v1(x, w, 0, gs, glu_act=act))
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+def test_gemm4_hopper_split_residual(dev, monkeypatch, split):
+    """int4 with the split forced off and on, with the residual epilogue."""
+    forced_split(monkeypatch, split)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for M, N, K in [(16, 4100, 1024), (100, 300, 2048), (128, 256, 768)]:
+        w = weights((1, N, K // 2), torch.uint8, dev, gen)
+        gs = gscales(1, K, N, dev, gen)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        res = torch.randn(M, N, generator=gen, device=dev)
+        close(launch_gemm("test", x, w, 0, gs, residual=res), gemm4_l_plain(x, w, 0, gs) + res)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["split-off", "split-on"])
+def test_gemm4_hopper_deterministic(dev, monkeypatch, split):
+    """Two int4 launches on the same inputs give the same bits, split K too,
+    and the arrival counters are back at 0 after each."""
+    forced_split(monkeypatch, split)
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = weights((1, 4096, 14336 // 2), torch.uint8, dev, gen)
+    gs = gscales(1, 14336, 4096, dev, gen)
+    for M in (16, 256):
+        x = torch.randn(M, 14336, generator=gen, device=dev)
+        a, b = launch_gemm("test", x, w, 0, gs), launch_gemm("test", x, w, 0, gs)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        close(a, gemm4_l_plain(x, w, 0, gs))
+    for _, ctr in G._SPLIT_BUFFERS.values():
+        assert int(ctr.abs().sum()) == 0
+
+
+def test_gemm4_le_hopper(dev):
+    """gemm4_le on gemm_kernel: the expert a host int and a device int64, bit
+    for bit as gemm4_l on the copied expert stack (split or not, GLU or
+    not), and NaN over the output for an id outside [0, E)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    L, E = 2, 4
+    for M, N, K, glu in [(16, 256, 1024, None), (16, 512, 512, "silu"), (256, 4096, 512, None),
+                         (33, 1000, 768, "gelu"), (16, 256, 14336, None)]:
+        w = weights((L, E, N, K // 2), torch.uint8, dev, gen)
+        gs = (torch.rand(L, E, K // int4_group(K), N, generator=gen, device=dev) + 0.5) * 4e-3
+        x = torch.randn(M, K, generator=gen, device=dev)
+        we, ge = w[:, 3].contiguous(), gs[:, 3].contiguous()
+        got = gemm4_le(x, w, 1, torch.tensor(3, device=dev), gs, glu_act=glu)
+        assert torch.equal(got, gemm4_le(x, w, 1, 3, gs, glu_act=glu))
+        assert torch.equal(got, launch_gemm("test", x, we, 1, ge, glu_act=glu))
+        if glu is None:
+            assert torch.equal(got, gemm4_l(x, we, 1, ge))
+        (close_bf16 if glu else close)(got, gemm_le_plain(x, w, 1, 3, gs, glu_act=glu))
+        for bad in (E, -1):
+            out = gemm4_le(x, w, 1, torch.tensor(bad, device=dev), gs, glu_act=glu)
+            torch.cuda.synchronize()
+            assert bool(torch.isnan(out).all())

@@ -11,10 +11,12 @@
 // expert), so only that expert's bytes are read and no copy of it is made
 // (a dense stack is E = 1, expert 0). The expert comes from the host or a
 // device int64; an id outside [0, E) reads nothing and gives NaN.
-// gemm4_kernel below replaces :gemm4_l (and :gemm4) and :gemm4_le (:688)
-// for packed int4 weights, on the mma.sync design gemm_kernel_v1 keeps.
-// Weight types f32, bf16, e5m2 and int8; per-row scales multiply the f32
-// result; any M >= 1, any N >= 1 (the MoE router has N = 8); K % 32 == 0.
+// The same kernel replaces :gemm4_l (:600, pallas_call :670; and :gemm4)
+// and :gemm4_le (:688, pallas_call :750) for packed int4 weights (W_I4,
+// below). Weight types f32, bf16, e5m2 and int8 with per-row scales on the
+// f32 result, K % 32 == 0; packed int4 with group scales on each group's
+// f32 partial, K % 256 == 0; any M >= 1, any N >= 1 (the MoE router has
+// N = 8).
 //
 // Epilogues: + residual[m, n]; or the GLU pair, which makes the kernel the
 // two weight sweeps of ops/pallas/ffn.py:ffn_l for any number of rows (the
@@ -65,12 +67,31 @@
 //   per-tile counter that atomicInc wraps back to 0) sums the slices in
 //   slice order and runs the epilogue: the same bits on every call, no f32
 //   atomics on the output.
-// Against what held the mma.sync design (gemm_kernel_v1) back: the loads
-// were synchronous (now a cp.async ring), X was f32 and rounded again in
-// every block of every N tile (now bf16, rounded once), the grid starved at
-// small M and narrow N (now 16-token tiles and split K), and mma.sync is
-// not the card's full tensor-core rate (now wgmma). Not yet: TMA, a
-// producer warp, setmaxnreg, a persistent grid, clusters.
+// - Packed int4 (W_I4; byte t of a group of `group` columns holds column t
+//   in its low nibble and t + group/2 in its high one, offset 8): a stage
+//   holds P packed bytes of each weight row (bytes P*kt.., P = 128 up to
+//   32 tokens, else 64) and the 2P X columns they multiply, in a
+//   "virtual" order: the P low nibbles' columns g*group + b0 + j, then the
+//   high nibbles' g*group + group/2 + b0 + j (b0 the stage's byte offset
+//   in its group), in 128-byte swizzled atoms of 64 columns; a dot product
+//   does not care about the order of its terms, so every weight byte is
+//   read once (ops/cuda/gemv.py:gemm4_stage_cols mirrors it). One 2-byte
+//   fragment read gives a k16 step's low nibbles and, four steps on, its
+//   high ones; a nibble ORed into 0x4300 is the bf16 of 128 + q, and one
+//   bf16x2 subtraction of 136 gives q - 8 exactly. A group sums into a
+//   fresh accumulator (wgmma's scale-d is 0 on its first k16 step); once
+//   its last stage retires, the group's scale multiplies that f32 partial
+//   into the thread's sum, as gemv.py:583-596 does (folded into the bf16
+//   weights, it would be rounded with them). Two accumulators of Mt/2
+//   floats cap the token tile at 128; K splits at group boundaries only,
+//   for two blocks per SM where the grid starves (the short stages are
+//   latency-bound, not byte-bound: PERF.md §6).
+// Against what held the mma.sync designs (gemm_kernel_v1, gemm4_kernel_v1)
+// back: the loads were synchronous (now a cp.async ring), X was f32 and
+// rounded again in every block of every N tile (now bf16, rounded once),
+// the grid starved at small M and narrow N (now 16-token tiles and split
+// K), and mma.sync is not the card's full tensor-core rate (now wgmma).
+// Not yet: TMA, a producer warp, setmaxnreg, a persistent grid, clusters.
 #include "common.cuh"
 
 using namespace yt;
@@ -91,7 +112,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// gemm_kernel_v1 / gemm4_kernel: the W row staged at row r (0..BN-1) of
+// gemm_kernel_v1 / gemm4_kernel_v1: the W row staged at row r (0..BN-1) of
 // the tile that starts at n0, and whether it exists. Plain tiles: rows
 // n0..n0+BN-1 of N. GLU tiles (n0 a pair index, H = N/2 pairs): warp column
 // w holds W13 rows n0+16w..n0+16w+15 (h1) in its first 16 tile rows and the
@@ -110,7 +131,7 @@ __device__ __forceinline__ int tile_row(int n0, int r, int N, bool* ok) {
 
 struct GemmArgs {
   const void* w;          // (L, E, N, K) of the weight type; int4: (L, E, N, K/2) packed
-  const float* x;         // (M, K) (gemm_kernel_v1, gemm4_kernel)
+  const float* x;         // (M, K) (gemm_kernel_v1, gemm4_kernel_v1)
   const float* scale;     // (L, E, N) per-row scales, or null
   const float* gscale;    // (L, E, K / group, N) int4 group scales
   const float* residual;  // (M, N) or null (not with the GLU pair)
@@ -276,7 +297,9 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel_v1(GemmArgs a) {
   store<GLU>(a, acc, le, m0, n0, wm, wn, g, t);
 }
 
-// Packed int4 weights (L, N, K/2) with group scales (L, G, N):
+// The int4 design gemm_kernel replaced, kept only as chip_smoke.py's
+// same-run yardstick (yt_gemm4_v1). Packed int4 weights (L, N, K/2) with
+// group scales (L, G, N):
 //   Y[m, n] = sum_g gscale[layer, g, n] * sum_{k in g} bf16(X[m, k]) * (q[n, k] - 8)
 // Same tiles and mma.sync as gemm_kernel_v1. Each K step takes 32 packed bytes
 // of every row of the tile -- 64 columns, 32 low nibbles and the 32 high
@@ -288,7 +311,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel_v1(GemmArgs a) {
 constexpr int BK4 = 64;
 
 template <bool GLU>
-__global__ void __launch_bounds__(THREADS) gemm4_kernel(GemmArgs a) {
+__global__ void __launch_bounds__(THREADS) gemm4_kernel_v1(GemmArgs a) {
   __shared__ __align__(16) __nv_bfloat16 xs[BM][BK4 + PAD];
   __shared__ __align__(16) __nv_bfloat16 ws[BN][BK4 + PAD];
   using C = WChunk<W_I4>;
@@ -442,13 +465,31 @@ constexpr int KT = 64;    // K per ring stage: four k16 steps
 constexpr int WR = 128;   // weight rows per block: two warpgroups of 64
 constexpr int SMEM_CAP = 226 * 1024;   // of 227 KB: the rest static
 
-// A stage: X's Mt rows of 128 bytes (128-byte swizzled), then the weight
-// rows (padded by 16 bytes). Up to 64 tokens two blocks share an SM, when
-// three stages each fit; past that one block takes the SM.
+// int4 ring stages hold 128 packed bytes of a weight row up to 32 tokens
+// (whole 128-byte lines, half as many stages: faster on the card, PERF.md
+// §6), else 64 (ops/cuda/gemv.py:gemm4_stage_bytes).
+constexpr int i4_stage_bytes(int mt) { return mt <= 32 ? 2 * KT : KT; }
+
+// A weight row's bytes per stage column (int4: per packed byte, two weights).
+template <int WT> constexpr int col_bytes() {
+  if constexpr (WT == W_I4)
+    return 1;
+  else
+    return WChunk<WT>::BYTES;
+}
+
+// A stage: X's Mt rows of 128 bytes (128-byte swizzled; int4: 2 * KB / 64
+// such atoms, the low nibbles' columns, then the high ones'), then the
+// weight rows of KB bytes (padded by 16 bytes). Up to 64 tokens two blocks
+// share an SM, when three stages each fit; past that one block takes the
+// SM.
 template <int WT, int MT> struct Ring {
-  static constexpr int BYTES = WChunk<WT>::BYTES;
-  static constexpr int WROW = KT * BYTES + 16;
-  static constexpr int XST = MT * KT * 2;
+  static constexpr bool I4 = WT == W_I4;
+  static constexpr int BYTES = col_bytes<WT>();
+  static constexpr int KB = I4 ? i4_stage_bytes(MT) : KT * BYTES;
+  static constexpr int WROW = KB + 16;
+  static constexpr int XATOM = MT * KT * 2;
+  static constexpr int XST = (I4 ? KB / 32 : 1) * XATOM;
   static constexpr int STAGE = XST + WR * WROW;
   static constexpr int FIT2 = (SMEM_CAP / 2 - 2048) / STAGE;
   static constexpr int BLOCKS = MT <= 64 && FIT2 >= 3 ? 2 : 1;
@@ -507,25 +548,27 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// d (64 x N, f32) += a (64 x 16 bf16, this thread's fragment in 4
-// registers) * b (16 x N bf16 in shared memory, K-major): one
-// wgmma.mma_async per warpgroup.
+// d (64 x N, f32) = a (64 x 16 bf16, this thread's fragment in 4
+// registers) * b (16 x N bf16 in shared memory, K-major) + d, or + 0 where
+// sd (wgmma's scale-d) is 0: one wgmma.mma_async per warpgroup.
 template <int N> struct Wgmma;
 
 template <> struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  __device__ __forceinline__ static void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                             int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
         "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
 template <> struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
@@ -533,12 +576,13 @@ template <> struct Wgmma<32> {
         "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
 template <> struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -549,12 +593,13 @@ template <> struct Wgmma<64> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
 template <> struct Wgmma<128> {
-  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -571,12 +616,13 @@ template <> struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
 template <> struct Wgmma<256> {
-  __device__ __forceinline__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  __device__ __forceinline__ static void mma(float (&d)[128], const uint32_t (&a)[4], uint64_t b,
+                                             int sd = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -605,7 +651,7 @@ template <> struct Wgmma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(sd));
   }
 };
 
@@ -634,6 +680,23 @@ template <> __device__ __forceinline__ uint32_t a_pair<W_F32>(const uint8_t* p) 
   return bits(__floats2bfloat162_rn(f.x, f.y));
 }
 
+__device__ __forceinline__ __nv_bfloat162 bf162(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+// Two consecutive packed int4 bytes of a staged row as two fragment
+// registers: *lo their low nibbles (a k16 step's pair), *hi their high ones
+// (the same pair of the step four on). A nibble q ORed into 0x4300 is the
+// bf16 bits of 128 + q; minus 136 that is q - 8, exact in bf16 (no
+// int-to-float convert).
+__device__ __forceinline__ void i4_pairs(const uint8_t* p, uint32_t* lo, uint32_t* hi) {
+  // byte j of the pair at bit 16j
+  const uint32_t b = __byte_perm(*reinterpret_cast<const uint16_t*>(p), 0u, 0x4140);
+  const __nv_bfloat162 off = bf162(0x43084308u);   // 136, 136
+  *lo = bits(__hsub2(bf162((b & 0x000f000fu) | 0x43004300u), off));
+  *hi = bits(__hsub2(bf162(((b >> 4) & 0x000f000fu) | 0x43004300u), off));
+}
+
 // The weight row staged at row r (0..WR-1) of the block whose first row
 // (GLU: first pair) is n0, and whether it exists; GLU: the file comment's map.
 template <bool GLU>
@@ -647,64 +710,126 @@ __device__ __forceinline__ int wrow(int n0, int r, int N, bool* ok) {
   return j < 8 ? p : H + p;
 }
 
-// Stage `kt` (K columns 64kt..64kt+63) of X and of the block's weight rows
-// into the ring slot at shared address dst.
+// Stage `kt` (K columns 64kt..64kt+63; int4: packed bytes KB*kt.. of each
+// row and their 2 * KB X columns, the file comment's virtual order) of X and
+// of the block's weight rows into the ring slot at shared address dst.
 template <int WT, int MT, bool GLU>
 __device__ __forceinline__ void load_stage(const GemmArgs& a, const uint8_t* wl, uint32_t dst,
                                            int m0, int n0, int kt) {
   using R = Ring<WT, MT>;
-  constexpr int PER = 16 / R::BYTES, CPR = KT / PER;   // weights per chunk, chunks per row
-  const int k0 = kt * KT;
-  for (int i = threadIdx.x; i < MT * 8; i += THREADS) {
-    const int r = i >> 3, c = i & 7;
-    const bool ok = m0 + r < a.M && k0 + 8 * c < a.K;
-    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),   // the 128-byte swizzle
-               ok ? a.xh + (size_t)(m0 + r) * a.K + k0 + 8 * c : a.xh, ok);
-  }
-  for (int i = threadIdx.x; i < WR * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    bool ok;
-    const int wr = wrow<GLU>(n0, r, a.N, &ok);
-    ok = ok && k0 + PER * c < a.K;   // K % 32 == 0: a chunk is all in or all out
-    cp_async16(dst + R::XST + r * R::WROW + 16 * c,
-               ok ? wl + ((size_t)wr * a.K + k0 + PER * c) * R::BYTES : wl, ok);
+  constexpr int CPR = R::KB / 16;   // 16-byte chunks of a weight row
+  if constexpr (R::I4) {
+    // Chunk c of a token's row: X columns c0 + 8c (c < KB/8, the low
+    // nibbles'), or c0 + group/2 + 8(c - KB/8) (the high ones'); atom c / 8.
+    // The copy loops stay rolled where two blocks share an SM (128
+    // registers: unrolled, their 64-bit addresses spill) and unroll where
+    // one block has it (both faster on the card, PERF.md §6).
+    constexpr int XC = R::KB / 4;   // 16-byte chunks of a token's row
+    constexpr int NX = MT * XC / THREADS, NW = WR * CPR / THREADS;
+    static_assert(NX * THREADS == MT * XC && NW * THREADS == WR * CPR, "whole copy rounds");
+    const int spg = a.group / (2 * R::KB), c0 = kt / spg * a.group + kt % spg * R::KB;
+#pragma unroll(R::BLOCKS == 2 ? 1 : NX)
+    for (int j = 0; j < NX; ++j) {
+      const int i = threadIdx.x + j * THREADS, r = i / XC, c = i % XC;
+      const bool ok = m0 + r < a.M;
+      const int col = c0 + 8 * c + (c < XC / 2 ? 0 : a.group / 2 - R::KB);
+      cp_async16(dst + (c >> 3) * R::XATOM + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+                 ok ? a.xh + (size_t)(m0 + r) * a.K + col : a.xh, ok);
+    }
+#pragma unroll(R::BLOCKS == 2 ? 1 : NW)
+    for (int j = 0; j < NW; ++j) {
+      const int i = threadIdx.x + j * THREADS, r = i / CPR, c = i % CPR;
+      bool ok;
+      const int wr = wrow<GLU>(n0, r, a.N, &ok);
+      cp_async16(dst + R::XST + r * R::WROW + 16 * c,
+                 ok ? wl + (size_t)wr * (a.K / 2) + (size_t)kt * R::KB + 16 * c : wl, ok);
+    }
+  } else {
+    constexpr int PER = 16 / R::BYTES;   // weights per chunk
+    const int k0 = kt * KT;
+    for (int i = threadIdx.x; i < MT * 8; i += THREADS) {
+      const int r = i >> 3, c = i & 7;
+      const bool ok = m0 + r < a.M && k0 + 8 * c < a.K;
+      cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),   // the 128-byte swizzle
+                 ok ? a.xh + (size_t)(m0 + r) * a.K + k0 + 8 * c : a.xh, ok);
+    }
+    for (int i = threadIdx.x; i < WR * CPR; i += THREADS) {
+      const int r = i / CPR, c = i % CPR;
+      bool ok;
+      const int wr = wrow<GLU>(n0, r, a.N, &ok);
+      ok = ok && k0 + PER * c < a.K;   // K % 32 == 0: a chunk is all in or all out
+      cp_async16(dst + R::XST + r * R::WROW + 16 * c,
+                 ok ? wl + ((size_t)wr * a.K + k0 + PER * c) * R::BYTES : wl, ok);
+    }
   }
 }
 
 // Stage i of the slice (its copies in flight): wait for it, widen this
-// thread's A fragments from the raw weights, issue the four k16 wgmmas,
-// and while they run refill the slot of stage i - 1 (retired before the
-// barrier) with stage i + STAGES - 1. The wgmmas retire before the return:
-// fragments written by other instructions while a wgmma is in flight make
-// ptxas serialize them anyway.
+// thread's A fragments from the raw weights, issue the stage's k16 wgmmas
+// into d, and while they run refill the slot of stage i - 1 (retired before
+// the barrier) with stage i + STAGES - 1. The wgmmas retire before the
+// return: fragments written by other instructions while a wgmma is in
+// flight make ptxas serialize them anyway. int4: each 64 packed bytes of a
+// row give eight k16 steps (low nibbles, then high), widened and issued in
+// turn; the first wgmma of a group's first stage (`fresh`) has scale-d 0.
 template <int WT, int MT, bool GLU>
 __device__ __forceinline__ void ring_step(const GemmArgs& a, const uint8_t* wl, uint32_t sb,
                                           const uint8_t* frag, int m0, int n0, int kt0, int n,
-                                          int i, float (&acc)[MT / 2]) {
+                                          int i, float (&d)[MT / 2], bool fresh) {
   using R = Ring<WT, MT>;
   cp_async_wait<R::STAGES - 2>();   // stage i has landed (this thread's copies)
   fence_proxy_async();
   __syncthreads();                  // ... every thread's; stage i - 1's slot is free
   const int st = i % R::STAGES;
   const uint8_t* p = frag + st * R::STAGE;
-  uint32_t af[4][4];
+  if constexpr (R::I4) {
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const uint8_t* q = p + 16 * s * R::BYTES;
-    af[s][0] = a_pair<WT>(q);                                  // row g, k 2t
-    af[s][1] = a_pair<WT>(q + 8 * R::WROW);                    // row g + 8
-    af[s][2] = a_pair<WT>(q + 8 * R::BYTES);                   // row g, k 2t + 8
-    af[s][3] = a_pair<WT>(q + 8 * R::WROW + 8 * R::BYTES);     // row g + 8, k 2t + 8
+    for (int hb = 0; hb < R::KB / 64; ++hb) {
+      uint32_t af[8][4];
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint8_t* q = p + 64 * hb + 16 * s;
+        i4_pairs(q, &af[s][0], &af[s + 4][0]);                          // row g, k 2t
+        i4_pairs(q + 8 * R::WROW, &af[s][1], &af[s + 4][1]);            // row g + 8
+        i4_pairs(q + 8, &af[s][2], &af[s + 4][2]);                      // row g, k 2t + 8
+        i4_pairs(q + 8 * R::WROW + 8, &af[s][3], &af[s + 4][3]);        // row g + 8, k 2t + 8
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int atom = s < 4 ? hb : R::KB / 64 + hb;   // low nibbles' X, or high
+        Wgmma<MT>::mma(d, af[s], b_desc(sb + st * R::STAGE + atom * R::XATOM + 32 * (s & 3)),
+                       s > 0 || hb > 0 || !fresh);
+      }
+      wgmma_commit();
+      if (hb == 0) {
+        const int next = i + R::STAGES - 1;
+        if (next < n)
+          load_stage<WT, MT, GLU>(a, wl, sb + (next % R::STAGES) * R::STAGE, m0, n0, kt0 + next);
+        cp_async_commit();
+      }
+      wgmma_wait<0>();
+    }
+  } else {
+    uint32_t af[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint8_t* q = p + 16 * s * R::BYTES;
+      af[s][0] = a_pair<WT>(q);                                  // row g, k 2t
+      af[s][1] = a_pair<WT>(q + 8 * R::WROW);                    // row g + 8
+      af[s][2] = a_pair<WT>(q + 8 * R::BYTES);                   // row g, k 2t + 8
+      af[s][3] = a_pair<WT>(q + 8 * R::WROW + 8 * R::BYTES);     // row g + 8, k 2t + 8
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) Wgmma<MT>::mma(d, af[s], b_desc(sb + st * R::STAGE + 32 * s));
+    wgmma_commit();
+    const int next = i + R::STAGES - 1;
+    if (next < n)
+      load_stage<WT, MT, GLU>(a, wl, sb + (next % R::STAGES) * R::STAGE, m0, n0, kt0 + next);
+    cp_async_commit();
+    wgmma_wait<0>();
   }
-  wgmma_fence();
-#pragma unroll
-  for (int s = 0; s < 4; ++s) Wgmma<MT>::mma(acc, af[s], b_desc(sb + st * R::STAGE + 32 * s));
-  wgmma_commit();
-  const int next = i + R::STAGES - 1;
-  if (next < n)
-    load_stage<WT, MT, GLU>(a, wl, sb + (next % R::STAGES) * R::STAGE, m0, n0, kt0 + next);
-  cp_async_commit();
-  wgmma_wait<0>();
 }
 
 // NaN over this block's output tile (n0: first row, or pair for GLU).
@@ -773,9 +898,10 @@ gemm_kernel(GemmArgs a, int kchunk, float* __restrict__ scratch, unsigned* __res
     if (z == 0) nan_tile_h<MT, GLU>(a, m0, n0);
     return;
   }
-  const int nk = (a.K + KT - 1) / KT, kt0 = z * kchunk;
+  const int nk = R::I4 ? a.K / (2 * R::KB) : (a.K + KT - 1) / KT, kt0 = z * kchunk;
   const int n = min(nk, kt0 + kchunk) - kt0;   // this slice's stages (>= 1)
-  const uint8_t* wl = static_cast<const uint8_t*>(a.w) + le * (size_t)a.N * a.K * R::BYTES;
+  const uint8_t* wl = static_cast<const uint8_t*>(a.w) +
+                      le * (size_t)a.N * (R::I4 ? a.K / 2 : (size_t)a.K * R::BYTES);
   const uint32_t sb0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t sb = (sb0 + 1023) & ~1023u;   // the swizzle's atoms sit at 1024-byte offsets
 
@@ -790,8 +916,43 @@ gemm_kernel(GemmArgs a, int kchunk, float* __restrict__ scratch, unsigned* __res
   }
   // this thread's fragment row g of its warp's slab, at k 2t
   const uint8_t* frag = smem + (sb - sb0) + R::XST + (16 * w + g) * R::WROW + 2 * t * R::BYTES;
-  for (int i = 0; i < n; ++i) ring_step<WT, MT, GLU>(a, wl, sb, frag, m0, n0, kt0, n, i, acc);
-  fence_acc(acc);
+  if constexpr (R::I4) {
+    // each group sums into gsum (cleared by its first wgmma); once the
+    // group's last stage has retired, acc += gsum * the group's scale of
+    // the thread's rows g and g + 8 (a slice starts on a group boundary)
+    const int spg = a.group / (2 * R::KB);   // stages per group
+    bool ok0, ok1;
+    const int r0 = wrow<GLU>(n0, 16 * w + g, a.N, &ok0);
+    const int r1 = wrow<GLU>(n0, 16 * w + g + 8, a.N, &ok1);
+    const float* gs = a.gscale + le * (size_t)(a.K / a.group) * a.N;
+    float gsum[MT / 2];
+#pragma unroll
+    for (int i = 0; i < MT / 2; ++i) gsum[i] = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const int kt = kt0 + i;
+      const bool end = kt % spg == spg - 1;
+      float s0 = 0.f, s1 = 0.f;
+      if (end) {   // in flight under the stage's wgmmas
+        if (ok0) s0 = __ldg(gs + (size_t)(kt / spg) * a.N + r0);
+        if (ok1) s1 = __ldg(gs + (size_t)(kt / spg) * a.N + r1);
+      }
+      ring_step<WT, MT, GLU>(a, wl, sb, frag, m0, n0, kt0, n, i, gsum, kt % spg == 0);
+      if (end) {
+        fence_acc(gsum);
+#pragma unroll
+        for (int j = 0; j < MT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            acc[4 * j + e] = fmaf(gsum[4 * j + e], s0, acc[4 * j + e]);
+            acc[4 * j + 2 + e] = fmaf(gsum[4 * j + 2 + e], s1, acc[4 * j + 2 + e]);
+          }
+      }
+    }
+  } else {
+    for (int i = 0; i < n; ++i)
+      ring_step<WT, MT, GLU>(a, wl, sb, frag, m0, n0, kt0, n, i, acc, false);
+    fence_acc(acc);
+  }
 
   if (S > 1) {
     // this slice's tile to scratch, in the threads' own order; the last
@@ -855,7 +1016,7 @@ int launch_h(const GemmArgs& a, int kchunk, float* scratch, unsigned* counter, c
     if (err != cudaSuccess) return (int)err;
     ready |= bit;
   }
-  const int nk = (a.K + KT - 1) / KT;
+  const int nk = R::I4 ? a.K / (2 * R::KB) : (a.K + KT - 1) / KT;
   const dim3 grid((a.M + MT - 1) / MT,
                   GLU ? (a.N / 2 + WR / 2 - 1) / (WR / 2) : (a.N + WR - 1) / WR,
                   (nk + kchunk - 1) / kchunk);
@@ -875,7 +1036,11 @@ int launch(const GemmArgs& a, bool glu, int mt, int kchunk, float* scratch, unsi
     YT_MT(32)
     YT_MT(64)
     YT_MT(128)
-    YT_MT(256)
+    case 256:   // not for int4: its two accumulators of Mt/2 floats would not fit
+      if constexpr (WT != W_I4)
+        return glu ? launch_h<WT, 256, true>(a, kchunk, scratch, counter, st)
+                   : launch_h<WT, 256, false>(a, kchunk, scratch, counter, st);
+      return ERR_ARGS;
     default: return ERR_ARGS;
   }
 #undef YT_MT
@@ -938,10 +1103,33 @@ extern "C" int yt_gemm_v1(int wtype, const void* w, int layer, int E, int expert
   }
 }
 
-// Packed int4 (ops/cuda/gemv.py checks types, shapes and 16-byte alignment).
+// gemm_kernel on packed int4 weights (L, E, N, K/2) with group scales
+// gscale (L, E, K / group, N): x (M, K) bf16; mt 16-128; kchunk stages of
+// i4_stage_bytes(mt) packed bytes, a whole number of groups; otherwise as
+// yt_gemm (ops/cuda/gemv.py checks types, shapes and 16-byte alignment).
 extern "C" int yt_gemm4(const void* w, int layer, int E, int expert, const long long* expert_id,
-                        int N, int K, int group, const float* x, int M, const float* gscale,
-                        const float* residual, float* y, int glu, int act, void* stream) {
+                        int N, int K, int group, const void* x, int M, const float* gscale,
+                        const float* residual, float* y, int glu, int act, int mt, int kchunk,
+                        float* scratch, unsigned* counter, void* stream) {
+  if (M < 1 || N < 1 || layer < 0 || E < 1 || (group != 256 && group != 512) || K < group ||
+      K % group || !gscale || kchunk < 1 || kchunk % (group / (2 * i4_stage_bytes(mt))) ||
+      (glu && (N % 2 || residual)))
+    return ERR_ARGS;
+  const int nk = K / (2 * i4_stage_bytes(mt)), split = (nk + kchunk - 1) / kchunk;
+  const int rows = glu ? (N / 2 + WR / 2 - 1) / (WR / 2) : (N + WR - 1) / WR;
+  if (rows > 65535 || split > 65535 || (split > 1 && (!scratch || !counter))) return ERR_ARGS;
+  const GemmArgs a{w, nullptr, nullptr, gscale, residual, y, expert_id, layer, E, expert, M, N, K,
+                   group, act, static_cast<const __nv_bfloat16*>(x)};
+  return launch<W_I4>(a, glu != 0, mt, kchunk, scratch, counter, static_cast<cudaStream_t>(stream));
+}
+
+// gemm4_kernel_v1, the int4 design gemm_kernel replaced, for chip_smoke.py's
+// same-run timing alone: x (M, K) f32, the arguments otherwise yt_gemm4's
+// before the plan.
+extern "C" int yt_gemm4_v1(const void* w, int layer, int E, int expert,
+                           const long long* expert_id, int N, int K, int group, const float* x,
+                           int M, const float* gscale, const float* residual, float* y, int glu,
+                           int act, void* stream) {
   if (!args_ok(M, N, layer, E, glu, residual) || (group != 256 && group != 512) || K < group ||
       K % group || !gscale)
     return ERR_ARGS;
@@ -949,9 +1137,9 @@ extern "C" int yt_gemm4(const void* w, int layer, int E, int expert, const long 
                    group, act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (glu)
-    gemm4_kernel<true><<<grid_of(M, N, true), THREADS, 0, st>>>(a);
+    gemm4_kernel_v1<true><<<grid_of(M, N, true), THREADS, 0, st>>>(a);
   else
-    gemm4_kernel<false><<<grid_of(M, N, false), THREADS, 0, st>>>(a);
+    gemm4_kernel_v1<false><<<grid_of(M, N, false), THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -47,7 +47,8 @@ _SIGNATURES = {
     # (..., glu, act, mt, kchunk, scratch, counter, stream): gemv.py:gemm_plan
     "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "yt_round_rows_bf16": [_P, ctypes.c_longlong, _P, _P],
-    "yt_gemm4": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # (..., group, x, M, gscale, ..., mt, kchunk, scratch, counter, stream)
+    "yt_gemm4": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "yt_rmsnorm_rows": [_P, _I, _I, _P, _F, _P, _P],
     # (..., scratch, counter, ..., softcap, win, lo, chunk, nsplit, skip, stream):
     # Gemma2's score cap, a sliding layer's window, the split of the slots

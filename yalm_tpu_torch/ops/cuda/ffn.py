@@ -11,9 +11,10 @@ so on CUDA this wrapper launches hand-written kernels in a row, by row count:
   GEMV route, csrc/gemv.cu twice -- norm + w13 GEMV with the GLU-pair
   epilogue, which writes the bf16 GLU output, then the w2 GEMV with scale +
   residual;
-- more rows (the batched tick, chunks): the GEMM route, csrc/gemm.cu three
-  times -- the row norm, the w13 GEMM with the GLU-pair epilogue, the w2
-  GEMM with scale + residual.
+- more rows (the batched tick, chunks): the GEMM route, csrc/gemm.cu five
+  times -- the row norm, then for the w13 GEMM with the GLU-pair epilogue
+  and the w2 GEMM with scale + residual each the rounding of its X to bf16
+  and the wgmma gemm_kernel.
 
 Both routes round the same operands (ffn.py:47, :188), so they agree to the
 f32 summation order. For int4 weights every launch takes the kernels'

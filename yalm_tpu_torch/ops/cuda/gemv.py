@@ -8,9 +8,10 @@ scale/bias/clip/residual or GLU-pair epilogue; int4 weights with their
 group scales too) and `csrc/gemm.cu` (for the prefill chunks and the
 batched tick: `gemm_kernel`, wgmma with the widened weights in registers
 over a cp.async ring, X rounded to bf16 once by `round_rows_kernel`, split
-K where the grid would starve (`gemm_plan`); `gemm4_kernel`, mma.sync
-tiles, for int4; a residual or GLU-pair epilogue and a row-norm kernel for
-the many-row FFN). The
+K where the grid would starve (`gemm_plan`); packed int4 on the same
+kernel, its nibbles widened in registers and each group's f32 partial
+scaled, K split at group boundaries; a residual or GLU-pair epilogue and a
+row-norm kernel for the many-row FFN). The
 routed-expert functions launch the same kernels addressed at (layer,
 expert); the expert is a host int or a one-element integer tensor on the
 card, read there (the decode step's top-k ids never reach the host). Each
@@ -150,14 +151,14 @@ def gemv_le_plain(x, w_all, layer, expert, scale=None, *, norm_w=None, norm_eps=
 
 GEMM_ROWS = 128                       # weight rows per block: two warpgroups of 64
 GEMM_KT = 64                          # K per ring stage
-GEMM_MT = (16, 32, 64, 128, 256)      # tokens per block: wgmma's N
+GEMM_MT = (16, 32, 64, 128, 256)      # tokens per block: wgmma's N (int4: up to 128)
 SMS = 132                             # streaming multiprocessors of an H100 SXM
 MAX_SPLIT = 16                        # K slices a launch takes at most
 
 
 class GemmPlan(NamedTuple):
     """How gemm_kernel cuts a launch: mt tokens per block; K in slices of
-    kchunk stages of GEMM_KT (the last may be shorter), `split` of them."""
+    kchunk ring stages (the last may be shorter), `split` of them."""
     mt: int
     kchunk: int
     split: int
@@ -169,22 +170,47 @@ def gemm_row_tiles(N: int, glu: bool) -> int:
     return -(-N // 2 // (GEMM_ROWS // 2)) if glu else -(-N // GEMM_ROWS)
 
 
-def gemm_plan(M: int, N: int, K: int, glu: bool = False) -> GemmPlan:
+def gemm4_stage_bytes(mt: int) -> int:
+    """Packed bytes of each int4 weight row a ring stage holds (2x as many K):
+    128 up to 32 tokens, else 64 (csrc/gemm.cu's i4_stage_bytes)."""
+    return 2 * GEMM_KT if mt <= 32 else GEMM_KT
+
+
+def gemm_plan(M: int, N: int, K: int, glu: bool = False, group: int = 0) -> GemmPlan:
     """The plan of an (M, K) x (N, K)^T launch: the smallest token tile that
     holds M (256 past it, or 128 where 256-token tiles leave the card's
     SMs short of blocks); K split only where one slice gives fewer blocks
     than the card has SMs, into enough slices to fill them (at most
-    MAX_SPLIT, at least one stage each). The slices cover the ceil(K / 64)
-    stages exactly once."""
-    mt = next((m for m in GEMM_MT if m >= M), GEMM_MT[-1])
+    MAX_SPLIT, at least one stage each). The slices cover the ring stages
+    (ceil(K / 64)) exactly once. Packed int4 weights (`group`: their group
+    width): at most 128 tokens (the kernel's two accumulators), stages of
+    2 * gemm4_stage_bytes(mt) K, slices of whole groups, and a starved grid
+    split for two blocks per SM (its short stages are latency-bound; see
+    PERF.md §6)."""
+    tiles = GEMM_MT[:-1] if group else GEMM_MT
+    mt = next((m for m in tiles if m >= M), tiles[-1])
     rows = gemm_row_tiles(N, glu)
     if mt == GEMM_MT[-1] and rows * -(-M // mt) < SMS:
         mt = GEMM_MT[-2]   # narrow N: more token tiles before K is split
     blocks = rows * -(-M // mt)
-    nk = -(-K // GEMM_KT)
-    split = 1 if blocks >= SMS else min(nk, MAX_SPLIT, -(-SMS // blocks))
-    kchunk = -(-nk // split)
-    return GemmPlan(mt, kchunk, -(-nk // kchunk))
+    unit = group // (2 * gemm4_stage_bytes(mt)) if group else 1   # stages a slice is made of
+    units = K // group if group else -(-K // GEMM_KT)
+    fill = 2 * SMS if group else SMS
+    split = 1 if blocks >= SMS else min(units, MAX_SPLIT, -(-fill // blocks))
+    chunk = -(-units // split)
+    return GemmPlan(mt, chunk * unit, -(-units // chunk))
+
+
+def gemm4_stage_cols(kt: int, group: int, mt: int) -> list[int]:
+    """The X columns of int4 stage kt in the kernel's virtual order
+    (csrc/gemm.cu's load_stage), P = gemm4_stage_bytes(mt): the stage holds
+    packed bytes P*kt..P*kt+P-1 of each weight row, byte offset b0 of group
+    g; its columns are the low nibbles' g*group + b0 + j, then the high
+    nibbles' g*group + group/2 + b0 + j, j = 0..P-1."""
+    P = gemm4_stage_bytes(mt)
+    spg = group // (2 * P)
+    c0 = kt // spg * group + kt % spg * P
+    return [c0 + h * (group // 2) + j for h in (0, 1) for j in range(P)]
 
 
 def glu_rows(p0: int, H: int) -> list[int]:
@@ -216,6 +242,31 @@ def gemm_split_plain(x, w_all, layer, scale=None, *, expert=None, residual=None,
         out = part if out is None else out + part
     if s is not None:
         out = out * s.float()[None]
+    if glu_act:
+        return glu_plain(out, glu_act)
+    return out if residual is None else out + residual
+
+
+def gemm4_split_plain(x, w4_all, layer, gscale, *, expert=None, residual=None, glu_act=None):
+    """gemm_kernel's arithmetic on packed int4 weights, plainly: bf16
+    operands; each group's products summed in f32 and its scale on that
+    partial, the groups of a slice of gemm_plan added in order, the slices'
+    partials added in slice order, then the residual or the GLU pair."""
+    w = w4_all[layer] if expert is None else w4_all[layer][expert]
+    s = (gscale[layer] if expert is None else gscale[layer][expert]).float()
+    M, K = x.shape
+    N, group = w.shape[0], int4_group(K)
+    plan = gemm_plan(M, N, K, glu_act is not None, group)
+    p = w.reshape(N, K // group, group // 2)
+    q = torch.cat([p & 0xF, p >> 4], dim=-1).float() - 8.0      # (N, G, group)
+    xg = bf16f(x).reshape(M, K // group, group)
+    per = plan.kchunk * 2 * gemm4_stage_bytes(plan.mt) // group   # groups per slice
+    out = None
+    for g0 in range(0, K // group, per):
+        part = torch.zeros((M, N), dtype=torch.float32, device=x.device)
+        for g in range(g0, min(g0 + per, K // group)):
+            part = part + (xg[:, g] @ q[:, g].T) * s[g]
+        out = part if out is None else out + part
     if glu_act:
         return glu_plain(out, glu_act)
     return out if residual is None else out + residual
@@ -351,12 +402,12 @@ def launch_round_rows(x):
 
 def launch_gemm(count: str, x, w_all, layer: int, scale=None, *, expert=None, residual=None,
                 glu_act: str | None = None):
-    """One launch of csrc/gemm.cu (gemm_kernel after round_rows_kernel, or
-    gemm4_kernel for packed int4 weights) on CUDA tensors (adds one to
-    LAUNCHES[count]). x: (M, K) f32; returns (M, N) f32, + residual (M, N)
-    if given, or for the GLU pair (M, N // 2) holding bf16 values. `scale`
-    is per row (L, [E,] N), or the group scales (L, [E,] G, N) of packed
-    int4 weights; `expert` as launch_gemv's."""
+    """One launch of csrc/gemm.cu's gemm_kernel, after round_rows_kernel,
+    on CUDA tensors (adds one to LAUNCHES[count]). x: (M, K) f32; returns
+    (M, N) f32, + residual (M, N) if given, or for the GLU pair (M, N // 2)
+    holding bf16 values. `scale` is per row (L, [E,] N), or the group
+    scales (L, [E,] G, N) of packed int4 weights; `expert` as
+    launch_gemv's."""
     L, N, Kw, E, e_host, e_dev = _addressing(w_all, layer, expert, count)
     int4 = is_int4(w_all)
     K = 2 * Kw if int4 else Kw
@@ -379,18 +430,18 @@ def launch_gemm(count: str, x, w_all, layer: int, scale=None, *, expert=None, re
     B.require(B.aligned16(w_all, x), f"{count}: weights and x must be 16-byte aligned")
     y = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
     glu, act = (1, 1 if glu_act == "gelu" else 0) if glu_act else (0, 0)
+    xb = launch_round_rows(x)
+    group = int4_group(K) if int4 else 0
+    plan = gemm_plan(M, N, K, bool(glu_act), group)
+    scratch = ctr = None
+    if plan.split > 1:
+        tiles = gemm_row_tiles(N, bool(glu_act)) * -(-M // plan.mt)
+        scratch, ctr = _split_buffers(x.device, tiles * plan.split * GEMM_ROWS * plan.mt, tiles)
     if int4:
-        code = B.lib().yt_gemm4(B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K,
-                                int4_group(K), B.ptr(x), M, B.ptr(scale), B.ptr(residual),
-                                B.ptr(y), glu, act, B.stream_ptr())
+        code = B.lib().yt_gemm4(B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K, group,
+                                B.ptr(xb), M, B.ptr(scale), B.ptr(residual), B.ptr(y), glu, act,
+                                plan.mt, plan.kchunk, B.ptr(scratch), B.ptr(ctr), B.stream_ptr())
     else:
-        xb = launch_round_rows(x)
-        plan = gemm_plan(M, N, K, bool(glu_act))
-        scratch = ctr = None
-        if plan.split > 1:
-            tiles = gemm_row_tiles(N, bool(glu_act)) * -(-M // plan.mt)
-            scratch, ctr = _split_buffers(x.device, tiles * plan.split * GEMM_ROWS * plan.mt,
-                                          tiles)
         code = B.lib().yt_gemm(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host,
                                B.ptr(e_dev), N, K, B.ptr(xb), M, B.ptr(scale),
                                B.ptr(residual), B.ptr(y), glu, act, plan.mt, plan.kchunk,
@@ -465,8 +516,7 @@ def gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None = None) ->
 def gemm4_l(x: torch.Tensor, w4_all: torch.Tensor, layer: int,
             gscale: torch.Tensor) -> torch.Tensor:
     """y[B, N] = x[B, K] @ dequant4(W4_all[layer])^T over packed int4
-    weights (L, N, K/2) uint8 with group scales (L, G, N); any B on the
-    CPU, B rows in 64-row tiles on CUDA."""
+    weights (L, N, K/2) uint8 with group scales (L, G, N), any B."""
     if (x.dim() != 2 or not is_int4(w4_all) or x.shape[1] != 2 * w4_all.shape[2]
             or x.shape[1] % 256):
         raise ValueError(f"gemm4_l: x {tuple(x.shape)} vs packed w4_all "
