@@ -74,7 +74,7 @@ K12 (attend_one_l, which no model path runs) at Mistral-7B shapes on each
 cache type in phase 2 of the fp8 and the int4 path. K2 and K12 run split
 over the slots (two launches per call); every K2 case in phase 2 also
 times the same function on the one-block-per-kv-head design they replaced
-(attend_step_batched_l with one lane), in the same run, as do K3 and K6
+(`attend_step_v1` with one lane), in the same run, as do K3 and K6
 (attn_block's middle launch on it), and the fp8 path
 adds a lane one slot past a chunk boundary and one whose kv_pos lies in a
 middle chunk. K1 gemm_l, K10 gemm_le and, on packed int4 weights, K5
@@ -84,7 +84,15 @@ the tick's M 16 for w2 and wo, with F.linear beside it) also times the
 mma.sync design it replaced (gemm_kernel_v1 or gemm4_kernel_v1, through
 `gemm_v1`) in the same run, as do K4's and K7's GEMM-route rows, and
 phase 2 checks `cuobjdump -sass` for HGMMA in every gemm_kernel instance,
-the int4 ones among them;
+the int4 ones among them. K8 attend_step_batched_l and K9
+attend_step_paged_l run split over the window's slots (`lanes_split_plan`,
+two launches per call); every K8/K9 case in phase 2 also times the
+one-block-per-(kv head, lane) design it replaced (attend_step_kernel through
+`attend_step_v1`) in the same run, and the fp8 and int4 paths' phase 2
+each run one K8 and one K9 call under torch's sync debug mode (no host
+sync) and replay each captured in a CUDA graph after rewriting its lanes
+tensor in place; phase
+3's tick profiles report K8/K9's device time per tick;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -337,8 +345,8 @@ class Bench:
         kernels line reports for it ("serve": phase 3's Engine requests,
         "batched": the serving run). old: the same function on the design
         it replaced, timed in the same run (K2: the one-block-per-kv-head
-        kernel of PR 1-6, which attend_step_batched_l keeps, with one
-        lane). bf16_out: the outputs are bf16 values
+        kernel, attend_step_v1 with one lane; K8/K9: the same kernel over
+        the lanes). bf16_out: the outputs are bf16 values
         (the GLU epilogue's), and an element may also differ by one bf16 ulp
         of the reference, where the two f32 values straddle a rounding
         boundary (at M 256 x 14336 outputs some always do, and one ulp of
@@ -456,15 +464,65 @@ def check_hgmma() -> None:
         f"gemm_kernel_v1 and gemm4_kernel_v1")
 
 
+def v1_smem_bytes(qpk: int, D: int, S: int) -> int:
+    """Shared memory of csrc/attention.cu's attend_step_kernel (the v1
+    design) for a window of S slots: q, every score (one tile's, 64, when
+    the scores go to global scratch), one K/V tile."""
+    words = qpk * (D + 2) + S * qpk
+    return (words + 3) // 4 * 16 + 64 * (D + 8) * 2
+
+
+def attend_step_v1(q, k_new, v_new, k_all, v_all, layer, lanes, tables=None, *, kv_sinks, theta,
+                   rotary_dim, softcap=0.0, win=None, alt=None):
+    """K8's function, or with `tables` K9's (k_all/v_all a page pool), on
+    the design the lanes split replaced (one block per (kv head, lane)),
+    for the same-run timing: csrc/attention.cu's
+    yt_attend_step_batched_v1 / yt_attend_step_paged_v1, which no wrapper
+    of the port reaches. Arguments as attend_step_batched's /
+    attend_step_paged's."""
+    import ctypes
+    import math
+    import torch
+    from yalm_tpu_torch.ops.core import rope_mscale
+    from yalm_tpu_torch.ops.cuda import _build as B
+    from yalm_tpu_torch.ops.cuda import attention as A
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    Bn, Hk, qpk, D = q.shape
+    L, S = k_all.shape[1], k_all.shape[2]
+    if tables is not None:
+        n_pages, L, page = k_all.shape[:3]
+        nblk = tables.shape[1]
+        S = page * nblk
+    qc, kn, vn = (t.float().contiguous() for t in (q, k_new, v_new))
+    freq = A._freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
+    out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
+    scores = (None if v1_smem_bytes(qpk, D, S) <= 227 * 1024 else
+              torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
+    w = A._win_arg(win, S, "attend_step_v1")
+    lead = (B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all),
+            B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
+            B.ptr(lanes))
+    if tables is None:
+        fn = B.lib().yt_attend_step_batched_v1
+        fn.argtypes = [I, P, P, P, P, P, P, F, F, P, P, P, I, I, I, I, I, I, I, I, F, I, P]
+        rest = (Bn, L, layer, S, Hk, qpk, D)
+    else:
+        fn = B.lib().yt_attend_step_paged_v1
+        fn.argtypes = [I, P, P, P, P, P, P, F, F, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, I, P]
+        rest = (B.ptr(tables), Bn, n_pages, L, layer, page, nblk, Hk, qpk, D)
+    fn.restype = I
+    B.check(fn(*lead, *rest, kv_sinks, float(softcap), w, B.stream_ptr()), "attend_step_v1")
+    return out
+
+
 def one_block_per_head(k_all, v_all, kv_pos, kv_len, kv_sink, pos, rope):
-    """K2's function on the design it replaced (one block per kv head,
-    PR 1-6), for the same-run timing: attend_step_batched_l with one lane
-    over a (1, L, S, Hk, D) view of the cache. Returns fn(q, kn, vn,
-    layer)."""
+    """K2's function on the design it replaced (one block per kv head), for
+    the same-run timing: attend_step_v1 with one lane over a (1, L, S, Hk,
+    D) view of the cache. Returns fn(q, kn, vn, layer)."""
     from yalm_tpu_torch.ops.cuda import attention as A
     lanes = A.lane_scalars([kv_pos], [kv_len], [kv_sink], [pos], [1], S=k_all.shape[1],
                            kv_sinks=rope["kv_sinks"], device=k_all.device)
-    return lambda q, kn, vn, layer: A.attend_step_batched(
+    return lambda q, kn, vn, layer: attend_step_v1(
         q[None], kn[None], vn[None], k_all[None], v_all[None], layer, lanes, **rope)
 
 
@@ -700,6 +758,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     phase_ffn_rows(bench, cfg, fw, dev, (16, 64))
     phase_batched_attention(bench, cfg, dev, torch.bfloat16)
     phase_paged_attention(bench, cfg, dev, torch.bfloat16)
+    phase_lanes_capture(cfg, dev, torch.bfloat16)
     phase_attend_one(bench, cfg, dev, torch.bfloat16)
 
 
@@ -899,6 +958,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     phase_ffn_rows(bench, cfg, fw, dev, (16,))
     phase_batched_attention(bench, cfg, dev, torch.float8_e5m2)
     phase_paged_attention(bench, cfg, dev, torch.float8_e5m2)
+    phase_lanes_capture(cfg, dev, torch.float8_e5m2)
     phase_attend_one(bench, cfg, dev, torch.float8_e5m2)
 
 
@@ -1291,6 +1351,23 @@ def form_label(form: dict) -> str:
     return (", " + " + ".join(parts)) if parts else ""
 
 
+def short_lanes(B: int = 16):
+    """16 lanes at the contexts of the profiled ticks (prompts of 64 tokens
+    admitted, then decoding): kv_len 65 to 95, every lane writing."""
+    pos = [64 + 2 * i for i in range(B)]
+    return pos, [p + 1 for p in pos], [0] * B, pos, [1] * B
+
+
+def lanes_label(S: int, Hk: int, lanes, win) -> str:
+    """Where the lanes split puts a K8/K9 case: its chunks, and how many of
+    the B x nsplit (lane, chunk) pairs read rows (`lane_chunk_live`)."""
+    from yalm_tpu_torch.ops.cuda.attention import lane_chunk_live, lanes_split_plan
+    chunk, nsplit = lanes_split_plan(S, Hk)
+    live = sum(lane_chunk_live(c, chunk, S, kp, kl, ks, win or 0)
+               for kp, kl, ks in zip(*lanes[:3]) for c in range(nsplit))
+    return f", {nsplit}x{chunk} ({live} of {len(lanes[0]) * nsplit} read)"
+
+
 def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=None,
                           json: bool = True) -> None:
     """K9 at B 16 over pools of 257 pages of 256 slots through shuffled
@@ -1368,7 +1445,8 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=No
               .to(torch.bfloat16) for l in range(L4)]
         item = kv_dtype.itemsize
         bench.case("attend_step_paged_l", f"B=16 {wd} {L} layers, pages of 256 shuffled, kv_len "
-                   f"1..{S}, ring + 2 read-only lanes{form_label(form)}", got, want, 2e-3,
+                   f"1..{S}, ring + 2 read-only lanes{form_label(form)}"
+                   + lanes_label(S, Hk, (kv_pos, kv_len, sink), form.get("win")), got, want, 2e-3,
                    kernel=lambda r: A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables,
                                                         top - r % L4, lanes, **rope),
                    plain=lambda r: A.attend_step_paged_plain(q, kn, vn, k_pool, v_pool,
@@ -1377,9 +1455,37 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=No
                    library=lambda r: F.scaled_dot_product_attention(
                        qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
                        enable_gqa=True),
+                   old=lambda r: attend_step_v1(q, kn, vn, k_pool, v_pool, top - r % L4, lanes,
+                                                tables, **rope),
                    bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                    + 4 * 5 * B + 4 * B * nblk,
                    flops=4 * rows * Hq * D, json_row=json and L == L4, run="paged")
+        if L == L4:   # the profiled ticks' short lanes, where a call's fixed cost shows
+            sh = short_lanes(B)
+            sl = A.lane_scalars(*sh, S=S, kv_sinks=2, device=dev)
+            sl_cpu = sl.cpu()
+            smask, srows = window_rows(S, *sh[:3], form.get("win"))
+            smask = smask.to(dev)
+            swant = A.attend_step_paged_plain(q, kn, vn, k_pool.clone(), v_pool.clone(),
+                                              tables_cpu, top, sl_cpu, **rope)
+            bench.case("attend_step_paged_l", f"B=16 {wd} {L} layers, pages of 256 shuffled, "
+                       f"kv_len 65..95 (the profiled ticks'){form_label(form)}"
+                       + lanes_label(S, Hk, sh, form.get("win")),
+                       A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables, top, sl, **rope),
+                       swant, 2e-3,
+                       kernel=lambda r: A.attend_step_paged(q, kn, vn, k_pool, v_pool, tables,
+                                                            top - r % L4, sl, **rope),
+                       plain=lambda r: A.attend_step_paged_plain(q, kn, vn, k_pool, v_pool,
+                                                                 tables_cpu, top - r % L4,
+                                                                 sl_cpu, **rope),
+                       library=lambda r: F.scaled_dot_product_attention(
+                           qq, kk[r % L4][:, :, :128], vv[r % L4][:, :, :128],
+                           attn_mask=smask[:, None, None, :128], enable_gqa=True),
+                       old=lambda r: attend_step_v1(q, kn, vn, k_pool, v_pool, top - r % L4,
+                                                    sl, tables, **rope),
+                       bytes_=2 * srows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+                       + 4 * 5 * B + 4 * B * nblk,
+                       flops=4 * srows * Hq * D, run="paged")
         del kk, vv, k_pool, v_pool
         torch.cuda.empty_cache()
 
@@ -1432,7 +1538,8 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype, form=None,
     qq = q.reshape(B, Hq, 1, D).to(torch.bfloat16)
     item = kv_dtype.itemsize
     bench.case("attend_step_batched_l", f"B=16 {wd} kv_len 1..{S}, ring + 2 read-only lanes"
-               f"{form_label(form)}", got, want, 2e-3,
+               f"{form_label(form)}" + lanes_label(S, Hk, (kv_pos, kv_len, sink), form.get("win")),
+               got, want, 2e-3,
                kernel=lambda r: A.attend_step_batched(q, kn, vn, cache.k, cache.v, r % L4,
                                                       lanes, **rope),
                plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cache.k, cache.v, r % L4,
@@ -1440,10 +1547,104 @@ def phase_batched_attention(bench: Bench, cfg, dev, kv_dtype, form=None,
                library=lambda r: F.scaled_dot_product_attention(
                    qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
                    enable_gqa=True),
+               old=lambda r: attend_step_v1(q, kn, vn, cache.k, cache.v, r % L4, lanes, **rope),
                bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                + 4 * 5 * B,
                flops=4 * rows * Hq * D, json_row=json, run="batched")
+    # the profiled ticks' short lanes, where a call's fixed cost shows
+    sh = short_lanes(B)
+    sl = A.lane_scalars(*sh, S=S, kv_sinks=2, device=dev)
+    sl_cpu = sl.cpu()
+    mask, rows = window_rows(S, *sh[:3], form.get("win"))
+    mask = mask.to(dev)
+    want = A.attend_step_batched_plain(q, kn, vn, cache.k.clone(), cache.v.clone(), 1, sl_cpu,
+                                       **rope)
+    bench.case("attend_step_batched_l", f"B=16 {wd} kv_len 65..95 (the profiled ticks')"
+               f"{form_label(form)}" + lanes_label(S, Hk, sh, form.get("win")),
+               A.attend_step_batched(q, kn, vn, cache.k, cache.v, 1, sl, **rope), want, 2e-3,
+               kernel=lambda r: A.attend_step_batched(q, kn, vn, cache.k, cache.v, r % L4, sl,
+                                                      **rope),
+               plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cache.k, cache.v, r % L4,
+                                                           sl_cpu, **rope),
+               library=lambda r: F.scaled_dot_product_attention(
+                   qq, kk[r % L4][:, :, :128], vv[r % L4][:, :, :128],
+                   attn_mask=mask[:, None, None, :128], enable_gqa=True),
+               old=lambda r: attend_step_v1(q, kn, vn, cache.k, cache.v, r % L4, sl, **rope),
+               bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
+               + 4 * 5 * B,
+               flops=4 * rows * Hq * D, run="batched")
     del kk, vv, cache
+
+
+def phase_lanes_capture(cfg, dev, kv_dtype) -> None:
+    """K8 and K9 (the lanes split) over 16 lanes of the model's window on a
+    2-layer cache and a pool of shuffled pages of 256: a call under
+    torch.cuda.set_sync_debug_mode("error") (the wrapper reads no device
+    value, so no host sync), then a call captured in a CUDA graph: with the
+    lanes tensor rewritten in place (every lane one position on, the
+    write-masked lanes writing) and the graph replayed, the output equals an
+    uncaptured call with the new lanes bit for bit, and differs from the
+    old lanes' output. Raises otherwise."""
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    Hq, Hk, D, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len
+    B, L, page = 16, 2, 256
+    nblk = S // page
+    cache = KVCache.init(with_layers(cfg, L), kv_dtype, dev, batch=B)
+    shape = (1 + B * nblk, L, page, Hk, D)
+    k_pool, v_pool = (torch.empty(shape, dtype=kv_dtype, device=dev) for _ in range(2))
+    for t in (cache.k, cache.v, k_pool, v_pool):
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16).to(kv_dtype))
+    tables = shuffled_tables(B, nblk, seed=18).to(dev)
+    q = torch.randn(B, Hk, Hq // Hk, D, generator=gen, device=dev) * 2
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+
+    def lanes_at(step: int):
+        _, _, _, pos, write = batched_lanes(S)
+        pos = [p + step for p in pos]
+        sink = [2 if p >= S else 0 for p in pos]
+        kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+        return A.lane_scalars(kv_pos, [min(p + 1, S) for p in pos], sink, pos,
+                              [1] * B if step else write, S=S, kv_sinks=2, device=dev)
+
+    calls = {"attend_step_batched_l": lambda ln: A.attend_step_batched(
+                 q, kn, vn, cache.k, cache.v, 1, ln, **rope),
+             "attend_step_paged_l": lambda ln: A.attend_step_paged(
+                 q, kn, vn, k_pool, v_pool, tables, 1, ln, **rope)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    wd = "e5m2" if kv_dtype.itemsize == 1 else "bf16"
+    for name, call in calls.items():
+        lanes = lanes_at(0)
+        with torch.cuda.stream(side):
+            before = call(lanes)   # warm: this stream's counters, the rope table
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call(lanes)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = call(lanes)
+            lanes.copy_(lanes_at(1))
+            graph.replay()
+            want = call(lanes)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want) or torch.equal(out, before):
+            raise AssertionError(f"{name} {wd}: the CUDA graph replayed with rewritten lanes "
+                                 "differs from an uncaptured call on them")
+        log(f"  {name} {wd}: no host sync under sync_debug_mode('error'); a CUDA graph "
+            "replayed after the lanes tensor was rewritten equals an uncaptured call on the "
+            "new lanes bit for bit")
+    del cache, k_pool, v_pool
+    torch.cuda.empty_cache()
 
 
 # the kernels each path must launch in its phase-3 run (the Mixtral paths'
@@ -1996,18 +2197,21 @@ def profile_ticks(sched, cfg, n: int, per_tick: dict) -> dict:
     if counts != per_tick:
         raise AssertionError(f"launches per tick {counts}, expected {per_tick}")
     dev_us = device_us(prof)
-    busy = sum(dev_us.values()) / 1e6
+    busy = device_busy_us(prof) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
+    # K8/K9 (the tick's attention): the span of the lanes split's two kernels
+    lanes_us = device_busy_us(prof, ("lanes_scores_kernel", "lanes_values_kernel"))
     r = dict(ticks=n, lanes=sched.B, wall_ms_per_tick=wall / n * 1e3,
              device_ms_per_tick=busy / n * 1e3, idle_share=(1 - busy / wall) if busy else None,
              tok_s=sched.B * n / wall, top=[(k[:60], v / n / 1e3) for k, v in top],
-             launches_per_tick=counts)
+             launches_per_tick=counts, attention_ms_per_tick=lanes_us / n / 1e3)
     if spans:
         r["moe_ffn_ms_per_tick"] = sum(a.elapsed_time(b) for a, b in spans) / n
     log(f"  tick profile, {sched.B} busy lanes, launches per tick {counts}: "
         f"{r['wall_ms_per_tick']:.3f} ms/tick wall, "
         f"{r['device_ms_per_tick']:.3f} ms/tick on the device, idle share {r['idle_share']}, "
-        f"{r['tok_s']:.1f} tok/s"
+        f"{r['tok_s']:.1f} tok/s; K8/K9 (lanes_scores_kernel + lanes_values_kernel) "
+        f"{r['attention_ms_per_tick']:.4f} ms/tick on the device"
         + (f"; the MoE FFN (router, gate, the all-expert sweep) spans "
            f"{r['moe_ffn_ms_per_tick']:.3f} ms/tick on the card" if spans else ""))
     for k, ms in r["top"]:
@@ -2220,6 +2424,23 @@ def device_us(prof) -> dict:
     return out
 
 
+def device_busy_us(prof, match=()) -> float:
+    """The device's busy time (us) in a torch.profiler run: the union of its
+    events' intervals (only those whose name contains a string of `match`,
+    if given), so work that overlaps counts once -- K8/K9's second pass is
+    a programmatic dependent launch, which starts before the first ends."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type != DeviceType.CPU
+                   and (not match or any(m in e.name for m in match)))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def profile_decode(eng, n: int) -> dict:
     """torch.profiler over n greedy decode steps (continuing the engine's
     sequence): wall time, device time by kernel, and the device's idle share."""
@@ -2235,7 +2456,7 @@ def profile_decode(eng, n: int) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = device_us(prof)
-    busy = sum(dev_us.values()) / 1e6
+    busy = device_busy_us(prof) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     r = dict(steps=n, context=eng.pos, wall_ms_per_step=wall / n * 1e3,
              device_ms_per_step=busy / n * 1e3,
@@ -2412,6 +2633,109 @@ def gemm_phases() -> int:
     print(json.dumps({"cases": bench.rows}), flush=True)
     print(smi, flush=True)
     return 0
+
+
+def attention_phases(lane_blocks=None) -> int:
+    """K8 and K9 alone, for a short card call: phase 2's cases of the fp8
+    path (bf16 cache), the int4 path (e5m2 cache) and the Gemma3 and Gemma2
+    forms, each beside the design the lanes split replaced, and the
+    sync-debug and CUDA-graph checks. lane_blocks: values of
+    ops/cuda/attention.py's LANE_BLOCKS (the plan's chunk) to time the
+    16-lane cases at, in turn. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.attention_phases())"
+    Prints the cases as one JSON line, then the card's name and power
+    limit."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.ops.cuda import attention as A
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(HBM_BYTES_PER_S)
+    e5 = torch.float8_e5m2
+    paths = (("fp8", mistral7b(), torch.bfloat16, {}), ("int4", mistral7b(), e5, {}),
+             ("gemma3", gemma3_12b(), torch.bfloat16, dict(win=1024, alt=1)),
+             ("gemma2", gemma2_9b(), e5, dict(win=4096, softcap=50.0)))
+    saved = A.LANE_BLOCKS
+    try:
+        for blocks in lane_blocks or (saved,):
+            A.LANE_BLOCKS = blocks
+            for path, cfg, kv, form in paths:
+                bench.path = f"{path} LANE_BLOCKS {blocks}"
+                with phase(f"{path}: K8/K9 at LANE_BLOCKS {blocks}"):
+                    phase_batched_attention(bench, cfg, dev, kv, form)
+                    phase_paged_attention(bench, cfg, dev, kv, form,
+                                          depths=None if path in ("fp8", "int4") else (4,))
+        A.LANE_BLOCKS = saved
+        for path, cfg, kv, _ in paths[:2]:
+            phase_lanes_capture(cfg, dev, kv)
+    finally:
+        A.LANE_BLOCKS = saved
+    print(json.dumps({"cases": bench.rows}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def sass_functions(path: str) -> dict:
+    """cuobjdump -sass of a library or cubin: each function's instructions
+    (their text, without addresses and encodings), by its name without the
+    anonymous namespace's hash, which changes with the source text."""
+    import re
+    from yalm_tpu_torch.ops.cuda import _build as B
+    tool = os.path.join(os.path.dirname(B.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", line.split("Function :")[1].strip())
+            out[fn] = []
+        elif fn and line.strip().startswith("/*") and "*/" in line:
+            ins = line.split("*/", 1)[1].split(";")[0].strip()
+            if ins:
+                out[fn].append(ins)
+    return out
+
+
+def split_sass(other_root: str) -> int:
+    """Whether csrc/attention.cu's one-lane split (K2's and K12's
+    split_scores_kernel / split_values_kernel instances) and the v1 design
+    (attend_step_kernel) compile to the same SASS here as in another
+    checkout of the repository (e.g. the parent commit unpacked into
+    build/): both sources compiled to cubins with the build's nvcc flags,
+    then compared function by function. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.split_sass('build/parent'))"
+    Returns 0 when every such function is the same, 1 otherwise."""
+    import tempfile
+    from yalm_tpu_torch.ops.cuda import _build as B
+    flags = [f for f in B.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
+    sass = []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        for i, root in enumerate((ROOT, other_root)):
+            src = os.path.join(root, "yalm_tpu_torch", "csrc", "attention.cu")
+            cubin = os.path.join(tmp, f"{i}.cubin")
+            subprocess.run([B.nvcc_path(), *flags, "-cubin", src, "-o", cubin], check=True,
+                           timeout=600)
+            sass.append(sass_functions(cubin))
+    keys = ("split_scores_kernel", "split_values_kernel", "attend_step_kernel")
+    mine = {f: v for f, v in sass[0].items() if any(k in f for k in keys)}
+    theirs = {f: v for f, v in sass[1].items() if any(k in f for k in keys)}
+    same = sorted(f for f in mine if theirs.get(f) == mine[f])
+    differ = sorted(set(mine) ^ set(theirs) | {f for f in mine if f in theirs and
+                                               theirs[f] != mine[f]})
+    log(f"SASS: {len(same)} functions the same ({sum(len(mine[f]) for f in same)} instructions), "
+        f"{len(differ)} differ or exist on one side only: {differ}")
+    return 0 if not differ and same else 1
 
 
 def main() -> int:

@@ -21,7 +21,12 @@ output on the rotated view K2 attends; K2 and K12 split over the slots
 a chunk boundary and the whole window, kv_pos in the first, a middle and
 the last chunk, ring windows whose chunks are skipped, two calls giving the
 same bits, the per-head counters back at 0 after calls at other head
-counts and splits, and a 32768-slot window; the e5m2 cache of a depth-2
+counts and splits, and a 32768-slot window; K8 and K9 split over the
+window's slots (lanes_split_plan) at 1, 16 and 64 lanes, a ring window
+whose chunks are mostly dead, every lane alone and in the batch bit for
+bit, two calls giving the same bits, a page id outside the pool or a lane
+scalar out of range on the device, and the Gemma forms on pages of 48; the
+e5m2 cache of a depth-2
 Mixtral-shape int4 prefill of 64 tokens, card against CPU, whose differing
 bytes must all come from f32 inputs on the two sides of an e5m2 rounding
 boundary; and the wgmma GEMM (gemm_kernel) on every weight type, packed
@@ -924,6 +929,183 @@ def test_split_attention_32768_slot_window(dev, kv):
     want = attend_step_plain(q, kn, vn, k2, v2, 0, kv_pos, kv_len, kv_sink, pos, **rope)
     close(attend_step_l(q, kn, vn, k_all, v_all, 0, kv_pos, kv_len, kv_sink, pos, **rope), want)
     assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+
+
+# ---------------------------------------------------------------------------
+# K8 / K9 split over the window's slots (lanes_split_plan)
+# ---------------------------------------------------------------------------
+
+def lanes_inputs(dev, kv, B, qpk, D, Hk, S, seed, L=2, pos=None, write=None):
+    """B lanes of a dense (B, L, S, Hk, D) cache: by default kv_len 1, S
+    and random lengths between, one ring lane with sinks and one
+    write-masked lane."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k_all = (torch.randn(B, L, S, Hk, D, generator=gen, device=dev) * 2).to(kv)
+    v_all = torch.randn(B, L, S, Hk, D, generator=gen, device=dev).to(kv)
+    q = torch.randn(B, Hk, qpk, D, generator=gen, device=dev) * 3
+    kn = torch.randn(B, Hk, D, generator=gen, device=dev) * 2
+    vn = torch.randn(B, Hk, D, generator=gen, device=dev)
+    if pos is None:
+        pos = torch.randint(0, S, (B,), generator=torch.Generator().manual_seed(seed)).tolist()
+        pos[0] = 0
+        if B > 1:
+            pos[1] = S - 1
+        if B > 2:
+            pos[2] = S + 37
+    sink = [2 if p >= S else 0 for p in pos]
+    kv_pos = [s + (p - s) % (S - s) for p, s in zip(pos, sink)]
+    kv_len = [min(p + 1, S) for p in pos]
+    if write is None:
+        write = [1] * B
+        write[-1] = 0 if B > 1 else 1
+    lanes = lane_scalars(kv_pos, kv_len, sink, pos, write, S=S, kv_sinks=2, device=dev)
+    return q, kn, vn, k_all, v_all, lanes
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("B", [1, 16, 64])
+def test_lanes_split_batch_sizes(dev, kv, B):
+    """K8 over 1, 16 and 64 lanes of kv_len 1, S and between (a ring lane, a
+    write-masked lane) on a window of 16 chunks: the output within the
+    tolerance, the cache byte for byte, one counted call, the counters back
+    at 0."""
+    from yalm_tpu_torch.ops.cuda.attention import _counter, lanes_split_plan
+    qpk, D, Hk, S = 4, 128, 3, 1000
+    assert lanes_split_plan(S, Hk).nsplit == 16
+    q, kn, vn, k_all, v_all, lanes = lanes_inputs(dev, kv, B, qpk, D, Hk, S, seed=B)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_batched_plain(q, kn, vn, k2, v2, 1, lanes.cpu(), **rope)
+    _build.LAUNCHES.clear()
+    close(attend_step_batched(q, kn, vn, k_all, v_all, 1, lanes, **rope), want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+    assert _build.LAUNCHES["attend_step_batched_l"] == 1
+    assert int(_counter(q.device, B * Hk).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("form", [(0.0, 1024, 1), (50.0, 1024, None)], ids=["win-alt", "win-cap"])
+def test_lanes_split_ring_window_mostly_dead(dev, kv, form):
+    """A sliding layer over 4 lanes at 4096 slots x 8 heads (16 chunks of
+    256): a ring lane whose window reads 5 of its 16 chunks, a linear lane
+    past the window, a short lane and a write-masked ring lane; against the
+    plain version, the cache byte for byte."""
+    from yalm_tpu_torch.ops.cuda.attention import lane_chunk_live, lanes_split_plan
+    softcap, win, alt = form
+    qpk, D, Hk, S = 2, 128, 8, 4096
+    q, kn, vn, k_all, v_all, lanes = lanes_inputs(dev, kv, 4, qpk, D, Hk, S, seed=7, L=1,
+                                                  pos=[5999, 3000, 10, 4500], write=[1, 1, 1, 0])
+    chunk, nsplit = lanes_split_plan(S, Hk)
+    kp, kl, ks = lanes.cpu()[:3, 0].tolist()
+    live = sum(lane_chunk_live(c, chunk, S, kp, kl, ks, win) for c in range(nsplit))
+    assert nsplit == 16 and live == 5
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE, rotary_dim=D, softcap=softcap, win=win, alt=alt)
+    k2, v2 = k_all.clone(), v_all.clone()
+    want = attend_step_batched_plain(q, kn, vn, k2, v2, 0, lanes.cpu(), **kw)
+    close(attend_step_batched(q, kn, vn, k_all, v_all, 0, lanes, **kw), want)
+    assert torch.equal(_bits(k_all), _bits(k2)) and torch.equal(_bits(v_all), _bits(v2))
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_lanes_split_lane_alone_equals_lane_in_batch(dev, kv, paged):
+    """Every lane's output has the same bits alone (B = 1) as among 16:
+    the plan depends on the window alone. Paged through shuffled pages of
+    48 slots (a page that is not a multiple of the tile)."""
+    qpk, D, Hk, B = 4, 128, 3, 16
+    page, nblk = 48, 20
+    S = page * nblk
+    q, kn, vn, k_all, v_all, lanes = lanes_inputs(dev, kv, B, qpk, D, Hk, S, seed=21)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    if paged:
+        perm = torch.randperm(B * nblk, generator=torch.Generator().manual_seed(21)) + 1
+        tables = perm.reshape(B, nblk).to(torch.int32).to(dev)
+        k_pool = torch.zeros((1 + B * nblk, 2, page, Hk, D), dtype=kv, device=dev)
+        v_pool = torch.zeros_like(k_pool)
+        for pool, dense in ((k_pool, k_all), (v_pool, v_all)):   # lane b's slots in its pages
+            _bits(pool)[tables.long()] = _bits(dense).reshape(B, 2, nblk, page, Hk,
+                                                              D).transpose(1, 2)
+        step = lambda b0, b1: attend_step_paged(  # noqa: E731
+            q[b0:b1], kn[b0:b1], vn[b0:b1], k_pool, v_pool, tables[b0:b1], 1,
+            lanes[:, b0:b1].contiguous(), **rope)
+    else:
+        step = lambda b0, b1: attend_step_batched(  # noqa: E731
+            q[b0:b1], kn[b0:b1], vn[b0:b1], k_all[b0:b1], v_all[b0:b1], 1,
+            lanes[:, b0:b1].contiguous(), **rope)
+    batch = step(0, B)
+    for b in range(B):
+        assert torch.equal(step(b, b + 1)[0], batch[b]), b
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+def test_lanes_split_is_deterministic(dev, kv):
+    """Three calls give the same bits, dense and paged (the partials are
+    summed in chunk order whichever block of a (lane, head) arrives last),
+    and leave every arrival counter at 0."""
+    from yalm_tpu_torch.ops.cuda.attention import _counter
+    qpk, D, page, nblk = 4, 128, 64, 6
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, kv, qpk, D, page, nblk, seed=31)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D, softcap=30.0, win=200)
+    outs = [attend_step_paged(q, kn, vn, k_pool, v_pool, tables, 1, lanes, **rope)
+            for _ in range(3)]
+    dense = lanes_inputs(dev, kv, 16, qpk, D, 8, 4096, seed=32, L=1)
+    outs_d = [attend_step_batched(*dense[:5], 0, dense[5], **rope) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert all(torch.equal(o, outs_d[0]) for o in outs_d[1:])
+    assert int(_counter(q.device, 16 * 8).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("page", [16, 48])
+def test_lanes_split_bad_page_or_scalar(dev, page):
+    """A page id outside the pool in the last block a lane reads (a block
+    only the lane's last chunk reads), or a lane scalar out of range on the
+    device: that lane's output is NaN and it writes nothing; the other
+    lanes are unaffected, and the counters are back at 0."""
+    from yalm_tpu_torch.ops.cuda.attention import _counter
+    qpk, D, nblk = 4, 128, 240 // page
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, torch.bfloat16, qpk, D, page, nblk,
+                                                          seed=page)
+    rope = dict(kv_sinks=2, theta=1e4, rotary_dim=D)
+    bad = tables.clone()
+    bad[2, nblk - 1] = k_pool.shape[0]    # the ring lane reads every block
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    want = attend_step_paged_plain(q[:2], kn[:2], vn[:2], k2, v2, tables[:2], 0,
+                                   lanes.cpu()[:, :2].contiguous(), **rope)
+    got = attend_step_paged(q, kn, vn, k_pool, v_pool, bad, 0, lanes, **rope)
+    close(got[:2], want)
+    assert bool(torch.isnan(got[2]).all())
+    assert torch.equal(k_pool.view(torch.int16), k2.view(torch.int16))
+    assert torch.equal(v_pool.view(torch.int16), v2.view(torch.int16))
+    wrong = lanes.clone()
+    wrong[1, 0] = page * nblk + 1          # lane 0's kv_len past the window
+    got = attend_step_paged(q, 3 * kn, 3 * vn, k_pool, v_pool, tables, 0, wrong, **rope)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0]).all()) and not bool(torch.isnan(got[1:]).any())
+    assert torch.equal(k_pool.view(torch.int16)[tables[0].long(), 0],
+                       k2.view(torch.int16)[tables[0].long(), 0])
+    assert int(_counter(q.device, 3 * 3).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("form", FORMS, ids=FORM_IDS)
+def test_lanes_split_gemma_forms_page_48(dev, kv, form):
+    """K9 in the Gemma forms through shuffled pages of 48 slots at head_dim
+    256: against its plain version, the pool byte for byte, and bit for bit
+    as K8 on the gathered cache."""
+    softcap, win, alt = form
+    qpk, D, page, nblk = 2, 256, 48, 5
+    q, kn, vn, k_pool, v_pool, tables, lanes = paged_case(dev, kv, qpk, D, page, nblk, seed=48)
+    kw = dict(kv_sinks=2, theta=GEMMA3_ROPE, rotary_dim=D, softcap=softcap, win=win, alt=alt)
+    k2, v2 = k_pool.clone(), v_pool.clone()
+    want = attend_step_paged_plain(q, kn, vn, k2, v2, tables, 1, lanes.cpu(), **kw)
+    g = lambda pool: pool[tables.long()].transpose(1, 2).reshape(  # noqa: E731
+        3, 2, page * nblk, *pool.shape[3:]).contiguous()
+    k_all, v_all = g(k_pool), g(v_pool)
+    got = attend_step_paged(q, kn, vn, k_pool, v_pool, tables, 1, lanes, **kw)
+    close(got, want)
+    assert torch.equal(_bits(k_pool), _bits(k2)) and torch.equal(_bits(v_pool), _bits(v2))
+    assert torch.equal(got, attend_step_batched(q, kn, vn, k_all, v_all, 1, lanes, **kw))
 
 
 # ---------------------------------------------------------------------------

@@ -108,16 +108,53 @@
 //   skip off unless kv_pos is a live slot (kv_sink <= kv_pos < kv_len), so
 //   some chunk is always live.
 //
-// B LANES (K8, K9): one launch, one block per (kv head h, lane b), each
-// streaming its lane's rows in tiles of 64 through shared memory: every
-// score kept in shared memory while its kv_len * qpk floats fit, else in a
-// global (B, Hk, S, qpk) scratch the caller passes as `scores`; each lane's
-// (kv_pos, kv_len, kv_sink, pos, write) comes from a (5, B) int32 device
-// array uploaded once per tick, so no layer waits for the host; lane offsets
-// are 64-bit (a (16, 32, 4096, 8, 128) cache holds 2^31 elements). Only
-// block (h, b) reads head h of lane b, so after __syncthreads() its reads
-// see the row it wrote. Bound: bytes, as above for every lane. A batch of B
-// lanes runs 8 B blocks; the split over slots is the next step for it. This
+// B LANES (yt_attend_step_batched, K8; yt_attend_step_paged, K9): the same
+//   two passes on a (Hk, B, nsplit) grid, split over the window's slots.
+//   Bound: bytes, the K/V rows every lane attends (126 MB per layer for 16
+//   lanes of 1..4096 slots at Mistral's shapes, bf16). Each lane's (kv_pos,
+//   kv_len, kv_sink, pos, write) comes from a (5, B) int32 device array
+//   uploaded once per tick, so no layer waits for the host, and every block
+//   reads its lane's scalars itself. The host's plan
+//   (ops/cuda/attention.py:lanes_split_plan) is a function of the window S
+//   and the head count alone: chunk c of every lane holds slots [c chunk,
+//   (c + 1) chunk), so the grid, the scratch and a lane's bits do not depend
+//   on B or on any lane's scalars (a lane alone and among 16 gives the same
+//   bits; a tick's launches can be captured in a CUDA graph). Dead chunks
+//   are decided on the device: the blocks of a chunk past kv_len return at
+//   once and take no part in the lane's sums (pass 2 counts its
+//   ceil(kv_len / chunk) chunks), so a short lane costs little more than
+//   one block per head; on a sliding layer a chunk with no slot of age <
+//   win (chunk_live, applied only while kv_pos is a slot the lane attends,
+//   kv_sink <= kv_pos < kv_len, so some chunk is always live) reads no row
+//   and gives m_c = -inf, l_c = 0 and a zero partial. A lane whose kv_len
+//   fits one chunk is finished by its pass-1 block: its m and l are that
+//   chunk's, which is what pass 2's combine gives for one chunk, bit for
+//   bit, so the block goes on to p . v and writes the output, and pass 2's
+//   blocks of the lane return at once. The block whose chunk holds kv_pos
+//   writes the lane's new rows (write != 0) before it reads, live or not.
+//   The grid is chunk-major, so every lane's chunk 0 is dispatched first,
+//   and pass 2 is a programmatic dependent launch: its blocks with nothing
+//   to do exit while pass 1's tail runs. Offsets are 64-bit (a (16, 32,
+//   4096, 8, 128) cache holds 2^31 elements). The arithmetic is the
+//   one-lane split's, so the dense and the paged instance give the same
+//   bits on the same rows.
+//   Paged (kPaged): lane b's logical slot s at pool row (tables[b, s /
+//   page], layer, s % page); a tile of 64 rows is one copy base when the
+//   page is a multiple of the tile, else each row is resolved (pages of 16
+//   or 48). Every block checks every page id its lane reads or writes
+//   (blocks below ceil(max(kv_len, kv_pos + 1) / page)), so all blocks of a
+//   lane reach one verdict; a bad id or lane scalar gives the lane a NaN
+//   output, no write and no counter arrival.
+//
+// B LANES, THE EARLIER DESIGN (yt_attend_step_batched_v1,
+// yt_attend_step_paged_v1; only chip_smoke.py calls them, for the same-run
+// time of the design the split replaced): one launch, one block per (kv
+// head h, lane b), each streaming its lane's rows in tiles of 64 through
+// shared memory: every score kept in shared memory while its kv_len * qpk
+// floats fit, else in a global (B, Hk, S, qpk) scratch the caller passes as
+// `scores`. Only block (h, b) reads head h of lane b, so after
+// __syncthreads() its reads see the row it wrote. A batch of 16 lanes runs
+// 128 blocks, each loading its tiles synchronously through registers. This
 // kernel's text is PR 6's, unlaunched one-lane branches included (see
 // attend_step_kernel).
 #include "common.cuh"
@@ -573,7 +610,483 @@ int split(int kv_type, SplitArgs& a, float* scratch, unsigned* counter, bool one
 }
 
 // ---------------------------------------------------------------------------
-// B lanes, one block per (kv head, lane) (K8, K9)
+// B lanes, split over the window's slots (K8, K9)
+// ---------------------------------------------------------------------------
+
+struct LanesArgs {
+  const float* q;        // (B, Hk, qpk, D) unrotated, unscaled
+  const float* k_new;    // (B, Hk, D) unrotated
+  const float* v_new;    // (B, Hk, D)
+  void* k_all;           // (B, L, S, Hk, D), or a pool (n_pages, L, page, Hk, D);
+  void* v_all;           // of the cache type T, updated in place
+  const float* freq;     // (D/2,) rope pair frequencies
+  float* out;            // (B, Hk, qpk, D)
+  float* scores;         // (B, Hk, S, qpk)
+  float* ml;             // (B, Hk, nsplit, qpk, 2): each chunk's max and sum
+  float* part;           // (B, Hk, nsplit, qpk, D): each chunk's partial output
+  unsigned* counter;     // (B, Hk) pass-2 arrivals, 0 between calls
+  const int* lanes;      // (5, B) kv_pos, kv_len, kv_sink, pos, write
+  const int* tables;     // (B, S / page) page ids of the paged launch, else null
+  size_t lane_stride;    // elements of one lane's dense cache, L * S * Hk * D
+  float mscale, inv_sqrt_d;
+  float softcap;         // > 0: Gemma2's score cap
+  int win;               // > 0: the layer's sliding window (age < win)
+  int layer, S, Hk, qpk, D, kv_sinks, B;
+  int L, page, n_pages;  // the paged launch's pool: layers, slots per page, pages
+  int chunk, nsplit;     // chunk c holds slots [c chunk, (c + 1) chunk) of the window
+};
+
+// One lane's scalars as every block of the lane reads them; bad: a scalar
+// the kernel does not take (the host checks the ones it uploads).
+struct Lane {
+  int kv_pos, n, kv_sink, pos;
+  bool write, bad;
+};
+
+__device__ __forceinline__ Lane read_lane(const LanesArgs& a, int b) {
+  Lane l;
+  l.kv_pos = a.lanes[b];
+  l.n = a.lanes[a.B + b];
+  l.kv_sink = a.lanes[2 * a.B + b];
+  l.pos = a.lanes[3 * a.B + b];
+  l.write = a.lanes[4 * a.B + b] != 0;
+  l.bad = l.n < 1 || l.n > a.S || l.kv_pos < 0 || l.kv_pos >= a.S || l.kv_sink < 0 ||
+          l.kv_sink > a.kv_sinks;
+  return l;
+}
+
+// Whether every page id a good lane reads or writes lies in the pool: a
+// block vote, so every thread of the block calls it, and every block of the
+// lane that does reaches the same verdict.
+__device__ __forceinline__ bool pages_ok(const LanesArgs& a, const int* tab, const Lane& l) {
+  const int nb = (max(l.n, l.write ? l.kv_pos + 1 : 0) + a.page - 1) / a.page;
+  int out_of_pool = 0;
+  for (int i = threadIdx.x; i < nb; i += THREADS)
+    out_of_pool |= (unsigned)tab[i] >= (unsigned)a.n_pages;
+  return __syncthreads_or(out_of_pool) == 0;
+}
+
+// Element offsets of head h's rows of one lane: dense from the lane's layer
+// base, paged through the lane's table. A tile of 64 rows is contiguous at
+// `stride` when it lies in one page: always dense, and paged when the page
+// is a multiple of the tile (tiles start at multiples of 64).
+template <bool kPaged>
+struct LaneRows {
+  const int* tab;
+  size_t head;    // dense: slot 0 of head h in the lane's layer; paged: h * D
+  size_t stride;  // Hk * D, from one slot's row to the next
+  int page, L, layer;
+  __device__ __forceinline__ size_t at(int s) const {
+    if constexpr (kPaged)
+      return (((size_t)tab[s / page] * L + layer) * page + s % page) * stride + head;
+    else
+      return head + (size_t)s * stride;
+  }
+  __device__ __forceinline__ bool tile_in_page() const { return !kPaged || page % TILE == 0; }
+};
+
+template <bool kPaged>
+__device__ __forceinline__ LaneRows<kPaged> lane_rows(const LanesArgs& a, const int* tab, int h) {
+  const size_t stride = (size_t)a.Hk * a.D;
+  return LaneRows<kPaged>{tab, kPaged ? (size_t)h * a.D : (size_t)a.layer * a.S * stride +
+                                                              (size_t)h * a.D,
+                          stride, a.page, a.L, a.layer};
+}
+
+// load_tile through a lane's rows: rows [t0, t0 + nt) into a shared tile
+// (stride D + KPAD), 8 elements per cp.async; one group per call.
+template <typename T, bool kPaged>
+__device__ __forceinline__ void load_lane_tile(T* dst, const T* all, const LaneRows<kPaged>& rows,
+                                               int t0, int nt, int D) {
+  const int vpr = D / 8;
+  const bool one_page = rows.tile_in_page();
+  const size_t base = one_page ? rows.at(t0) : 0;
+  for (int i = threadIdx.x; i < nt * vpr; i += THREADS) {
+    const int r = i / vpr, c = i - r * vpr;
+    const size_t off = one_page ? base + (size_t)r * rows.stride : rows.at(t0 + r);
+    KV<T>::copy8_async(dst + r * (D + KPAD) + 8 * c, all + off + 8 * c);
+  }
+  cp_async_commit();
+}
+
+// Whether chunk [c0, c1) of a lane reads rows: below kv_len and, on a
+// sliding layer whose kv_pos the lane attends, holding a slot of age < win.
+// ops/cuda/attention.py:lane_chunk_live is the same rule. A chunk past
+// kv_len takes no part at all: its blocks return at once (the writer's
+// after its write), and pass 2 counts the lane's ceil(kv_len / chunk)
+// chunks alone; a chunk below kv_len that reads nothing gives m_c = -inf,
+// l_c = 0 and a zero partial.
+__device__ __forceinline__ bool lane_chunk_reads(int c0, int c1, const Lane& ln, int S, int win) {
+  if (c0 >= ln.n) return false;
+  const bool skip = win > 0 && ln.kv_sink <= ln.kv_pos && ln.kv_pos < ln.n;
+  return !skip || chunk_live(c0, c1, ln.kv_pos, ln.kv_sink, S, win);
+}
+
+// Pass 1 keeps q as f32 (its bf16 values) in shared memory, a row of D +
+// QPAD floats, so that the dot widens only the cache row (the rows of q a
+// warp reads lie in other banks): q (qpk, D + QPAD) f32 | the sink view
+// (kv_sinks, D + KPAD) bf16 | two K tiles; a block that finishes its lane
+// reuses the room for chunk_values' layout.
+constexpr int QPAD = 4;
+
+__host__ __device__ inline size_t lanes_scores_smem(int qpk, int D, int kv_sinks, size_t elem) {
+  return align16((size_t)qpk * (D + QPAD) * 4) + align16((size_t)kv_sinks * (D + KPAD) * 2) +
+         tiles_bytes(D, elem);
+}
+// chunk_values: m and l (2 qpk) f32 | one tile's p (TILE, qpk) f32 | two
+// V tiles, whose room the row slices' sums (THREADS x 8 f32) take after the
+// last tile
+__host__ __device__ inline size_t lanes_values_smem(int qpk, int D, size_t elem) {
+  return align16(2 * qpk * 4) + align16((size_t)TILE * qpk * 4) +
+         max(tiles_bytes(D, elem), (size_t)THREADS * 8 * 4);
+}
+
+// f32 q (bf16 values) . one shared row of E, summed in f32 in d order (the
+// same sum as dot_row's)
+template <typename E>
+__device__ __forceinline__ float dot_row_f32(const E* k, const float* q, int D) {
+  float dot = 0.f;
+  for (int d = 0; d < D; d += 8) {
+    float kf[8];
+    KV<E>::widen8(k + d, kf);
+    const float4 q0 = *reinterpret_cast<const float4*>(q + d);
+    const float4 q1 = *reinterpret_cast<const float4*>(q + d + 4);
+    const float qf[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dot = fmaf(qf[i], kf[i], dot);
+  }
+  return dot;
+}
+
+// One live chunk's p . v as split_values_kernel does it, into dst (qpk, D):
+// the V tiles of [c0, c1) stream through smem (lanes_values_smem) while
+// fill_ml(ms) puts each query's m into ms[0, qpk) and l into ms[qpk, 2 qpk);
+// p = bf16(exp(s - m) / l) from the scores sc of the (lane, head); thread
+// (slice sl, group g) sums the rows r = sl mod R of output columns
+// 8g..8g+7 (query j = 8g / D) in registers, then the slices in order.
+template <typename T, bool kPaged, typename MlFn>
+__device__ __forceinline__ void chunk_values(const LanesArgs& a, const T* v_all,
+                                             const LaneRows<kPaged>& rows, const float* sc,
+                                             int c0, int c1, unsigned char* smem, MlFn fill_ml,
+                                             float* dst) {
+  const int D = a.D, qpk = a.qpk, nout = qpk * D, tid = threadIdx.x, RS = D + KPAD;
+  const int G = nout / 8, R = THREADS / G, g = tid % G, sl = tid / G;
+  const int j = 8 * g / D, d0 = 8 * g - j * D;
+  float* ms = reinterpret_cast<float*>(smem);             // (qpk) m, then (qpk) l
+  float* ps = reinterpret_cast<float*>(smem + align16(2 * qpk * 4));     // (TILE, qpk)
+  T* tiles = reinterpret_cast<T*>(ps + align16((size_t)TILE * qpk * 4) / 4);
+  float* red = reinterpret_cast<float*>(tiles);                          // (R, G, 8), last
+  const int tile_elems = (int)(align16((size_t)TILE * RS * sizeof(T)) / sizeof(T));
+  const int ntiles = (c1 - c0 + TILE - 1) / TILE;
+  load_lane_tile(tiles, v_all, rows, c0, min(TILE, c1 - c0), D);
+  if (ntiles > 1) load_lane_tile(tiles + tile_elems, v_all, rows, c0 + TILE,
+                                 min(TILE, c1 - c0 - TILE), D);
+  fill_ml(ms);
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int t0 = c0 + t * TILE, nt = min(TILE, c1 - t0);
+    __syncthreads();   // m and l are in; the last tile's p is no longer read
+    const float* st = sc + (size_t)t0 * qpk;
+    for (int i = tid; i < nt * qpk; i += THREADS) {
+      const int jj = i % qpk;
+      ps[i] = bf16_round(__fdiv_rn(expf(st[i] - ms[jj]), ms[qpk + jj]));
+    }
+    if (t + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const T* tile = tiles + (t & 1) * tile_elems;
+    if (sl < R) {
+      for (int r = sl; r < nt; r += R) {
+        float vf[8];
+        KV<T>::widen8(tile + r * RS + d0, vf);
+        const float p = ps[r * qpk + j];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] = fmaf(p, vf[k], acc[k]);
+      }
+    }
+    __syncthreads();
+    if (t + 2 < ntiles) load_lane_tile(tiles + (t & 1) * tile_elems, v_all, rows, t0 + 2 * TILE,
+                                       min(TILE, c1 - t0 - 2 * TILE), D);
+  }
+  // every tile is read (the loop's last barrier) and no copy is in flight
+  if (sl < R)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red[(sl * G + g) * 8 + k] = acc[k];
+  __syncthreads();
+  for (int i = tid; i < nout; i += THREADS) {  // the row slices, in order
+    const int gi = i / 8, k = i - gi * 8;
+    float o = 0.f;
+    for (int s = 0; s < R; ++s) o += red[(s * G + gi) * 8 + k];
+    dst[i] = o;
+  }
+}
+
+// Pass 2 is a programmatic dependent launch: once every pass-1 block has
+// started, pass 2's blocks may be scheduled, and those with nothing to do
+// (a chunk past kv_len, a lane pass 1 finished) exit under pass 1's tail;
+// the others wait for pass 1 to complete, its writes visible, before they
+// read what it wrote (griddepcontrol.wait; a no-op in an ordinary launch).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_pass1() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename T, bool kPaged>
+__global__ void __launch_bounds__(THREADS) lanes_scores_kernel(LanesArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  launch_dependents();
+  const int D = a.D, qpk = a.qpk, half = D / 2, S = a.S;
+  const int h = blockIdx.x, b = blockIdx.y, ci = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, RS = D + KPAD;
+  const int* tab = kPaged ? a.tables + (size_t)b * (S / a.page) : nullptr;
+  const Lane ln = read_lane(a, b);
+  const int n = ln.n, c0 = ci * a.chunk, c1 = min(c0 + a.chunk, n);
+  const bool writer = ln.write && ln.kv_pos / a.chunk == ci;
+  const size_t bh = (size_t)b * a.Hk + h;
+  if (!ln.bad && c0 >= n && !writer) return;  // past kv_len: nothing to read or write
+  if (ln.bad || (kPaged && !pages_ok(a, tab, ln))) {
+    // lane scalars or page ids the kernel does not take: no block of the
+    // lane touches a row; the lane's output is NaN
+    if (ci == 0)
+      for (int i = tid; i < qpk * D; i += THREADS)
+        a.out[bh * qpk * D + i] = __int_as_float(0x7fc00000);
+    return;
+  }
+  T* k_all = static_cast<T*>(a.k_all) + (kPaged ? 0 : (size_t)b * a.lane_stride);
+  T* v_all = static_cast<T*>(a.v_all) + (kPaged ? 0 : (size_t)b * a.lane_stride);
+  const LaneRows<kPaged> rows = lane_rows<kPaged>(a, tab, h);
+  const float posf = (float)ln.pos;
+
+  if (writer) {  // 2: the new rows, before any read
+    const size_t new_row = rows.at(ln.kv_pos);
+    const float* kn = a.k_new + bh * D;
+    const float* vn = a.v_new + bh * D;
+    for (int p = tid; p < half; p += THREADS) {
+      const float ang = posf * a.freq[p];
+      const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+      const float x0 = kn[2 * p], x1 = kn[2 * p + 1];
+      k_all[new_row + 2 * p] = KV<T>::from_float(rot_re(x0, x1, c, s));
+      k_all[new_row + 2 * p + 1] = KV<T>::from_float(rot_im(x0, x1, c, s));
+    }
+    for (int d = tid; d < D; d += THREADS) v_all[new_row + d] = KV<T>::from_float(vn[d]);
+    __syncthreads();
+    if (c0 >= n) return;
+  }
+  float* ml = a.ml + (bh * a.nsplit + ci) * qpk * 2;
+  if (!lane_chunk_reads(c0, c1, ln, S, a.win)) {
+    for (int j = tid; j < qpk; j += THREADS) {
+      ml[2 * j] = -INFINITY;
+      ml[2 * j + 1] = 0.f;
+    }
+    return;
+  }
+
+  const int QS = D + QPAD;
+  float* qs = reinterpret_cast<float*>(smem);                  // (qpk, QS)
+  const int nsink = c0 == 0 ? min(ln.kv_sink, c1) : 0;         // the sink view's rows here
+  __nv_bfloat16* sinks = reinterpret_cast<__nv_bfloat16*>(smem + align16((size_t)qpk * QS * 4));
+  T* tiles = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(sinks) +
+                                  align16((size_t)a.kv_sinks * RS * 2));
+  const int tile_elems = (int)(align16((size_t)TILE * RS * sizeof(T)) / sizeof(T));
+  const int ntiles = (c1 - c0 + TILE - 1) / TILE;
+  load_lane_tile(tiles, k_all, rows, c0, min(TILE, c1 - c0), D);
+  if (ntiles > 1) load_lane_tile(tiles + tile_elems, k_all, rows, c0 + TILE,
+                                 min(TILE, c1 - c0 - TILE), D);
+
+  // 1: q, roped and scaled, rounded to bf16
+  const float* q = a.q + bh * qpk * D;
+  for (int i = tid; i < qpk * half; i += THREADS) {
+    const int j = i / half, p = i - j * half;
+    const float ang = posf * a.freq[p];
+    const float c = a.mscale * cosf(ang), s = a.mscale * sinf(ang);
+    const float x0 = q[j * D + 2 * p], x1 = q[j * D + 2 * p + 1];
+    qs[j * QS + 2 * p] = bf16_round(__fmul_rn(rot_re(x0, x1, c, s), a.inv_sqrt_d));
+    qs[j * QS + 2 * p + 1] = bf16_round(__fmul_rn(rot_im(x0, x1, c, s), a.inv_sqrt_d));
+  }
+  // 3: the lazy sink view, from the cache (this block wrote any sink row it
+  // holds before the barrier above: kv_sink <= 64 <= chunk)
+  const float rot = (float)max(0, ln.pos - S + 1);
+  for (int i = tid; i < nsink * half; i += THREADS) {
+    const int r = i / half, p = i - r * half;
+    const float ang = rot * a.freq[p];
+    const float c = cosf(ang), s = sinf(ang);
+    const T* kr = k_all + rows.at(r);
+    const float x0 = KV<T>::widen1(kr[2 * p]), x1 = KV<T>::widen1(kr[2 * p + 1]);
+    sinks[r * RS + 2 * p] = __float2bfloat16_rn(rot_re(x0, x1, c, s));
+    sinks[r * RS + 2 * p + 1] = __float2bfloat16_rn(rot_im(x0, x1, c, s));
+  }
+
+  // 3-4: the chunk's scores, one (slot, query) dot per thread
+  float* sc = a.scores + bh * S * qpk;  // slot s at s * qpk
+  const int ring = max(S - ln.kv_sink, 1);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+    const int t0 = c0 + t * TILE, nt = min(TILE, c1 - t0);
+    const T* tile = tiles + (t & 1) * tile_elems;
+    for (int i = tid; i < nt * qpk; i += THREADS) {
+      const int r = i / qpk, j = i - r * qpk, s = t0 + r;
+      float dot = s < nsink ? dot_row_f32(sinks + s * RS, qs + j * QS, D)
+                            : dot_row_f32(tile + r * RS, qs + j * QS, D);
+      if (a.softcap > 0.f) dot = __fmul_rn(a.softcap, tanhf(__fdiv_rn(dot, a.softcap)));
+      if (a.win > 0 && slot_age(s, ln.kv_pos, ln.kv_sink, S, ring) >= a.win) dot = NEG_BIG;
+      sc[(size_t)s * qpk + j] = dot;
+    }
+    __syncthreads();
+    if (t + 2 < ntiles) load_lane_tile(tiles + (t & 1) * tile_elems, k_all, rows, t0 + 2 * TILE,
+                                       min(TILE, c1 - t0 - 2 * TILE), D);
+  }
+
+  // 5 (this chunk's share): m_c and l_c per query, one warp each
+  for (int j = warp; j < qpk; j += WARPS) {
+    float m = -INFINITY;
+    for (int r = c0 + lane; r < c1; r += 32) m = fmaxf(m, sc[(size_t)r * qpk + j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int r = c0 + lane; r < c1; r += 32) l += expf(sc[(size_t)r * qpk + j] - m);
+    l = warp_sum(l);
+    if (lane == 0) {
+      ml[2 * j] = m;
+      ml[2 * j + 1] = l;
+    }
+  }
+  if (n > a.chunk) return;  // more chunks: pass 2 combines them
+  // A lane of one chunk: its m and l are this chunk's m_c and l_c (what
+  // pass 2's combine gives for one chunk, bit for bit), so this block
+  // finishes the lane itself, writing the output its partial would give.
+  __syncthreads();
+  chunk_values<T, kPaged>(a, v_all, rows, sc, c0, c1, smem, [&](float* ms) {
+    for (int jj = tid; jj < qpk; jj += THREADS) {
+      ms[jj] = ml[2 * jj];
+      ms[qpk + jj] = ml[2 * jj + 1];
+    }
+  }, a.out + bh * qpk * D);
+}
+
+template <typename T, bool kPaged>
+__global__ void __launch_bounds__(THREADS) lanes_values_kernel(LanesArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int D = a.D, qpk = a.qpk, S = a.S, nsplit = a.nsplit, nout = qpk * D;
+  const int h = blockIdx.x, b = blockIdx.y, ci = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int* tab = kPaged ? a.tables + (size_t)b * (S / a.page) : nullptr;
+  const Lane ln = read_lane(a, b);
+  const size_t bh = (size_t)b * a.Hk + h;
+  const int nc = (ln.n + a.chunk - 1) / a.chunk;  // the lane's chunks below kv_len
+  const int c0 = ci * a.chunk, c1 = min(c0 + a.chunk, ln.n);
+  // a bad lane (pass 1 gave it its NaN output), a chunk past kv_len, or a
+  // lane of one chunk (pass 1 finished it): no part in the lane's sums
+  if (ln.bad || ci >= nc || nc == 1 || (kPaged && !pages_ok(a, tab, ln))) return;
+  wait_for_pass1();
+  const T* v_all = static_cast<const T*>(a.v_all) + (kPaged ? 0 : (size_t)b * a.lane_stride);
+  const LaneRows<kPaged> rows = lane_rows<kPaged>(a, tab, h);
+  const float* mlh = a.ml + bh * nsplit * qpk * 2;
+  float* part = a.part + (bh * nsplit + ci) * nout;
+  if (!lane_chunk_reads(c0, c1, ln, S, a.win)) {
+    for (int i = tid; i < nout; i += THREADS) part[i] = 0.f;
+  } else {
+    // m and l over the lane's chunks, the same order in every block
+    chunk_values<T, kPaged>(a, v_all, rows, a.scores + bh * S * qpk, c0, c1, smem,
+                            [&](float* ms) {
+      for (int jj = warp; jj < qpk; jj += WARPS) {
+        float m = -INFINITY;
+        for (int c = lane; c < nc; c += 32) m = fmaxf(m, mlh[(c * qpk + jj) * 2]);
+        m = warp_max(m);
+        float l = 0.f;
+        for (int c = lane; c < nc; c += 32) {
+          const float* e = mlh + (c * qpk + jj) * 2;
+          l = fmaf(e[1], expf(e[0] - m), l);
+        }
+        l = warp_sum(l);
+        if (lane == 0) {
+          ms[jj] = m;
+          ms[qpk + jj] = l;
+        }
+      }
+    }, part);
+  }
+
+  // the (lane, head)'s last block to arrive sums the partials in chunk order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicInc(a.counter + bh, nc - 1u) == nc - 1u;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* parts = a.part + bh * nsplit * nout;
+  float* out = a.out + bh * nout;
+  for (int i = 4 * tid; i < nout; i += 4 * THREADS) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int c = 0; c < nc; ++c) {
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(parts + (size_t)c * nout + i));
+      o.x += p.x;
+      o.y += p.y;
+      o.z += p.z;
+      o.w += p.w;
+    }
+    *reinterpret_cast<float4*>(out + i) = o;
+  }
+}
+
+template <typename T, bool kPaged>
+int launch_lanes(const LanesArgs& a, cudaStream_t st) {
+  const size_t s2 = lanes_values_smem(a.qpk, a.D, sizeof(T));
+  const size_t s1 = max(lanes_scores_smem(a.qpk, a.D, a.kv_sinks, sizeof(T)), s2);
+  if (s1 > SMEM_MAX || s2 > SMEM_MAX) return ERR_ARGS;
+  const auto k1 = lanes_scores_kernel<T, kPaged>;
+  const auto k2 = lanes_values_kernel<T, kPaged>;
+  const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t e;
+  if (s1 > 48 * 1024 && (e = cudaFuncSetAttribute(k1, attr, (int)s1)) != cudaSuccess) return (int)e;
+  if (s2 > 48 * 1024 && (e = cudaFuncSetAttribute(k2, attr, (int)s2)) != cudaSuccess) return (int)e;
+  // chunk-major: every (head, lane)'s chunk 0 is dispatched first, so the
+  // short lanes' live blocks run before the blocks past their kv_len
+  const dim3 grid(a.Hk, a.B, a.nsplit);
+  k1<<<grid, THREADS, s1, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = s2;
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, k2, a)) != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the lanes split's checks and scratch layout (ops/cuda/attention.py:
+// lanes_scratch lays it out the same): scores (B, Hk, S, qpk) | ml, padded
+// to 4 floats | partials; the paged instance when a.tables is set
+int lanes_split(int kv_type, LanesArgs& a, float* scratch, unsigned* counter, cudaStream_t st) {
+  if (!scratch || !counter || a.chunk < TILE || a.chunk % TILE || a.nsplit < 1 ||
+      a.nsplit > MAX_SPLIT || (long long)(a.nsplit - 1) * a.chunk >= a.S ||
+      (long long)a.nsplit * a.chunk < a.S || a.win < 0 || !(a.softcap >= 0.f))
+    return ERR_ARGS;
+  const size_t heads = (size_t)a.B * a.Hk, sc = heads * a.S * a.qpk;
+  const size_t head = sc + heads * a.nsplit * a.qpk * 2;
+  a.scores = scratch;
+  a.ml = scratch + sc;
+  a.part = scratch + ((head + 3) & ~(size_t)3);
+  a.counter = counter;
+  using BF = __nv_bfloat16;
+  if (kv_type == W_BF16)
+    return a.tables ? launch_lanes<BF, true>(a, st) : launch_lanes<BF, false>(a, st);
+  if (kv_type == W_E5M2)
+    return a.tables ? launch_lanes<uint8_t, true>(a, st) : launch_lanes<uint8_t, false>(a, st);
+  return ERR_ARGS;
+}
+
+// ---------------------------------------------------------------------------
+// B lanes, one block per (kv head, lane): the earlier design (v1)
 // ---------------------------------------------------------------------------
 
 struct AttnArgs {
@@ -829,7 +1342,7 @@ int launch(int kv_type, const AttnArgs& a, cudaStream_t st) {
   return ERR_ARGS;
 }
 
-// the fields every batched entry point sets; the rest stay 0 / null
+// the fields every v1 entry point sets; the rest stay 0 / null
 AttnArgs common_args(const float* q, const float* k_new, const float* v_new, void* k_all,
                      void* v_all, const float* freq, float mscale, float inv_sqrt_d,
                      float* out, float* scores, int layer, int S, int Hk, int qpk, int D,
@@ -857,6 +1370,37 @@ AttnArgs common_args(const float* q, const float* k_new, const float* v_new, voi
 bool shape_ok(int S, int Hk, int qpk, int D, int layer, int kv_sinks) {
   return D >= 8 && D % 8 == 0 && qpk >= 1 && qpk * D <= THREADS * MAX_OUT && Hk >= 1 &&
          layer >= 0 && S >= 1 && kv_sinks >= 0 && kv_sinks <= TILE;
+}
+
+// the fields every lanes-split entry sets; the rest stay 0 / null
+LanesArgs lanes_args(const float* q, const float* k_new, const float* v_new, void* k_all,
+                     void* v_all, const float* freq, float mscale, float inv_sqrt_d, float* out,
+                     const int* lanes, int B, int L, int layer, int S, int Hk, int qpk, int D,
+                     int kv_sinks, float softcap, int win, int chunk, int nsplit) {
+  LanesArgs a{};
+  a.q = q;
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.k_all = k_all;
+  a.v_all = v_all;
+  a.freq = freq;
+  a.mscale = mscale;
+  a.inv_sqrt_d = inv_sqrt_d;
+  a.out = out;
+  a.lanes = lanes;
+  a.B = B;
+  a.L = L;
+  a.layer = layer;
+  a.S = S;
+  a.Hk = Hk;
+  a.qpk = qpk;
+  a.D = D;
+  a.kv_sinks = kv_sinks;
+  a.softcap = softcap;
+  a.win = win;
+  a.chunk = chunk;
+  a.nsplit = nsplit;
+  return a;
 }
 
 }  // namespace
@@ -931,9 +1475,56 @@ extern "C" int yt_attend_one(int kv_type, const float* q, const void* k_all, con
 }
 
 // B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the device. The
-// score space is sized from the window: shared memory if S slots fit, else
-// `scores` (B, Hk, S, qpk).
+// split (chunk, nsplit) comes from ops/cuda/attention.py:lanes_split_plan;
+// scratch holds lanes_scratch floats and counter B * Hk uint32 zeros. Two
+// launches on `stream`.
 extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* k_new,
+                                      const float* v_new, void* k_all, void* v_all,
+                                      const float* freq, float mscale, float inv_sqrt_d,
+                                      float* out, float* scratch, unsigned* counter,
+                                      const int* lanes, int B, int L, int layer, int S, int Hk,
+                                      int qpk, int D, int kv_sinks, float softcap, int win,
+                                      int chunk, int nsplit, void* stream) {
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 ||
+      Hk > 65535 || !lanes)
+    return ERR_ARGS;
+  LanesArgs a = lanes_args(q, k_new, v_new, k_all, v_all, freq, mscale, inv_sqrt_d, out, lanes,
+                           B, L, layer, S, Hk, qpk, D, kv_sinks, softcap, win, chunk, nsplit);
+  a.lane_stride = (size_t)L * S * Hk * D;
+  return lanes_split(kv_type, a, scratch, counter, static_cast<cudaStream_t>(stream));
+}
+
+// B lanes over a page pool: k_pool and v_pool (n_pages, L, page, Hk, D);
+// tables (B, nblk) int32 page ids and lanes (5, B) int32 on the device; the
+// window is S = nblk * page. The split and the scratch as
+// yt_attend_step_batched's.
+extern "C" int yt_attend_step_paged(int kv_type, const float* q, const float* k_new,
+                                    const float* v_new, void* k_pool, void* v_pool,
+                                    const float* freq, float mscale, float inv_sqrt_d,
+                                    float* out, float* scratch, unsigned* counter,
+                                    const int* lanes, const int* tables, int B, int n_pages, int L,
+                                    int layer, int page, int nblk, int Hk, int qpk, int D,
+                                    int kv_sinks, float softcap, int win, int chunk, int nsplit,
+                                    void* stream) {
+  if (page < 1 || nblk < 1 || (long long)page * nblk > (1 << 30))
+    return ERR_ARGS;
+  const int S = page * nblk;
+  if (!shape_ok(S, Hk, qpk, D, layer, kv_sinks) || layer >= L || B < 1 || B > 65535 ||
+      Hk > 65535 || n_pages < 1 || !lanes || !tables)
+    return ERR_ARGS;
+  LanesArgs a = lanes_args(q, k_new, v_new, k_pool, v_pool, freq, mscale, inv_sqrt_d, out, lanes,
+                           B, L, layer, S, Hk, qpk, D, kv_sinks, softcap, win, chunk, nsplit);
+  a.tables = tables;
+  a.page = page;
+  a.n_pages = n_pages;
+  return lanes_split(kv_type, a, scratch, counter, static_cast<cudaStream_t>(stream));
+}
+
+// The earlier design (attend_step_kernel), for chip_smoke.py's same-run
+// time alone. B lanes: caches (B, L, S, Hk, D); lanes (5, B) int32 on the
+// device. The score space is sized from the window: shared memory if S
+// slots fit, else `scores` (B, Hk, S, qpk).
+extern "C" int yt_attend_step_batched_v1(int kv_type, const float* q, const float* k_new,
                                       const float* v_new, void* k_all, void* v_all,
                                       const float* freq, float mscale, float inv_sqrt_d,
                                       float* out, float* scores, const int* lanes, int B,
@@ -952,10 +1543,11 @@ extern "C" int yt_attend_step_batched(int kv_type, const float* q, const float* 
   return launch(kv_type, a, static_cast<cudaStream_t>(stream));
 }
 
-// B lanes over a page pool: k_pool and v_pool (n_pages, L, page, Hk, D);
-// tables (B, nblk) int32 page ids and lanes (5, B) int32 on the device; the
-// window is S = nblk * page, and the score space is sized from it as above.
-extern "C" int yt_attend_step_paged(int kv_type, const float* q, const float* k_new,
+// The earlier design over a page pool, as yt_attend_step_batched_v1:
+// k_pool and v_pool (n_pages, L, page, Hk, D); tables (B, nblk) int32 page
+// ids and lanes (5, B) int32 on the device; the window is S = nblk * page,
+// and the score space is sized from it as above.
+extern "C" int yt_attend_step_paged_v1(int kv_type, const float* q, const float* k_new,
                                     const float* v_new, void* k_pool, void* v_pool,
                                     const float* freq, float mscale, float inv_sqrt_d,
                                     float* out, float* scores, const int* lanes,

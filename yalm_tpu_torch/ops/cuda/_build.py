@@ -54,10 +54,12 @@ _SIGNATURES = {
     # Gemma2's score cap, a sliding layer's window, the split of the slots
     "yt_attend_step": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
-    "yt_attend_step_batched": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "yt_attend_step_paged": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # (..., out, scratch, counter, lanes[, tables], ..., softcap, win, chunk,
+    # nsplit, stream): the lanes split (attention.py:lanes_split_plan)
+    "yt_attend_step_batched": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "yt_attend_step_paged": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "yt_attend_one": [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 

@@ -7,7 +7,7 @@ One step: RoPE on q and k_new at `pos`, write the k/v row into ring slot
 `kv_pos` IN PLACE (the port mutates the cache tensors where the JAX package
 aliased its buffers), the lazy StreamingLLM sink view in the ring regime,
 then GQA attention over slots < kv_len. The batched form does this for B
-lanes of a (B, L, S, Hk, D) cache in one launch, each lane with its own
+lanes of a (B, L, S, Hk, D) cache in one call, each lane with its own
 scalars; a lane whose `write` is 0 changes nothing and attends the cache as
 it is (lanes mid-admission). The paged form does it over a page pool
 (n_pages, L, page, Hk, D), lane b's slot s at (tables[b, s // page], layer,
@@ -21,15 +21,18 @@ the mask), `win` (a sliding layer's window, by slot age) and `alt`
 RoPE, no write and no sinks. Every plain version runs `attend_ref`, the
 port's one plain attention core.
 
-The one-lane step and `attend_one_l` are bound by the bytes of the rows
-they attend and run split over the slots (flash-decoding): `split_plan`
-cuts [lo, kv_len) into chunks of a multiple of 64 slots, so that about two
-waves of the H100's 132 SMs stream the cache at once, and each call makes
-two launches -- chunk scores with each chunk's max and sum, then each
-chunk's p . v with the partials summed in chunk order by the head's last
-block (`csrc/attention.cu`'s note). A sliding layer in the ring regime
-reads only the chunks that hold a slot of its window (`chunk_live`). The
-batched and paged forms run one block per (kv head, lane).
+Every form is bound by the bytes of the rows it attends and runs split
+over the slots (flash-decoding) in two launches -- chunk scores with each
+chunk's max and sum, then each chunk's p . v with the partials summed in
+chunk order by the last block of each (lane, kv head) (`csrc/attention.cu`'s
+note). The one-lane step and `attend_one_l`: `split_plan` cuts [lo, kv_len)
+into chunks of a multiple of 64 slots, so that about two waves of the
+H100's 132 SMs stream the cache at once. The batched and paged forms:
+`lanes_split_plan` cuts the window into chunks from S and the head count
+alone (the lanes' scalars stay on the device), on a (chunk, kv head, lane)
+grid whose blocks past a lane's kv_len, or outside its sliding window
+(`lane_chunk_live`), read nothing. A sliding layer in the ring regime reads
+only the chunks that hold a slot of its window (`chunk_live`).
 """
 
 from __future__ import annotations
@@ -46,19 +49,11 @@ from . import _build as B
 from .gemv import SMS, bf16f
 
 
-SMEM_MAX = 227 * 1024
 KV_DTYPES = (torch.bfloat16, torch.float8_e5m2)
 TILE = 64                 # the kernels' tile of slots
 SPLIT_BLOCKS = 2 * SMS    # the one-lane split's target blocks: two waves
+LANE_BLOCKS = SMS         # the lanes split's target blocks for one lane of S slots
 MAX_SPLIT = 1024          # chunks per kv head a split launch takes
-
-
-def smem_bytes(qpk: int, D: int, S: int) -> int:
-    """Shared memory of csrc/attention.cu's batched and paged kernel for a
-    window of S slots: q, every score (one tile's, 64, when the scores go
-    to global scratch), one K/V tile."""
-    words = qpk * (D + 2) + S * qpk
-    return (words + 3) // 4 * 16 + 64 * (D + 8) * 2
 
 
 class SplitPlan(NamedTuple):
@@ -119,17 +114,68 @@ def split_scratch(plan: SplitPlan, kv_len: int, Hk: int, qpk: int, D: int, devic
                        device=device)
 
 
+class LanesPlan(NamedTuple):
+    """How a B-lane launch cuts the window: chunk c of every lane holds
+    slots [c * chunk, (c + 1) * chunk), on a (Hk, B, nsplit) grid."""
+    chunk: int
+    nsplit: int
+
+
+def lanes_split_plan(S: int, Hk: int) -> LanesPlan:
+    """The B-lane split of a window of S slots for Hk kv heads: the chunk
+    is a multiple of the tile, the smallest that gives a lane of S slots
+    about LANE_BLOCKS / Hk chunks per head (16 of 256 slots at 8 heads and
+    4096 slots), and no more than MAX_SPLIT chunks. It depends on the window
+    and the head count alone, never on B or on a lane's scalars (which live
+    on the device): a lane's bits do not depend on the lanes beside it, the
+    wrapper reads no device value, and a tick's grid is fixed, as a CUDA
+    graph of the tick needs."""
+    chunk = max(-(-S // max(1, LANE_BLOCKS // Hk)), -(-S // MAX_SPLIT), 1)
+    chunk = -(-chunk // TILE) * TILE
+    return LanesPlan(chunk, -(-S // chunk))
+
+
+def lane_chunk_live(c: int, chunk: int, S: int, kv_pos: int, kv_len: int, kv_sink: int,
+                    win: int) -> bool:
+    """Whether chunk c of a lane reads rows in the lanes split -- the
+    kernel's rule, decided on the device: below kv_len, and on a sliding
+    layer (win > 0) whose kv_pos the lane attends (kv_sink <= kv_pos <
+    kv_len) holding a slot of age < win (`chunk_live`). A dead chunk reads
+    nothing (one below kv_len contributes m = -inf, l = 0 and a zero
+    partial; one past it takes no part); the block whose chunk holds kv_pos
+    writes the lane's new rows all the same."""
+    c0 = c * chunk
+    if c0 >= kv_len:
+        return False
+    skip = win > 0 and kv_sink <= kv_pos < kv_len
+    return not skip or chunk_live(c0, min(c0 + chunk, kv_len), kv_pos, kv_sink, S, win)
+
+
+def lanes_scratch(plan: LanesPlan, Bn: int, S: int, Hk: int, qpk: int, D: int,
+                  device) -> torch.Tensor:
+    """The f32 scratch of a B-lane launch, laid out as csrc/attention.cu's
+    `lanes_split` reads it: the scores (B, Hk, S, qpk) | each chunk's max
+    and sum (B, Hk, nsplit, qpk, 2), padded to 4 floats | the partial
+    outputs (B, Hk, nsplit, qpk, D). Sized from the window, not from the
+    lanes' kv_len."""
+    heads = Bn * Hk
+    head = heads * S * qpk + heads * plan.nsplit * qpk * 2
+    return torch.empty((head + 3) // 4 * 4 + heads * plan.nsplit * qpk * D, dtype=torch.float32,
+                       device=device)
+
+
 _COUNTERS: dict = {}
 
 
-def _counter(device: torch.device, Hk: int) -> torch.Tensor:
-    """The per-head arrival counters of the split's second launch, one
-    zeroed int32 buffer per (device, stream), held across calls: the
-    kernel's last block of each head leaves its counter at 0 again."""
+def _counter(device: torch.device, n: int) -> torch.Tensor:
+    """The arrival counters of a split's second launch, one per kv head
+    (one lane) or per (lane, kv head): one zeroed int32 buffer per (device,
+    stream), held across calls (the kernel's last block of each head leaves
+    its counter at 0 again), sized for 128 lanes of 8 heads at first use."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     ctr = _COUNTERS.get(key)
-    if ctr is None or ctr.numel() < Hk:
-        ctr = _COUNTERS[key] = torch.zeros(max(Hk, 64), dtype=torch.int32, device=device)
+    if ctr is None or ctr.numel() < n:
+        ctr = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
     return ctr
 
 
@@ -378,8 +424,9 @@ def attend_step_batched_plain(q, k_new, v_new, k_all, v_all, layer, lanes, *,
 
 def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
                                kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
-    """One launch of csrc/attention.cu over B lanes on CUDA tensors (adds
-    one to LAUNCHES["attend_step_batched_l"])."""
+    """csrc/attention.cu's lanes split over B lanes on CUDA tensors: two
+    launches on the current stream, no device value read (adds one to
+    LAUNCHES["attend_step_batched_l"])."""
     Bn, L, S, Hk, D = k_all.shape
     qpk = q.shape[2]
     B.require(k_all.dtype in KV_DTYPES and v_all.dtype == k_all.dtype,
@@ -399,14 +446,15 @@ def launch_attend_step_batched(q, k_new, v_new, k_all, v_all, layer, lanes, *,
     vn = v_new.float().contiguous()
     freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
-    # a lane's kv_len lives on the device: the score space holds the window
-    scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
-              torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
+    # a lane's kv_len lives on the device: the plan and the scratch hold the window
+    plan = lanes_split_plan(S, Hk)
+    scratch = lanes_scratch(plan, Bn, S, Hk, qpk, D, q.device)
     code = B.lib().yt_attend_step_batched(
         B.WTYPE[k_all.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_all), B.ptr(v_all),
-        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
-        B.ptr(lanes), Bn, L, layer, S, Hk, qpk, D, kv_sinks, float(softcap),
-        _win_arg(win, S, "attend_step_batched_l"), B.stream_ptr())
+        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scratch),
+        B.ptr(_counter(q.device, Bn * Hk)), B.ptr(lanes), Bn, L, layer, S, Hk, qpk, D,
+        kv_sinks, float(softcap), _win_arg(win, S, "attend_step_batched_l"), plan.chunk,
+        plan.nsplit, B.stream_ptr())
     B.check(code, "attend_step_batched_l")
     B.LAUNCHES["attend_step_batched_l"] += 1
     return out
@@ -502,8 +550,9 @@ def attend_step_paged_plain(q, k_new, v_new, k_pool, v_pool, tables, layer, lane
 
 def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lanes, *,
                              kv_sinks, theta, rotary_dim, softcap=0.0, win=None, alt=None):
-    """One launch of csrc/attention.cu over B lanes of a page pool on CUDA
-    tensors (adds one to LAUNCHES["attend_step_paged_l"])."""
+    """csrc/attention.cu's lanes split over B lanes of a page pool on CUDA
+    tensors: two launches on the current stream, no device value read (adds
+    one to LAUNCHES["attend_step_paged_l"])."""
     n_pages, L, page, Hk, D = k_pool.shape
     Bn, nblk = tables.shape
     qpk = q.shape[2]
@@ -528,13 +577,14 @@ def launch_attend_step_paged(q, k_new, v_new, k_pool, v_pool, tables, layer, lan
     vn = v_new.float().contiguous()
     freq = _freq_table(theta, D, rotary_dim, str(q.device), bool(alt))
     out = torch.empty((Bn, Hk, qpk, D), dtype=torch.float32, device=q.device)
-    scores = (None if smem_bytes(qpk, D, S) <= SMEM_MAX else
-              torch.empty((Bn, Hk, S, qpk), dtype=torch.float32, device=q.device))
+    plan = lanes_split_plan(S, Hk)
+    scratch = lanes_scratch(plan, Bn, S, Hk, qpk, D, q.device)
     code = B.lib().yt_attend_step_paged(
         B.WTYPE[k_pool.dtype], B.ptr(qc), B.ptr(kn), B.ptr(vn), B.ptr(k_pool), B.ptr(v_pool),
-        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scores),
-        B.ptr(lanes), B.ptr(tables), Bn, n_pages, L, layer, page, nblk, Hk, qpk, D, kv_sinks,
-        float(softcap), _win_arg(win, S, "attend_step_paged_l"), B.stream_ptr())
+        B.ptr(freq), rope_mscale(theta), 1.0 / math.sqrt(D), B.ptr(out), B.ptr(scratch),
+        B.ptr(_counter(q.device, Bn * Hk)), B.ptr(lanes), B.ptr(tables), Bn, n_pages, L, layer,
+        page, nblk, Hk, qpk, D, kv_sinks, float(softcap),
+        _win_arg(win, S, "attend_step_paged_l"), plan.chunk, plan.nsplit, B.stream_ptr())
     B.check(code, "attend_step_paged_l")
     B.LAUNCHES["attend_step_paged_l"] += 1
     return out
