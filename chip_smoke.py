@@ -92,7 +92,16 @@ one-block-per-(kv head, lane) design it replaced (attend_step_kernel through
 each run one K8 and one K9 call under torch's sync debug mode (no host
 sync) and replay each captured in a CUDA graph after rewriting its lanes
 tensor in place; phase
-3's tick profiles report K8/K9's device time per tick;
+3's tick profiles report K8/K9's device time per tick. Every GEMV (K1
+gemv/gemv_l, K5 gemv4_l, K10 gemv_le, K11 gemv4_le and the GEMV legs of
+K3/K4/K6/K7) runs on gemv_kernel: mma.sync with x's rows as the n of 8,
+the weight stream started before the rmsnorm prologue, K split by
+`gemv_plan` where the grid starves; phase 2 times it at every shape a
+decode step launches (`phase_gemv`: one row, and eight on w13 and w2)
+beside the design it replaced (gemv_kernel_v1 through `gemv_v1`, same
+run) and F.linear, and checks `cuobjdump -sass` for HMMA in every
+gemv_kernel instance; phase 3's decode profiles split the step's device
+time into the GEMV without and with the GLU pair;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
    completion on a small fp8 MoE checkpoint, as subprocesses.
@@ -422,6 +431,36 @@ def gemm_v1(x, w_all, layer, scale=None, *, expert=None, residual=None, glu_act=
     return y
 
 
+def gemv_v1(x, w_all, layer, *, expert=None, norm_w=None, norm_eps=1e-5, scale=None,
+            residual=None, glu_act=None):
+    """The GEMV's function on gemv_kernel_v1, the design gemv_kernel
+    replaced (one warp per row, x staged whole before the first weight
+    load, a scalar widening and FMA per weight), for the same-run timing:
+    csrc/gemv.cu's yt_gemv_v1, which no wrapper of the port reaches.
+    Arguments as launch_gemv's."""
+    import ctypes
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build as B
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.int4 import int4_group
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _, N, Kw, E, e_host, e_dev = G._addressing(w_all, layer, expert, "gemv_v1")
+    int4 = G.is_int4(w_all)
+    K = 2 * Kw if int4 else Kw
+    x2 = x.reshape(-1, K)
+    y = torch.empty((x2.shape[0], N // 2 if glu_act else N), dtype=torch.float32,
+                    device=x.device)
+    fn = B.lib().yt_gemv_v1
+    fn.argtypes = [I, P, I, I, I, P, I, I, P, I, P, Fl, P, P, I, P, Fl, P, P, I, I, P]
+    fn.restype = I
+    B.check(fn(B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K,
+               B.ptr(x2), x2.shape[0], B.ptr(norm_w), norm_eps, None if int4 else B.ptr(scale),
+               B.ptr(scale) if int4 else None, int4_group(K) if int4 else 0, None, 0.0,
+               B.ptr(residual), B.ptr(y), 1 if glu_act else 0, 1 if glu_act == "gelu" else 0,
+               B.stream_ptr()), "gemv_v1")
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def on_old_gemm(fn):
     """fn() with the FFN's GEMM route on gemm_v1 (K4's or K7's many-row route
     on the design gemm_kernel replaced), for the same-run time."""
@@ -462,6 +501,215 @@ def check_hgmma() -> None:
         f"({min(new.values())}-{max(new.values())} each; the {len(int4)} int4 ones "
         f"{min(int4.values())}-{max(int4.values())}), none in the {len(old)} of "
         f"gemm_kernel_v1 and gemm4_kernel_v1")
+
+
+def check_hmma() -> None:
+    """cuobjdump -sass of the built library: every instance of the new
+    gemv_kernel (the 2 of packed int4 among them) issues HMMA (mma.sync on
+    the tensor cores), and none of gemv_kernel_v1's does."""
+    from yalm_tpu_torch.ops.cuda import _build as B
+    tool = os.path.join(os.path.dirname(B.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(B.build())], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts.setdefault(fn, 0)
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    new = {f: c for f, c in counts.items() if "11gemv_kernelI" in f}
+    int4 = {f: c for f, c in new.items() if "11gemv_kernelILi4E" in f}
+    old = {f: c for f, c in counts.items() if "14gemv_kernel_v1I" in f}
+    if len(new) != 10 or len(int4) != 2 or min(new.values()) < 1 or len(old) != 30 or any(
+            old.values()):
+        raise AssertionError(f"cuobjdump: HMMA in the gemv_kernel instances {new}, in "
+                             f"gemv_kernel_v1 {old}")
+    log(f"  cuobjdump -sass: HMMA in all {len(new)} gemv_kernel instances "
+        f"({min(new.values())}-{max(new.values())} each; the {len(int4)} int4 ones "
+        f"{min(int4.values())}-{max(int4.values())}), none in the {len(old)} of gemv_kernel_v1")
+
+
+def gemv_rows_plain(x, w_all, layer, scale=None, *, norm_w=None, norm_eps=1e-5, residual=None,
+                    glu_act=None):
+    """The plain version of a GEMV launch on nb rows of x (ops/cuda/ffn.py's
+    GEMV route at nb 8): each row's rmsnorm, the projection, then the
+    residual or the GLU pair."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    xv = x.float()
+    if norm_w is not None:
+        xv = xv * torch.rsqrt(torch.mean(xv * xv, dim=-1, keepdim=True) + norm_eps)
+        xv = xv * norm_w[layer].float()
+    y = G.proj_plain(xv, w_all, layer, scale)
+    if glu_act:
+        return G.glu_plain(y, glu_act)
+    return y if residual is None else y + residual
+
+
+def phase_gemv(bench: Bench, cfg, fw, dev) -> None:
+    """Phase 2's GEMV rows (csrc/gemv.cu's gemv_kernel), at every shape a
+    decode step launches on bench.path, each with the design it replaced
+    (gemv_kernel_v1 through gemv_v1) timed in the same run, the plain
+    version, the bound and F.linear on bf16 (int4: dequantized bf16) copies
+    of 4 layers: fp8 and int4 -- wqkv + rmsnorm, wo + residual, w13 +
+    rmsnorm + GLU, w2 + residual (1 row, and 8 rows for w13 and w2, the
+    FFN's GEMV route) and the LM head (e5m2; int8 + scale), on fp8 also
+    wqkv on bf16 and int8 + scale weights; Mixtral -- the routed w13 +
+    rmsnorm + GLU and w2 with the expert id on the card; the Gemmas -- the
+    tied LM head. The dense rows also check that two calls give the same
+    bits (split K sums its slices in a fixed order)."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.int4 import int4_group
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+
+    def randn(*s, scale=1.0):
+        return torch.randn(s, generator=gen, device=dev) * scale
+
+    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    sc = fw.scales
+    int4 = G.is_int4(fw.w13)
+    lay = lambda r: r % L  # noqa: E731  (cycle layers: each call streams cold weights)
+
+    def wbytes(w, s):   # one matrix's weight bytes and its scales (per row or per group)
+        return w.numel() * w.element_size() + (0 if s is None else 4 * s.numel())
+
+    def bf16_copies(w, s):   # 4 layers (> the 50 MB L2): the library call's weights
+        if G.is_int4(w):
+            return dequant4(w[:4], s[:4])
+        ww = w[:4].float() * s[:4, :, None] if s is not None else w[:4]
+        return ww.to(torch.bfloat16)
+
+    if bench.path in ("moe_fp8", "moe_int4"):
+        E = cfg.n_experts
+        ids = torch.randint(0, E, (64,), generator=gen, device=dev)
+        ids_host = ids.tolist()
+        gv, gemv_fn = ("gemv4_le", G.gemv4_le) if int4 else ("gemv_le", G.gemv_le)
+        s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
+        x, xh = randn(d, scale=3.0), randn(h)
+        norm = dict(norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
+        for nm, w, s, N, K, kw, xx in (("w13 + rmsnorm + GLU", fw.w13, s13, 2 * h, d,
+                                        {**norm, "glu_act": "silu"}, x),
+                                       ("w2", fw.w2, s2, d, h, {}, xh)):
+            if int4:
+                wl = [dequant4(w[r, ids_host[r]][None], s[r, ids_host[r]][None])[0]
+                      for r in range(min(4, L))]
+            else:
+                wl = [w[r, ids_host[r]].to(torch.bfloat16) for r in range(min(4, L))]
+            bench.case(gv, f"{nm}, id on the card ({N}x{K})",
+                       gemv_fn(xx, w, 0, ids[0], s, **kw),
+                       G.gemv_le_plain(xx, w, 0, ids_host[0], s, **kw), 2e-3,
+                       kernel=lambda r, w=w, s=s, kw=kw, xx=xx: gemv_fn(xx, w, lay(r),
+                                                                        ids[r % 64], s, **kw),
+                       plain=lambda r, w=w, s=s, kw=kw, xx=xx: G.gemv_le_plain(
+                           xx, w, lay(r), ids_host[r % 64], s, **kw),
+                       library=lambda r, wl=wl, xx=xx: F.linear(xx.to(torch.bfloat16), wl[r % len(wl)]),
+                       old=lambda r, w=w, s=s, kw=kw, xx=xx: gemv_v1(
+                           xx, w, lay(r), expert=ids[r % 64], scale=s, **kw),
+                       bytes_=wbytes(w[0, 0], None if s is None else s[0, 0]) + 4 * K
+                       + (4 * K if kw else 0)
+                       + 4 * (N // 2 if kw else N) + 8, flops=2 * N * K, json_row=bool(kw),
+                       bf16_out=bool(kw))
+            del wl
+        return
+
+    if bench.path in ("gemma3", "gemma2"):
+        x = randn(d)
+        lm_bf16 = fw.lm_head.to(torch.bfloat16)
+        bench.case("gemv", f"lm_head e5m2 ({V}x{d}, tied)", G.gemv(x, fw.lm_head),
+                   G.gemv_l_plain(x, fw.lm_head[None], 0), 2e-3,
+                   kernel=lambda r: G.gemv(x, fw.lm_head),
+                   plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0),
+                   library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+                   old=lambda r: gemv_v1(x, fw.lm_head[None], 0),
+                   bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
+        return
+
+    # the dense paths: Mistral-7B fp8 (e5m2) or int4 (packed, int8 head)
+    Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
+    x = randn(d)
+    hs = sc.lm_head if int4 else None
+    lm_bf16 = bf16_copies(fw.lm_head[None], None if hs is None else hs[None])[0]
+    wt = "int8 + scale" if int4 else "e5m2"
+    bench.case("gemv", f"lm_head {wt} ({V}x{d})", G.gemv(x, fw.lm_head, hs),
+               G.gemv_l_plain(x, fw.lm_head[None], 0, scale=None if hs is None else hs[None]),
+               2e-3,
+               kernel=lambda r: G.gemv(x, fw.lm_head, hs),
+               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0,
+                                              scale=None if hs is None else hs[None]),
+               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+               old=lambda r: gemv_v1(x, fw.lm_head[None], 0,
+                                     scale=None if hs is None else hs[None]),
+               bytes_=V * d + 4 * d + 4 * V + (4 * V if int4 else 0), flops=2 * V * d,
+               json_row=True)
+    del lm_bf16
+    name = "gemv4_l" if int4 else "gemv_l"
+    s = (lambda f: getattr(sc, f)) if int4 else (lambda f: None)
+    norm_att = dict(norm_w=fw.rms_att, norm_eps=cfg.norm_eps)
+    norm_ffn = dict(norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
+    cases = [(1, "wqkv + rmsnorm", fw.wqkv, "wqkv", Nqkv, d, norm_att),
+             (1, "wo + residual", fw.wo, "wo", d, q_dim, {"residual": True}),
+             (1, "w13 + rmsnorm + GLU", fw.w13, "w13", 2 * h, d, {**norm_ffn, "glu_act": "silu"}),
+             (1, "w2 + residual", fw.w2, "w2", d, h, {"residual": True}),
+             (8, "w13 + rmsnorm + GLU", fw.w13, "w13", 2 * h, d, {**norm_ffn, "glu_act": "silu"}),
+             (8, "w2 + residual", fw.w2, "w2", d, h, {"residual": True})]
+    for nb, nm, w, field, N, K, kw in cases:
+        glu = "glu_act" in kw
+        n_out = N // 2 if glu else N
+        xx = randn(nb, K, scale=3.0) if "norm_w" in kw else randn(nb, K)
+        kw = dict(kw)
+        if kw.pop("residual", False):
+            kw["residual"] = randn(nb, n_out)
+        wl = bf16_copies(w, s(field))
+        plan = G.gemv_plan(nb, N, K, glu, int4_group(K) if int4 else 0, 1)
+
+        def kern(r, w=w, field=field, kw=kw, xx=xx):
+            return G.launch_gemv(name, xx, w, lay(r), scale=s(field), **kw)
+
+        def plain(r, w=w, field=field, kw=kw, xx=xx):
+            return gemv_rows_plain(xx, w, lay(r), s(field), **kw)
+        got = kern(0)
+        if not torch.equal(got, kern(0)):   # the split's fixed-order sum
+            raise AssertionError(f"{name} nb={nb} {nm}: two calls differ in their bits")
+        bench.case(name, f"nb={nb} {nm} ({N}x{K}), split {plan.split}", got, plain(0), 2e-3,
+                   kernel=kern, plain=plain,
+                   library=lambda r, xx=xx, wl=wl: F.linear(xx.to(torch.bfloat16), wl[r % len(wl)]),
+                   old=lambda r, w=w, field=field, kw=kw, xx=xx: gemv_v1(
+                       xx, w, lay(r), scale=s(field), **kw),
+                   bytes_=wbytes(w[0], None if s(field) is None else s(field)[0]) + 4 * nb * K
+                   + (4 * K if "norm_w" in kw else 0)
+                   + 4 * nb * n_out * (2 if "residual" in kw else 1),
+                   flops=2 * nb * N * K, bf16_out=glu,
+                   json_row=(nb, field) == (1, "wqkv") or (nb, field) == (1, "w13"))
+        del wl
+    if int4:
+        return
+    # wqkv on the other weight types the kernel takes (the GEMV's prologue)
+    x = randn(d, scale=3.0)
+    w_bf16 = randn(2, Nqkv, d, scale=0.02).to(torch.bfloat16)
+    nw2 = fw.rms_att[:2].contiguous()
+    bench.case("gemv_l", f"wqkv bf16 + rmsnorm ({Nqkv}x{d})",
+               G.gemv_l(x, w_bf16, 1, norm_w=nw2), G.gemv_l_plain(x, w_bf16, 1, norm_w=nw2),
+               2e-3,
+               kernel=lambda r: G.gemv_l(x, w_bf16, r % 2, norm_w=nw2),
+               plain=lambda r: G.gemv_l_plain(x, w_bf16, r % 2, norm_w=nw2),
+               old=lambda r: gemv_v1(x, w_bf16, r % 2, norm_w=nw2),
+               bytes_=2 * Nqkv * d + 8 * d + 4 * Nqkv, flops=2 * Nqkv * d)
+    del w_bf16
+    w_i8 = torch.randint(-127, 128, (2, Nqkv, d), generator=gen, device=dev, dtype=torch.int8)
+    s_i8 = torch.rand(2, Nqkv, generator=gen, device=dev) * 1e-3 + 1e-4
+    bench.case("gemv_l", f"wqkv int8 + scale ({Nqkv}x{d})",
+               G.gemv_l(x, w_i8, 1, scale=s_i8), G.gemv_l_plain(x, w_i8, 1, scale=s_i8), 2e-3,
+               kernel=lambda r: G.gemv_l(x, w_i8, r % 2, scale=s_i8),
+               plain=lambda r: G.gemv_l_plain(x, w_i8, r % 2, scale=s_i8),
+               old=lambda r: gemv_v1(x, w_i8, r % 2, scale=s_i8),
+               bytes_=Nqkv * d + 4 * d + 8 * Nqkv, flops=2 * Nqkv * d)
+    del w_i8, s_i8
 
 
 def v1_smem_bytes(qpk: int, D: int, S: int) -> int:
@@ -565,7 +813,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     def randn(*s, scale=1.0):
         return torch.randn(s, generator=gen, device=dev) * scale
 
-    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
     Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lay = lambda r: r % L  # noqa: E731  (cycle layers: each call streams cold weights)
@@ -584,53 +832,8 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
         raise AssertionError("the kernel's e5m2 -> bf16 widening is not exact")
     log("  e5m2 -> bf16 widening in the GEMV kernel: bit-exact for all 256 codes")
 
-    # K1: gemv (LM head)
-    x = randn(d)
-    lm_bf16 = fw.lm_head.to(torch.bfloat16)
-    bench.case("gemv", "lm_head e5m2 (32000x4096)", G.gemv(x, fw.lm_head),
-               G.gemv_l_plain(x, fw.lm_head[None], 0), 2e-3,
-               kernel=lambda r: G.gemv(x, fw.lm_head),
-               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0),
-               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
-               bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
-    del lm_bf16
-
-    # K1: gemv_l with the norm prologue, and with the residual epilogue
-    x = randn(d, scale=3.0)
-    wqkv_bf16 = fw.wqkv[:4].to(torch.bfloat16)
-    bench.case("gemv_l", "wqkv e5m2 + rmsnorm (6144x4096)",
-               G.gemv_l(x, fw.wqkv, 0, norm_w=fw.rms_att),
-               G.gemv_l_plain(x, fw.wqkv, 0, norm_w=fw.rms_att), 2e-3,
-               kernel=lambda r: G.gemv_l(x, fw.wqkv, lay(r), norm_w=fw.rms_att),
-               plain=lambda r: G.gemv_l_plain(x, fw.wqkv, lay(r), norm_w=fw.rms_att),
-               library=lambda r: F.linear(x.to(torch.bfloat16), wqkv_bf16[r % 4]),
-               bytes_=Nqkv * d + 8 * d + 4 * Nqkv, flops=2 * Nqkv * d, json_row=True)
-    del wqkv_bf16
-    xm, res = randn(q_dim), randn(d)
-    bench.case("gemv_l", "wo e5m2 + residual (4096x4096)",
-               G.gemv_l(xm, fw.wo, 1, residual=res),
-               G.gemv_l_plain(xm, fw.wo, 1, residual=res), 2e-3,
-               kernel=lambda r: G.gemv_l(xm, fw.wo, lay(r), residual=res),
-               plain=lambda r: G.gemv_l_plain(xm, fw.wo, lay(r), residual=res),
-               bytes_=d * q_dim + 4 * q_dim + 8 * d, flops=2 * d * q_dim)
-    w_bf16 = randn(2, Nqkv, d, scale=0.02).to(torch.bfloat16)
-    bench.case("gemv_l", "wqkv bf16 + rmsnorm (6144x4096)",
-               G.gemv_l(x, w_bf16, 1, norm_w=fw.rms_att[:2].contiguous()),
-               G.gemv_l_plain(x, w_bf16, 1, norm_w=fw.rms_att[:2]), 2e-3,
-               kernel=lambda r: G.gemv_l(x, w_bf16, r % 2, norm_w=fw.rms_att[:2].contiguous()),
-               plain=lambda r: G.gemv_l_plain(x, w_bf16, r % 2, norm_w=fw.rms_att[:2]),
-               bytes_=2 * Nqkv * d + 8 * d + 4 * Nqkv, flops=2 * Nqkv * d)
-    del w_bf16
-    w_i8 = torch.randint(-127, 128, (2, Nqkv, d), generator=gen, device=dev,
-                         dtype=torch.int8)
-    s_i8 = torch.rand(2, Nqkv, generator=gen, device=dev) * 1e-3 + 1e-4
-    bench.case("gemv_l", "wqkv int8 + scale (6144x4096)",
-               G.gemv_l(x, w_i8, 1, scale=s_i8), G.gemv_l_plain(x, w_i8, 1, scale=s_i8),
-               2e-3,
-               kernel=lambda r: G.gemv_l(x, w_i8, r % 2, scale=s_i8),
-               plain=lambda r: G.gemv_l_plain(x, w_i8, r % 2, scale=s_i8),
-               bytes_=Nqkv * d + 4 * d + 8 * Nqkv, flops=2 * Nqkv * d)
-    del w_i8, s_i8
+    # K1: gemv (LM head) and gemv_l at every decode shape, beside the old design
+    phase_gemv(bench, cfg, fw, dev)
 
     # K1: gemm_l, the batched tick (M 16) and the prefill chunks; each case
     # also on gemm_kernel_v1, the design it replaced (old design)
@@ -662,6 +865,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                library=lambda r: xr.to(torch.bfloat16),
                bytes_=6 * 256 * h, json_row=True)
     check_hgmma()
+    check_hmma()
 
     # K2: attend_step_l against a random full-size bf16 cache
     cache = KVCache.init(cfg, torch.bfloat16, dev)
@@ -768,7 +972,6 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     import torch
     import torch.nn.functional as F
     from yalm_tpu_torch.models.cache import KVCache
-    from yalm_tpu_torch.ops.core import silu
     from yalm_tpu_torch.ops.cuda import attention as A
     from yalm_tpu_torch.ops.cuda import gemv as G
     from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_plain
@@ -782,7 +985,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     def randn(*s, scale=1.0):
         return torch.randn(s, generator=gen, device=dev) * scale
 
-    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
+    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
     Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = fw.scales
@@ -791,48 +994,9 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     def w4_bytes(N, K):   # packed weights and their group scales
         return N * K // 2 + 4 * (K // (512 if K % 512 == 0 else 256)) * N
 
-    # K1: the int8 LM head of this path
-    x = randn(d)
-    lm_bf16 = (fw.lm_head.float() * sc.lm_head[:, None]).to(torch.bfloat16)
-    bench.case("gemv", "lm_head int8 + scale (32000x4096)", G.gemv(x, fw.lm_head, sc.lm_head),
-               G.gemv_l_plain(x, fw.lm_head[None], 0, scale=sc.lm_head[None]), 2e-3,
-               kernel=lambda r: G.gemv(x, fw.lm_head, sc.lm_head),
-               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0, scale=sc.lm_head[None]),
-               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
-               bytes_=V * d + 4 * d + 8 * V, flops=2 * V * d, json_row=True)
-    del lm_bf16
-
-    # K5: the int4 GEMV as the decode path launches it (csrc/gemv.cu)
-    x, xm, xh, res = randn(d, scale=3.0), randn(q_dim), randn(h), randn(d)
-    for nm, w, s, N, K, kw, lib_x in (
-            ("wqkv + rmsnorm", fw.wqkv, sc.wqkv, Nqkv, d, dict(norm_w=fw.rms_att), x),
-            ("wo + residual", fw.wo, sc.wo, d, q_dim, dict(residual=res), xm),
-            ("w13 + rmsnorm + GLU", fw.w13, sc.w13, 2 * h, d, dict(norm_w=fw.rms_att), x),
-            ("w2", fw.w2, sc.w2, d, h, {}, xh)):
-        glu = "GLU" in nm
-        wl = dequant4(w[:4], s[:4])
-
-        def kern(r, w=w, s=s, kw=kw, xx=lib_x, glu=glu):
-            if not (kw or glu):   # no prologue or epilogue: the public wrapper
-                return G.gemv4_l(xx, w, lay(r), s)
-            return G.launch_gemv("gemv4_l", xx, w, lay(r), scale=s,
-                                 glu_act="silu" if glu else None, **kw)
-
-        def plain(r, w=w, s=s, kw=kw, xx=lib_x, glu=glu, N=N):
-            y = G.gemv_l_plain(xx, w, lay(r), scale=s, **kw)
-            return G.bf16f(silu(y[:N // 2]) * y[N // 2:]) if glu else y
-        got = kern(0)
-        # the GLU output goes to w2 rounded to bf16 (ffn.py:188): every value
-        # the kernel writes must be a bf16 value, whatever the tolerance
-        if glu and not torch.equal(got, G.bf16f(got)):
-            raise AssertionError("gemv4_l GLU: the kernel's output is not rounded to bf16")
-        bench.case("gemv4_l", f"{nm} ({N}x{K})", got, plain(0), 2e-3, kernel=kern,
-                   plain=plain,
-                   library=lambda r, xx=lib_x, wl=wl: F.linear(xx.to(torch.bfloat16), wl[r % 4]),
-                   bytes_=w4_bytes(N, K) + 4 * (K + N) + (4 * K if "norm" in nm else 0)
-                   + (4 * N if "residual" in nm else 0) - (2 * N if glu else 0),
-                   flops=2 * N * K, json_row=nm == "wqkv + rmsnorm")
-        del wl
+    # K1: the int8 LM head of this path; K5: the int4 GEMV at every decode
+    # shape, beside the old design
+    phase_gemv(bench, cfg, fw, dev)
 
     # K5: gemm4_l on gemm_kernel (round_rows_bf16 first), the batched tick
     # (M 16) and the prefill chunks; each case also on gemm4_kernel_v1, the
@@ -1072,22 +1236,13 @@ def phase_gemma_kernels(bench: Bench, cfg, fw, dev, kv_dtype, form: dict) -> Non
     one bf16 ulp; K2, K8 (B 16) and K9 (B 16, shuffled pages of 256) in the
     path's Gemma form, linear and ring lanes, on the path's cache type."""
     import torch
-    import torch.nn.functional as F
     from yalm_tpu_torch.ops.cuda import gemv as G
     from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
-    L, d, h, V = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.vocab_size
-    x = torch.randn(d, generator=gen, device=dev)
-    lm_bf16 = fw.lm_head.to(torch.bfloat16)
-    bench.case("gemv", f"lm_head e5m2 ({V}x{d}, tied)", G.gemv(x, fw.lm_head),
-               G.gemv_l_plain(x, fw.lm_head[None], 0), 2e-3,
-               kernel=lambda r: G.gemv(x, fw.lm_head),
-               plain=lambda r: G.gemv_l_plain(x, fw.lm_head[None], 0),
-               library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
-               bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
-    del lm_bf16
+    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
+    phase_gemv(bench, cfg, fw, dev)   # the tied LM head, beside the old design
     act = cfg.act_type
     x = torch.randn(d, generator=gen, device=dev) * 3.0
     glu = G.launch_gemv("check", x, fw.w13, 1, norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps,
@@ -1154,21 +1309,9 @@ def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
             return [dequant4(w[r, ids_host[r]][None], s[r, ids_host[r]][None])[0] for r in range(4)]
         return [w[r, ids_host[r]].to(torch.bfloat16) for r in range(4)]
 
+    # the decode step's GEMV pair, ids on the card, beside the old design
+    phase_gemv(bench, cfg, fw, dev)
     x, xh = randn(d, scale=3.0), randn(h)
-    for nm, w, s, N, K, kw, xx in (("w13 + rmsnorm + GLU", fw.w13, s13, 2 * h, d,
-                                    {**norm, **glu}, x), ("w2", fw.w2, s2, d, h, {}, xh)):
-        wl = lib_copies(w, s)
-        bench.case(gv, f"{nm}, id on the card ({N}x{K})",
-                   gemv_fn(xx, w, 0, ids[0], s, **kw),
-                   G.gemv_le_plain(xx, w, 0, ids_host[0], s, **kw), 2e-3,
-                   kernel=lambda r, w=w, s=s, kw=kw, xx=xx: gemv_fn(xx, w, lay(r), ids[r % 64], s,
-                                                                    **kw),
-                   plain=lambda r, w=w, s=s, kw=kw, xx=xx: G.gemv_le_plain(
-                       xx, w, lay(r), ids_host[r % 64], s, **kw),
-                   library=lambda r, wl=wl, xx=xx: F.linear(xx.to(torch.bfloat16), wl[r % 4]),
-                   bytes_=wbytes(N, K) + 4 * K + (4 * K if kw else 0) + 4 * (N // 2 if kw else N)
-                   + 8, flops=2 * N * K, json_row=bool(kw), bf16_out=bool(kw))
-        del wl
     for M in (16, 256):
         for nm, w, s, N, K, kw in (("w13 + GLU", fw.w13, s13, 2 * h, d, glu),
                                    ("w2", fw.w2, s2, d, h, {})):
@@ -2441,6 +2584,18 @@ def device_busy_us(prof, match=()) -> float:
     return busy
 
 
+def gemv_us(dev_us: dict) -> dict:
+    """The device time (us) of csrc/gemv.cu's gemv_kernel in a profile, by
+    its GLU template argument: {False: without the GLU pair, True: with}."""
+    import re
+    out = {False: 0.0, True: 0.0}
+    for k, us in dev_us.items():
+        m = re.search(r"gemv_kernel<([^<>]*)>", k)
+        if m:
+            out[m.group(1).split(",")[-1].strip() in ("true", "1", "(bool)1")] += us
+    return out
+
+
 def profile_decode(eng, n: int) -> dict:
     """torch.profiler over n greedy decode steps (continuing the engine's
     sequence): wall time, device time by kernel, and the device's idle share."""
@@ -2458,14 +2613,19 @@ def profile_decode(eng, n: int) -> dict:
     dev_us = device_us(prof)
     busy = device_busy_us(prof) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    gemv = gemv_us(dev_us)
     r = dict(steps=n, context=eng.pos, wall_ms_per_step=wall / n * 1e3,
              device_ms_per_step=busy / n * 1e3,
              idle_share=(1 - busy / wall) if busy else None,
+             gemv_ms_per_step=gemv[False] / n / 1e3, gemv_glu_ms_per_step=gemv[True] / n / 1e3,
+             gemv_share=(gemv[False] + gemv[True]) / 1e6 / busy if busy else None,
              top=[(k[:60], v / n / 1e3) for k, v in top])
     if not busy:
         log("  profiler saw no device time: only the wall time is reported")
     log(f"  decode profile at context {eng.pos}: {r['wall_ms_per_step']:.3f} ms/step wall, "
-        f"{r['device_ms_per_step']:.3f} ms/step on the device, idle share {r['idle_share']}")
+        f"{r['device_ms_per_step']:.3f} ms/step on the device, idle share {r['idle_share']}; "
+        f"gemv_kernel {r['gemv_ms_per_step']:.3f} ms/step without GLU, "
+        f"{r['gemv_glu_ms_per_step']:.3f} with, {r['gemv_share']} of the device time")
     for k, ms in r["top"]:
         log(f"    {ms:8.4f} ms/step  {k}")
     return r
@@ -2628,6 +2788,64 @@ def gemm_phases() -> int:
         fw = synth(cfg, dev, seed={"fp8": 0, "int4": 1, "moe_fp8": 2, "moe_int4": 3}[path])
         with phase(f"phase 2 ({path} path): kernels vs plain versions on the card"):
             phase_fn(bench, cfg, fw, dev)
+        del fw
+        torch.cuda.empty_cache()
+    print(json.dumps({"cases": bench.rows}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def gemv_phases() -> int:
+    """The GEMV rows alone, for a short card call: phase 2's phase_gemv on
+    the fp8, int4, Mixtral fp8, Mixtral int4 and Gemma3 paths at full width
+    (every decode shape beside gemv_kernel_v1, the plain version and
+    F.linear), the HMMA check of the SASS, and a profiler window that
+    finds gemv_kernel by name and tells its GLU instances apart (phase 3's
+    decode profiles split the GEMV time so). Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.gemv_phases())"
+    Prints the cases as one JSON line, then the card's name and power
+    limit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    check_hmma()
+    x = torch.randn(2, 512, device=dev)
+    w = torch.randn(1, 256, 512, device=dev).to(torch.float8_e5m2)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        G.launch_gemv("check", x, w, 0)
+        G.launch_gemv("check", x, w, 0, glu_act="silu")
+        G.launch_gemv("check", x, w, 0, glu_act="silu")
+        torch.cuda.synchronize()
+    us = gemv_us(device_us(prof))
+    if not (us[False] > 0 and us[True] > us[False] / 4):
+        raise AssertionError(f"the profiler's gemv_kernel names were not told apart: "
+                             f"{list(device_us(prof))}")
+    log(f"  profiler: gemv_kernel found by name, {us[False]:.1f} us without GLU, "
+        f"{us[True]:.1f} us with")
+    bench = Bench(HBM_BYTES_PER_S)
+    for path, cfg, synth in (("fp8", mistral7b(), synth_fast_weights),
+                             ("int4", mistral7b(weight_dtype="int4"), synth_int4_weights),
+                             ("moe_fp8", mixtral8x7b(weight_dtype="fp8"), synth_moe_weights),
+                             ("moe_int4", mixtral8x7b(weight_dtype="int4"), synth_moe_weights),
+                             ("gemma3", gemma3_12b(), synth_fast_weights)):
+        fw = synth(cfg, dev, seed={"fp8": 0, "int4": 1, "moe_fp8": 2, "moe_int4": 3,
+                                   "gemma3": 4}[path])
+        bench.path = path
+        with phase(f"{path} path: the GEMV at its decode shapes beside the old design"):
+            phase_gemv(bench, cfg, fw, dev)
         del fw
         torch.cuda.empty_cache()
     print(json.dumps({"cases": bench.rows}), flush=True)

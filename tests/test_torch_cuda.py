@@ -35,7 +35,12 @@ both int4 group widths, the GLU pair and the residual with the K split
 forced off and on, two calls giving the same bits with the arrival
 counters back at 0, the routed form bit for bit as the dense one on the
 copied expert and NaN for an expert id outside the stack), against its
-plain version and the mma.sync design it replaced.
+plain version and the mma.sync design it replaced; and the Hopper GEMV
+(gemv_kernel) at 1 to 8 rows of x on every weight type, K split by
+gemv_plan with a ragged last slice, N past a block's 128 rows, two calls
+giving the same bits, an expert id outside the stack read on the device
+giving NaN with every split counter left at 0, and a CUDA-graph replay on
+rewritten inputs equal to the eager call.
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -63,7 +68,8 @@ from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn4_l, ffn_l, ffn_plain
 from yalm_tpu_torch.ops.cuda.gemv import (bf16f, gemm4, gemm4_l, gemm4_l_plain, gemm4_le,
                                           gemm_l, gemm_l_plain, gemm_le, gemm_le_plain, gemv4,
                                           gemv4_l, gemv4_le, gemv_l_plain, gemv_le,
-                                          gemv_le_plain, launch_gemm, launch_gemv, proj_plain)
+                                          gemv_le_plain, gemv_plan, launch_gemm, launch_gemv,
+                                          proj_plain)
 from yalm_tpu_torch.ops.core import silu
 from yalm_tpu_torch.ops.int4 import int4_group
 
@@ -105,10 +111,20 @@ def weights(shape, wt, dev, gen):
     return (torch.randn(shape, generator=gen, device=dev) / math.sqrt(shape[-1])).to(wt)
 
 
+# (nb, N, K, epilogue): nb 1..8; N past a 128-row block's edge; K 2176 and
+# 1408 split by gemv_plan with a ragged last slice (e5m2/int8 17 or 11
+# iterations of 128 bytes, bf16 34, f32 68)
+GEMV_CASES = [(1, 100, 64, "norm+res"), (3, 37, 160, "scale+bias+clip"), (5, 200, 96, "glu"),
+              (8, 64, 2048, "norm+glu"), (2, 300, 2176, "norm+res"),
+              (4, 129, 2176, "scale+bias+clip"), (6, 258, 1408, "norm+glu"),
+              (7, 1000, 512, "scale+res")]
+
+
 @pytest.mark.parametrize("wt", WTYPES)
-@pytest.mark.parametrize("nb,N,K,epi", [(1, 100, 64, "norm+res"), (3, 37, 160, "scale+bias+clip"),
-                                        (5, 200, 96, "glu"), (8, 64, 2048, "norm+glu")])
+@pytest.mark.parametrize("nb,N,K,epi", GEMV_CASES)
 def test_gemv_kernel(dev, wt, nb, N, K, epi):
+    """gemv_kernel against the plain version, every epilogue, split K with a
+    ragged last slice; a second call gives the same bits."""
     gen = torch.Generator(device=dev).manual_seed(nb * N)
     L = 3
     w = weights((L, N, K), wt, dev, gen)
@@ -122,6 +138,8 @@ def test_gemv_kernel(dev, wt, nb, N, K, epi):
     clip = 0.7 if "clip" in epi else math.inf
     got = launch_gemv("test", x, w, 2, norm_w=nw, scale=sc, bias=b, clip=clip,
                       residual=res, glu_act=glu)
+    again = launch_gemv("test", x, w, 2, norm_w=nw, scale=sc, bias=b, clip=clip,
+                        residual=res, glu_act=glu)
     want = torch.stack([gemv_l_plain(x[i], w, 2, norm_w=nw, scale=sc) for i in range(nb)])
     if b is not None:
         want = torch.clamp(want + b[2], -clip, clip)
@@ -130,6 +148,7 @@ def test_gemv_kernel(dev, wt, nb, N, K, epi):
     if res is not None:
         want = want + res
     close(got, want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("wt", WTYPES)
@@ -216,10 +235,13 @@ def gscales(L, K, N, dev, gen):
 
 @pytest.mark.parametrize("nb,N,K,epi", [(1, 100, 256, "norm+res"), (3, 37, 768, "bias+clip"),
                                         (5, 200, 512, "glu"), (8, 64, 14336, "norm+glu"),
-                                        (2, 300, 768, "norm+res")])
+                                        (2, 300, 768, "norm+res"), (4, 129, 4352, "norm+res"),
+                                        (6, 258, 9216, "glu"), (7, 300, 14336, "bias+clip")])
 def test_gemv4_kernel(dev, nb, N, K, epi):
     """csrc/gemv.cu on packed int4: G = 1 (K 256, 512), 3 (K 768, group
-    256) and 28 (K 14336, group 512)."""
+    256), 17 (K 4352, group 256: split with a ragged last slice), 18 (K
+    9216) and 28 (K 14336, group 512); nb 1..8; a second call gives the
+    same bits."""
     gen = torch.Generator(device=dev).manual_seed(nb * N + K)
     L = 3
     w = weights((L, N, K // 2), torch.uint8, dev, gen)
@@ -233,6 +255,8 @@ def test_gemv4_kernel(dev, nb, N, K, epi):
     clip = 0.7 if "clip" in epi else math.inf
     got = launch_gemv("test", x, w, 2, norm_w=nw, scale=gs, bias=b, clip=clip,
                       residual=res, glu_act=glu)
+    assert torch.equal(got, launch_gemv("test", x, w, 2, norm_w=nw, scale=gs, bias=b,
+                                        clip=clip, residual=res, glu_act=glu))
     want = torch.stack([gemv_l_plain(x[i], w, 2, norm_w=nw, scale=gs) for i in range(nb)])
     if b is not None:
         want = torch.clamp(want + b[2], -clip, clip)
@@ -1343,3 +1367,78 @@ def test_gemm4_le_hopper(dev):
             out = gemm4_le(x, w, 1, torch.tensor(bad, device=dev), gs, glu_act=glu)
             torch.cuda.synchronize()
             assert bool(torch.isnan(out).all())
+
+
+# ---------------------------------------------------------------------------
+# gemv_kernel: the split's counters, a bad device expert id, a graph replay
+# ---------------------------------------------------------------------------
+
+def gemv_stack(wt, L, E, N, K, dev, gen):
+    """An expert stack (L, E, N, K) of weight type wt (uint8: packed int4,
+    (L, E, N, K/2)) and its scales: per row, or per int4 group."""
+    if wt == torch.uint8:
+        w = weights((L, E, N, K // 2), wt, dev, gen)
+        return w, (torch.rand(L, E, K // int4_group(K), N, generator=gen, device=dev) + 0.5) * 4e-3
+    return weights((L, E, N, K), wt, dev, gen), torch.rand(L, E, N, generator=gen, device=dev) + 0.5
+
+
+@pytest.mark.parametrize("wt", [torch.float8_e5m2, torch.uint8], ids=["e5m2", "int4"])
+@pytest.mark.parametrize("nb,glu", [(1, None), (8, "silu")])
+def test_gemv_bad_device_expert_leaves_counters_at_zero(dev, wt, nb, glu):
+    """On a split shape (N 300, K 4096: 3 row blocks, 16 or 8 slices) an
+    expert id outside [0, E) read on the device gives NaN over the whole
+    output and leaves every arrival counter at 0 (each block reaches the
+    verdict before it counts); a good id after it gives the plain result,
+    and the counters are back at 0."""
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    gen = torch.Generator(device=dev).manual_seed(nb)
+    L, E, N, K = 2, 4, 300, 4096
+    w, sc = gemv_stack(wt, L, E, N, K, dev, gen)
+    x = torch.randn(nb, K, generator=gen, device=dev)
+    assert gemv_plan(nb, N, K, bool(glu), int4_group(K) if wt == torch.uint8 else 0).split > 1
+    for bad in (E, -1, 1 << 40):
+        out = launch_gemv("test", x, w, 1, expert=torch.tensor(bad, device=dev), scale=sc,
+                          glu_act=glu)
+        torch.cuda.synchronize()
+        assert bool(torch.isnan(out).all())
+        for _, ctr in G._SPLIT_BUFFERS.values():
+            assert int(ctr.abs().sum()) == 0
+    got = launch_gemv("test", x, w, 1, expert=torch.tensor(2, device=dev), scale=sc, glu_act=glu)
+    want = torch.stack([gemv_le_plain(x[i], w, 1, 2, sc, glu_act=glu) for i in range(nb)])
+    (close_bf16 if glu else close)(got, want)
+    for _, ctr in G._SPLIT_BUFFERS.values():
+        assert int(ctr.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("wt", [torch.float8_e5m2, torch.int8, torch.uint8],
+                         ids=["e5m2", "int8", "int4"])
+def test_gemv_graph_replay_equals_eager(dev, wt):
+    """A split launch (wo's shape, 4096 x 4096: 8 slices) with the rmsnorm
+    prologue and the residual epilogue, captured in a CUDA graph, replayed
+    after x and the residual are rewritten in place: bit for bit the eager
+    call on the new inputs (the counters wrap to 0, so the graph replays)."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    L, N, K = 2, 4096, 4096
+    w, sc = gemv_stack(wt, L, 1, N, K, dev, gen)
+    w, sc = w[:, 0].contiguous(), sc[:, 0].contiguous()
+    x = torch.randn(1, K, generator=gen, device=dev)
+    res = torch.randn(1, N, generator=gen, device=dev)
+    nw = 1 + 0.1 * torch.randn(L, K, generator=gen, device=dev)
+    kw = dict(norm_w=nw, scale=sc, residual=res)
+    launch_gemv("test", x, w, 1, **kw)   # buffers sized before the capture
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        launch_gemv("test", x, w, 1, **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch_gemv("test", x, w, 1, **kw)
+    x.copy_(torch.randn(1, K, generator=gen, device=dev))
+    res.copy_(torch.randn(1, N, generator=gen, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = launch_gemv("test", x, w, 1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    close(eager, gemv_l_plain(x[0], w, 1, norm_w=nw, scale=sc, residual=res[0])[None])

@@ -41,9 +41,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (layer, E, expert, expert_id) address a matrix of an (L, E, N, K) stack
+    # (layer, E, expert, expert_id) address a matrix of an (L, E, N, K) stack;
+    # (..., glu, act, kchunk, scratch, counter, stream): gemv.py:gemv_plan
     "yt_gemv": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _F, _P, _P, _I, _P, _F,
-                _P, _P, _I, _I, _P],
+                _P, _P, _I, _I, _I, _P, _P, _P],
     # (..., glu, act, mt, kchunk, scratch, counter, stream): gemv.py:gemm_plan
     "yt_gemm": [_I, _P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "yt_round_rows_bf16": [_P, ctypes.c_longlong, _P, _P],

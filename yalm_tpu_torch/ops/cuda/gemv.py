@@ -3,15 +3,17 @@
 gemm4_l, gemv4_l, gemm4, gemv4, and the MoE routed-expert gemv_le, gemm_le,
 gemm4_le, gemv4_le over (L, E, N, K) expert stacks).
 
-Kernels: `csrc/gemv.cu` (one warp per output row, fused rmsnorm prologue,
-scale/bias/clip/residual or GLU-pair epilogue; int4 weights with their
-group scales too) and `csrc/gemm.cu` (for the prefill chunks and the
-batched tick: `gemm_kernel`, wgmma with the widened weights in registers
-over a cp.async ring, X rounded to bf16 once by `round_rows_kernel`, split
-K where the grid would starve (`gemm_plan`); packed int4 on the same
-kernel, its nibbles widened in registers and each group's f32 partial
-scaled, K split at group boundaries; a residual or GLU-pair epilogue and a
-row-norm kernel for the many-row FFN). The
+Kernels: `csrc/gemv.cu` (`gemv_kernel`: 128 weight rows a block on
+mma.sync tensor cores, x's nb <= 8 rows as the mma's n; the weight stream
+started before the fused rmsnorm prologue, K split where the grid would
+starve (`gemv_plan`); scale/bias/clip/residual or GLU-pair epilogue; int4
+weights with their group scales too) and `csrc/gemm.cu` (for the prefill
+chunks and the batched tick: `gemm_kernel`, wgmma with the widened weights
+in registers over a cp.async ring, X rounded to bf16 once by
+`round_rows_kernel`, split K where the grid would starve (`gemm_plan`);
+packed int4 on the same kernel, its nibbles widened in registers and each
+group's f32 partial scaled, K split at group boundaries; a residual or
+GLU-pair epilogue and a row-norm kernel for the many-row FFN). The
 routed-expert functions launch the same kernels addressed at (layer,
 expert); the expert is a host int or a one-element integer tensor on the
 card, read there (the decode step's top-k ids never reach the host). Each
@@ -26,6 +28,7 @@ weights never reach here: the loader turns them into bf16 on the host.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -273,6 +276,123 @@ def gemm4_split_plain(x, w4_all, layer, gscale, *, expert=None, residual=None, g
 
 
 # ---------------------------------------------------------------------------
+# csrc/gemv.cu's gemv_kernel: its plan, its fragment map and its arithmetic
+# ---------------------------------------------------------------------------
+
+GEMV_ROWS = 128              # weight rows per block: 8 warps' mma tiles of 16 (GLU: 64 pairs)
+GEMV_WIN = 128               # bytes of each weight row per iteration
+GEMV_FILL = 2                # blocks per SM a split grid aims at
+GEMV_XS_MAX = 64 * 1024      # bytes of x a block stages (its slice's columns, bf16)
+GEMV_PART = 4 * 256          # floats of one slice's partials (4 per thread)
+
+
+class GemvPlan(NamedTuple):
+    """How gemv_kernel cuts K (its blocks always hold GEMV_ROWS rows): in
+    slices of kchunk iterations (128 bytes of each weight row; the last may
+    be shorter), `split` of them."""
+    kchunk: int
+    split: int
+
+
+def gemv_cols(itemsize: int, group: int = 0) -> int:
+    """K columns of one iteration: 128 bytes of a weight row (packed int4,
+    `group` > 0: 256 columns)."""
+    return 2 * GEMV_WIN if group else GEMV_WIN // itemsize
+
+
+def gemv_row_blocks(N: int, glu: bool) -> int:
+    """Blocks along the weight rows: 128 rows, or 64 GLU pairs."""
+    return -(-N // 2 // (GEMV_ROWS // 2)) if glu else -(-N // GEMV_ROWS)
+
+
+@functools.lru_cache(maxsize=None)   # every decode launch asks: a few shapes, host time
+def gemv_plan(nb: int, N: int, K: int, glu: bool = False, group: int = 0,
+              itemsize: int = 1) -> GemvPlan:
+    """The plan of an (nb, K) x (N, K)^T GEMV on weights of `itemsize` bytes
+    (packed int4: `group`, their group width). K is split only where the
+    row blocks are fewer than the card's SMs (N 4096-6144 at 128 rows a
+    block: 32-48), into as many slices as fill GEMV_FILL blocks per SM (at
+    most MAX_SPLIT, each at least one iteration; int4: whole groups), or
+    where nb rows of a slice's columns would pass GEMV_XS_MAX of shared
+    memory. The slices cover the iterations (ceil(K * itemsize / 128))
+    exactly once."""
+    rows = gemv_row_blocks(N, glu)
+    unit = group // (2 * GEMV_WIN) if group else 1   # iterations a slice is made of
+    units = K // group if group else -(-K * itemsize // GEMV_WIN)
+    split = 1 if rows >= SMS else min(units, MAX_SPLIT, max(1, GEMV_FILL * SMS // rows))
+    widest = max(1, GEMV_XS_MAX // (2 * nb * unit * gemv_cols(itemsize, group)))
+    chunk = min(-(-units // split), widest)
+    return GemvPlan(chunk * unit, -(-units // chunk))
+
+
+def gemv_step_cols(t: int, h: int, itemsize: int = 1, group: int = 0, gb: int = 0) -> list:
+    """The K columns thread t (lane % 4) of a warp multiplies in each mma
+    step of its load h (bytes 64h + 16t.. of an iteration's 128 of each of
+    its rows): per step, a0's two columns and a2's two (a1, a3: the same
+    columns of the tile's row g + 8); its B registers b0, b1 hold x at the
+    same columns. Relative to the iteration's first column; for packed
+    int4 (`group` > 0) to its group's, gb the iteration's byte offset in
+    the group (csrc/gemv.cu's file comment)."""
+    if group:
+        c, half = gb + 64 * h + 16 * t, group // 2
+        return [((c + 2 * s, c + 2 * s + 1), (c + 2 * s + half, c + 2 * s + 1 + half))
+                for s in range(8)]
+    c = (64 * h + 16 * t) // itemsize
+    return [((c + 4 * s, c + 4 * s + 1), (c + 4 * s + 2, c + 4 * s + 3))
+            for s in range(16 // itemsize // 4)]
+
+
+def gemv_split_plain(x, w_all, layer, scale=None, *, expert=None, norm_w=None, norm_eps=1e-5,
+                     bias=None, clip=math.inf, residual=None, glu_act=None):
+    """gemv_kernel's arithmetic, plainly: x (nb, K); the rmsnorm prologue
+    (sums of squares over all of K) and bf16 operands; each K slice of
+    gemv_plan summed in f32 (packed int4: each group's partial times its
+    scale, the groups of a slice in order), the slices added in slice
+    order; then the scale, bias, clip, residual or the GLU pair (+
+    residual) on the full sum. `scale`: per row (L, [E,] N), or the group
+    scales (L, [E,] G, N) of packed int4 weights."""
+    w = w_all[layer] if expert is None else w_all[layer][expert]
+    s = None if scale is None else (scale[layer] if expert is None else scale[layer][expert])
+    xv = x.float()
+    if norm_w is not None:
+        xv = xv * torch.rsqrt(torch.mean(xv * xv, dim=-1, keepdim=True) + norm_eps)
+        xv = xv * norm_w[layer].float()
+    xb = bf16f(xv)
+    nb, K = xb.shape
+    N = w.shape[0]
+    int4 = is_int4(w_all)
+    group = int4_group(K) if int4 else 0
+    plan = gemv_plan(nb, N, K, glu_act is not None, group, 1 if int4 else w.element_size())
+    step = plan.kchunk * gemv_cols(w.element_size(), group)
+    if int4:
+        G = K // group
+        p = w.reshape(N, G, group // 2)
+        q = torch.cat([p & 0xF, p >> 4], dim=-1).float() - 8.0      # (N, G, group)
+        sf = s.float()
+    else:
+        wb = _bf16_weights(w)
+    out = None
+    for k0 in range(0, K, step):
+        if int4:
+            part = torch.zeros((nb, N), dtype=torch.float32, device=x.device)
+            for g in range(k0 // group, min(K, k0 + step) // group):
+                part = part + (xb[:, g * group:(g + 1) * group] @ q[:, g].T) * sf[g]
+        else:
+            part = xb[:, k0:k0 + step] @ wb[:, k0:k0 + step].T
+        out = part if out is None else out + part
+    if not int4 and s is not None:
+        out = out * s.float()[None]
+    if glu_act:
+        out = glu_plain(out, glu_act)
+    else:
+        if bias is not None:
+            out = out + bias[layer].float()[None]
+        if math.isfinite(clip):
+            out = torch.clamp(out, -clip, clip)
+    return out if residual is None else out + residual
+
+
+# ---------------------------------------------------------------------------
 # kernel launchers
 # ---------------------------------------------------------------------------
 
@@ -330,8 +450,9 @@ def _addressing(w_all, layer: int, expert, what: str):
 def launch_gemv(count: str, x, w_all, layer: int, *, expert=None, norm_w=None,
                 norm_eps: float = 1e-5, scale=None, bias=None,
                 clip: float = math.inf, residual=None, glu_act: str | None = None):
-    """One launch of csrc/gemv.cu on CUDA tensors (adds one to
-    LAUNCHES[count]). x: (K,) or (nb, K); returns float32 of shape
+    """One launch of csrc/gemv.cu's gemv_kernel on CUDA tensors, cut by
+    gemv_plan (adds one to LAUNCHES[count]). x: (K,) or (nb, K); returns
+    float32 of shape
     (..., N) or, for the GLU pair, (..., N // 2) holding bf16 values.
     `scale` is per row (L, [E,] N), or for packed int4 weights (uint8,
     (L, [E,] N, K/2)) the group scales (L, [E,] G, N). With `expert` the
@@ -359,12 +480,18 @@ def launch_gemv(count: str, x, w_all, layer: int, *, expert=None, norm_w=None,
         residual = _f32(residual.reshape(nb, n_out), f"{count} residual")
     B.require(B.aligned16(w_all, x2), f"{count}: weights and x must be 16-byte aligned")
     out = torch.empty((nb, n_out), dtype=torch.float32, device=x.device)
+    group = int4_group(K) if int4 else 0
+    plan = gemv_plan(nb, N, K, bool(glu_act), group, 1 if int4 else w_all.element_size())
+    scratch = ctr = None
+    if plan.split > 1:
+        blocks = gemv_row_blocks(N, bool(glu_act))
+        scratch, ctr = _split_buffers(x.device, blocks * plan.split * GEMV_PART, blocks)
     code = B.lib().yt_gemv(
         B.WTYPE[w_all.dtype], B.ptr(w_all), layer, E, e_host, B.ptr(e_dev), N, K,
-        B.ptr(x2), nb, B.ptr(norm_w), norm_eps, B.ptr(scale), B.ptr(gscale),
-        int4_group(K) if int4 else 0, B.ptr(bias),
-        clip if math.isfinite(clip) else 0.0, B.ptr(residual), B.ptr(out),
-        1 if glu_act else 0, 1 if glu_act == "gelu" else 0, B.stream_ptr())
+        B.ptr(x2), nb, B.ptr(norm_w), norm_eps, B.ptr(scale), B.ptr(gscale), group,
+        B.ptr(bias), clip if math.isfinite(clip) else 0.0, B.ptr(residual), B.ptr(out),
+        1 if glu_act else 0, 1 if glu_act == "gelu" else 0, plan.kchunk, B.ptr(scratch),
+        B.ptr(ctr), B.stream_ptr())
     B.check(code, count)
     B.LAUNCHES[count] += 1
     return out.reshape(*x.shape[:-1], n_out)
@@ -374,9 +501,10 @@ _SPLIT_BUFFERS: dict = {}
 
 
 def _split_buffers(device: torch.device, floats: int, tiles: int):
-    """gemm_kernel's split-K scratch (f32) and per-tile arrival counters
-    (int32 zeros; the kernel's last slice leaves each at 0 again), one pair
-    per (device, stream), grown as needed and held across calls."""
+    """The split-K scratch (f32) and per-tile arrival counters (int32
+    zeros; the kernel's last slice leaves each at 0 again) of gemm_kernel
+    and gemv_kernel, one pair per (device, stream), grown as needed and
+    held across calls."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     scratch, ctr = _SPLIT_BUFFERS.get(key, (None, None))
     if scratch is None or scratch.numel() < floats:
