@@ -74,10 +74,17 @@ K12 (attend_one_l, which no model path runs) at Mistral-7B shapes on each
 cache type in phase 2 of the fp8 and the int4 path. K2 and K12 run split
 over the slots (two launches per call); every K2 case in phase 2 also
 times the same function on the one-block-per-kv-head design they replaced
-(`attend_step_v1` with one lane), in the same run, as do K3 and K6
-(attn_block's middle launch on it), and the fp8 path
+(`attend_step_v1` with one lane), in the same run, and the fp8 path
 adds a lane one slot past a chunk boundary and one whose kv_pos lies in a
-middle chunk. K1 gemm_l, K10 gemm_le and, on packed int4 weights, K5
+middle chunk. K3 attn_block_l and K6 attn_block4_l run as one cooperative
+launch each (csrc/block.cu); phase 2 (`phase_block`) holds each at kv_len
+1000 and at the full window against its plain version and bit for bit
+against the four launches it replaced (`four_launches`: the wqkv GEMV, the
+split's two passes, the wo GEMV), whose time is the row's old design,
+counts the kernels of 20 calls in a torch.profiler trace and the nodes of
+one call's CUDA graph (one kernel per call), replays that graph, and times
+the host's work per call of both designs; `split_sass` holds attention.cu's and gemv.cu's SASS against
+another checkout's. K1 gemm_l, K10 gemm_le and, on packed int4 weights, K5
 gemm4_l and K11 gemm4_le run on the wgmma gemm_kernel (round_rows_bf16
 first; `gemm_plan`); every case of theirs in phase 2 (K1 and K5 also at
 the tick's M 16 for w2 and wo, with F.linear beside it) also times the
@@ -94,7 +101,7 @@ sync) and replay each captured in a CUDA graph after rewriting its lanes
 tensor in place; phase
 3's tick profiles report K8/K9's device time per tick. Every GEMV (K1
 gemv/gemv_l, K5 gemv4_l, K10 gemv_le, K11 gemv4_le and the GEMV legs of
-K3/K4/K6/K7) runs on gemv_kernel: mma.sync with x's rows as the n of 8,
+K4/K7, and K3/K6's GEMV phases) runs on gemv_kernel's body: mma.sync with x's rows as the n of 8,
 the weight stream started before the rmsnorm prologue, K split by
 `gemv_plan` where the grid starves; phase 2 times it at every shape a
 decode step launches (`phase_gemv`: one row, and eight on w13 and w2)
@@ -118,6 +125,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -774,16 +782,226 @@ def one_block_per_head(k_all, v_all, kv_pos, kv_len, kv_sink, pos, rope):
         q[None], kn[None], vn[None], k_all[None], v_all[None], layer, lanes, **rope)
 
 
-def on_old_k2(old, fn):
-    """fn() with attn_block's middle launch on `old` (one_block_per_head's
-    function): K3/K6 on the design K2 replaced, for the same-run time."""
-    from yalm_tpu_torch.ops.cuda import block
-    saved = block.launch_attend_step
-    block.launch_attend_step = lambda q, k, v, _k, _v, layer, *a, **kw: old(q, k, v, layer)[0]
+def four_launches(x, norm_w, wqkv_all, wo_all, k_all, v_all, layer, kv_pos, kv_len, kv_sink,
+                  pos, *, n_heads, kv_sinks, theta, rotary_dim, norm_eps, qkv_clip=math.inf,
+                  bqkv_all=None, add_residual=True, scale_qkv=None, scale_o=None):
+    """K3/K6's function as PR 7-12 ran it (the design csrc/block.cu's one
+    launch replaced), for the same-run time and the bit-for-bit check: the
+    wqkv GEMV, the attention split's two launches and the wo GEMV, through
+    their wrappers (launch_gemv + launch_attend_step + launch_gemv)."""
+    from yalm_tpu_torch.ops.cuda import attention as A
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.block import _split_qkv
+    Hk, D = k_all.shape[2], k_all.shape[3]
+    name = "gemv4_l" if G.is_int4(wqkv_all) else "gemv_l"
+    qkv = G.launch_gemv(name, x, wqkv_all, layer, norm_w=norm_w, norm_eps=norm_eps,
+                        scale=scale_qkv, bias=bqkv_all, clip=qkv_clip)
+    q, k, v = _split_qkv(qkv, n_heads, Hk, D)
+    mix = A.launch_attend_step(q, k, v, k_all, v_all, layer, kv_pos, kv_len, kv_sink, pos,
+                               kv_sinks=kv_sinks, theta=theta, rotary_dim=rotary_dim)
+    return G.launch_gemv(name, mix.reshape(-1), wo_all, layer, scale=scale_o,
+                         residual=x if add_residual else None)
+
+
+def kernels_per_call(fn, calls: int = 20) -> list:
+    """The names of the device kernels `calls` calls of fn launch, from a
+    torch.profiler trace of those calls alone (CUDA activity only), taken
+    after a pause inside the trace: after phase 3's long traces, the
+    tracer missed the first kernels of a new trace (all of one call's, and
+    6 of 20 calls', in two runs). A trace that holds fewer than `calls`
+    kernels is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    names: list = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.5)   # the tracer up before the first call
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= calls:
+            break
+    return names
+
+
+def host_us_per_call(fn, n: int = 1000) -> float:
+    """The host's time per call of fn over n calls with no sync between
+    them (the wrapper's checks, plan, buffers and launches), in us."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def graph_node_types(graph) -> list | None:
+    """The driver's node types of a captured torch.cuda.CUDAGraph (made
+    with keep_graph=True; 0 is a kernel node), or None where torch does
+    not keep the graph."""
+    import ctypes
     try:
-        return fn()
-    finally:
-        block.launch_attend_step = saved
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    except (AttributeError, RuntimeError):
+        return None
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        return None
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    types = []
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        types.append(t.value)
+    return types
+
+
+def block_capture(fn, x) -> tuple:
+    """One call of fn (an attn_block on x) captured in a CUDA graph and
+    replayed after x is rewritten in place, against the uncaptured call on
+    the new x: ("replays bit for bit" or the error of a refused capture,
+    the graph's node types: [0] is one kernel node). A replay that
+    differs raises."""
+    import torch
+    fn()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        graph = torch.cuda.CUDAGraph()
+    try:   # on the warmed stream: its scratch and counters exist, none is made in the graph
+        with torch.cuda.graph(graph, stream=s):
+            out = fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return f"capture refused: {e}", None
+    types = graph_node_types(graph)
+    x.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = out.clone()
+    if not torch.equal(replayed, fn()):
+        raise AssertionError("attn_block: the graph's replay differs from the uncaptured call")
+    return "replays bit for bit", types
+
+
+BLOCK_MARKS = ("A done", "B1 ready", "B1 done", "B2 ready", "B2 done", "C ready", "end")
+
+
+def block_timeline(name, args, blk, reps: int = 9) -> dict:
+    """Where one call of csrc/block.cu's kernel spends its time, from its
+    blocks' stamps (the card's ns timer, block.cu's stamp()): for each mark
+    of BLOCK_MARKS, the us from the first block's entry to the last block
+    reaching it (phase A's items done; its first pass-1 item's inputs
+    ready; its pass-1 items done; and so on to the end of phase C), the
+    median over `reps` calls on args(layer) for cycling layers."""
+    import torch
+    from yalm_tpu_torch.ops.cuda.block import BLOCK_GRID, launch_attn_block
+    marks = []
+    for r in range(reps):
+        st = torch.zeros(BLOCK_GRID, 8, dtype=torch.int64, device=args(0)[0].device)
+        launch_attn_block(name, *args(r), stamps=st, **blk)
+        torch.cuda.synchronize()
+        st = st[st[:, 0] != 0].double() / 1e3   # us, the launched blocks
+        marks.append([float(st[:, k].max() - st[:, 0].min()) for k in range(1, 8)])
+    return {m: statistics.median(x[k] for x in marks) for k, m in enumerate(BLOCK_MARKS)}
+
+
+def phase_block(bench: Bench, cfg, fw, dev, cache, sc=None) -> None:
+    """K3 attn_block_l (fp8 path) or K6 attn_block4_l (int4 path, sc: the
+    group scales): csrc/block.cu's one cooperative launch at kv_len 1000 and
+    at the full window (the ring with sinks), without the residual, against
+    its plain version (2e-3) and bit for bit against the four-launch
+    sequence it replaced (output and the written K and V rows), whose time
+    is the row's old design, and its timeline (block_timeline); then the
+    kernels of 20 calls from a profiler trace and one call's CUDA graph
+    (one kernel per call), its replay, and the host time per call of both
+    designs (1000 calls, no sync)."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_l, attn_block_plain
+    from yalm_tpu_torch.ops.int4 import int4_group
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    L, d, S = cfg.n_layers, cfg.dim, cfg.max_seq_len
+    Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    int4 = G.is_int4(fw.wqkv)
+    name, fn = ("attn_block4_l", attn_block4_l) if int4 else ("attn_block_l", attn_block_l)
+    lay = lambda r: r % L  # noqa: E731
+    blk = dict(n_heads=Hq, norm_eps=cfg.norm_eps, add_residual=False, kv_sinks=2,
+               theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    if int4:
+        blk.update(scale_qkv=sc.wqkv, scale_o=sc.wo)
+
+    def wbytes(N, K):   # one layer's weights (packed int4: with their group scales)
+        return N * K // 2 + 4 * (K // int4_group(K)) * N if int4 else N * K * fw.wqkv.element_size()
+    cache_elem = cache.k.element_size()
+    for pos in (999, 6000):
+        kv_sink = 2 if pos >= S else 0
+        kv_pos = kv_sink + (pos - kv_sink) % (S - kv_sink)
+        kv_len = min(pos + 1, S)
+        x = torch.randn(d, generator=gen, device=dev) * 3.0
+        args = lambda l, x=x, kp=kv_pos, kl=kv_len, ks=kv_sink, p=pos: (  # noqa: E731
+            x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l, kp, kl, ks, p)
+        old = four_launches(*args(5), **blk)
+        rows_old = [c[5, kv_pos].clone() for c in (cache.k, cache.v)]
+        got = fn(*args(5), **blk)
+        torch.cuda.synchronize()
+        rows = [c[5, kv_pos] for c in (cache.k, cache.v)]
+        if not (torch.equal(got, old) and all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                                              for a, b in zip(rows, rows_old))):
+            raise AssertionError(f"{name} pos {pos}: the one launch differs from the four "
+                                 f"launches (max |out diff| {float((got - old).abs().max())})")
+        want = attn_block_plain(*args(5), **blk)
+        bench.case(name, f"kv_len={kv_len}" + (" ring+sinks" if kv_sink else "")
+                   + f" {cache.k.dtype}".replace("torch.", "") + " cache, one launch",
+                   got, want, 2e-3,
+                   kernel=lambda r, a=args: fn(*a(lay(r)), **blk),
+                   plain=lambda r, a=args: attn_block_plain(*a(lay(r)), **blk),
+                   old=lambda r, a=args: four_launches(*a(lay(r)), **blk),
+                   bytes_=wbytes(Nqkv, d) + wbytes(d, q_dim) + 2 * kv_len * Hk * D * cache_elem
+                   + 12 * d,
+                   flops=2 * (Nqkv * d + d * q_dim) + 4 * kv_len * Hq * D, json_row=pos == 999)
+        bench.rows[-1]["timeline_us"] = tl = block_timeline(
+            name, lambda r, a=args: a(lay(r)), blk)
+        log(f"  {name} pos {pos}: the one launch equals the four launches bit for bit "
+            f"(output and the written K and V rows); timeline (us): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in tl.items()))
+    row = bench.rows[-1]
+    # one kernel per call: a captured call's graph holds one kernel node,
+    # and every kernel in a profiler trace of 20 calls is attn_block_kernel,
+    # 20 of them. A trace with no device event at all is the profiler's
+    # failure (twice in the int4 path after phase 3's traces), not a count:
+    # the graph's node count decides then, and the log says so.
+    ks = kernels_per_call(lambda: fn(*args(5), **blk))
+    row["graph"], nodes = block_capture(lambda: fn(*args(5), **blk), x)
+    row["profiler_kernels"], row["graph_nodes"] = len(ks), nodes
+    if (any("attn_block_kernel" not in k for k in ks) or len(ks) > 20
+            or (nodes is not None and nodes != [0]) or (nodes is None and len(ks) != 20)):
+        raise AssertionError(f"{name}: 20 calls launched {len(ks)} kernels "
+                             f"{sorted(set(ks))}; one call's graph nodes {nodes}")
+    if not ks:
+        log(f"  {name}: the profiler recorded no device event in three traces; one call's "
+            f"CUDA graph holds node types {nodes} (0: a kernel)")
+    row["host_us"] = host_us_per_call(lambda: fn(*args(5), **blk))
+    row["old_host_us"] = host_us_per_call(lambda: four_launches(*args(5), **blk))
+    log(f"  {name}: a profiler trace of 20 calls holds {len(ks)} kernels, each "
+        f"{ks[0] if ks else '-'}; "
+        f"one call's CUDA graph: node types {nodes} (0: a kernel), {row['graph']}; host "
+        f"time per call {row['host_us']:.1f} us (four launches: {row['old_host_us']:.1f} us)")
 
 
 def split_label(Hk, S, kv_pos, kv_len, kv_sink, win=0) -> str:
@@ -804,7 +1022,6 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.ops.cuda import attention as A
     from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.block import attn_block_l, attn_block_plain
     from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
 
     gen = torch.Generator(device=dev)
@@ -906,8 +1123,7 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                    library=lambda r, qq=qq, kk=kk, vv=vv: F.scaled_dot_product_attention(
                        qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
                    old=lambda r, a=(q, kn, vn), o=old: o(*a, lay(r)),
-                   bytes_=att_bytes, flops=4 * kv_len * Hq * D,
-                   json_row=(pos == 6000))
+                   bytes_=att_bytes, flops=4 * kv_len * Hq * D)
         del kk, vv
 
     # K2 at a 32768-slot window (Mistral-7B v0.2's): chunks of 1024 slots
@@ -931,22 +1147,8 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
                flops=4 * Sb * Hq * D)
     del big
 
-    # K3: attn_block_l, mid-window; without the residual, so the check
-    # holds what the three launches compute
-    x = randn(d, scale=3.0)
-    pos = 999
-    blk = dict(n_heads=Hq, norm_eps=cfg.norm_eps, add_residual=False, **rope)
-    args = lambda l: (x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l,  # noqa: E731
-                      pos, pos + 1, 0, pos)
-    want = attn_block_plain(*args(5), **blk)
-    got = attn_block_l(*args(5), **blk)
-    old = one_block_per_head(cache.k, cache.v, pos, pos + 1, 0, pos, rope)
-    bench.case("attn_block_l", "kv_len=1000 e5m2", got, want, 2e-3,
-               kernel=lambda r: attn_block_l(*args(lay(r)), **blk),
-               plain=lambda r: attn_block_plain(*args(lay(r)), **blk),
-               old=lambda r: on_old_k2(old, lambda: attn_block_l(*args(lay(r)), **blk)),
-               bytes_=Nqkv * d + d * q_dim + 2 * (pos + 1) * Hk * D * 2 + 12 * d,
-               flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
+    # K3: attn_block_l, one cooperative launch, beside the four launches
+    phase_block(bench, cfg, fw, dev, cache)
     del cache
 
     # K4: ffn_l, one row (decode) and four rows, without the residual
@@ -974,7 +1176,6 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.ops.cuda import attention as A
     from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.block import attn_block4_l, attn_block_plain
     from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_plain
     from yalm_tpu_torch.ops.int4 import int4_group
 
@@ -1070,7 +1271,7 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                        qq, kk[r % 4][None], vv[r % 4][None], enable_gqa=True),
                    old=lambda r, a=(q, kn, vn), o=old: o(*a, lay(r)),
                    bytes_=2 * kv_len * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D),
-                   flops=4 * kv_len * Hq * D, json_row=(pos == 6000))
+                   flops=4 * kv_len * Hq * D)
         del kk, vv
     log("  e5m2 rows written by the kernel equal the plain version's byte for byte")
 
@@ -1091,22 +1292,8 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
                bytes_=2 * Sb * Hk * D + 4 * (2 * Hq * D + 2 * Hk * D), flops=4 * Sb * Hq * D)
     del big
 
-    # K6: attn_block4_l, mid-window, without the residual
-    x = randn(d, scale=3.0)
-    pos = 999
-    blk = dict(n_heads=Hq, norm_eps=cfg.norm_eps, add_residual=False, **rope)
-    args = lambda l: (x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, l,  # noqa: E731
-                      pos, pos + 1, 0, pos)
-    sc4 = dict(scale_qkv=sc.wqkv, scale_o=sc.wo)
-    old = one_block_per_head(cache.k, cache.v, pos, pos + 1, 0, pos, rope)
-    bench.case("attn_block4_l", "kv_len=1000 e5m2 cache",
-               attn_block4_l(*args(5), **sc4, **blk), attn_block_plain(*args(5), **sc4, **blk),
-               2e-3,
-               kernel=lambda r: attn_block4_l(*args(lay(r)), **sc4, **blk),
-               plain=lambda r: attn_block_plain(*args(lay(r)), **sc4, **blk),
-               old=lambda r: on_old_k2(old, lambda: attn_block4_l(*args(lay(r)), **sc4, **blk)),
-               bytes_=w4_bytes(Nqkv, d) + w4_bytes(d, q_dim) + 2 * (pos + 1) * Hk * D + 12 * d,
-               flops=2 * (Nqkv * d + d * q_dim) + 4 * (pos + 1) * Hq * D, json_row=True)
+    # K6: attn_block4_l, one cooperative launch, beside the four launches
+    phase_block(bench, cfg, fw, dev, cache, sc)
     del cache
 
     # K7: ffn4_l, one row (decode), without the residual
@@ -1792,18 +1979,20 @@ def phase_lanes_capture(cfg, dev, kv_dtype) -> None:
 
 # the kernels each path must launch in its phase-3 run (the Mixtral paths'
 # router is gemv_l/gemm_l on every weight type), and those it must not
-PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
-                        "attn_block_l", "ffn_l"),
-                "int4": ("gemv", "gemv4_l", "gemm4_l", "round_rows_bf16", "attend_step_l",
-                         "attn_block4_l", "ffn4_l"),
-                "moe_fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
-                            "attn_block_l", "gemv_le", "gemm_le"),
-                "moe_int4": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "gemv4_l", "gemm4_l",
-                             "attend_step_l", "attn_block4_l", "gemv4_le", "gemm4_le")}
+PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attn_block_l", "ffn_l"),
+                "int4": ("gemv", "gemv4_l", "gemm4_l", "round_rows_bf16", "attn_block4_l",
+                         "ffn4_l"),
+                "moe_fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attn_block_l",
+                            "gemv_le", "gemm_le"),
+                "moe_int4": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "gemm4_l",
+                             "attn_block4_l", "gemv4_le", "gemm4_le")}
 PATH_KERNELS.update({g: ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
                          "ffn_l") for g in ("gemma3", "gemma2")})
-# the Gemma paths take the unfused route: no fused attention block
-PATH_ABSENT = {"moe_fp8": ("ffn_l", "ffn_l_gemm"), "moe_int4": ("ffn4_l", "ffn4_l_gemm"),
+# the fused block is one launch (csrc/block.cu): no attend_step_l on its
+# paths; the Gemma paths take the unfused route: no fused attention block
+PATH_ABSENT = {"fp8": ("attend_step_l",), "int4": ("attend_step_l",),
+               "moe_fp8": ("ffn_l", "ffn_l_gemm", "attend_step_l"),
+               "moe_int4": ("ffn4_l", "ffn4_l_gemm", "attend_step_l"),
                "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
 # (name, prompt tokens, new tokens, sampled); a "ring" request continues the
 # one before it past the window
@@ -2853,6 +3042,50 @@ def gemv_phases() -> int:
     return 0
 
 
+def block_phases() -> int:
+    """K3 and K6 alone, for a short card call: phase 2's phase_block on the
+    fp8 path (bf16 cache) and the int4 path (e5m2 cache) at full width and
+    depth -- the one launch at kv_len 1000 and at the full window against
+    its plain version and bit for bit against the four launches it
+    replaced, their times, its timeline, one kernel per call, the host time
+    per call and a CUDA-graph replay. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.block_phases())"
+    Prints the cases as one JSON line, then the card's name and power
+    limit."""
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(HBM_BYTES_PER_S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    for path, cfg, synth, kv in (
+            ("fp8", mistral7b(), synth_fast_weights, torch.bfloat16),
+            ("int4", mistral7b(weight_dtype="int4"), synth_int4_weights, torch.float8_e5m2)):
+        fw = synth(cfg, dev, seed={"fp8": 0, "int4": 1}[path])
+        cache = KVCache.init(cfg, kv, dev)
+        for c in (cache.k, cache.v):
+            c.copy_(torch.randn(c.shape, generator=gen, device=dev, dtype=torch.bfloat16))
+        bench.path = path
+        with phase(f"{path} path: the attention block as one launch beside the four launches"):
+            phase_block(bench, cfg, fw, dev, cache, fw.scales if path == "int4" else None)
+        del fw, cache
+        torch.cuda.empty_cache()
+    print(json.dumps({"cases": bench.rows}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def attention_phases(lane_blocks=None) -> int:
     """K8 and K9 alone, for a short card call: phase 2's cases of the fp8
     path (bf16 cache), the int4 path (e5m2 cache) and the Gemma3 and Gemma2
@@ -2925,34 +3158,38 @@ def sass_functions(path: str) -> dict:
 
 
 def split_sass(other_root: str) -> int:
-    """Whether csrc/attention.cu's one-lane split (K2's and K12's
-    split_scores_kernel / split_values_kernel instances) and the v1 design
-    (attend_step_kernel) compile to the same SASS here as in another
-    checkout of the repository (e.g. the parent commit unpacked into
-    build/): both sources compiled to cubins with the build's nvcc flags,
-    then compared function by function. Run from the repository root:
+    """Whether csrc/attention.cu's and csrc/gemv.cu's kernels (K2's and
+    K12's split_scores_kernel / split_values_kernel, K8/K9's lanes kernels,
+    the v1 attention design attend_step_kernel; gemv_kernel and
+    gemv_kernel_v1) compile to the same SASS here as in another checkout of
+    the repository (e.g. the parent commit unpacked into build/): each
+    checkout's sources compiled to cubins with the build's nvcc flags, then
+    compared function by function. Run from the repository root:
         python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.split_sass('build/parent'))"
     Returns 0 when every such function is the same, 1 otherwise."""
     import tempfile
     from yalm_tpu_torch.ops.cuda import _build as B
     flags = [f for f in B.NVCC_FLAGS if f not in ("-Xcompiler", "-fPIC")]
-    sass = []
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    differ, same, n_ins = [], 0, 0
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        for i, root in enumerate((ROOT, other_root)):
-            src = os.path.join(root, "yalm_tpu_torch", "csrc", "attention.cu")
-            cubin = os.path.join(tmp, f"{i}.cubin")
-            subprocess.run([B.nvcc_path(), *flags, "-cubin", src, "-o", cubin], check=True,
-                           timeout=600)
-            sass.append(sass_functions(cubin))
-    keys = ("split_scores_kernel", "split_values_kernel", "attend_step_kernel")
-    mine = {f: v for f, v in sass[0].items() if any(k in f for k in keys)}
-    theirs = {f: v for f, v in sass[1].items() if any(k in f for k in keys)}
-    same = sorted(f for f in mine if theirs.get(f) == mine[f])
-    differ = sorted(set(mine) ^ set(theirs) | {f for f in mine if f in theirs and
-                                               theirs[f] != mine[f]})
-    log(f"SASS: {len(same)} functions the same ({sum(len(mine[f]) for f in same)} instructions), "
-        f"{len(differ)} differ or exist on one side only: {differ}")
+        for src in ("attention.cu", "gemv.cu"):
+            sass = []
+            for i, root in enumerate((ROOT, other_root)):
+                cubin = os.path.join(tmp, f"{i}-{src}.cubin")
+                subprocess.run([B.nvcc_path(), *flags, "-cubin",
+                                os.path.join(root, "yalm_tpu_torch", "csrc", src), "-o", cubin],
+                               check=True, timeout=600)
+                sass.append(sass_functions(cubin))
+            mine, theirs = sass
+            for f in sorted(set(mine) | set(theirs)):
+                if mine.get(f) is not None and mine.get(f) == theirs.get(f):
+                    same += 1
+                    n_ins += len(mine[f])
+                else:
+                    differ.append(f)
+    log(f"SASS: {same} functions the same ({n_ins} instructions), {len(differ)} differ or exist "
+        f"on one side only: {differ}")
     return 0 if not differ and same else 1
 
 
@@ -3138,18 +3375,18 @@ def main() -> int:
         phase_cli(dev)
 
     # name -> (source, the TPU function of the same name it replaces); the
-    # composite wrappers launch csrc/gemv.cu and csrc/attention.cu
+    # FFN's composite wrappers launch csrc/gemv.cu or csrc/gemm.cu
     sources = {"gemv": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:81"),
                "gemv_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:148"),
                "gemm_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:426"),
                # gemm_l's kernel rounds each X tile to bf16 as it reads it
                "round_rows_bf16": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:476"),
                "attend_step_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:808"),
-               "attn_block_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:554"),
+               "attn_block_l": ("csrc/block.cu", "yalm_tpu/ops/pallas/block.py:554"),
                "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),
                "gemv4_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:776"),
                "gemm4_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:600"),
-               "attn_block4_l": ("ops/cuda/block.py", "yalm_tpu/ops/pallas/block.py:365"),
+               "attn_block4_l": ("csrc/block.cu", "yalm_tpu/ops/pallas/block.py:365"),
                "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227"),
                "attend_step_batched_l": ("csrc/attention.cu",
                                          "yalm_tpu/ops/pallas/attention.py:538"),

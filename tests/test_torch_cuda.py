@@ -40,7 +40,13 @@ plain version and the mma.sync design it replaced; and the Hopper GEMV
 gemv_plan with a ragged last slice, N past a block's 128 rows, two calls
 giving the same bits, an expert id outside the stack read on the device
 giving NaN with every split counter left at 0, and a CUDA-graph replay on
-rewritten inputs equal to the eager call.
+rewritten inputs equal to the eager call; and K3/K6 as one cooperative
+launch (csrc/block.cu) on e5m2, int8, bf16 and int4 weights and both cache
+types, in the linear and the ring regime, with and without bias and
+residual: bit for bit the four launches it replaced (output and cache) and
+within TOL of the plain version, every arrival counter back at 0 after
+calls at other shapes, a CUDA-graph replay equal to the uncaptured call,
+and a bad layer or position refused on the host with nothing written.
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -1442,3 +1448,134 @@ def test_gemv_graph_replay_equals_eager(dev, wt):
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
     close(eager, gemv_l_plain(x[0], w, 1, norm_w=nw, scale=sc, residual=res[0])[None])
+
+
+# ---------------------------------------------------------------------------
+# K3/K6 as one cooperative launch (csrc/block.cu)
+# ---------------------------------------------------------------------------
+
+def four_launches(*args, **kw):
+    """attn_block_l's function as four launches (the wqkv GEMV, the
+    attention split's two passes, the wo GEMV), the sequence the one launch
+    replaced and must equal bit for bit (chip_smoke.py's same-run
+    yardstick)."""
+    import chip_smoke
+    return chip_smoke.four_launches(*args, **kw)
+
+
+def block_case(dev, wt, kv, seed, bias=False, L=2, S=300, Hk=2, qpk=4, D=128, dim=1024):
+    """(x, norm_w, wqkv, wo, k_all, v_all, keywords) of a block whose wqkv
+    and wo GEMVs split in K (dim 1024: 8 slices of e5m2, two int4 groups)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Hq = Hk * qpk
+    Nqkv = (Hq + 2 * Hk) * D
+    i4 = wt == torch.uint8
+    x = torch.randn(dim, generator=gen, device=dev) * 3
+    nw = 1 + 0.1 * torch.randn(L, dim, generator=gen, device=dev)
+    wqkv = weights((L, Nqkv, dim // 2 if i4 else dim), wt, dev, gen)
+    wo = weights((L, dim, Hq * D // 2 if i4 else Hq * D), wt, dev, gen)
+    if i4:
+        sq, so = gscales(L, dim, Nqkv, dev, gen), gscales(L, Hq * D, dim, dev, gen)
+    elif wt == torch.int8:   # a quantized checkpoint's row scales: absmax / 127 of ~1/sqrt(K)
+        sq = (torch.rand(L, Nqkv, generator=gen, device=dev) + 0.5) * 5e-4
+        so = (torch.rand(L, dim, generator=gen, device=dev) + 0.5) * 5e-4
+    else:
+        sq = so = None
+    b = torch.randn(L, Nqkv, generator=gen, device=dev) * 0.2 if bias else None
+    k_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    v_all = torch.randn(L, S, Hk, D, generator=gen, device=dev).to(kv)
+    kw = dict(n_heads=Hq, kv_sinks=2, theta=1e4, rotary_dim=D, norm_eps=1e-5, qkv_clip=4.0,
+              bqkv_all=b, scale_qkv=sq, scale_o=so)
+    return x, nw, wqkv, wo, k_all, v_all, kw
+
+
+def block_fn(wt):
+    return attn_block4_l if wt == torch.uint8 else attn_block_l
+
+
+BLOCK_WTS = [torch.float8_e5m2, torch.int8, torch.bfloat16, torch.uint8]
+BLOCK_WT_IDS = ["e5m2", "int8", "bf16", "int4"]
+
+
+@pytest.mark.parametrize("wt", BLOCK_WTS, ids=BLOCK_WT_IDS)
+@pytest.mark.parametrize("kv", KVS, ids=KV_IDS)
+@pytest.mark.parametrize("pos,bias,residual", [(0, False, True), (100, True, False),
+                                               (299, False, False), (700, True, True)])
+def test_attn_block_one_launch_equals_four_launches(dev, wt, kv, pos, bias, residual):
+    """The one launch gives the four-launch sequence's bits (output and the
+    whole cache, the written row included) and is within TOL of the plain
+    version, in the linear regime (slot 0, over 2 and 5 chunks) and the
+    ring with sinks, with and without bias and residual."""
+    x, nw, wqkv, wo, k_all, v_all, kw = block_case(dev, wt, kv, pos, bias)
+    kw["add_residual"] = residual
+    S = k_all.shape[1]
+    kv_sink = 2 if pos >= S else 0
+    sl = (1, kv_sink + (pos - kv_sink) % (S - kv_sink), min(pos + 1, S), kv_sink, pos)
+    k4, v4, kp, vp = k_all.clone(), v_all.clone(), k_all.clone(), v_all.clone()
+    want = four_launches(x, nw, wqkv, wo, k4, v4, *sl, **kw)
+    got = block_fn(wt)(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(_bits(k_all), _bits(k4)) and torch.equal(_bits(v_all), _bits(v4))
+    close(got, attn_block_plain(x, nw, wqkv, wo, kp, vp, *sl, **kw))
+
+
+@pytest.mark.parametrize("wt", [torch.float8_e5m2, torch.uint8], ids=["e5m2", "int4"])
+def test_attn_block_counters_return_to_zero(dev, wt):
+    """After calls at other head counts, windows and splits (and a GEMV
+    split between them on the same buffers), every arrival counter is back
+    at 0 and a later call is still the four launches' bits."""
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    for i, (Hk, qpk, S, pos) in enumerate([(2, 4, 300, 250), (4, 2, 600, 599), (1, 8, 64, 63),
+                                           (2, 4, 300, 700)]):
+        x, nw, wqkv, wo, k_all, v_all, kw = block_case(dev, wt, torch.bfloat16, i, Hk=Hk,
+                                                       qpk=qpk, S=S)
+        kv_sink = 2 if pos >= S else 0
+        sl = (0, kv_sink + (pos - kv_sink) % (S - kv_sink), min(pos + 1, S), kv_sink, pos)
+        k4, v4 = k_all.clone(), v_all.clone()
+        got = block_fn(wt)(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+        assert torch.equal(got, four_launches(x, nw, wqkv, wo, k4, v4, *sl, **kw))
+        torch.cuda.synchronize()
+        for _, ctr in G._SPLIT_BUFFERS.values():
+            assert int(ctr.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("wt", [torch.float8_e5m2, torch.uint8], ids=["e5m2", "int4"])
+def test_attn_block_graph_replay_equals_eager(dev, wt):
+    """The cooperative launch captured in a CUDA graph and replayed after x
+    is rewritten in place: bit for bit the uncaptured call on the new x,
+    the written cache row included."""
+    x, nw, wqkv, wo, k_all, v_all, kw = block_case(dev, wt, torch.float8_e5m2, 5)
+    sl = (1, 150, 151, 0, 150)
+    fn = block_fn(wt)
+    fn(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)   # buffers sized before the capture
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+    x.copy_(torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                        device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed, k_rep, v_rep = out.clone(), k_all.clone(), v_all.clone()
+    eager = fn(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
+    assert torch.equal(_bits(k_rep), _bits(k_all)) and torch.equal(_bits(v_rep), _bits(v_all))
+
+
+def test_attn_block_bad_scalars_raise_and_write_nothing(dev):
+    """A layer or a position the kernel cannot take is refused on the host
+    before any launch: ValueError, the cache untouched."""
+    x, nw, wqkv, wo, k_all, v_all, kw = block_case(dev, torch.float8_e5m2, torch.bfloat16, 3)
+    k0, v0 = k_all.clone(), v_all.clone()
+    for sl in ((2, 5, 6, 0, 5), (-1, 5, 6, 0, 5), (0, 300, 300, 2, 400), (0, 5, 0, 0, 5),
+               (0, 5, 301, 0, 5), (0, 5, 6, 3, 5)):
+        with pytest.raises(ValueError):
+            attn_block_l(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k_all, k0) and torch.equal(v_all, v0)

@@ -62,6 +62,11 @@ _SIGNATURES = {
     "yt_attend_step_paged": [_I, _P, _P, _P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
     "yt_attend_one": [_I, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # (wtype, kv_type, weights, x, norm, scales, bias, clip, cache, rope, out,
+    # residual, scratch regions, counters, stamps, shapes and positions, the
+    # plans, grid, stream): ops/cuda/block.py:block_plan
+    "yt_attn_block": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _I, _P, _F, _P, _P, _I, _P, _P, _P,
+                      _F, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 19, _P],
 }
 
 _lib = None

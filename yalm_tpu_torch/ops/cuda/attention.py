@@ -262,6 +262,38 @@ def attend_step_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len,
     return attend_ref(q2, k, v_all[layer], kv_len, softcap, extra).reshape(Hk, qpk, D)
 
 
+def attend_step_split_plain(q, k_new, v_new, k_all, v_all, layer, kv_pos, kv_len, kv_sink,
+                            pos, *, kv_sinks, theta, rotary_dim):
+    """The one-lane split's arithmetic (csrc/attention.cu's two passes, no
+    window or cap), plainly: the new rows written as attend_step_plain
+    writes them, the scores as attend_ref forms them, then over
+    split_plan's chunks each chunk's max m_c and sum l_c, m = max m_c and l
+    = sum l_c exp(m_c - m) in chunk order, p = bf16(exp(s - m) / l), and the
+    chunks' partial sums of p . v added in chunk order. Mutates the cache;
+    returns mix (Hk, qpk, D) f32."""
+    L, S, Hk, D = k_all.shape
+    qpk = q.shape[1]
+    q2 = _rot(q.float().reshape(Hk * qpk, D), theta, rotary_dim, pos) * (1.0 / math.sqrt(D))
+    k_all[layer, kv_pos] = _rot(k_new.float(), theta, rotary_dim, pos).to(k_all.dtype)
+    v_all[layer, kv_pos] = v_new.float().to(v_all.dtype)
+    k = sink_view(k_all[layer], kv_sink, pos, theta=theta, rotary_dim=rotary_dim)
+    v = bf16f(v_all[layer].float())
+    scores = torch.einsum("gpd,sgd->gps", bf16f(q2).reshape(Hk, qpk, D), bf16f(k))
+    plan = split_plan(kv_len, Hk, kv_pos=kv_pos, kv_sink=kv_sink)
+    spans = [(c * plan.chunk, min((c + 1) * plan.chunk, kv_len)) for c in range(plan.nsplit)]
+    ms = [scores[..., c0:c1].amax(-1) for c0, c1 in spans]
+    ls = [torch.exp(scores[..., c0:c1] - m[..., None]).sum(-1) for (c0, c1), m in zip(spans, ms)]
+    m = torch.stack(ms).amax(0)
+    l = torch.zeros_like(m)
+    for m_c, l_c in zip(ms, ls):
+        l = l + l_c * torch.exp(m_c - m)
+    out = torch.zeros(Hk, qpk, D, dtype=torch.float32, device=q.device)
+    for c0, c1 in spans:
+        p = bf16f(torch.exp(scores[..., c0:c1] - m[..., None]) / l[..., None])
+        out = out + torch.einsum("gps,sgd->gpd", p, v[c0:c1])
+    return out
+
+
 def _win_arg(win, S: int, what: str) -> int:
     """The kernels' window argument: 0 for none (a window >= S masks nothing)."""
     B.require(win is None or int(win) >= 1, f"{what}: a window of at least 1 slot")
