@@ -31,12 +31,31 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    slots, which must preempt and resume at least one lane with every
    stream exactly max_new_tokens long, the paged attention launched once
    per layer per tick and the dense one never;
+   then speculation (`phase_spec`, 32 layers, K 4, 200-token prompts, 64
+   new tokens): plain greedy decode beside a self-draft (a second Engine
+   over the same weights), a 2-layer draft from another seed (greedy and
+   T 0.8), prompt lookup on a 50-token pattern repeated 4 times and 4
+   Medusa heads from a seed (greedy and T 0.8), every token of a greedy
+   stream the argmax of the plain step fed the same prefix or within twice
+   the tolerance of its maximum (a near-tie, counted), every self-draft
+   rejection at a near-tie, with
+   rounds, acceptances, decode rates, the device time of one verify sweep
+   and of the draft's K+1 steps, and launch counts; and speculation
+   through ServingEngine at depth 8 (`phase_spec_serving`: 16 requests of
+   64-512 prompt tokens and 48 new, half sampled, through the plain
+   scheduler, prompt lookup, a self-draft over a paged pool of 65 pages of
+   256, and Medusa heads; greedy tokens held to the plain tick fed the
+   same prefix by the same rule, K8's launches in the draft ticks, K9's in
+   paged subticks);
 4. the same model at depth 2 on the card against the plain versions on the
    CPU: a 64-token prefill and 8 teacher-forced decode steps; then the
    batched path: one batched chunk sweep and 8 teacher-forced ticks over 16
    lanes at mixed positions (ring lanes, write-masked lanes), the argmax
    held on every lane whose top two logits lie more than twice the
    tolerance apart; and the same over a paged pool through shuffled tables;
+   on the fp8 path also one speculative verify sweep (with_hidden) over 16
+   lanes of K+1 rows at mixed positions, dense and paged (logits and
+   hidden rows to the tolerance);
 then phases 2-4 again for the int4 path (packed int4 layer weights with
 group scales, int8 embedding and LM head, fp8-e5m2 KV cache: the
 configuration of `bench.py`'s defaults), after the fp8 weights are freed,
@@ -2739,6 +2758,510 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 1
                 routing_near_ties=routed_ties, routing_held=routed_held, cache_max_err=kerr)
 
 
+# ---------------------------------------------------------------------------
+# speculation (the chain forms: draft model, prompt lookup, Medusa heads)
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_NEW = 64          # single stream: 200-token prompts, 64 new tokens
+SPEC_SERVE_NEW = 48    # serving: 16 requests of 64-512 prompt tokens, 48 new
+
+
+def synth_medusa(cfg, device, seed: int, heads: int = 4):
+    """Random Medusa heads made on the card: w1 and the heads' vocab
+    projections bf16 with std 0.02 (as the test fixture's), b1 f32 zeros."""
+    import torch
+    from yalm_tpu_torch.medusa import MedusaWeights
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.bfloat16) * 0.02
+    return MedusaWeights(w1=mk(heads, cfg.dim, cfg.dim),
+                         b1=torch.zeros(heads, cfg.dim, device=device),
+                         head=mk(heads, cfg.vocab_size, cfg.dim))
+
+
+def plain_greedy(eng, prompt, n: int) -> float:
+    """Engine.generate at T 0 from a reset engine: its decode rate."""
+    import torch
+    eng.reset()
+    torch.cuda.synchronize()
+    t_first = None
+    for _ in eng.generate(prompt, max_steps=n, temperature=0.0):
+        if t_first is None:
+            t_first = time.perf_counter()
+    torch.cuda.synchronize()
+    return (n - 1) / (time.perf_counter() - t_first)
+
+
+def profiled_call(fn, reps: int = 2) -> dict:
+    """One call of fn, the mean of reps under torch.profiler: the device's
+    busy time (None when the profiler saw no device event), the wall time,
+    the five costliest kernels and the five host operations with the most
+    self time (name, ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    busy = device_busy_us(prof)
+    dev = sorted(device_us(prof).items(), key=lambda kv: -kv[1])[:5]
+    host = sorted(((e.key, e.self_cpu_time_total) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda kv: -kv[1])[:5]
+    per = lambda top: [(k[:60], v / reps / 1e3) for k, v in top]  # noqa: E731
+    return dict(device_ms=busy / reps / 1e3 if busy else None, wall_ms=wall,
+                top_device=per(dev), top_host=per(host))
+
+
+def teacher_forced_hold(name: str, eng, prompt, tokens) -> int:
+    """Every token of a greedy spec stream against the plain decode path
+    (Engine._step) fed the same tokens: the token is the plain row's argmax,
+    or lies within twice the tolerance of its maximum (a near-tie, counted).
+    Raises otherwise; returns the near-ties at which the stream differs."""
+    import torch
+    eng.reset()
+    eng.prefill_tokens(prompt, want_logits=True)
+    rows, lg = [], eng._last_logits
+    for t in tokens:
+        lf = lg.float()
+        rows.append(torch.stack([lf.max(), lf[t], lf.abs().max(),
+                                 (lf.argmax() == t).float()]))
+        lg = eng._step(t)
+    r = torch.stack(rows).cpu()
+    gap_ok = r[:, 0] - r[:, 1] <= 2 * 1e-2 * r[:, 2].clamp(min=1.0)
+    bad = [i for i in range(len(tokens)) if not (r[i, 3] > 0 or gap_ok[i])]
+    if bad:
+        raise AssertionError(f"{name}: tokens {bad} are neither the plain step's argmax nor "
+                             "a near-tie of it")
+    return int(((r[:, 3] == 0) & gap_ok).sum())
+
+
+SPEC_COUNTED = ("gemm_l", "round_rows_bf16", "attn_block_l", "ffn_l", "gemv",
+                "attend_step_batched_l", "attend_step_paged_l", "ffn_l_gemm")
+# the kernels each single-stream mode must launch: the verify sweep's
+# gemm_l (with its X rounding) always; a draft's steps the decode kernels
+SPEC_MODE_KERNELS = {"draft": ("gemm_l", "round_rows_bf16", "attn_block_l", "ffn_l", "gemv"),
+                     "lookup": ("gemm_l", "round_rows_bf16"),
+                     "medusa": ("gemm_l", "round_rows_bf16")}
+
+
+def phase_spec(cfg, fw, dev, kv_dtype) -> dict:
+    """Speculation at full width (Mistral-7B shapes), single stream: plain
+    greedy decode beside (a) a self-draft (a second Engine over the same
+    weights), (b) a 2-layer draft of the same widths from another seed,
+    greedy and at T 0.8, (c) prompt lookup on a 50-token pattern repeated 4
+    times and (d) 4 Medusa heads from a seed, greedy and at T 0.8; 200-token
+    prompts, 64 new tokens, K 4. Every token of a greedy stream is the plain
+    step's argmax fed the same prefix, or a near-tie of it
+    (teacher_forced_hold); every self-draft rejection falls at a row where
+    the draft's token lies within twice the tolerance of the verify row's
+    maximum; sampled streams give 64 valid ids. Per mode: rounds,
+    proposals, acceptances, plain rounds, the decode rate, the device time
+    of one verify sweep and of the draft's K+1 steps (torch.profiler), and
+    the launch counts."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import Engine, _bucket_for
+    from yalm_tpu_torch.medusa import medusa_propose
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.tokenizer import Tokenizer
+    from yalm_tpu_torch.utils.testing import synth_vocab
+
+    tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
+    mk = lambda c, w: Engine(c, w, tok, kv_dtype=kv_dtype, device=dev)  # noqa: E731
+    eng = mk(cfg, fw)
+    rng = np.random.default_rng(8)
+    prompts = {"random": [cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 199).tolist()}
+    prompts["pattern"] = [cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 50).tolist() * 4
+    K, N = SPEC_K, SPEC_NEW
+    plain = {k: plain_greedy(eng, p, N) for k, p in prompts.items()}
+    for k, rate in plain.items():
+        log(f"  plain greedy ({k} prompt of {len(prompts[k])}): {rate:.2f} tok/s")
+    cfg_d = with_layers(cfg, 2)
+    draft2 = mk(cfg_d, synth_fast_weights(cfg_d, dev, seed=7))
+    self_draft = mk(cfg, fw)
+    mw = synth_medusa(cfg, dev, seed=9)
+    eng.medusa = mw
+    # (name, kind, prompt, draft, temperature)
+    modes = (("self-draft", "draft", "random", self_draft, 0.0),
+             ("2-layer draft", "draft", "random", draft2, 0.0),
+             ("2-layer draft T 0.8", "draft", "random", draft2, 0.8),
+             ("lookup", "lookup", "pattern", None, 0.0),
+             ("medusa", "medusa", "random", None, 0.0),
+             ("medusa T 0.8", "medusa", "random", None, 0.8))
+    rejections: list = []
+    accept = type(eng)._greedy_accept
+
+    def recording(t_lg, d):
+        emitted, a = accept(t_lg, d)
+        if a < len(d):
+            row = t_lg[a].float()
+            tol = 1e-2 * max(1.0, float(row.abs().max()))
+            rejections.append((float(row.max() - row[d[a]]), tol))
+        return emitted, a
+    eng._greedy_accept = recording
+    out = dict(k=K, new_tokens=N, plain={k: dict(decode_tok_s=rate)
+                                         for k, rate in plain.items()}, modes={})
+    for name, kind, pk, draft, T in modes:
+        eng.reset()
+        if draft is not None:
+            draft.reset()
+        rejections.clear()
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        kw = dict(max_steps=N, temperature=T, seed=1234)
+        stream = (eng.generate_medusa(prompts[pk], **kw) if kind == "medusa" else
+                  eng.generate_speculative(prompts[pk], draft=draft, n_draft=K, **kw))
+        got, t_first = [], None
+        for t in stream:
+            if t_first is None:
+                t_first = time.perf_counter()
+            got.append(t)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = {k: _build.LAUNCHES[k] for k in SPEC_COUNTED if _build.LAUNCHES[k]}
+        st = dict(eng._spec_stats)
+        st.setdefault("proposed", K * st["rounds"])
+        st.setdefault("plain", 0)
+        if len(got) != N or not all(0 <= t < cfg.vocab_size for t in got):
+            raise AssertionError(f"spec {name}: bad stream {got[:8]}... ({len(got)})")
+        missing = [k for k in SPEC_MODE_KERNELS[kind] if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"spec {name}: kernels never launched: {missing}")
+        r = dict(prompt=len(prompts[pk]), temperature=T, stats=st, launches=launches,
+                 decode_tok_s=(N - 1) / (t_end - t_first), wall_s=t_end - t0,
+                 accepted_per_round=st["accepted"] / st["rounds"] if st["rounds"] else None)
+        if T == 0.0:
+            r["forced_near_tie_flips"] = teacher_forced_hold(f"spec {name}", eng,
+                                                             prompts[pk], got)
+        if name == "self-draft":
+            far = [(g, tol) for g, tol in rejections if g > 2 * tol]
+            if far:
+                raise AssertionError(f"self-draft rejections at rows that are no near-tie "
+                                     f"(gap, tol): {far}")
+            r["rejections"] = len(rejections)
+        # one verify sweep (and the draft's K+1 steps) at the run's end position
+        cur, bucket = got[-1], _bucket_for(K + 1)
+        d = rng.integers(3, cfg.vocab_size, K).tolist()
+        pos = eng.pos
+        if pos + bucket < cfg.max_seq_len and T == 0.0:
+            def sweep(mode="all_h" if kind == "medusa" else "all"):
+                eng._verify(cur, d, bucket, mode)
+                eng.pos = pos
+            r["verify"] = profiled_call(sweep)
+            r["verify_ms"] = r["verify"]["device_ms"]
+            if draft is not None:
+                dpos = draft.pos
+
+                def steps():
+                    draft._decode_block(cur, K + 1)
+                    draft.pos = dpos
+                r["draft_steps"] = profiled_call(steps)
+                r["draft_steps_ms"] = r["draft_steps"]["device_ms"]
+            if kind == "medusa":
+                h = torch.randn(cfg.dim, device=dev)
+                r["heads_ms"] = profiled_call(lambda: medusa_propose(mw, h))["device_ms"]
+        out["modes"][name] = r
+        log(f"  spec {name} ({r['prompt']}-token {pk} prompt, T {T}): {st['rounds']} rounds, "
+            f"{st['proposed']} proposed, {st['accepted']} accepted "
+            f"({r['accepted_per_round']} per round), {st['plain']} plain rounds; "
+            f"{r['decode_tok_s']:.2f} tok/s (plain {plain[pk]:.2f})"
+            + (f"; every token the plain step's argmax given the same prefix but "
+               f"{r['forced_near_tie_flips']} near-ties" if T == 0.0 else "")
+            + (f"; {r['rejections']} rejections, all at near-ties" if "rejections" in r else "")
+            + (f"; one verify sweep {r['verify_ms']} ms on the device, "
+               f"{r['verify']['wall_ms']:.3f} ms wall" if "verify_ms" in r else "")
+            + (f", the draft's K+1 steps {r['draft_steps_ms']} ms on the device, "
+               f"{r['draft_steps']['wall_ms']:.3f} ms wall" if "draft_steps_ms" in r else "")
+            + (f", the heads {r['heads_ms']} ms" if "heads_ms" in r else "")
+            + f"; launches {launches}")
+        if name in ("self-draft", "medusa"):
+            for where in ("top_device", "top_host"):
+                for k, ms in r["verify"][where]:
+                    log(f"    verify sweep, {where[4:]}: {ms:8.4f} ms  {k}")
+    del eng, self_draft, draft2, mw
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_serving_mix(cfg, n: int = 16):
+    """16 requests of 64-512 prompt tokens and SPEC_SERVE_NEW new tokens:
+    even ones greedy, odd ones at T 0.8 / top-p 0.9; every prompt a random
+    block followed by a repeat of its last 40 tokens (prompt lookup has
+    something to find); then a 17th, greedy, whose prompt of the window
+    less 36 tokens (4060) runs its lane into the speculation edge (pos + K
+    + 1 >= the window), so it leaves the spec path for plain subticks and
+    crosses the window."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    mix = []
+    for i in range(n):
+        m = int(rng.integers(24, 473))
+        body = rng.integers(3, cfg.vocab_size, m).tolist()
+        mix.append(([cfg.bos_token_id] + body + body[-40:], i % 2 == 1))
+    mix.append(([cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, cfg.max_seq_len - 37).tolist(),
+                False))
+    return mix
+
+
+def teacher_forced_hold_batched(name: str, cfg, fw, dev, kv_dtype, mix, streams) -> int:
+    """teacher_forced_hold for the greedy requests of a serving mix at once:
+    the plain tick (decode_step_fast_batched) fed each stream's own tokens
+    after a per-lane prefill of its prompt. Returns the near-ties at which
+    a stream differs from the plain argmax; raises where a token is neither."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import attend_bucket, chunk_schedule
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast, decode_step_fast_batched, prefill_fast
+    lanes = [(p, s) for (p, sampled), s in zip(mix, streams) if not sampled]
+    B, L = len(lanes), cfg.max_seq_len
+    cache = KVCache.init(cfg, kv_dtype, dev, batch=B)
+    first = []
+    for b, (p, _) in enumerate(lanes):
+        lane, out, i = cache.lane(b), None, 0
+        for i0, take, bucket in chunk_schedule(len(p), 0, L):
+            padded = np.zeros(bucket, np.int64)
+            padded[:take] = p[i0:i0 + take]
+            out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="last",
+                                  attend_len=attend_bucket(i0 + bucket, L))
+            i = i0 + take
+        for j in range(i, len(p)):   # the ring regime: token by token
+            out, _ = decode_step_fast(cfg, fw, p[j], j, lane)
+        first.append(out)
+    lg = torch.stack(first)
+    rows = []
+    n = len(lanes[0][1])
+    for j in range(n):
+        toks = torch.as_tensor([s[j] for _, s in lanes], device=dev)
+        lf = lg.float()
+        rows.append(torch.stack([lf.amax(-1), lf.gather(1, toks[:, None])[:, 0],
+                                 lf.abs().amax(-1), (lf.argmax(-1) == toks).float()], dim=1))
+        if j + 1 < n:
+            lg, _ = decode_step_fast_batched(cfg, fw, toks, [len(p) + j for p, _ in lanes],
+                                             cache)
+    r = torch.stack(rows).cpu()                    # (tokens, lanes, 4)
+    gap_ok = r[..., 0] - r[..., 1] <= 2 * 1e-2 * r[..., 2].clamp(min=1.0)
+    bad = ((r[..., 3] == 0) & ~gap_ok).nonzero().tolist()
+    if bad:
+        raise AssertionError(f"{name}: (token, lane) {bad[:8]} neither the plain tick's argmax "
+                             "nor a near-tie of it")
+    return int(((r[..., 3] == 0) & gap_ok).sum())
+
+
+def phase_spec_serving(cfg, fw, dev, kv_dtype) -> dict:
+    """Speculation through ServingEngine at batch 16 (the server's defaults,
+    top-5 logprobs): the spec_serving_mix through the plain scheduler, then
+    prompt lookup (dense cache), a self-draft with a paged target (65 pages
+    of 256; the draft's cache stays dense) and 4 Medusa heads (dense).
+    Every greedy token is the plain tick's argmax fed the same tokens, or a
+    near-tie of it (teacher_forced_hold_batched); every stream is exactly
+    max_new_tokens long; two greedy ones carry their top-5 lists. Per run: spec_stats, the wall, K8's
+    launches in the draft's ticks and K9's in the paged plain subticks
+    (the 17th request's lane runs plain subticks past the edge)."""
+    import torch
+    from yalm_tpu_torch import server as srv
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.scheduler import Request
+    from yalm_tpu_torch.tokenizer import Tokenizer
+    from yalm_tpu_torch.utils.testing import synth_vocab
+
+    tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
+    mix = spec_serving_mix(cfg)
+    mw = synth_medusa(cfg, dev, seed=9)
+    runs = (("plain", {}), ("lookup", dict(spec_lookup=True)),
+            ("self-draft, paged", dict(spec_draft=(cfg, fw), paged_pages=PAGED_PAGES,
+                                       page_size=PAGE)),
+            ("medusa", dict(spec_medusa=mw)))
+    out = {}
+    for name, kw in runs:
+        engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev,
+                                   spec_k=SPEC_K, **kw)
+        sched = engine.sched
+        k8 = {"draft ticks": 0}
+        if sched.draft_cfg is not None:
+            propose = sched._draft_propose
+
+            def counted(*a, **k):
+                before = _build.LAUNCHES["attend_step_batched_l"]
+                res = propose(*a, **k)
+                k8["draft ticks"] += _build.LAUNCHES["attend_step_batched_l"] - before
+                return res
+            sched._draft_propose = counted
+        k9 = {"plain subticks": 0}
+        tick = sched._plain_tick
+
+        def counted_tick(lanes):
+            before = _build.LAUNCHES["attend_step_paged_l"]
+            tick(lanes)
+            k9["plain subticks"] += _build.LAUNCHES["attend_step_paged_l"] - before
+        sched._plain_tick = counted_tick
+        reqs = [Request(prompt_tokens=p, max_new_tokens=SPEC_SERVE_NEW,
+                        temperature=0.8 if sampled else 0.0, top_p=0.9 if sampled else 1.0,
+                        seed=300 + i) for i, (p, sampled) in enumerate(mix)]
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        while not all(r.done for r in reqs):
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        engine.close()
+        launches = {k: _build.LAUNCHES[k] for k in SPEC_COUNTED if _build.LAUNCHES[k]}
+        bad = [(i, r.error, len(r.generated)) for i, r in enumerate(reqs)
+               if r.error or len(r.generated) != SPEC_SERVE_NEW
+               or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+        if bad:
+            raise AssertionError(f"spec serving ({name}): failed requests {bad}")
+        tops = [r for r, (_, sampled) in zip(reqs, mix) if not sampled][:2]
+        if not all(len(r.top_logprobs) == SPEC_SERVE_NEW and all(len(t) == 5 for t in
+                                                                  r.top_logprobs)
+                   for r in tops):
+            raise AssertionError(f"spec serving ({name}): top-5 logprobs missing")
+        gen = sum(len(r.generated) for r in reqs)
+        res = dict(wall_s=wall, generated=gen, tok_s=gen / wall, launches=launches,
+                   ticks=engine.metrics["ticks_total"])
+        if name != "plain":
+            res.update(spec_stats=dict(sched.spec_stats),
+                       k8_in_draft_ticks=k8["draft ticks"],
+                       k9_in_plain_subticks=k9["plain subticks"],
+                       forced_near_tie_flips=teacher_forced_hold_batched(
+                           f"spec serving {name}", cfg, fw, dev, kv_dtype, mix,
+                           [r.generated for r in reqs]))
+            if sched.paged and not k9["plain subticks"]:
+                raise AssertionError(f"spec serving ({name}): K9 never ran in a plain subtick")
+            if sched.paged:
+                res.update(preemptions=sched.preemptions, resumes=sched.resumes)
+            if sched.spec_stats["rounds"] < 1:
+                raise AssertionError(f"spec serving ({name}): no verify round")
+            if sched.draft_cfg is not None and not k8["draft ticks"]:
+                raise AssertionError(f"spec serving ({name}): K8 never ran in the draft ticks")
+        out[name] = res
+        log(f"  spec serving {name}: {len(reqs)} requests, {gen} tokens in {wall:.2f} s "
+            f"({res['tok_s']:.1f} tok/s), {res['ticks']} ticks"
+            + (f"; spec_stats {res['spec_stats']}, every greedy token "
+               f"the plain tick's argmax given the same prefix but "
+               f"{res['forced_near_tie_flips']} near-ties; K8 in the "
+               f"draft ticks {res['k8_in_draft_ticks']}, K9 in paged plain subticks "
+               f"{res['k9_in_plain_subticks']}" if name != "plain" else "")
+            + (f"; {res['preemptions']} preemptions" if "preemptions" in res else "")
+            + f"; launches {launches}")
+        del engine, sched
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_verify_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 16) -> dict:
+    """Phase 4, speculation: one verify sweep (with_hidden) of the depth-2
+    model over B lanes of K+1 rows at mixed positions (3/4 enabled), card
+    (kernels) vs CPU (plain versions) on caches that start random and
+    equal, dense or through shuffled page tables: logits and hidden rows
+    within 1e-2 of max(1, max|.|), the argmax equal on every decided lane
+    row (top two more than twice the tolerance apart)."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.models import fast as M
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.paged import PagedKVPool
+
+    cfg = depth2(cfg)
+    fw2 = first_layers(fw, 2)
+    fw_cpu = fw2.to("cpu")
+    S, T = cfg.max_seq_len, SPEC_K + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    if paged:
+        tables = shuffled_tables(B, S // PAGE, seed=13).numpy()
+        card = PagedKVPool.init(cfg, kv_dtype, 1 + B * (S // PAGE), PAGE, dev)
+        Cache = PagedKVPool
+    else:
+        card = KVCache.init(cfg, kv_dtype, dev, batch=B)
+        Cache = KVCache
+    for t in (card.k, card.v):
+        t.copy_((torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                 * 0.5).to(kv_dtype))
+    cpu = Cache(k=card.k.to("cpu", copy=True), v=card.v.to("cpu", copy=True))
+    rng = np.random.default_rng(14)
+    toks = rng.integers(3, cfg.vocab_size, (B, T))
+    n_on = B - B // 4
+    frac = np.linspace(0.0, 1.0, n_on)
+    pos0 = np.concatenate([(frac * (S - T)).astype(np.int64), np.zeros(B - n_on, np.int64)])
+    enable = np.array([1] * n_on + [0] * (B - n_on))
+    outs = {}
+    for name, w, c in (("cuda", fw2, card), ("cpu", fw_cpu, cpu)):
+        if paged:
+            (lg, hid), _ = M.verify_chunk_fast_batched_paged(cfg, w, toks, pos0, enable, c,
+                                                             tables, page_size=PAGE,
+                                                             with_hidden=True)
+        else:
+            (lg, hid), _ = M.verify_chunk_fast_batched(cfg, w, toks, pos0, enable, c,
+                                                       with_hidden=True)
+        outs[name] = (lg.float().cpu()[:n_on], hid.float().cpu()[:n_on])
+    (g, gh), (c, ch) = outs["cuda"], outs["cpu"]
+    worst = 0.0
+    for what, a, b in (("logits", g, c), ("hidden", gh, ch)):
+        err = float((a - b).abs().max())
+        tol = 1e-2 * max(1.0, float(b.abs().max()))
+        worst = max(worst, err / tol)
+        if err > tol:
+            raise AssertionError(f"verify sweep parity ({'paged' if paged else 'dense'}): "
+                                 f"{what} max |err| {err:.3e} > tol {tol:.3e}")
+    tol = 1e-2 * max(1.0, float(c.abs().max()))
+    top2 = c.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    flips = g.argmax(-1) != c.argmax(-1)
+    if bool((flips & decided).any()):
+        raise AssertionError("verify sweep parity: the argmax differs on a decided row")
+    ties = int((~decided).sum())
+    log(f"  {'paged' if paged else 'dense'} verify sweep (with_hidden), depth 2, {n_on} of {B} "
+        f"lanes x {T} rows, card vs CPU plain: logits and hidden rows agree (worst err/tol "
+        f"{worst:.3f}); argmax equal on all {decided.numel() - ties} decided rows ({ties} "
+        "near-ties)")
+    return dict(lanes=B, enabled=n_on, rows=T, worst_err_over_tol=worst, near_ties=ties)
+
+
+def spec_phases() -> int:
+    """The speculation phases alone, for a short card call: the fp8 path's
+    Mistral-7B weights, then phase_spec (32 layers), phase_spec_serving (8
+    layers) and the verify sweep's depth-2 parity (dense and paged)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from yalm_tpu_torch.ops.cuda import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    cfg = mistral7b()
+    fw = synth_fast_weights(cfg, dev, seed=0)
+    out = {}
+    with phase("phase 3 (fp8 path, bf16 cache): speculation, single stream (32 layers)"):
+        out["spec"] = phase_spec(cfg, fw, dev, torch.bfloat16)
+    lay_s = MISTRAL_SERVING_LAYERS
+    with phase(f"phase 3 (fp8 path, bf16 cache): speculation, serving at batch 16 "
+               f"({lay_s} layers)"):
+        out["spec_serving"] = phase_spec_serving(with_layers(cfg, lay_s),
+                                                 first_layers(fw, lay_s), dev, torch.bfloat16)
+    with phase("phase 4 (fp8 path): the verify sweep's depth-2 parity, card vs CPU"):
+        out["verify_parity"] = phase_verify_parity(cfg, fw, dev, torch.bfloat16)
+        out["verify_paged_parity"] = phase_verify_parity(cfg, fw, dev, torch.bfloat16,
+                                                         paged=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def device_us(prof) -> dict:
     """Device time (us) by name from a torch.profiler run, of the device's
     own events only: the row of an aten op repeats the time of the kernels
@@ -3256,11 +3779,19 @@ def main() -> int:
         summary["fp8"]["paged"] = phase_serving(cfg_s, fw_s, dev, torch.bfloat16, "fp8",
                                                 n_requests=24, http=4,
                                                 paged_pages=PAGED_PAGES)
+    with phase("phase 3 (fp8 path, bf16 cache): speculation, single stream (32 layers)"):
+        summary["fp8"]["spec"] = phase_spec(cfg, fw, dev, torch.bfloat16)
+    with phase(f"phase 3 (fp8 path, bf16 cache): speculation, serving at batch 16 "
+               f"({lay_s} layers)"):
+        summary["fp8"]["spec_serving"] = phase_spec_serving(cfg_s, fw_s, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
         summary["fp8"]["parity"] = phase_parity(cfg, fw, dev, torch.bfloat16)
         summary["fp8"]["batched_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16)
         summary["fp8"]["paged_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16,
                                                               paged=True)
+        summary["fp8"]["verify_parity"] = phase_verify_parity(cfg, fw, dev, torch.bfloat16)
+        summary["fp8"]["verify_paged_parity"] = phase_verify_parity(cfg, fw, dev,
+                                                                    torch.bfloat16, paged=True)
     del fw, fw_s
     torch.cuda.empty_cache()
 

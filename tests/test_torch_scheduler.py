@@ -212,12 +212,13 @@ def test_poisoned_request_isolation_and_recover(model):
     assert queued.error is None and queued.generated == solo.generated
 
 
-@pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_lookup=True),
+@pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_tree=(2,)),
                                 dict(mesh=object())])
 def test_later_slices_raise(model, kw):
-    """Speculation and meshes are later slices and raise; paged KV came
-    with its slice and serves (tests/test_torch_paged.py holds its streams
-    to the JAX paged scheduler's)."""
+    """Tree-attention Medusa and meshes are later slices and raise; paged KV
+    came with its slice and serves (tests/test_torch_paged.py holds its
+    streams to the JAX paged scheduler's; tests/test_torch_spec_scheduler.py
+    the chain speculation's)."""
     _, _, tw, cfg = model
     if "paged_pages" in kw:
         sched = Scheduler(cfg, tw, device="cpu", **kw)

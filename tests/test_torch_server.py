@@ -185,10 +185,18 @@ def test_server_paged(ckpt):
                                   ["--spec-lookup"], ["--spec-k", "4"], ["--medusa"],
                                   ["--medusa-tree", "4,2"], ["--mesh", "1,1,2"],
                                   ["--distributed"]])
-def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch):
-    """The flags of later slices are refused; --paged-pages came with its
-    slice and starts a paged server (stopped here at once)."""
-    if flag[0] == "--paged-pages":
+def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch, tmp_path):
+    """The flags of later slices are refused (--medusa-tree, --mesh,
+    --distributed); --paged-pages and the chain speculation flags (--draft,
+    here the checkpoint drafting for itself, --spec-lookup, --spec-k,
+    --medusa on a checkpoint with heads) came with their slices and start a
+    server (stopped here at once) whose scheduler is in that mode."""
+    if flag[0] == "--medusa":
+        med = str(tmp_path / "med.yalm")
+        synth_checkpoint(med, tiny_config(**fast_kw(max_seq_len=128)), seed=4, medusa_heads=3)
+        ckpt = med
+    flag = [ckpt if a == "d.yalm" else a for a in flag]
+    if flag[0] in ("--paged-pages", "--draft", "--spec-lookup", "--spec-k", "--medusa"):
         started = []
 
         def serve(engine, host, port):
@@ -202,8 +210,20 @@ def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch):
         monkeypatch.setattr(srv, "serve", serve)
         srv.main([ckpt, "--device", "cpu", "--port", "0", *flag])
         sched = started[0].sched
-        assert sched.paged and sched.alloc.n_pages == 9 and sched.page_size == 16
-        assert "9 pages of 16" in capsys.readouterr().out
+        out = capsys.readouterr().out
+        if flag[0] == "--paged-pages":
+            assert sched.paged and sched.alloc.n_pages == 9 and sched.page_size == 16
+            assert "9 pages of 16" in out and not sched.spec
+        elif flag[0] == "--spec-k":   # no proposal source: plain serving, K kept
+            assert not sched.spec and sched.spec_k == 4
+        else:
+            mode = {"--draft": "draft", "--spec-lookup": "lookup", "--medusa": "medusa"}[flag[0]]
+            assert sched.spec and f"spec={mode} k=" in out
+            assert (sched.draft_cfg is not None, sched.spec_lookup,
+                    sched.spec_medusa is not None) == tuple(m == mode for m in
+                                                            ("draft", "lookup", "medusa"))
+            if mode == "medusa":
+                assert sched.spec_k == 3   # clamped to the head count
         return
     with pytest.raises(SystemExit) as e:
         srv.main([ckpt, "--device", "cpu", *flag])

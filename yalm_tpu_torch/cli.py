@@ -12,10 +12,17 @@ Usage: python -m yalm_tpu_torch.cli <checkpoint.yalm> [options]
   -s <int>       RNG seed
   -k <int>       top-k sampling cut (0 = full vocab)
   -p <float>     nucleus (top-p) sampling cut (1.0 = off)
+  -D <path>      DRAFT checkpoint: speculative completion (the draft
+                 proposes, this model verifies; greedy at -t 0, the target's
+                 exact distribution by rejection sampling at -t > 0)
+  -K <int>       speculative draft/lookup length (default 4)
+  -u             Medusa self-drafting speculation (checkpoint needs heads)
+  -L             prompt-LOOKUP speculative completion (no draft model:
+                 proposals continue the most recent earlier occurrence of
+                 the trailing n-gram)
   -C f16|bf16|fp8   KV-cache dtype (f16 and bf16 run as bf16; fp8 is the
                  e5m2 cache, half the cache bytes)
-The JAX CLI's speculation flags (-D, -K, -u, -L) and device meshes (-M)
-are not in this slice of the port and are refused.
+The JAX CLI's device meshes (-M) are not in the port and are refused.
 """
 
 from __future__ import annotations
@@ -32,9 +39,7 @@ def error_usage(msg: str = "") -> None:
     raise SystemExit(1)
 
 
-_LATER = {"D": "speculative decoding", "K": "speculative decoding",
-          "u": "Medusa speculation", "L": "prompt-lookup speculation",
-          "M": "device meshes"}
+_LATER = {"M": "device meshes"}
 
 
 def _parse_args(argv: list[str]) -> dict:
@@ -44,7 +49,8 @@ def _parse_args(argv: list[str]) -> dict:
         "checkpoint": argv[0], "device": "cuda", "mode": "completion",
         "prompt": None, "prompt_path": None, "context": 0, "num_steps": 256,
         "temperature": 1.0, "n_junk": 250, "passkey_pos": -1, "seed": None,
-        "top_k": 0, "top_p": 1.0, "kv": "bf16",
+        "top_k": 0, "top_p": 1.0, "kv": "bf16", "draft": None, "n_draft": 4,
+        "lookup": False, "medusa": False,
     }
     i = 1
 
@@ -98,6 +104,13 @@ def _parse_args(argv: list[str]) -> dict:
             opts["top_k"] = int(need(i))
         elif c == "p":
             opts["top_p"] = float(need(i))
+        elif c == "D":
+            opts["draft"] = need(i)
+        elif c == "K":
+            opts["n_draft"] = int(need(i))
+        elif c in "Lu":
+            opts["lookup" if c == "L" else "medusa"] = True
+            i -= 1   # the flag takes no value
         elif c == "C":
             v = need(i)
             if v not in ("f16", "bf16", "fp8"):
@@ -109,12 +122,12 @@ def _parse_args(argv: list[str]) -> dict:
     return opts
 
 
-def _build_engine(opts):
+def _build_engine(opts, path=None):
     import torch
 
     from .engine import Engine
     kv = torch.float8_e5m2 if opts["kv"] == "fp8" else torch.bfloat16   # f16 runs as bf16
-    return Engine.from_checkpoint(opts["checkpoint"], context=opts["context"],
+    return Engine.from_checkpoint(path or opts["checkpoint"], context=opts["context"],
                                   device=opts["device"], kv_dtype=kv)
 
 
@@ -157,9 +170,23 @@ def run_completion(opts) -> None:
     prev = encoding[-1]
     n_generated = 0
     stop = {eng.tokenizer.eos_id, eng.tokenizer.eot_id}
-    stream = eng.generate([], max_steps=num_steps, temperature=opts["temperature"],
-                          seed=opts["seed"], stop_tokens=stop,
-                          top_k=opts["top_k"], top_p=opts["top_p"])
+    spec = dict(max_steps=num_steps, stop_tokens=stop, temperature=opts["temperature"],
+                seed=opts["seed"])
+    if opts["draft"]:
+        # greedy at -t 0, rejection-sampled (the target's distribution) at -t > 0
+        draft = _build_engine(opts, opts["draft"])
+        draft.prefill_tokens(encoding, want_logits=False)
+        stream = eng.generate_speculative([], draft=draft, n_draft=opts["n_draft"], **spec)
+    elif opts["lookup"]:
+        # the hydrated prompt seeds the n-gram history
+        stream = eng.generate_speculative([], draft=None, n_draft=opts["n_draft"],
+                                          hist_tokens=encoding, **spec)
+    elif opts["medusa"]:
+        stream = eng.generate_medusa([], **spec)
+    else:
+        stream = eng.generate([], max_steps=num_steps, temperature=opts["temperature"],
+                              seed=opts["seed"], stop_tokens=stop,
+                              top_k=opts["top_k"], top_p=opts["top_p"])
     for token in stream:
         out.write(eng.tokenizer.decode_one(prev, token))
         out.flush()
@@ -176,6 +203,13 @@ def run_completion(opts) -> None:
           f"  hydrate: {hydrate_s:.5}s\n"
           f"  bandwidth: {read_bytes/1e9/elapsed:.5}GB/s\n"
           f"  total: {elapsed:.5}s\n")
+    st = eng._spec_stats
+    if (opts["draft"] or opts["lookup"] or opts["medusa"]) and st and st["rounds"]:
+        print(f"Speculative stats: {st['rounds']} verify rounds, "
+              f"{st['accepted'] / st['rounds']:.2f} draft tokens "
+              f"accepted/round (of {opts['n_draft']})"
+              + (f", {st['plain']} plain steps (no n-gram match)" if "plain" in st else "")
+              + "\n")
 
 
 def run_perplexity(opts) -> None:

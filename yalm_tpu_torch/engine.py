@@ -6,6 +6,12 @@ the context window and token by token in the ring-buffer regime beyond it;
 decode runs one `decode_step_fast` per token and samples on the device.
 PyTorch runs eagerly, so there is no compilation: each step launches the
 kernels directly, and the KV cache is updated in place.
+
+Speculative decoding (engine.py:506-904): a draft engine's K+1 decode
+steps, prompt lookup (spec.py) or the checkpoint's Medusa heads (medusa.py)
+propose K tokens, and one chunked forward of [cur, d0..d_{K-1}] verifies
+them; greedy streams are the target's greedy stream, sampled ones its
+temperature distribution (rejection sampling).
 """
 
 from __future__ import annotations
@@ -19,9 +25,11 @@ import torch
 from .codec.format import read_yalm
 from .config import ModelConfig
 from .models.cache import KVCache
+from .medusa import MedusaWeights, load_medusa_weights, medusa_propose
 from .models.fast import (FastWeights, decode_step_fast, fast_unsupported,
                           load_fast_weights, prefill_fast)
 from .sampler import logprob_of, sample_ext
+from .spec import NgramHistory, pointmass_rejection_verify
 from .tokenizer import Tokenizer
 
 # Prefill chunk buckets: prompts are processed in full chunks of the largest
@@ -34,6 +42,43 @@ def _bucket_for(n: int) -> int:
         if n <= b:
             return b
     return PREFILL_BUCKETS[-1]
+
+
+def _softmax_T(logits: np.ndarray, T: float) -> np.ndarray:
+    z = logits.astype(np.float64) / max(T, 1e-8)
+    z -= z.max()
+    e = np.exp(z)
+    return e / e.sum()
+
+
+def rejection_sample_verify(rng, T: float, t_lg: np.ndarray, d: list[int], d_lg: np.ndarray):
+    """Speculative rejection-sampling acceptance (Leviathan et al.,
+    arXiv:2211.17192; engine.py:59-86). t_lg: target logits rows 0..K (row
+    i scores the token after the i-length accepted prefix); d: the K draft
+    proposals; d_lg: the draft's logits for each proposal. Returns (emitted,
+    accepted): emitted has accepted+1 tokens whose joint distribution equals
+    target-only temperature sampling. Draws exactly what the JAX function
+    draws from the same numpy Generator."""
+    K = len(d)
+    a = 0
+    emitted: list[int] = []
+    for i in range(K):
+        p = _softmax_T(t_lg[i], T)
+        q = _softmax_T(d_lg[i], T)
+        x = d[i]
+        if rng.random() < min(1.0, p[x] / max(q[x], 1e-300)):
+            emitted.append(x)
+            a += 1
+            continue
+        res = np.clip(p - q, 0.0, None)
+        z = res.sum()
+        tok = int(rng.choice(len(res), p=res / z)) if z > 0 else int(p.argmax())
+        emitted.append(tok)
+        break
+    else:
+        pK = _softmax_T(t_lg[K], T)
+        emitted.append(int(rng.choice(len(pK), p=pK)))
+    return emitted, a
 
 
 def attend_bucket(pos_end: int, window: int) -> int:
@@ -101,6 +146,8 @@ class Engine:
         self.cache = KVCache.init(cfg, kv_dtype, self.device)
         self.pos = 0          # next absolute position to be written
         self._last_logits: Optional[torch.Tensor] = None
+        self.medusa: Optional[MedusaWeights] = None   # the checkpoint's heads, if any
+        self._spec_stats: Optional[dict] = None
 
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, device="cuda",
@@ -111,9 +158,13 @@ class Engine:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
             weights = load_fast_weights(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
+            eng = cls(cfg, weights, tok, device=dev, **kw)
+            if "medusa_heads" in yf.metadata:
+                # self-drafting heads ride the checkpoint; small beside the model
+                eng.medusa = load_medusa_weights(yf, cfg, dev)
         finally:
             yf.close()  # the weights were copied out of the mapping
-        return cls(cfg, weights, tok, device=dev, **kw)
+        return eng
 
     # ------------------------------------------------------------------
     def reset(self) -> None:
@@ -215,6 +266,228 @@ class Engine:
                 steps += 1
                 if t in stop or (max_steps != -1 and steps >= max_steps):
                     return
+
+    # ------------------------------------------------------------------
+    # speculative decoding (engine.py:506-904)
+    def _decode_block(self, token, n: int, temperature: float = 0.0,
+                      gen: Optional[torch.Generator] = None, want_logits: bool = False):
+        """n decode steps from `token` at self.pos, each token picked on the
+        device (argmax at temperature 0, else drawn at the temperature with
+        no top-k/top-p cut) and read back once at the end; with want_logits
+        also every step's logits (n, vocab). The draft's side of
+        speculation (JAX's _decode_block / _decode_block_logits)."""
+        out = torch.empty(n, dtype=torch.long, device=self.device)
+        lgs = []
+        tok = token
+        for i in range(n):
+            logits = self._step(tok)
+            tok = sample_ext(logits, gen, temperature).reshape(1)
+            out[i:i + 1] = tok
+            if want_logits:
+                lgs.append(logits)
+        return out.tolist(), (torch.stack(lgs) if want_logits else None)
+
+    def _spec_start(self, prompt_tokens, temperature: float, seed, stats: dict):
+        """A speculative stream's start: prefill the prompt, seed the numpy
+        Generator of the acceptance rules and the device generator of the
+        draws, and pick the first token from the prompt's logits (argmax at
+        T 0, else drawn from the numpy Generator as the JAX engine draws
+        it). Returns (T, rng, gen, first token)."""
+        self._spec_stats = stats
+        self.prefill_tokens(prompt_tokens, want_logits=True)
+        if self._last_logits is None:
+            raise RuntimeError("speculation needs a prompt or a hydrated cache with logits")
+        T = float(temperature)
+        rng = np.random.default_rng(seed if seed is not None else 0)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed if seed is not None else 0)
+        if T == 0.0:
+            return T, rng, gen, int(torch.argmax(self._last_logits))
+        p0 = _softmax_T(self._last_logits.float().cpu().numpy(), T)
+        return T, rng, gen, int(rng.choice(len(p0), p=p0))
+
+    def _plain_tail(self, cur: int, T: float, gen, steps: int, max_steps: int, stop,
+                    draft: Optional["Engine"] = None) -> Iterator[int]:
+        """Plain decode from the speculation edge on: the ring regime cannot
+        roll back a rejection."""
+        while max_steps == -1 or steps < max_steps:
+            self._last_logits = self._step(cur)
+            if draft is not None:
+                draft.pos += 1   # kept in step; the draft is not used past here
+            cur = int(sample_ext(self._last_logits, gen, T))
+            yield cur
+            steps += 1
+            if cur in stop:
+                return
+
+    def _verify(self, cur: int, d: list[int], bucket: int, mode: str = "all"):
+        """The target's verify chunk [cur] + d at self.pos in ONE chunked
+        forward (rows 0..len(d) score the token after each accepted prefix).
+        Returns (logits (bucket, vocab), hidden rows or None, pos0); the
+        caller rewinds self.pos past the accepted prefix."""
+        pos0 = self.pos
+        out = self._prefill([cur] + list(d), len(d) + 1, bucket, mode)
+        logits, hidden = out if mode == "all_h" else (out, None)
+        return logits, hidden, pos0
+
+    @staticmethod
+    def _greedy_accept(t_lg: torch.Tensor, d: list[int]) -> tuple[list[int], int]:
+        """The longest prefix of d that agrees with the target's argmax rows,
+        then the target's own next token."""
+        t = torch.argmax(t_lg[:len(d) + 1], dim=-1).tolist()
+        a = 0
+        while a < len(d) and d[a] == t[a]:
+            a += 1
+        return [int(x) for x in d[:a]] + [int(t[a])], a
+
+    def _spec_loop(self, cur: int, T: float, rng, gen, K: int, propose, *, max_steps: int,
+                   stop_tokens: Sequence[int], draft: Optional["Engine"] = None,
+                   mode: str = "all", emitted_to=None) -> Iterator[int]:
+        """The speculation rounds shared by the three proposal sources, from
+        the first token `cur` on. propose(cur, hidden) gives (d, d_lg): the
+        K proposals (a draft's, with its logits when sampling; [] runs a
+        1-token chunk; None one plain step) from the token after the
+        accepted prefix and, in mode "all_h", that row's post-final-norm
+        hidden row. ONE chunked forward verifies [cur] + d; at T 0 the
+        stream is the target's greedy one, else rejection sampling against
+        the draft's logits or the point mass. Rows past the accepted prefix
+        are abandoned, not cleared (pos is rewound, the draft's too); at the
+        window edge (the target's or the draft's, whichever is smaller) it
+        falls back to plain steps. emitted_to(tokens) sees every token
+        emitted after cur."""
+        stats = self._spec_stats
+        stop = set(int(s) for s in stop_tokens)
+        steps = 1
+        yield cur
+        if cur in stop:
+            return
+        # the verify chunk holds K+1 tokens: [cur] + the K proposals
+        bucket = _bucket_for(K + 1)
+        # a draft's window binds too: its ring regime rotates sink keys,
+        # which a rejection cannot undo
+        edge = min(self.cfg.max_seq_len, draft.cfg.max_seq_len if draft else self.cfg.max_seq_len)
+        hidden = None
+        while max_steps == -1 or steps < max_steps:
+            if self.pos + bucket >= edge:
+                yield from self._plain_tail(cur, T, gen, steps, max_steps, stop, draft)
+                return
+            d, d_lg = propose(cur, hidden)
+            if d is None:   # nothing to propose: one plain step
+                stats["plain"] += 1
+                self._last_logits = self._step(cur)
+                emitted = [int(sample_ext(self._last_logits, gen, T))]
+            else:
+                all_logits, all_h, pos0 = self._verify(cur, d, bucket, mode)
+                if T == 0.0:
+                    emitted, a = self._greedy_accept(all_logits, d)
+                elif d_lg is not None:
+                    emitted, a = rejection_sample_verify(
+                        rng, T, all_logits[:K + 1].float().cpu().numpy(), d,
+                        d_lg[:K].float().cpu().numpy())
+                else:
+                    emitted, a = pointmass_rejection_verify(
+                        rng, T, all_logits[:len(d) + 1].float().cpu().numpy(), d)
+                if d:
+                    for k, n in (("rounds", 1), ("proposed", len(d)), ("accepted", a)):
+                        if k in stats:
+                            stats[k] += n
+                else:
+                    stats["plain"] += 1
+                # rows pos0..pos0+a hold [cur, d0..d_{a-1}]; the next round's
+                # forwards write the row of emitted[-1]
+                self.pos = pos0 + a + 1
+                if draft is not None:
+                    draft.pos = self.pos
+                self._last_logits = all_logits[a]
+                hidden = None if all_h is None else all_h[a]
+            if emitted_to is not None:
+                emitted_to(emitted)
+            for tok in emitted:
+                yield int(tok)
+                steps += 1
+                if tok in stop or (max_steps != -1 and steps >= max_steps):
+                    return
+            cur = emitted[-1]
+
+    def generate_speculative(self, prompt_tokens: Sequence[int], *,
+                             draft: Optional["Engine"] = None, n_draft: int = 4,
+                             max_steps: int = 256, stop_tokens: Sequence[int] = (),
+                             temperature: float = 0.0, seed: int | None = None,
+                             ngram_max: int = 3,
+                             hist_tokens: Sequence[int] | None = None) -> Iterator[int]:
+        """Speculative decoding: the DRAFT engine proposes n_draft tokens per
+        round (K+1 decode steps) and this engine verifies them in ONE chunked
+        forward, so one target weight sweep yields up to n_draft+1 tokens.
+        draft=None proposes by prompt lookup instead (_generate_prompt_lookup;
+        hist_tokens seeds its n-gram history with context already in the
+        cache).
+
+        temperature 0: the target's greedy stream exactly (acceptance is
+        argmax agreement). temperature > 0: rejection sampling (Leviathan et
+        al.): the draft samples x_i ~ q_i, the target accepts w.p.
+        min(1, p_i(x_i)/q_i(x_i)) and on rejection draws the normalised
+        residual max(p_i - q_i, 0), so the stream is distributed as the
+        target's own temperature sampling (no top-k/top-p)."""
+        if draft is None:
+            yield from self._generate_prompt_lookup(
+                prompt_tokens, n_draft=n_draft, max_steps=max_steps, stop_tokens=stop_tokens,
+                temperature=temperature, seed=seed, ngram_max=ngram_max,
+                hist_tokens=hist_tokens)
+            return
+        T, rng, gen, cur = self._spec_start(prompt_tokens, temperature, seed,
+                                            {"rounds": 0, "accepted": 0})
+        draft.prefill_tokens(prompt_tokens, want_logits=False)
+        K = min(max(1, int(n_draft)), PREFILL_BUCKETS[-1] - 1)
+
+        def propose(cur, _):
+            # the draft's (K+1)-th step writes the row for d[K-1], which
+            # full acceptance keeps visible
+            d_all, d_lg = draft._decode_block(cur, K + 1, T, gen, want_logits=T > 0)
+            return d_all[:K], d_lg
+        yield from self._spec_loop(cur, T, rng, gen, K, propose, max_steps=max_steps,
+                                   stop_tokens=stop_tokens, draft=draft)
+
+    def _generate_prompt_lookup(self, prompt_tokens: Sequence[int], *, n_draft: int = 4,
+                                max_steps: int = 256, stop_tokens: Sequence[int] = (),
+                                temperature: float = 0.0, seed: int | None = None,
+                                ngram_max: int = 3,
+                                hist_tokens: Sequence[int] | None = None) -> Iterator[int]:
+        """Prompt-lookup speculation (engine.py:678-794): proposals continue
+        the most recent earlier occurrence of the history's trailing n-gram
+        (spec.NgramHistory), verified by the same chunked forward; a round
+        with no match runs one plain step. T=0 emits the greedy stream, T>0
+        uses point-mass rejection sampling (spec.pointmass_rejection_verify)."""
+        T, rng, gen, cur = self._spec_start(
+            prompt_tokens, temperature, seed,
+            {"rounds": 0, "accepted": 0, "proposed": 0, "plain": 0})
+        hist = NgramHistory([int(t) for t in (hist_tokens or [])]
+                            + [int(t) for t in prompt_tokens] + [cur], max_ngram=ngram_max)
+        K = min(max(1, int(n_draft)), PREFILL_BUCKETS[-1] - 1)
+        yield from self._spec_loop(cur, T, rng, gen, K, lambda cur, _: (hist.propose(K) or None,
+                                                                        None),
+                                   max_steps=max_steps, stop_tokens=stop_tokens,
+                                   emitted_to=hist.extend)
+
+    def generate_medusa(self, prompt_tokens: Sequence[int], *, max_steps: int = 256,
+                        stop_tokens: Sequence[int] = (), temperature: float = 0.0,
+                        seed: int | None = None) -> Iterator[int]:
+        """Medusa self-drafting speculation (engine.py:796-904): the
+        checkpoint's H heads read the post-final-norm hidden row of the last
+        accepted position, which the previous verify forward returned (the
+        first round runs a 1-token chunk to get it), and propose the next H
+        tokens; the chunked forward verifies them. Point-mass proposals: the
+        greedy stream at T=0, the target's temperature distribution at T>0."""
+        mw = self.medusa
+        if mw is None:
+            raise ValueError("checkpoint has no medusa heads (metadata medusa_heads)")
+        T, rng, gen, cur = self._spec_start(
+            prompt_tokens, temperature, seed,
+            {"rounds": 0, "accepted": 0, "proposed": 0, "plain": 0})
+        K = min(mw.n_heads, PREFILL_BUCKETS[-1] - 1)
+        yield from self._spec_loop(
+            cur, T, rng, gen, K,
+            lambda cur, h: ([] if h is None else medusa_propose(mw, h)[:K].tolist(), None),
+            max_steps=max_steps, stop_tokens=stop_tokens, mode="all_h")
 
     # ------------------------------------------------------------------
     def perplexity(self, tokens: Sequence[int]) -> tuple[float, float, int]:

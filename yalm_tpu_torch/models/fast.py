@@ -4,7 +4,9 @@ for the continuous-batching scheduler (`decode_step_fast_batched`: one tick
 for B lanes of a batched cache; `prefill_chunk_fast_batched`: every
 admitting lane's next prompt chunk in one weight sweep), and the same over a
 paged KV pool (`decode_step_fast_batched_paged`, `prefill_fast_paged`,
-`prefill_chunk_fast_batched_paged`; models/paged.py).
+`prefill_chunk_fast_batched_paged`; models/paged.py), and the verify
+sweep of scheduler speculation (`verify_chunk_fast_batched[_paged]`: every
+lane's K+1-row chunk in one weight sweep).
 
 One decode step per token: embedding gather, then per layer the attention
 block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
@@ -605,7 +607,7 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
     if S % 8 or S > L or pos0 + T > S or not 0 < valid_len <= T:
         raise ValueError(f"{what}: chunk {pos0}+{T} (valid {valid_len}) "
                          f"vs attend_len {S}, window {L}")
-    if logits_mode not in ("none", "last", "all"):
+    if logits_mode not in ("none", "last", "all", "all_h"):
         raise ValueError(f"bad logits_mode {logits_mode!r}")
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qpk = Hq // Hk
@@ -652,7 +654,9 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
         xl = rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps)
         return _cap_logits(cfg, gemv(xl, fw.lm_head, sc.lm_head if sc else None))
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
+    logits = _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
+    # "all_h": the post-final-norm rows beside the logits (Medusa's heads read them)
+    return (logits, xn) if logits_mode == "all_h" else logits
 
 
 def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
@@ -664,7 +668,8 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
     bounds the attention width; it must cover pos0 + T.
 
     logits_mode: "none" -> None; "last" -> (vocab,) logits of the last valid
-    token; "all" -> (T, vocab)."""
+    token; "all" -> (T, vocab); "all_h" -> ((T, vocab) logits, (T, dim)
+    post-final-norm hidden rows), the rows Medusa's heads read."""
     S = attend_len or cfg.max_seq_len
     out = _prefill_forward(cfg, fw, tokens, pos0, valid_len, attend_len,
                            lambda i: (cache.k[i], cache.v[i]),
@@ -841,7 +846,7 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
                      or (vlen[en] < 0).any() or (vlen[en] > T).any()):
         raise ValueError(f"{what}: chunks at {p0[en].tolist()} of {T} rows "
                          f"(valid {vlen[en].tolist()}) vs attend_len {S}")
-    if logits_mode not in ("none", "lastv", "all"):
+    if logits_mode not in ("none", "lastv", "all", "all_h"):
         raise ValueError(f"bad logits_mode {logits_mode!r}")
     Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     qpk = Hq // Hk
@@ -885,7 +890,10 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
         xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
         return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None)).reshape(Bn, T, -1)
+    logits = _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None)).reshape(Bn, T, -1)
+    if logits_mode == "all_h":   # plus the post-final-norm rows (fast.py:1422-1425)
+        return logits, xn.reshape(Bn, T, -1)
+    return logits
 
 
 def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len,
@@ -901,8 +909,8 @@ def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, 
     every enabled lane's pos0 + T.
 
     logits_mode: "lastv" -> (B, vocab) logits of each lane's last valid
-    row; "none" -> None; "all" -> (B, T, vocab). ("all_h", Medusa's, comes
-    with speculation.)"""
+    row; "none" -> None; "all" -> (B, T, vocab); "all_h" -> ((B, T, vocab)
+    logits, (B, T, dim) post-final-norm hidden rows)."""
     Bn = np.asarray(tokens).shape[0]
     if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
         raise ValueError(f"prefill_chunk_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
@@ -913,6 +921,26 @@ def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, 
                          lambda li, slots: (torch.as_tensor(li, device=dev),
                                             torch.as_tensor(slots, device=dev)),
                          lambda c: c[:, :S], logits_mode, "prefill_chunk_fast_batched")
+    return out, cache
+
+
+def verify_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, enable,
+                              cache: KVCache, *, with_hidden: bool = False, attend_len: int = 0
+                              ) -> tuple:
+    """The verify sweep of scheduler speculation (fast.py:1041-1066): ONE
+    weight sweep scores every enabled lane's T-row chunk [cur, d0..d_{T-2}]
+    at its own pos0 (host values) and writes all T rows of the lane into
+    the batched cache IN PLACE; disabled lanes compute from slot 0 and write
+    nothing. Row (b, i) of the logits (B, T, vocab) answers "what follows
+    tokens[b, :i+1]". Enabled lanes need pos0 + T <= the window (the
+    scheduler's speculation edge). with_hidden: ((logits, hidden (B, T,
+    dim)), cache), the post-final-norm rows Medusa's heads read.
+    attend_len (0 = the window, as the JAX package) bounds the attention
+    width; it must cover every enabled lane's pos0 + T."""
+    T = np.asarray(tokens).shape[1]
+    out, cache = prefill_chunk_fast_batched(
+        cfg, fw, tokens, pos0, np.full(np.asarray(tokens).shape[0], T), enable, cache,
+        attend_len=attend_len, logits_mode="all_h" if with_hidden else "all")
     return out, cache
 
 
@@ -949,3 +977,17 @@ def prefill_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, 
                          lambda c: gather_pages(c, tab[:, :nb])[:, :S], logits_mode,
                          "prefill_chunk_fast_batched_paged")
     return out, pool
+
+
+def verify_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0, enable,
+                                    pool: PagedKVPool, tables, *, page_size: int = 256,
+                                    with_hidden: bool = False, attend_len: int = 0) -> tuple:
+    """verify_chunk_fast_batched over a PAGED pool (fast.py:1625-1650): the
+    chunk rows scatter through the lanes' page tables (a chunk may straddle
+    pages). Enabled lanes need their pages mapped through pos0 + T (the
+    scheduler's _ensure_pages)."""
+    T = np.asarray(tokens).shape[1]
+    return prefill_chunk_fast_batched_paged(
+        cfg, fw, tokens, pos0, np.full(np.asarray(tokens).shape[0], T), enable, pool, tables,
+        page_size=page_size, attend_len=attend_len,
+        logits_mode="all_h" if with_hidden else "all")

@@ -83,11 +83,17 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def uniform_rows(seeds: torch.Tensor, positions: torch.Tensor, V: int) -> torch.Tensor:
+def uniform_rows(seeds: torch.Tensor, positions: torch.Tensor, V: int,
+                 purpose: int = 0) -> torch.Tensor:
     """(B, V) f32 uniforms in (0, 1), each a function of (seed, position,
-    vocabulary index) alone: 24 hashed bits per value."""
+    purpose, vocabulary index) alone: 24 hashed bits per value. Purpose 0 is
+    the plain tick's draw; speculation's verify draws its accept uniform,
+    residual and bonus from purposes 1, 2 and 3 (independent streams, as
+    the JAX scheduler folds 1/2/3 into its key, scheduler.py:178-186)."""
     dev = seeds.device
     key = _fmix32(_fmix32(seeds.long() & _M32) ^ (positions.long() & _M32))
+    if purpose:
+        key = _fmix32((key + purpose * 0x9E3779B9) & _M32)
     idx = _fmix32(torch.arange(V, dtype=torch.int64, device=dev) * 2 + 1)
     bits = _fmix32(key[:, None] ^ idx[None, :]) >> 8
     return (bits.float() + 0.5) * (1.0 / (1 << 24))

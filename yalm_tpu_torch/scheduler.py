@@ -29,9 +29,19 @@
   admission, dense and paged) through one all-expert FFN
   (`models/fast.py:_moe_ffn_batched`), so their streams agree; ring
   hydration of a dense lane routes its token's experts alone.
+- Speculation (chain forms, scheduler.py:1636-1826): each round a proposal
+  source -- a draft model's K+1 batched greedy ticks on its own dense
+  batched cache (`spec_draft`), per-lane prompt lookup (`spec_lookup`) or
+  the target's Medusa heads (`spec_medusa`) -- gives every eligible lane a
+  chunk [cur, d0..d_{K-1}], ONE batched target sweep verifies them all
+  (`verify_chunk_fast_batched[_paged]`), and `_verify_pack` accepts on the
+  device (argmax agreement at T 0, exact point-mass rejection sampling at
+  T > 0 within the request's top-k/top-p envelope) into one small read per
+  round. Lanes near the window edge, and lookup lanes with no match, take a
+  plain subtick. Composes with the paged pool and MoE targets.
 
-Speculation (`spec_*`) and meshes come in later slices of the port
-(ROADMAP.md) and raise NotImplementedError.
+Tree-attention Medusa (`spec_tree`) and meshes come in later slices of the
+port (ROADMAP.md) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,14 +53,18 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
-from .engine import PREFILL_BUCKETS, _bucket_for, attend_bucket, resolve_device
+from .engine import (PREFILL_BUCKETS, _bucket_for, attend_bucket, chunk_schedule,
+                     resolve_device)
+from .medusa import MedusaWeights, medusa_propose_rows
 from .models.cache import KVCache
 from .models.fast import (FastWeights, decode_step_fast, decode_step_fast_batched,
                           decode_step_fast_batched_paged, fast_unsupported,
                           prefill_chunk_fast_batched, prefill_chunk_fast_batched_paged,
-                          prefill_fast, prefill_fast_paged)
+                          prefill_fast, prefill_fast_paged, verify_chunk_fast_batched,
+                          verify_chunk_fast_batched_paged)
 from .models.paged import PageAllocator, PagedKVPool
-from .sampler import sample_rows
+from .sampler import _envelope, sample_rows, uniform_rows
+from .spec import NgramHistory
 
 _NBIAS = 16  # static per-request logit_bias capacity (OpenAI logit_bias)
 
@@ -93,6 +107,87 @@ def _unpack_sample(packed: torch.Tensor, topn: int = 0):
     per_lane = [[(int(arr[2 + k, b]), float(arr[2 + topn + k, b])) for k in range(topn)]
                 for b in range(arr.shape[1])]
     return nxt, lps, per_lane
+
+
+def _verify_pack(logits, chunk, seeds, positions, temps, topks, topps, topn: int = 0,
+                 envelope: bool = True) -> torch.Tensor:
+    """A verify sweep's acceptance on the device (scheduler.py:115-209), so
+    the host reads (B, K+1, 6 + 2*topn) f32 instead of the (B, K+1, vocab)
+    logits. Every proposal is a point mass (greedy draft ticks, n-grams,
+    Medusa's argmax), so exact rejection sampling (Leviathan et al.) accepts
+    proposal x = chunk[:, i+1] w.p. p_T(x); a rejection draws from p_T with
+    x masked out; if every proposal lands, the bonus draws from p_T at the
+    last verified row. p_T is the request's temperature distribution within
+    its top-k/top-p envelope (sampler._envelope; `envelope` False skips the
+    sort where no lane has one). Temperature-0 lanes accept on argmax
+    agreement and take the argmax. The accept uniform, the residual and
+    the bonus come from the request's own (seed, row position) streams of
+    purposes 1, 2 and 3 (sampler.uniform_rows), never the plain tick's.
+
+    Columns: [0] accept flag, [1] logprob of the proposed token, [2]
+    residual id, [3] its logprob, [4] bonus id, [5] its logprob, then topn
+    top ids and topn top logprobs of each row; logprobs under the full,
+    temperature-independent distribution (as _sample_pack's row 1)."""
+    B, K1, V = logits.shape
+    dev = logits.device
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)                                  # (B, K+1)
+    prop = torch.cat([chunk[:, 1:], chunk[:, :1]], dim=1).long()       # (B, K+1)
+    lp_c = torch.gather(lg, -1, prop[..., None])[..., 0] - lse
+    greedy_t = torch.argmax(lg, dim=-1)
+    temp = temps.float().clamp_min(1e-6)[:, None].expand(B, K1)
+    if envelope:
+        cut = _envelope(lg, temp, topks.long()[:, None].expand(B, K1),
+                        topps.float()[:, None].expand(B, K1))
+        scaled = cut / temp[..., None]
+    else:
+        scaled = lg / temp[..., None]
+    lse_T = torch.logsumexp(scaled, dim=-1)
+    lp_T_x = torch.gather(scaled, -1, prop[..., None])[..., 0] - lse_T
+    rowpos = (positions.long()[:, None] + torch.arange(K1, device=dev)[None]).reshape(-1)
+    rseeds = seeds.long()[:, None].expand(B, K1).reshape(-1)
+
+    def gumbel(purpose):
+        return -torch.log(-torch.log(uniform_rows(rseeds, rowpos, V, purpose))).reshape(B, K1, V)
+    u = uniform_rows(rseeds, rowpos, 1, 1).reshape(B, K1)
+    sampled = (temps > 0)[:, None]
+    acc = torch.where(sampled, u < torch.exp(lp_T_x), prop == greedy_t)
+    masked = scaled.scatter(-1, prop[..., None], float("-inf"))
+    res = torch.argmax(masked + gumbel(2), dim=-1)
+    # if the mask emptied the support, acceptance fired w.p. ~1 anyway
+    res = torch.where(torch.isfinite(masked.amax(-1)), res, greedy_t)
+    bon = torch.argmax(scaled + gumbel(3), dim=-1)
+    res = torch.where(sampled, res, greedy_t)
+    bon = torch.where(sampled, bon, greedy_t)
+    res_lp = torch.gather(lg, -1, res[..., None])[..., 0] - lse
+    bon_lp = torch.gather(lg, -1, bon[..., None])[..., 0] - lse
+    cols = [acc.float(), lp_c, res.float(), res_lp, bon.float(), bon_lp]
+    if topn:
+        tv, ti = torch.topk(lg, topn, dim=-1)                          # (B, K+1, n)
+        cols += [ti[..., k].float() for k in range(topn)] + [tv[..., k] - lse
+                                                              for k in range(topn)]
+    return torch.stack(cols, dim=-1)
+
+
+def _verify_pack_medusa(logits, chunk, seeds, positions, temps, topks, topps, kd, hidden,
+                        mw: MedusaWeights, topn: int = 0, envelope: bool = True
+                        ) -> torch.Tensor:
+    """_verify_pack plus the next round's Medusa proposals in the same read
+    (scheduler.py:213-237): the accept walk again on the device (leading
+    accepts clipped to each lane's proposal count kd), the heads on the
+    hidden row at the correction index, the proposals as one extra trailing
+    column (rows 0..H-1)."""
+    vp = _verify_pack(logits, chunk, seeds, positions, temps, topks, topps, topn, envelope)
+    B, K1 = chunk.shape
+    idx = torch.arange(K1, device=chunk.device)[None]
+    rej = (vp[..., 0] <= 0.5) & (idx < kd[:, None])
+    a = torch.where(rej.any(dim=1), torch.argmax(rej.int(), dim=1), kd.long())   # (B,)
+    h_a = hidden[torch.arange(B, device=chunk.device), a]
+    props = medusa_propose_rows(mw, h_a)                               # (B, H)
+    Hc = min(int(props.shape[1]), K1 - 1)   # the next chunk holds at most K
+    col = torch.zeros((B, K1, 1), dtype=torch.float32, device=chunk.device)
+    col[:, :Hc, 0] = props[:, :Hc].float()
+    return torch.cat([vp, col], dim=-1)
 
 
 class _DensePrefixRegistry:
@@ -190,6 +285,9 @@ class _Slot:
     admit_tokens: list[int] = dataclasses.field(default_factory=list)
     resuming: bool = False   # admission is a preemption-resume re-hydration
     seq: int = 0             # admission order (paged preemption picks the newest)
+    spec_ok: bool = False    # on the speculation path (set when the prompt lands)
+    hist: Optional[NgramHistory] = None     # prompt lookup's n-gram index
+    med_props: Optional[list] = None        # Medusa proposals banked for the next round
 
     @property
     def free(self) -> bool:
@@ -213,7 +311,8 @@ class Scheduler:
                  kv_dtype: torch.dtype = torch.bfloat16, batched_admission: bool = False,
                  prefix_cache: bool = False, top_logprobs: int = 0, device="cuda",
                  paged_pages: int = 0, page_size: int = 256, mesh=None, spec_draft=None,
-                 spec_lookup: bool = False, spec_medusa=None, spec_tree=None):
+                 spec_k: int = 4, spec_lookup: bool = False, spec_ngram: int = 3,
+                 spec_medusa: Optional[MedusaWeights] = None, spec_tree=None):
         """batched_admission: all admitting lanes' chunks hydrate in ONE
         weight sweep (the chunk pads to the group's bucket, so a lane's
         prefill rounding depends on its co-admitted traffic; the per-slot
@@ -222,11 +321,19 @@ class Scheduler:
         The server turns both on. paged_pages > 0: the cache is a pool of
         that many pages of page_size slots (page_size must divide the
         window); the pool shares prompt pages natively, so the dense
-        registry stays off."""
+        registry stays off.
+
+        Speculation (one proposal source at most): spec_draft=(draft_cfg,
+        draft FastWeights) proposes spec_k greedy tokens per lane by K+1
+        batched draft ticks on a dense batched draft cache (also when the
+        target is paged); spec_lookup proposes by per-lane prompt lookup
+        (n-grams up to spec_ngram); spec_medusa (MedusaWeights) proposes by
+        the target's own heads on the verify sweep's hidden rows (spec_k
+        clamped to the head count). Temperature-0 streams equal plain greedy
+        decode; sampled ones are distributed as plain sampling."""
         later = [name for name, on in (
             ("a device mesh", mesh is not None),
-            ("scheduler speculation (spec_*)",
-             any(a is not None for a in (spec_draft, spec_medusa, spec_tree)) or spec_lookup),
+            ("tree-attention Medusa (spec_tree)", spec_tree is not None),
         ) if on]
         if later:
             raise NotImplementedError(f"{', '.join(later)}: not in this slice of the PyTorch "
@@ -263,6 +370,43 @@ class Scheduler:
         self.admit_sweeps = 0  # batched-admission weight sweeps (stats)
         self.dense_prefix = (_DensePrefixRegistry() if prefix_cache and not self.paged
                              else None)
+        self._init_spec(spec_draft, spec_k, spec_lookup, spec_ngram, spec_medusa)
+
+    def _init_spec(self, spec_draft, spec_k: int, spec_lookup: bool, spec_ngram: int,
+                   spec_medusa) -> None:
+        """The proposal source (scheduler.py:493-505, 938-1030)."""
+        if sum([bool(spec_lookup), spec_draft is not None, spec_medusa is not None]) > 1:
+            raise ValueError("spec_lookup, spec_draft and spec_medusa are mutually exclusive "
+                             "proposal sources")
+        self.spec_lookup = bool(spec_lookup)
+        self.spec_ngram = int(spec_ngram)
+        self.spec_medusa = spec_medusa
+        self.spec = spec_draft is not None or self.spec_lookup or spec_medusa is not None
+        self.spec_k = int(spec_k)
+        if self.spec and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if spec_medusa is not None:
+            # one proposal per head per round
+            self.spec_k = min(self.spec_k, spec_medusa.n_heads)
+        self.spec_stats = {"rounds": 0, "accepted": 0, "proposed": 0}
+        self.spec_edge = self.cfg.max_seq_len
+        self.draft_cfg = self.draft_weights = self.draft_cache = None
+        if spec_draft is None:
+            return
+        dcfg, dweights = spec_draft
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError("draft and target must share a vocabulary")
+        why = fast_unsupported(dcfg)
+        if why:
+            raise ValueError(f"the draft's shapes do not fit the port's kernels: {why}")
+        if dweights.wqkv.device.type != self.device.type:
+            raise ValueError(f"draft weights on {dweights.wqkv.device}, scheduler on "
+                             f"{self.device}")
+        self.draft_cfg, self.draft_weights = dcfg, dweights
+        # a dense batched draft cache, also under a paged target
+        self.draft_cache = KVCache.init(dcfg, self.kv_dtype, self.device, batch=self.B)
+        # the draft's window binds too: its ring cannot roll back a rejection
+        self.spec_edge = min(self.cfg.max_seq_len, dcfg.max_seq_len)
 
     def _new_cache(self) -> None:
         """A zeroed cache (a pool and its allocator when paged)."""
@@ -280,6 +424,8 @@ class Scheduler:
         if request.logit_bias and len(request.logit_bias) > _NBIAS:
             raise ValueError(f"logit_bias supports at most {_NBIAS} entries "
                              f"(got {len(request.logit_bias)})")
+        if request.logit_bias and self.spec:
+            raise ValueError("logit_bias is not supported in speculative scheduler modes")
         self.queue.append(request)
         return request
 
@@ -325,6 +471,8 @@ class Scheduler:
             slot.admitting = True
             slot.pos = 0
             slot.admit_i = 0
+            slot.spec_ok = False   # set by _spec_hydrate when the prompt lands
+            slot.hist = slot.med_props = None
             self._admit_seq += 1
             slot.seq = self._admit_seq
             if req._resume is not None:
@@ -387,13 +535,13 @@ class Scheduler:
                 vals[j] = float(v)
         return ids, vals
 
-    def _bias_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """(B, _NBIAS) logit-bias ids/values of the decoding lanes for the
-        tick; other lanes get empty rows."""
+    def _bias_arrays(self, lanes) -> tuple[np.ndarray, np.ndarray]:
+        """(B, _NBIAS) logit-bias ids/values of the tick's lanes; other lanes
+        get empty rows."""
         ids = np.full((self.B, _NBIAS), -1, np.int64)
         vals = np.zeros((self.B, _NBIAS), np.float32)
         for b, s in enumerate(self.slots):
-            if s.decoding and s.request.logit_bias:
+            if b in lanes and s.request.logit_bias:
                 ids[b], vals[b] = self._bias_row(s.request)
         return ids, vals
 
@@ -433,8 +581,37 @@ class Scheduler:
                 self.alloc.register_prefix(self.slots.index(slot), slot.admit_tokens)
             elif self.dense_prefix is not None:
                 self.dense_prefix.register(self.slots.index(slot), slot.admit_tokens)
+        if self.spec:
+            self._spec_hydrate(slot)
         if self._emit_checked(slot, first, lp, top):
             self._maybe_finish(slot, first)
+
+    def _spec_hydrate(self, slot: _Slot) -> None:
+        """Hydrate the proposal source with the finished prompt
+        (scheduler.py:1269-1303): the draft's cache lane, or the lane's
+        n-gram index (with the first sampled token, which the next proposal
+        continues); Medusa lanes get their hidden row from their first
+        verify sweep. Lanes whose prompt already reaches the speculation
+        edge stay on plain ticks."""
+        toks = slot.admit_tokens
+        b = self.slots.index(slot)
+        if slot.pos != len(toks) or slot.pos + self.spec_k + 1 >= self.spec_edge:
+            slot.spec_ok = False
+            return
+        slot.spec_ok = True
+        if self.spec_lookup:
+            slot.hist = NgramHistory(list(toks) + [slot.last_token], max_ngram=self.spec_ngram)
+            return
+        if self.spec_medusa is not None:
+            slot.med_props = None
+            return
+        dcfg = self.draft_cfg
+        lane = self.draft_cache.lane(b)
+        for i0, take, bucket in chunk_schedule(len(toks), 0, dcfg.max_seq_len):
+            padded = np.zeros(bucket, np.int64)
+            padded[:take] = toks[i0: i0 + take]
+            prefill_fast(dcfg, self.draft_weights, padded, i0, take, lane, logits_mode="none",
+                         attend_len=attend_bucket(i0 + bucket, dcfg.max_seq_len))
 
     def _finish_resume(self, slot: _Slot) -> None:
         """End a preemption-resume re-hydration: the stream's tokens were all
@@ -445,6 +622,10 @@ class Scheduler:
         slot.resuming = False
         slot.request._resume = None
         self.resumes += 1
+        if self.spec:
+            # admit_tokens is prompt + generated[:-1] and last_token
+            # generated[-1]: the rebuilt source equals the uninterrupted one
+            self._spec_hydrate(slot)
         self._maybe_finish(slot, slot.last_token)
 
     def _finish_chunk(self, slot: _Slot, logits) -> None:
@@ -471,6 +652,8 @@ class Scheduler:
         self.alloc.release(b)
         slot.request = None
         slot.admitting = False
+        slot.spec_ok = False
+        slot.hist = slot.med_props = None
         self.queue.insert(0, req)
         self.preemptions += 1
 
@@ -670,6 +853,9 @@ class Scheduler:
         if self.dense_prefix is not None:
             self.dense_prefix.entries.clear()
         self.cache = None
+        if self.draft_cache is not None:
+            self.draft_cache.k.zero_()
+            self.draft_cache.v.zero_()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._new_cache()
@@ -684,33 +870,184 @@ class Scheduler:
         window = self.cfg.max_seq_len
         if self.paged:
             # lazy growth at block boundaries: map the page the next write
-            # lands in (a lane in the ring regime is fully mapped already)
+            # lands in (a lane in the ring regime is fully mapped already); a
+            # speculating lane needs the verify chunk's rows pos..pos+K
             for b, slot in enumerate(self.slots):
                 if slot.decoding and slot.pos < window:
-                    self._ensure_pages(b, slot.pos + 1)
-        decoding = [s.decoding for s in self.slots]
-        if any(decoding):
-            rows = [self._sampling_row(s.request, s.pos) if s.decoding else (0, s.pos, 0.0, 0, 1.0)
-                    for s in self.slots]
-            args = (self.cfg, self.weights, [s.last_token for s in self.slots],
-                    [s.pos for s in self.slots], self.cache)
-            write = [int(d) for d in decoding]
-            if self.paged:
-                logits, _ = decode_step_fast_batched_paged(
-                    *args, self.alloc.table_array(), write, page_size=self.page_size)
-            else:
-                logits, _ = decode_step_fast_batched(*args, write)
-            packed = self._pack(logits, rows, self._bias_arrays())
-            nxt, lps, tops = _unpack_sample(packed, self.topn)
-            for b, slot in enumerate(self.slots):
-                if not slot.decoding:
-                    continue
-                tok = int(nxt[b])
-                slot.pos += 1
-                slot.last_token = tok
-                if self._emit_checked(slot, tok, float(lps[b]), tops[b] if tops else None):
-                    self._maybe_finish(slot, tok)
+                    ahead = self.spec_k + 1 if self.spec and slot.spec_ok else 1
+                    self._ensure_pages(b, min(window, slot.pos + ahead))
+        if self.spec:
+            self._spec_round()
+        else:
+            self._plain_tick([b for b, s in enumerate(self.slots) if s.decoding])
         return sum(not s.free for s in self.slots)
+
+    def _plain_tick(self, lanes: list[int]) -> None:
+        """One batched decode tick in which the given decoding lanes write
+        and sample with their own parameters; every other lane is masked."""
+        if not lanes:
+            return
+        on = set(lanes)
+        rows = [self._sampling_row(s.request, s.pos) if b in on else (0, s.pos, 0.0, 0, 1.0)
+                for b, s in enumerate(self.slots)]
+        args = (self.cfg, self.weights, [s.last_token for s in self.slots],
+                [s.pos for s in self.slots], self.cache)
+        write = [int(b in on) for b in range(self.B)]
+        if self.paged:
+            logits, _ = decode_step_fast_batched_paged(
+                *args, self.alloc.table_array(), write, page_size=self.page_size)
+        else:
+            logits, _ = decode_step_fast_batched(*args, write)
+        packed = self._pack(logits, rows, self._bias_arrays(on))
+        nxt, lps, tops = _unpack_sample(packed, self.topn)
+        for b in lanes:
+            slot = self.slots[b]
+            tok = int(nxt[b])
+            slot.pos += 1
+            slot.last_token = tok
+            if self.spec_lookup and slot.spec_ok and slot.hist is not None:
+                slot.hist.extend([tok])   # stays eligible next round
+            if self._emit_checked(slot, tok, float(lps[b]), tops[b] if tops else None):
+                self._maybe_finish(slot, tok)
+
+    # -- speculation ------------------------------------------------------
+    def _draft_propose(self, tokens: np.ndarray, positions: np.ndarray,
+                       write: np.ndarray) -> np.ndarray:
+        """K+1 greedy ticks of the draft over its batched cache (the lanes
+        with write 1 write); the (K+1)-th hydrates the draft's row for
+        d[K-1], which full acceptance keeps visible. Returns (B, K+1) ids,
+        read back once."""
+        K = self.spec_k
+        out = torch.empty((self.B, K + 1), dtype=torch.long, device=self.device)
+        toks = torch.as_tensor(tokens, device=self.device)
+        for i in range(K + 1):
+            logits, _ = decode_step_fast_batched(self.draft_cfg, self.draft_weights, toks,
+                                                 positions + i, self.draft_cache, write)
+            toks = torch.argmax(logits, dim=-1)
+            out[:, i] = toks
+        return out.cpu().numpy()
+
+    def _spec_round(self) -> None:
+        """One speculative round (scheduler.py:1636-1781): the proposal
+        source gives each eligible lane a chunk [cur, d0..], ONE batched
+        sweep verifies all of them, and each lane emits its longest accepted
+        prefix plus a correction (up to spec_k+1 tokens). Lanes at the
+        speculation edge leave the spec path for good; lookup lanes with no
+        match ride this round's plain subtick and stay eligible."""
+        K = self.spec_k
+        elig, props = [], {}
+        for b, s in enumerate(self.slots):
+            if not s.decoding:
+                continue
+            if s.spec_ok and s.pos + K + 1 < self.spec_edge:
+                if self.spec_lookup:
+                    d = s.hist.propose(K)
+                    if d:
+                        elig.append(b)
+                        props[b] = d
+                else:
+                    elig.append(b)
+            else:
+                s.spec_ok = False   # once off the spec path, stay off
+        on = set(elig)
+        plain = [b for b, s in enumerate(self.slots) if s.decoding and b not in on]
+        if elig:
+            self._verify_round(elig, props)
+        self._plain_tick(plain)
+
+    def _verify_round(self, elig: list[int], props: dict) -> None:
+        K = self.spec_k
+        B = self.B
+        positions = np.zeros(B, np.int64)
+        write = np.zeros(B, np.int64)
+        chunk = np.zeros((B, K + 1), np.int64)
+        for b in elig:
+            positions[b] = self.slots[b].pos
+            write[b] = 1
+            chunk[b, 0] = self.slots[b].last_token
+        if self.spec_lookup:
+            # per-lane proposal lengths; rows past 1+kd are padding that the
+            # causal verify never lets rows <= kd see
+            kd = {b: len(props[b]) for b in elig}
+            for b in elig:
+                chunk[b, 1: 1 + kd[b]] = props[b]
+        elif self.spec_medusa is not None:
+            # proposals banked by the previous round's sweep (a fresh lane
+            # has none and rides the sweep for its hidden row and one token)
+            kd = {}
+            for b in elig:
+                p = (self.slots[b].med_props or [])[:K]
+                kd[b] = len(p)
+                chunk[b, 1: 1 + len(p)] = p
+        else:
+            d = self._draft_propose(chunk[:, 0].copy(), positions, write)
+            kd = {b: K for b in elig}
+            for b in elig:
+                chunk[b, 1:] = d[b, :K]
+        window = self.cfg.max_seq_len
+        attend = max(attend_bucket(int(positions[b]) + K + 1, window) for b in elig)
+        wh = self.spec_medusa is not None
+        if self.paged:
+            out, _ = verify_chunk_fast_batched_paged(
+                self.cfg, self.weights, chunk, positions, write, self.cache,
+                self.alloc.table_array(), page_size=self.page_size, with_hidden=wh,
+                attend_len=attend)
+        else:
+            out, _ = verify_chunk_fast_batched(self.cfg, self.weights, chunk, positions, write,
+                                               self.cache, with_hidden=wh, attend_len=attend)
+        reqs = {b: self.slots[b].request for b in elig}
+        ints = np.zeros((3, B), np.int64)      # seeds, top_k, kd
+        flts = np.stack([np.zeros(B, np.float32), np.ones(B, np.float32)])   # temp, top_p
+        for b in elig:
+            r = reqs[b]
+            ints[:, b] = (r.seed & 0xFFFFFFFF, r.top_k, kd[b])
+            flts[:, b] = (r.temperature, r.top_p)
+        envelope = any(r.temperature > 0 and (r.top_k > 0 or r.top_p < 1.0)
+                       for r in reqs.values())
+        dev = self.device
+        it, ft = torch.as_tensor(ints, device=dev), torch.as_tensor(flts, device=dev)
+        args = (torch.as_tensor(chunk, device=dev), it[0], torch.as_tensor(positions, device=dev),
+                ft[0], it[1], ft[1])
+        if wh:
+            logits, hidden = out
+            vp = _verify_pack_medusa(logits, *args, it[2], hidden, self.spec_medusa,
+                                     topn=self.topn, envelope=envelope)
+        else:
+            vp = _verify_pack(out, *args, topn=self.topn, envelope=envelope)
+        vp = vp.cpu().numpy()                  # the one device -> host read of the round
+        acc = vp[..., 0] > 0.5                 # (B, K+1)
+        self.spec_stats["rounds"] += 1
+        for b in elig:
+            s = self.slots[b]
+            a = 0
+            while a < kd[b] and acc[b, a]:
+                a += 1
+            # the first rejection -> the residual correction; all kd
+            # accepted -> the bonus drawn at the last verified row
+            corr_col = 2 if a < kd[b] else 4
+            emitted = [int(x) for x in chunk[b, 1: a + 1]] + [int(vp[b, a, corr_col])]
+            self.spec_stats["accepted"] += a
+            self.spec_stats["proposed"] += kd[b]
+            s.pos = int(positions[b]) + a + 1
+            s.last_token = emitted[-1]
+            if self.spec_lookup:
+                s.hist.extend(emitted)
+            if wh:
+                H = min(self.spec_medusa.n_heads, K)
+                s.med_props = [int(vp[b, h, -1]) for h in range(H)]
+            for i, tok in enumerate(emitted):
+                if s.request is None:
+                    break   # finished mid-round: the tail is discarded
+                # i < a: the accepted proposal chunk[b, i+1]; i == a: the correction
+                lp = float(vp[b, i, 1] if i < a else vp[b, i, corr_col + 1])
+                top = None
+                if self.topn:
+                    top = [(int(vp[b, i, 6 + k]), float(vp[b, i, 6 + self.topn + k]))
+                           for k in range(self.topn)]
+                if self._emit_checked(s, tok, lp, top):
+                    self._maybe_finish(s, tok)
+                else:
+                    break
 
     def run(self, max_ticks: int = 100000) -> None:
         """Drive until every queued and active request completes."""

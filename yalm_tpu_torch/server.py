@@ -13,8 +13,10 @@
 Run: python -m yalm_tpu_torch.server model.yalm --port 8080 --batch 8
 (`--device cpu` runs the kernels' plain versions; `--paged-pages N` serves
 from a pool of N pages of `--page-size` slots, with automatic prefix
-caching). Speculation and meshes come in later slices of the port: their
-flags are refused.
+caching; `--draft D.yalm`, `--spec-lookup` or `--medusa` serve with
+scheduler speculation, `--spec-k` proposals per round, composing with the
+paged pool). Tree-attention Medusa and meshes come in later slices of the
+port: their flags are refused.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from .codec.format import read_yalm
 from .config import ModelConfig
 from .engine import resolve_device
+from .medusa import load_medusa_weights
 from .models.fast import load_fast_weights
 from .scheduler import Request, Scheduler
 from .tokenizer import Tokenizer
@@ -50,7 +53,8 @@ class ServingEngine:
                  batch: int = 8, kv_dtype: torch.dtype = torch.bfloat16,
                  max_prompt_tokens: int | None = None, chat_template: str = "chatml",
                  top_logprobs: int = 5, paged_pages: int = 0, page_size: int = 256,
-                 device="cuda"):
+                 device="cuda", spec_draft=None, spec_k: int = 4, spec_lookup: bool = False,
+                 spec_ngram: int = 3, spec_medusa=None):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.chat_template = chat_template
@@ -67,7 +71,11 @@ class ServingEngine:
                                paged_pages=paged_pages, page_size=page_size,
                                # OpenAI top-N logprobs ride the tick's one
                                # packed read
-                               top_logprobs=top_logprobs, device=device)
+                               top_logprobs=top_logprobs, device=device,
+                               # speculation: one proposal source at most
+                               spec_draft=spec_draft, spec_k=spec_k,
+                               spec_lookup=spec_lookup, spec_ngram=spec_ngram,
+                               spec_medusa=spec_medusa)
         self._inbox: "queue.Queue[tuple[Request, queue.Queue]]" = queue.Queue()
         self._watch: list[tuple[Request, "queue.Queue"]] = []
         # serving counters for /metrics
@@ -82,13 +90,19 @@ class ServingEngine:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, batch: int = 8,
-                        device="cuda", **kw) -> "ServingEngine":
+                        device="cuda", medusa: bool = False, **kw) -> "ServingEngine":
+        """medusa: serve with the checkpoint's own Medusa heads."""
         dev = resolve_device(device)
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
             weights = load_fast_weights(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
+            if medusa:
+                if "medusa_heads" not in yf.metadata:
+                    raise ValueError("--medusa: the checkpoint has no medusa heads "
+                                     "(metadata medusa_heads)")
+                kw["spec_medusa"] = load_medusa_weights(yf, cfg, dev)
         finally:
             yf.close()  # the weights were copied out of the mapping
         return cls(cfg, weights, tok, batch=batch, device=dev, **kw)
@@ -234,6 +248,11 @@ def make_handler(engine: ServingEngine):
                               round(time.time() - engine._start_time, 3))):
                     lines.append(f"# TYPE yalm_{k} gauge")
                     lines.append(f"yalm_{k} {v}")
+                if engine.sched.spec:
+                    st = engine.sched.spec_stats
+                    for k in ("rounds", "accepted", "proposed"):
+                        lines.append(f"# TYPE yalm_spec_{k}_total counter")
+                        lines.append(f"yalm_spec_{k}_total {st[k]}")
                 if engine.sched.paged:
                     lines.append("# TYPE yalm_pages_free gauge")
                     lines.append(f"yalm_pages_free {engine.sched.alloc.n_free}")
@@ -552,10 +571,7 @@ def serve(engine: ServingEngine, host: str = "0.0.0.0", port: int = 8080
 
 
 # flags of the JAX server that later slices of the port bring
-_LATER_FLAGS = {"draft": "--draft",
-                "spec_lookup": "--spec-lookup", "spec_k": "--spec-k",
-                "spec_ngram": "--spec-ngram", "medusa": "--medusa",
-                "medusa_tree": "--medusa-tree", "mesh": "--mesh",
+_LATER_FLAGS = {"medusa_tree": "--medusa-tree", "mesh": "--mesh",
                 "distributed": "--distributed"}
 
 
@@ -581,26 +597,59 @@ def main(argv=None) -> None:
                          "of a full window per lane, with automatic prefix caching")
     ap.add_argument("--page-size", type=int, default=256,
                     help="slots per page (must divide the context window)")
+    ap.add_argument("--draft", default=None, metavar="DRAFT.yalm",
+                    help="scheduler speculation: this draft checkpoint proposes --spec-k "
+                         "tokens per lane per round, one batched target sweep verifies all "
+                         "lanes (any temperature, top_k/top_p included; composes with "
+                         "--paged-pages)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="proposals per lane per speculative round")
+    ap.add_argument("--spec-lookup", action="store_true",
+                    help="draft-model-free speculation: per-lane prompt lookup (n-gram "
+                         "match over the lane's own tokens)")
+    ap.add_argument("--spec-ngram", type=int, default=3,
+                    help="max n-gram size for --spec-lookup matching")
+    ap.add_argument("--medusa", action="store_true",
+                    help="speculation with the checkpoint's own Medusa heads (metadata "
+                         "medusa_heads)")
     for dest, flag in _LATER_FLAGS.items():
-        store = "store_true" if dest in ("spec_lookup", "medusa", "distributed") else "store"
+        store = "store_true" if dest == "distributed" else "store"
         ap.add_argument(flag, dest=dest, action=store, default=None,
                         help="refused: a later slice of the port (ROADMAP.md)")
     args = ap.parse_args(argv)
     given = [flag for dest, flag in _LATER_FLAGS.items() if getattr(args, dest)]
     if given:
         ap.error(f"{', '.join(given)}: not in this slice of the PyTorch port "
-                 "(speculation and meshes come later; see ROADMAP.md)")
+                 "(tree-attention Medusa and meshes come later; see ROADMAP.md)")
+    if sum([bool(args.draft), args.spec_lookup, args.medusa]) > 1:
+        ap.error("--draft, --spec-lookup and --medusa are mutually exclusive")
 
     kv_dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[args.kv]
+    spec_draft = None
+    if args.draft:
+        dev = resolve_device(args.device)
+        dyf = read_yalm(args.draft)
+        try:
+            dcfg = ModelConfig.from_metadata(dyf.metadata, context=args.context)
+            spec_draft = (dcfg, load_fast_weights(dyf, dcfg, dev))
+        finally:
+            dyf.close()
     engine = ServingEngine.from_checkpoint(
         args.checkpoint, context=args.context, batch=args.batch, device=args.device,
         kv_dtype=kv_dtype, max_prompt_tokens=args.max_prompt_tokens,
         chat_template=args.chat_template, paged_pages=args.paged_pages,
-        page_size=args.page_size)
+        page_size=args.page_size, spec_draft=spec_draft, spec_k=args.spec_k,
+        spec_lookup=args.spec_lookup, spec_ngram=args.spec_ngram, medusa=args.medusa)
     httpd = serve(engine, args.host, args.port)
     paged = f", {args.paged_pages} pages of {args.page_size}" if args.paged_pages else ""
-    print(f"serving on http://{args.host}:{args.port} (batch={args.batch}{paged}, "
-          f"device={engine.sched.device})", flush=True)
+    sched = engine.sched
+    spec = ""
+    if sched.spec:
+        spec = (", spec=" + ("draft" if sched.draft_cfg is not None else
+                             "lookup" if sched.spec_lookup else "medusa")
+                + f" k={sched.spec_k}")
+    print(f"serving on http://{args.host}:{args.port} (batch={args.batch}{paged}{spec}, "
+          f"device={sched.device})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

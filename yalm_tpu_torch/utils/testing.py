@@ -1,7 +1,7 @@
 """Test fixtures: synthesize tiny configs and random `.yalm` checkpoints.
 
 The port's copy of `yalm_tpu/utils/testing.py` (dense and MoE checkpoints,
-no Medusa heads), without ml_dtypes: bf16 and fp8 tensors are rounded from f32 by torch, which
+Medusa heads), without ml_dtypes: bf16 and fp8 tensors are rounded from f32 by torch, which
 rounds to nearest-even like ml_dtypes, so the same seed writes the same
 checkpoint bytes as the JAX package's `synth_checkpoint`.
 """
@@ -52,13 +52,16 @@ def synth_vocab(vocab_size: int) -> list[bytes]:
 
 
 def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
-                     vocab: list[bytes] | None = None) -> None:
+                     vocab: list[bytes] | None = None, medusa_heads: int = 0) -> None:
     """Write a random-but-deterministic `.yalm` checkpoint for `cfg` (weight
     dtypes fp32/fp16/bf16/fp8/int8/int4, dense or MoE). int4 packs the layer
     matrices (`ops.int4.pack_int4`, `.gscale` beside each; MoE experts pack
     over their leading expert axis) and keeps the embedding, LM head and
-    MoE router int8 with a `.scale`. The RNG draws in the JAX fixture's
-    order, so the same seed writes the same bytes."""
+    MoE router int8 with a `.scale`. medusa_heads > 0 adds that many f32
+    Medusa heads (medusa.py's format); -1..-H writes IDENTITY heads (w1 = 0,
+    head = the dequantized LM head), whose proposals repeat the model's own
+    next-token argmax. The RNG draws in the JAX fixture's order, so the same
+    seed writes the same bytes."""
     rng = np.random.default_rng(seed)
     int4 = cfg.weight_dtype == "int4"
     int8 = cfg.weight_dtype == "int8"
@@ -128,7 +131,28 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_word_embeddings:
         put("model.output.weight", cfg.vocab_size, cfg.dim, scale=0.02, head=True)
 
+    if medusa_heads:
+        lm = tensors.get("model.output.weight", tensors["model.embed.weight"])
+        lm32 = lm.float().numpy() if isinstance(lm, torch.Tensor) else np.asarray(lm, np.float32)
+        sname = ("model.output.weight.scale" if "model.output.weight" in tensors
+                 else "model.embed.weight.scale")
+        if sname in tensors:
+            lm32 = lm32 * np.asarray(tensors[sname], np.float32)[:, None]
+        for h in range(abs(medusa_heads)):
+            if medusa_heads < 0:   # identity heads
+                tensors[f"medusa.{h}.w1.weight"] = np.zeros((cfg.dim, cfg.dim), np.float32)
+                tensors[f"medusa.{h}.head.weight"] = lm32.copy()
+            else:
+                tensors[f"medusa.{h}.w1.weight"] = \
+                    rng.standard_normal((cfg.dim, cfg.dim)).astype(np.float32) * 0.02
+                tensors[f"medusa.{h}.head.weight"] = \
+                    rng.standard_normal((cfg.vocab_size, cfg.dim)).astype(np.float32) * 0.02
+            tensors[f"medusa.{h}.w1.bias"] = np.zeros(cfg.dim, np.float32)
+
     vocab = vocab if vocab is not None else synth_vocab(cfg.vocab_size)
     blob = b"".join(t.replace(b"\0", b"\7") + b"\0" for t in vocab)
     tensors["tokenizer.tokens"] = np.frombuffer(blob, dtype=np.uint8).copy()
-    write_yalm(path, tensors, cfg.to_metadata())
+    md = cfg.to_metadata()
+    if medusa_heads:
+        md["medusa_heads"] = str(abs(medusa_heads))
+    write_yalm(path, tensors, md)
