@@ -46,8 +46,24 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    scheduler, prompt lookup, a self-draft over a paged pool of 65 pages of
    256, and Medusa heads; greedy tokens held to the plain tick fed the
    same prefix by the same rule, K8's launches in the draft ticks, K9's in
-   paged subticks);
-4. the same model at depth 2 on the card against the plain versions on the
+   paged subticks); then tree-attention Medusa (`phase_tree`, 32 layers):
+   the chain tree (1, 1, 1, 1) through verify_tree_fast_batched beside the
+   chain sweep on a copy of a random cache (logits to the tolerance; after
+   scatter_tree_rows layer 0's K/V rows bit for bit the chain sweep's), a
+   Scheduler at batch 8 with 4 random heads and the tree (4, 2): 8 requests
+   of 200 + 48 tokens, two at T 0.8, every greedy token held to the plain
+   tick fed the same prefix; one lane whose rank-2 candidates are the plain
+   stream's next tokens on the tree (2, 2, 2, 2), which must accept to the
+   full depth; and one tree sweep's device and wall time and launches;
+4. the parity oracle (`phase_oracle`, Mistral-7B widths, 2 layers): the
+   oracle (bf16 compute) against the kernels on the same weights, a
+   64-token prefill and 8 decode steps to the tolerance; a config the
+   attention kernel refuses (one kv head, MQA) takes the oracle under
+   fast="auto" and completes a request through the Engine and the
+   Scheduler; debug capture (`phase_capture`): the kernel path's capture
+   map against the oracle's under diff_captures' 6e-2, and (int4 path)
+   capture refusing packed int4; then
+   the same model at depth 2 on the card against the plain versions on the
    CPU: a 64-token prefill and 8 teacher-forced decode steps; then the
    batched path: one batched chunk sweep and 8 teacher-forced ticks over 16
    lanes at mixed positions (ring lanes, write-masked lanes), the argmax
@@ -2097,6 +2113,8 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
 
     tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
     eng = Engine(cfg, fw, tok, kv_dtype=kv_dtype, device=dev)
+    if not eng.fast:
+        raise AssertionError(f"{path}: the engine is not on the kernels")
     rng = np.random.default_rng(0)
 
     def prompt(n):
@@ -2319,6 +2337,8 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: int,
     engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev,
                                paged_pages=paged_pages, page_size=PAGE)
     sched = engine.sched
+    if not sched.fast:
+        raise AssertionError(f"{path}: the scheduler is not on the kernels")
     preempted = set()   # ids of the requests a lane preemption requeued
     if paged_pages:
         preempt = sched._preempt
@@ -2782,6 +2802,13 @@ def synth_medusa(cfg, device, seed: int, heads: int = 4):
                          head=mk(heads, cfg.vocab_size, cfg.dim))
 
 
+def _fast(x):
+    """An engine or scheduler, checked to be on the kernels' path."""
+    if not x.fast:
+        raise AssertionError(f"{type(x).__name__}: not on the kernels' path")
+    return x
+
+
 def plain_greedy(eng, prompt, n: int) -> float:
     """Engine.generate at T 0 from a reset engine: its decode rate."""
     import torch
@@ -2875,7 +2902,7 @@ def phase_spec(cfg, fw, dev, kv_dtype) -> dict:
     from yalm_tpu_torch.utils.testing import synth_vocab
 
     tok = Tokenizer(synth_vocab(cfg.vocab_size), cfg.bos_token_id, cfg.eos_token_id)
-    mk = lambda c, w: Engine(c, w, tok, kv_dtype=kv_dtype, device=dev)  # noqa: E731
+    mk = lambda c, w: _fast(Engine(c, w, tok, kv_dtype=kv_dtype, device=dev))  # noqa: E731
     eng = mk(cfg, fw)
     rng = np.random.default_rng(8)
     prompts = {"random": [cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 199).tolist()}
@@ -3012,11 +3039,31 @@ def spec_serving_mix(cfg, n: int = 16):
     return mix
 
 
-def teacher_forced_hold_batched(name: str, cfg, fw, dev, kv_dtype, mix, streams) -> int:
-    """teacher_forced_hold for the greedy requests of a serving mix at once:
-    the plain tick (decode_step_fast_batched) fed each stream's own tokens
-    after a per-lane prefill of its prompt. Returns the near-ties at which
-    a stream differs from the plain argmax; raises where a token is neither."""
+def near_tie_hold(name: str, ref: str, gap_tol, is_arg) -> int:
+    """Every token is the reference row's argmax or lies within twice the
+    tolerance (1e-2 of max(1, max|logit|)) of its maximum: gap_tol and
+    is_arg (tokens, lanes). Returns the near-ties at which a stream differs
+    from the reference argmax; raises where a token is neither."""
+    bad = ((~is_arg) & (gap_tol > 2)).nonzero().tolist()
+    if bad:
+        raise AssertionError(f"{name}: (token, lane, gap/tol) "
+                             f"{[(t, b, round(float(gap_tol[t, b]), 3)) for t, b in bad[:8]]} "
+                             f"neither the {ref}'s argmax nor a near-tie of it")
+    return int(((~is_arg) & (gap_tol <= 2)).sum())
+
+
+def _gaps(rows, toks):
+    """(gap/tol, is argmax) of tokens toks (n,) in logits rows (n, vocab)."""
+    lf = rows.float()
+    tol = 1e-2 * lf.abs().amax(-1).clamp(min=1.0)
+    gap = lf.amax(-1) - lf.gather(1, toks[:, None])[:, 0]
+    return (gap / tol).cpu(), (lf.argmax(-1) == toks).cpu()
+
+
+def tick_gaps(cfg, fw, dev, kv_dtype, mix, streams):
+    """The plain tick (decode_step_fast_batched) fed the greedy requests'
+    own tokens after a per-lane prefill of each prompt: (gap/tol, is
+    argmax) of every token, (tokens, lanes)."""
     import numpy as np
     import torch
     from yalm_tpu_torch.engine import attend_bucket, chunk_schedule
@@ -3038,23 +3085,53 @@ def teacher_forced_hold_batched(name: str, cfg, fw, dev, kv_dtype, mix, streams)
             out, _ = decode_step_fast(cfg, fw, p[j], j, lane)
         first.append(out)
     lg = torch.stack(first)
-    rows = []
+    gaps, args = [], []
     n = len(lanes[0][1])
     for j in range(n):
         toks = torch.as_tensor([s[j] for _, s in lanes], device=dev)
-        lf = lg.float()
-        rows.append(torch.stack([lf.amax(-1), lf.gather(1, toks[:, None])[:, 0],
-                                 lf.abs().amax(-1), (lf.argmax(-1) == toks).float()], dim=1))
+        g, a = _gaps(lg, toks)
+        gaps.append(g)
+        args.append(a)
         if j + 1 < n:
             lg, _ = decode_step_fast_batched(cfg, fw, toks, [len(p) + j for p, _ in lanes],
                                              cache)
-    r = torch.stack(rows).cpu()                    # (tokens, lanes, 4)
-    gap_ok = r[..., 0] - r[..., 1] <= 2 * 1e-2 * r[..., 2].clamp(min=1.0)
-    bad = ((r[..., 3] == 0) & ~gap_ok).nonzero().tolist()
-    if bad:
-        raise AssertionError(f"{name}: (token, lane) {bad[:8]} neither the plain tick's argmax "
-                             "nor a near-tie of it")
-    return int(((r[..., 3] == 0) & gap_ok).sum())
+    return torch.stack(gaps), torch.stack(args)
+
+
+def chunk_gaps(cfg, fw, dev, kv_dtype, mix, streams):
+    """The chunk path (prefill_fast, logits "all", the verify sweeps'
+    formulation) fed each greedy request's prompt and tokens: (gap/tol, is
+    argmax) of every token, (tokens, lanes). Streams inside the window."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import attend_bucket, chunk_schedule
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import prefill_fast
+    L = cfg.max_seq_len
+    gaps, args = [], []
+    for (p, sampled), s in zip(mix, streams):
+        if sampled:
+            continue
+        seq = list(p) + list(s[:-1])
+        lane, rows = KVCache.init(cfg, kv_dtype, dev), []
+        for i0, take, bucket in chunk_schedule(len(seq), 0, L):
+            padded = np.zeros(bucket, np.int64)
+            padded[:take] = seq[i0:i0 + take]
+            out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="all",
+                                  attend_len=attend_bucket(i0 + bucket, L))
+            rows.append(out[:take])
+        g, a = _gaps(torch.cat(rows)[len(p) - 1:], torch.as_tensor(s, device=dev))
+        gaps.append(g)
+        args.append(a)
+    return torch.stack(gaps, dim=1), torch.stack(args, dim=1)
+
+
+def teacher_forced_hold_batched(name: str, cfg, fw, dev, kv_dtype, mix, streams) -> int:
+    """teacher_forced_hold for the greedy requests of a serving mix at once:
+    the plain tick (tick_gaps) fed each stream's own tokens after a
+    per-lane prefill of its prompt. Returns the near-ties at which a stream
+    differs from the plain argmax; raises where a token is neither."""
+    return near_tie_hold(name, "plain tick", *tick_gaps(cfg, fw, dev, kv_dtype, mix, streams))
 
 
 def phase_spec_serving(cfg, fw, dev, kv_dtype) -> dict:
@@ -3085,7 +3162,7 @@ def phase_spec_serving(cfg, fw, dev, kv_dtype) -> dict:
     for name, kw in runs:
         engine = srv.ServingEngine(cfg, fw, tok, batch=16, kv_dtype=kv_dtype, device=dev,
                                    spec_k=SPEC_K, **kw)
-        sched = engine.sched
+        sched = _fast(engine.sched)
         k8 = {"draft ticks": 0}
         if sched.draft_cfg is not None:
             propose = sched._draft_propose
@@ -3228,6 +3305,443 @@ def phase_verify_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 16
         f"{worst:.3f}); argmax equal on all {decided.numel() - ties} decided rows ({ties} "
         "near-ties)")
     return dict(lanes=B, enabled=n_on, rows=T, worst_err_over_tol=worst, near_ties=ties)
+
+
+TREE = (4, 2)          # the tree phase's branching: 13 nodes per lane
+TREE_NEW = 48          # serving: 8 requests of 200 prompt tokens, 48 new
+DEEP_TREE = (2, 2, 2, 2)
+DEEP_NEW = 24          # deep accept: one lane, 200 prompt tokens, 24 new
+
+
+def counted(fn):
+    """(fn(), the kernel launches of that call): the counts are zeroed just
+    before it and read just after."""
+    from yalm_tpu_torch.ops.cuda import _build
+    _build.LAUNCHES.clear()
+    res = fn()
+    return res, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+CHAIN_DEPTHS = (2, 8, 32)
+
+
+def chain_tree_check(cfg, fw, dev, kv_dtype, rng) -> dict:
+    """The chain tree (1, 1, 1, 1) through verify_tree_fast_batched beside
+    verify_chunk_fast_batched on the same tokens and a copy of a random
+    cache, 2 lanes with 200 and 3000 slots of history. The two are one
+    computation up to the order of one f32 sum (the tree's softmax runs
+    over the history and the tree's own rows apart), so after
+    scatter_tree_rows of the whole path layer 0's K/V rows equal the chain
+    sweep's bit for bit at every depth; the logits per row lie within 1e-2
+    of max(1, max|logit|) at depth 2, and at every depth each row's argmax
+    is the chain's or within twice that of its maximum (a near-tie): a
+    regrouped sum moves a bf16 rounding of the next layer's input, and
+    random layers amplify that with depth (the err/tol per depth is
+    logged)."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import attend_bucket
+    from yalm_tpu_torch.models import fast as M
+    from yalm_tpu_torch.models.cache import KVCache
+
+    B, T = 2, 5
+    chain = M.cartesian_tree((1,) * (T - 1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    tree_c = KVCache.init(cfg, kv_dtype, dev, batch=B)
+    for t in (tree_c.k, tree_c.v):
+        t.copy_((torch.randn(t.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                 * 0.5).to(kv_dtype))
+    chain_c = KVCache(k=tree_c.k.clone(), v=tree_c.v.clone())
+    toks = rng.integers(3, cfg.vocab_size, (B, T))
+    pos0, en = np.array([200, 3000]), np.ones(B, np.int64)
+    attend = attend_bucket(int(pos0.max()) + T, cfg.max_seq_len)
+    lt, (kt, vt) = M.verify_tree_fast_batched(cfg, fw, toks, pos0, en, tree_c, parents=chain,
+                                              attend_len=attend)
+    lc, _ = M.verify_chunk_fast_batched(cfg, fw, toks, pos0, en, chain_c, attend_len=attend)
+    lt, lc = lt.float(), lc.float()
+    tol = 1e-2 * lc.abs().amax(-1).clamp(min=1.0)
+    ratio = (lt - lc).abs().amax(-1) / tol                         # (B, T)
+    gap = lc.amax(-1) - lc.gather(-1, lt.argmax(-1, keepdim=True))[..., 0]
+    if bool((gap > 2 * tol).any()) or (cfg.n_layers <= 2 and bool((ratio > 1).any())):
+        raise AssertionError(f"chain tree vs chain sweep at depth {cfg.n_layers}: logits err/tol "
+                             f"{ratio.tolist()}, argmax gaps {gap.tolist()}")
+    M.scatter_tree_rows(tree_c, kt, vt, pos0, np.tile(np.arange(T), (B, 1)), np.full(B, T))
+    for b in range(B):
+        rows = slice(int(pos0[b]), int(pos0[b]) + T)
+        for got, ref in ((tree_c.k, chain_c.k), (tree_c.v, chain_c.v)):
+            if not torch.equal(got[b, 0, rows].view(torch.int16),
+                               ref[b, 0, rows].view(torch.int16)):
+                raise AssertionError("chain tree: layer 0's scattered rows differ from the "
+                                     "chain sweep's")
+    ties = int((lt.argmax(-1) != lc.argmax(-1)).sum())
+    res = dict(lanes=B, rows=T, history=pos0.tolist(),
+               worst_err_over_tol=[float(r) for r in ratio.amax(-1)], argmax_near_ties=ties)
+    worst = [f"{r:.3f}" for r in res["worst_err_over_tol"]]
+    log(f"  chain tree (1, 1, 1, 1) vs the chain sweep, depth {cfg.n_layers}, 2 lanes at "
+        f"{pos0.tolist()}: worst logits err/tol per lane {worst}, argmax equal but {ties} "
+        "near-ties; layer 0's scattered K/V rows equal bit for bit")
+    return res
+
+
+TREE_SERVE_DEPTHS = (32, 8)
+
+
+def tree_serving_run(cfg, fw, dev, kv_dtype, mw, mix, **kw) -> dict:
+    """The mix through a Scheduler at batch 8 with Medusa heads mw (tree
+    Medusa with spec_tree in kw, else chain Medusa, K 4): every stream
+    TREE_NEW valid ids; every greedy token held to the chunk path fed the
+    same prefix (chunk_gaps: the formulation the verify and tree sweeps
+    compute); to the plain tick (tick_gaps) as well below 32 layers, and at
+    32 layers the plain tick's gaps recorded: there a regrouped f32 sum
+    between the chunk path and the tick, amplified by 32 random layers,
+    can part them past a near-tie in either mode (PERF.md, PR 15)."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.scheduler import Request, Scheduler
+    sched = _fast(Scheduler(cfg, fw, batch=8, kv_dtype=kv_dtype, device=dev, spec_medusa=mw,
+                            **kw))
+    reqs = [sched.submit(Request(prompt_tokens=p, max_new_tokens=TREE_NEW,
+                                 temperature=0.8 if s else 0.0, top_p=0.9 if s else 1.0,
+                                 seed=400 + i)) for i, (p, s) in enumerate(mix)]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    name = f"{'tree' if kw else 'chain'} serving at {cfg.n_layers} layers"
+    bad = [(i, r.error, len(r.generated)) for i, r in enumerate(reqs)
+           if r.error or len(r.generated) != TREE_NEW
+           or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+    if bad:
+        raise AssertionError(f"{name}: failed requests {bad}")
+    if sched.spec_stats["rounds"] < 1:
+        raise AssertionError(f"{name}: no verify round")
+    # the tree's sampled lanes ride the plain tick (K8); chain Medusa verifies them
+    missing = [k for k in ("gemm_l", "round_rows_bf16") + (("attend_step_batched_l",) if kw
+                                                           else ()) if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{name}: {missing} never launched")
+    streams = [r.generated for r in reqs]
+    gap, arg = chunk_gaps(cfg, fw, dev, kv_dtype, mix, streams)
+    tokens = sum(len(s) for s in streams)
+    res = dict(requests=len(reqs), tokens=tokens, wall_s=wall, tok_s=tokens / wall,
+               spec_stats=dict(sched.spec_stats), launches=launches,
+               chunk_near_ties=near_tie_hold(name, "chunk path", gap, arg),
+               chunk_worst_gap_over_tol=float(gap.max()))
+    del sched
+    gap, arg = tick_gaps(cfg, fw, dev, kv_dtype, mix, streams)
+    if cfg.n_layers < 32:
+        res["tick_near_ties"] = near_tie_hold(name, "plain tick", gap, arg)
+    res.update(tick_beyond=int(((~arg) & (gap > 2)).sum()),
+               tick_worst_gap_over_tol=float(gap.max()))
+    return res
+
+
+def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
+    """Tree-attention Medusa at full width (Mistral-7B shapes, 32 layers):
+    (a) the chain tree against the chain sweep at depths 2, 8 and 32
+    (chain_tree_check); (b) a Scheduler at batch 8 with 4 random Medusa
+    heads and the tree (4, 2) (13 nodes), at 32 layers and at 8: 8 requests
+    of 200 tokens + 48, two at T 0.8, through tree_serving_run (every
+    greedy token held to the chunk path, and at 8 layers to the plain tick,
+    by the near-tie rule; at 32 layers chain Medusa beside it, the plain
+    tick's gaps of both recorded); (c) one greedy lane on the tree (2, 2,
+    2, 2) whose rank-2 candidates are the next tokens of its uninjected run
+    (rank 1 wrong): the walk accepts to full depth and scatters 5 rows a
+    round, every token held to the chunk path; (d) one tree sweep of (b)'s
+    shape, its device and wall time (torch.profiler) and its launches."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import attend_bucket
+    from yalm_tpu_torch.models import fast as M
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.scheduler import Request, Scheduler
+
+    out: dict = {}
+    # (a) the chain tree is the chain sweep
+    rng = np.random.default_rng(22)
+    out["chain"] = {n: chain_tree_check(with_layers(cfg, n), first_layers(fw, n), dev,
+                                        kv_dtype, rng) for n in CHAIN_DEPTHS}
+
+    # (b) serving through the tree scheduler, at 32 layers and at 8
+    mw = synth_medusa(cfg, dev, seed=23)
+    mix = [([cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 199).tolist(), i in (3, 6))
+           for i in range(8)]
+    out["serving"] = {}
+    for depth in TREE_SERVE_DEPTHS:
+        cfg_d, fw_d = with_layers(cfg, depth), first_layers(fw, depth)
+        runs = [("tree", dict(spec_tree=TREE))]
+        if depth == cfg.n_layers:   # chain Medusa beside it: the plain tick's gaps
+            runs.append(("chain", {}))
+        for mode, kw in runs:
+            res = tree_serving_run(cfg_d, fw_d, dev, kv_dtype, mw, mix, **kw)
+            out["serving"][f"{mode} {depth}"] = res
+            form = f"tree {TREE}" if kw else "K 4"
+            log(f"  {mode} Medusa serving ({form}), {depth} layers, batch 8, 4 random heads: {res['requests']} requests (2 at T 0.8), "
+                f"{res['tokens']} tokens in {res['wall_s']:.2f} s ({res['tok_s']:.1f} tok/s); "
+                f"spec_stats {res['spec_stats']}; every greedy token the chunk path's argmax given "
+                f"the same prefix but {res['chunk_near_ties']} near-ties (worst gap/tol "
+                f"{res['chunk_worst_gap_over_tol']:.3f}); against the plain tick "
+                + (f"the same but {res['tick_near_ties']} near-ties" if "tick_near_ties" in res
+                   else f"{res['tick_beyond']} tokens past a near-tie (worst gap/tol "
+                        f"{res['tick_worst_gap_over_tol']:.3f}; not held at this depth)")
+                + f"; launches {res['launches']}")
+
+    # (d) one tree sweep of the serving shape: its time and launches
+    parents = M.cartesian_tree(TREE)
+    Tn = len(parents)
+    toks8 = rng.integers(3, cfg.vocab_size, (8, Tn))
+    p8 = np.full(8, 248)
+    en8 = np.ones(8, np.int64)
+    att8 = attend_bucket(int(p8.max()) + 3, cfg.max_seq_len)
+
+    cache8 = KVCache.init(cfg, kv_dtype, dev, batch=8)   # read only: its contents do not matter
+
+    def sweep():
+        M.verify_tree_fast_batched(cfg, fw, toks8, p8, en8, cache8, parents=parents,
+                                   with_hidden=True, attend_len=att8)
+    out["sweep_launches"] = counted(sweep)[1]
+    out["sweep"] = profiled_call(sweep)
+    out["sweep_ms"] = out["sweep"]["device_ms"]
+    log(f"  one tree sweep (8 lanes x {Tn} nodes, {cfg.n_layers} layers, history {att8} slots): "
+        f"{out['sweep_ms']} ms on the device, {out['sweep']['wall_ms']:.3f} ms wall; launches "
+        f"{out['sweep_launches']}")
+    for where in ("top_device", "top_host"):
+        for k, ms in out["sweep"][where]:
+            log(f"    tree sweep, {where[4:]}: {ms:8.4f} ms  {k}")
+    del cache8
+
+    # (c) deep accept: rank-2 candidates are the next tokens of the same
+    # tree scheduler's own stream (an uninjected run, as tests/test_medusa.py
+    # makes its reference), rank 1 wrong
+    V, H = cfg.vocab_size, len(DEEP_TREE)
+    prompt = mix[0][0]
+
+    def deep_run(inject):
+        sched = _fast(Scheduler(cfg, fw, batch=1, kv_dtype=kv_dtype, device=dev,
+                                spec_medusa=mw, spec_tree=DEEP_TREE))
+        r = sched.submit(Request(prompt_tokens=prompt, max_new_tokens=DEEP_NEW,
+                                 temperature=0.0))
+        per_round = []   # accepted a round: a + 1 rows are scattered into the ring
+        while sched.queue or sched.n_active:
+            before = sched.spec_stats["accepted"]
+            sched.step()
+            per_round.append(sched.spec_stats["accepted"] - before)
+            s = sched.slots[0]
+            n = len(r.generated)
+            if inject and s.request is r and s.med_props and 0 < n and n + H <= len(stream):
+                s.med_props = [[(stream[n + h] + 1) % V, stream[n + h]] for h in range(H)]
+        return list(r.generated), per_round, dict(sched.spec_stats)
+    stream, _, _ = deep_run(False)
+    got, per_round, deep_stats = deep_run(True)
+    full = sum(a == H for a in per_round)
+    deep_flips = near_tie_hold("tree deep accept", "chunk path",
+                               *chunk_gaps(cfg, fw, dev, kv_dtype, [(prompt, False)], [got]))
+    if not full:
+        raise AssertionError(f"tree deep accept: no round accepted the full depth {H} "
+                             f"(accepted per round {per_round})")
+    out["deep"] = dict(tree=DEEP_TREE, new_tokens=DEEP_NEW, rounds=deep_stats["rounds"],
+                       accepted=deep_stats["accepted"], full_depth_rounds=full,
+                       max_rows_scattered=max(per_round) + 1, equal_to_reference=got == stream,
+                       forced_near_tie_flips=deep_flips)
+    log(f"  deep accept, tree {DEEP_TREE}, one lane, {DEEP_NEW} tokens, rank-2 candidates the "
+        f"uninjected run's next tokens: {deep_stats['rounds']} rounds, "
+        f"{deep_stats['accepted']} accepted, {full} rounds at the full depth {H} ({H + 1} rows "
+        f"scattered each); stream {'equals' if got == stream else 'differs from'} the "
+        f"uninjected run's, every token the chunk path's argmax but {deep_flips} near-ties")
+    del mw
+    torch.cuda.empty_cache()
+    return out
+
+
+def oracle_weights(cfg, fw):
+    """The parity oracle's Weights (models/weights.py) over the same
+    FastWeights tensors (dense, unscaled): wq/wk/wv and w1/w3 the views of
+    the concatenated rows."""
+    from yalm_tpu_torch.models.weights import LayerWeights, Weights
+    q, kd, h = cfg.q_dim, cfg.kv_dim, cfg.hidden_dim
+    lw = LayerWeights(rms_att=fw.rms_att, rms_ffn=fw.rms_ffn, wq=fw.wqkv[:, :q],
+                      wk=fw.wqkv[:, q:q + kd], wv=fw.wqkv[:, q + kd:], wo=fw.wo,
+                      w1=fw.w13[:, :h], w2=fw.w2, w3=fw.w13[:, h:], moegate=None,
+                      qn=fw.qnorm, kn=fw.knorm, pa=fw.pa, pf=fw.pf)
+    return Weights(embed=fw.embed, layers=lw, final_norm=fw.final_norm, lm_head=fw.lm_head)
+
+
+def phase_oracle(cfg, fw, dev, kv_dtype) -> dict:
+    """The parity oracle on the card (Mistral-7B widths, 2 layers): the
+    oracle (bf16 compute, the server's) and the kernels on the same weights,
+    a 64-token prefill and 8 teacher-forced decode steps: the oracle's
+    attention runs in f32 and the kernels' on bf16 operands, so every
+    step's logits are held to the JAX package's oracle-vs-kernels bound
+    (under 6e-2 of max(1, max|logit|), tests/test_debug.py:57) and the
+    argmax to the oracle's or a near-tie of it, and the error over 1e-2 of
+    max(1, max|logit|) is logged per step; then a config the attention kernel refuses
+    (one kv head: 32 queries x 128 = 4096 > 2048, MQA as in Falcon-7B,
+    random fp8 weights from a seed) takes the oracle under fast="auto"
+    (fast=True names the limit) and completes a request through the
+    Engine and one through the Scheduler."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.models.fast import fast_unsupported
+    from yalm_tpu_torch.scheduler import Request, Scheduler
+
+    cfg2 = with_layers(cfg, 2)
+    fw2 = first_layers(fw, 2)
+    fast_e = Engine(cfg2, fw2, kv_dtype=kv_dtype, device=dev)
+    orc = Engine(cfg2, oracle_weights(cfg2, fw2), kv_dtype=kv_dtype, device=dev, fast=False,
+                 compute_dtype=torch.bfloat16)
+    if not fast_e.fast or orc.fast:
+        raise AssertionError("oracle phase: the routes are not as asked")
+    rng = np.random.default_rng(31)
+    toks = rng.integers(3, cfg.vocab_size, 72).tolist()
+    times, rows = {}, {}
+    for name, e in (("kernels", fast_e), ("oracle", orc)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.prefill_tokens(toks[:64])
+        out_rows = [e._last_logits]
+        for t in toks[64:]:
+            out_rows.append(e._step(t))
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        rows[name] = torch.stack(out_rows).float()
+    ratios = []
+    for i, (g, o) in enumerate(zip(rows["kernels"], rows["oracle"])):
+        scale = max(1.0, float(o.abs().max()))
+        err = float((g - o).abs().max())
+        ratios.append(err / (1e-2 * scale))
+        # the oracle's attention is f32 and the kernels' bf16 operands, so
+        # the two are held by the JAX package's oracle-vs-kernels bound
+        # (tests/test_debug.py:57) and the argmax or a near-tie
+        if err >= 6e-2 * scale or not argmax_holds(g, o, 2e-2 * scale, True):
+            raise AssertionError(f"oracle vs kernels, step {i}: max |err| {err:.3e} "
+                                 f"(scale {scale:.3e}), argmax {int(g.argmax())} vs "
+                                 f"{int(o.argmax())}")
+    worst = max(ratios)
+    log(f"  oracle (bf16 compute) vs kernels, 2 layers: 64-token prefill and 8 decode steps: "
+        f"logits err / (1e-2 of max(1, max|logit|)) per step {[f'{r:.3f}' for r in ratios]}, "
+        f"under the 6e-2 bound, the argmax held; wall {times['kernels']:.3f} s on the kernels, "
+        f"{times['oracle']:.3f} s on the oracle")
+    out = dict(steps=9, err_over_1e2_per_step=ratios, worst_err_over_tol=worst, wall_s=times)
+    del fast_e, orc
+
+    mqa = dataclasses.replace(cfg2, n_kv_heads=1)
+    why = fast_unsupported(mqa)
+    if not why or "2048" not in why:
+        raise AssertionError(f"MQA: the kernels should refuse it, got {why!r}")
+    w = oracle_weights(mqa, synth_fast_weights(mqa, dev, seed=33))
+    try:
+        Engine(mqa, w, kv_dtype=kv_dtype, device=dev, fast=True)
+        raise AssertionError("MQA: fast=True did not raise")
+    except ValueError as e:
+        if "2048" not in str(e):
+            raise
+    eng = Engine(mqa, w, kv_dtype=kv_dtype, device=dev)
+    prompt = [mqa.bos_token_id] + rng.integers(3, mqa.vocab_size, 63).tolist()
+    got = list(eng.generate(prompt, max_steps=16, temperature=0.0))
+    sched = Scheduler(mqa, w, batch=2, kv_dtype=kv_dtype, device=dev,
+                      compute_dtype=torch.bfloat16)
+    r = sched.submit(Request(prompt_tokens=prompt, max_new_tokens=16, temperature=0.0))
+    sched.run()
+    ok = (not eng.fast and not sched.fast and len(got) == 16 and len(r.generated) == 16
+          and all(0 <= t < mqa.vocab_size for t in got + r.generated))
+    if not ok:
+        raise AssertionError(f"MQA oracle: fast {eng.fast}/{sched.fast}, {got}, {r.generated}")
+    log(f"  one kv head ({why}): fast=\"auto\" takes the oracle; Engine and Scheduler each "
+        f"complete a 64+16 greedy request ({sum(a == b for a, b in zip(got, r.generated))} of "
+        "16 tokens equal between the f32 engine and the bf16 scheduler)")
+    out["mqa"] = dict(reason=why, engine_tokens=len(got), scheduler_tokens=len(r.generated))
+    del eng, sched, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_capture(cfg, fw, dev, kv_dtype) -> dict:
+    """Debug capture on the card (Mistral-7B widths, 2 layers): the kernel
+    path's capture (decode_step_fast(capture=True): gemv_l, attend_step_l,
+    gemv) against the oracle's (bf16 compute) over 3 steps, every tensor's
+    diff_captures error under 6e-2 (tests/test_debug.py:57's bound); the
+    capture step's launches."""
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast
+    from yalm_tpu_torch.models.transformer import decode_step
+    from yalm_tpu_torch.utils.debug import diff_captures
+
+    cfg2 = with_layers(cfg, 2)
+    fw2 = first_layers(fw, 2)
+    w = oracle_weights(cfg2, fw2)
+    co, cf = KVCache.init(cfg2, kv_dtype, dev), KVCache.init(cfg2, kv_dtype, dev)
+    tok = 5
+    for pos in range(3):
+        _, co, cap_o = decode_step(cfg2, w, tok, pos, co, compute_dtype=torch.bfloat16,
+                                   capture=True)
+        (_, cf, cap_f), launches = counted(
+            lambda: decode_step_fast(cfg2, fw2, tok, pos, cf, capture=True))
+        tok = 3 + pos
+    errs = diff_captures(cap_o, cap_f)
+    bad = {k: e for k, e in errs.items() if not e < 6e-2}
+    if bad or set(cap_f) != set(cap_o) or cap_f["block_out"].shape[0] != 2:
+        raise AssertionError(f"capture: kernels vs oracle {errs}")
+    missing = [k for k in ("gemv_l", "attend_step_l", "gemv") if not launches.get(k)]
+    if missing or launches.get("attn_block_l"):
+        raise AssertionError(f"capture step: launches {launches}")
+    log(f"  capture, kernels vs oracle (bf16 compute), 2 layers, 3 steps: every tensor under "
+        f"6e-2 (worst {next(iter(errs))} {max(errs.values()):.3e}); one capture step's launches "
+        f"{launches}")
+    return dict(errors=errs, launches=launches)
+
+
+def capture_refuses_int4(cfg4, fw4, dev, kv_dtype) -> None:
+    """decode_step_fast(capture=True) on packed int4 weights raises."""
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast
+    cfg2 = with_layers(cfg4, 2)
+    try:
+        decode_step_fast(cfg2, first_layers(fw4, 2), 5, 0, KVCache.init(cfg2, kv_dtype, dev),
+                         capture=True)
+    except ValueError as e:
+        if "packed int4" not in str(e):
+            raise
+        log("  capture on packed int4 weights raises, as the JAX package's does")
+        return
+    raise AssertionError("capture on packed int4 weights did not raise")
+
+
+def tree_phases() -> int:
+    """The tree-attention Medusa, oracle and capture phases alone, for a
+    short card call: the fp8 path's Mistral-7B weights (32 layers), then
+    phase_tree, phase_oracle and phase_capture, and the int4 capture
+    refusal on a 2-layer int4 model."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from yalm_tpu_torch.ops.cuda import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    cfg = mistral7b()
+    fw = synth_fast_weights(cfg, dev, seed=0)
+    out = {}
+    with phase("phase 3 (fp8 path, bf16 cache): tree-attention Medusa (32 layers)"):
+        out["tree"] = phase_tree(cfg, fw, dev, torch.bfloat16)
+    with phase("phase 4 (fp8 path): the parity oracle on the card (2 layers)"):
+        out["oracle"] = phase_oracle(cfg, fw, dev, torch.bfloat16)
+    with phase("phase 4 (fp8 path): debug capture, kernels vs oracle (2 layers)"):
+        out["capture"] = phase_capture(cfg, fw, dev, torch.bfloat16)
+    del fw
+    cfg4 = mistral7b(n_layers=2, weight_dtype="int4")
+    with phase("phase 4 (int4 path): debug capture refuses packed int4"):
+        capture_refuses_int4(cfg4, synth_int4_weights(cfg4, dev, seed=1), dev, torch.float8_e5m2)
+    print(json.dumps(out, default=str), flush=True)
+    return 0
 
 
 def spec_phases() -> int:
@@ -3784,6 +4298,12 @@ def main() -> int:
     with phase(f"phase 3 (fp8 path, bf16 cache): speculation, serving at batch 16 "
                f"({lay_s} layers)"):
         summary["fp8"]["spec_serving"] = phase_spec_serving(cfg_s, fw_s, dev, torch.bfloat16)
+    with phase("phase 3 (fp8 path, bf16 cache): tree-attention Medusa (32 layers)"):
+        summary["fp8"]["tree"] = phase_tree(cfg, fw, dev, torch.bfloat16)
+    with phase("phase 4 (fp8 path): the parity oracle on the card (2 layers)"):
+        summary["fp8"]["oracle"] = phase_oracle(cfg, fw, dev, torch.bfloat16)
+    with phase("phase 4 (fp8 path): debug capture, kernels vs oracle (2 layers)"):
+        summary["fp8"]["capture"] = phase_capture(cfg, fw, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
         summary["fp8"]["parity"] = phase_parity(cfg, fw, dev, torch.bfloat16)
         summary["fp8"]["batched_parity"] = phase_batched_parity(cfg, fw, dev, torch.bfloat16)
@@ -3816,6 +4336,7 @@ def main() -> int:
         summary["int4"]["paged"] = phase_serving(cfg_s, fw_s, dev, e5, "int4", n_requests=20,
                                                  http=0, paged_pages=PAGED_PAGES)
     with phase("phase 4 (int4 path, e5m2 cache): depth-2 parity, card vs CPU"):
+        capture_refuses_int4(cfg4, fw4, dev, e5)
         summary["int4"]["parity"] = phase_parity(cfg4, fw4, dev, e5)
         summary["int4"]["batched_parity"] = phase_batched_parity(cfg4, fw4, dev, e5)
         summary["int4"]["paged_parity"] = phase_batched_parity(cfg4, fw4, dev, e5, paged=True)

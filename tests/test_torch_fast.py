@@ -28,11 +28,12 @@ from yalm_tpu.utils.testing import synth_checkpoint as jax_synth
 from yalm_tpu.utils.testing import tiny_config as jax_tiny
 from yalm_tpu_torch import cli
 from yalm_tpu_torch.codec.format import read_yalm
-from yalm_tpu_torch.engine import Engine
+from yalm_tpu_torch.engine import Engine, resolve_fast
 from yalm_tpu_torch.models import fast
 from yalm_tpu_torch.models.cache import KVCache
 from yalm_tpu_torch.models.fast import (decode_step_fast, fast_weights_from_numpy,
                                         load_fast_weights, prefill_fast)
+from yalm_tpu_torch.models.weights import Weights
 from yalm_tpu_torch.sampler import sample_ext
 from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
 
@@ -101,13 +102,24 @@ def test_decode_step_fast_across_the_ring(tmp_path, dtype, bias):
     (dict(dim=240), "wqkv (1024x240"),
     (dict(n_heads=64, n_kv_heads=2), "head_dim 128 x 32 queries per kv head"),
 ])
-def test_engine_names_the_kernel_limit(overrides, reason):
+def test_engine_names_the_kernel_limit(tmp_path, overrides, reason):
+    """fast=True on a config the kernels refuse raises with the limit it
+    breaks; fast="auto" (the default) takes the kernels where the config
+    fits them and the parity oracle where it does not, which completes a
+    greedy request."""
     cfg = tiny_config(**fast_kw(**overrides))
     why = fast.fast_unsupported(cfg)
     assert why is None if reason is None else reason in why
+    assert resolve_fast(cfg, "auto") == (reason is None)
     if reason is not None:
         with pytest.raises(ValueError, match=reason.replace("(", r"\(")):
-            Engine(cfg, None, device="cpu")
+            Engine(cfg, None, device="cpu", fast=True)
+        path = str(tmp_path / "m.yalm")
+        synth_checkpoint(path, cfg, seed=2)
+        eng = Engine.from_checkpoint(path, device="cpu")
+        assert not eng.fast and isinstance(eng.weights, Weights)
+        toks = list(eng.generate([1, 5, 9], max_steps=4, temperature=0.0))
+        assert len(toks) == 4 and all(0 <= t < cfg.vocab_size for t in toks)
 
 
 @pytest.mark.parametrize("mode", ["last", "all"])

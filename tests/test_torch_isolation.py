@@ -31,7 +31,9 @@ print("BAD", bad)
 """
 
 
-@pytest.mark.parametrize("module", ["scheduler", "server", "chat", "models.paged"])
+@pytest.mark.parametrize("module", ["scheduler", "server", "chat", "models.paged",
+                                    "models.transformer", "models.weights", "ops.attention",
+                                    "utils.debug"])
 def test_serving_modules_import_no_jax(module):
     code = (f"import sys, yalm_tpu_torch.{module}\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -224,6 +226,24 @@ def test_serving_entry_points_do_not_fall_back_to_cpu(tmp_path):
         ServingEngine.from_checkpoint(path)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         ServingEngine(cfg, FastWeights(*(torch.zeros(1),) * 9), None)
+
+
+def test_oracle_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    """The parity oracle's routes default to the card as well: fast=False,
+    and a config the kernels refuse under "auto"."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.server import ServingEngine
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "mqa.yalm")
+    synth_checkpoint(path, tiny_config(dim=64, hidden_dim=128, head_dim=512, n_heads=8,
+                                       n_kv_heads=1, rotary_dim=512, vocab_size=128,
+                                       max_seq_len=16))
+    for call in (lambda: Engine.from_checkpoint(path), lambda: Engine.from_checkpoint(
+            path, fast=False), lambda: ServingEngine.from_checkpoint(path)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):

@@ -17,6 +17,7 @@ from yalm_tpu.scheduler import Scheduler as JaxScheduler
 from yalm_tpu.utils.testing import synth_checkpoint as jax_synth
 from yalm_tpu.utils.testing import tiny_config as jax_tiny
 from yalm_tpu_torch.engine import Engine
+from yalm_tpu_torch.medusa import MedusaWeights
 from yalm_tpu_torch.scheduler import Request, Scheduler
 from yalm_tpu_torch.utils.testing import tiny_config
 
@@ -215,10 +216,12 @@ def test_poisoned_request_isolation_and_recover(model):
 @pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_tree=(2,)),
                                 dict(mesh=object())])
 def test_later_slices_raise(model, kw):
-    """Tree-attention Medusa and meshes are later slices and raise; paged KV
-    came with its slice and serves (tests/test_torch_paged.py holds its
-    streams to the JAX paged scheduler's; tests/test_torch_spec_scheduler.py
-    the chain speculation's)."""
+    """Meshes are a later slice and raise; paged KV came with its slice and
+    serves (tests/test_torch_paged.py holds its streams to the JAX paged
+    scheduler's; tests/test_torch_spec_scheduler.py the chain
+    speculation's), and so does tree-attention Medusa on the dense cache
+    (tests/test_torch_medusa_tree.py holds it to JAX's), whose paged form
+    raises JAX's ValueError."""
     _, _, tw, cfg = model
     if "paged_pages" in kw:
         sched = Scheduler(cfg, tw, device="cpu", **kw)
@@ -227,6 +230,19 @@ def test_later_slices_raise(model, kw):
         dense = greedy(CASES[1][0], 6)
         run(tw, cfg, [dense])
         assert sched.paged and sched.alloc.n_free == 7 and req.generated == dense.generated
+    elif "spec_tree" in kw:
+        gen = torch.Generator().manual_seed(3)
+        heads = MedusaWeights(
+            w1=(torch.randn(2, cfg.dim, cfg.dim, generator=gen) * 0.02).to(torch.bfloat16),
+            b1=torch.zeros(2, cfg.dim),
+            head=(torch.randn(2, cfg.vocab_size, cfg.dim, generator=gen) * 0.02).to(torch.bfloat16))
+        req = greedy(CASES[1][0], 6)
+        sched = run(tw, cfg, [req], spec_medusa=heads, **kw)
+        assert sched.spec_tree == (2,) and sched.spec_stats["rounds"] >= 1
+        assert len(req.generated) == 6 and req.error is None
+        with pytest.raises(ValueError, match="dense single-device"):
+            Scheduler(cfg, tw, device="cpu", spec_medusa=heads, paged_pages=8, page_size=16,
+                      **kw)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Scheduler(cfg, tw, device="cpu", **kw)

@@ -186,17 +186,19 @@ def test_server_paged(ckpt):
                                   ["--medusa-tree", "4,2"], ["--mesh", "1,1,2"],
                                   ["--distributed"]])
 def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch, tmp_path):
-    """The flags of later slices are refused (--medusa-tree, --mesh,
-    --distributed); --paged-pages and the chain speculation flags (--draft,
-    here the checkpoint drafting for itself, --spec-lookup, --spec-k,
-    --medusa on a checkpoint with heads) came with their slices and start a
-    server (stopped here at once) whose scheduler is in that mode."""
-    if flag[0] == "--medusa":
+    """The flags of later slices are refused (--mesh, --distributed);
+    --paged-pages, the chain speculation flags (--draft, here the
+    checkpoint drafting for itself, --spec-lookup, --spec-k, --medusa on a
+    checkpoint with heads) and --medusa-tree (tree-attention Medusa on the
+    same checkpoint) came with their slices and start a server (stopped
+    here at once) whose scheduler is in that mode."""
+    if flag[0] in ("--medusa", "--medusa-tree"):
         med = str(tmp_path / "med.yalm")
         synth_checkpoint(med, tiny_config(**fast_kw(max_seq_len=128)), seed=4, medusa_heads=3)
         ckpt = med
     flag = [ckpt if a == "d.yalm" else a for a in flag]
-    if flag[0] in ("--paged-pages", "--draft", "--spec-lookup", "--spec-k", "--medusa"):
+    if flag[0] in ("--paged-pages", "--draft", "--spec-lookup", "--spec-k", "--medusa",
+                   "--medusa-tree"):
         started = []
 
         def serve(engine, host, port):
@@ -216,6 +218,9 @@ def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch, tmp_path
             assert "9 pages of 16" in out and not sched.spec
         elif flag[0] == "--spec-k":   # no proposal source: plain serving, K kept
             assert not sched.spec and sched.spec_k == 4
+        elif flag[0] == "--medusa-tree":
+            assert sched.spec_medusa is not None and sched.spec_tree == (4, 2)
+            assert "spec=medusa tree (4, 2) k=3" in out and not sched.paged
         else:
             mode = {"--draft": "draft", "--spec-lookup": "lookup", "--medusa": "medusa"}[flag[0]]
             assert sched.spec and f"spec={mode} k=" in out

@@ -462,8 +462,12 @@ def test_spec_refusals(models):
     with pytest.raises(ValueError, match="logit_bias"):
         sched.submit(Request(prompt_tokens=[1, 2], logit_bias={3: 1.0}))
     assert Scheduler(cfg, tw, device="cpu", spec_medusa=models["heads"], spec_k=9).spec_k == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cfg, tw, device="cpu", spec_medusa=models["heads"], spec_tree=(2, 2))
+    # tree-attention Medusa came with its slice: it starts, and a tree
+    # deeper than the heads raises JAX's ValueError
+    assert Scheduler(cfg, tw, device="cpu", spec_medusa=models["heads"],
+                     spec_tree=(2, 2)).spec_tree == (2, 2)
+    with pytest.raises(ValueError, match="medusa heads"):
+        Scheduler(cfg, tw, device="cpu", spec_medusa=models["heads"], spec_tree=(2,) * 5)
 
 
 @pytest.mark.parametrize("mode", MODES)

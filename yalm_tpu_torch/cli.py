@@ -20,8 +20,10 @@ Usage: python -m yalm_tpu_torch.cli <checkpoint.yalm> [options]
   -L             prompt-LOOKUP speculative completion (no draft model:
                  proposals continue the most recent earlier occurrence of
                  the trailing n-gram)
-  -C f16|bf16|fp8   KV-cache dtype (f16 and bf16 run as bf16; fp8 is the
+  -C f16|bf16|fp8   KV-cache dtype (the kernels run f16 as bf16; fp8 is the
                  e5m2 cache, half the cache bytes)
+A model whose shapes the kernels refuse runs on the parity oracle
+(models/transformer.py), as the JAX CLI's does.
 The JAX CLI's device meshes (-M) are not in the port and are refused.
 """
 
@@ -126,7 +128,8 @@ def _build_engine(opts, path=None):
     import torch
 
     from .engine import Engine
-    kv = torch.float8_e5m2 if opts["kv"] == "fp8" else torch.bfloat16   # f16 runs as bf16
+    # the kernels run f16 as bf16; the oracle (a config the kernels refuse) keeps f16
+    kv = {"fp8": torch.float8_e5m2, "bf16": torch.bfloat16, "f16": torch.float16}[opts["kv"]]
     return Engine.from_checkpoint(path or opts["checkpoint"], context=opts["context"],
                                   device=opts["device"], kv_dtype=kv)
 

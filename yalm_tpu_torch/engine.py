@@ -1,5 +1,6 @@
-"""Inference engine over the fast path (port of `Engine` in
-`yalm_tpu/engine.py`).
+"""Inference engine over the fast path or the parity oracle (port of
+`Engine` in `yalm_tpu/engine.py`; `fast="auto"` takes the kernels wherever
+the config fits them, as the JAX engine does).
 
 The prompt is hydrated in bucketed chunks of batched GEMMs while it fits
 the context window and token by token in the ring-buffer regime beyond it;
@@ -26,8 +27,11 @@ from .codec.format import read_yalm
 from .config import ModelConfig
 from .models.cache import KVCache
 from .medusa import MedusaWeights, load_medusa_weights, medusa_propose
-from .models.fast import (FastWeights, decode_step_fast, fast_unsupported,
+from .models.fast import (FastWeights, decode_step_fast, fast_supported, fast_unsupported,
                           load_fast_weights, prefill_fast)
+from .models.transformer import decode_step, prefill
+from .models.weights import Weights, load_weights
+from .ops.cuda.attention import KV_DTYPES
 from .sampler import logprob_of, sample_ext
 from .spec import NgramHistory, pointmass_rejection_verify
 from .tokenizer import Tokenizer
@@ -122,23 +126,66 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class Engine:
-    """Single-sequence inference engine over FastWeights on one device."""
+def resolve_fast(cfg: ModelConfig, fast) -> bool:
+    """The route of an engine or scheduler (engine.py:145-159): "auto" takes
+    the kernels wherever the config fits them (fast_supported, which is
+    also fast_batched_supported: any batch, the port's kernels have no
+    sublane rule), else the oracle; True on a config the kernels refuse
+    raises with the kernel limit it breaks. Decided from the config alone,
+    before any launch."""
+    if fast == "auto":
+        return fast_supported(cfg)
+    if fast not in (True, False):
+        raise ValueError(f"fast must be 'auto', True or False, got {fast!r}")
+    why = fast_unsupported(cfg) if fast else None
+    if why:
+        raise ValueError(f"this model's shapes do not fit the port's kernels: {why}")
+    return bool(fast)
 
-    def __init__(self, cfg: ModelConfig, weights: FastWeights,
-                 tokenizer: Optional[Tokenizer] = None, *,
-                 kv_dtype: torch.dtype = torch.bfloat16, device="cuda"):
+
+def route_weights(cfg: ModelConfig, weights, fast: bool, device: torch.device):
+    """The weights in the route's layout: FastWeights for the kernels (an
+    oracle Weights is concatenated, as FastWeights.from_weights does), the
+    oracle's Weights otherwise; on `device`."""
+    if fast and isinstance(weights, Weights):
+        weights = FastWeights.from_weights(weights, cfg)
+    if not fast and not isinstance(weights, Weights):
+        raise ValueError("the oracle route (fast=False) takes the Weights of "
+                         "models/weights.py:load_weights")
+    on = weights.wqkv.device if fast else weights.embed.device
+    if on.type != device.type:
+        raise ValueError(f"weights on {on}, engine on {device}")
+    return weights
+
+
+def route_kv_dtype(kv_dtype: torch.dtype, fast: bool) -> torch.dtype:
+    """The cache type of the route: the kernels' caches are bf16 (an f16
+    request runs as bf16) and e5m2; the oracle takes f32, f16, bf16 and
+    e5m2."""
+    if fast and kv_dtype == torch.float16:
+        kv_dtype = torch.bfloat16
+    allowed = KV_DTYPES if fast else KV_DTYPES + (torch.float16, torch.float32)
+    if kv_dtype not in allowed:
+        raise NotImplementedError(f"KV cache {kv_dtype}: the {'kernels' if fast else 'oracle'} "
+                                  f"take {', '.join(str(d) for d in allowed)}")
+    return kv_dtype
+
+
+class Engine:
+    """Single-sequence inference engine on one device: on the kernels
+    (FastWeights) or on the parity oracle (Weights, models/transformer.py),
+    by `fast` ("auto": the kernels wherever the config fits them)."""
+
+    def __init__(self, cfg: ModelConfig, weights, tokenizer: Optional[Tokenizer] = None, *,
+                 kv_dtype: torch.dtype = torch.bfloat16, device="cuda", fast="auto",
+                 compute_dtype: torch.dtype = torch.float32):
+        """compute_dtype: the oracle's weight and activation type in its
+        products (sums in f32); the kernels ignore it."""
         self.device = resolve_device(device)
-        why = fast_unsupported(cfg)
-        if why:
-            raise ValueError(f"this model's shapes do not fit the port's kernels: {why}")
-        if kv_dtype == torch.float16:
-            kv_dtype = torch.bfloat16   # the fast path's cache is bf16 or e5m2
-        if kv_dtype not in (torch.bfloat16, torch.float8_e5m2):
-            raise NotImplementedError(
-                f"KV cache {kv_dtype}: the port's caches are bf16 and float8_e5m2")
-        if weights.wqkv.device.type != self.device.type:
-            raise ValueError(f"weights on {weights.wqkv.device}, engine on {self.device}")
+        self.fast = resolve_fast(cfg, fast)
+        kv_dtype = route_kv_dtype(kv_dtype, self.fast)
+        weights = route_weights(cfg, weights, self.fast, self.device)
+        self.compute_dtype = compute_dtype
         self.cfg = cfg
         self.weights = weights
         self.tokenizer = tokenizer
@@ -150,15 +197,19 @@ class Engine:
         self._spec_stats: Optional[dict] = None
 
     @classmethod
-    def from_checkpoint(cls, path: str, *, context: int = 0, device="cuda",
+    def from_checkpoint(cls, path: str, *, context: int = 0, device="cuda", fast="auto",
                         **kw) -> "Engine":
+        """Load a checkpoint straight into the route's layout
+        (engine.py:320-345): load_fast_weights for the kernels,
+        load_weights for the oracle."""
         dev = resolve_device(device)
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
-            weights = load_fast_weights(yf, cfg, dev)
+            fast = resolve_fast(cfg, fast)
+            weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
-            eng = cls(cfg, weights, tok, device=dev, **kw)
+            eng = cls(cfg, weights, tok, device=dev, fast=fast, **kw)
             if "medusa_heads" in yf.metadata:
                 # self-drafting heads ride the checkpoint; small beside the model
                 eng.medusa = load_medusa_weights(yf, cfg, dev)
@@ -175,24 +226,31 @@ class Engine:
     def warmup(self) -> None:
         """Build and load the CUDA kernels before the first timed step (a
         no-op on the CPU)."""
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.fast:
             from .ops.cuda import _build
             _build.lib()
 
     def _step(self, token, output_logits: bool = True):
-        logits, self.cache = decode_step_fast(self.cfg, self.weights, token,
-                                              self.pos, self.cache,
-                                              output_logits=output_logits)
+        if self.fast:
+            logits, self.cache = decode_step_fast(self.cfg, self.weights, token, self.pos,
+                                                  self.cache, output_logits=output_logits)
+        else:
+            logits, self.cache = decode_step(self.cfg, self.weights, token, self.pos, self.cache,
+                                             output_logits=output_logits,
+                                             compute_dtype=self.compute_dtype)
         self.pos += 1
         return logits
 
     def _prefill(self, toks, take: int, bucket: int, mode: str):
         padded = np.zeros(bucket, np.int64)
         padded[:take] = toks
-        out, self.cache = prefill_fast(
-            self.cfg, self.weights, padded, self.pos, take, self.cache,
-            logits_mode=mode,
-            attend_len=attend_bucket(self.pos + bucket, self.cfg.max_seq_len))
+        if self.fast:
+            out, self.cache = prefill_fast(
+                self.cfg, self.weights, padded, self.pos, take, self.cache, logits_mode=mode,
+                attend_len=attend_bucket(self.pos + bucket, self.cfg.max_seq_len))
+        else:
+            out, self.cache = prefill(self.cfg, self.weights, padded, self.pos, take, self.cache,
+                                      logits_mode=mode, compute_dtype=self.compute_dtype)
         self.pos += take
         return out
 

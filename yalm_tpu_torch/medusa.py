@@ -23,7 +23,6 @@ device: the heads are einsums in the JAX package too, not a kernel.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field, fields
 from typing import Mapping
 
@@ -32,7 +31,7 @@ import torch
 
 from .codec.format import numpy_to_torch, tag_for_numpy
 from .config import ModelConfig
-from .ops.core import silu
+from .ops.core import f32_matmul, silu
 from .ops.cuda.gemv import bf16f
 
 
@@ -83,22 +82,11 @@ def medusa_weights_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") ->
     return MedusaWeights(**conv)
 
 
-@contextlib.contextmanager
-def _f32_matmul():
-    """Full f32 products (no TF32) while active."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def medusa_logits_rows(mw: MedusaWeights, hidden: torch.Tensor) -> torch.Tensor:
     """Every head's logits from per-lane hidden rows (B, dim) -> (B, H, vocab)
     f32 (medusa.py:101-112)."""
     h = hidden.float()
-    with _f32_matmul():
+    with f32_matmul():
         z = torch.einsum("hij,bj->bhi", mw.w1_op, bf16f(h)) + mw.b1[None].float()
         z = h[:, None] + silu(z)
         return torch.einsum("hvi,bhi->bhv", mw.head_op, bf16f(z))
@@ -108,6 +96,23 @@ def medusa_propose_rows(mw: MedusaWeights, hidden: torch.Tensor) -> torch.Tensor
     """Greedy proposals of every head from per-lane hidden rows (B, dim) ->
     (B, H) int64 (the scheduler's per-round source)."""
     return torch.argmax(medusa_logits_rows(mw, hidden), dim=-1)
+
+
+def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, ties by the
+    lower index first, as jax.lax.top_k orders them (torch.topk promises
+    no order among ties): a stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def medusa_propose_topk_rows(mw: MedusaWeights, hidden: torch.Tensor, kmax: int) -> torch.Tensor:
+    """Every head's kmax best candidates from per-lane hidden rows (B, dim)
+    -> (B, H, kmax) int64 (medusa.py:82-97): head h's candidates for the
+    position h+1 ahead, the per-depth candidate sets of tree verification
+    (models/fast.py:verify_tree_fast_batched). Column 0 is each head's
+    argmax, medusa_propose_rows' proposal."""
+    return topk_stable(medusa_logits_rows(mw, hidden), kmax)[1]
 
 
 def medusa_propose(mw: MedusaWeights, hidden: torch.Tensor) -> torch.Tensor:

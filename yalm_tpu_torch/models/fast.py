@@ -6,7 +6,10 @@ admitting lane's next prompt chunk in one weight sweep), and the same over a
 paged KV pool (`decode_step_fast_batched_paged`, `prefill_fast_paged`,
 `prefill_chunk_fast_batched_paged`; models/paged.py), and the verify
 sweep of scheduler speculation (`verify_chunk_fast_batched[_paged]`: every
-lane's K+1-row chunk in one weight sweep).
+lane's K+1-row chunk in one weight sweep), tree-attention Medusa's
+(`verify_tree_fast_batched`: a whole candidate tree per lane in one sweep,
+the cache read only, then `scatter_tree_rows` for the accepted path), and
+the debug capture of one decode step (`decode_step_fast(capture=True)`).
 
 One decode step per token: embedding gather, then per layer the attention
 block (`attn_block_l`: norm + wqkv GEMV, attention step, wo GEMV +
@@ -124,6 +127,27 @@ class FastWeights:
             else:
                 out[f.name] = None
         return FastWeights(**out)
+
+    @classmethod
+    def from_weights(cls, w, cfg: ModelConfig) -> "FastWeights":
+        """The decode layout of the oracle's Weights (models/weights.py),
+        on their device: [wq; wk; wv] and [w1; w3] concatenated (per
+        expert), f16 as bf16 (the kernels have no f16 type); int8 and int4
+        checkpoints arrive dequantized to f32, so no scales. A tied LM head
+        stays shared with the embedding."""
+        lw = w.layers
+        ax = 2 if cfg.is_moe else 1
+        embed = _host(w.embed)
+        return cls(
+            embed=embed, rms_att=lw.rms_att.float(), rms_ffn=lw.rms_ffn.float(),
+            wqkv=_host(torch.cat([lw.wq, lw.wk, lw.wv], dim=1)), wo=_host(lw.wo),
+            w13=_host(torch.cat([lw.w1, lw.w3], dim=ax)), w2=_host(lw.w2),
+            final_norm=w.final_norm.float(),
+            lm_head=embed if w.lm_head is w.embed else _host(w.lm_head),
+            bqkv=(torch.cat([lw.bq, lw.bk, lw.bv], dim=1).float()
+                  if lw.bq is not None else None),
+            moegate=None if lw.moegate is None else _host(lw.moegate),
+            qnorm=lw.qn, knorm=lw.kn, pa=lw.pa, pf=lw.pf)
 
 
 def _itemsize(cfg: ModelConfig) -> int:
@@ -451,17 +475,27 @@ def _attn_unfused(cfg: ModelConfig, fw: FastWeights, x, i: int, kv_pos: int, kv_
 
 
 def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
-                     cache: KVCache, *, output_logits: bool = True
-                     ) -> tuple[Optional[torch.Tensor], KVCache]:
+                     cache: KVCache, *, output_logits: bool = True, capture: bool = False):
     """One decode step at absolute position `pos`; updates `cache` in place
     and returns (logits (vocab,) f32 or None, cache). `token` is an int or a
     one-element tensor on the weights' device. MoE layers run the routed
     experts only (`_moe_ffn_one`); models the fused block cannot take run
-    the unfused route (`_attn_unfused`)."""
+    the unfused route (`_attn_unfused`).
+
+    capture=True (fast.py:596-673) returns (logits, cache, capture map):
+    the step on the unfused route with every kernel boundary exposed (the
+    wqkv, wo, w13 and w2 GEMVs, the attention step, the routed experts'
+    GEMVs, the LM-head GEMV), recording per layer att_in, post-rope q and
+    k, v, att_mix, ffn_in and block_out, plus final_norm and logits: the
+    oracle's capture map (models/transformer.py), for
+    utils/debug.py:diff_captures. Packed int4 weights raise."""
     sc = fw.scales
     pos = int(pos)
     x = _embed(cfg, fw, token)[0]
     kv_sink, kv_pos, kv_len = ring_slots(pos, cfg.max_seq_len)
+    if capture:
+        return _decode_capture(cfg, fw, x, pos, (kv_sink, kv_pos, kv_len), cache,
+                               output_logits)
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
     # one route for every weight type: attn_block/ffn run the int4 twins of
     # the same launch sequences for packed int4 weights (the JAX package's
@@ -487,6 +521,68 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
         return None, cache
     x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
     return _cap_logits(cfg, gemv(x, fw.lm_head, sc.lm_head if sc else None)), cache
+
+
+def _decode_capture(cfg: ModelConfig, fw: FastWeights, x, pos: int, slots, cache: KVCache,
+                    output_logits: bool):
+    """decode_step_fast(capture=True)'s body (fast.py:596-673)."""
+    if is_int4(fw.wqkv):
+        raise ValueError(
+            "capture mode does not support packed int4 weights (the unfused capture "
+            "sequence dispatches per-channel kernels); debug kernel boundaries with "
+            "int8/fp8 checkpoints")
+    sc = fw.scales
+    kv_sink, kv_pos, kv_len = slots
+    Hq, Hk, D, H = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_dim
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+    act = silu if cfg.act_type == "silu" else gelu
+    recs: list[dict] = []
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = gemv_l(xb, fw.wqkv, i, scale=sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv)
+        q, k = _qk_norm(qkv[:q_dim], qkv[q_dim:q_dim + kv_dim], fw, i, cfg)
+        v = qkv[q_dim + kv_dim:]
+        alt = _layer_alt(cfg, i)
+        rec = {"att_in": xb,   # the kernels rope internally: q and k post-rope, as the oracle's
+               "q": apply_rope(q.reshape(Hq, D), pos, cfg.rope_param, cfg.rotary_dim, alt),
+               "k": apply_rope(k.reshape(Hk, D), pos, cfg.rope_param, cfg.rotary_dim, alt),
+               "v": v.reshape(Hk, D)}
+        mixed = attend_step_l(q.reshape(Hk, -1, D), k.reshape(Hk, D), v.reshape(Hk, D),
+                              cache.k, cache.v, i, kv_pos, kv_len, kv_sink, pos,
+                              kv_sinks=KV_SINKS, theta=cfg.rope_param,
+                              rotary_dim=cfg.rotary_dim, **_attn_kw(cfg, i))
+        rec["att_mix"] = mixed.reshape(q_dim)
+        if fw.pa is None:
+            x = gemv_l(rec["att_mix"], fw.wo, i, residual=x, scale=sc.wo if sc else None)
+        else:
+            x = x + _post_norm(gemv_l(rec["att_mix"], fw.wo, i, scale=sc.wo if sc else None),
+                               fw.pa, i, cfg.norm_eps)
+        xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
+        rec["ffn_in"] = xb2
+        if cfg.is_moe:
+            router = gemv_l(xb2, fw.moegate, i, scale=sc.moegate if sc else None)
+            gates, idx = moe_gate(router, cfg.n_experts_active)
+            for j in range(cfg.n_experts_active):
+                h13 = _proj1_le(xb2, fw.w13, i, idx[j], sc.w13 if sc else None)
+                h = act(h13[:H]) * h13[H:]
+                x = x + gates[j] * _proj1_le(h, fw.w2, i, idx[j], sc.w2 if sc else None)
+        else:
+            h13 = gemv_l(xb2, fw.w13, i, scale=sc.w13 if sc else None)
+            h = act(h13[:H]) * h13[H:]
+            x = x + _post_norm(gemv_l(h, fw.w2, i, scale=sc.w2 if sc else None), fw.pf, i,
+                               cfg.norm_eps)
+        rec["block_out"] = x
+        recs.append(rec)
+    cap = {name: torch.stack([r[name] for r in recs]) for name in recs[0]}
+    if not output_logits:
+        return None, cache, cap
+    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    cap["final_norm"] = xn
+    cap["logits"] = _cap_logits(cfg, gemv(xn, fw.lm_head, sc.lm_head if sc else None))
+    return cap["logits"], cache, cap
 
 
 def _proj1_le(x1d, w_all, layer, expert, scale, **kw):
@@ -942,6 +1038,169 @@ def verify_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, e
         cfg, fw, tokens, pos0, np.full(np.asarray(tokens).shape[0], T), enable, cache,
         attend_len=attend_len, logits_mode="all_h" if with_hidden else "all")
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# tree-attention verification (Medusa candidate trees)
+# ---------------------------------------------------------------------------
+
+def tree_depths(parents: tuple[int, ...]) -> tuple[int, ...]:
+    """Node depths of a static candidate tree (parents[0] == -1, nodes in
+    topological order: parents[i] < i)."""
+    d: list[int] = []
+    for p in parents:
+        d.append(0 if p < 0 else d[p] + 1)
+    return tuple(d)
+
+
+def cartesian_tree(branching: tuple[int, ...]) -> tuple[int, ...]:
+    """The parent array of the full cartesian candidate tree for per-depth
+    branching factors, e.g. (4, 2) -> the root, 4 children and 8
+    grandchildren (13 nodes), in BFS order (every depth-d node before any of
+    depth d+1)."""
+    parents = [-1]
+    prev = [0]
+    for k in branching:
+        nxt = []
+        for p in prev:
+            for _ in range(k):
+                parents.append(p)
+                nxt.append(len(parents) - 1)
+        prev = nxt
+    return tuple(parents)
+
+
+def _ancestors(parents: tuple[int, ...]) -> np.ndarray:
+    """(Tn, Tn) bool: anc[i, j] iff j is i or one of its ancestors."""
+    anc = np.zeros((len(parents), len(parents)), bool)
+    for i, p in enumerate(parents):
+        anc[i, i] = True
+        while p >= 0:
+            anc[i, p] = True
+            p = parents[p]
+    return anc
+
+
+def _attend_tree(cfg, q5, kc, vc, kt, vt, hmask, anc, D):
+    """Tree attention (fast.py:1160-1182): each node's scores over the
+    cache's history (hmask (B, 1|Tn, S)) and over the tree's own rows (its
+    ancestor chain, anc (Tn, Tn)), one f32 softmax over both; bf16
+    operands, f32 sums, the softcap before the masks. q5 (B, Tn, Hk, qpk,
+    D), kc/vc (B, S, Hk, D), kt/vt (B, Tn, Hk, D)."""
+    S = kc.shape[1]
+    qb = bf16f(q5)
+    sh = _softcap_scores(cfg, torch.einsum("btgqd,bsgd->bgqts", qb, bf16f(kc)) / math.sqrt(D))
+    st = _softcap_scores(cfg, torch.einsum("btgqd,bngd->bgqtn", qb, bf16f(kt)) / math.sqrt(D))
+    sh = torch.where(hmask[:, None, None], sh, torch.full_like(sh, NEG_INF))
+    st = torch.where(anc[None, None, None], st, torch.full_like(st, NEG_INF))
+    att = torch.softmax(torch.cat([sh, st], dim=-1), dim=-1)
+    return (torch.einsum("bgqts,bsgd->btgqd", bf16f(att[..., :S]), bf16f(vc))
+            + torch.einsum("bgqtn,bngd->btgqd", bf16f(att[..., S:]), bf16f(vt)))
+
+
+def verify_tree_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, enable,
+                             cache: KVCache, *, parents: tuple[int, ...],
+                             with_hidden: bool = False, attend_len: int = 0) -> tuple:
+    """Tree-attention verification (fast.py:1095-1249): ONE weight sweep
+    scores a whole candidate tree per lane. tokens (B, Tn) node ids (row 0
+    the root), pos0 (B,) the root's position and enable (B,) on the host;
+    node i sits at pos0 + depth(i) and attends the lane's cache slots
+    before the root (each sliding layer's window applied by the node's
+    position) plus its own ancestor chain under the static (Tn, Tn) mask.
+    Row i's logits answer "what follows the root .. i chain". Disabled
+    lanes compute from slot 0; their rows mean nothing.
+
+    The cache is READ ONLY (siblings would collide on one ring slot): each
+    layer's tree K/V is cast to the cache type before it is attended, so an
+    accepted row sees exactly what a cache round trip gives, and returned
+    as (B, n_layers, Tn, Hk, D) ktree and vtree; scatter_tree_rows writes
+    the accepted path's rows after the walk. Enabled lanes need pos0 +
+    max depth + 1 <= the window. attend_len (0 = the window) bounds the
+    history read; it must cover every enabled lane's pos0 + max depth + 1.
+
+    The projections run on the chunk paths' kernels: gemm_l (gemm4_l on
+    packed int4) for wqkv and wo, the FFN's GEMM route (the all-expert
+    gemm_le/gemm4_le sweep for MoE) and the LM head on gemm; the tree
+    attention is plain torch, as the JAX package leaves it to XLA.
+
+    Returns ((logits (B, Tn, vocab) f32[, hidden (B, Tn, dim)]), (ktree,
+    vtree)), hidden the post-final-norm rows Medusa's heads read."""
+    sc = fw.scales
+    dev = fw.wqkv.device
+    tok = np.asarray(tokens, np.int64)
+    if tok.ndim != 2 or tok.shape[1] != len(parents):
+        raise ValueError(f"verify_tree_fast_batched: tokens {tok.shape} vs a tree of "
+                         f"{len(parents)} nodes")
+    Bn, Tn = tok.shape
+    if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
+        raise ValueError(f"verify_tree_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
+    depths = np.asarray(tree_depths(parents), np.int64)
+    en = _host_ints(enable, Bn) != 0
+    p0 = np.where(en, _host_ints(pos0, Bn), 0)
+    L = cfg.max_seq_len
+    S = attend_len or L
+    if S > L or (en.any() and ((p0[en] < 0).any() or (p0[en] + depths.max() + 1 > S).any())):
+        raise ValueError(f"verify_tree_fast_batched: roots at {p0[en].tolist()} with depth "
+                         f"{int(depths.max())} vs attend_len {S}, window {L}")
+    Hq, Hk, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    qpk = Hq // Hk
+    q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
+    anc = torch.as_tensor(_ancestors(parents), device=dev)
+    positions = torch.as_tensor(p0[:, None] + depths[None, :], device=dev)        # (B, Tn)
+    # the history: strictly the slots before the root (the tree's own rows
+    # come through the ancestor mask)
+    hist = torch.arange(S, device=dev)[None, None, :] < torch.as_tensor(p0, device=dev)[:, None,
+                                                                                        None]
+    if any(cfg.layer_sliding):
+        slide = hist & (positions[..., None] - torch.arange(S, device=dev) < cfg.sliding_window)
+    ktree = torch.empty((Bn, cfg.n_layers, Tn, Hk, D), dtype=cache.k.dtype, device=dev)
+    vtree = torch.empty_like(ktree)
+    x = _embed(cfg, fw, tok.reshape(-1))               # (B*Tn, dim)
+
+    for i in range(cfg.n_layers):
+        xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
+        qkv = _proj_l(xb, fw.wqkv, i, sc.wqkv if sc else None)
+        if fw.bqkv is not None:
+            qkv = qkv + fw.bqkv[i]
+        qkv = _clip(cfg, qkv).reshape(Bn, Tn, -1)
+        qf, kf = _qk_norm(qkv[..., :q_dim], qkv[..., q_dim:q_dim + kv_dim], fw, i, cfg)
+        alt = _layer_alt(cfg, i)
+        q = apply_rope(qf.reshape(Bn, Tn, Hq, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
+        k = apply_rope(kf.reshape(Bn, Tn, Hk, D), positions, cfg.rope_param, cfg.rotary_dim, alt)
+        v = qkv[..., q_dim + kv_dim:].reshape(Bn, Tn, Hk, D)
+        for tree, rows in ((ktree, k), (vtree, v)):
+            int_view(tree[:, i]).copy_(int_view(rows.to(tree.dtype)))
+        hmask = slide if any(cfg.layer_sliding) and cfg.layer_sliding[i] else hist
+        mixed = _attend_tree(cfg, q.reshape(Bn, Tn, Hk, qpk, D), cache.k[:, i, :S],
+                             cache.v[:, i, :S], ktree[:, i], vtree[:, i], hmask, anc, D)
+        x = _wo_rows(cfg, fw, mixed.reshape(Bn * Tn, q_dim), x, i)
+        x = _ffn_rows(cfg, fw, x, i)
+
+    xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
+    logits = _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None)).reshape(Bn, Tn, -1)
+    out = (logits, xn.reshape(Bn, Tn, -1)) if with_hidden else logits
+    return out, (ktree, vtree)
+
+
+def scatter_tree_rows(cache: KVCache, ktree, vtree, pos0, rows, n) -> KVCache:
+    """Write the accepted tree path's K/V rows into the ring cache IN PLACE
+    (fast.py:1252-1281): for d < n[b], cache[b, :, pos0[b] + d] =
+    tree[b, :, rows[b, d]]. rows (B, R) node indices (the walked path, root
+    first), pos0 (B,) and n (B,) on the host; a lane with n 0 changes
+    nothing."""
+    n = _host_ints(n)
+    rows = np.asarray(rows, np.int64).reshape(len(n), -1)
+    p0 = _host_ints(pos0, len(n))
+    lane, d = np.nonzero(np.arange(rows.shape[1])[None, :] < n[:, None])
+    if len(lane):
+        dev = cache.k.device
+        li = torch.as_tensor(lane, device=dev)
+        slot = torch.as_tensor(p0[lane] + d, device=dev)
+        node = torch.as_tensor(rows[lane, d], device=dev)
+        for c, tree in ((cache.k, ktree), (cache.v, vtree)):
+            # (rows, n_layers, Hk, D) into the (rows, n_layers) slots
+            int_view(c)[li, :, slot] = int_view(tree)[li, :, node]
+    return cache
 
 
 def prefill_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0,

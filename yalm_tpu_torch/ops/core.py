@@ -1,18 +1,31 @@
 """Core numeric ops in plain PyTorch (port of `yalm_tpu/ops/core.py`).
 
 RMSNorm, interleaved-pair RoPE with every packed `rope_param` scaling kind,
-the activations and the MoE router's top-k gate. Everything computes in
+the oracle's sink rotation and masked softmax, the activations and the MoE
+router's top-k gate. Everything computes in
 float32, with the same order of operations as the JAX functions, so the
 two packages agree to float32 rounding on the same inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 NEG_INF = -1e30  # the masking constant of every attention path (not -inf)
+
+
+@contextlib.contextmanager
+def f32_matmul():
+    """Full f32 products (no TF32) while active."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def int_view(t: torch.Tensor) -> torch.Tensor:
@@ -138,6 +151,25 @@ def apply_rope(x: torch.Tensor, positions, theta, rotary_dim: int,
     pos = torch.as_tensor(positions, dtype=torch.float32, device=x.device)
     ang = (pos[..., None] * freq)[..., None, :]  # broadcast over heads
     return rotate_pairs(x, ang, rope_mscale(theta)).to(orig_dtype)
+
+
+def rope_rotate_cached(k_rows: torch.Tensor, theta, rotary_dim: int, n=1,
+                       alt=None) -> torch.Tensor:
+    """Rotate cached sink-key rows k_rows[..., n_kv_heads, head_dim] forward
+    by `n` positions (the oracle's lazy StreamingLLM view: the cache keeps
+    the keys as written and attention rotates a view by the accumulated
+    offset, in f32)."""
+    pos = torch.full(k_rows.shape[:-2], float(n), dtype=torch.float32, device=k_rows.device)
+    return apply_rope(k_rows, pos, rope_rotation_param(theta), rotary_dim, alt)
+
+
+def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis over the valid slots only: masked slots
+    at -1e30 for the max, their exponentials zeroed exactly."""
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - m) * mask
+    return e / torch.sum(e, dim=-1, keepdim=True)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -40,8 +40,18 @@
   round. Lanes near the window edge, and lookup lanes with no match, take a
   plain subtick. Composes with the paged pool and MoE targets.
 
-Tree-attention Medusa (`spec_tree`) and meshes come in later slices of the
-port (ROADMAP.md) and raise NotImplementedError.
+- Tree-attention Medusa (`spec_tree`, scheduler.py:1828-1930): greedy
+  lanes verify the cartesian tree of their heads' top candidates in one
+  sweep that reads the dense cache only (`verify_tree_fast_batched`), the
+  walk and the next candidates come back in one read, and the accepted
+  path's rows are scattered into the ring.
+- `fast=False` (or "auto" on a config the kernels refuse) runs the parity
+  oracle (`models/transformer.py`): a per-lane decode step for every
+  writing lane of a tick, per-slot prefill; no paged pool, no batched
+  admission, no prefix cache, no speculation.
+
+Meshes come in a later slice of the port (ROADMAP.md) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,15 +64,17 @@ import torch
 
 from .config import ModelConfig
 from .engine import (PREFILL_BUCKETS, _bucket_for, attend_bucket, chunk_schedule,
-                     resolve_device)
-from .medusa import MedusaWeights, medusa_propose_rows
+                     resolve_device, resolve_fast, route_kv_dtype, route_weights)
+from .medusa import MedusaWeights, medusa_propose_rows, medusa_propose_topk_rows, topk_stable
 from .models.cache import KVCache
-from .models.fast import (FastWeights, decode_step_fast, decode_step_fast_batched,
+from .models.fast import (cartesian_tree, decode_step_fast, decode_step_fast_batched,
                           decode_step_fast_batched_paged, fast_unsupported,
                           prefill_chunk_fast_batched, prefill_chunk_fast_batched_paged,
-                          prefill_fast, prefill_fast_paged, verify_chunk_fast_batched,
-                          verify_chunk_fast_batched_paged)
+                          prefill_fast, prefill_fast_paged,
+                          scatter_tree_rows, tree_depths, verify_chunk_fast_batched,
+                          verify_chunk_fast_batched_paged, verify_tree_fast_batched)
 from .models.paged import PageAllocator, PagedKVPool
+from .models.transformer import decode_step, prefill
 from .sampler import _envelope, sample_rows, uniform_rows
 from .spec import NgramHistory
 
@@ -190,6 +202,48 @@ def _verify_pack_medusa(logits, chunk, seeds, positions, temps, topks, topps, kd
     return torch.cat([vp, col], dim=-1)
 
 
+def _verify_pack_tree(logits, chunk, live, hidden, mw: MedusaWeights, *,
+                      parents: tuple[int, ...], kmax: int, topn: int = 0) -> torch.Tensor:
+    """A tree verify sweep's post-processing on the device, greedy lanes
+    only (scheduler.py:241-290): one (B, Tn, C) f32 read carrying per node
+    row [argmax id, its logprob, the node's own token's logprob under its
+    parent's row, topn ids, topn logprobs, the walked final node
+    (broadcast), the next round's head candidates (broadcast, H * kmax)].
+    The accept walk (descend to the child whose token is the parent row's
+    argmax; lanes with live 0 stay at the root) runs here, so the heads read
+    only the final node's hidden row; the host rebuilds the path from the
+    final node's ancestors. Ties order by the lower index first, as the
+    JAX package's argmax and top_k do."""
+    B, Tn, V = logits.shape
+    dev = logits.device
+    depths = tree_depths(parents)
+    par = torch.as_tensor([max(p, 0) for p in parents], device=dev)
+    dep = torch.as_tensor(depths, device=dev)
+    chunk = chunk.long()
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)                                   # (B, Tn)
+    arg = torch.argmax(lg, dim=-1)                                      # (B, Tn)
+    arg_lp = torch.gather(lg, -1, arg[..., None])[..., 0] - lse
+    own_lp = torch.gather(lg[:, par], -1, chunk[..., None])[..., 0] - lse[:, par]
+    node = torch.zeros(B, dtype=torch.long, device=dev)
+    alive = live != 0
+    for d in range(max(depths)):
+        want = torch.gather(arg, 1, node[:, None])                      # (B, 1)
+        mask = (par[None] == node[:, None]) & (chunk == want) & (dep[None] == d + 1)
+        found = mask.any(dim=1)
+        node = torch.where(found & alive, torch.argmax(mask.int(), dim=1), node)
+        alive = alive & found
+    props = medusa_propose_topk_rows(mw, hidden[torch.arange(B, device=dev), node], kmax)
+    cols = [arg.float(), arg_lp, own_lp]
+    if topn:
+        tv, ti = topk_stable(lg, topn)
+        cols += [ti[..., k].float() for k in range(topn)] + [tv[..., k] - lse for k in range(topn)]
+    cols.append(node[:, None].float().expand(B, Tn))
+    flat = props.reshape(B, -1).float()
+    cols += [flat[:, j:j + 1].expand(B, Tn) for j in range(flat.shape[1])]
+    return torch.stack(cols, dim=-1)
+
+
 class _DensePrefixRegistry:
     """Token-granular prompt-prefix reuse for the dense batched cache
     (scheduler.py:297-346). A lane OWNS its rows, so reuse is a lane-to-lane
@@ -299,20 +353,22 @@ class _Slot:
 
 
 class Scheduler:
-    """Continuous batching over FastWeights on one device (default the
-    card; "cpu" runs the kernels' plain versions)."""
+    """Continuous batching on one device (default the card; "cpu" runs the
+    kernels' plain versions), over the kernels (FastWeights) or the parity
+    oracle (Weights), by `fast`."""
 
     # how many ring-regime prompt tokens hydrate per tick for ONE admitting
     # slot (each is a full per-token decode step, so this bounds the stall
     # a beyond-window prompt can impose between decode ticks)
     RING_HYDRATE_PER_TICK = 16
 
-    def __init__(self, cfg: ModelConfig, weights: FastWeights, *, batch: int = 8,
+    def __init__(self, cfg: ModelConfig, weights, *, batch: int = 8,
                  kv_dtype: torch.dtype = torch.bfloat16, batched_admission: bool = False,
                  prefix_cache: bool = False, top_logprobs: int = 0, device="cuda",
                  paged_pages: int = 0, page_size: int = 256, mesh=None, spec_draft=None,
                  spec_k: int = 4, spec_lookup: bool = False, spec_ngram: int = 3,
-                 spec_medusa: Optional[MedusaWeights] = None, spec_tree=None):
+                 spec_medusa: Optional[MedusaWeights] = None, spec_tree=None, fast="auto",
+                 compute_dtype: torch.dtype = torch.float32):
         """batched_admission: all admitting lanes' chunks hydrate in ONE
         weight sweep (the chunk pads to the group's bucket, so a lane's
         prefill rounding depends on its co-admitted traffic; the per-slot
@@ -330,33 +386,43 @@ class Scheduler:
         (n-grams up to spec_ngram); spec_medusa (MedusaWeights) proposes by
         the target's own heads on the verify sweep's hidden rows (spec_k
         clamped to the head count). Temperature-0 streams equal plain greedy
-        decode; sampled ones are distributed as plain sampling."""
-        later = [name for name, on in (
-            ("a device mesh", mesh is not None),
-            ("tree-attention Medusa (spec_tree)", spec_tree is not None),
-        ) if on]
-        if later:
-            raise NotImplementedError(f"{', '.join(later)}: not in this slice of the PyTorch "
-                                      "port (see ROADMAP.md, Queue 1)")
+        decode; sampled ones are distributed as plain sampling. spec_tree
+        (per-depth branching factors, with spec_medusa, dense cache): each
+        greedy lane verifies the cartesian tree of its heads' top candidates
+        in one sweep (`verify_tree_fast_batched`); sampled lanes ride the
+        plain tick.
+
+        fast: "auto" runs the kernels wherever the config fits them
+        (`fast_batched_supported`: any batch), else the oracle's per-lane
+        tick (`models/transformer.py:decode_step` for each writing lane,
+        scheduler.py:696-715) and per-slot prefill, in compute_dtype; True
+        on a config the kernels refuse raises. The paged pool, batched
+        admission, the prefix cache and speculation are the kernels'."""
+        if spec_tree is not None:
+            # scheduler.py:884-936, before the mesh is refused
+            if spec_medusa is None:
+                raise ValueError("spec_tree requires spec_medusa heads")
+            if paged_pages > 0 or mesh is not None:
+                raise ValueError("tree verify: dense single-device cache "
+                                 "(chain medusa composes with paged/mesh)")
+        if mesh is not None:
+            raise NotImplementedError("a device mesh: not in this slice of the PyTorch port "
+                                      "(see ROADMAP.md, Queue 1)")
         self.device = resolve_device(device)
-        why = fast_unsupported(cfg)
-        if why:
-            raise ValueError(f"this model's shapes do not fit the port's kernels: {why}")
-        if kv_dtype == torch.float16:
-            kv_dtype = torch.bfloat16   # the fast path's cache is bf16 or e5m2
-        if kv_dtype not in (torch.bfloat16, torch.float8_e5m2):
-            raise NotImplementedError(
-                f"KV cache {kv_dtype}: the port's caches are bf16 and float8_e5m2")
-        if weights.wqkv.device.type != self.device.type:
-            raise ValueError(f"weights on {weights.wqkv.device}, scheduler on {self.device}")
+        self.fast = resolve_fast(cfg, fast)
+        kv_dtype = route_kv_dtype(kv_dtype, self.fast)
+        weights = route_weights(cfg, weights, self.fast, self.device)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         self.paged = paged_pages > 0
         self.page_size = page_size
         if self.paged and (page_size < 1 or cfg.max_seq_len % page_size):
             raise ValueError(f"page_size {page_size} must divide the window {cfg.max_seq_len}")
+        if self.paged and not self.fast:
+            raise ValueError("paged cache requires the fast path")
         self.cfg = cfg
         self.weights = weights
+        self.compute_dtype = compute_dtype
         self.B = batch
         self.kv_dtype = kv_dtype
         self.topn = int(top_logprobs)
@@ -366,11 +432,14 @@ class Scheduler:
         self.queue: list[Request] = []
         self._admit_seq = 0
         self.preemptions = self.resumes = 0  # paged preemptions and resumes (stats)
-        self.batched_admission = bool(batched_admission)
+        self.batched_admission = bool(batched_admission) and self.fast
         self.admit_sweeps = 0  # batched-admission weight sweeps (stats)
-        self.dense_prefix = (_DensePrefixRegistry() if prefix_cache and not self.paged
-                             else None)
+        self.dense_prefix = (_DensePrefixRegistry()
+                             if prefix_cache and not self.paged and self.fast else None)
         self._init_spec(spec_draft, spec_k, spec_lookup, spec_ngram, spec_medusa)
+        if self.spec and not self.fast:
+            raise ValueError("speculative scheduler needs the fast path")
+        self._init_tree(spec_tree)
 
     def _init_spec(self, spec_draft, spec_k: int, spec_lookup: bool, spec_ngram: int,
                    spec_medusa) -> None:
@@ -407,6 +476,31 @@ class Scheduler:
         self.draft_cache = KVCache.init(dcfg, self.kv_dtype, self.device, batch=self.B)
         # the draft's window binds too: its ring cannot roll back a rejection
         self.spec_edge = min(self.cfg.max_seq_len, dcfg.max_seq_len)
+
+    def _init_tree(self, spec_tree) -> None:
+        """Tree-attention Medusa's static tree (scheduler.py:884-936): the
+        cartesian tree of the branching factors, each node's depth and its
+        rank among its siblings (which head candidate it holds)."""
+        self.spec_tree = None
+        if spec_tree is None:
+            return
+        self.spec_tree = tuple(int(k) for k in spec_tree)
+        H = self.spec_medusa.n_heads
+        if len(self.spec_tree) > H:
+            raise ValueError(f"tree depth {len(self.spec_tree)} > {H} medusa heads")
+        if any(k < 1 for k in self.spec_tree):
+            raise ValueError("tree branching factors must be >= 1")
+        parents = cartesian_tree(self.spec_tree)
+        self._tree_parents = parents
+        self._tree_depths = tree_depths(parents)
+        self._tree_kmax = max(self.spec_tree)
+        self._tree_H = len(self.spec_tree)
+        siblings_before = [0] * len(parents)   # children of each node seen so far
+        self._tree_branch = [0] * len(parents)
+        for i, p in enumerate(parents):
+            if p >= 0:
+                self._tree_branch[i] = siblings_before[p]
+                siblings_before[p] += 1
 
     def _new_cache(self) -> None:
         """A zeroed cache (a pool and its allocator when paged)."""
@@ -722,10 +816,14 @@ class Scheduler:
                         self.cfg, self.weights, padded, slot.pos, take, self.cache,
                         self.alloc.tables[b], int(self.alloc.tables[b, slot.pos // ps]),
                         slot.pos % ps, logits_mode=mode, page_size=ps, attend_len=attend)
-                else:
+                elif self.fast:
                     out, _ = prefill_fast(self.cfg, self.weights, padded, slot.pos, take,
                                           self.cache.lane(b), logits_mode=mode,
                                           attend_len=attend)
+                else:
+                    out, _ = prefill(self.cfg, self.weights, padded, slot.pos, take,
+                                     self.cache.lane(b), logits_mode=mode,
+                                     compute_dtype=self.compute_dtype)
                 slot.pos += take
                 slot.admit_i += take
                 if last:
@@ -738,14 +836,23 @@ class Scheduler:
                 if self.paged:
                     out = self._hydrate_paged_lane(b, toks[slot.admit_i], slot.pos)
                 else:
-                    out, _ = decode_step_fast(self.cfg, self.weights, toks[slot.admit_i],
-                                              slot.pos, self.cache.lane(b),
-                                              output_logits=last and not slot.resuming)
+                    out = self._lane_step(b, toks[slot.admit_i], slot.pos,
+                                          last and not slot.resuming)
                 slot.pos += 1
                 slot.admit_i += 1
                 budget -= 1
                 if last:
                     self._finish_chunk(slot, out)
+
+    def _lane_step(self, b: int, token: int, pos: int, output_logits: bool = True):
+        """One decode step of lane b alone on its view of the dense cache
+        (the kernels' decode_step_fast, or the oracle's decode_step)."""
+        lane = self.cache.lane(b)
+        if self.fast:
+            return decode_step_fast(self.cfg, self.weights, token, pos, lane,
+                                    output_logits=output_logits)[0]
+        return decode_step(self.cfg, self.weights, token, pos, lane, output_logits=output_logits,
+                           compute_dtype=self.compute_dtype)[0]
 
     def _advance_admission_batched(self, window: int) -> set[int]:
         """Advance every groupable admitting slot by one chunk in ONE batched
@@ -896,8 +1003,15 @@ class Scheduler:
         if self.paged:
             logits, _ = decode_step_fast_batched_paged(
                 *args, self.alloc.table_array(), write, page_size=self.page_size)
-        else:
+        elif self.fast:
             logits, _ = decode_step_fast_batched(*args, write)
+        else:
+            # the oracle's tick: each writing lane's decode_step on its view
+            # (the vmapped step with write_mask; masked lanes' rows are unread)
+            logits = torch.zeros((self.B, self.cfg.vocab_size), dtype=torch.float32,
+                                 device=self.device)
+            for b in lanes:
+                logits[b] = self._lane_step(b, self.slots[b].last_token, self.slots[b].pos)
         packed = self._pack(logits, rows, self._bias_arrays(on))
         nxt, lps, tops = _unpack_sample(packed, self.topn)
         for b in lanes:
@@ -934,6 +1048,8 @@ class Scheduler:
         prefix plus a correction (up to spec_k+1 tokens). Lanes at the
         speculation edge leave the spec path for good; lookup lanes with no
         match ride this round's plain subtick and stay eligible."""
+        if self.spec_tree is not None:
+            return self._spec_round_tree()
         K = self.spec_k
         elig, props = [], {}
         for b, s in enumerate(self.slots):
@@ -1048,6 +1164,98 @@ class Scheduler:
                     self._maybe_finish(s, tok)
                 else:
                     break
+
+    def _spec_round_tree(self) -> None:
+        """One tree-attention Medusa round (scheduler.py:1828-1930): each
+        greedy lane's banked per-depth head candidates form its cartesian
+        tree, ONE sweep scores every chain (verify_tree_fast_batched), the
+        walk on the device descends to the child matching each row's argmax
+        and the final node's hidden row banks the next round's candidates,
+        all in one read; the accepted path's K/V rows are scattered into
+        the ring after the walk. A lane with no banked candidates runs a
+        root-only round. Lanes with T > 0 ride the plain tick (the tree's
+        accept rule is argmax matching) and stay eligible; greedy lanes at
+        the speculation edge leave the spec path."""
+        Dmax = max(self._tree_depths)
+        elig, fresh = [], set()
+        for b, s in enumerate(self.slots):
+            if not s.decoding:
+                continue
+            if s.spec_ok and s.request.temperature == 0.0 and s.pos + Dmax + 1 < self.spec_edge:
+                elig.append(b)
+                if not s.med_props:
+                    fresh.add(b)
+            elif s.request.temperature == 0.0:
+                s.spec_ok = False
+        on = set(elig)
+        plain = [b for b, s in enumerate(self.slots) if s.decoding and b not in on]
+        if elig:
+            self._tree_round(elig, fresh)
+        self._plain_tick(plain)
+
+    def _tree_round(self, elig: list[int], fresh: set) -> None:
+        parents, depths = self._tree_parents, self._tree_depths
+        Tn, Dmax = len(parents), max(depths)
+        H, kmax, topn = self._tree_H, self._tree_kmax, self.topn
+        B = self.B
+        chunk = np.zeros((B, Tn), np.int64)
+        positions = np.zeros(B, np.int64)
+        live = np.zeros(B, np.int64)
+        enable = np.zeros(B, np.int64)
+        for b in elig:
+            s = self.slots[b]
+            positions[b], enable[b], chunk[b, 0] = s.pos, 1, s.last_token
+            if b not in fresh:
+                live[b] = 1
+                for i in range(1, Tn):   # node i holds its depth's head's candidate of its rank
+                    chunk[b, i] = s.med_props[depths[i] - 1][self._tree_branch[i]]
+        window = self.cfg.max_seq_len
+        attend = max(attend_bucket(int(positions[b]) + Dmax + 1, window) for b in elig)
+        (logits, hidden), (ktree, vtree) = verify_tree_fast_batched(
+            self.cfg, self.weights, chunk, positions, enable, self.cache, parents=parents,
+            with_hidden=True, attend_len=attend)
+        dev = self.device
+        vp = _verify_pack_tree(logits, torch.as_tensor(chunk, device=dev),
+                               torch.as_tensor(live, device=dev), hidden, self.spec_medusa,
+                               parents=parents, kmax=kmax, topn=topn)
+        vp = vp.cpu().numpy()                  # the one device -> host read of the round
+        self.spec_stats["rounds"] += 1
+        fin_col = 3 + 2 * topn
+        rows = np.zeros((B, Dmax + 1), np.int64)
+        nrows = np.zeros(B, np.int64)
+        for b in elig:
+            s = self.slots[b]
+            fin = int(vp[b, 0, fin_col])
+            path = [fin]
+            while parents[path[-1]] >= 0:
+                path.append(parents[path[-1]])
+            path.reverse()                     # root .. fin
+            a = len(path) - 1                  # accepted proposals
+            rows[b, :a + 1] = path
+            nrows[b] = a + 1
+            emitted = [int(chunk[b, p]) for p in path[1:]] + [int(vp[b, fin, 0])]
+            self.spec_stats["accepted"] += a
+            # proposed: the candidate chain's length, the chain scheduler's K
+            self.spec_stats["proposed"] += 0 if b in fresh else Dmax
+            s.pos = int(positions[b]) + a + 1
+            s.last_token = emitted[-1]
+            s.med_props = [[int(vp[b, 0, fin_col + 1 + h * kmax + k]) for k in range(kmax)]
+                           for h in range(H)]
+            for i, tok in enumerate(emitted):
+                if s.request is None:
+                    break   # finished mid-round: the tail is discarded
+                # i < a: path[i+1]'s token, scored by its parent row path[i];
+                # i == a: the correction at the final row
+                lp = float(vp[b, path[i + 1], 2] if i < a else vp[b, fin, 1])
+                top = None
+                if topn:
+                    top = [(int(vp[b, path[i], 3 + k]), float(vp[b, path[i], 3 + topn + k]))
+                           for k in range(topn)]
+                if self._emit_checked(s, tok, lp, top):
+                    self._maybe_finish(s, tok)
+                else:
+                    break
+        scatter_tree_rows(self.cache, ktree, vtree, positions, rows, nrows)
 
     def run(self, max_ticks: int = 100000) -> None:
         """Drive until every queued and active request completes."""

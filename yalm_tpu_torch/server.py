@@ -15,8 +15,9 @@ Run: python -m yalm_tpu_torch.server model.yalm --port 8080 --batch 8
 from a pool of N pages of `--page-size` slots, with automatic prefix
 caching; `--draft D.yalm`, `--spec-lookup` or `--medusa` serve with
 scheduler speculation, `--spec-k` proposals per round, composing with the
-paged pool). Tree-attention Medusa and meshes come in later slices of the
-port: their flags are refused.
+paged pool; `--medusa-tree 4,2` serves tree-attention Medusa on the dense
+cache). A config the kernels refuse is served by the parity oracle in
+bf16. Meshes come in a later slice of the port: their flags are refused.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ import torch
 
 from .codec.format import read_yalm
 from .config import ModelConfig
-from .engine import resolve_device
+from .engine import resolve_device, resolve_fast
 from .medusa import load_medusa_weights
 from .models.fast import load_fast_weights
+from .models.weights import load_weights
 from .scheduler import Request, Scheduler
 from .tokenizer import Tokenizer
 
@@ -54,7 +56,7 @@ class ServingEngine:
                  max_prompt_tokens: int | None = None, chat_template: str = "chatml",
                  top_logprobs: int = 5, paged_pages: int = 0, page_size: int = 256,
                  device="cuda", spec_draft=None, spec_k: int = 4, spec_lookup: bool = False,
-                 spec_ngram: int = 3, spec_medusa=None):
+                 spec_ngram: int = 3, spec_medusa=None, spec_tree=None, fast="auto"):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.chat_template = chat_template
@@ -75,7 +77,10 @@ class ServingEngine:
                                # speculation: one proposal source at most
                                spec_draft=spec_draft, spec_k=spec_k,
                                spec_lookup=spec_lookup, spec_ngram=spec_ngram,
-                               spec_medusa=spec_medusa)
+                               spec_medusa=spec_medusa, spec_tree=spec_tree,
+                               # the kernels where the config fits them, else
+                               # the oracle in bf16 (server.py:55-56)
+                               fast=fast, compute_dtype=torch.bfloat16)
         self._inbox: "queue.Queue[tuple[Request, queue.Queue]]" = queue.Queue()
         self._watch: list[tuple[Request, "queue.Queue"]] = []
         # serving counters for /metrics
@@ -90,22 +95,31 @@ class ServingEngine:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, batch: int = 8,
-                        device="cuda", medusa: bool = False, **kw) -> "ServingEngine":
-        """medusa: serve with the checkpoint's own Medusa heads."""
+                        device="cuda", medusa: bool = False, medusa_tree=None, fast="auto",
+                        **kw) -> "ServingEngine":
+        """medusa: serve with the checkpoint's own Medusa heads; medusa_tree
+        ("4,2" or a tuple of branching factors): with tree-attention
+        verification. The weights load straight into the route's layout
+        (server.py:91-118): load_fast_weights for the kernels, load_weights
+        for the oracle."""
         dev = resolve_device(device)
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
-            weights = load_fast_weights(yf, cfg, dev)
+            fast = resolve_fast(cfg, fast)
+            weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
-            if medusa:
+            if medusa or medusa_tree:
                 if "medusa_heads" not in yf.metadata:
                     raise ValueError("--medusa: the checkpoint has no medusa heads "
                                      "(metadata medusa_heads)")
                 kw["spec_medusa"] = load_medusa_weights(yf, cfg, dev)
+            if medusa_tree:
+                kw["spec_tree"] = (tuple(int(k) for k in medusa_tree.split(","))
+                                   if isinstance(medusa_tree, str) else tuple(medusa_tree))
         finally:
             yf.close()  # the weights were copied out of the mapping
-        return cls(cfg, weights, tok, batch=batch, device=dev, **kw)
+        return cls(cfg, weights, tok, batch=batch, device=dev, fast=fast, **kw)
 
     # -- scheduler thread -----------------------------------------------
     def _drive(self) -> None:
@@ -571,8 +585,7 @@ def serve(engine: ServingEngine, host: str = "0.0.0.0", port: int = 8080
 
 
 # flags of the JAX server that later slices of the port bring
-_LATER_FLAGS = {"medusa_tree": "--medusa-tree", "mesh": "--mesh",
-                "distributed": "--distributed"}
+_LATER_FLAGS = {"mesh": "--mesh", "distributed": "--distributed"}
 
 
 def main(argv=None) -> None:
@@ -612,6 +625,11 @@ def main(argv=None) -> None:
     ap.add_argument("--medusa", action="store_true",
                     help="speculation with the checkpoint's own Medusa heads (metadata "
                          "medusa_heads)")
+    ap.add_argument("--medusa-tree", default=None, metavar="K1,K2,...",
+                    help="tree-attention Medusa (implies --medusa): verify the cartesian "
+                         "tree of the heads' top candidates with these per-depth branching "
+                         "factors (e.g. 4,2) in one sweep; greedy requests advance when a "
+                         "lower-ranked candidate hits, sampled ones ride plain ticks")
     for dest, flag in _LATER_FLAGS.items():
         store = "store_true" if dest == "distributed" else "store"
         ap.add_argument(flag, dest=dest, action=store, default=None,
@@ -620,9 +638,9 @@ def main(argv=None) -> None:
     given = [flag for dest, flag in _LATER_FLAGS.items() if getattr(args, dest)]
     if given:
         ap.error(f"{', '.join(given)}: not in this slice of the PyTorch port "
-                 "(tree-attention Medusa and meshes come later; see ROADMAP.md)")
-    if sum([bool(args.draft), args.spec_lookup, args.medusa]) > 1:
-        ap.error("--draft, --spec-lookup and --medusa are mutually exclusive")
+                 "(meshes come later; see ROADMAP.md)")
+    if sum([bool(args.draft), args.spec_lookup, args.medusa or bool(args.medusa_tree)]) > 1:
+        ap.error("--draft, --spec-lookup and --medusa/--medusa-tree are mutually exclusive")
 
     kv_dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[args.kv]
     spec_draft = None
@@ -639,17 +657,19 @@ def main(argv=None) -> None:
         kv_dtype=kv_dtype, max_prompt_tokens=args.max_prompt_tokens,
         chat_template=args.chat_template, paged_pages=args.paged_pages,
         page_size=args.page_size, spec_draft=spec_draft, spec_k=args.spec_k,
-        spec_lookup=args.spec_lookup, spec_ngram=args.spec_ngram, medusa=args.medusa)
+        spec_lookup=args.spec_lookup, spec_ngram=args.spec_ngram, medusa=args.medusa,
+        medusa_tree=args.medusa_tree)
     httpd = serve(engine, args.host, args.port)
     paged = f", {args.paged_pages} pages of {args.page_size}" if args.paged_pages else ""
     sched = engine.sched
     spec = ""
     if sched.spec:
         spec = (", spec=" + ("draft" if sched.draft_cfg is not None else
-                             "lookup" if sched.spec_lookup else "medusa")
+                             "lookup" if sched.spec_lookup else
+                             f"medusa tree {sched.spec_tree}" if sched.spec_tree else "medusa")
                 + f" k={sched.spec_k}")
     print(f"serving on http://{args.host}:{args.port} (batch={args.batch}{paged}{spec}, "
-          f"device={sched.device})", flush=True)
+          f"device={sched.device}, fast={sched.fast})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
