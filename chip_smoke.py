@@ -58,7 +58,7 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
 4. the parity oracle (`phase_oracle`, Mistral-7B widths, 2 layers): the
    oracle (bf16 compute) against the kernels on the same weights, a
    64-token prefill and 8 decode steps to the tolerance; a config the
-   attention kernel refuses (one kv head, MQA) takes the oracle under
+   attention kernel refuses (`phase_oracle_mqa`: one kv head) takes the oracle under
    fast="auto" and completes a request through the Engine and the
    Scheduler; debug capture (`phase_capture`): the kernel path's capture
    map against the oracle's under diff_captures' 6e-2, and (int4 path)
@@ -71,7 +71,8 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    tolerance apart; and the same over a paged pool through shuffled tables;
    on the fp8 path also one speculative verify sweep (with_hidden) over 16
    lanes of K+1 rows at mixed positions, dense and paged (logits and
-   hidden rows to the tolerance);
+   hidden rows to the tolerance); the CPU's side widens each weight once
+   (`widened_once`: the plain versions' f32 weights kept across steps);
 then phases 2-4 again for the int4 path (packed int4 layer weights with
 group scales, int8 embedding and LM head, fp8-e5m2 KV cache: the
 configuration of `bench.py`'s defaults), after the fp8 weights are freed,
@@ -94,8 +95,9 @@ logits near-tie, and the outputs such a row or a near-tie reaches are held
 to nothing and counted; on an e5m2 cache, the outputs past the tolerance
 that a cache byte rounded across a boundary reaches are held and counted
 (phase_parity);
-then phases 2-4 for Gemma3-12B (48 layers, bf16 cache) and Gemma2-9B (42
-layers, window 8192, e5m2 cache) at full width and depth, fp8 weights: the
+then phases 2-4 for Gemma3-12B (bf16 cache) and Gemma2-9B (window 8192,
+e5m2 cache) at full width, fp8 weights (phase 3 at depth 8, which holds
+both layer kinds; PERF.md keeps the full-depth runs of 48 and 42): the
 tied 256k-row LM-head GEMV, the gelu GLU on the GEMV and the GEMM route,
 and K2, K8 and K9 in the path's form (sliding window 1024 + Gemma3's local
 rope; sliding window 4096 + Gemma2's softcap 50) in the linear and the ring
@@ -146,7 +148,30 @@ gemv_kernel instance; phase 3's decode profiles split the step's device
 time into the GEMV without and with the GLU pair;
 5. the CLI's completion, perplexity and passkey modes on a small fp8
    checkpoint and on a small int4 checkpoint with `-C fp8`, and a
-   completion on a small fp8 MoE checkpoint, as subprocesses.
+   completion on a small fp8 MoE checkpoint, as seven subprocesses started
+   together;
+6. converted checkpoints from disk (`phase_checkpoint`): the native library
+   (`yalm_tpu_torch/native`) built with g++; HF-layout directories of
+   random BF16 weights in two safetensors shards with the llama_style
+   fixture tokenizer, Mistral-7B widths at depth 2 converted to fp8 (in
+   process) and int4 (`python -m yalm_tpu_torch.convert`), Mixtral-8x7B
+   widths at depth 1 to fp8; each file read by the native and the
+   pure-Python reader (the same bytes; each one's open + load onto the
+   card timed), served by Engine.from_checkpoint with the native tokenizer
+   (golden HF ids, a 4 KB text equal to the Python BPE's), a 64-token
+   prompt + 32 greedy tokens (TTFT, decode rate, the path's launches), the
+   32 held to the CPU plain path of the same file; a CLI completion on the
+   fp8 file.
+The int4 path (e5m2 cache) and the Mixtral fp8 path also run
+the tree phase at depths 2 and 8 (`phase_tree_path`); debug capture also
+runs on Mixtral fp8 (K10's gemv_le), Gemma3 (bf16 cache) and Gemma2 (e5m2
+cache), and the oracle on Gemma2's e5m2 cache; at 32 layers, and on
+Mixtral, the tree serving run's greedy tokens are put to the f32 oracle
+fed the same tokens (`oracle_rows`, `oracle_compare`): over every token,
+and at each token past a near-tie of the plain tick or after a routing
+difference past a near-tie, with each lane's last token as a control;
+on Mixtral the chunk path, the tick and the oracle are routed as the run
+(`gate_calls(force=...)`, `routing_check`).
 
 Any failure raises, so the script exits non-zero before its last line,
 which is {"ok": true, "device": {...}}. Without a CUDA GPU, or outside the
@@ -162,6 +187,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2247,6 +2273,7 @@ SERVING_ABSENT = {"moe_fp8": ("gemv_le", "ffn_l_gemm"), "moe_int4": ("gemv4_le",
 TICK_ATTENTION = {False: "attend_step_batched_l", True: "attend_step_paged_l"}
 MISTRAL_SERVING_LAYERS = 8
 MIXTRAL_SERVING_LAYERS = 8
+GEMMA_SERVING_LAYERS = 8
 PAGE = 256
 PAGED_PAGES = 65   # page 0 reserved: 64 usable pages, 16384 slots for 16 lanes
 
@@ -2468,44 +2495,92 @@ def moe_ffn_spans(cfg):
 
 
 @contextlib.contextmanager
-def routing_log(cfg):
-    """While active (a parity phase's card and CPU runs of an MoE cfg):
-    every call of the top-k gate records each row's chosen experts and, on
-    the CPU, whether the row's k-th and (k+1)-th router logits lie within
-    twice the logit tolerance (1e-2 of max(1, max|router logit|) of the
-    row), a near-tie that an error inside the tolerance may route
-    differently on the card. Yields take(), which returns, and forgets, the
-    (experts, near) pairs of the layers since its last call."""
+def gate_calls(force=None):
+    """While active: every top-k gate call, the fast path's and the
+    oracle's, keeps its rows' own experts (sorted) and router logits on the
+    device. Yields took(keep=True, rows=None): the calls since its last call
+    as (experts (rows, layers, k), router logits (rows, layers, E) f32)
+    numpy arrays, or None (keep False drops them); rows names the rows of
+    the forward pass that follows as (greedy lane, position) pairs (None for
+    a padding row), one gate call a layer. With force (greedy lane ->
+    position -> (experts (layers, k), ...), a run's routing) each named row
+    that force holds goes to force's experts in every layer, ranked and
+    gated by the call's own router logits as moe_gate ranks and gates its
+    own choice; took returns the own choice."""
     import numpy as np
     import torch
     from yalm_tpu_torch.models import fast as M
+    from yalm_tpu_torch.models import transformer as T
     calls: list = []
+    forced: list = [None]   # (experts (layers, rows, k), named (rows,)) of the next pass
     gate = M.moe_gate
 
     def recording(logits, k):
         gates, idx = gate(logits, k)
-        E = logits.shape[-1]
-        experts = torch.sort(idx.reshape(-1, k), dim=-1).values.cpu().numpy()
-        near = None
-        if logits.device.type == "cpu":
-            lf = logits.float().reshape(-1, E)
-            near = np.zeros(lf.shape[0], bool)
-            if E > k:
-                top = lf.topk(k + 1, dim=-1).values
-                tol = 1e-2 * lf.abs().amax(-1).clamp(min=1.0)
-                near = (top[:, k - 1] - top[:, k] <= 2 * tol).numpy()
-        calls.append((experts, near))
-        return gates, idx
+        lg = logits.float().reshape(-1, logits.shape[-1])
+        own = idx.reshape(-1, k)
+        calls.append((torch.sort(own, dim=-1).values, lg))
+        if forced[0] is None:
+            return gates, idx
+        ex, named = (torch.as_tensor(a, device=lg.device) for a in
+                     (forced[0][0][len(calls) - 1], forced[0][1]))
+        pick = torch.where(named[:, None], ex, own)
+        vals, order = torch.sort(lg.gather(1, pick), dim=-1, descending=True)
+        e = torch.exp(vals - lg.amax(-1, keepdim=True))
+        return ((e / e.sum(-1, keepdim=True)).to(gates.dtype).reshape(gates.shape),
+                pick.gather(1, order).to(idx.dtype).reshape(idx.shape))
 
-    def take() -> list:
-        out = list(calls)
+    def took(keep: bool = True, rows=None):
+        got = None
+        if calls and keep:
+            got = (torch.stack([c[0] for c in calls], 1).cpu().numpy(),
+                   torch.stack([c[1] for c in calls], 1).cpu().numpy())
         calls.clear()
-        return out
-    M.moe_gate = recording
+        forced[0] = None
+        named = [r is not None and r[1] in force.get(r[0], {}) for r in rows or ()] if force else []
+        if any(named):
+            g, pos = rows[named.index(True)]
+            none = np.zeros_like(force[g][pos][0])
+            forced[0] = (np.stack([force[r[0]][r[1]][0] if n else none
+                                   for r, n in zip(rows, named)], 1), np.array(named))
+        return got
+    M.moe_gate = T.moe_gate = recording
     try:
-        yield take
+        yield took
     finally:
-        M.moe_gate = gate
+        M.moe_gate = T.moe_gate = gate
+
+
+def router_gap(lg, k: int):
+    """The gap between the k-th and the (k+1)-th largest router logits of
+    each row of lg (..., E), in units of the logit tolerance (1e-2 of max(1,
+    max|router logit|) of the row): a near-tie, which an error inside the
+    tolerance may route differently, where it is at most 2."""
+    import numpy as np
+    top = -np.sort(-lg, axis=-1)
+    return (top[..., k - 1] - top[..., k]) / (1e-2 * np.maximum(1.0, np.abs(lg).max(-1)))
+
+
+@contextlib.contextmanager
+def routing_log(cfg):
+    """While active (a parity phase's card and CPU runs of an MoE cfg):
+    every call of the top-k gate records each row's chosen experts and
+    whether the row's router logits lie at a near-tie (router_gap). Yields
+    take(), which returns, and forgets, the (experts, near) pairs of the
+    layers since its last call (gate_calls)."""
+    import numpy as np
+    with gate_calls() as took:
+        def take() -> list:
+            got = took()
+            if got is None:
+                return []
+            ex, lg = got                                      # (rows, layers, k / E)
+            k = ex.shape[-1]
+            near = np.zeros(ex.shape[:2], bool)
+            if lg.shape[-1] > k:
+                near = router_gap(lg, k) <= 2
+            return [(ex[:, i], near[:, i]) for i in range(ex.shape[1])]
+        yield take
 
 
 def routing_holds(card: list, cpu: list, lanes: list, tainted):
@@ -2609,13 +2684,44 @@ def first_layers(fw, n: int):
                            w2=sc.w2[:n], lm_head=sc.lm_head, moegate=cut(sc.moegate)))
 
 
+@contextlib.contextmanager
+def widened_once():
+    """While active, the CPU's plain versions widen each weight once: the f32
+    values of gemv._bf16_weights and gemv.int4_values for a CPU tensor are
+    kept and returned again for the same tensor (its address, shape,
+    strides and dtype), instead of being made anew at every step, which is
+    most of the CPU's time at full width. The same values, so the same
+    bits. Only weights that outlive the context may pass through it."""
+    from yalm_tpu_torch.ops.cuda import gemv
+    saved = {n: getattr(gemv, n) for n in ("_bf16_weights", "int4_values")}
+    memo: dict = {}
+
+    def keep(name, fn):
+        def widened(w, *a):
+            if w.device.type != "cpu":
+                return fn(w, *a)
+            key = (name, w.data_ptr(), tuple(w.shape), tuple(w.stride()), w.dtype, a)
+            if key not in memo:
+                memo[key] = fn(w, *a)
+            return memo[key]
+        return widened
+    for n, fn in saved.items():
+        setattr(gemv, n, keep(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(gemv, n, fn)
+        memo.clear()
+
+
 def depth2(cfg):
     """The parity phases' depth-2 model: the first two layers; a model with
     sliding layers takes them as (sliding, global) with a window of 48, so
     a 64-token prompt and its steps cross the window on the card (the one
     change to a configuration, which the log states)."""
     if not any(cfg.layer_sliding):
-        return with_layers(cfg, 2)
+        return with_layers(cfg, min(2, cfg.n_layers))
     log("  depth 2: layer_sliding (1, 0) and sliding_window 48 (the one change to the "
         "configuration)")
     return dataclasses.replace(cfg, n_layers=2, layer_sliding=(1, 0), sliding_window=48)
@@ -2721,7 +2827,7 @@ def phase_batched_parity(cfg, fw, dev, kv_dtype, paged: bool = False, B: int = 1
                    for b in range(B)]
     tick_lanes = [(slice(b, b + 1), b) for b in range(B)]
     runs = {}
-    with routing_log(cfg) as take:
+    with routing_log(cfg) as take, widened_once():
         for name, w, c in (("cuda", fw2, card), ("cpu", fw_cpu, cpu)):
             if paged:
                 out, _ = M.prefill_chunk_fast_batched_paged(cfg, w, toks, pos0, valid, enable, c,
@@ -3052,18 +3158,180 @@ def near_tie_hold(name: str, ref: str, gap_tol, is_arg) -> int:
     return int(((~is_arg) & (gap_tol <= 2)).sum())
 
 
-def _gaps(rows, toks):
-    """(gap/tol, is argmax) of tokens toks (n,) in logits rows (n, vocab)."""
-    lf = rows.float()
-    tol = 1e-2 * lf.abs().amax(-1).clamp(min=1.0)
-    gap = lf.amax(-1) - lf.gather(1, toks[:, None])[:, 0]
-    return (gap / tol).cpu(), (lf.argmax(-1) == toks).cpu()
+def stream_gaps(rows, mix, streams):
+    """(gap/tol, is argmax) of every greedy token (tokens, lanes) in the
+    logits rows (tokens, lanes, vocab) that predict it."""
+    import torch
+    toks = torch.as_tensor([s for (_, sampled), s in zip(mix, streams) if not sampled],
+                           device=rows.device).T
+    tol = 1e-2 * rows.abs().amax(-1).clamp(min=1.0)
+    gap = rows.amax(-1) - rows.gather(-1, toks[..., None])[..., 0]
+    return (gap / tol).cpu(), (rows.argmax(-1) == toks).cpu()
 
 
-def tick_gaps(cfg, fw, dev, kv_dtype, mix, streams):
+def _route_rows(routes: dict, lane: int, positions, got) -> None:
+    """routes[lane][position] = (experts (layers, k), router logits (layers,
+    E)) of the rows of one call (got from gate_calls' took)."""
+    if got is None:
+        return
+    d = routes.setdefault(lane, {})
+    for r, pos in enumerate(positions):
+        d[int(pos)] = (got[0][r], got[1][r])
+
+
+@contextlib.contextmanager
+def scheduler_routes(sched, raw: list):
+    """While active: each admission chunk (per slot or batched) and tree
+    sweep of the Scheduler sched appends, for every row it computes for a
+    lane, (slot, the (position, token) pairs of the row and of its
+    ancestors up to the tree's root, the experts it routed to (layers, k)
+    and its router logits (layers, E)) to raw."""
+    import numpy as np
+    from yalm_tpu_torch import scheduler as S
+    from yalm_tpu_torch.models.fast import tree_depths
+    saved = {n: getattr(S, n) for n in ("prefill_fast", "prefill_chunk_fast_batched",
+                                         "verify_tree_fast_batched")}
+    with gate_calls() as took:
+        def lane_chunk(cfg, w, tokens, pos0, valid_len, cache, *a, **kw):
+            took(False)
+            out = saved["prefill_fast"](cfg, w, tokens, pos0, valid_len, cache, *a, **kw)
+            got = took()
+            slot = next((b for b in range(sched.B)
+                         if sched.cache.k[b].data_ptr() == cache.k.data_ptr()), None)
+            for n in range(int(valid_len)) if got and slot is not None else ():
+                raw.append((slot, [(int(pos0) + n, int(tokens[n]))], (got[0][n], got[1][n])))
+            return out
+
+        def chunk(cfg, w, tokens, pos0, vlen, enable, *a, **kw):
+            took(False)
+            out = saved["prefill_chunk_fast_batched"](cfg, w, tokens, pos0, vlen, enable, *a,
+                                                      **kw)
+            got = took()
+            T = tokens.shape[1]
+            for b in np.flatnonzero(enable) if got else ():
+                for n in range(int(vlen[b])):
+                    raw.append((int(b), [(int(pos0[b]) + n, int(tokens[b, n]))],
+                                (got[0][b * T + n], got[1][b * T + n])))
+            return out
+
+        def tree(cfg, w, tokens, pos0, enable, cache, *, parents, **kw):
+            took(False)
+            out = saved["verify_tree_fast_batched"](cfg, w, tokens, pos0, enable, cache,
+                                                    parents=parents, **kw)
+            got = took()
+            depth, Tn = tree_depths(parents), len(parents)
+            for b in np.flatnonzero(enable) if got else ():
+                for n in range(Tn):
+                    path, m = [], n
+                    while m >= 0:
+                        path.append((int(pos0[b]) + depth[m], int(tokens[b, m])))
+                        m = parents[m]
+                    raw.append((int(b), path, (got[0][b * Tn + n], got[1][b * Tn + n])))
+            return out
+        S.prefill_fast, S.prefill_chunk_fast_batched, S.verify_tree_fast_batched = (
+            lane_chunk, chunk, tree)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(S, n, fn)
+
+
+def stream_routes(raw: list, mix, streams) -> dict:
+    """scheduler_routes' records resolved to the greedy requests: greedy lane
+    -> position -> (experts (layers, k), router logits (layers, E)) of the
+    row that computed the stream there (a row whose path's tokens are the
+    stream's own); a slot is the lane whose prompt its admission rows
+    carry."""
+    greedy = [list(p) + list(s) for (p, sampled), s in zip(mix, streams) if not sampled]
+    by_slot: dict = {}
+    for b, path, ex in raw:
+        by_slot.setdefault(b, []).append((path, ex))
+    out: dict = {}
+    for recs in by_slot.values():
+        rows = [path[0] for path, _ in recs if len(path) == 1]   # prompt rows and roots
+        lane = next((g for g, seq in enumerate(greedy)
+                     if rows and all(p < len(seq) and seq[p] == t for p, t in rows)), None)
+        if lane is None:
+            continue   # a sampled request's slot
+        seq, d = greedy[lane], out.setdefault(lane, {})
+        for path, ex in recs:
+            if all(p < len(seq) and seq[p] == t for p, t in path):
+                d[path[0][0]] = ex
+    return out
+
+
+def routing_check(name: str, mix, run: dict, ref: dict, oracle: dict) -> dict:
+    """The routing of a reference fed a run's tokens and routing
+    (gate_calls(force=run)); run, ref and oracle map greedy lane ->
+    position -> (experts (layers, k), router logits (layers, E)), the
+    oracle the f32 one fed the same tokens and routing. Every reference row
+    goes where the run's went, so each row whose own router logits choose
+    other experts than the run did is a first difference, and every token
+    after it stays held. Such a row must lie at a near-tie of the reference
+    (router_gap), or the oracle must choose one side's experts or lie at a
+    near-tie itself: a row where the oracle takes neither side raises. Over
+    the stream's rows the two paths' median router distances to the oracle
+    must lie within one tolerance of each other (the nearness rule of
+    tests/test_torch_depth32.py): a path far from the oracle raises.
+    Returns the rows compared, the (lane, position, layer) parting at a
+    near-tie, the others (with the reference's gap, its router distance to
+    the oracle and the run's in tolerances of the oracle's row, and the
+    side the oracle takes), and the router distances of the reference to
+    the run and of each to the oracle over the stream's rows: median and
+    worst, in tolerances of the second's rows."""
+    import numpy as np
+    prompts = [len(p) for p, sampled in mix if not sampled]
+
+    def dist(a, b):
+        return np.abs(a - b).max(-1) / (1e-2 * np.maximum(1.0, np.abs(b).max(-1)))
+    d: dict = {"reference to run": [], "reference to oracle": [], "run to oracle": []}
+    near, settled, wrong, n = [], [], [], 0
+    for g in sorted(run):
+        for pos in sorted(set(run[g]) & set(ref.get(g, {}))):
+            (ex_r, lg_r), (ex_c, lg_c) = run[g][pos], ref[g][pos]
+            o = oracle.get(g, {}).get(pos)
+            n += 1
+            if pos >= prompts[g] - 1:
+                d["reference to run"].append(dist(lg_c, lg_r))
+                if o is not None:
+                    d["reference to oracle"].append(dist(lg_c, o[1]))
+                    d["run to oracle"].append(dist(lg_r, o[1]))
+            k = ex_r.shape[-1]
+            for lay in np.flatnonzero((ex_r != ex_c).any(-1)):
+                gap = float(router_gap(lg_c[lay], k))
+                if gap <= 2:
+                    near.append((g, pos, int(lay)))
+                    continue
+                rec = (g, pos, int(lay), round(gap, 3))
+                side = None
+                if o is not None:
+                    rec += (round(float(dist(lg_c[lay], o[1][lay])), 3),
+                            round(float(dist(lg_r[lay], o[1][lay])), 3))
+                    side = ("run" if (o[0][lay] == ex_r[lay]).all() else "reference"
+                            if (o[0][lay] == ex_c[lay]).all() else "near-tie"
+                            if router_gap(o[1][lay], k) <= 2 else None)
+                (settled if side else wrong).append(rec + (side,))
+    res = dict(rows=n, near_ties=near, past_a_near_tie=settled,
+               router_distance={k: dict(median=float(np.median(v)), worst=float(np.max(v)))
+                                for k, v in d.items() if v})
+    far = (oracle and abs(res["router_distance"]["reference to oracle"]["median"]
+                          - res["router_distance"]["run to oracle"]["median"]) > 1)
+    if wrong or far:
+        raise AssertionError(f"{name}: rows routed differently past a near-tie of the "
+                             "reference where the f32 oracle takes neither side: (lane, "
+                             "position, layer, the reference's gap/tol, the reference's and "
+                             f"the run's router distance to the oracle/tol) {wrong}; or one "
+                             f"path far from the oracle: {res}")
+    return res
+
+
+def tick_rows(cfg, fw, dev, kv_dtype, mix, streams, run=None):
     """The plain tick (decode_step_fast_batched) fed the greedy requests'
-    own tokens after a per-lane prefill of each prompt: (gap/tol, is
-    argmax) of every token, (tokens, lanes)."""
+    own tokens after a per-lane prefill of each prompt, routed as run on an
+    MoE cfg (gate_calls): the logits rows (tokens, lanes, vocab) f32 on the
+    card, and the rows' own routing (greedy lane -> position -> (experts,
+    router logits))."""
     import numpy as np
     import torch
     from yalm_tpu_torch.engine import attend_bucket, chunk_schedule
@@ -3071,67 +3339,76 @@ def tick_gaps(cfg, fw, dev, kv_dtype, mix, streams):
     from yalm_tpu_torch.models.fast import decode_step_fast, decode_step_fast_batched, prefill_fast
     lanes = [(p, s) for (p, sampled), s in zip(mix, streams) if not sampled]
     B, L = len(lanes), cfg.max_seq_len
+    routes: dict = {}
     cache = KVCache.init(cfg, kv_dtype, dev, batch=B)
     first = []
-    for b, (p, _) in enumerate(lanes):
-        lane, out, i = cache.lane(b), None, 0
-        for i0, take, bucket in chunk_schedule(len(p), 0, L):
-            padded = np.zeros(bucket, np.int64)
-            padded[:take] = p[i0:i0 + take]
-            out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="last",
-                                  attend_len=attend_bucket(i0 + bucket, L))
-            i = i0 + take
-        for j in range(i, len(p)):   # the ring regime: token by token
-            out, _ = decode_step_fast(cfg, fw, p[j], j, lane)
-        first.append(out)
-    lg = torch.stack(first)
-    gaps, args = [], []
-    n = len(lanes[0][1])
-    for j in range(n):
-        toks = torch.as_tensor([s[j] for _, s in lanes], device=dev)
-        g, a = _gaps(lg, toks)
-        gaps.append(g)
-        args.append(a)
-        if j + 1 < n:
+    with gate_calls(run) as took:
+        for b, (p, _) in enumerate(lanes):
+            lane, out, i = cache.lane(b), None, 0
+            for i0, take, bucket in chunk_schedule(len(p), 0, L):
+                padded = np.zeros(bucket, np.int64)
+                padded[:take] = p[i0:i0 + take]
+                took(False, [(b, i0 + n) if n < take else None for n in range(bucket)])
+                out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="last",
+                                      attend_len=attend_bucket(i0 + bucket, L))
+                _route_rows(routes, b, range(i0, i0 + take), took())
+                i = i0 + take
+            for j in range(i, len(p)):   # the ring regime: token by token
+                took(False, [(b, j)])
+                out, _ = decode_step_fast(cfg, fw, p[j], j, lane)
+                _route_rows(routes, b, [j], took())
+            first.append(out)
+        rows = [torch.stack(first).float()]
+        for j in range(len(lanes[0][1]) - 1):
+            toks = torch.as_tensor([s[j] for _, s in lanes], device=dev)
+            took(False, [(b, len(p) + j) for b, (p, _) in enumerate(lanes)])
             lg, _ = decode_step_fast_batched(cfg, fw, toks, [len(p) + j for p, _ in lanes],
                                              cache)
-    return torch.stack(gaps), torch.stack(args)
+            got = took()
+            for b, (p, _) in enumerate(lanes):
+                if got is not None:
+                    _route_rows(routes, b, [len(p) + j], (got[0][b:b + 1], got[1][b:b + 1]))
+            rows.append(lg.float())
+    return torch.stack(rows), routes
 
 
-def chunk_gaps(cfg, fw, dev, kv_dtype, mix, streams):
+def chunk_rows(cfg, fw, dev, kv_dtype, mix, streams, run=None):
     """The chunk path (prefill_fast, logits "all", the verify sweeps'
-    formulation) fed each greedy request's prompt and tokens: (gap/tol, is
-    argmax) of every token, (tokens, lanes). Streams inside the window."""
+    formulation) fed each greedy request's prompt and tokens, routed as run
+    on an MoE cfg (gate_calls): the logits rows (tokens, lanes, vocab) f32
+    on the card, and the rows' own routing (greedy lane -> position ->
+    (experts, router logits)). Streams inside the window."""
     import numpy as np
     import torch
     from yalm_tpu_torch.engine import attend_bucket, chunk_schedule
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.models.fast import prefill_fast
     L = cfg.max_seq_len
-    gaps, args = [], []
-    for (p, sampled), s in zip(mix, streams):
-        if sampled:
-            continue
-        seq = list(p) + list(s[:-1])
-        lane, rows = KVCache.init(cfg, kv_dtype, dev), []
-        for i0, take, bucket in chunk_schedule(len(seq), 0, L):
-            padded = np.zeros(bucket, np.int64)
-            padded[:take] = seq[i0:i0 + take]
-            out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="all",
-                                  attend_len=attend_bucket(i0 + bucket, L))
-            rows.append(out[:take])
-        g, a = _gaps(torch.cat(rows)[len(p) - 1:], torch.as_tensor(s, device=dev))
-        gaps.append(g)
-        args.append(a)
-    return torch.stack(gaps, dim=1), torch.stack(args, dim=1)
+    kept, routes = [], {}
+    greedy = [(p, s) for (p, sampled), s in zip(mix, streams) if not sampled]
+    with gate_calls(run) as took:
+        for g, (p, s) in enumerate(greedy):
+            seq = list(p) + list(s[:-1])
+            lane, rows = KVCache.init(cfg, kv_dtype, dev), []
+            for i0, take, bucket in chunk_schedule(len(seq), 0, L):
+                padded = np.zeros(bucket, np.int64)
+                padded[:take] = seq[i0:i0 + take]
+                took(False, [(g, i0 + n) if n < take else None for n in range(bucket)])
+                out, _ = prefill_fast(cfg, fw, padded, i0, take, lane, logits_mode="all",
+                                      attend_len=attend_bucket(i0 + bucket, L))
+                _route_rows(routes, g, range(i0, i0 + take), took())
+                rows.append(out[:take])
+            kept.append(torch.cat(rows)[len(p) - 1:].float())
+    return torch.stack(kept, dim=1), routes
 
 
 def teacher_forced_hold_batched(name: str, cfg, fw, dev, kv_dtype, mix, streams) -> int:
     """teacher_forced_hold for the greedy requests of a serving mix at once:
-    the plain tick (tick_gaps) fed each stream's own tokens after a
+    the plain tick (tick_rows) fed each stream's own tokens after a
     per-lane prefill of its prompt. Returns the near-ties at which a stream
     differs from the plain argmax; raises where a token is neither."""
-    return near_tie_hold(name, "plain tick", *tick_gaps(cfg, fw, dev, kv_dtype, mix, streams))
+    rows, _ = tick_rows(cfg, fw, dev, kv_dtype, mix, streams)
+    return near_tie_hold(name, "plain tick", *stream_gaps(rows, mix, streams))
 
 
 def phase_spec_serving(cfg, fw, dev, kv_dtype) -> dict:
@@ -3385,17 +3662,78 @@ def chain_tree_check(cfg, fw, dev, kv_dtype, rng) -> dict:
 
 
 TREE_SERVE_DEPTHS = (32, 8)
+# the chunk path's GEMMs on each weight path, which a tree serving run must launch
+TREE_KERNELS = {"fp8": ("gemm_l", "round_rows_bf16"), "int4": ("gemm4_l", "round_rows_bf16"),
+                "moe_fp8": ("gemm_l", "gemm_le", "round_rows_bf16")}
 
 
-def tree_serving_run(cfg, fw, dev, kv_dtype, mw, mix, **kw) -> dict:
+def oracle_rows(cfg, fw, dev, mix, streams, run=None):
+    """The f32 oracle (models/transformer.py: f32 compute and attention, the
+    weights widened per layer) fed each greedy request's prompt and tokens
+    in one prefill, routed as run on an MoE cfg (gate_calls): the logits
+    rows (tokens, lanes, vocab) f32 and the rows' own routing (greedy lane
+    -> position -> (experts, router logits))."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.transformer import prefill
+    w = oracle_weights(cfg, fw)
+    kept, routes = [], {}
+    with gate_calls(run) as took:
+        for g, (p, s) in enumerate((p, s) for (p, sampled), s in zip(mix, streams)
+                                   if not sampled):
+            seq = np.asarray(list(p) + list(s[:-1]))
+            took(False, [(g, i) for i in range(len(seq))])
+            o, _ = prefill(cfg, w, seq, 0, len(seq), KVCache.init(cfg, torch.float32, dev),
+                           logits_mode="all")
+            _route_rows(routes, g, range(len(seq)), took())
+            kept.append(o[len(p) - 1:].float())
+    del w
+    torch.cuda.empty_cache()
+    return torch.stack(kept, dim=1), routes
+
+
+def oracle_compare(mix, streams, oracle, rows: dict, points) -> dict:
+    """Each path's logits rows (rows: name -> (tokens, lanes, vocab)) against
+    the f32 oracle's (oracle_rows) fed the same tokens: over every greedy
+    token, the median and worst max |row - oracle| in units of the 1e-2
+    tolerance of the oracle's row; at each (token, greedy lane) of points
+    that distance, each path's argmax, the oracle's, and the stream token's
+    gap below the oracle's maximum in the same units."""
+    tol = 1e-2 * oracle.abs().amax(-1).clamp(min=1.0)                 # (tokens, lanes)
+    err = {k: ((r - oracle).abs().amax(-1) / tol).cpu() for k, r in rows.items()}
+    gap, _ = stream_gaps(oracle, mix, streams)
+    out = dict(all={k: dict(median=float(e.median()), worst=float(e.max()))
+                    for k, e in err.items()}, points=[])
+    for j, b in points:
+        rec = dict(token=j, lane=b, oracle_argmax=int(oracle[j, b].argmax()),
+                   oracle_gap_of_token=float(gap[j, b]))
+        for k, r in rows.items():
+            rec[k] = dict(err_over_tol=float(err[k][j, b]), argmax=int(r[j, b].argmax()))
+        out["points"].append(rec)
+    return out
+
+
+def tree_serving_run(cfg, fw, dev, kv_dtype, mw, mix, need=TREE_KERNELS["fp8"], **kw) -> dict:
     """The mix through a Scheduler at batch 8 with Medusa heads mw (tree
     Medusa with spec_tree in kw, else chain Medusa, K 4): every stream
-    TREE_NEW valid ids; every greedy token held to the chunk path fed the
-    same prefix (chunk_gaps: the formulation the verify and tree sweeps
-    compute); to the plain tick (tick_gaps) as well below 32 layers, and at
-    32 layers the plain tick's gaps recorded: there a regrouped f32 sum
-    between the chunk path and the tick, amplified by 32 random layers,
-    can part them past a near-tie in either mode (PERF.md, PR 15)."""
+    TREE_NEW valid ids, the kernels of need launched; every greedy token
+    held to the chunk path fed the same prefix (chunk_rows: the formulation
+    the verify and tree sweeps compute) by the near-tie rule, and to the
+    plain tick (tick_rows) as well below 32 layers; at 32 layers the plain
+    tick's gaps are recorded: there bf16 rounding, grown over 32 random
+    layers, parts the chunk path and the tick past a near-tie in either
+    mode (PERF.md §6). On MoE weights the run's routing is recorded
+    (scheduler_routes) and every reference (the chunk path, the tick and
+    the f32 oracle) is routed as the run was, so every token stays held;
+    a reference's row whose own router logits choose other experts must lie
+    at a near-tie, or the oracle must take one side or lie at a near-tie,
+    and the two paths' router logits must lie as near the oracle as each
+    other (routing_check). At 32 layers, and on MoE weights, the f32 oracle
+    (oracle_rows) is fed the same tokens: each path's distance to it over
+    every token, and at each token past a near-tie of the tick, each token
+    after a row routed differently past a near-tie, and each lane's last
+    token, says which path parted (oracle_compare)."""
     import torch
     from yalm_tpu_torch.ops.cuda import _build
     from yalm_tpu_torch.scheduler import Request, Scheduler
@@ -3406,8 +3744,10 @@ def tree_serving_run(cfg, fw, dev, kv_dtype, mw, mix, **kw) -> dict:
                                  seed=400 + i)) for i, (p, s) in enumerate(mix)]
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
+    raw: list = []
     t0 = time.perf_counter()
-    sched.run()
+    with scheduler_routes(sched, raw) if cfg.is_moe else contextlib.nullcontext():
+        sched.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in _build.LAUNCHES.items() if v}
@@ -3420,24 +3760,116 @@ def tree_serving_run(cfg, fw, dev, kv_dtype, mw, mix, **kw) -> dict:
     if sched.spec_stats["rounds"] < 1:
         raise AssertionError(f"{name}: no verify round")
     # the tree's sampled lanes ride the plain tick (K8); chain Medusa verifies them
-    missing = [k for k in ("gemm_l", "round_rows_bf16") + (("attend_step_batched_l",) if kw
-                                                           else ()) if not launches.get(k)]
+    missing = [k for k in need + (("attend_step_batched_l",) if kw else ())
+               if not launches.get(k)]
     if missing:
         raise AssertionError(f"{name}: {missing} never launched")
     streams = [r.generated for r in reqs]
-    gap, arg = chunk_gaps(cfg, fw, dev, kv_dtype, mix, streams)
     tokens = sum(len(s) for s in streams)
     res = dict(requests=len(reqs), tokens=tokens, wall_s=wall, tok_s=tokens / wall,
-               spec_stats=dict(sched.spec_stats), launches=launches,
+               spec_stats=dict(sched.spec_stats), launches=launches)
+    del sched
+    deep = cfg.n_layers >= 32
+    run = stream_routes(raw, mix, streams) if cfg.is_moe else None
+    orows, oroutes = (oracle_rows(cfg, fw, dev, mix, streams, run) if deep or cfg.is_moe
+                      else (None, {}))
+    crows, croutes = chunk_rows(cfg, fw, dev, kv_dtype, mix, streams, run)
+    trows, troutes = tick_rows(cfg, fw, dev, kv_dtype, mix, streams, run)
+    if cfg.is_moe:
+        for key, ref, routes in (("chunk", "chunk path", croutes), ("tick", "plain tick", troutes)):
+            res[f"{key}_routing"] = routing_check(f"{name} vs the {ref}", mix, run, routes,
+                                                  oroutes)
+    gap, arg = stream_gaps(crows, mix, streams)
+    res.update(greedy_tokens=gap.numel(),
                chunk_near_ties=near_tie_hold(name, "chunk path", gap, arg),
                chunk_worst_gap_over_tol=float(gap.max()))
-    del sched
-    gap, arg = tick_gaps(cfg, fw, dev, kv_dtype, mix, streams)
-    if cfg.n_layers < 32:
+    gap, arg = stream_gaps(trows, mix, streams)
+    if not deep:
         res["tick_near_ties"] = near_tie_hold(name, "plain tick", gap, arg)
-    res.update(tick_beyond=int(((~arg) & (gap > 2)).sum()),
-               tick_worst_gap_over_tol=float(gap.max()))
+    beyond = ((~arg) & (gap > 2)).nonzero().tolist()
+    res.update(tick_beyond=len(beyond), tick_worst_gap_over_tol=float(gap.max()))
+    if orows is None:
+        return res
+    prompts = [len(p) for p, sampled in mix if not sampled]
+    parted = sorted({(r[1] - prompts[r[0]] + 1, r[0]) for v in res.values()
+                     if isinstance(v, dict) for r in v.get("past_a_near_tie", ())
+                     if 0 <= r[1] - prompts[r[0]] + 1 < TREE_NEW})
+    points = [tuple(p) for p in beyond] + [p for p in parted if list(p) not in beyond]
+    points += [(TREE_NEW - 1, b) for b in range(gap.shape[1]) if (TREE_NEW - 1, b) not in points]
+    res["oracle"] = oracle_compare(mix, streams, orows, {"chunk": crows, "tick": trows}, points)
+    why = {**{tuple(p): "past a near-tie of the tick" for p in beyond},
+           **{p: "after a row routed differently past a near-tie" for p in parted}}
+    control = "control: the lane's last token"
+    a = res["oracle"]["all"]
+    log(f"    f32 oracle over all {gap.numel()} greedy tokens: chunk path median "
+        f"{a['chunk']['median']:.3f} tol from it (worst {a['chunk']['worst']:.3f}), tick "
+        f"{a['tick']['median']:.3f} (worst {a['tick']['worst']:.3f})")
+    for rec in res["oracle"]["points"]:
+        log(f"    f32 oracle at token {rec['token']} of greedy lane {rec['lane']} "
+            f"({why.get((rec['token'], rec['lane']), control)}): "
+            f"chunk path {rec['chunk']['err_over_tol']:.3f} tol from it, tick "
+            f"{rec['tick']['err_over_tol']:.3f}; argmax oracle {rec['oracle_argmax']}, "
+            f"chunk {rec['chunk']['argmax']}, tick {rec['tick']['argmax']}; the stream's "
+            f"token {rec['oracle_gap_of_token']:.3f} tol below the oracle's maximum")
     return res
+
+
+def tree_mix(cfg, rng) -> list:
+    """The tree phases' requests: 8 prompts of 200 tokens, the 4th and 7th
+    sampled."""
+    return [([cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 199).tolist(), i in (3, 6))
+            for i in range(8)]
+
+
+def log_tree_serving(mode: str, depth: int, res: dict, kw: dict) -> None:
+    form = f"tree {TREE}" if kw else "K 4"
+    log(f"  {mode} Medusa serving ({form}), {depth} layers, batch 8, 4 random heads: "
+        f"{res['requests']} requests (2 at T 0.8), {res['tokens']} tokens in "
+        f"{res['wall_s']:.2f} s ({res['tok_s']:.1f} tok/s); spec_stats {res['spec_stats']}; "
+        f"every one of the {res['greedy_tokens']} greedy tokens the chunk path's argmax "
+        "given the same prefix but "
+        f"{res['chunk_near_ties']} near-ties (worst gap/tol "
+        f"{res['chunk_worst_gap_over_tol']:.3f}); "
+        "against the plain tick "
+        + (f"the same but {res['tick_near_ties']} near-ties" if "tick_near_ties" in res
+           else f"{res['tick_beyond']} tokens past a near-tie (worst gap/tol "
+                f"{res['tick_worst_gap_over_tol']:.3f}; not held at this depth)")
+        + "".join(f"; routed as the run, the {k[:-8]} reference's own routing over "
+                  f"{v['rows']} rows parts from the run's at {len(v['near_ties'])} near-ties "
+                  f"and past a near-tie at {v['past_a_near_tie']} (lane, position, layer, "
+                  "gap/tol, the reference's and the run's router distance to the f32 "
+                  "oracle/tol, the side the oracle takes); router distances "
+                  f"{v['router_distance']}"
+                  for k, v in res.items() if k.endswith("_routing"))
+        + f"; launches {res['launches']}")
+
+
+TREE_PATH_DEPTHS = (2, 8)
+
+
+def phase_tree_path(cfg, fw, dev, kv_dtype, path: str) -> dict:
+    """Tree-attention Medusa on another weight path at its widths (packed
+    int4: K5 gemm4_l and K7's GEMM route; MoE: K10 gemm_le at B x Tn rows):
+    the chain tree against the chain sweep at depths 2 and 8
+    (chain_tree_check) and the tree (4, 2) serving run at depth 8
+    (tree_serving_run: every greedy token held to the chunk path and to the
+    plain tick by the near-tie rule; on MoE weights both routed as the run,
+    each routing difference at a near-tie or settled by the f32 oracle), as
+    phase_tree runs them on fp8."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(22)
+    out = {"chain": {n: chain_tree_check(with_layers(cfg, n), first_layers(fw, n), dev,
+                                         kv_dtype, rng) for n in TREE_PATH_DEPTHS}}
+    mw = synth_medusa(cfg, dev, seed=23)
+    d = TREE_PATH_DEPTHS[-1]
+    out["serving"] = tree_serving_run(with_layers(cfg, d), first_layers(fw, d), dev, kv_dtype,
+                                      mw, tree_mix(cfg, rng), need=TREE_KERNELS[path],
+                                      spec_tree=TREE)
+    log_tree_serving("tree", d, out["serving"], dict(spec_tree=TREE))
+    del mw
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
@@ -3468,8 +3900,7 @@ def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
 
     # (b) serving through the tree scheduler, at 32 layers and at 8
     mw = synth_medusa(cfg, dev, seed=23)
-    mix = [([cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, 199).tolist(), i in (3, 6))
-           for i in range(8)]
+    mix = tree_mix(cfg, rng)
     out["serving"] = {}
     for depth in TREE_SERVE_DEPTHS:
         cfg_d, fw_d = with_layers(cfg, depth), first_layers(fw, depth)
@@ -3479,16 +3910,7 @@ def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
         for mode, kw in runs:
             res = tree_serving_run(cfg_d, fw_d, dev, kv_dtype, mw, mix, **kw)
             out["serving"][f"{mode} {depth}"] = res
-            form = f"tree {TREE}" if kw else "K 4"
-            log(f"  {mode} Medusa serving ({form}), {depth} layers, batch 8, 4 random heads: {res['requests']} requests (2 at T 0.8), "
-                f"{res['tokens']} tokens in {res['wall_s']:.2f} s ({res['tok_s']:.1f} tok/s); "
-                f"spec_stats {res['spec_stats']}; every greedy token the chunk path's argmax given "
-                f"the same prefix but {res['chunk_near_ties']} near-ties (worst gap/tol "
-                f"{res['chunk_worst_gap_over_tol']:.3f}); against the plain tick "
-                + (f"the same but {res['tick_near_ties']} near-ties" if "tick_near_ties" in res
-                   else f"{res['tick_beyond']} tokens past a near-tie (worst gap/tol "
-                        f"{res['tick_worst_gap_over_tol']:.3f}; not held at this depth)")
-                + f"; launches {res['launches']}")
+            log_tree_serving(mode, depth, res, kw)
 
     # (d) one tree sweep of the serving shape: its time and launches
     parents = M.cartesian_tree(TREE)
@@ -3538,8 +3960,9 @@ def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
     stream, _, _ = deep_run(False)
     got, per_round, deep_stats = deep_run(True)
     full = sum(a == H for a in per_round)
+    one = [(prompt, False)], [got]
     deep_flips = near_tie_hold("tree deep accept", "chunk path",
-                               *chunk_gaps(cfg, fw, dev, kv_dtype, [(prompt, False)], [got]))
+                               *stream_gaps(chunk_rows(cfg, fw, dev, kv_dtype, *one)[0], *one))
     if not full:
         raise AssertionError(f"tree deep accept: no round accepted the full depth {H} "
                              f"(accepted per round {per_round})")
@@ -3559,35 +3982,30 @@ def phase_tree(cfg, fw, dev, kv_dtype) -> dict:
 
 def oracle_weights(cfg, fw):
     """The parity oracle's Weights (models/weights.py) over the same
-    FastWeights tensors (dense, unscaled): wq/wk/wv and w1/w3 the views of
-    the concatenated rows."""
+    FastWeights tensors (unscaled; dense, or MoE expert stacks (L, E, ...)
+    and the router): wq/wk/wv and w1/w3 the views of the concatenated
+    rows."""
     from yalm_tpu_torch.models.weights import LayerWeights, Weights
     q, kd, h = cfg.q_dim, cfg.kv_dim, cfg.hidden_dim
     lw = LayerWeights(rms_att=fw.rms_att, rms_ffn=fw.rms_ffn, wq=fw.wqkv[:, :q],
                       wk=fw.wqkv[:, q:q + kd], wv=fw.wqkv[:, q + kd:], wo=fw.wo,
-                      w1=fw.w13[:, :h], w2=fw.w2, w3=fw.w13[:, h:], moegate=None,
-                      qn=fw.qnorm, kn=fw.knorm, pa=fw.pa, pf=fw.pf)
+                      w1=fw.w13[..., :h, :], w2=fw.w2, w3=fw.w13[..., h:, :],
+                      moegate=fw.moegate, qn=fw.qnorm, kn=fw.knorm, pa=fw.pa, pf=fw.pf)
     return Weights(embed=fw.embed, layers=lw, final_norm=fw.final_norm, lm_head=fw.lm_head)
 
 
 def phase_oracle(cfg, fw, dev, kv_dtype) -> dict:
-    """The parity oracle on the card (Mistral-7B widths, 2 layers): the
+    """The parity oracle on the card (the path's widths, 2 layers): the
     oracle (bf16 compute, the server's) and the kernels on the same weights,
     a 64-token prefill and 8 teacher-forced decode steps: the oracle's
     attention runs in f32 and the kernels' on bf16 operands, so every
     step's logits are held to the JAX package's oracle-vs-kernels bound
     (under 6e-2 of max(1, max|logit|), tests/test_debug.py:57) and the
     argmax to the oracle's or a near-tie of it, and the error over 1e-2 of
-    max(1, max|logit|) is logged per step; then a config the attention kernel refuses
-    (one kv head: 32 queries x 128 = 4096 > 2048, MQA as in Falcon-7B,
-    random fp8 weights from a seed) takes the oracle under fast="auto"
-    (fast=True names the limit) and completes a request through the
-    Engine and one through the Scheduler."""
+    max(1, max|logit|) is logged per step."""
     import numpy as np
     import torch
     from yalm_tpu_torch.engine import Engine
-    from yalm_tpu_torch.models.fast import fast_unsupported
-    from yalm_tpu_torch.scheduler import Request, Scheduler
 
     cfg2 = with_layers(cfg, 2)
     fw2 = first_layers(fw, 2)
@@ -3622,14 +4040,28 @@ def phase_oracle(cfg, fw, dev, kv_dtype) -> dict:
                                  f"(scale {scale:.3e}), argmax {int(g.argmax())} vs "
                                  f"{int(o.argmax())}")
     worst = max(ratios)
-    log(f"  oracle (bf16 compute) vs kernels, 2 layers: 64-token prefill and 8 decode steps: "
+    log(f"  oracle (bf16 compute) vs kernels, 2 layers, {str(kv_dtype)[6:]} cache: 64-token "
+        f"prefill and 8 decode steps: "
         f"logits err / (1e-2 of max(1, max|logit|)) per step {[f'{r:.3f}' for r in ratios]}, "
         f"under the 6e-2 bound, the argmax held; wall {times['kernels']:.3f} s on the kernels, "
         f"{times['oracle']:.3f} s on the oracle")
-    out = dict(steps=9, err_over_1e2_per_step=ratios, worst_err_over_tol=worst, wall_s=times)
     del fast_e, orc
+    return dict(steps=9, err_over_1e2_per_step=ratios, worst_err_over_tol=worst, wall_s=times)
 
-    mqa = dataclasses.replace(cfg2, n_kv_heads=1)
+
+def phase_oracle_mqa(cfg, dev, kv_dtype) -> dict:
+    """A config the attention kernel refuses (cfg at 2 layers with one kv
+    head: 32 queries x 128 = 4096 > 2048, MQA as in Falcon-7B, random fp8
+    weights from a seed) takes the oracle under fast="auto" (fast=True
+    names the limit) and completes a request through the Engine and one
+    through the Scheduler."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.models.fast import fast_unsupported
+    from yalm_tpu_torch.scheduler import Request, Scheduler
+    rng = np.random.default_rng(32)
+    mqa = dataclasses.replace(with_layers(cfg, 2), n_kv_heads=1)
     why = fast_unsupported(mqa)
     if not why or "2048" not in why:
         raise AssertionError(f"MQA: the kernels should refuse it, got {why!r}")
@@ -3654,22 +4086,25 @@ def phase_oracle(cfg, fw, dev, kv_dtype) -> dict:
     log(f"  one kv head ({why}): fast=\"auto\" takes the oracle; Engine and Scheduler each "
         f"complete a 64+16 greedy request ({sum(a == b for a, b in zip(got, r.generated))} of "
         "16 tokens equal between the f32 engine and the bf16 scheduler)")
-    out["mqa"] = dict(reason=why, engine_tokens=len(got), scheduler_tokens=len(r.generated))
     del eng, sched, w
     torch.cuda.empty_cache()
-    return out
+    return dict(reason=why, engine_tokens=len(got), scheduler_tokens=len(r.generated))
 
 
 def phase_capture(cfg, fw, dev, kv_dtype) -> dict:
-    """Debug capture on the card (Mistral-7B widths, 2 layers): the kernel
-    path's capture (decode_step_fast(capture=True): gemv_l, attend_step_l,
-    gemv) against the oracle's (bf16 compute) over 3 steps, every tensor's
-    diff_captures error under 6e-2 (tests/test_debug.py:57's bound); the
+    """Debug capture on the card (the path's widths, 2 layers): the kernel
+    path's capture (decode_step_fast(capture=True): gemv_l, attend_step_l in
+    the path's form, gemv_le for each routed expert of an MoE path, gemv)
+    against the oracle's (bf16 compute) over 3 steps, every tensor's
+    diff_captures error under 6e-2 (tests/test_debug.py:57's bound; on an
+    e5m2 cache whose bytes the two paths round one step apart, att_mix's
+    against the oracle's attention over the kernels' cache bytes); the
     capture step's launches."""
     import torch
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.models.fast import decode_step_fast
     from yalm_tpu_torch.models.transformer import decode_step
+    from yalm_tpu_torch.ops.attention import attend_one
     from yalm_tpu_torch.utils.debug import diff_captures
 
     cfg2 = with_layers(cfg, 2)
@@ -3684,16 +4119,41 @@ def phase_capture(cfg, fw, dev, kv_dtype) -> dict:
             lambda: decode_step_fast(cfg2, fw2, tok, pos, cf, capture=True))
         tok = 3 + pos
     errs = diff_captures(cap_o, cap_f)
+    flips: dict = {}
+    if kv_dtype.itemsize == 1:
+        # an e5m2 cache: a K/V value that the two paths compute on either
+        # side of a rounding boundary is a byte one step (25%) apart
+        # (e5m2_divergence checks that). att_mix is held to the bound
+        # against the oracle's attention (attend_one, f32, its own q) over
+        # the kernels' cache bytes, which the flipped bytes' own effect
+        # parts from the oracle's att_mix; every other tensor as above.
+        slot, n_flip = e5m2_divergence(cf, KVCache(k=co.k.cpu(), v=co.v.cpu()))
+        if slot is not None:
+            a, b = cap_o["att_mix"].float(), cap_f["att_mix"].float()
+            scale = max(float(a.abs().max()), float(b.abs().max()), 1e-30)
+            valid = torch.arange(cfg2.max_seq_len, device=dev) < 3   # the last step's slots
+            qs = cap_o["q"].reshape(2, cfg2.n_kv_heads, -1, cfg2.head_dim)
+            ref = torch.stack([attend_one(qs[i], cf.k[i], cf.v[i], valid, cfg2.attn_softcap)
+                               .reshape(-1) for i in range(2)])
+            errs["att_mix"] = float((b - ref).abs().max()) / scale
+            flips = dict(bytes=n_flip, att_mix_per_layer=((a - b).abs().amax(-1) / scale).tolist(),
+                         flips_own_per_layer=((a - ref).abs().amax(-1) / scale).tolist())
     bad = {k: e for k, e in errs.items() if not e < 6e-2}
     if bad or set(cap_f) != set(cap_o) or cap_f["block_out"].shape[0] != 2:
         raise AssertionError(f"capture: kernels vs oracle {errs}")
-    missing = [k for k in ("gemv_l", "attend_step_l", "gemv") if not launches.get(k)]
+    need = ("gemv_l", "attend_step_l", "gemv") + (("gemv_le",) if cfg.is_moe else ())
+    missing = [k for k in need if not launches.get(k)]
     if missing or launches.get("attn_block_l"):
         raise AssertionError(f"capture step: launches {launches}")
-    log(f"  capture, kernels vs oracle (bf16 compute), 2 layers, 3 steps: every tensor under "
-        f"6e-2 (worst {next(iter(errs))} {max(errs.values()):.3e}); one capture step's launches "
-        f"{launches}")
-    return dict(errors=errs, launches=launches)
+    worst = max(errs, key=errs.get)
+    log(f"  capture, kernels vs oracle (bf16 compute), 2 layers, {str(kv_dtype)[6:]} cache, "
+        f"3 steps: every tensor under 6e-2 (worst {worst} {errs[worst]:.3e})"
+        + (f"; {flips['bytes']} cache bytes lie one e5m2 step apart: att_mix's error per "
+           f"layer {[f'{e:.3e}' for e in flips['att_mix_per_layer']]}, the flipped bytes' "
+           f"own effect {[f'{e:.3e}' for e in flips['flips_own_per_layer']]}; att_mix held "
+           "against the oracle's attention over the kernels' bytes" if flips else "")
+        + f"; one capture step's launches {launches}")
+    return dict(errors=errs, e5m2_flips=flips, launches=launches)
 
 
 def capture_refuses_int4(cfg4, fw4, dev, kv_dtype) -> None:
@@ -3716,7 +4176,11 @@ def tree_phases() -> int:
     """The tree-attention Medusa, oracle and capture phases alone, for a
     short card call: the fp8 path's Mistral-7B weights (32 layers), then
     phase_tree, phase_oracle and phase_capture, and the int4 capture
-    refusal on a 2-layer int4 model."""
+    refusal on a 2-layer int4 model; then the other paths' calls of
+    main(), on weights made at the depth they need: the tree phase on int4
+    (e5m2 cache) and Mixtral fp8 (8 layers), capture on Mixtral fp8,
+    Gemma3 (bf16 cache) and Gemma2 (e5m2 cache), the oracle on Gemma2's
+    e5m2 cache (2 layers)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -3734,13 +4198,56 @@ def tree_phases() -> int:
         out["tree"] = phase_tree(cfg, fw, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): the parity oracle on the card (2 layers)"):
         out["oracle"] = phase_oracle(cfg, fw, dev, torch.bfloat16)
+        out["oracle_mqa"] = phase_oracle_mqa(cfg, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): debug capture, kernels vs oracle (2 layers)"):
         out["capture"] = phase_capture(cfg, fw, dev, torch.bfloat16)
     del fw
-    cfg4 = mistral7b(n_layers=2, weight_dtype="int4")
+    e5 = torch.float8_e5m2
+    cfg4 = mistral7b(n_layers=8, weight_dtype="int4")
+    fw4 = synth_int4_weights(cfg4, dev, seed=1)
     with phase("phase 4 (int4 path): debug capture refuses packed int4"):
-        capture_refuses_int4(cfg4, synth_int4_weights(cfg4, dev, seed=1), dev, torch.float8_e5m2)
+        capture_refuses_int4(cfg4, fw4, dev, e5)
+    with phase("phase 3 (int4 path, e5m2 cache): tree-attention Medusa (depths 2 and 8)"):
+        out["int4 tree"] = phase_tree_path(cfg4, fw4, dev, e5, "int4")
+    del fw4
+    cfgm = mixtral8x7b(n_layers=8)
+    fwm = synth_moe_weights(cfgm, dev, seed=2)
+    with phase("phase 3 (moe_fp8 path, bf16 cache): tree-attention Medusa (depths 2 and 8)"):
+        out["moe_fp8 tree"] = phase_tree_path(cfgm, fwm, dev, torch.bfloat16, "moe_fp8")
+    with phase("phase 4 (moe_fp8 path): debug capture, kernels vs oracle (2 layers)"):
+        out["moe_fp8 capture"] = phase_capture(cfgm, fwm, dev, torch.bfloat16)
+    del fwm
+    for path, cfgg, kv, seed in (("gemma3", gemma3_12b(2), torch.bfloat16, 4),
+                                 ("gemma2", gemma2_9b(2), e5, 5)):
+        fwg = synth_fast_weights(cfgg, dev, seed=seed)
+        if path == "gemma2":
+            with phase(f"phase 4 ({path} path, e5m2 cache): the parity oracle (2 layers)"):
+                out[f"{path} oracle"] = phase_oracle(cfgg, fwg, dev, kv)
+        with phase(f"phase 4 ({path} path): debug capture, kernels vs oracle (2 layers)"):
+            out[f"{path} capture"] = phase_capture(cfgg, fwg, dev, kv)
+        del fwg
+    torch.cuda.empty_cache()
     print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
+def checkpoint_phases() -> int:
+    """Phase 6 alone, for a short card call: the kernels and the native
+    library built, then phase_checkpoint. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.checkpoint_phases())"
+    """
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    from yalm_tpu_torch.ops.cuda import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    with phase("phase 6: converted checkpoints from disk (native reader and tokenizer)"):
+        out = phase_checkpoint(torch.device("cuda"))
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -3857,9 +4364,11 @@ def profile_decode(eng, n: int) -> dict:
     return r
 
 
-def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> dict:
+def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8, toks=None,
+                 fw_cpu=None) -> dict:
     """Phase 4: depth-2 model, card (kernels) vs CPU (plain versions): a
-    prompt-token prefill chunk and `steps` teacher-forced decode steps,
+    prompt-token prefill chunk and `steps` teacher-forced decode steps
+    (random tokens, or toks; the CPU's weights fw moved there, or fw_cpu),
     logits within 1e-2 of max(1, max|logit|) and the argmax held
     (argmax_holds). MoE steps that routing_holds names are held to nothing
     and counted. On an e5m2 cache a byte may differ between the two sides
@@ -3875,12 +4384,12 @@ def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> di
 
     cfg = depth2(cfg)
     fw2 = first_layers(fw, 2)
-    fw_cpu = fw2.to("cpu")
-    rng = np.random.default_rng(5)
-    toks = rng.integers(3, cfg.vocab_size, prompt + steps)
+    fw_cpu = fw2.to("cpu") if fw_cpu is None else first_layers(fw_cpu, 2)
+    if toks is None:
+        toks = np.random.default_rng(5).integers(3, cfg.vocab_size, prompt + steps)
     worst = worst_flip = 0.0
     runs, caches = {}, {}
-    with routing_log(cfg) as take:
+    with routing_log(cfg) as take, widened_once():
         for name, w, d in (("cuda", fw2, dev), ("cpu", fw_cpu, torch.device("cpu"))):
             cache = caches[name] = KVCache.init(cfg, kv_dtype, d)
             out = [prefill_fast(cfg, w, toks[:prompt], 0, prompt, cache, logits_mode="last")[0]]
@@ -3913,7 +4422,8 @@ def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> di
         if not ok:
             raise AssertionError(f"depth-2 parity step {step}: max |err| {err:.3e} "
                                  f"(tol {tol:.3e}), argmax {int(g.argmax())} vs {int(c.argmax())}")
-    log(f"  depth-2 logits, card vs CPU plain: {steps + 1} steps ({prompt}-token prefill) agree"
+    log(f"  depth-{cfg.n_layers} logits, card vs CPU plain: {steps + 1} steps ({prompt}-token "
+        "prefill) agree"
         + (f" ({held_n} held for routing: {ties} output rows routed near a tie, the rest "
            "reached by a row that routed differently)" if cfg.is_moe else "")
         + (f"; {n_flip} e5m2 cache bytes differ, the first at slot {first}, "
@@ -3928,14 +4438,18 @@ def phase_parity(cfg, fw, dev, kv_dtype, prompt: int = 64, steps: int = 8) -> di
 def phase_cli(dev) -> None:
     """Phase 5: the CLI modes as subprocesses on a small fp8 checkpoint
     (bf16 cache) and a small int4 one (e5m2 cache, `-C fp8`); a completion
-    on a small fp8 MoE checkpoint (4 experts, 2 active)."""
+    on a small fp8 MoE checkpoint (4 experts, 2 active). The seven runs
+    start together (each spends most of its time starting Python and
+    torch) and each is timed from the start to its own end."""
+    from concurrent.futures import ThreadPoolExecutor
     from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
     out_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
     completion = ["-m", "completion", "-i", "hello world", "-n", "16", "-t", "0"]
     modes = (completion, ["-m", "perplexity", "-i", "hello world this is a test of the key"],
              ["-m", "passkey", "-n", "4", "-s", "1"])
-    for wdt, moe, extra, runs in (("fp8", {}, [], modes), ("int4", {}, ["-C", "fp8"], modes),
+    runs = []
+    for wdt, moe, extra, args in (("fp8", {}, [], modes), ("int4", {}, ["-C", "fp8"], modes),
                                   ("fp8", dict(n_experts=4, n_experts_active=2), [],
                                    (completion,))):
         path = os.path.join(out_dir, f"tiny_{wdt}{'_moe' if moe else ''}.yalm")
@@ -3944,18 +4458,235 @@ def phase_cli(dev) -> None:
                                            max_seq_len=512, rotary_dim=128,
                                            weight_dtype=wdt, **moe), seed=3)
         cli = [sys.executable, "-m", "yalm_tpu_torch.cli", path, *extra]
-        if moe:
-            wdt += " MoE"
-        for args in runs:
+        runs += [(wdt + (" MoE" if moe else ""), extra, cli + a) for a in args]
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, timeout=600)
+        return res, time.perf_counter() - t0
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = list(pool.map(run, [cmd for _, _, cmd in runs]))
+    for (wdt, extra, cmd), (res, wall) in zip(runs, done):
+        mode = cmd[cmd.index("-m", 3) + 1]
+        # random weights emit arbitrary bytes (byte-fallback tokens)
+        out, err = (res.stdout.decode(errors="replace"), res.stderr.decode(errors="replace"))
+        tail = (out + err).strip().splitlines()[-3:]
+        log(f"  cli {wdt} {' '.join(extra)} {mode}: rc {res.returncode} in {wall:.1f} s: "
+            + " | ".join(tail))
+        if res.returncode != 0:
+            raise AssertionError(f"cli {wdt} {mode} failed:\n{out}\n{err}")
+
+
+CKPT_TOKENIZER = os.path.join(ROOT, "tests", "fixtures", "llama_style_tokenizer.json")
+CKPT_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "tokenizer_golden.json")
+CKPT_PROMPT, CKPT_NEW = 64, 32
+
+
+def ckpt_text(golden: dict, nbytes: int = 4096) -> str:
+    """A text of nbytes from the golden cases' strings and plain English."""
+    text = ""
+    while len(text.encode()) < nbytes:
+        text += " ".join(c["text"] for c in golden["cases"]) + " The quick brown fox jumps. "
+    return text.encode()[:nbytes].decode(errors="ignore")
+
+
+def checkpoint_run(path: str, dev, key: str, kv_dtype) -> dict:
+    """One converted checkpoint from disk: the native reader's tensors equal
+    the pure reader's byte for byte; each reader's open plus
+    load_fast_weights onto the card, timed; Engine.from_checkpoint on the
+    card with the native tokenizer, which encodes the golden llama_style
+    cases to HF's ids and a 4 KB text to the pure-Python BPE's ids; a
+    CKPT_PROMPT-token prompt and CKPT_NEW greedy tokens through
+    Engine.generate (TTFT, decode rate, the path's kernels launched), the
+    stream's tokens teacher-forced on the card and on the CPU plain path of
+    the same file (phase_parity's rule and tolerance)."""
+    import numpy as np
+    import torch
+    from yalm_tpu_torch.codec.format import read_yalm
+    from yalm_tpu_torch.config import ModelConfig
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.models.fast import load_fast_weights
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.tokenizer import Tokenizer
+
+    gb = os.path.getsize(path) / 1e9
+    res: dict = dict(file_gb=gb)
+    nat, py = read_yalm(path, native=True), read_yalm(path, native=False)
+    if (nat._native is None or nat.metadata != py.metadata or nat.dtypes != py.dtypes
+            or list(nat.tensors) != list(py.tensors)):
+        raise AssertionError(f"{path}: the native reader's header differs from the pure one's")
+    for k, a in py.tensors.items():
+        b = nat.tensors[k]
+        if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(
+                a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)):
+            raise AssertionError(f"{path}: tensor {k} differs between the readers")
+    cfg = ModelConfig.from_metadata(py.metadata)
+    n_tensors = len(py.tensors)
+    nat.close()
+    py.close()
+    del nat, py
+    log(f"  {os.path.basename(path)} ({gb:.3f} GB, {n_tensors} tensors): the native reader's "
+        "tensors, dtypes tags and metadata equal the pure-Python reader's byte for byte")
+
+    for mode, flag in (("native", True), ("python", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yf = read_yalm(path, native=flag)
+        t_open = time.perf_counter() - t0
+        fw = load_fast_weights(yf, cfg, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        yf.close()
+        del fw, yf
+        torch.cuda.empty_cache()
+        res[f"load_{mode}"] = dict(open_s=t_open, open_and_load_s=wall, gb_per_s=gb / wall)
+        log(f"  {mode} reader: open {t_open * 1e3:.1f} ms, open + load_fast_weights onto the "
+            f"card {wall:.3f} s ({gb / wall:.2f} GB/s of file, page cache warm)")
+
+    t0 = time.perf_counter()
+    eng = _fast(Engine.from_checkpoint(path, device=dev, kv_dtype=kv_dtype))
+    res["engine_load_s"] = time.perf_counter() - t0
+    tok = eng.tokenizer
+    if not tok.native:
+        raise AssertionError("Engine.from_checkpoint: the tokenizer is not on the native path")
+    with open(CKPT_GOLDEN) as f:
+        golden = json.load(f)["llama_style"]
+    bad = [c["text"] for c in golden["cases"] if tok.encode(c["text"]) != c["hf_ids"]]
+    if bad:
+        raise AssertionError(f"native BPE: golden cases off HF's ids: {bad}")
+    text = ckpt_text(golden)
+    yf = read_yalm(path)
+    pure = Tokenizer.from_yalm(yf, native=False)
+    yf.close()
+    t0 = time.perf_counter()
+    ids = tok.encode(text)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_py = pure.encode(text)
+    t_py = time.perf_counter() - t0
+    if ids != ids_py:
+        raise AssertionError("native BPE and pure-Python BPE differ on the 4 KB text")
+    res["tokenizer"] = dict(golden_cases=len(golden["cases"]), text_bytes=len(text.encode()),
+                            text_tokens=len(ids), native_ms=t_nat * 1e3, python_ms=t_py * 1e3)
+    log(f"  Engine.from_checkpoint on the card in {res['engine_load_s']:.3f} s; native "
+        f"tokenizer: {len(golden['cases'])} golden llama_style cases encode to HF's ids; a "
+        f"{len(text.encode())}-byte text to the pure-Python BPE's {len(ids)} ids "
+        f"({t_nat * 1e3:.2f} ms native, {t_py * 1e3:.2f} ms Python)")
+
+    prompt = tok.encode(text, bos=True)[:CKPT_PROMPT]
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    stream, t_first = [], None
+    for t in eng.generate(prompt, max_steps=CKPT_NEW, temperature=0.0):
+        if t_first is None:
+            t_first = time.perf_counter()
+        stream.append(t)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    missing = [k for k in PATH_KERNELS[key] if not launches.get(k)]
+    present = [k for k in PATH_ABSENT[key] if launches.get(k)]
+    if (missing or present or len(stream) != CKPT_NEW
+            or not all(0 <= t < cfg.vocab_size for t in stream)):
+        raise AssertionError(f"generate: {len(stream)} tokens, launches {launches} (missing "
+                             f"{missing}, unexpected {present})")
+    res.update(ttft_s=t_first - t0, decode_tok_s=(CKPT_NEW - 1) / (t_end - t_first),
+               launches=launches, stream=stream)
+    log(f"  {CKPT_PROMPT}-token prompt + {CKPT_NEW} greedy tokens: TTFT "
+        f"{res['ttft_s'] * 1e3:.1f} ms, decode {res['decode_tok_s']:.1f} tok/s; launches "
+        f"{launches}")
+
+    t0 = time.perf_counter()
+    yf = read_yalm(path)
+    fw_cpu = load_fast_weights(yf, cfg, "cpu")
+    yf.close()
+    res["parity"] = phase_parity(cfg, eng.weights, dev, kv_dtype, prompt=CKPT_PROMPT,
+                                 steps=CKPT_NEW, toks=np.asarray(prompt + stream), fw_cpu=fw_cpu)
+    res["parity_s"] = time.perf_counter() - t0
+    log(f"  (the CPU's side: {res['parity_s']:.1f} s)")
+    del eng, fw_cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_checkpoint(dev) -> dict:
+    """Phase 6: a converted checkpoint from disk. The native library built
+    from yalm_tpu_torch/native (build seconds logged); an HF-layout
+    directory of random BF16 weights in two safetensors shards with
+    tests/fixtures/llama_style_tokenizer.json (padded to the model's
+    vocab): Mistral-7B widths at depth 2, converted to fp8 in process and
+    to int4 through `python -m yalm_tpu_torch.convert`, then Mixtral-8x7B
+    widths at depth 1 converted to fp8 (the expert stacking); each file
+    through checkpoint_run (fp8: bf16 cache; int4: e5m2 cache; every greedy
+    token held to the CPU); one CLI completion on the Mistral fp8 file. Every file is deleted at the
+    end."""
+    import torch
+    from yalm_tpu_torch import native
+    from yalm_tpu_torch.convert import convert
+    from yalm_tpu_torch.utils.testing import synth_hf_dir
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    out: dict = dict(native_build_s=time.perf_counter() - t0)
+    if not native.loaded():
+        raise AssertionError(f"the native library {lib} did not load")
+    log(f"  native library built and loaded in {out['native_build_s']:.1f} s ({lib})")
+    work = os.path.join(ROOT, "build", "ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    e5 = torch.float8_e5m2
+    models = (("mistral", mistral7b(2), "MistralForCausalLM", 60,
+               (("fp8", "fp8", torch.bfloat16, "in process"),
+                ("int4", "int4", e5, "cli"))),
+              ("mixtral", mixtral8x7b(1), "MixtralForCausalLM", 61,
+               (("fp8", "moe_fp8", torch.bfloat16, "in process"),)))
+    try:
+        for name, cfg, arch, seed, convs in models:
+            hf = os.path.join(work, f"{name}-hf")
             t0 = time.perf_counter()
-            res = subprocess.run(cli + args, cwd=ROOT, capture_output=True, timeout=600)
-            # random weights emit arbitrary bytes (byte-fallback tokens)
-            out, err = (res.stdout.decode(errors="replace"), res.stderr.decode(errors="replace"))
-            tail = (out + err).strip().splitlines()[-3:]
-            log(f"  cli {wdt} {' '.join(extra)} {args[1]}: rc {res.returncode} in "
-                f"{time.perf_counter() - t0:.1f} s: " + " | ".join(tail))
-            if res.returncode != 0:
-                raise AssertionError(f"cli {wdt} {args[1]} failed:\n{out}\n{err}")
+            synth_hf_dir(hf, cfg, seed=seed, arch=arch, dtype="bf16", shards=2,
+                         tokenizer=CKPT_TOKENIZER, device=dev)
+            hf_gb = sum(os.path.getsize(os.path.join(hf, f)) for f in os.listdir(hf)
+                        if f.endswith(".safetensors")) / 1e9
+            out[name] = dict(hf_gb=hf_gb, hf_write_s=time.perf_counter() - t0)
+            log(f"  {name}: HF directory ({cfg.n_layers} layer(s) at full width, BF16, 2 shards, "
+                f"{hf_gb:.3f} GB) written in {out[name]['hf_write_s']:.1f} s")
+            for wdt, key, kv, how in convs:
+                path = os.path.join(work, f"{name}-{wdt}.yalm")
+                t0 = time.perf_counter()
+                if how == "cli":
+                    res = subprocess.run([sys.executable, "-m", "yalm_tpu_torch.convert",
+                                          "--dtype", wdt, path, hf], cwd=ROOT,
+                                         capture_output=True, text=True, timeout=600)
+                    if res.returncode != 0:
+                        raise AssertionError(f"convert CLI failed:\n{res.stdout}\n{res.stderr}")
+                else:
+                    convert(hf, path, wdt)
+                conv_s = time.perf_counter() - t0
+                gb = os.path.getsize(path) / 1e9
+                log(f"  {name} -> {wdt} ({how}): {conv_s:.1f} s, {gb:.3f} GB written "
+                    f"({hf_gb / conv_s:.2f} GB/s of input)")
+                run = checkpoint_run(path, dev, key, kv)
+                run.update(convert_s=conv_s, convert_how=how)
+                out[name][wdt] = run
+                if name == "mistral" and wdt == "fp8":
+                    t0 = time.perf_counter()
+                    res = subprocess.run([sys.executable, "-m", "yalm_tpu_torch.cli", path,
+                                          "-m", "completion", "-i", "hello world", "-n", "16",
+                                          "-t", "0"], cwd=ROOT, capture_output=True,
+                                         timeout=600)
+                    text = (res.stdout + res.stderr).decode(errors="replace")
+                    if res.returncode != 0:
+                        raise AssertionError(f"cli on the converted checkpoint failed:\n{text}")
+                    log(f"  cli completion on {os.path.basename(path)}: rc 0 in "
+                        f"{time.perf_counter() - t0:.1f} s: "
+                        + " | ".join(text.strip().splitlines()[-2:]))
+                os.remove(path)
+            shutil.rmtree(hf)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def weight_gb(fw) -> float:
@@ -4302,6 +5033,7 @@ def main() -> int:
         summary["fp8"]["tree"] = phase_tree(cfg, fw, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): the parity oracle on the card (2 layers)"):
         summary["fp8"]["oracle"] = phase_oracle(cfg, fw, dev, torch.bfloat16)
+        summary["fp8"]["oracle_mqa"] = phase_oracle_mqa(cfg, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): debug capture, kernels vs oracle (2 layers)"):
         summary["fp8"]["capture"] = phase_capture(cfg, fw, dev, torch.bfloat16)
     with phase("phase 4 (fp8 path): depth-2 parity, card vs CPU"):
@@ -4335,6 +5067,8 @@ def main() -> int:
                f"of 256 ({lay_s} layers)"):
         summary["int4"]["paged"] = phase_serving(cfg_s, fw_s, dev, e5, "int4", n_requests=20,
                                                  http=0, paged_pages=PAGED_PAGES)
+    with phase("phase 3 (int4 path, e5m2 cache): tree-attention Medusa (depths 2 and 8)"):
+        summary["int4"]["tree"] = phase_tree_path(cfg4, fw4, dev, e5, "int4")
     with phase("phase 4 (int4 path, e5m2 cache): depth-2 parity, card vs CPU"):
         capture_refuses_int4(cfg4, fw4, dev, e5)
         summary["int4"]["parity"] = phase_parity(cfg4, fw4, dev, e5)
@@ -4376,6 +5110,12 @@ def main() -> int:
                     cfg_s, fw_s, dev, kv, path, n_requests=17, http=0,
                     paged_pages=PAGED_PAGES, prompts=(256, 1536), new=(32, 64),
                     past_window=False)
+        if path == "moe_fp8":
+            with phase(f"phase 3 ({path} path, {cache}): tree-attention Medusa (depths 2 and "
+                       "8)"):
+                summary[path]["tree"] = phase_tree_path(cfgm, fwm, dev, kv, path)
+            with phase(f"phase 4 ({path} path): debug capture, kernels vs oracle (2 layers)"):
+                summary[path]["capture"] = phase_capture(cfgm, fwm, dev, kv)
         with phase(f"phase 4 ({path} path, {cache}): depth-2 parity, card vs CPU"):
             # 8 lanes of 8-row chunks: the CPU's plain experts set the pace
             summary[path]["parity"] = phase_parity(cfgm, fwm, dev, kv)
@@ -4385,8 +5125,8 @@ def main() -> int:
         del fwm, fw_s
         torch.cuda.empty_cache()
 
-    # Gemma3-12B (bf16 cache) and Gemma2-9B (e5m2 cache) at full depth: the
-    # Gemma forms of K2, K8 and K9 on the unfused decode route
+    # Gemma3-12B (bf16 cache) and Gemma2-9B (e5m2 cache): the Gemma forms of
+    # K2, K8 and K9 on the unfused decode route
     for path, cfgg, kv, seed, form in (
             ("gemma3", gemma3_12b(), torch.bfloat16, 4, dict(win=1024, alt=1)),
             ("gemma2", gemma2_9b(), e5, 5, dict(win=4096, softcap=50.0))):
@@ -4401,30 +5141,43 @@ def main() -> int:
         with phase(f"phase 2 ({path} path): the LM head, the gelu GLU and the attention "
                    f"steps in the Gemma form{form_label(form)} vs plain versions"):
             phase_gemma_kernels(bench, cfgg, fwg, dev, kv, form)
-        with phase(f"phase 3 ({path} path, {cache}): single stream ({cfgg.n_layers} layers)"):
-            summary[path]["serve"] = phase_serve(cfgg, fwg, dev, kv, path,
+        # phase 3 at depth 8, which holds both layer kinds (PERF.md keeps the
+        # full-depth runs), so the whole script fits the time limit
+        lay_g = GEMMA_SERVING_LAYERS
+        cfg_s, fw_s = with_layers(cfgg, lay_g), first_layers(fwg, lay_g)
+        with phase(f"phase 3 ({path} path, {cache}): single stream ({lay_g} layers)"):
+            summary[path]["serve"] = phase_serve(cfg_s, fw_s, dev, kv, path,
                                                  GEMMA_SERVE_REQUESTS[path])
         if path == "gemma3":
             with phase(f"phase 3 ({path} path, {cache}): continuous-batching serving, batch 16 "
-                       f"({cfgg.n_layers} layers)"):
+                       f"({lay_g} layers)"):
                 summary[path]["batched"] = phase_serving(
-                    cfgg, fwg, dev, kv, path, n_requests=17, http=2, prompts=(64, 2048),
+                    cfg_s, fw_s, dev, kv, path, n_requests=17, http=2, prompts=(64, 2048),
                     new=(32, 64), past_window=False)
         else:
             with phase(f"phase 3 ({path} path, e5m2 pool): paged serving, batch 16, "
-                       f"{PAGED_PAGES} pages of 256 ({cfgg.n_layers} layers)"):
+                       f"{PAGED_PAGES} pages of 256 ({lay_g} layers)"):
                 summary[path]["paged"] = phase_serving(
-                    cfgg, fwg, dev, kv, path, n_requests=17, http=0, paged_pages=PAGED_PAGES,
+                    cfg_s, fw_s, dev, kv, path, n_requests=17, http=0, paged_pages=PAGED_PAGES,
                     prompts=(256, 1536), new=(32, 64), past_window=False)
+        if path == "gemma2":
+            with phase(f"phase 4 ({path} path, {cache}): the parity oracle on the card "
+                       "(2 layers)"):
+                summary[path]["oracle"] = phase_oracle(cfgg, fwg, dev, kv)
+        with phase(f"phase 4 ({path} path, {cache}): debug capture, kernels vs oracle "
+                   "(2 layers)"):
+            summary[path]["capture"] = phase_capture(cfgg, fwg, dev, kv)
         with phase(f"phase 4 ({path} path, {cache}): depth-2 parity, card vs CPU"):
             summary[path]["parity"] = phase_parity(cfgg, fwg, dev, kv)
             key = "batched_parity" if path == "gemma3" else "paged_parity"
             summary[path][key] = phase_batched_parity(cfgg, fwg, dev, kv,
                                                       paged=path == "gemma2", B=8, T=8)
-        del fwg
+        del fwg, fw_s
         torch.cuda.empty_cache()
     with phase("phase 5: CLI modes"):
         phase_cli(dev)
+    with phase("phase 6: converted checkpoints from disk (native reader and tokenizer)"):
+        summary["checkpoint"] = phase_checkpoint(dev)
 
     # name -> (source, the TPU function of the same name it replaces); the
     # FFN's composite wrappers launch csrc/gemv.cu or csrc/gemm.cu

@@ -33,7 +33,7 @@ print("BAD", bad)
 
 @pytest.mark.parametrize("module", ["scheduler", "server", "chat", "models.paged",
                                     "models.transformer", "models.weights", "ops.attention",
-                                    "utils.debug"])
+                                    "utils.debug", "convert", "native"])
 def test_serving_modules_import_no_jax(module):
     code = (f"import sys, yalm_tpu_torch.{module}\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "

@@ -404,15 +404,20 @@ except pytest.skip.Exception:
 @pytest.mark.parametrize("arch,extra", HF_CASES,
                          ids=[f"{a}-{i}" for i, (a, _) in enumerate(HF_CASES)])
 def test_hf_family_oracle_matches_jax_and_transformers(tmp_path, arch, extra):
-    """A random HF model of the family, converted by the JAX package's
-    converter (fp32): the port's oracle prefill logits within 1e-4 of JAX's
-    oracle and within JAX's 2e-3 of HF's forward, the argmax equal; for
-    Gemma2 also token-by-token decode (the age-based sliding mask)."""
+    """A random HF model of the family, converted by the port's converter
+    (fp32), whose bytes equal the JAX package's converter's: the port's
+    oracle prefill logits within 1e-4 of JAX's oracle and within JAX's 2e-3
+    of HF's forward, the argmax equal; for Gemma2 also token-by-token
+    decode (the age-based sliding mask)."""
     from yalm_tpu.config import ModelConfig as JaxConfig
-    from yalm_tpu.convert import convert
+    from yalm_tpu.convert import convert as jax_convert
+    from yalm_tpu_torch.convert import convert
     model, d = hf._mk_hf(tmp_path, arch, **extra)
     out = str(tmp_path / f"{arch}.yalm")
     convert(d, out, "fp32")
+    jax_convert(d, str(tmp_path / "jax.yalm"), "fp32")
+    with open(out, "rb") as f, open(tmp_path / "jax.yalm", "rb") as g:
+        assert f.read() == g.read()
     yf = jax_read(out, native=False)
     jcfg = JaxConfig.from_metadata(yf.metadata)
     jw = jax_load_weights(yf, jcfg)

@@ -9,11 +9,13 @@ build its tokenizer from a checkpoint the same way.
 import json
 import os
 
+import numpy as np
 import pytest
 
-from yalm_tpu.convert import load_merges, load_tokens, pack_tokens
+from yalm_tpu import convert as jax_convert
 from yalm_tpu.tokenizer import Tokenizer as JaxTokenizer
 from yalm_tpu_torch.codec.format import read_yalm, write_yalm
+from yalm_tpu_torch.convert import load_merges, load_tokens, pack_tokens
 from yalm_tpu_torch.tokenizer import Tokenizer
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -62,3 +64,18 @@ def test_from_checkpoint_with_merges(tmp_path):
         assert tok.encode(case["text"]) == case["hf_ids"], case["text"]
     assert tok.encode("hello", bos=True)[0] == 1
     yf.close()
+
+
+@pytest.mark.parametrize("style", STYLES)
+def test_converter_tokenizer_tables_match_jax(style):
+    """The port's converter decodes the vocab, packs it and maps the merges
+    as the JAX converter does."""
+    path, vocab, golden = _load(style)
+    assert vocab == jax_convert.load_tokens(path, golden["vocab_size"])
+    assert pack_tokens(vocab).tobytes() == jax_convert.pack_tokens(vocab).tobytes()
+    for got, want in zip(load_merges(path, vocab), jax_convert.load_merges(path, vocab)):
+        if isinstance(want, np.ndarray):
+            np.testing.assert_array_equal(got, want)
+            assert got.dtype == want.dtype
+        else:
+            assert got == want

@@ -1,4 +1,5 @@
-"""`.yalm` checkpoint codec for the PyTorch port (pure Python, numpy + mmap).
+"""`.yalm` checkpoint codec for the PyTorch port (numpy + mmap, or the
+native C++ reader of `yalm_tpu_torch/native` where its library is built).
 
 The `.yalm` container is a safetensors file: a u64 little-endian header size,
 a JSON header mapping tensor names to {dtype, shape, data_offsets} plus a
@@ -18,6 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .. import native as nat
 
 # safetensors dtype tag -> (numpy storage dtype, torch dtype). BF16 and the
 # fp8 types have no numpy type without ml_dtypes: numpy holds their raw bits.
@@ -95,6 +98,7 @@ class YalmFile:
     dtypes: dict[str, str]
     # Held to keep the mapping alive as long as tensor views exist.
     _mmap: mmap.mmap | None = field(default=None, repr=False)
+    _native: object | None = field(default=None, repr=False)
 
     def torch(self, name: str) -> torch.Tensor:
         return numpy_to_torch(self.tensors[name], self.dtypes[name])
@@ -110,10 +114,21 @@ class YalmFile:
             except BufferError:
                 pass
             self._mmap = None
+        self._native = None   # the native mapping goes with its last view
 
 
-def read_yalm(path: str) -> YalmFile:
-    """mmap a `.yalm`/safetensors file and return zero-copy numpy views."""
+def read_yalm(path: str, *, native: bool | None = None) -> YalmFile:
+    """mmap a `.yalm`/safetensors file and return zero-copy numpy views.
+
+    `native`: True reads through the C++ reader (`yalm_tpu_torch/native`)
+    and raises if its library is not built; False reads in pure Python;
+    None takes the C++ reader when its library is built. Both give the
+    same views, dtypes tags and metadata."""
+    if native or (native is None and nat.loaded()):
+        nc = nat.NativeCheckpoint(path)   # raises where the library is not built
+        tensors, dtypes = nc.tensors()
+        return YalmFile(path=path, metadata=nc.metadata(), tensors=tensors, dtypes=dtypes,
+                        _native=nc)
     size = os.path.getsize(path)
     if size < 8:
         raise ValueError(f"{path}: too small to be a .yalm file")

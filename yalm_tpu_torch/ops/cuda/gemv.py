@@ -77,23 +77,29 @@ def gemm_l_plain(x, w_all, layer, scale=None):
     return out
 
 
+def int4_values(p, group: int) -> torch.Tensor:
+    """Packed int4 weights p (N, K/2) as f32 values (N, G, group): each
+    group's low nibbles then its high nibbles, less 8."""
+    N = p.shape[0]
+    p = p.reshape(N, -1, group // 2)
+    q = torch.empty((N, p.shape[1], group), dtype=torch.float32, device=p.device)
+    q[..., : group // 2] = p & 0xF
+    q[..., group // 2:] = p >> 4
+    q -= 8.0
+    return q
+
+
 def gemm4_l_plain(x, w4_all, layer, gscale):
     """x (B, K) against packed int4 W4_all[layer] (N, K/2) with group scales
     gscale[layer] (G, N): per-group bf16 x bf16 products summed in f32, the
     group scale on each group's f32 partial, the groups added in order."""
     Bn, K = x.shape
-    p = w4_all[layer]
-    N = p.shape[0]
     group = int4_group(K)
     G = K // group
-    p = p.reshape(N, G, group // 2)
-    q = torch.empty((N, G, group), dtype=torch.float32, device=p.device)
-    q[..., : group // 2] = p & 0xF
-    q[..., group // 2:] = p >> 4
-    q -= 8.0
+    q = int4_values(w4_all[layer], group)
     xg = bf16f(x).reshape(Bn, G, group)
     s = gscale[layer].float()
-    out = torch.zeros((Bn, N), dtype=torch.float32, device=x.device)
+    out = torch.zeros((Bn, q.shape[0]), dtype=torch.float32, device=x.device)
     for g in range(G):
         out += (xg[:, g] @ q[:, g].T) * s[g]
     return out

@@ -5,8 +5,9 @@ vocab ships inside the checkpoint as one NUL-delimited byte tensor
 ("tokenizer.tokens", written by the converter); encoding is greedy
 longest-prefix match over a byte trie with single-byte fallback to the
 <0xNN> tokens; decoding handles sentencepiece's leading-space-after-BOS rule
-and byte-fallback pieces. The C++ encode accelerator of the JAX package is
-not part of the port yet.
+and byte-fallback pieces. Where the native library (`yalm_tpu_torch/native`)
+is built, its C++ trie encodes instead, and its exact BPE where the
+checkpoint carries merges; `Tokenizer.native` says which path encodes.
 
 When the checkpoint carries merge ranks ("tokenizer.merges", written by the
 converter from tokenizer.json), encode upgrades to EXACT rank-based BPE:
@@ -25,6 +26,8 @@ from __future__ import annotations
 import unicodedata
 
 import numpy as np
+
+from . import native as native_lib
 
 # Tokens that terminate a chat turn; any of these acts as end-of-turn
 # (reference src/tokenizer.cpp:22).
@@ -197,12 +200,15 @@ def _llama3_pretok(text: str) -> list[str]:
 class Tokenizer:
     def __init__(self, vocab: list[bytes], bos_id: int, eos_id: int,
                  merges: np.ndarray | None = None,
-                 added: np.ndarray | None = None, pretok: str = ""):
+                 added: np.ndarray | None = None, pretok: str = "",
+                 native: bool | None = None):
         """merges: (M, 2) int32 vocab-id pairs in rank order (from
         "tokenizer.merges"); added: (A,) int32 added-token ids; pretok:
         "metaspace:<scheme>" | "bytelevel[:prefix]". With merges present,
         encode runs exact rank-based BPE; otherwise the reference's greedy
-        longest-match."""
+        longest-match. native: True encodes in C++ and raises if the native
+        library is not built; False in Python; None in C++ where the
+        library is built."""
         self.vocab = vocab
         self.bos_id = bos_id
         self.eos_id = eos_id
@@ -250,8 +256,21 @@ class Tokenizer:
             self._bpe_fallback = (self.byte_fallback_start >= 0
                                   and self.byte_fallback_start not in added_ids)
 
+        # the native trie over the same pieces, its BPE tables beside it; a
+        # loaded library's errors raise
+        self._native = None
+        if native or (native is None and native_lib.loaded()):
+            self._native = native_lib.NativeTrie(b"".join(v + b"\0" for v in vocab))
+            if self._ranks is not None:
+                self._native.set_bpe(np.asarray(merges, np.int32), added, pretok)
+
+    @property
+    def native(self) -> bool:
+        """True when the C++ path encodes."""
+        return self._native is not None
+
     @classmethod
-    def from_yalm(cls, yf) -> "Tokenizer":
+    def from_yalm(cls, yf, native: bool | None = None) -> "Tokenizer":
         """Construct from a loaded checkpoint (codec.YalmFile)."""
         blob = np.asarray(yf.tensors["tokenizer.tokens"]).tobytes()
         merges = yf.tensors.get("tokenizer.merges")
@@ -261,7 +280,7 @@ class Tokenizer:
                    eos_id=int(yf.metadata["eos_token_id"]),
                    merges=None if merges is None else np.asarray(merges),
                    added=None if added is None else np.asarray(added),
-                   pretok=yf.metadata.get("tokenizer_pretok", ""))
+                   pretok=yf.metadata.get("tokenizer_pretok", ""), native=native)
 
     def encode(self, text: str | bytes, bos: bool = False) -> list[int]:
         """Exact BPE when the checkpoint carries merges; else greedy
@@ -272,6 +291,9 @@ class Tokenizer:
         if bos:
             out.append(self.bos_id)
         if self._ranks is not None:
+            if self._native is not None:
+                out.extend(self._native.encode_bpe(data))
+                return out
             pos = 0
             for seg, tid in self._split_added(data):
                 if tid is not None:
@@ -282,7 +304,7 @@ class Tokenizer:
                     out.extend(self._bpe_word(word))
                 pos += len(seg)
             return out
-        out.extend(self._greedy(data))
+        out.extend(self._greedy(data) if self._native is None else self._native.encode(data))
         return out
 
     def _greedy(self, data: bytes) -> list[int]:

@@ -3,10 +3,15 @@
 The port's copy of `yalm_tpu/utils/testing.py` (dense and MoE checkpoints,
 Medusa heads), without ml_dtypes: bf16 and fp8 tensors are rounded from f32 by torch, which
 rounds to nearest-even like ml_dtypes, so the same seed writes the same
-checkpoint bytes as the JAX package's `synth_checkpoint`.
+checkpoint bytes as the JAX package's `synth_checkpoint`; `synth_hf_dir`
+writes the same HuggingFace-layout directory as the JAX package's.
 """
 
 from __future__ import annotations
+
+import json
+import os
+import shutil
 
 import numpy as np
 import torch
@@ -156,3 +161,129 @@ def synth_checkpoint(path: str, cfg: ModelConfig, seed: int = 0,
     if medusa_heads:
         md["medusa_heads"] = str(abs(medusa_heads))
     write_yalm(path, tensors, md)
+
+
+def synth_hf_dir(path: str, cfg: ModelConfig, seed: int = 0, *, arch: str | None = None,
+                 dtype: str = "fp32", shards: int = 1, tokenizer: str | None = None,
+                 device=None) -> None:
+    """Write a HuggingFace-layout model dir (config.json, tokenizer.json,
+    safetensors shards) of random weights for converter round trips. With
+    the defaults it writes the same bytes as the JAX package's synth_hf_dir
+    for the same seed: one f32 `model.safetensors` and a sentencepiece-style
+    tokenizer over synth_vocab. arch names the architecture (else Llama,
+    Qwen2, Qwen3 or Mixtral by cfg's flags); dtype "bf16" rounds every
+    tensor to bf16 (as Mistral and Llama ship); shards > 1 splits the
+    tensors, in order, over that many files of about equal bytes; tokenizer
+    is a tokenizer.json to copy in place of the synthetic one; device draws
+    the weight matrices with torch's generator there (seeded by seed: other
+    bytes than numpy's, and seconds for a full-width model on a card)."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    arch = arch or ("MixtralForCausalLM" if cfg.is_moe
+                    else "Qwen3ForCausalLM" if cfg.has_qk_norm
+                    else "Qwen2ForCausalLM" if cfg.has_qkv_bias
+                    else "LlamaForCausalLM")
+    config = {
+        "architectures": [arch],
+        "hidden_size": cfg.dim,
+        "intermediate_size": cfg.hidden_dim,
+        "head_dim": cfg.head_dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.max_seq_len,
+        "bos_token_id": cfg.bos_token_id,
+        "eos_token_id": cfg.eos_token_id,
+        "rope_theta": cfg.rope_theta,
+        "partial_rotary_factor": cfg.rotary_dim / cfg.head_dim,
+        "rms_norm_eps": cfg.norm_eps,
+        "hidden_act": cfg.act_type,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+    }
+    if cfg.is_moe:
+        config["num_local_experts"] = cfg.n_experts
+        config["num_experts_per_tok"] = cfg.n_experts_active
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+
+    if tokenizer is not None:
+        shutil.copyfile(tokenizer, os.path.join(path, "tokenizer.json"))
+    else:
+        # sentencepiece-style tokenizer.json (byte_fallback on)
+        vocab = {}
+        for i, t in enumerate(synth_vocab(cfg.vocab_size)):
+            vocab[t.decode("utf-8", errors="replace").replace(" ", "▁")] = i
+        tok = {"model": {"type": "BPE", "byte_fallback": True, "vocab": vocab, "merges": []},
+               "added_tokens": []}
+        with open(os.path.join(path, "tokenizer.json"), "w") as f:
+            json.dump(tok, f)
+
+    if dtype not in ("fp32", "bf16"):
+        raise ValueError(f"shard dtype {dtype!r}: fp32 or bf16")
+
+    def w_cast(f):
+        return torch.from_numpy(f).to(torch.bfloat16) if dtype == "bf16" else f
+
+    gen = None
+    if device is not None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+
+    def w(*shape):
+        if gen is None:
+            return w_cast(rng.standard_normal(shape, dtype=np.float32) / np.sqrt(shape[-1]))
+        t = torch.randn(shape, generator=gen, device=device) / float(np.sqrt(shape[-1]))
+        return (t.to(torch.bfloat16) if dtype == "bf16" else t).cpu()
+
+    def ones(n):
+        return w_cast(np.ones(n, np.float32))
+
+    tensors: dict = {}
+    tensors["model.embed_tokens.weight"] = w(cfg.vocab_size, cfg.dim)
+    for l in range(cfg.n_layers):
+        p = f"model.layers.{l}"
+        tensors[f"{p}.input_layernorm.weight"] = ones(cfg.dim)
+        tensors[f"{p}.self_attn.q_proj.weight"] = w(cfg.q_dim, cfg.dim)
+        tensors[f"{p}.self_attn.k_proj.weight"] = w(cfg.kv_dim, cfg.dim)
+        tensors[f"{p}.self_attn.v_proj.weight"] = w(cfg.kv_dim, cfg.dim)
+        tensors[f"{p}.self_attn.o_proj.weight"] = w(cfg.dim, cfg.q_dim)
+        if cfg.has_qk_norm:
+            tensors[f"{p}.self_attn.q_norm.weight"] = w_cast(
+                (1.0 + 0.1 * rng.standard_normal(cfg.head_dim)).astype(np.float32))
+            tensors[f"{p}.self_attn.k_norm.weight"] = w_cast(
+                (1.0 + 0.1 * rng.standard_normal(cfg.head_dim)).astype(np.float32))
+        if cfg.has_qkv_bias:
+            tensors[f"{p}.self_attn.q_proj.bias"] = w(cfg.q_dim)
+            tensors[f"{p}.self_attn.k_proj.bias"] = w(cfg.kv_dim)
+            tensors[f"{p}.self_attn.v_proj.bias"] = w(cfg.kv_dim)
+        tensors[f"{p}.post_attention_layernorm.weight"] = ones(cfg.dim)
+        if cfg.is_moe:
+            tensors[f"{p}.block_sparse_moe.gate.weight"] = w(cfg.n_experts, cfg.dim)
+            for e in range(cfg.n_experts):
+                ex = f"{p}.block_sparse_moe.experts.{e}"
+                tensors[f"{ex}.w1.weight"] = w(cfg.hidden_dim, cfg.dim)
+                tensors[f"{ex}.w2.weight"] = w(cfg.dim, cfg.hidden_dim)
+                tensors[f"{ex}.w3.weight"] = w(cfg.hidden_dim, cfg.dim)
+        else:
+            tensors[f"{p}.mlp.gate_proj.weight"] = w(cfg.hidden_dim, cfg.dim)
+            tensors[f"{p}.mlp.down_proj.weight"] = w(cfg.dim, cfg.hidden_dim)
+            tensors[f"{p}.mlp.up_proj.weight"] = w(cfg.hidden_dim, cfg.dim)
+    tensors["model.norm.weight"] = ones(cfg.dim)
+    if not cfg.tie_word_embeddings:
+        tensors["lm_head.weight"] = w(cfg.vocab_size, cfg.dim)
+
+    if shards == 1:
+        write_yalm(os.path.join(path, "model.safetensors"), tensors, {"format": "pt"})
+        return
+    sizes = {n: t.numel() * t.element_size() if isinstance(t, torch.Tensor) else t.nbytes
+             for n, t in tensors.items()}
+    total, acc, k, part = sum(sizes.values()), 0, 1, {}
+    for name in list(tensors):
+        part[name] = tensors.pop(name)
+        acc += sizes[name]
+        if acc >= total * k / shards or not tensors:
+            write_yalm(os.path.join(path, f"model-{k:05d}-of-{shards:05d}.safetensors"),
+                       part, {"format": "pt"})
+            k, part = k + 1, {}
