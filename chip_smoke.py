@@ -161,7 +161,27 @@ time into the GEMV without and with the GLU pair;
    (golden HF ids, a 4 KB text equal to the Python BPE's), a 64-token
    prompt + 32 greedy tokens (TTFT, decode rate, the path's launches), the
    32 held to the CPU plain path of the same file; a CLI completion on the
-   fp8 file.
+   fp8 file;
+7. meshes (`yalm_tpu_torch/parallel`): (a) a world of one NCCL rank --
+   an all-reduce, then Mistral-7B fp8 at 32 layers through Engine(mesh=),
+   200 + 64 greedy tokens held to the single-device engine on the same
+   weights (tokens by the near-tie rule, logits within 1e-2 of max(1,
+   max|logit|)), the per-step wall and device time of both
+   (profile_decode), and the CLI with -M 1,1,1 under torch.distributed.run;
+   (b) two gloo ranks spawned on the one card (`mesh_rank`, a timeout on
+   the world): Mistral-7B fp8 and int4 with tp=2 at depth 8, Mixtral-8x7B
+   fp8 with ep=2 at depth 4 and int4 at depth 2, each 200 + 64 greedy
+   tokens, both ranks' the same; then the dense scheduler at batch 16,
+   depth 8, on dp=2 and on tp=2 (20 requests of 64-512 prompt tokens and
+   16-32 new, half sampled at top-k 40), every logits row a token was
+   drawn from recorded on the leader (`recorded_rows`); each run held to
+   the single-device engine fed the same tokens (`mesh_rows_hold`): every
+   token its own row's argmax or within its top k, the logits within 1e-2
+   of max(1, max|logit|) of the single device's or, where a dense run's
+   summation orders part further, no further from the f32 parity oracle
+   (same cache type) than 1.25 x the single device's own distance to it;
+   (c) the kernels at those runs' shard shapes against their plain
+   versions, timed, in the kernels line with path "mesh".
 The int4 path (e5m2 cache) and the Mixtral fp8 path also run
 the tree phase at depths 2 and 8 (`phase_tree_path`); debug capture also
 runs on Mixtral fp8 (K10's gemv_le), Gemma3 (bf16 cache) and Gemma2 (e5m2
@@ -366,15 +386,17 @@ def synth_int4_weights(cfg, device, seed: int):
         moegate=int8(L, *E, d) if E else None)
 
 
-def dequant4(w4, gs):
-    """bf16 copies of packed int4 layers (L, N, K/2) with scales (L, G, N):
-    the weights the library call (F.linear) is timed on."""
+def dequant4(w4, gs, dtype=None):
+    """bf16 (or `dtype`) copies of packed int4 layers (L, N, K/2) with
+    scales (L, G, N): the weights the library call (F.linear) is timed on,
+    and in f32 the parity oracle's."""
     import torch
     L, N, Kp = w4.shape
     G = gs.shape[1]
     p = w4.reshape(L, N, G, -1)
     q = torch.cat([(p & 0xF).to(torch.bfloat16) - 8, (p >> 4).to(torch.bfloat16) - 8], -1)
-    return (q.float() * gs.transpose(1, 2)[..., None]).reshape(L, N, 2 * Kp).to(torch.bfloat16)
+    return (q.float() * gs.transpose(1, 2)[..., None]).reshape(L, N, 2 * Kp).to(
+        dtype or torch.bfloat16)
 
 
 class Bench:
@@ -1615,15 +1637,18 @@ def phase_moe_kernels(bench: Bench, cfg, fw, dev) -> None:
             f"{t_l:.4f} ms")
         bench.footprint.append(dict(path=bench.path, case=what, routed_ms=t_le, copied_ms=t_l))
     del w13e, w2e, s13e, s2e, pairs
-    bad = torch.tensor([E, -1], device=dev)
-    outs = [gemv_fn(x, fw.w13, 3, bad[0], s13, **norm, **glu), gemv_fn(xh, fw.w2, 3, bad[1], s2),
+    bad = torch.tensor([E, -1, -2], device=dev)
+    outs = [gemv_fn(x, fw.w13, 3, bad[0], s13, **norm, **glu), gemv_fn(xh, fw.w2, 3, bad[2], s2),
             gemm_fn(xm16, fw.w13, 3, bad[0], s13, **glu), gemm_fn(hm, fw.w2, 3, bad[1], s2)]
+    skip = gemv_fn(xh, fw.w2, 3, bad[1], s2)   # -1: another rank's expert on a mesh
     torch.cuda.synchronize()
-    if not all(bool(torch.isnan(o).all()) for o in outs):
-        raise AssertionError(f"{gv}/{gm}: an expert id outside [0, {E}) did not give NaN")
+    if not (all(bool(torch.isnan(o).all()) for o in outs) and bool((skip == 0).all())):
+        raise AssertionError(f"{gv}/{gm}: an expert id outside [0, {E}) did not give NaN "
+                             "(the GEMV: zeros for -1)")
     log(f"  {gv}/{gm}: bit for bit as {gv[:-1]}/{gm[:-1]} on the copied stack of layer "
         f"{L - 1}, expert {E - 1} (GEMV w13 + norm + GLU, w2; GEMM M 16 and 256), "
-        f"ids from the card; NaN for ids {E} and -1")
+        f"ids from the card; NaN for ids {E}, -2 (GEMV) and -1 (GEMM), the GEMV's zeros "
+        "for -1")
 
 
 def glu_holds(name: str, glu, ref) -> float:
@@ -4854,6 +4879,70 @@ def block_phases() -> int:
     return 0
 
 
+def mesh_cards() -> int:
+    """Phase 7(b)'s holds on four cards, one NCCL rank each (a card call
+    with four chips; not part of main(), which needs one card): Mistral-7B
+    fp8 and int4 with tp=4 at 32 layers, Mixtral-8x7B fp8 with ep=4 at
+    depth 4, the dense scheduler on dp=2 x tp=2 and on dp=4, each held to
+    the single-device port on rank 0's card as in phase 7(b). Correctness,
+    as phase 7; the walls it logs are not a scaling measurement. Run from
+    the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mesh_cards())"
+    Prints the runs as one JSON line, then the cards' names and power
+    limits."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    if torch.cuda.device_count() < 4:
+        print("chip_smoke: mesh_cards needs four CUDA GPUs", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    log(f"devices: {smi}")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    with phase("four NCCL ranks, one per card"):
+        runs = phase_mesh_ranks(None, 4, "nccl", MESH_CARD_RUNS, MESH_CARD_SCHED)
+    print(json.dumps({"mesh_cards": runs}), flush=True)
+    print("\n".join(smi), flush=True)
+    return 0
+
+
+def mesh_phases() -> int:
+    """Phase 7 alone, for a short card call: (a) a world of one NCCL rank,
+    (b) two gloo ranks sharing the card, (c) the kernels at shard shapes.
+    Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mesh_phases())"
+    Prints the cases and the runs as one JSON line, then the card's name
+    and power limit."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(HBM_BYTES_PER_S)
+    runs: dict = {}
+    with phase("(a) a world of one NCCL rank"):
+        runs["one"] = phase_mesh_one(dev)
+    with phase("(b) two gloo ranks sharing the card"):
+        runs.update(phase_mesh_ranks(torch.device("cuda", 0)))
+    with phase("(c) the kernels at shard shapes"):
+        phase_mesh_kernels(bench, dev)
+    print(json.dumps({"cases": bench.rows, "mesh": runs}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def attention_phases(lane_blocks=None) -> int:
     """K8 and K9 alone, for a short card call: phase 2's cases of the fp8
     path (bf16 cache), the int4 path (e5m2 cache) and the Gemma3 and Gemma2
@@ -4956,9 +5045,609 @@ def split_sass(other_root: str) -> int:
                     n_ins += len(mine[f])
                 else:
                     differ.append(f)
+                    if f in mine and f in theirs:   # what changed, in instructions
+                        import difflib
+                        ops = difflib.SequenceMatcher(None, theirs[f], mine[f],
+                                                      autojunk=False).get_opcodes()
+                        log(f"  {f[:90]}: {len(theirs[f])} -> {len(mine[f])} instructions, "
+                            + ", ".join(f"{tag} {i2 - i1}->{j2 - j1}"
+                                        for tag, i1, i2, j1, j2 in ops if tag != "equal"))
     log(f"SASS: {same} functions the same ({n_ins} instructions), {len(differ)} differ or exist "
         f"on one side only: {differ}")
     return 0 if not differ and same else 1
+
+
+# ---------------------------------------------------------------------------
+# phase 7: meshes (parallel/): one NCCL rank, two gloo ranks on the card,
+# the kernels at shard shapes
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 8            # the two-rank runs' Mistral depth
+MESH_MOE_LAYERS = 4        # and Mixtral's
+MESH_PROMPT, MESH_NEW = 200, 64
+MESH_TIMEOUT = 420         # seconds the two-rank world may take
+# the two-rank engine runs; the scheduler runs follow on the fp8 weights
+# (run, model, weights, mesh (dp, ep, tp), cache, seed, depth); Mixtral int4
+# at depth 2 brings K11's launches, its logits held to the single device
+MESH_RUNS = (("tp2_fp8", "mistral", "fp8", (1, 1, 2), "bf16", 40, MESH_LAYERS),
+             ("tp2_int4", "mistral", "int4", (1, 1, 2), "fp8", 41, MESH_LAYERS),
+             ("ep2_moe_fp8", "mixtral", "fp8", (1, 2, 1), "bf16", 42, MESH_MOE_LAYERS),
+             ("ep2_moe_int4", "mixtral", "int4", (1, 2, 1), "fp8", 43, 2))
+MESH_ORACLE_SLACK = 1.25   # how much further from the f32 oracle a mesh may be
+MESH_SCHED = (("sched_dp2", (2, 1, 1)), ("sched_tp2", (1, 1, 2)))
+# the four-card runs of mesh_cards: one NCCL rank per card
+MESH_CARD_RUNS = (("tp4_fp8", "mistral", "fp8", (1, 1, 4), "bf16", 40, 32),
+                  ("tp4_int4", "mistral", "int4", (1, 1, 4), "fp8", 41, 32),
+                  ("ep4_moe_fp8", "mixtral", "fp8", (1, 4, 1), "bf16", 42, MESH_MOE_LAYERS))
+MESH_CARD_SCHED = (("sched_dp2_tp2", (2, 1, 2)), ("sched_dp4", (4, 1, 1)))
+
+
+def greedy_rows(eng, prompt, n: int):
+    """n greedy tokens from a reset engine after `prompt`, and the logits
+    row each was picked from (n, vocab) on the host."""
+    import torch
+    eng.reset()
+    eng.prefill_tokens(prompt, want_logits=True)
+    lg, toks, rows = eng._last_logits, [], []
+    for _ in range(n):
+        toks.append(int(torch.argmax(lg)))
+        rows.append(lg.float())
+        lg = eng._step(toks[-1])
+    return toks, torch.stack(rows).cpu()
+
+
+def forced_rows(eng, prompt, toks):
+    """The logits rows of `eng` fed prompt + toks (teacher forcing), on the
+    host."""
+    import torch
+    eng.reset()
+    eng.prefill_tokens(prompt, want_logits=True)
+    lg, rows = eng._last_logits, []
+    for t in toks:
+        rows.append(lg.float())
+        lg = eng._step(t)
+    return torch.stack(rows).cpu()
+
+
+def over_tol(a, b) -> float:
+    """The largest |a - b| over 1e-2 of max(1, max|b|), row by row."""
+    return float(((a - b).abs().amax(-1) / (1e-2 * b.abs().amax(-1).clamp(min=1.0))).max())
+
+
+def oracle_of(cfg, fw):
+    """The parity oracle's Weights of dense FastWeights: views of fp8 ones
+    (oracle_weights); packed int4 ones dequantized to f32 (the int8
+    embedding and head with their row scales)."""
+    import torch
+    from yalm_tpu_torch.models.fast import FastWeights
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    if not G.is_int4(fw.wqkv):
+        return oracle_weights(cfg, fw)
+    sc = fw.scales
+    f32 = lambda w, s: dequant4(w, s, torch.float32)  # noqa: E731
+    return oracle_weights(cfg, FastWeights(
+        embed=fw.embed.float() * sc.embed[:, None], rms_att=fw.rms_att, rms_ffn=fw.rms_ffn,
+        wqkv=f32(fw.wqkv, sc.wqkv), wo=f32(fw.wo, sc.wo), w13=f32(fw.w13, sc.w13),
+        w2=f32(fw.w2, sc.w2), final_norm=fw.final_norm,
+        lm_head=fw.lm_head.float() * sc.lm_head[:, None]))
+
+
+def mesh_rows_hold(name: str, cfg, fw, dev, kv, items, oracle: bool) -> dict:
+    """A mesh run's streams against the single-device engine on the same
+    weights fed the same tokens. items: (prompt, tokens, the mesh's logits
+    row each token was drawn from (n, vocab), top_k or None for greedy).
+    Each token is its own row's argmax (greedy) or among its k largest
+    (the sampler's envelope); the logits are within 1e-2 of max(1,
+    max|logit|) of the single device's rows (over_tol); where they are not
+    and `oracle` allows (dense models: at full width and depth two correct
+    summation orders part past 1e-2, as the single device parts from the
+    oracle), no further from the f32 parity oracle fed the same tokens, on
+    a cache of the same type, than MESH_ORACLE_SLACK times the single
+    device's own distance to it. near_ties counts the greedy tokens that
+    are not the single device's argmax."""
+    import torch
+    from yalm_tpu_torch.engine import Engine
+    ref_eng = _fast(Engine(cfg, fw, device=dev, kv_dtype=kv))
+    refs, ties = [], 0
+    for prompt, toks, rows, k in items:
+        t = torch.as_tensor(toks)
+        own = (rows.argmax(-1) == t) if k is None else (
+            rows.gather(1, t[:, None])[:, 0] >= rows.topk(k, dim=-1).values[:, -1])
+        if not bool(own.all()):
+            raise AssertionError(f"{name}: a token outside its own logits row's "
+                                 + ("argmax" if k is None else f"top {k}"))
+        refs.append(forced_rows(ref_eng, prompt, toks))
+        if k is None:
+            ties += int((refs[-1].argmax(-1) != t).sum())
+    del ref_eng
+    r = dict(near_ties=ties, mesh_vs_single=max(over_tol(it[2], ref)
+                                                for it, ref in zip(items, refs)))
+    if r["mesh_vs_single"] <= 1:
+        return r
+    if not oracle:
+        raise AssertionError(f"{name}: logits {r['mesh_vs_single']:.2f} x the tolerance from "
+                             "the single-device engine's")
+    orc_eng = Engine(cfg, oracle_of(cfg, fw), device=dev, fast=False, kv_dtype=kv)
+    orcs = [forced_rows(orc_eng, prompt, toks) for prompt, toks, _, _ in items]
+    r.update(mesh_vs_oracle=max(over_tol(it[2], o) for it, o in zip(items, orcs)),
+             single_vs_oracle=max(over_tol(ref, o) for ref, o in zip(refs, orcs)))
+    bar = max(1.0, MESH_ORACLE_SLACK * r["single_vs_oracle"])
+    if r["mesh_vs_oracle"] > bar:
+        raise AssertionError(f"{name}: {r['mesh_vs_oracle']:.2f} x the tolerance from the f32 "
+                             f"oracle, past {bar:.2f} (the single device: "
+                             f"{r['single_vs_oracle']:.2f})")
+    return r
+
+
+def recorded_rows(sched) -> dict:
+    """On a mesh scheduler's leader: every request's logits rows, in order,
+    as the scheduler draws its tokens from them (the first from its last
+    prefill chunk, the rest from the ticks it writes in), on the host."""
+    import torch
+    rows: dict = {}
+    lanes = sched.lanes
+    tick, prefill = lanes.tick, lanes.prefill
+
+    def on_tick(tokens, positions, write):
+        lg = tick(tokens, positions, write)
+        on = [b for b, w in enumerate(write) if w]
+        for b, row in zip(on, lg[torch.as_tensor(on, device=lg.device)].float().cpu()):
+            rows.setdefault(id(sched.slots[b].request), []).append(row)
+        return lg
+
+    def on_prefill(b, padded, pos0, take, mode, attend):
+        out = prefill(b, padded, pos0, take, mode, attend)
+        if out is not None:
+            rows.setdefault(id(sched.slots[b].request), []).append(out.float().cpu())
+        return out
+    lanes.tick, lanes.prefill = on_tick, on_prefill
+    return rows
+
+
+def mesh_prompt(cfg, n: int, seed: int) -> list:
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [cfg.bos_token_id] + rng.integers(3, cfg.vocab_size, n - 1).tolist()
+
+
+def phase_mesh_one(dev) -> dict:
+    """7(a): a world of one NCCL rank (the multi-GPU code path with one
+    card): an all-reduce on the world, then Mistral-7B fp8 at 32 layers
+    through Engine(mesh=): 200 + 64 greedy tokens held to the
+    single-device engine on the same weights (mesh_rows_hold, strict: the
+    same launches, so the same logits are expected) and the per-step
+    wall and device time of both (profile_decode, 16 steps at the same
+    context, three of each alternating, the medians), with the mesh
+    run's launches; then the CLI with -M 1,1,1
+    under torch.distributed.run with one process."""
+    import torch
+    import torch.distributed as dist
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.distributed import initialize
+    from yalm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+
+    initialize(num_processes=1)   # nccl: the card's backend
+    try:
+        mesh = make_mesh(MeshConfig(), device=dev)
+        t = torch.ones(4, device=dev)
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        if mesh.backend != "nccl" or not bool((t == 1).all()):
+            raise AssertionError(f"the world of one: backend {mesh.backend}, all-reduce {t}")
+        cfg = mistral7b()
+        fw = synth_fast_weights(cfg, dev, seed=0)
+        prompt = mesh_prompt(cfg, MESH_PROMPT, 7)
+        meng = _fast(Engine(cfg, fw, mesh=mesh))
+        ref = _fast(Engine(cfg, fw, device=dev))
+        _build.LAUNCHES.clear()
+        toks, rows = greedy_rows(meng, prompt, MESH_NEW)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for k in ("attn_block_l", "ffn_l", "gemv", "gemm_l"):
+            if not launches.get(k):
+                raise AssertionError(f"the mesh engine launched no {k}: {launches}")
+        hold = mesh_rows_hold("mesh 1,1,1 fp8", cfg, fw, dev, torch.bfloat16,
+                              [(prompt, toks, rows, None)], oracle=False)
+        # three profiles of each, alternating: the host's noise is larger
+        # than what the hook could cost
+        prof: dict = {"single": [], "mesh": []}
+        for _ in range(3):
+            for name, eng in (("single", ref), ("mesh", meng)):
+                eng.reset()
+                eng.prefill_tokens(prompt, want_logits=True)
+                prof[name].append(profile_decode(eng, 16))
+        med = {n: {k: statistics.median(p[k] for p in ps)
+                   for k in ("wall_ms_per_step", "device_ms_per_step")}
+               for n, ps in prof.items()}
+        prof["median"] = med
+        log(f"  mesh 1,1,1 (nccl, 32 layers): {MESH_NEW} greedy tokens held to the single "
+            f"device (logits {hold['mesh_vs_single']:.3f} of the tolerance, "
+            f"{hold['near_ties']} near-ties); per step, the median of 3 alternating profiles: "
+            f"wall {med['mesh']['wall_ms_per_step']:.3f} ms (single device "
+            f"{med['single']['wall_ms_per_step']:.3f}), device "
+            f"{med['mesh']['device_ms_per_step']:.3f} ms (single device "
+            f"{med['single']['device_ms_per_step']:.3f})")
+        del meng, ref, fw, rows
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tiny_fp8_mesh.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4,
+                                       n_kv_heads=2, vocab_size=512, max_seq_len=512,
+                                       rotary_dim=128, weight_dtype="fp8"), seed=3)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", "1", "-m", "yalm_tpu_torch.cli", path, "-M",
+                          "1,1,1", "-i", "hello world", "-n", "16", "-t", "0"],
+                         cwd=ROOT, capture_output=True, timeout=300)
+    out = res.stdout.decode(errors="replace") + res.stderr.decode(errors="replace")
+    if res.returncode != 0 or "Generation stats" not in out:
+        raise AssertionError(f"cli -M 1,1,1 under torch.distributed.run failed:\n{out}")
+    log(f"  cli -M 1,1,1 under torch.distributed.run (1 process): rc 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(launches=launches, hold=hold, profile=prof)
+
+
+def mesh_weights_of(model: str, wdt: str, dev, seed: int, depth: int):
+    """(cfg, whole single-device FastWeights) of a two-rank run, made on
+    the card from a seed (the same bytes on both ranks)."""
+    cfg = with_layers((mistral7b if model == "mistral" else mixtral8x7b)(weight_dtype=wdt),
+                      depth)
+    return cfg, (synth_moe_weights if cfg.is_moe else
+                 synth_int4_weights if wdt == "int4" else synth_fast_weights)(cfg, dev, seed)
+
+
+def mesh_sched_mix(cfg, seed: int = 5) -> list:
+    """Phase 3's serving mix cut to fit: 20 requests of 64-512 prompt tokens
+    and 16-32 new, half sampled (T 0.8, top-p 0.9, top-k 40), two sharing
+    a 256-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = mesh_prompt(cfg, 256, seed + 1)
+    mix = []
+    for i in range(20):
+        n = int(rng.integers(64, 513))
+        p = (prefix + mesh_prompt(cfg, 64, i)[1:]) if i in (0, 17) else mesh_prompt(cfg, n, i)
+        s = i % 2 == 1
+        mix.append(dict(prompt_tokens=p, max_new_tokens=int(rng.integers(16, 33)),
+                        temperature=0.8 if s else 0.0, top_p=0.9 if s else 1.0,
+                        top_k=40 if s else 0, seed=100 + i))
+    return mix
+
+
+def mesh_rank(args: dict) -> dict:
+    """7(b), one of two gloo ranks sharing the card (run_ranks; or, through
+    mesh_cards, one NCCL rank per card): each engine run of args["runs"]
+    (MESH_RUNS) and each scheduler run of args["sched"] (MESH_SCHED) on a
+    mesh of the world, the launch counts of each (rank 0's from the mesh
+    run alone),
+    and on rank 0 the holds against the single-device port on the same
+    weights by mesh_rows_hold: an engine run's 200 + 64 greedy tokens and
+    the logits rows they came from; a scheduler run's every stream with
+    the rows the leader drew it from (recorded_rows), and the share of its
+    tokens equal to the single-device scheduler's."""
+    import torch
+    import torch.distributed as dist
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.fast_tp import shard_fast_tp_weights
+    from yalm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from yalm_tpu_torch.scheduler import Request, Scheduler
+
+    from yalm_tpu_torch.parallel.mesh import mesh_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh_device(args.get("device"))   # None: cuda:LOCAL_RANK
+    _build.lib()
+    lead = dist.get_rank() == 0
+    kvs = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}
+    out: dict = {}
+    for run, model, wdt, mc, kv, seed, depth in args.get("runs", MESH_RUNS):
+        t0 = time.perf_counter()
+        cfg, fw = mesh_weights_of(model, wdt, dev, seed, depth)
+        mesh = make_mesh(MeshConfig(*mc), device=dev)
+        local = shard_fast_tp_weights(fw, cfg, mesh)
+        if not lead:
+            del fw
+        meng = _fast(Engine(cfg, local, mesh=mesh, kv_dtype=kvs[kv]))
+        prompt = mesh_prompt(cfg, MESH_PROMPT, seed)
+        dist.barrier()
+        _build.LAUNCHES.clear()
+        t1 = time.perf_counter()
+        toks, rows = greedy_rows(meng, prompt, MESH_NEW)
+        torch.cuda.synchronize()
+        r = dict(tokens=toks, launches=dict(_build.LAUNCHES),
+                 wall_ms_per_token=(time.perf_counter() - t1) / MESH_NEW * 1e3)
+        del meng, local
+        if lead:
+            r["hold"] = mesh_rows_hold(run, cfg, fw, dev, kvs[kv], [(prompt, toks, rows, None)],
+                                       oracle=not cfg.is_moe)
+            del fw
+        torch.cuda.empty_cache()
+        dist.barrier()
+        r["seconds"] = time.perf_counter() - t0
+        out[run] = r
+    cfg, fw = mesh_weights_of("mistral", "fp8", dev, 40, MESH_LAYERS)
+    mix = mesh_sched_mix(cfg)
+    ref_streams = None
+    if lead:
+        ref_s = _fast(Scheduler(cfg, fw, batch=16, device=dev))
+        reqs = [Request(**m) for m in mix]
+        for q in reqs:
+            ref_s.submit(q)
+        ref_s.run()
+        ref_streams = [q.generated for q in reqs]
+        del ref_s
+    for run, mc in args.get("sched", MESH_SCHED):
+        t0 = time.perf_counter()
+        mesh = make_mesh(MeshConfig(*mc), device=dev)
+        local = shard_fast_tp_weights(fw, cfg, mesh)
+        sched = _fast(Scheduler(cfg, local, batch=16, device=dev, mesh=mesh))
+        dist.barrier()
+        _build.LAUNCHES.clear()
+        r: dict = {}
+        if lead:
+            rows = recorded_rows(sched)
+            reqs = [Request(**m) for m in mix]
+            for q in reqs:
+                sched.submit(q)
+            try:
+                sched.run()
+            finally:
+                sched.stop_followers()
+            streams = [q.generated for q in reqs]
+            rows = [torch.stack(rows[id(q)]) for q in reqs]
+        else:
+            sched.follow()
+        torch.cuda.synchronize()
+        r["launches"] = dict(_build.LAUNCHES)
+        del sched, local
+        torch.cuda.empty_cache()
+        if lead:
+            for m, s, rw in zip(mix, streams, rows):
+                if len(s) != m["max_new_tokens"] or len(rw) != len(s):
+                    raise AssertionError(f"{run}: a stream of {len(s)} tokens and {len(rw)} "
+                                         f"rows, {m['max_new_tokens']} asked")
+            r["hold"] = mesh_rows_hold(run, cfg, fw, dev, torch.bfloat16, [
+                (m["prompt_tokens"], s, rw, None if m["temperature"] == 0.0 else m["top_k"])
+                for m, s, rw in zip(mix, streams, rows)], oracle=True)
+            same = [sum(a == b for a, b in zip(s, q)) for s, q in zip(streams, ref_streams)]
+            r.update(greedy_equal_to_single=sum(s == q for m, s, q in zip(mix, streams, ref_streams)
+                                                if m["temperature"] == 0.0),
+                     tokens_equal_to_single=sum(same) / sum(map(len, streams)))
+        dist.barrier()
+        r["seconds"] = time.perf_counter() - t0
+        out[run] = r
+    return out
+
+
+def phase_mesh_ranks(dev, world: int = 2, backend: str = "gloo", runs=MESH_RUNS,
+                     sched=MESH_SCHED) -> dict:
+    """7(b): two gloo ranks spawned on the one card (run_ranks, each on
+    `dev`, cuda:0; a rank that fails or hangs past MESH_TIMEOUT ends the
+    phase): mesh_rank's runs, every rank's greedy tokens equal. mesh_cards
+    gives it one NCCL rank per card (dev None: cuda:LOCAL_RANK)."""
+    from yalm_tpu_torch.utils.testing import run_ranks
+    work = os.path.join(ROOT, "build", "mesh_world")
+    shutil.rmtree(work, ignore_errors=True)
+    res = run_ranks("chip_smoke:mesh_rank", world,
+                    {"device": None if dev is None else str(dev), "runs": runs, "sched": sched},
+                    work, backend=backend, timeout=MESH_TIMEOUT, cwd=ROOT)
+    shutil.rmtree(work, ignore_errors=True)
+    lead = res[0]
+    where = "two ranks sharing the card" if world == 2 else f"{world} {backend} ranks"
+    for run, *_, depth in runs:
+        if any(other[run]["tokens"] != lead[run]["tokens"] for other in res[1:]):
+            raise AssertionError(f"{run}: the ranks drew different tokens")
+        r, h = lead[run], lead[run]["hold"]
+        log(f"  {run} ({depth} layers): {MESH_NEW} greedy tokens held to the single device "
+            f"({h['near_ties']} near-ties); logits {h['mesh_vs_single']:.3f} x the tolerance "
+            "from the single device's"
+            + (f", {h['mesh_vs_oracle']:.3f} from the f32 oracle's (the single device: "
+               f"{h['single_vs_oracle']:.3f})" if "mesh_vs_oracle" in h else "")
+            + f"; {r['wall_ms_per_token']:.2f} ms/token on {where}; {r['seconds']:.1f} s")
+    for run, _ in sched:
+        r, h = lead[run], lead[run]["hold"]
+        log(f"  {run}: 20 requests at batch 16, every token drawn from its own row; logits "
+            f"{h['mesh_vs_single']:.3f} x the tolerance from the single device's"
+            + (f", {h['mesh_vs_oracle']:.3f} from the f32 oracle's (the single device: "
+               f"{h['single_vs_oracle']:.3f})" if "mesh_vs_oracle" in h else "")
+            + f"; {h['near_ties']} greedy tokens not the single device's argmax, "
+            f"{r['greedy_equal_to_single']} of 10 greedy streams and "
+            f"{r['tokens_equal_to_single']:.3f} of all tokens equal to the single-device "
+            f"scheduler's; {r['seconds']:.1f} s")
+    return lead
+
+
+def phase_mesh_kernels(bench: Bench, dev) -> None:
+    """7(c): the kernels at the shard shapes of the two-rank runs, each
+    against its plain version (2e-3, as phase 2) and timed: Mistral-7B at
+    tp=2 (the LM head's 16000 rows, the block's 16 q and 4 kv heads without
+    the residual, the FFN's 7168-wide hidden slice on one row and the
+    tick's 16, the tick's wqkv GEMM and K8 over 4 kv heads; int4: the block
+    K6, the FFN K7 and the prefill's wqkv GEMM) and Mixtral-8x7B at ep=2
+    (the 4 local experts' routed GEMV and GEMM, fp8 and int4, and the
+    routed GEMV on the id -1 of another rank's expert: zeros, nothing
+    loaded)."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.block import attn_block, attn_block_plain
+    from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn_plain
+    from yalm_tpu_torch.ops.int4 import int4_group
+    from yalm_tpu_torch.parallel.fast_tp import local_config, shard_fast_tp_weights
+    from yalm_tpu_torch.parallel.mesh import MeshConfig, grid_mesh
+
+    bench.path = "mesh"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
+    L = 2
+    lay = lambda r: r % L  # noqa: E731
+    for wdt in ("fp8", "int4"):
+        cfg = with_layers(mistral7b(weight_dtype=wdt), L)
+        fw = (synth_int4_weights if wdt == "int4" else synth_fast_weights)(cfg, dev, 50)
+        fl = shard_fast_tp_weights(fw, cfg, grid_mesh(MeshConfig(tp=2), 0, dev))
+        del fw
+        cl = local_config(cfg, 2)
+        d, h, V = cl.dim, cl.hidden_dim, cl.vocab_size
+        Nqkv, q_dim, Hq, Hk, D = cl.q_dim + 2 * cl.kv_dim, cl.q_dim, cl.n_heads, cl.n_kv_heads, 128
+        sc = fl.scales
+        int4 = wdt == "int4"
+        run = "tp2_int4" if int4 else "tp2_fp8"
+
+        def wb(w, s=None):   # one layer's weight bytes, with its scales
+            return w[0].numel() * w.element_size() + (0 if s is None else 4 * s[0].numel())
+        # K3 / K6: the block at the shard's heads, kv_len 1000, no residual
+        kvd = torch.float8_e5m2 if int4 else torch.bfloat16
+        cache = KVCache.init(cl, kvd, dev)
+        for c in (cache.k, cache.v):
+            c.copy_(randn(*c.shape).to(kvd))
+        blk = dict(n_heads=Hq, norm_eps=cl.norm_eps, add_residual=False, kv_sinks=2,
+                   theta=cl.rope_param, rotary_dim=cl.rotary_dim,
+                   scale_qkv=sc.wqkv if int4 else None, scale_o=sc.wo if int4 else None)
+        x = randn(d, scale=3.0)
+        args = lambda l: (x, fl.rms_att, fl.wqkv, fl.wo, cache.k, cache.v, l, 999, 1000, 0,  # noqa: E731
+                          999)
+        name = "attn_block4_l" if int4 else "attn_block_l"
+        bench.case(name, f"tp=2 shard: {Hq} q / {Hk} kv heads, kv_len=1000, no residual",
+                   attn_block(*args(1), **blk), attn_block_plain(*args(1), **blk), 2e-3,
+                   kernel=lambda r: attn_block(*args(lay(r)), **blk),
+                   plain=lambda r: attn_block_plain(*args(lay(r)), **blk),
+                   bytes_=wb(fl.wqkv, sc.wqkv if int4 else None) + wb(fl.wo, sc.wo if int4 else None)
+                   + 2 * 1000 * Hk * D * cache.k.element_size() + 12 * d,
+                   flops=2 * (Nqkv * d + d * q_dim) + 4 * 1000 * Hq * D, json_row=True, run=run)
+        del cache
+        # K4 / K7: the FFN's hidden slice, one row (decode) and 16 (the tick)
+        s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
+        kw = dict(norm_eps=cl.norm_eps, act="silu", add_residual=False)
+        wbytes = wb(fl.w13, s13 if int4 else None) + wb(fl.w2, s2 if int4 else None)
+        for B in ((1,) if int4 else (1, 16)):
+            xx = randn(B, d, scale=3.0) if B > 1 else randn(d, scale=3.0)
+            nm = ("ffn4_l" if int4 else "ffn_l") + ("_gemm" if B > 1 else "")
+            bench.case(nm, f"tp=2 shard: hidden {h}, {B} row{'s' if B > 1 else ''}, no residual",
+                       ffn(xx, fl.rms_ffn, fl.w13, fl.w2, 1, s13, s2, **kw),
+                       ffn_plain(xx, fl.rms_ffn, fl.w13, fl.w2, 1, s13, s2, **kw), 2e-3,
+                       kernel=lambda r, xx=xx: ffn(xx, fl.rms_ffn, fl.w13, fl.w2, lay(r), s13,
+                                                   s2, **kw),
+                       plain=lambda r, xx=xx: ffn_plain(xx, fl.rms_ffn, fl.w13, fl.w2, lay(r),
+                                                        s13, s2, **kw),
+                       bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d, json_row=True,
+                       run=run if B == 1 else "sched_tp2")
+        # K1 / K5: the wqkv shard's GEMM (the tick's 16 rows; int4: a 64-row prefill chunk)
+        M = 64 if int4 else 16
+        xm = randn(M, d)
+        sq = sc.wqkv if sc else None
+        nm = "gemm4_l" if int4 else "gemm_l"
+        fn = G.gemm4_l if int4 else G.gemm_l
+        wl = (dequant4(fl.wqkv, sq) if int4 else fl.wqkv.to(torch.bfloat16))
+        bench.case(nm, f"tp=2 shard: wqkv {Nqkv}x{d}, M={M}", fn(xm, fl.wqkv, 1, sq),
+                   G.proj_plain(xm, fl.wqkv, 1, sq), 2e-3,
+                   kernel=lambda r: fn(xm, fl.wqkv, lay(r), sq),
+                   plain=lambda r: G.proj_plain(xm, fl.wqkv, lay(r), sq),
+                   library=lambda r: F.linear(xm.to(torch.bfloat16), wl[lay(r)]),
+                   bytes_=wb(fl.wqkv, sq if int4 else None) + 4 * M * (d + Nqkv),
+                   flops=2 * M * Nqkv * d, json_row=True,
+                   run="tp2_int4" if int4 else "sched_tp2")
+        del wl
+        if not int4:
+            # K1: the LM head's vocab slice
+            lm_bf16 = fl.lm_head.to(torch.bfloat16)
+            bench.case("gemv", f"tp=2 shard: lm_head {V}x{d}", G.gemv(x, fl.lm_head),
+                       G.gemv_l_plain(x, fl.lm_head[None], 0), 2e-3,
+                       kernel=lambda r: G.gemv(x, fl.lm_head),
+                       plain=lambda r: G.gemv_l_plain(x, fl.lm_head[None], 0),
+                       library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
+                       bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True, run=run)
+            del lm_bf16
+            # K8: the tick's attention over the shard's 4 kv heads, 16 lanes
+            Bt, L4, S = 16, 2, cl.max_seq_len
+            cb = KVCache.init(with_layers(cl, L4), torch.bfloat16, dev, batch=Bt)
+            for c in (cb.k, cb.v):
+                c.copy_(randn(*c.shape).to(torch.bfloat16))
+            lanes_h = batched_lanes(S)
+            lanes = A.lane_scalars(*lanes_h, S=S, kv_sinks=2, device=dev)
+            lanes_cpu = lanes.cpu()
+            q = randn(Bt, Hk, Hq // Hk, D, scale=2.0)
+            kn, vn = randn(Bt, Hk, D, scale=2.0), randn(Bt, Hk, D)
+            rope = dict(kv_sinks=2, theta=cl.rope_param, rotary_dim=cl.rotary_dim)
+            want = A.attend_step_batched_plain(q, kn, vn, cb.k.clone(), cb.v.clone(), 1,
+                                               lanes_cpu, **rope)
+            mask, rows = window_rows(S, *lanes_h[:3], None)
+            mask = mask.to(dev)
+            # SDPA over the padded batch, as phase_batched_attention's yardstick
+            kk = [cb.k[:, l].transpose(1, 2).contiguous() for l in range(L4)]
+            vv = [cb.v[:, l].transpose(1, 2).contiguous() for l in range(L4)]
+            qq = q.reshape(Bt, Hq, 1, D).to(torch.bfloat16)
+            bench.case("attend_step_batched_l", f"tp=2 shard: {Hk} kv heads, B=16, kv_len 1..{S}",
+                       A.attend_step_batched(q, kn, vn, cb.k, cb.v, 1, lanes, **rope), want, 2e-3,
+                       kernel=lambda r: A.attend_step_batched(q, kn, vn, cb.k, cb.v, r % L4,
+                                                              lanes, **rope),
+                       plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cb.k, cb.v, r % L4,
+                                                                   lanes_cpu, **rope),
+                       library=lambda r: F.scaled_dot_product_attention(
+                           qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :],
+                           enable_gqa=True),
+                       bytes_=2 * rows * Hk * D * 2 + 4 * Bt * (2 * Hq * D + 2 * Hk * D)
+                       + 4 * 5 * Bt, flops=4 * rows * Hq * D, json_row=True, run="sched_tp2")
+            del cb, kk, vv
+        del fl
+        torch.cuda.empty_cache()
+    # K10 / K11: Mixtral's 4 local experts at ep=2 (one layer)
+    for wdt in ("fp8", "int4"):
+        cfg = with_layers(mixtral8x7b(weight_dtype=wdt), 1)
+        fw = synth_moe_weights(cfg, dev, 60)
+        fl = shard_fast_tp_weights(fw, cfg, grid_mesh(MeshConfig(ep=2), 0, dev))
+        del fw
+        int4 = wdt == "int4"
+        run = "ep2_moe_int4" if int4 else "ep2_moe_fp8"
+        d, h, E_l = cfg.dim, cfg.hidden_dim, fl.w13.shape[1]
+        s13 = fl.scales.w13 if int4 else None
+        gv, gemv_fn = ("gemv4_le", G.gemv4_le) if int4 else ("gemv_le", G.gemv_le)
+        gm, gemm_fn = ("gemm4_le", G.gemm4_le) if int4 else ("gemm_le", G.gemm_le)
+        norm = dict(norm_w=fl.rms_ffn, norm_eps=cfg.norm_eps, glu_act="silu")
+        x = randn(d, scale=3.0)
+        ids = torch.arange(E_l, device=dev)
+        w13b = (fl.w13[0].numel() // E_l) * fl.w13.element_size() + (
+            4 * s13[0, 0].numel() if int4 else 0)
+        # F.linear on bf16 (int4: dequantized) copies of the local experts
+        wl = (dequant4(fl.w13[0], s13[0]) if int4 else fl.w13[0].to(torch.bfloat16))
+        bench.case(gv, f"ep=2 shard: w13 + rmsnorm + GLU of local expert, id on the card "
+                   f"({2 * h}x{d}, {E_l} local)",
+                   gemv_fn(x, fl.w13, 0, ids[1], s13, **norm),
+                   G.gemv_le_plain(x, fl.w13, 0, 1, s13, **norm), 2e-3,
+                   kernel=lambda r: gemv_fn(x, fl.w13, 0, ids[r % E_l], s13, **norm),
+                   plain=lambda r: G.gemv_le_plain(x, fl.w13, 0, r % E_l, s13, **norm),
+                   library=lambda r: F.linear(x.to(torch.bfloat16), wl[r % E_l]),
+                   bytes_=w13b + 12 * d + 4 * h + 8, flops=4 * h * d, json_row=True, run=run,
+                   bf16_out=True)
+        skip = torch.full((1,), -1, dtype=torch.long, device=dev)
+        got = gemv_fn(x, fl.w13, 0, skip[0], s13, **norm)
+        if not (bool((got == 0).all()) and bool((G.gemv_le_plain(x, fl.w13, 0, skip[0].cpu(),
+                                                                   s13, **norm) == 0).all())):
+            raise AssertionError(f"{gv}: the id -1 of another rank's expert gave non-zeros")
+        bench.case(gv, "ep=2: id -1 (another rank's expert): zeros, nothing loaded",
+                   got, torch.zeros_like(got), 2e-3,
+                   kernel=lambda r: gemv_fn(x, fl.w13, 0, skip[0], s13, **norm),
+                   plain=lambda r: G.gemv_le_plain(x, fl.w13, 0, skip[0], s13, **norm),
+                   bytes_=4 * h + 8, flops=0, run=run)
+        xm = randn(64, d)
+        xb = G.bf16f(xm)
+        bench.case(gm, f"ep=2 shard: w13 + GLU of local expert 1, M=64 ({2 * h}x{d})",
+                   gemm_fn(xb, fl.w13, 0, 1, s13, glu_act="silu"),
+                   G.gemm_le_plain(xb, fl.w13, 0, 1, s13, glu_act="silu"), 2e-3,
+                   kernel=lambda r: gemm_fn(xb, fl.w13, 0, r % E_l, s13, glu_act="silu"),
+                   plain=lambda r: G.gemm_le_plain(xb, fl.w13, 0, r % E_l, s13, glu_act="silu"),
+                   library=lambda r: F.linear(xb.to(torch.bfloat16), wl[r % E_l]),
+                   bytes_=w13b + 4 * 64 * (d + h), flops=2 * 64 * 2 * h * d, json_row=True,
+                   run=run, bf16_out=True)
+        del fl, wl
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -5006,7 +5695,8 @@ def main() -> int:
     log_token_bytes(cfg, fw, ceiling)
 
     bench = Bench(ceiling)
-    summary: dict = {p: {} for p in ("fp8", "int4", "moe_fp8", "moe_int4", "gemma3", "gemma2")}
+    summary: dict = {p: {} for p in ("fp8", "int4", "moe_fp8", "moe_int4", "gemma3", "gemma2",
+                                     "mesh")}
     # the Mistral-7B serving runs at depth 8 (PERF.md keeps their 32-layer
     # numbers), so the Mixtral phases fit the time limit
     lay_s = MISTRAL_SERVING_LAYERS
@@ -5178,6 +5868,16 @@ def main() -> int:
         phase_cli(dev)
     with phase("phase 6: converted checkpoints from disk (native reader and tokenizer)"):
         summary["checkpoint"] = phase_checkpoint(dev)
+    with phase("phase 7 (mesh): (a) a world of one NCCL rank, Mistral-7B fp8 (32 layers)"):
+        summary["mesh"] = {"one": phase_mesh_one(dev)}
+    with phase("phase 7 (mesh): (b) two gloo ranks sharing the card (tp=2, ep=2, dp=2)"):
+        summary["mesh"].update(phase_mesh_ranks(torch.device("cuda", 0)))
+    with phase("phase 7 (mesh): (c) the kernels at shard shapes"):
+        phase_mesh_kernels(bench, dev)
+        for r in bench.rows:
+            if r["path"] == "mesh" and r["json"] and not summary["mesh"][r["run"]][
+                    "launches"].get(r["name"]):
+                raise AssertionError(f"{r['name']}: no launch in the mesh run {r['run']}")
 
     # name -> (source, the TPU function of the same name it replaces); the
     # FFN's composite wrappers launch csrc/gemv.cu or csrc/gemm.cu

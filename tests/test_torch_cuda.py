@@ -546,7 +546,8 @@ def test_routed_expert_kernels(dev, wt, E, M, N, K):
     the dense kernel on the copied expert stack (the same arithmetic, so a
     difference is an addressing fault); the id from the host and from a
     device tensor alike; the GLU epilogue (2N rows; with the rmsnorm
-    prologue on the GEMV); NaN for an id outside the stack."""
+    prologue on the GEMV); NaN for an id outside the stack, but zeros from
+    the GEMV for -1 (another rank's expert on a mesh, nothing loaded)."""
     gen = torch.Generator(device=dev).manual_seed(E * M + N)
     L, int4 = 2, wt == torch.uint8
     w = weights((L, E, 2 * N, K // 2 if int4 else K), wt, dev, gen)
@@ -585,13 +586,16 @@ def test_routed_expert_kernels(dev, wt, E, M, N, K):
                 close_bf16(g1, gemv_le_plain(x[0], w, layer, e, sc, norm_w=nw, glu_act="gelu"))
                 assert torch.equal(g1, launch_gemv("check", x[0], w_e(e), layer, norm_w=nw,
                                                    scale=s_e(e), glu_act="gelu"))
-    for bad in (E, -1):
+    for bad in (E, -1, -2):
         e_bad = torch.tensor(bad, device=dev)
         assert bool(torch.isnan(le(x, wn, 1, e_bad, sn)).all())
         assert bool(torch.isnan(le(x, w, 0, e_bad, sc, glu_act="silu")).all())
         if M == 1:
             gv = gemv4_le if int4 else gemv_le
-            assert bool(torch.isnan(gv(x[0], wn, 1, e_bad, sn)).all())
+            got = gv(x[0], wn, 1, e_bad, sn)
+            assert bool((got == 0).all()) if bad == -1 else bool(torch.isnan(got).all())
+            got = gv(x[0], w, 0, e_bad, sc, norm_w=nw, glu_act="silu")
+            assert bool((got == 0).all()) if bad == -1 else bool(torch.isnan(got).all())
     with pytest.raises(ValueError, match="out of range"):
         le(x, wn, 0, E, sn)                      # a host id is checked on the host
 
@@ -1393,20 +1397,21 @@ def gemv_stack(wt, L, E, N, K, dev, gen):
 def test_gemv_bad_device_expert_leaves_counters_at_zero(dev, wt, nb, glu):
     """On a split shape (N 300, K 4096: 3 row blocks, 16 or 8 slices) an
     expert id outside [0, E) read on the device gives NaN over the whole
-    output and leaves every arrival counter at 0 (each block reaches the
-    verdict before it counts); a good id after it gives the plain result,
-    and the counters are back at 0."""
+    output -- zeros for -1, another rank's expert on a mesh -- and leaves
+    every arrival counter at 0 (each block reaches the verdict before it
+    counts); a good id after it gives the plain result, and the counters
+    are back at 0."""
     from yalm_tpu_torch.ops.cuda import gemv as G
     gen = torch.Generator(device=dev).manual_seed(nb)
     L, E, N, K = 2, 4, 300, 4096
     w, sc = gemv_stack(wt, L, E, N, K, dev, gen)
     x = torch.randn(nb, K, generator=gen, device=dev)
     assert gemv_plan(nb, N, K, bool(glu), int4_group(K) if wt == torch.uint8 else 0).split > 1
-    for bad in (E, -1, 1 << 40):
+    for bad in (E, -1, -2, 1 << 40):
         out = launch_gemv("test", x, w, 1, expert=torch.tensor(bad, device=dev), scale=sc,
                           glu_act=glu)
         torch.cuda.synchronize()
-        assert bool(torch.isnan(out).all())
+        assert bool((out == 0).all()) if bad == -1 else bool(torch.isnan(out).all())
         for _, ctr in G._SPLIT_BUFFERS.values():
             assert int(ctr.abs().sum()) == 0
     got = launch_gemv("test", x, w, 1, expert=torch.tensor(2, device=dev), scale=sc, glu_act=glu)

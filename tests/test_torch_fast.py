@@ -170,9 +170,13 @@ def test_cli_modes_run(ckpt, capsysbinary):
     assert b"Generation stats" in capsysbinary.readouterr().out
     cli.main([ckpt, "-d", "cpu", "-m", "perplexity", "-i", "hello world the key is"])
     assert b"perplexity:" in capsysbinary.readouterr().out
-    with pytest.raises(SystemExit) as e:
-        cli.main([ckpt, "-d", "cpu", "-M", "1,1,1"])
-    assert e.value.code == 1
+    # -M: a mesh of one process (a world of one on gloo), and dp != 1 exits
+    # with the JAX CLI's message
+    cli.main([ckpt, "-d", "cpu", "-M", "1,1,1", "-m", "completion", "-i", "hello world",
+              "-n", "6", "-t", "0"])
+    assert b"Generation stats" in capsysbinary.readouterr().out
+    with pytest.raises(SystemExit, match="dp=1"):
+        cli.main([ckpt, "-d", "cpu", "-M", "2,1,1", "-i", "hello"])
 
 
 SAMPLING = [(0, 1.0), (5, 1.0), (0, 0.8), (10, 0.9)]

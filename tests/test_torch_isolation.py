@@ -33,7 +33,9 @@ print("BAD", bad)
 
 @pytest.mark.parametrize("module", ["scheduler", "server", "chat", "models.paged",
                                     "models.transformer", "models.weights", "ops.attention",
-                                    "utils.debug", "convert", "native"])
+                                    "utils.debug", "convert", "native", "parallel.mesh",
+                                    "parallel.sharding", "parallel.distributed",
+                                    "parallel.fast_tp"])
 def test_serving_modules_import_no_jax(module):
     code = (f"import sys, yalm_tpu_torch.{module}\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -151,6 +153,26 @@ def test_routed_expert_ids_are_not_read_on_the_host():
         _addressing(torch.zeros(2, 3, 32, 64), 0, 3, "gemm_le")    # a host id is checked
 
 
+def test_routed_expert_ids_on_a_mesh_are_not_read_on_the_host():
+    """On a mesh (ep=2, the rank holding experts 2 and 3) the routed ids map
+    to local ids, -1 for another rank's expert, by tensor ops alone; the
+    launch takes the mapped id, -1 included, without reading it."""
+    from yalm_tpu_torch.ops.cuda.gemv import _addressing
+    from yalm_tpu_torch.parallel.fast_tp import TPShard
+    from yalm_tpu_torch.parallel.mesh import MeshConfig, grid_mesh
+    from yalm_tpu_torch.utils.testing import tiny_config
+    cfg = tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4, n_kv_heads=2,
+                      vocab_size=512, max_seq_len=32, rotary_dim=128, weight_dtype="fp8",
+                      n_experts=4, n_experts_active=2)
+    mesh = grid_mesh(MeshConfig(ep=2), 1)
+    ids = torch.tensor([3, 0]).as_subclass(_DeviceOnly)
+    local = TPShard(cfg, mesh).local_experts(ids)
+    for j in range(2):
+        L, N, Kw, E, e_host, e_dev = _addressing(torch.zeros(2, 2, 32, 64), 1, local[j], "gemv_le")
+        assert (E, e_host) == (2, 0) and e_dev.dtype == torch.int64
+    assert local.as_subclass(torch.Tensor).tolist() == [1, -1]
+
+
 def test_mixed_devices_raise():
     with pytest.raises(ValueError, match="different devices"):
         gemv_l(torch.zeros(64), torch.zeros(2, 32, 64, device="meta"), 0)
@@ -256,3 +278,48 @@ def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok": true' not in res.stdout
+
+
+def test_mesh_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch):
+    """A mesh defaults to the card and to nccl: without a GPU, start-up, the
+    mesh, the CLI's -M and the server's --mesh raise rather than run the
+    plain versions or take gloo; a backend is never chosen by trying one and
+    catching its failure."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import torch.distributed as dist
+
+    from yalm_tpu_torch import cli
+    from yalm_tpu_torch import server as srv
+    from yalm_tpu_torch.parallel import distributed
+    from yalm_tpu_torch.parallel.mesh import make_mesh
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "m.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4,
+                                       n_kv_heads=2, vocab_size=512, max_seq_len=32,
+                                       rotary_dim=128, weight_dtype="fp8"))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        distributed.initialize()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cli.main([path, "-M", "1,1,1", "-i", "hello"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        srv.main([path, "--mesh", "1,1,1", "--port", "0"])
+    assert not dist.is_initialized()
+    distributed.initialize(num_processes=1, device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make_mesh()
+    finally:
+        dist.destroy_process_group()
+    tried = []
+
+    def refuse(backend, **kw):
+        tried.append(backend)
+        raise RuntimeError("no such backend here")
+    monkeypatch.setattr(dist, "init_process_group", refuse)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        distributed.initialize(f"file://{tmp_path}/pg", 2, 0, backend="nccl")
+    assert tried == []   # nccl needs the card: nothing is tried, gloo least of all
+    with pytest.raises(RuntimeError, match="init_process_group failed"):
+        distributed.initialize(f"file://{tmp_path}/pg", 2, 0, device="cpu")
+    assert tried == ["gloo"]   # the CPU's backend, once

@@ -214,9 +214,11 @@ def test_poisoned_request_isolation_and_recover(model):
 
 
 @pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_tree=(2,)),
-                                dict(mesh=object())])
+                                dict(mesh="tp2", fast=False)])
 def test_later_slices_raise(model, kw):
-    """Meshes are a later slice and raise; paged KV came with its slice and
+    """The sharded oracle on a mesh is a later slice and raises (the
+    scheduler on a mesh runs the kernels: tests/test_torch_scheduler_mesh.py);
+    paged KV came with its slice and
     serves (tests/test_torch_paged.py holds its streams to the JAX paged
     scheduler's; tests/test_torch_spec_scheduler.py the chain
     speculation's), and so does tree-attention Medusa on the dense cache
@@ -244,6 +246,8 @@ def test_later_slices_raise(model, kw):
             Scheduler(cfg, tw, device="cpu", spec_medusa=heads, paged_pages=8, page_size=16,
                       **kw)
     else:
+        from yalm_tpu_torch.parallel.mesh import MeshConfig, grid_mesh
+        kw["mesh"] = grid_mesh(MeshConfig(tp=2), 0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Scheduler(cfg, tw, device="cpu", **kw)
     with pytest.raises(ValueError, match="at most 16"):

@@ -183,54 +183,54 @@ def test_server_paged(ckpt):
 @pytest.mark.parametrize("flag", [["--paged-pages", "9", "--page-size", "16"],
                                   ["--draft", "d.yalm"],
                                   ["--spec-lookup"], ["--spec-k", "4"], ["--medusa"],
-                                  ["--medusa-tree", "4,2"], ["--mesh", "1,1,2"],
+                                  ["--medusa-tree", "4,2"], ["--mesh", "1,1,1"],
                                   ["--distributed"]])
 def test_later_slice_flags_are_refused(ckpt, flag, capsys, monkeypatch, tmp_path):
-    """The flags of later slices are refused (--mesh, --distributed);
-    --paged-pages, the chain speculation flags (--draft, here the
-    checkpoint drafting for itself, --spec-lookup, --spec-k, --medusa on a
-    checkpoint with heads) and --medusa-tree (tree-attention Medusa on the
-    same checkpoint) came with their slices and start a server (stopped
-    here at once) whose scheduler is in that mode."""
+    """The flags of the JAX server's later slices each start a server
+    (stopped here at once) whose scheduler is in that mode: --paged-pages,
+    the chain speculation flags (--draft, here the checkpoint drafting for
+    itself, --spec-lookup, --spec-k, --medusa on a checkpoint with heads),
+    --medusa-tree (tree-attention Medusa on the same checkpoint), --mesh (a
+    mesh of one process here: tests/test_torch_scheduler_mesh.py serves on
+    two) and --distributed (a world of one outside torchrun); each flag's
+    mesh process group is gone once the server stops."""
     if flag[0] in ("--medusa", "--medusa-tree"):
         med = str(tmp_path / "med.yalm")
         synth_checkpoint(med, tiny_config(**fast_kw(max_seq_len=128)), seed=4, medusa_heads=3)
         ckpt = med
     flag = [ckpt if a == "d.yalm" else a for a in flag]
-    if flag[0] in ("--paged-pages", "--draft", "--spec-lookup", "--spec-k", "--medusa",
-                   "--medusa-tree"):
-        started = []
+    started = []
 
-        def serve(engine, host, port):
-            httpd = srv.ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(engine))
-            started.append(engine)
+    def serve(engine, host, port):
+        httpd = srv.ThreadingHTTPServer(("127.0.0.1", 0), srv.make_handler(engine))
+        started.append(engine)
 
-            def stop():
-                raise KeyboardInterrupt
-            httpd.serve_forever = stop
-            return httpd
-        monkeypatch.setattr(srv, "serve", serve)
-        srv.main([ckpt, "--device", "cpu", "--port", "0", *flag])
-        sched = started[0].sched
-        out = capsys.readouterr().out
-        if flag[0] == "--paged-pages":
-            assert sched.paged and sched.alloc.n_pages == 9 and sched.page_size == 16
-            assert "9 pages of 16" in out and not sched.spec
-        elif flag[0] == "--spec-k":   # no proposal source: plain serving, K kept
-            assert not sched.spec and sched.spec_k == 4
-        elif flag[0] == "--medusa-tree":
-            assert sched.spec_medusa is not None and sched.spec_tree == (4, 2)
-            assert "spec=medusa tree (4, 2) k=3" in out and not sched.paged
-        else:
-            mode = {"--draft": "draft", "--spec-lookup": "lookup", "--medusa": "medusa"}[flag[0]]
-            assert sched.spec and f"spec={mode} k=" in out
-            assert (sched.draft_cfg is not None, sched.spec_lookup,
-                    sched.spec_medusa is not None) == tuple(m == mode for m in
-                                                            ("draft", "lookup", "medusa"))
-            if mode == "medusa":
-                assert sched.spec_k == 3   # clamped to the head count
-        return
-    with pytest.raises(SystemExit) as e:
-        srv.main([ckpt, "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not in this slice" in capsys.readouterr().err
+        def stop():
+            raise KeyboardInterrupt
+        httpd.serve_forever = stop
+        return httpd
+    monkeypatch.setattr(srv, "serve", serve)
+    srv.main([ckpt, "--device", "cpu", "--port", "0", *flag])
+    sched = started[0].sched
+    out = capsys.readouterr().out
+    if flag[0] == "--paged-pages":
+        assert sched.paged and sched.alloc.n_pages == 9 and sched.page_size == 16
+        assert "9 pages of 16" in out and not sched.spec
+    elif flag[0] == "--spec-k":   # no proposal source: plain serving, K kept
+        assert not sched.spec and sched.spec_k == 4
+    elif flag[0] == "--medusa-tree":
+        assert sched.spec_medusa is not None and sched.spec_tree == (4, 2)
+        assert "spec=medusa tree (4, 2) k=3" in out and not sched.paged
+    elif flag[0] in ("--mesh", "--distributed"):
+        import torch.distributed as dist
+        assert not dist.is_initialized() and sched.fast and not sched.spec
+        assert (sched.mesh is not None) == (flag[0] == "--mesh")
+        assert ("mesh=1,1,1" in out) == (flag[0] == "--mesh")
+    else:
+        mode = {"--draft": "draft", "--spec-lookup": "lookup", "--medusa": "medusa"}[flag[0]]
+        assert sched.spec and f"spec={mode} k=" in out
+        assert (sched.draft_cfg is not None, sched.spec_lookup,
+                sched.spec_medusa is not None) == tuple(m == mode for m in
+                                                        ("draft", "lookup", "medusa"))
+        if mode == "medusa":
+            assert sched.spec_k == 3   # clamped to the head count

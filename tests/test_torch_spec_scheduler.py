@@ -41,7 +41,7 @@ from yalm_tpu_torch.models.cache import KVCache
 from yalm_tpu_torch.models.fast import (prefill_fast, verify_chunk_fast_batched,
                                         verify_chunk_fast_batched_paged)
 from yalm_tpu_torch.models.paged import PagedKVPool
-from yalm_tpu_torch.sampler import uniform_rows
+from yalm_tpu_torch.sampler import sample_rows, uniform_rows, unit_floats
 from yalm_tpu_torch.scheduler import Request, Scheduler, _verify_pack
 from yalm_tpu_torch.utils.testing import tiny_config
 
@@ -360,6 +360,29 @@ def test_verify_pack_draws_keyed_by_request():
         u = uniform_rows(torch.tensor([11]), torch.tensor([4]), V, purpose)
         assert not torch.equal(u, plain)
         assert abs(float(np.corrcoef(u[0].numpy(), plain[0].numpy())[0, 1])) < 0.6
+
+
+def test_uniforms_stay_below_one():
+    """The hashed uniforms lie in (0, 1) for every 24-bit value: f32 would
+    round the top one, (2^24 - 0.5) / 2^24, to 1.0, whose Gumbel noise is
+    +inf -- a draw outside the top-k/top-p envelope (a NaN on a masked
+    column wins torch.argmax). A row whose masked column meets such a
+    uniform still draws inside its envelope."""
+    u = unit_floats(torch.tensor([0, 1, (1 << 23) + 1, (1 << 24) - 2, (1 << 24) - 1]))
+    assert bool((u > 0).all()) and bool((u < 1).all())
+    assert bool((u[1:] > u[:-1]).all())
+    lg = torch.zeros(1, 8)
+    lg[0, 3] = 5.0
+    import yalm_tpu_torch.sampler as smp
+    top = unit_floats(torch.tensor([(1 << 24) - 1] * 8)).reshape(1, 8)
+    real = smp.uniform_rows
+    try:
+        smp.uniform_rows = lambda *a, **k: top
+        got = sample_rows(lg, torch.tensor([1]), torch.tensor([0]), torch.tensor([0.8]),
+                          torch.tensor([1]), torch.tensor([1.0]))
+    finally:
+        smp.uniform_rows = real
+    assert got.tolist() == [3]
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,15 @@ Usage: python -m yalm_tpu_torch.cli <checkpoint.yalm> [options]
                  the trailing n-gram)
   -C f16|bf16|fp8   KV-cache dtype (the kernels run f16 as bf16; fp8 is the
                  e5m2 cache, half the cache bytes)
+  -M 1,EP,TP     run over a ('dp','ep','tp') mesh of processes (dp must be 1
+                 for the single-stream CLI): launch one process per device,
+                   python -m torch.distributed.run --nproc-per-node N \
+                       -m yalm_tpu_torch.cli model.yalm -M 1,EP,TP ...
+                 every rank runs the same loop in lockstep and rank 0 prints
+                 (nccl on the cards, gloo with -d cpu)
 A model whose shapes the kernels refuse runs on the parity oracle
-(models/transformer.py), as the JAX CLI's does.
-The JAX CLI's device meshes (-M) are not in the port and are refused.
+(models/transformer.py), as the JAX CLI's does (on one device: the sharded
+oracle is a later slice).
 """
 
 from __future__ import annotations
@@ -41,9 +47,6 @@ def error_usage(msg: str = "") -> None:
     raise SystemExit(1)
 
 
-_LATER = {"M": "device meshes"}
-
-
 def _parse_args(argv: list[str]) -> dict:
     if len(argv) < 1 or argv[0].startswith("-"):
         error_usage()
@@ -52,7 +55,7 @@ def _parse_args(argv: list[str]) -> dict:
         "prompt": None, "prompt_path": None, "context": 0, "num_steps": 256,
         "temperature": 1.0, "n_junk": 250, "passkey_pos": -1, "seed": None,
         "top_k": 0, "top_p": 1.0, "kv": "bf16", "draft": None, "n_draft": 4,
-        "lookup": False, "medusa": False,
+        "lookup": False, "medusa": False, "mesh": None,
     }
     i = 1
 
@@ -68,8 +71,6 @@ def _parse_args(argv: list[str]) -> dict:
         c = flag[1]
         if c == "h":
             error_usage()
-        elif c in _LATER:
-            error_usage(f"-{c} ({_LATER[c]}) is not in this slice of the PyTorch port")
         elif c == "m":
             m = need(i)
             for full in ("completion", "passkey", "perplexity"):
@@ -118,10 +119,30 @@ def _parse_args(argv: list[str]) -> dict:
             if v not in ("f16", "bf16", "fp8"):
                 error_usage()
             opts["kv"] = v
+        elif c == "M":
+            opts["mesh"] = need(i)
         else:
             error_usage()
         i += 2
     return opts
+
+
+def _make_mesh(opts):
+    """The -M mesh (cli.py:155-170): the process group from torchrun's
+    environment (a world of one outside it), gloo with -d cpu, nccl on the
+    cards; dp must be 1 for the single-stream CLI."""
+    from .parallel.distributed import initialize, make_hybrid_mesh
+    from .parallel.mesh import MeshConfig
+    try:
+        dp, ep, tp = (int(x) for x in opts["mesh"].split(","))
+    except ValueError:
+        error_usage(f"-M takes DP,EP,TP, got {opts['mesh']!r}")
+    if dp != 1:
+        raise SystemExit("single-stream CLI needs dp=1 (use the server "
+                         "for data-parallel serving)")
+    dev = "cpu" if opts["device"] == "cpu" else None   # cuda:LOCAL_RANK
+    initialize(device=dev)
+    return make_hybrid_mesh(MeshConfig(dp=dp, ep=ep, tp=tp), device=dev)
 
 
 def _build_engine(opts, path=None):
@@ -131,7 +152,7 @@ def _build_engine(opts, path=None):
     # the kernels run f16 as bf16; the oracle (a config the kernels refuse) keeps f16
     kv = {"fp8": torch.float8_e5m2, "bf16": torch.bfloat16, "f16": torch.float16}[opts["kv"]]
     return Engine.from_checkpoint(path or opts["checkpoint"], context=opts["context"],
-                                  device=opts["device"], kv_dtype=kv)
+                                  device=opts["device"], kv_dtype=kv, mesh=opts.get("_mesh"))
 
 
 def _encode_prompt(eng, prompt: str):
@@ -288,9 +309,23 @@ def main(argv: list[str] | None = None) -> None:
         if has_f:
             with open(opts["prompt_path"]) as f:
                 opts["prompt"] = f.read()
-    {"completion": run_completion,
-     "perplexity": run_perplexity,
-     "passkey": run_passkey}[opts["mode"]](opts)
+    mesh = None
+    if opts["mesh"]:
+        import os
+        mesh = opts["_mesh"] = _make_mesh(opts)
+        if opts["seed"] is None:   # every rank samples alike: the leader's seed
+            opts["seed"] = mesh.broadcast_int(random.randrange(1 << 31))
+        if not mesh.leader:        # rank 0 prints
+            sys.stdout = open(os.devnull, "w")
+    try:
+        {"completion": run_completion,
+         "perplexity": run_perplexity,
+         "passkey": run_passkey}[opts["mode"]](opts)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+            sys.stdout.flush()
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -12,8 +12,9 @@
 // The expert e comes from the host or from a device int64 (the decode
 // step's top-k ids, which never reach the host: the counterpart of the TPU
 // kernel's scalar-prefetch channel). A dense stack is E = 1, e = 0. An id
-// outside [0, E) reads no weight and gives NaN outputs (the host cannot
-// check a device id without a sync).
+// outside [0, E) reads no weight: gemv_kernel writes zeros for -1 (on a
+// mesh, an expert another rank holds) and NaN for any other (the host
+// cannot check a device id without a sync); gemv_kernel_v1 NaN for all.
 //
 // int4 weights (W_I4, planar nibbles, ops/int4.py): each group's f32
 // partial is multiplied by gscale[layer, e, g, n] before it joins the row
@@ -322,11 +323,14 @@ gemv_kernel(GemvArgs a, int kchunk, float* __restrict__ scratch, unsigned* __res
 
   const long long e = a.expert_id ? *a.expert_id : a.expert;
   if (e < 0 || e >= a.E) {  // the same verdict in every block: none loads or counts
+    // -1: another rank's expert on a mesh, whose gated share is zero; any
+    // other id outside [0, E) is a fault and reads as NaN
+    const float fill = e == -1 ? 0.f : __int_as_float(0x7fc00000);
     constexpr int OUT = GLU ? ROWS / 2 : ROWS;
     if (z == 0)
       for (int i = tid; i < OUT * nb; i += THREADS) {
         const int o = blk * OUT + i % OUT;
-        if (o < n_out) a.out[(size_t)(i / OUT) * n_out + o] = __int_as_float(0x7fc00000);
+        if (o < n_out) a.out[(size_t)(i / OUT) * n_out + o] = fill;
       }
     return;
   }

@@ -174,23 +174,44 @@ def route_kv_dtype(kv_dtype: torch.dtype, fast: bool) -> torch.dtype:
 class Engine:
     """Single-sequence inference engine on one device: on the kernels
     (FastWeights) or on the parity oracle (Weights, models/transformer.py),
-    by `fast` ("auto": the kernels wherever the config fits them)."""
+    by `fast` ("auto": the kernels wherever the config fits them); or on
+    one rank of a mesh (engine.py:136-206)."""
 
     def __init__(self, cfg: ModelConfig, weights, tokenizer: Optional[Tokenizer] = None, *,
                  kv_dtype: torch.dtype = torch.bfloat16, device="cuda", fast="auto",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, mesh=None):
         """compute_dtype: the oracle's weight and activation type in its
-        products (sums in f32); the kernels ignore it."""
-        self.device = resolve_device(device)
-        self.fast = resolve_fast(cfg, fast)
-        kv_dtype = route_kv_dtype(kv_dtype, self.fast)
-        weights = route_weights(cfg, weights, self.fast, self.device)
+        products (sums in f32); the kernels ignore it.
+
+        mesh (parallel/mesh.Mesh): this process is one rank of a mesh, on
+        the mesh's device, and every rank runs the same calls in lockstep
+        (the CLI's SPMD loop): the kernels on the rank's shard with the
+        collectives of parallel/fast_tp.py; the logits, and so the sampled
+        tokens, are the same on every rank (a generator seeded alike; a
+        seed left to the clock is the leader's). weights: oracle Weights or
+        a whole shard-major FastWeights (cut to the rank's shard), or the
+        rank's shard (load_fast_weights(tp=, ep=, rank=)). The sharded
+        oracle (fast=False) is a later slice and raises."""
+        self.mesh = mesh
+        self.shard = None
+        if mesh is not None:
+            from .parallel.fast_tp import TPShard, mesh_route, mesh_weights
+            self.device = resolve_device(mesh.device)
+            self.fast = mesh_route(cfg, fast, mesh)
+            kv_dtype = route_kv_dtype(kv_dtype, self.fast)
+            weights = mesh_weights(cfg, weights, mesh)
+            self.shard = TPShard(cfg, mesh)
+        else:
+            self.device = resolve_device(device)
+            self.fast = resolve_fast(cfg, fast)
+            kv_dtype = route_kv_dtype(kv_dtype, self.fast)
+            weights = route_weights(cfg, weights, self.fast, self.device)
         self.compute_dtype = compute_dtype
         self.cfg = cfg
         self.weights = weights
         self.tokenizer = tokenizer
         self.kv_dtype = kv_dtype
-        self.cache = KVCache.init(cfg, kv_dtype, self.device)
+        self.cache = self._new_cache()
         self.pos = 0          # next absolute position to be written
         self._last_logits: Optional[torch.Tensor] = None
         self.medusa: Optional[MedusaWeights] = None   # the checkpoint's heads, if any
@@ -198,18 +219,26 @@ class Engine:
 
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, device="cuda", fast="auto",
-                        **kw) -> "Engine":
+                        mesh=None, **kw) -> "Engine":
         """Load a checkpoint straight into the route's layout
-        (engine.py:320-345): load_fast_weights for the kernels,
-        load_weights for the oracle."""
-        dev = resolve_device(device)
+        (engine.py:312-345): load_fast_weights for the kernels,
+        load_weights for the oracle; on a mesh each rank reads only its
+        shard (load_fast_weights(tp=, ep=, rank=))."""
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
-            fast = resolve_fast(cfg, fast)
-            weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
+            if mesh is not None:
+                from .parallel.fast_tp import mesh_route
+                dev = resolve_device(mesh.device)
+                fast = mesh_route(cfg, fast, mesh)
+                weights = load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
+                                            ep=mesh.shape["ep"], rank=mesh.position)
+            else:
+                dev = resolve_device(device)
+                fast = resolve_fast(cfg, fast)
+                weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
-            eng = cls(cfg, weights, tok, device=dev, fast=fast, **kw)
+            eng = cls(cfg, weights, tok, device=dev, fast=fast, mesh=mesh, **kw)
             if "medusa_heads" in yf.metadata:
                 # self-drafting heads ride the checkpoint; small beside the model
                 eng.medusa = load_medusa_weights(yf, cfg, dev)
@@ -218,8 +247,15 @@ class Engine:
         return eng
 
     # ------------------------------------------------------------------
+    def _new_cache(self) -> KVCache:
+        """A zeroed cache: on a mesh the rank's kv heads."""
+        if self.mesh is not None:
+            from .parallel.fast_tp import local_cache
+            return local_cache(self.cfg, self.mesh, self.kv_dtype)
+        return KVCache.init(self.cfg, self.kv_dtype, self.device)
+
     def reset(self) -> None:
-        self.cache = KVCache.init(self.cfg, self.kv_dtype, self.device)
+        self.cache = self._new_cache()
         self.pos = 0
         self._last_logits = None
 
@@ -233,7 +269,8 @@ class Engine:
     def _step(self, token, output_logits: bool = True):
         if self.fast:
             logits, self.cache = decode_step_fast(self.cfg, self.weights, token, self.pos,
-                                                  self.cache, output_logits=output_logits)
+                                                  self.cache, output_logits=output_logits,
+                                                  shard=self.shard)
         else:
             logits, self.cache = decode_step(self.cfg, self.weights, token, self.pos, self.cache,
                                              output_logits=output_logits,
@@ -247,7 +284,8 @@ class Engine:
         if self.fast:
             out, self.cache = prefill_fast(
                 self.cfg, self.weights, padded, self.pos, take, self.cache, logits_mode=mode,
-                attend_len=attend_bucket(self.pos + bucket, self.cfg.max_seq_len))
+                attend_len=attend_bucket(self.pos + bucket, self.cfg.max_seq_len),
+                shard=self.shard)
         else:
             out, self.cache = prefill(self.cfg, self.weights, padded, self.pos, take, self.cache,
                                       logits_mode=mode, compute_dtype=self.compute_dtype)
@@ -288,7 +326,11 @@ class Engine:
         stop token inside a block are discarded."""
         self.prefill_tokens(prompt_tokens, want_logits=True)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed if seed is not None else time.time_ns() & 0x7FFFFFFF)
+        if seed is None:
+            seed = time.time_ns() & 0x7FFFFFFF
+            if self.mesh is not None:   # every rank draws the same tokens
+                seed = self.mesh.broadcast_int(seed)
+        gen.manual_seed(seed)
         stop = set(int(s) for s in stop_tokens)
         if self._last_logits is None:
             raise RuntimeError("generate needs a prompt or a hydrated cache with logits")
@@ -538,6 +580,9 @@ class Engine:
         mw = self.medusa
         if mw is None:
             raise ValueError("checkpoint has no medusa heads (metadata medusa_heads)")
+        if self.mesh is not None:
+            raise ValueError("medusa speculation on a mesh engine is not supported yet "
+                             "(engine.py:820)")
         T, rng, gen, cur = self._spec_start(
             prompt_tokens, temperature, seed,
             {"rounds": 0, "accepted": 0, "proposed": 0, "plain": 0})

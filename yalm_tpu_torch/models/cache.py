@@ -30,8 +30,11 @@ class KVCache:
 
     @classmethod
     def init(cls, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16,
-             device: torch.device | str = "cuda", batch: int | None = None) -> "KVCache":
-        shape = (cfg.n_layers, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+             device: torch.device | str = "cuda", batch: int | None = None,
+             n_kv_heads: int | None = None) -> "KVCache":
+        """n_kv_heads: the heads this cache holds (a tensor-parallel rank's
+        n_kv_heads / tp; default all of the model's)."""
+        shape = (cfg.n_layers, cfg.max_seq_len, n_kv_heads or cfg.n_kv_heads, cfg.head_dim)
         if batch is not None:
             shape = (batch,) + shape
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),

@@ -224,33 +224,56 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16) if t.dtype == torch.float16 else t
 
 
-def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
+def mesh_coords(tp: int, ep: int, rank: int) -> dict:
+    """The (ep, tp) coordinates of grid position `rank` in the ('dp', 'ep',
+    'tp') grid, tp fastest (parallel/mesh.py)."""
+    if tp < 1 or ep < 1 or rank < 0:
+        raise ValueError(f"tp={tp}, ep={ep}, rank={rank}")
+    return {"tp": rank % tp, "ep": (rank // tp) % ep}
+
+
+def load_fast_weights(yf, cfg: ModelConfig, device="cuda", *, tp: int = 1, ep: int = 1,
+                      rank: int = 0) -> FastWeights:
     """Load a dense checkpoint straight into the decode layout on `device`.
 
     Each layer's tensors are copied out of the checkpoint mmap, concatenated
     on the host and written into a preallocated device stack, so neither the
     host nor the device holds a second copy of the whole model. int8
     checkpoints bring per-row `.scale`s, concatenated as their rows are.
-    int4 checkpoints (yalm_tpu/models/fast.py:174-256 without TP) bring
+    int4 checkpoints (yalm_tpu/models/fast.py:174-256) bring
     packed uint8 layer weights (rows half as wide) with (G, N) `.gscale`s,
     concatenated along N, and an int8 embedding and LM head. MoE checkpoints
     (:179-219, :242-254, :261-288) bring per-expert w1/w2/w3 ((E, N, K),
     stacked to (L, E, 2H, dim) and (L, E, dim, H) with the scales' N axes
     concatenated the same way) and the router (L, E, dim), int8 with
     per-row scales on int8 and int4 checkpoints. qk-norm and sandwich-norm
-    models bring (L, head_dim) q/k norms and (L, dim) post-norms."""
+    models bring (L, head_dim) q/k norms and (L, dim) post-norms.
+
+    tp, ep, rank: rank `rank` of a ('dp', 'ep', 'tp') mesh (parallel/mesh.py)
+    reads only its shard out of the mmap, in the shard-major order of
+    yalm_tpu/models/fast.py:53 (shard_major): its tp slice of the rows of
+    wq, wk and wv ([wq_t; wk_t; wv_t]), of w1 and w3 ([w1_t; w3_t]), of
+    the qkv biases and of the embedding and LM head (with their scales); its
+    tp slice of the columns of wo and w2 (packed int4: whole groups, their
+    group scales' rows; int8 row scales whole); its ep slice of the experts;
+    norms and the router whole. The split is parallel/sharding.py's table."""
+    from ..parallel.sharding import take_shard
     device = torch.device(device)
     t = yf.tensors
+    me = mesh_coords(tp, ep, rank)
     d, h, q, kd = cfg.dim, cfg.hidden_dim, cfg.q_dim, cfg.kv_dim
     int4 = "model.layers.0.attn.wq.weight.gscale" in t
     scaled = "model.embed.weight.scale" in t   # int8 and int4 checkpoints
     row = (lambda k: k // 2) if int4 else (lambda k: k)   # stored row width
     experts = (cfg.n_experts,) if cfg.is_moe else ()
 
-    def get(name, shape):
+    def get(name, shape, cuts=()):
+        """The tensor's shard: cuts of (dim, tp or ep) take this rank's
+        chunk of the mmap view before anything is copied."""
         if tuple(t[name].shape) != shape:
             raise ValueError(f"tensor {name}: expected {shape}, got {t[name].shape}")
-        return _host(yf.torch(name))
+        view = take_shard(t[name], cuts, {"tp": tp, "ep": ep}, me, f"tensor {name}")
+        return _host(numpy_to_torch(view, yf.dtypes[name]))
 
     def stack(parts_of_layer):
         first = parts_of_layer(0)
@@ -261,55 +284,62 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
         return out
 
     def layer_cat(specs, dim=0):
-        return lambda l: torch.cat([get(f.format(l), s) for f, s in specs], dim=dim)
+        return lambda l: torch.cat([get(f.format(l), s, c) for f, s, c in specs], dim=dim)
 
     def put(x):
         return int_view(torch.empty_like(x, device=device)).copy_(int_view(x)).view(x.dtype)
 
-    def proj(names, n_rows, k, lead=()):
+    def proj(names, n_rows, k, lead=(), cols=False):
         """One projection's layer stack: the named tensors' rows concatenated
         (n_rows each, after the `lead` axes: the experts), then their scales
-        the same way, or None."""
-        def specs(suffix, shape):
-            return [(f"model.layers.{{}}.{nm}.weight{suffix}", lead + shape(n))
-                    for nm, n in zip(names, n_rows)]
+        the same way, or None. cols: a row-parallel projection (wo, w2),
+        whose input columns split over tp; else its rows do."""
         ax = len(lead)
-        w = stack(layer_cat(specs("", lambda n: (n, row(k))), dim=ax))
-        if int4:
+        e = ((0, "ep"),) if lead else ()
+        def specs(suffix, shape, cut):
+            return [(f"model.layers.{{}}.{nm}.weight{suffix}", lead + shape(n), e + cut)
+                    for nm, n in zip(names, n_rows)]
+        w = stack(layer_cat(specs("", lambda n: (n, row(k)), ((ax + (1 if cols else 0), "tp"),)),
+                            dim=ax))
+        if int4:   # (G, N): a row-parallel split cuts whole groups, a column one N
             G = k // int4_group(k)
-            return w, stack(layer_cat(specs(".gscale", lambda n: (G, n)), dim=ax + 1))
-        if scaled:
-            return w, stack(layer_cat(specs(".scale", lambda n: (n,)), dim=ax))
+            return w, stack(layer_cat(specs(".gscale", lambda n: (G, n),
+                                            ((ax + (0 if cols else 1), "tp"),)), dim=ax + 1))
+        if scaled:   # per output row: whole for a row-parallel split
+            return w, stack(layer_cat(specs(".scale", lambda n: (n,),
+                                            () if cols else ((ax, "tp"),)), dim=ax))
         return w, None
 
-    embed = put(get("model.embed.weight", (cfg.vocab_size, d)))
-    lm = (put(get("model.output.weight", (cfg.vocab_size, d)))
+    rows_tp = ((0, "tp"),)   # the tp slice of a tensor's rows: the vocab, the biases
+    embed = put(get("model.embed.weight", (cfg.vocab_size, d), rows_tp))
+    lm = (put(get("model.output.weight", (cfg.vocab_size, d), rows_tp))
           if "model.output.weight" in t else embed)
     bqkv = None
     if cfg.has_qkv_bias:
-        bqkv = stack(layer_cat([("model.layers.{}.attn.wq.bias", (q,)),
-                                ("model.layers.{}.attn.wk.bias", (kd,)),
-                                ("model.layers.{}.attn.wv.bias", (kd,))])).float()
+        bqkv = stack(layer_cat([("model.layers.{}.attn.wq.bias", (q,), rows_tp),
+                                ("model.layers.{}.attn.wk.bias", (kd,), rows_tp),
+                                ("model.layers.{}.attn.wv.bias", (kd,), rows_tp)])).float()
     wqkv, sqkv = proj(("attn.wq", "attn.wk", "attn.wv"), (q, kd, kd), d)
-    wo, so = proj(("attn.wo",), (d,), q)
+    wo, so = proj(("attn.wo",), (d,), q, cols=True)
     w13, s13 = proj(("mlp.w1", "mlp.w3"), (h, h), d, experts)
-    w2, s2 = proj(("mlp.w2",), (d,), h, experts)
+    w2, s2 = proj(("mlp.w2",), (d,), h, experts, cols=True)
     moegate = smoe = None
     if cfg.is_moe:   # the router: never packed, int8 + scale on int8/int4 checkpoints
-        moegate = stack(layer_cat([("model.layers.{}.moegate.weight", (cfg.n_experts, d))]))
+        moegate = stack(layer_cat([("model.layers.{}.moegate.weight", (cfg.n_experts, d), ())]))
         if scaled:
             smoe = stack(layer_cat([("model.layers.{}.moegate.weight.scale",
-                                     (cfg.n_experts,))]))
+                                     (cfg.n_experts,), ())]))
     scales = None
     if scaled:
-        semb = put(get("model.embed.weight.scale", (cfg.vocab_size,)))
+        semb = put(get("model.embed.weight.scale", (cfg.vocab_size,), rows_tp))
         scales = FastScales(
             embed=semb, wqkv=sqkv, wo=so, w13=s13, w2=s2,
-            lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,)))
+            lm_head=(put(get("model.output.weight.scale", (cfg.vocab_size,), rows_tp))
                      if "model.output.weight.scale" in t else semb),
             moegate=smoe)
     def norms(name, n, on):
-        return stack(layer_cat([(f"model.layers.{{}}.{name}.weight", (n,))])) if on else None
+        return (stack(layer_cat([(f"model.layers.{{}}.{name}.weight", (n,), ())]))
+                if on else None)
 
     return FastWeights(
         embed=embed, rms_att=norms("attn.norm", d, True), rms_ffn=norms("mlp.norm", d, True),
@@ -323,23 +353,35 @@ def load_fast_weights(yf, cfg: ModelConfig, device="cuda") -> FastWeights:
 
 
 def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
-                            device="cpu") -> FastWeights:
+                            device="cpu", *, tp: int = 1, ep: int = 1,
+                            rank: int = 0) -> FastWeights:
     """The port's FastWeights from the JAX package's FastWeights fields given
     as numpy arrays (`arrays["scales"]`, if present, a mapping of the
     FastScales fields). bf16/fp8 arrays of ml_dtypes' types are recognised
     by dtype name and reinterpreted through same-width integer views;
     packed int4 weights are uint8 with (L, [E,] G, N) group scales; MoE
     models bring the expert stacks (L, E, N, K) and the router `moegate`;
-    qk-norm and sandwich-norm models their norms."""
+    qk-norm and sandwich-norm models their norms.
 
-    def conv(a):
+    tp, ep, rank: the arrays are the shard-major layout for tp
+    (yalm_tpu/parallel/fast_tp.py:67 fast_tp_weights, or the JAX loader's
+    load_fast_weights(tp=)), and rank `rank` of the mesh takes its chunk of
+    each under parallel/sharding.py's table, copying only that."""
+    from ..parallel.sharding import fast_weight_splits, take_shard
+    me, shape = mesh_coords(tp, ep, rank), {"tp": tp, "ep": ep}
+    table = fast_weight_splits(cfg, with_scales=arrays.get("scales") is not None)
+
+    def conv(a, splits):
+        a = take_shard(a, splits, shape, me)
         return _host(numpy_to_torch(a, tag_for_numpy(a))).to(device)
 
     scales = arrays.get("scales")
-    kw = {f.name: conv(arrays[f.name]) for f in fields(FastWeights)
+    kw = {f.name: conv(arrays[f.name], table[f.name]) for f in fields(FastWeights)
           if f.name != "scales" and arrays.get(f.name) is not None}
+    if arrays.get("lm_head") is not None and arrays["lm_head"] is arrays["embed"]:
+        kw["lm_head"] = kw["embed"]   # a tied head stays shared
     if scales is not None:
-        kw["scales"] = FastScales(**{f.name: conv(scales[f.name])
+        kw["scales"] = FastScales(**{f.name: conv(scales[f.name], table["scales"][f.name])
                                      for f in fields(FastScales)
                                      if scales.get(f.name) is not None})
     return FastWeights(**kw)
@@ -349,16 +391,40 @@ def fast_weights_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
 # decode step
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, fw: FastWeights, tokens) -> torch.Tensor:
+def _reduces(shard) -> bool:
+    """Whether a step on a mesh sums its row-parallel deltas over tp ranks
+    (parallel/fast_tp.TPShard with tp > 1). Otherwise (one device, or a
+    mesh whose tp groups are one rank) the kernels' residual epilogues add
+    them, as on one device: at tp 1 the hook launches nothing."""
+    return shard is not None and shard.tp > 1
+
+
+def _embed(cfg: ModelConfig, fw: FastWeights, tokens, shard=None) -> torch.Tensor:
     """(T, dim) f32 embedding rows, gathered through an integer view of the
-    table (not every backend indexes fp8 tensors)."""
+    table (not every backend indexes fp8 tensors). On a tp mesh the table
+    is the rank's vocab slice: rows outside it are zeroed and the ranks'
+    rows summed (fast_tp.py:210 _embed_psum; exact, one rank holds each)."""
     idx = torch.as_tensor(tokens, dtype=torch.long, device=fw.embed.device).reshape(-1)
+    if _reduces(shard):
+        idx, mine = shard.vocab_rows(idx)
     x = int_view(fw.embed).index_select(0, idx).view(fw.embed.dtype).float()
     if cfg.embed_scale != 1.0:
         x = x * cfg.embed_scale
     if fw.scales is not None:
         x = x * fw.scales.embed.index_select(0, idx)[:, None]
+    if _reduces(shard):
+        x = shard.reduce(torch.where(mine[:, None], x, torch.zeros_like(x)))
     return x
+
+
+def _head(cfg: ModelConfig, fw: FastWeights, xn, shard=None) -> torch.Tensor:
+    """The capped logits of final-normed rows: the LM-head GEMV for one row
+    (dim,), the GEMM for (T, dim); on a tp mesh the rank's vocab slice,
+    capped, then gathered into the full row (fast_tp.py:392-394)."""
+    sc = fw.scales
+    logits = _cap_logits(cfg, (gemv if xn.dim() == 1 else gemm)(
+        xn, fw.lm_head, sc.lm_head if sc else None))
+    return shard.gather(logits) if _reduces(shard) else logits
 
 
 def _clip(cfg: ModelConfig, a: torch.Tensor) -> torch.Tensor:
@@ -446,11 +512,13 @@ def _block_ok(cfg: ModelConfig, fw: FastWeights) -> bool:
 
 
 def _attn_unfused(cfg: ModelConfig, fw: FastWeights, x, i: int, kv_pos: int, kv_len: int,
-                  kv_sink: int, pos: int, cache: KVCache):
+                  kv_sink: int, pos: int, cache: KVCache, shard=None):
     """One token's attention on the unfused route (fast.py:714-751): the
     wqkv GEMV with the norm prologue (packed int4: rmsnorm, then gemv4_l),
     bias, clip and qk-norm, the attention step with the layer's window,
-    rope and cap, the wo GEMV, the post-norm and the residual add."""
+    rope and cap, the wo GEMV, the post-norm and the residual add (on a tp
+    mesh: the wo GEMV's partial sum over the ranks first, then the post-norm,
+    fast_tp.py:337-338)."""
     sc = fw.scales
     Hk, D = cfg.n_kv_heads, cfg.head_dim
     if is_int4(fw.wqkv):
@@ -467,15 +535,18 @@ def _attn_unfused(cfg: ModelConfig, fw: FastWeights, x, i: int, kv_pos: int, kv_
                           qkv[q_dim + kv_dim:].reshape(Hk, D), cache.k, cache.v, i, kv_pos,
                           kv_len, kv_sink, pos, kv_sinks=KV_SINKS, theta=cfg.rope_param,
                           rotary_dim=cfg.rotary_dim, **_attn_kw(cfg, i)).reshape(q_dim)
-    if is_int4(fw.wo) or fw.pa is not None:
+    if is_int4(fw.wo) or fw.pa is not None or _reduces(shard):
         wo = (gemv4_l(mixed, fw.wo, i, sc.wo) if is_int4(fw.wo)
               else gemv_l(mixed, fw.wo, i, scale=sc.wo if sc else None))
+        if _reduces(shard):
+            wo = shard.reduce(wo)
         return x + _post_norm(wo, fw.pa, i, cfg.norm_eps)
     return gemv_l(mixed, fw.wo, i, residual=x, scale=sc.wo if sc else None)
 
 
 def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
-                     cache: KVCache, *, output_logits: bool = True, capture: bool = False):
+                     cache: KVCache, *, output_logits: bool = True, capture: bool = False,
+                     shard=None):
     """One decode step at absolute position `pos`; updates `cache` in place
     and returns (logits (vocab,) f32 or None, cache). `token` is an int or a
     one-element tensor on the weights' device. MoE layers run the routed
@@ -488,10 +559,19 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
     GEMVs, the LM-head GEMV), recording per layer att_in, post-rope q and
     k, v, att_mix, ffn_in and block_out, plus final_norm and logits: the
     oracle's capture map (models/transformer.py), for
-    utils/debug.py:diff_captures. Packed int4 weights raise."""
+    utils/debug.py:diff_captures. Packed int4 weights raise.
+
+    shard (parallel/fast_tp.TPShard): the step of one rank of a mesh
+    (fast_tp.py:255 make_decode_step_fast_tp) on its shard of the weights
+    and its kv heads of the cache, with the collectives of the Megatron
+    split; the logits are the full row on every rank."""
+    if shard is not None:
+        if capture:
+            raise ValueError("capture mode runs on one device, not on a mesh")
+        cfg = shard.cfg
     sc = fw.scales
     pos = int(pos)
-    x = _embed(cfg, fw, token)[0]
+    x = _embed(cfg, fw, token, shard)[0]
     kv_sink, kv_pos, kv_len = ring_slots(pos, cfg.max_seq_len)
     if capture:
         return _decode_capture(cfg, fw, x, pos, (kv_sink, kv_pos, kv_len), cache,
@@ -502,25 +582,28 @@ def decode_step_fast(cfg: ModelConfig, fw: FastWeights, token, pos: int,
     # unfused int4 fork exists for Mosaic's tiling rules only)
     fused = _block_ok(cfg, fw)
 
+    split = _reduces(shard)
     for i in range(cfg.n_layers):
         if fused:
-            x = attn_block(
+            # on a tp mesh the block's Wo @ attention is a partial sum: the
+            # ranks' sum, then the residual (fast_tp.py:320-338)
+            out = attn_block(
                 x, fw.rms_att, fw.wqkv, fw.wo, cache.k, cache.v, i,
                 kv_pos, kv_len, kv_sink, pos, n_heads=cfg.n_heads,
                 norm_eps=cfg.norm_eps, qkv_clip=cfg.qkv_clip, bqkv_all=fw.bqkv,
-                scale_qkv=sc.wqkv if sc else None,
+                add_residual=not split, scale_qkv=sc.wqkv if sc else None,
                 scale_o=sc.wo if sc else None, **rope)
+            x = x + shard.reduce(out) if split else out
         else:
-            x = _attn_unfused(cfg, fw, x, i, kv_pos, kv_len, kv_sink, pos, cache)
+            x = _attn_unfused(cfg, fw, x, i, kv_pos, kv_len, kv_sink, pos, cache, shard)
         if cfg.is_moe:
-            x = _moe_ffn_one(cfg, fw, x, i)
+            x = _moe_ffn_one(cfg, fw, x, i, shard)
         else:
-            x = _ffn_rows(cfg, fw, x, i)
+            x = _ffn_rows(cfg, fw, x, i, shard)
 
     if not output_logits:
         return None, cache
-    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return _cap_logits(cfg, gemv(x, fw.lm_head, sc.lm_head if sc else None)), cache
+    return _head(cfg, fw, rmsnorm(x, fw.final_norm, cfg.norm_eps), shard), cache
 
 
 def _decode_capture(cfg: ModelConfig, fw: FastWeights, x, pos: int, slots, cache: KVCache,
@@ -591,17 +674,31 @@ def _proj1_le(x1d, w_all, layer, expert, scale, **kw):
     return (gemv4_le if is_int4(w_all) else gemv_le)(x1d, w_all, layer, expert, scale, **kw)
 
 
-def _moe_ffn_one(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
+def _moe_ffn_one(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int,
+                 shard=None) -> torch.Tensor:
     """One token's MoE FFN (fast.py:765-778): the router GEMV on rmsnorm(x),
     the top-k gate, then per routed expert j in rank order x += gates[j] *
     W2_e @ bf16(act(h1) * h3), [h1; h3] = W13_e @ rmsnorm(x) (the norm in
     each GEMV's prologue, the GLU in the w13 GEMV's epilogue). The expert
-    ids stay on the device: the kernels read them there."""
+    ids stay on the device: the kernels read them there.
+
+    On a mesh (fast_tp.py:345-364) the router is replicated and each rank
+    holds its ep slice of the experts: a routed id maps to the rank's local
+    expert, or to -1 where another rank holds it, which the routed GEMVs
+    answer with zeros without loading a byte (JAX's lax.cond skip); the
+    ranks' gated sums are summed over (ep, tp), then added to x."""
     sc = fw.scales
     s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
     norm = dict(norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
     router = gemv_l(x, fw.moegate, layer, scale=sc.moegate if sc else None, **norm)
     gates, idx = moe_gate(router, cfg.n_experts_active)
+    if shard is not None and shard.moe_split:
+        idx = shard.local_experts(idx)
+        delta = torch.zeros_like(x)
+        for j in range(cfg.n_experts_active):
+            h = _proj1_le(x, fw.w13, layer, idx[j], s13, glu_act=cfg.act_type, **norm)
+            delta = delta + gates[j] * _proj1_le(h, fw.w2, layer, idx[j], s2)
+        return x + shard.reduce_experts(delta)
     out = x
     for j in range(cfg.n_experts_active):
         h = _proj1_le(x, fw.w13, layer, idx[j], s13, glu_act=cfg.act_type, **norm)
@@ -643,53 +740,69 @@ def _proj_le(x2d, w_all, layer, expert, scale, glu_act=None):
 
 
 def _moe_ffn_batched(cfg: ModelConfig, fw: FastWeights, x2d: torch.Tensor,
-                     layer: int) -> torch.Tensor:
+                     layer: int, shard=None) -> torch.Tensor:
     """The MoE FFN of a block of rows (fast.py:478-500), shared by every
     chunk path (prefill, the tick, the chunk sweep; dense and paged), so
     their streams agree: rmsnorm, the router GEMM, the top-k gate per row,
     then EVERY expert streamed once over all rows with each row's gate for
     it (0 where the expert is not routed), summed from zero in expert order;
     x2d + delta last. (Single-stream decode adds its experts to x in rank
-    order instead, as JAX's does.)"""
+    order instead, as JAX's does.) On a mesh each rank sweeps its local
+    experts and the ranks' deltas are summed over (ep, tp) (fast_tp.py:
+    477-500)."""
     sc = fw.scales
     s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
     xb2 = rmsnorm(x2d, fw.rms_ffn[layer], cfg.norm_eps)
     router = _proj_l(xb2, fw.moegate, layer, sc.moegate if sc else None)
     gates, idx = moe_gate(router, cfg.n_experts_active)        # (rows, k) each
+    split = shard is not None and shard.moe_split
+    e0, n_local = (shard.e0, shard.E_l) if split else (0, cfg.n_experts)
     delta = torch.zeros_like(x2d)
-    for e in range(cfg.n_experts):
-        gate_e = torch.sum(torch.where(idx == e, gates, torch.zeros_like(gates)), dim=-1)
+    for e in range(n_local):
+        gate_e = torch.sum(torch.where(idx == e0 + e, gates, torch.zeros_like(gates)), dim=-1)
         h = _proj_le(xb2, fw.w13, layer, e, s13, glu_act=cfg.act_type)
         delta = delta + gate_e[:, None] * _proj_le(h, fw.w2, layer, e, s2)
-    return x2d + delta
+    return x2d + (shard.reduce_experts(delta) if split else delta)
 
 
-def _ffn_rows(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int) -> torch.Tensor:
+def _ffn_rows(cfg: ModelConfig, fw: FastWeights, x: torch.Tensor, layer: int,
+              shard=None) -> torch.Tensor:
     """x + FFN(x) of a token or of a tick's or a chunk's rows: the
     all-expert sweep for MoE models, else `ffn`; with sandwich norms the FFN
     without its residual, then the post-norm and the add (`_ffn2_l`,
-    fast.py:448-475)."""
+    fast.py:448-475). On a tp mesh the FFN's w2 partial sums are summed over
+    the ranks before the post-norm and the add (fast_tp.py:366-380)."""
     if cfg.is_moe:
-        return _moe_ffn_batched(cfg, fw, x, layer)
+        return _moe_ffn_batched(cfg, fw, x, layer, shard)
     sc = fw.scales
+    fused = fw.pf is None and not _reduces(shard)
     out = ffn(x, fw.rms_ffn, fw.w13, fw.w2, layer, sc.w13 if sc else None,
               sc.w2 if sc else None, norm_eps=cfg.norm_eps, act=cfg.act_type,
-              add_residual=fw.pf is None)
-    return out if fw.pf is None else x + _post_norm(out, fw.pf, layer, cfg.norm_eps)
+              add_residual=fused)
+    if fused:
+        return out
+    if _reduces(shard):
+        out = shard.reduce(out)
+    return x + _post_norm(out, fw.pf, layer, cfg.norm_eps)
 
 
-def _wo_rows(cfg: ModelConfig, fw: FastWeights, mixed, x, layer: int):
+def _wo_rows(cfg: ModelConfig, fw: FastWeights, mixed, x, layer: int, shard=None):
     """x + Wo @ mixed of a chunk's or a tick's rows: the residual in the
-    GEMM's epilogue, or with sandwich norms the post-norm before the add."""
+    GEMM's epilogue, or with sandwich norms the post-norm before the add;
+    on a tp mesh the ranks' partial sums are summed first."""
     sc = fw.scales
     s = sc.wo if sc else None
-    if fw.pa is None:
+    if fw.pa is None and not _reduces(shard):
         return _proj_l(mixed, fw.wo, layer, s, residual=x)
-    return x + _post_norm(_proj_l(mixed, fw.wo, layer, s), fw.pa, layer, cfg.norm_eps)
+    out = _proj_l(mixed, fw.wo, layer, s)
+    if _reduces(shard):
+        out = shard.reduce(out)
+    return x + _post_norm(out, fw.pa, layer, cfg.norm_eps)
 
 
 def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
-                     attend_len: int, layers, rows_at, view_of, logits_mode: str, what: str):
+                     attend_len: int, layers, rows_at, view_of, logits_mode: str, what: str,
+                     shard=None):
     """One lane's chunked prefill (fast.py:884-1000, 1511-1621): per layer
     the projections on gemm_l, RoPE, the valid rows' k/v written IN PLACE
     at `rows_at` of the layer's cache view `layers(i)` = (k, v), chunk
@@ -715,7 +828,7 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
     att_mask = torch.arange(S, device=dev)[None, :] <= positions[:, None]
     # sliding layers: no ring during prefill, the slot index is the position
     mask_of = _sliding_mask_fn(cfg, positions, att_mask, S)
-    x = _embed(cfg, fw, tok)                           # (T, dim)
+    x = _embed(cfg, fw, tok, shard)                    # (T, dim)
 
     for i in range(cfg.n_layers):
         xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
@@ -734,30 +847,30 @@ def _prefill_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid
             int_view(c)[rows_at] = int_view(rows[:valid_len].to(c.dtype))
         mixed = _attend_chunk_bf16(cfg, q.reshape(T, Hk, qpk, D), view_of(kl), view_of(vl),
                                    mask_of(i), D)
-        x = _wo_rows(cfg, fw, mixed.reshape(T, cfg.q_dim), x, i)
+        x = _wo_rows(cfg, fw, mixed.reshape(T, cfg.q_dim), x, i, shard)
         if cfg.is_moe:
-            x = _moe_ffn_batched(cfg, fw, x, i)
+            x = _moe_ffn_batched(cfg, fw, x, i, shard)
         else:
             xb2 = rmsnorm(x, fw.rms_ffn[i], cfg.norm_eps)
             h13 = _proj_l(xb2, fw.w13, i, sc.w13 if sc else None)
             h = act(h13[:, :H]) * h13[:, H:]
-            x = x + _post_norm(_proj_l(h, fw.w2, i, sc.w2 if sc else None), fw.pf, i,
+            out = _proj_l(h, fw.w2, i, sc.w2 if sc else None)
+            x = x + _post_norm(shard.reduce(out) if _reduces(shard) else out, fw.pf, i,
                                cfg.norm_eps)
 
     if logits_mode == "none":
         return None
     if logits_mode == "last":
-        xl = rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps)
-        return _cap_logits(cfg, gemv(xl, fw.lm_head, sc.lm_head if sc else None))
+        return _head(cfg, fw, rmsnorm(x[valid_len - 1], fw.final_norm, cfg.norm_eps), shard)
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    logits = _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
+    logits = _head(cfg, fw, xn, shard)
     # "all_h": the post-final-norm rows beside the logits (Medusa's heads read them)
     return (logits, xn) if logits_mode == "all_h" else logits
 
 
 def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
                  valid_len: int, cache: KVCache, *, logits_mode: str = "last",
-                 attend_len: int = 0) -> tuple[Optional[torch.Tensor], KVCache]:
+                 attend_len: int = 0, shard=None) -> tuple[Optional[torch.Tensor], KVCache]:
     """Chunked prefill of `tokens` (a padded chunk of T ids; the first
     valid_len are real) at positions pos0.., inside the window. Writes the
     valid rows' k/v into the cache in place. attend_len (0 = the window)
@@ -765,12 +878,16 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
 
     logits_mode: "none" -> None; "last" -> (vocab,) logits of the last valid
     token; "all" -> (T, vocab); "all_h" -> ((T, vocab) logits, (T, dim)
-    post-final-norm hidden rows), the rows Medusa's heads read."""
+    post-final-norm hidden rows), the rows Medusa's heads read.
+
+    shard: one rank's chunk of a mesh (fast_tp.py:410 make_prefill_fast_tp):
+    its heads, hidden slice and experts, the step's collectives; the logits
+    are full rows on every rank."""
     S = attend_len or cfg.max_seq_len
-    out = _prefill_forward(cfg, fw, tokens, pos0, valid_len, attend_len,
-                           lambda i: (cache.k[i], cache.v[i]),
+    out = _prefill_forward(shard.cfg if shard is not None else cfg, fw, tokens, pos0,
+                           valid_len, attend_len, lambda i: (cache.k[i], cache.v[i]),
                            slice(pos0, pos0 + valid_len), lambda c: c[:S], logits_mode,
-                           "prefill_fast")
+                           "prefill_fast", shard)
     return out, cache
 
 
@@ -832,17 +949,17 @@ def _tick_lanes(cfg: ModelConfig, positions, write_mask, device) -> torch.Tensor
                         device=device)
 
 
-def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Tensor:
+def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend, shard=None) -> torch.Tensor:
     """The tick's body (fast.py:802-876, 1434-1507): per layer rmsnorm, the
     wqkv GEMM over the B rows, bias and clip, `attend(i, q, k, v)` (the
     batched or paged attention step), the wo GEMM + residual, the many-row
     FFN (the all-expert sweep for MoE); then the final norm and the LM-head
     GEMM. `attend` takes layer i's Gemma forms as keywords. Returns (B,
-    vocab)."""
+    vocab). shard: one rank's lanes of a mesh (fast_tp.py:572-696)."""
     sc = fw.scales
     Hk, D = cfg.n_kv_heads, cfg.head_dim
     qpk = cfg.n_heads // Hk
-    x = _embed(cfg, fw, tokens)                        # (B, dim)
+    x = _embed(cfg, fw, tokens, shard)                 # (B, dim)
     Bn = x.shape[0]
     q_dim, kv_dim = cfg.q_dim, cfg.kv_dim
 
@@ -855,15 +972,14 @@ def _tick_forward(cfg: ModelConfig, fw: FastWeights, tokens, attend) -> torch.Te
         q, k = _qk_norm(qkv[:, :q_dim], qkv[:, q_dim:q_dim + kv_dim], fw, i, cfg)
         mixed = attend(i, q.reshape(Bn, Hk, qpk, D), k.reshape(Bn, Hk, D),
                        qkv[:, q_dim + kv_dim:].reshape(Bn, Hk, D), **_attn_kw(cfg, i))
-        x = _wo_rows(cfg, fw, mixed.reshape(Bn, q_dim), x, i)
-        x = _ffn_rows(cfg, fw, x, i)
+        x = _wo_rows(cfg, fw, mixed.reshape(Bn, q_dim), x, i, shard)
+        x = _ffn_rows(cfg, fw, x, i, shard)
 
-    x = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    return _cap_logits(cfg, gemm(x, fw.lm_head, sc.lm_head if sc else None))
+    return _head(cfg, fw, rmsnorm(x, fw.final_norm, cfg.norm_eps), shard)
 
 
 def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, positions,
-                             cache: KVCache, write_mask=None
+                             cache: KVCache, write_mask=None, *, shard=None
                              ) -> tuple[torch.Tensor, KVCache]:
     """One decode tick for B independent sequences sharing the weights
     (fast.py:802-876). tokens (B,) ids; positions (B,) absolute positions
@@ -871,14 +987,18 @@ def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, position
     the host; cache batched (B, L, S, Hk, D), updated IN PLACE. Per layer:
     rmsnorm, the wqkv GEMM over the B rows, bias and clip, the batched
     attention step, the wo GEMM + residual, the many-row FFN; then the
-    final norm and the LM-head GEMM. Returns (logits (B, vocab) f32, cache)."""
+    final norm and the LM-head GEMM. Returns (logits (B, vocab) f32, cache).
+    shard: one rank's tick on a mesh, over its lanes and kv heads of the
+    cache (fast_tp.py:572 make_tick_fast_tp)."""
+    if shard is not None:
+        cfg = shard.cfg
     Bn = _host_ints(positions).shape[0]
     if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
         raise ValueError(f"decode_step_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
     lanes = _tick_lanes(cfg, positions, write_mask, fw.wqkv.device)
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
     logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v, **kw: attend_step_batched(
-        q, k, v, cache.k, cache.v, i, lanes, **rope, **kw))
+        q, k, v, cache.k, cache.v, i, lanes, **rope, **kw), shard)
     return logits, cache
 
 

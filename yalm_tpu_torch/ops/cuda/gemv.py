@@ -132,26 +132,32 @@ def glu_plain(h13, act: str):
 
 
 def _expert(w_all, scale, layer, expert):
-    """W_all[layer, expert] and its scales as a one-layer stack (the JAX
-    emulation branches index the same slice: gemv.py:278-280, :356-363,
-    :702-705)."""
-    return w_all[layer][expert][None], None if scale is None else scale[layer][expert][None]
+    """W_all[layer, expert] and its scales as a one-layer stack (views: the
+    JAX emulation branches index the same slice, gemv.py:278-280, :356-363,
+    :702-705), and the id's verdict, the factor of the output: 1 for an id
+    in [0, E), 0 for -1 (another rank's expert on a mesh: the kernels write
+    zeros without loading a byte), NaN for any other (the kernels' answer).
+    The plain versions read the id where it lies (the kernels never do)."""
+    e = int(expert)
+    verdict = 1.0 if 0 <= e < w_all.shape[1] else 0.0 if e == -1 else math.nan
+    e = e if verdict == 1.0 else 0
+    return (w_all[layer][e][None], None if scale is None else scale[layer][e][None], verdict)
 
 
 def gemm_le_plain(x, w_all, layer, expert, scale=None, *, glu_act=None):
     """x (B, K) @ dequant(W_all[layer, expert])^T, per-row scales (L, E, N)
     or, for packed int4 experts, group scales (L, E, G, N)."""
-    w, s = _expert(w_all, scale, layer, expert)
+    w, s, verdict = _expert(w_all, scale, layer, expert)
     y = proj_plain(x, w, 0, s)
-    return glu_plain(y, glu_act) if glu_act else y
+    return (glu_plain(y, glu_act) if glu_act else y) * verdict
 
 
 def gemv_le_plain(x, w_all, layer, expert, scale=None, *, norm_w=None, norm_eps=1e-5,
                   glu_act=None):
-    w, s = _expert(w_all, scale, layer, expert)
+    w, s, verdict = _expert(w_all, scale, layer, expert)
     y = gemv_l_plain(x, w, 0, norm_w=None if norm_w is None else norm_w[layer][None],
                      norm_eps=norm_eps, scale=s)
-    return glu_plain(y, glu_act) if glu_act else y
+    return (glu_plain(y, glu_act) if glu_act else y) * verdict
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +440,8 @@ def _addressing(w_all, layer: int, expert, what: str):
     """(L, N, Kw, E, host expert, device expert id or None) of a launch on a
     layer stack (L, N, Kw) (expert None: E = 1) or an expert stack (L, E,
     N, Kw). A host expert is checked here; a device id is read by the
-    kernel, which gives NaN for one outside [0, E)."""
+    kernel, which writes zeros and loads nothing for -1 (another rank's
+    expert on a mesh) and gives NaN for one outside [-1, E)."""
     # (no message here formats `expert`: a device id's repr copies it to the host)
     B.require(w_all.dim() == (3 if expert is None else 4),
               f"{what}: weights {tuple(w_all.shape)} with{'out' if expert is None else ''} "

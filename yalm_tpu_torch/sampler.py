@@ -95,8 +95,15 @@ def uniform_rows(seeds: torch.Tensor, positions: torch.Tensor, V: int,
     if purpose:
         key = _fmix32((key + purpose * 0x9E3779B9) & _M32)
     idx = _fmix32(torch.arange(V, dtype=torch.int64, device=dev) * 2 + 1)
-    bits = _fmix32(key[:, None] ^ idx[None, :]) >> 8
-    return (bits.float() + 0.5) * (1.0 / (1 << 24))
+    return unit_floats(_fmix32(key[:, None] ^ idx[None, :]) >> 8)
+
+
+def unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """24-bit integers -> f32 in (0, 1): (bits + 0.5) / 2^24, where f32
+    rounds the top value up to 1.0 (whose -log(-log u) is +inf, which
+    would win the Gumbel race, or make it NaN on a masked column): it is
+    held at the largest f32 below 1."""
+    return ((bits.float() + 0.5) * (1.0 / (1 << 24))).clamp(max=1.0 - 2.0 ** -24)
 
 
 def sample_rows(logits: torch.Tensor, seeds: torch.Tensor, positions: torch.Tensor,

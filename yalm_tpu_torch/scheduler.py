@@ -50,8 +50,17 @@
   writing lane of a tick, per-slot prefill; no paged pool, no batched
   admission, no prefix cache, no speculation.
 
-Meshes come in a later slice of the port (ROADMAP.md) and raise
-NotImplementedError.
+- A mesh (`mesh`, parallel/mesh.Mesh; scheduler.py:527-540, 653-680):
+  lanes split over dp, heads and the FFN hidden width over tp, experts over
+  ep. Every rank builds the Scheduler; the leader (rank 0) owns the
+  requests, and each tick, prefill chunk and ring-hydration step it runs
+  is broadcast with its host inputs (tokens, positions, the write mask) to
+  the other ranks, which `follow()` until `stop_followers()`
+  (parallel/fast_tp.MeshLanes); the logits of every lane reach the leader,
+  which samples. As in JAX's, a mesh takes the dense cache with per-slot
+  admission (no batched admission, no prefix cache); the paged pool,
+  speculation and the sharded oracle on a mesh are a later slice of the
+  port (ROADMAP.md item 13) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -399,19 +408,41 @@ class Scheduler:
         on a config the kernels refuse raises. The paged pool, batched
         admission, the prefix cache and speculation are the kernels'."""
         if spec_tree is not None:
-            # scheduler.py:884-936, before the mesh is refused
+            # scheduler.py:884-936
             if spec_medusa is None:
                 raise ValueError("spec_tree requires spec_medusa heads")
             if paged_pages > 0 or mesh is not None:
                 raise ValueError("tree verify: dense single-device cache "
                                  "(chain medusa composes with paged/mesh)")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("a device mesh: not in this slice of the PyTorch port "
-                                      "(see ROADMAP.md, Queue 1)")
-        self.device = resolve_device(device)
-        self.fast = resolve_fast(cfg, fast)
-        kv_dtype = route_kv_dtype(kv_dtype, self.fast)
-        weights = route_weights(cfg, weights, self.fast, self.device)
+            from .parallel.fast_tp import mesh_route, mesh_weights
+            # JAX's refusals first (scheduler.py:507-538), then this slice's
+            spec = spec_draft is not None or spec_lookup or spec_medusa is not None
+            moe_ep = cfg.is_moe or mesh.shape["ep"] != 1
+            if spec and moe_ep:
+                raise ValueError("spec x mesh needs ep=1 and a dense model (the sharded "
+                                 "verify sweep has no expert axis); single-device spec x "
+                                 "MoE works")
+            if paged_pages > 0 and moe_ep:
+                raise ValueError("paged cache + mesh needs ep=1 and a dense model; "
+                                 "single-device paged x MoE works")
+            if paged_pages > 0 or spec:
+                raise NotImplementedError("the paged pool and speculation on a mesh are a "
+                                          "later slice of the PyTorch port (ROADMAP.md "
+                                          "item 13)")
+            self.fast = mesh_route(cfg, fast, mesh)
+            if batch % mesh.shape["dp"]:
+                raise ValueError(f"mesh scheduler requires the fast TP path and batch % dp "
+                                 f"== 0 (got batch={batch}, mesh={mesh.shape})")
+            self.device = resolve_device(mesh.device)
+            kv_dtype = route_kv_dtype(kv_dtype, True)
+            weights = mesh_weights(cfg, weights, mesh)
+        else:
+            self.device = resolve_device(device)
+            self.fast = resolve_fast(cfg, fast)
+            kv_dtype = route_kv_dtype(kv_dtype, self.fast)
+            weights = route_weights(cfg, weights, self.fast, self.device)
         if batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
         self.paged = paged_pages > 0
@@ -432,10 +463,12 @@ class Scheduler:
         self.queue: list[Request] = []
         self._admit_seq = 0
         self.preemptions = self.resumes = 0  # paged preemptions and resumes (stats)
-        self.batched_admission = bool(batched_admission) and self.fast
+        # on a mesh, per-slot admission and no prefix cache (scheduler.py:734, :773)
+        self.batched_admission = bool(batched_admission) and self.fast and mesh is None
         self.admit_sweeps = 0  # batched-admission weight sweeps (stats)
         self.dense_prefix = (_DensePrefixRegistry()
-                             if prefix_cache and not self.paged and self.fast else None)
+                             if prefix_cache and not self.paged and self.fast and mesh is None
+                             else None)
         self._init_spec(spec_draft, spec_k, spec_lookup, spec_ngram, spec_medusa)
         if self.spec and not self.fast:
             raise ValueError("speculative scheduler needs the fast path")
@@ -503,7 +536,16 @@ class Scheduler:
                 siblings_before[p] += 1
 
     def _new_cache(self) -> None:
-        """A zeroed cache (a pool and its allocator when paged)."""
+        """A zeroed cache (a pool and its allocator when paged; on a mesh
+        every rank's share, through MeshLanes)."""
+        if self.mesh is not None:
+            from .parallel.fast_tp import MeshLanes
+            self.cache = None
+            if getattr(self, "lanes", None) is None:
+                self.lanes = MeshLanes(self.cfg, self.weights, self.mesh, self.B, self.kv_dtype)
+            else:
+                self.lanes.reset()
+            return
         if self.paged:
             self.cache = PagedKVPool.init(self.cfg, self.kv_dtype, self.n_pages,
                                           self.page_size, self.device)
@@ -816,6 +858,8 @@ class Scheduler:
                         self.cfg, self.weights, padded, slot.pos, take, self.cache,
                         self.alloc.tables[b], int(self.alloc.tables[b, slot.pos // ps]),
                         slot.pos % ps, logits_mode=mode, page_size=ps, attend_len=attend)
+                elif self.mesh is not None:
+                    out = self.lanes.prefill(b, padded, slot.pos, take, mode, attend)
                 elif self.fast:
                     out, _ = prefill_fast(self.cfg, self.weights, padded, slot.pos, take,
                                           self.cache.lane(b), logits_mode=mode,
@@ -846,7 +890,10 @@ class Scheduler:
 
     def _lane_step(self, b: int, token: int, pos: int, output_logits: bool = True):
         """One decode step of lane b alone on its view of the dense cache
-        (the kernels' decode_step_fast, or the oracle's decode_step)."""
+        (the kernels' decode_step_fast, or the oracle's decode_step; on a
+        mesh, broadcast to every rank)."""
+        if self.mesh is not None:
+            return self.lanes.step(b, token, pos, output_logits)
         lane = self.cache.lane(b)
         if self.fast:
             return decode_step_fast(self.cfg, self.weights, token, pos, lane,
@@ -1003,6 +1050,8 @@ class Scheduler:
         if self.paged:
             logits, _ = decode_step_fast_batched_paged(
                 *args, self.alloc.table_array(), write, page_size=self.page_size)
+        elif self.mesh is not None:
+            logits = self.lanes.tick(args[2], args[3], write)
         elif self.fast:
             logits, _ = decode_step_fast_batched(*args, write)
         else:
@@ -1256,6 +1305,19 @@ class Scheduler:
                 else:
                     break
         scatter_tree_rows(self.cache, ktree, vtree, positions, rows, nrows)
+
+    def follow(self) -> None:
+        """A follower rank of a mesh: run the leader's device work until it
+        stops the followers (parallel/fast_tp.MeshLanes.follow)."""
+        if self.mesh is None or self.mesh.leader:
+            raise ValueError("follow() runs on the follower ranks of a mesh")
+        self.lanes.follow()
+
+    def stop_followers(self) -> None:
+        """The leader of a mesh: end the followers' loops (a no-op
+        elsewhere)."""
+        if self.mesh is not None and self.mesh.leader:
+            self.lanes.stop()
 
     def run(self, max_ticks: int = 100000) -> None:
         """Drive until every queued and active request completes."""

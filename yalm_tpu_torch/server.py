@@ -17,7 +17,14 @@ caching; `--draft D.yalm`, `--spec-lookup` or `--medusa` serve with
 scheduler speculation, `--spec-k` proposals per round, composing with the
 paged pool; `--medusa-tree 4,2` serves tree-attention Medusa on the dense
 cache). A config the kernels refuse is served by the parity oracle in
-bf16. Meshes come in a later slice of the port: their flags are refused.
+bf16.
+
+On a mesh (`--mesh DP,EP,TP`, one process per device, launched by
+`python -m torch.distributed.run --nproc-per-node N -m yalm_tpu_torch.server
+model.yalm --mesh DP,EP,TP`; `--distributed` with `--coordinator`,
+`--num-processes` and `--process-id` for a manual cluster) rank 0 owns the
+scheduler and the HTTP server and the other ranks follow its device work
+(scheduler.py); lanes split over dp, experts over ep, heads over tp.
 """
 
 from __future__ import annotations
@@ -56,7 +63,10 @@ class ServingEngine:
                  max_prompt_tokens: int | None = None, chat_template: str = "chatml",
                  top_logprobs: int = 5, paged_pages: int = 0, page_size: int = 256,
                  device="cuda", spec_draft=None, spec_k: int = 4, spec_lookup: bool = False,
-                 spec_ngram: int = 3, spec_medusa=None, spec_tree=None, fast="auto"):
+                 spec_ngram: int = 3, spec_medusa=None, spec_tree=None, fast="auto",
+                 mesh=None):
+        """mesh: this process is one rank of a mesh; the leader runs the
+        scheduler thread, a follower calls follow()."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.chat_template = chat_template
@@ -80,7 +90,7 @@ class ServingEngine:
                                spec_medusa=spec_medusa, spec_tree=spec_tree,
                                # the kernels where the config fits them, else
                                # the oracle in bf16 (server.py:55-56)
-                               fast=fast, compute_dtype=torch.bfloat16)
+                               fast=fast, compute_dtype=torch.bfloat16, mesh=mesh)
         self._inbox: "queue.Queue[tuple[Request, queue.Queue]]" = queue.Queue()
         self._watch: list[tuple[Request, "queue.Queue"]] = []
         # serving counters for /metrics
@@ -91,23 +101,31 @@ class ServingEngine:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._drive, daemon=True,
                                         name="yalm-scheduler")
-        self._thread.start()
+        if mesh is None or mesh.leader:
+            self._thread.start()
 
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, batch: int = 8,
                         device="cuda", medusa: bool = False, medusa_tree=None, fast="auto",
-                        **kw) -> "ServingEngine":
+                        mesh=None, **kw) -> "ServingEngine":
         """medusa: serve with the checkpoint's own Medusa heads; medusa_tree
         ("4,2" or a tuple of branching factors): with tree-attention
         verification. The weights load straight into the route's layout
         (server.py:91-118): load_fast_weights for the kernels, load_weights
-        for the oracle."""
-        dev = resolve_device(device)
+        for the oracle; on a mesh, each rank its shard."""
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
-            fast = resolve_fast(cfg, fast)
-            weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
+            if mesh is not None:
+                from .parallel.fast_tp import mesh_route
+                dev = resolve_device(mesh.device)
+                fast = mesh_route(cfg, fast, mesh)
+                weights = load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
+                                            ep=mesh.shape["ep"], rank=mesh.position)
+            else:
+                dev = resolve_device(device)
+                fast = resolve_fast(cfg, fast)
+                weights = (load_fast_weights if fast else load_weights)(yf, cfg, dev)
             tok = Tokenizer.from_yalm(yf)
             if medusa or medusa_tree:
                 if "medusa_heads" not in yf.metadata:
@@ -119,7 +137,7 @@ class ServingEngine:
                                    if isinstance(medusa_tree, str) else tuple(medusa_tree))
         finally:
             yf.close()  # the weights were copied out of the mapping
-        return cls(cfg, weights, tok, batch=batch, device=dev, fast=fast, **kw)
+        return cls(cfg, weights, tok, batch=batch, device=dev, fast=fast, mesh=mesh, **kw)
 
     # -- scheduler thread -----------------------------------------------
     def _drive(self) -> None:
@@ -168,8 +186,17 @@ class ServingEngine:
             self._watch = still
 
     def close(self) -> None:
-        self._stop.set()
-        self._thread.join(timeout=30)
+        """Stop the scheduler thread (on a mesh's leader, then the
+        followers)."""
+        if self._thread.is_alive():
+            self._stop.set()
+            self._thread.join(timeout=30)
+            self.sched.stop_followers()
+
+    def follow(self) -> None:
+        """A follower rank of a mesh: run the leader's device work until it
+        closes."""
+        self.sched.follow()
 
     # -- request API ----------------------------------------------------
     def submit(self, req: Request) -> "queue.Queue":
@@ -584,10 +611,6 @@ def serve(engine: ServingEngine, host: str = "0.0.0.0", port: int = 8080
     return ThreadingHTTPServer((host, port), make_handler(engine))
 
 
-# flags of the JAX server that later slices of the port bring
-_LATER_FLAGS = {"mesh": "--mesh", "distributed": "--distributed"}
-
-
 def main(argv=None) -> None:
     import argparse
     ap = argparse.ArgumentParser(description="yalm_tpu_torch HTTP server")
@@ -630,18 +653,55 @@ def main(argv=None) -> None:
                          "tree of the heads' top candidates with these per-depth branching "
                          "factors (e.g. 4,2) in one sweep; greedy requests advance when a "
                          "lower-ranked candidate hits, sampled ones ride plain ticks")
-    for dest, flag in _LATER_FLAGS.items():
-        store = "store_true" if dest == "distributed" else "store"
-        ap.add_argument(flag, dest=dest, action=store, default=None,
-                        help="refused: a later slice of the port (ROADMAP.md)")
+    ap.add_argument("--mesh", default=None, metavar="DP,EP,TP",
+                    help="serve over a ('dp','ep','tp') mesh of processes, one per device "
+                         "(launch with python -m torch.distributed.run --nproc-per-node N): "
+                         "slot lanes shard on dp, experts on ep, heads/hidden on tp")
+    ap.add_argument("--distributed", action="store_true",
+                    help="bring up the process group before the mesh (torchrun's "
+                         "environment, or --coordinator/--num-processes/--process-id)")
+    ap.add_argument("--coordinator", default=None,
+                    help="a manual cluster's rendezvous (host:port, or an init_method URL)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
-    given = [flag for dest, flag in _LATER_FLAGS.items() if getattr(args, dest)]
-    if given:
-        ap.error(f"{', '.join(given)}: not in this slice of the PyTorch port "
-                 "(meshes come later; see ROADMAP.md)")
     if sum([bool(args.draft), args.spec_lookup, args.medusa or bool(args.medusa_tree)]) > 1:
         ap.error("--draft, --spec-lookup and --medusa/--medusa-tree are mutually exclusive")
 
+    mesh = None
+    on = "cpu" if args.device == "cpu" else None   # a mesh rank: cuda:LOCAL_RANK
+    dp = ep = tp = 1
+    if args.mesh:
+        try:
+            dp, ep, tp = (int(x) for x in args.mesh.split(","))
+        except ValueError:
+            ap.error(f"--mesh takes DP,EP,TP, got {args.mesh!r}")
+        if args.batch % max(dp, 1):
+            ap.error(f"--batch {args.batch} must be divisible by dp={dp}")
+    if not (args.distributed or args.mesh):
+        _serve_main(args, ap, None)
+        return
+    import torch.distributed as dist
+
+    from .parallel.distributed import initialize, make_hybrid_mesh
+    from .parallel.mesh import MeshConfig
+    initialize(args.coordinator, args.num_processes, args.process_id, device=on)
+    try:
+        if args.mesh:
+            # one process per device: the world is the mesh (JAX's per-host
+            # dp split, server.py:673-699, has no counterpart)
+            if dp * ep * tp != dist.get_world_size():
+                ap.error(f"--mesh {dp},{ep},{tp} wants {dp * ep * tp} processes, the world "
+                         f"has {dist.get_world_size()} (one process per device: "
+                         "torch.distributed.run --nproc-per-node N)")
+            mesh = make_hybrid_mesh(MeshConfig(dp=dp, ep=ep, tp=tp), device=on)
+        _serve_main(args, ap, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_main(args, ap, mesh) -> None:
+    """Build the serving engine and serve (a mesh's follower follows)."""
     kv_dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[args.kv]
     spec_draft = None
     if args.draft:
@@ -658,7 +718,10 @@ def main(argv=None) -> None:
         chat_template=args.chat_template, paged_pages=args.paged_pages,
         page_size=args.page_size, spec_draft=spec_draft, spec_k=args.spec_k,
         spec_lookup=args.spec_lookup, spec_ngram=args.spec_ngram, medusa=args.medusa,
-        medusa_tree=args.medusa_tree)
+        medusa_tree=args.medusa_tree, mesh=mesh)
+    if mesh is not None and not mesh.leader:
+        engine.follow()
+        return
     httpd = serve(engine, args.host, args.port)
     paged = f", {args.paged_pages} pages of {args.page_size}" if args.paged_pages else ""
     sched = engine.sched
@@ -668,8 +731,10 @@ def main(argv=None) -> None:
                              "lookup" if sched.spec_lookup else
                              f"medusa tree {sched.spec_tree}" if sched.spec_tree else "medusa")
                 + f" k={sched.spec_k}")
+    on_mesh = "" if mesh is None else ", mesh=" + ",".join(str(mesh.shape[a])
+                                                          for a in ("dp", "ep", "tp"))
     print(f"serving on http://{args.host}:{args.port} (batch={args.batch}{paged}{spec}, "
-          f"device={sched.device}, fast={sched.fast})", flush=True)
+          f"device={sched.device}, fast={sched.fast}{on_mesh})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

@@ -9,9 +9,13 @@ writes the same HuggingFace-layout directory as the JAX package's.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
+import subprocess
+import sys
+import time
 
 import numpy as np
 import torch
@@ -287,3 +291,231 @@ def synth_hf_dir(path: str, cfg: ModelConfig, seed: int = 0, *, arch: str | None
             write_yalm(os.path.join(path, f"model-{k:05d}-of-{shards:05d}.safetensors"),
                        part, {"format": "pt"})
             k, part = k + 1, {}
+
+
+# ---------------------------------------------------------------------------
+# ranks of a torch.distributed world in fresh processes
+# ---------------------------------------------------------------------------
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def run_ranks(target: str, world: int, args, workdir: str, *, backend: str = "gloo",
+              timeout: float = 180.0, env: dict | None = None, cwd: str | None = None) -> list:
+    """Run `target` ("module:function") as every rank of a world of `world`
+    fresh processes and return the ranks' results in rank order.
+
+    Each rank starts python from the repository root (`cwd`), brings the
+    process group up through parallel/distributed.initialize on a file
+    store in `workdir` (no port: concurrent worlds cannot collide), calls
+    function(args) and saves what it returns. `target`'s module must not
+    import JAX (a child that imports a test module would). A rank that
+    fails ends the world: the others are killed and the error carries the
+    failing rank's stderr; so does a world still running after `timeout`
+    seconds."""
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(args, os.path.join(workdir, "args.pt"))
+    code = ("import sys; from yalm_tpu_torch.utils.testing import _rank_main; "
+            "_rank_main(sys.argv[1:])")
+    procs, logs = [], []
+    for r in range(world):
+        e = dict(os.environ, LOCAL_RANK=str(r), OMP_NUM_THREADS="1", **(env or {}))
+        log = open(os.path.join(workdir, f"rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, workdir, str(r), str(world), target, backend],
+            cwd=cwd or _ROOT, env=e, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = (bad[0], f"exit code {procs[bad[0]].returncode}")
+                break
+            if time.monotonic() > deadline:
+                failed = (next(r for r, p in enumerate(procs) if p.poll() is None),
+                          f"still running after {timeout:.0f} s")
+                break
+            time.sleep(0.05)
+        else:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = (bad[0], f"exit code {procs[bad[0]].returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if failed is not None:
+        r, why = failed
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            raise RuntimeError(f"rank {r} of {world} ({target}): {why}\n{f.read()[-6000:]}")
+    return [torch.load(os.path.join(workdir, f"out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _rank_main(argv: list[str]) -> None:
+    """One rank of run_ranks: initialize, run the target, save its result."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import initialize
+    workdir, rank, world, target, backend = argv
+    torch.set_num_threads(1)
+    args = torch.load(os.path.join(workdir, "args.pt"), weights_only=False)
+    initialize(f"file://{os.path.join(workdir, 'pg')}", int(world), int(rank), backend=backend,
+               timeout=600)
+    mod, name = target.split(":")
+    out = getattr(importlib.import_module(mod), name)(args)
+    torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_cases(args: dict) -> list:
+    """A rank's side of the mesh tests: run each case of args["cases"] on
+    a mesh of this world, in order, and return each case's result (every
+    rank runs every case; the tests read rank 0's and check the others').
+
+    Case keys: "op" (decode | prefill | tick | engine | weights | scheduler
+    | server), "path" (a checkpoint), "mesh" ((dp, ep, tp)), "kv" ("bf16" |
+    "fp8"), and the op's inputs: "tokens" and "positions" (decode: one
+    token per step; tick: (steps, B) arrays and "write"), "chunks" (prefill:
+    (tokens, pos0, valid_len, logits_mode) tuples), "prompt", "steps",
+    "temperature", "seed" (engine), "requests" and "batch" (scheduler),
+    "prompt" and "max_tokens" (server)."""
+    import numpy as np
+
+    from ..codec.format import read_yalm
+    from ..config import ModelConfig
+    from ..models.fast import load_fast_weights
+    from ..parallel.fast_tp import (local_cache, make_decode_step_fast_tp, make_prefill_fast_tp,
+                                    make_tick_fast_tp)
+    from ..parallel.mesh import MeshConfig, make_mesh
+    kvs = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}
+    out = []
+    for case in args["cases"]:
+        mesh = make_mesh(MeshConfig(*case["mesh"]), device=args.get("device", "cpu"))
+        kv = kvs[case.get("kv", "bf16")]
+        yf = read_yalm(case["path"])
+        cfg = ModelConfig.from_metadata(yf.metadata)
+        op = case["op"]
+        if op in ("decode", "prefill", "tick", "weights"):
+            fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"],
+                                   ep=mesh.shape["ep"], rank=mesh.position)
+        yf.close()
+        if op == "weights":
+            out.append(_fast_weights_numpy(fw))
+        elif op == "decode":
+            step = make_decode_step_fast_tp(cfg, mesh)
+            cache = local_cache(cfg, mesh, kv)
+            rows = []
+            for pos, tok in enumerate(case["tokens"]):
+                logits, cache = step(fw, int(tok), pos, cache)
+                rows.append(logits.float().cpu().numpy())
+            out.append(np.stack(rows))
+        elif op == "prefill":
+            prefill = make_prefill_fast_tp(cfg, mesh)
+            cache = local_cache(cfg, mesh, kv)
+            rows = []
+            for toks, pos0, valid, mode in case["chunks"]:
+                logits, cache = prefill(fw, np.asarray(toks), pos0, valid, cache,
+                                        logits_mode=mode)
+                rows.append(None if logits is None else logits.float().cpu().numpy())
+            out.append(rows)
+        elif op == "tick":
+            tick = make_tick_fast_tp(cfg, mesh)
+            B = len(case["tokens"][0])
+            cache = local_cache(cfg, mesh, kv, batch=B)
+            rows = []
+            for toks, pos, wr in zip(case["tokens"], case["positions"], case["write"]):
+                logits, cache = tick(fw, toks, pos, cache, wr)
+                rows.append(logits.float().cpu().numpy())
+            out.append(np.stack(rows))
+        elif op == "engine":
+            from ..engine import Engine
+            eng = Engine.from_checkpoint(case["path"], mesh=mesh, kv_dtype=kv)
+            out.append(list(eng.generate(case["prompt"], max_steps=case["steps"],
+                                         temperature=case.get("temperature", 0.0),
+                                         seed=case.get("seed"))))
+        elif op == "scheduler":
+            out.append(_mesh_scheduler_case(case, mesh, kv))
+        elif op == "server":
+            out.append(_mesh_server_case(case, mesh, kv))
+        else:
+            raise ValueError(f"unknown mesh case {op!r}")
+    return out
+
+
+def _fast_weights_numpy(fw) -> dict:
+    """FastWeights' fields as numpy arrays of their bytes (integer views)."""
+    from dataclasses import fields
+
+    from ..ops.core import int_view
+
+    def arr(t):
+        return int_view(t).cpu().numpy() if t.is_floating_point() else t.cpu().numpy()
+    out = {f.name: arr(getattr(fw, f.name)) for f in fields(fw)
+           if f.name != "scales" and getattr(fw, f.name) is not None}
+    if fw.scales is not None:
+        out["scales"] = {f.name: arr(getattr(fw.scales, f.name)) for f in fields(fw.scales)
+                         if getattr(fw.scales, f.name) is not None}
+    return out
+
+
+def _mesh_scheduler_case(case: dict, mesh, kv):
+    """The dense scheduler on a mesh: the leader submits the requests and
+    runs to the end, then stops the followers; returns the streams (the
+    leader's; None on followers)."""
+    from ..codec.format import read_yalm
+    from ..config import ModelConfig
+    from ..models.fast import load_fast_weights
+    from ..scheduler import Request, Scheduler
+    yf = read_yalm(case["path"])
+    cfg = ModelConfig.from_metadata(yf.metadata)
+    fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"], ep=mesh.shape["ep"],
+                           rank=mesh.position)
+    yf.close()
+    sched = Scheduler(cfg, fw, batch=case["batch"], kv_dtype=kv, device=mesh.device,
+                      mesh=mesh)
+    if not mesh.leader:
+        sched.follow()
+        return None
+    reqs = [Request(**r) for r in case["requests"]]
+    for r in reqs:
+        sched.submit(r)
+    try:
+        sched.run()
+    finally:
+        sched.stop_followers()
+    return [r.generated for r in reqs]
+
+
+def _mesh_server_case(case: dict, mesh, kv):
+    """The HTTP server on a mesh: the leader serves on 127.0.0.1 (a free
+    port), posts one completion and returns its text; the followers follow
+    until the leader closes the engine."""
+    import urllib.request
+
+    from ..server import ServingEngine, serve
+    eng = ServingEngine.from_checkpoint(case["path"], batch=case.get("batch", 4),
+                                       device=mesh.device, kv_dtype=kv, mesh=mesh)
+    if not mesh.leader:
+        eng.follow()
+        return None
+    httpd = serve(eng, "127.0.0.1", 0)
+    import threading
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        body = json.dumps({"prompt": case["prompt"], "max_tokens": case["max_tokens"],
+                           "temperature": 0.0}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/v1/completions", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())["choices"][0]["text"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        eng.close()
