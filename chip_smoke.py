@@ -31,7 +31,8 @@ kernels from `yalm_tpu_torch/csrc/` with nvcc, then:
    slots, which must preempt and resume at least one lane with every
    stream exactly max_new_tokens long, the paged attention launched once
    per layer per tick and the dense one never;
-   then speculation (`phase_spec`, 32 layers, K 4, 200-token prompts, 64
+   then speculation (`phase_spec`, depth 8 (PERF.md keeps the 32-layer
+   runs; phase 7 needs the time), K 4, 200-token prompts, 64
    new tokens): plain greedy decode beside a self-draft (a second Engine
    over the same weights), a 2-layer draft from another seed (greedy and
    T 0.8), prompt lookup on a 50-token pattern repeated 4 times and 4
@@ -169,19 +170,28 @@ time into the GEMV without and with the GLU pair;
    max|logit|)), the per-step wall and device time of both
    (profile_decode), and the CLI with -M 1,1,1 under torch.distributed.run;
    (b) two gloo ranks spawned on the one card (`mesh_rank`, a timeout on
-   the world): Mistral-7B fp8 and int4 with tp=2 at depth 8, Mixtral-8x7B
-   fp8 with ep=2 at depth 4 and int4 at depth 2, each 200 + 64 greedy
-   tokens, both ranks' the same; then the dense scheduler at batch 16,
-   depth 8, on dp=2 and on tp=2 (20 requests of 64-512 prompt tokens and
-   16-32 new, half sampled at top-k 40), every logits row a token was
-   drawn from recorded on the leader (`recorded_rows`); each run held to
+   the world): Mistral-7B fp8 and int4 with tp=2 at depth 4, Mixtral-8x7B
+   fp8 with ep=2 at depth 4 and int4 at depth 2, each
+   200 + 64 greedy tokens, both ranks' the same; then at depth 4 the dense
+   scheduler at batch 16 on dp=2 and on tp=2 (20 requests of 64-512 prompt
+   tokens and 16-32 new, half sampled at top-k 40), and the paged
+   scheduler (13 pages of 256 a dp group: each group must preempt) on
+   dp=2 and tp=2 (fp8, bf16 pool) and int4 on an e5m2 pool at tp=2,
+   prompt lookup on a paged pool, a 2-layer draft (the target's first two
+   layers) and chain Medusa (4 random heads), each at tp=2 with K 4
+   (every group's pages free at the
+   end; the rounds, accepted proposals, preemptions and resumes logged),
+   every logits row a token was drawn from recorded on the leader
+   (`recorded_rows`: a verify sweep's rows 0..a of a lane); each run held to
    the single-device engine fed the same tokens (`mesh_rows_hold`): every
    token its own row's argmax or within its top k, the logits within 1e-2
    of max(1, max|logit|) of the single device's or, where a dense run's
    summation orders part further, no further from the f32 parity oracle
    (same cache type) than 1.25 x the single device's own distance to it;
    (c) the kernels at those runs' shard shapes against their plain
-   versions, timed, in the kernels line with path "mesh".
+   versions, timed, in the kernels line with path "mesh" (K9 over 4 kv
+   heads of a bf16 and an e5m2 pool, the wqkv GEMM at a verify sweep's 80
+   rows among them).
 The int4 path (e5m2 cache) and the Mixtral fp8 path also run
 the tree phase at depths 2 and 8 (`phase_tree_path`); debug capture also
 runs on Mixtral fp8 (K10's gemv_le), Gemma3 (bf16 cache) and Gemma2 (e5m2
@@ -1785,7 +1795,7 @@ def lanes_label(S: int, Hk: int, lanes, win) -> str:
 
 
 def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=None,
-                          json: bool = True) -> None:
+                          json: bool = True, run: str = "paged") -> None:
     """K9 at B 16 over pools of 257 pages of 256 slots through shuffled
     tables, at the lanes of batched_lanes: the output against the plain
     version, the pool byte for byte (written rows, untouched pages, the
@@ -1797,7 +1807,8 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=No
     win, alt), with the bound and SDPA's mask over the slots inside the
     window; `depths`: the pool depths run (default the model's and 4);
     `json`: whether the kernels line reports the 4-layer row (a path whose
-    serving runs K8 has no K9 launches to report)."""
+    serving runs K8 has no K9 launches to report); `run`: the main-path run
+    whose K9 launches the row reports."""
     import torch
     import torch.nn.functional as F
     from yalm_tpu_torch.ops.cuda import attention as A
@@ -1875,7 +1886,7 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=No
                                                 tables, **rope),
                    bytes_=2 * rows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                    + 4 * 5 * B + 4 * B * nblk,
-                   flops=4 * rows * Hq * D, json_row=json and L == L4, run="paged")
+                   flops=4 * rows * Hq * D, json_row=json and L == L4, run=run)
         if L == L4:   # the profiled ticks' short lanes, where a call's fixed cost shows
             sh = short_lanes(B)
             sl = A.lane_scalars(*sh, S=S, kv_sinks=2, device=dev)
@@ -1901,7 +1912,7 @@ def phase_paged_attention(bench: Bench, cfg, dev, kv_dtype, form=None, depths=No
                                                     sl, tables, **rope),
                        bytes_=2 * srows * Hk * D * item + 4 * B * (2 * Hq * D + 2 * Hk * D)
                        + 4 * 5 * B + 4 * B * nblk,
-                       flops=4 * srows * Hq * D, run="paged")
+                       flops=4 * srows * Hq * D, run=run)
         del kk, vv, k_pool, v_pool
         torch.cuda.empty_cache()
 
@@ -4883,7 +4894,8 @@ def mesh_cards() -> int:
     """Phase 7(b)'s holds on four cards, one NCCL rank each (a card call
     with four chips; not part of main(), which needs one card): Mistral-7B
     fp8 and int4 with tp=4 at 32 layers, Mixtral-8x7B fp8 with ep=4 at
-    depth 4, the dense scheduler on dp=2 x tp=2 and on dp=4, each held to
+    depth 4, the dense scheduler on dp=2 x tp=2 and on dp=4, and phase
+    7(b)'s paged and speculative tp=2 runs on dp=2 x tp=2, each held to
     the single-device port on rank 0's card as in phase 7(b). Correctness,
     as phase 7; the walls it logs are not a scaling measurement. Run from
     the repository root:
@@ -5062,10 +5074,10 @@ def split_sass(other_root: str) -> int:
 # the kernels at shard shapes
 # ---------------------------------------------------------------------------
 
-MESH_LAYERS = 8            # the two-rank runs' Mistral depth
+MESH_LAYERS = 4            # the two-rank runs' Mistral depth
 MESH_MOE_LAYERS = 4        # and Mixtral's
 MESH_PROMPT, MESH_NEW = 200, 64
-MESH_TIMEOUT = 420         # seconds the two-rank world may take
+MESH_TIMEOUT = 720         # seconds the two-rank world may take
 # the two-rank engine runs; the scheduler runs follow on the fp8 weights
 # (run, model, weights, mesh (dp, ep, tp), cache, seed, depth); Mixtral int4
 # at depth 2 brings K11's launches, its logits held to the single device
@@ -5074,12 +5086,27 @@ MESH_RUNS = (("tp2_fp8", "mistral", "fp8", (1, 1, 2), "bf16", 40, MESH_LAYERS),
              ("ep2_moe_fp8", "mixtral", "fp8", (1, 2, 1), "bf16", 42, MESH_MOE_LAYERS),
              ("ep2_moe_int4", "mixtral", "int4", (1, 2, 1), "fp8", 43, 2))
 MESH_ORACLE_SLACK = 1.25   # how much further from the f32 oracle a mesh may be
-MESH_SCHED = (("sched_dp2", (2, 1, 1)), ("sched_tp2", (1, 1, 2)))
+MESH_GROUP_PAGES = 13      # pages of 256 per dp group: 12 usable for its 8 or 16 lanes
+# the scheduler runs at batch 16, at MESH_LAYERS: (run, mesh (dp, ep, tp),
+# weights, cache, options: paged, MESH_GROUP_PAGES a dp group, which must
+# preempt; lookup, a draft of the target's first that many layers or that
+# many random Medusa heads, K = SPEC_K)
+MESH_SCHED = (("sched_dp2", (2, 1, 1), "fp8", "bf16", {}),
+              ("sched_tp2", (1, 1, 2), "fp8", "bf16", {}),
+              ("paged_dp2", (2, 1, 1), "fp8", "bf16", {"paged": True}),
+              ("paged_tp2", (1, 1, 2), "fp8", "bf16", {"paged": True}),
+              ("paged_int4_tp2", (1, 1, 2), "int4", "fp8", {"paged": True}),
+              ("lookup_paged_tp2", (1, 1, 2), "fp8", "bf16", {"paged": True, "lookup": True}),
+              ("draft_tp2", (1, 1, 2), "fp8", "bf16", {"draft": 2}),
+              ("medusa_tp2", (1, 1, 2), "fp8", "bf16", {"medusa": 4}))
 # the four-card runs of mesh_cards: one NCCL rank per card
 MESH_CARD_RUNS = (("tp4_fp8", "mistral", "fp8", (1, 1, 4), "bf16", 40, 32),
                   ("tp4_int4", "mistral", "int4", (1, 1, 4), "fp8", 41, 32),
                   ("ep4_moe_fp8", "mixtral", "fp8", (1, 4, 1), "bf16", 42, MESH_MOE_LAYERS))
-MESH_CARD_SCHED = (("sched_dp2_tp2", (2, 1, 2)), ("sched_dp4", (4, 1, 1)))
+MESH_CARD_SCHED = (("sched_dp2_tp2", (2, 1, 2), "fp8", "bf16", {}),
+                   ("sched_dp4", (4, 1, 1), "fp8", "bf16", {})) + tuple(
+    (run.replace("tp2", "dp2_tp2"), (2, 1, 2), w, kv, o)
+    for run, mc, w, kv, o in MESH_SCHED if o and mc == (1, 1, 2))
 
 
 def greedy_rows(eng, prompt, n: int):
@@ -5182,25 +5209,42 @@ def mesh_rows_hold(name: str, cfg, fw, dev, kv, items, oracle: bool) -> dict:
 def recorded_rows(sched) -> dict:
     """On a mesh scheduler's leader: every request's logits rows, in order,
     as the scheduler draws its tokens from them (the first from its last
-    prefill chunk, the rest from the ticks it writes in), on the host."""
+    prefill chunk, the rest from the ticks it writes in, and in a
+    speculative round from the verify sweep's rows 0..a of its lane, a
+    proposal accepted at row i and the correction at row a), on the host."""
     import torch
     rows: dict = {}
     lanes = sched.lanes
-    tick, prefill = lanes.tick, lanes.prefill
+    tick, prefill, verify, round_ = lanes.tick, lanes.prefill, lanes.verify, None
+    swept: dict = {}
 
-    def on_tick(tokens, positions, write):
-        lg = tick(tokens, positions, write)
+    def on_tick(tokens, positions, write, tables=None):
+        lg = tick(tokens, positions, write, tables)
         on = [b for b, w in enumerate(write) if w]
         for b, row in zip(on, lg[torch.as_tensor(on, device=lg.device)].float().cpu()):
             rows.setdefault(id(sched.slots[b].request), []).append(row)
         return lg
 
-    def on_prefill(b, padded, pos0, take, mode, attend):
-        out = prefill(b, padded, pos0, take, mode, attend)
+    def on_prefill(b, padded, pos0, take, mode, attend, *paged):
+        out = prefill(b, padded, pos0, take, mode, attend, *paged)
         if out is not None:
             rows.setdefault(id(sched.slots[b].request), []).append(out.float().cpu())
         return out
-    lanes.tick, lanes.prefill = on_tick, on_prefill
+
+    def on_verify(tokens, pos0, enable, with_hidden, attend, tables=None):
+        out = verify(tokens, pos0, enable, with_hidden, attend, tables)
+        swept["rows"] = (out[0] if with_hidden else out).float().cpu()
+        return out
+
+    def on_round(elig, props):
+        reqs = {b: sched.slots[b].request for b in elig}
+        before = {b: len(r.generated) for b, r in reqs.items()}
+        round_(elig, props)
+        for b, r in reqs.items():
+            rows.setdefault(id(r), []).extend(swept["rows"][b, :len(r.generated) - before[b]])
+    lanes.tick, lanes.prefill, lanes.verify = on_tick, on_prefill, on_verify
+    if sched.spec:
+        round_, sched._verify_round = sched._verify_round, on_round
     return rows
 
 
@@ -5370,22 +5414,42 @@ def mesh_rank(args: dict) -> dict:
         dist.barrier()
         r["seconds"] = time.perf_counter() - t0
         out[run] = r
-    cfg, fw = mesh_weights_of("mistral", "fp8", dev, 40, MESH_LAYERS)
-    mix = mesh_sched_mix(cfg)
-    ref_streams = None
-    if lead:
-        ref_s = _fast(Scheduler(cfg, fw, batch=16, device=dev))
-        reqs = [Request(**m) for m in mix]
-        for q in reqs:
-            ref_s.submit(q)
-        ref_s.run()
-        ref_streams = [q.generated for q in reqs]
-        del ref_s
-    for run, mc in args.get("sched", MESH_SCHED):
+    models: dict = {}
+
+    def model(wdt, kv):
+        """(cfg, whole weights, the single-device scheduler's streams on
+        the same cache type, on the leader) of a scheduler run, made once."""
+        if wdt not in models:
+            models[wdt] = mesh_weights_of("mistral", wdt, dev, 40 + (wdt == "int4"), MESH_LAYERS)
+        cfg, fw = models[wdt]
+        if lead and (wdt, kv) not in models:
+            ref_s = _fast(Scheduler(cfg, fw, batch=16, device=dev, kv_dtype=kvs[kv]))
+            reqs = [Request(**m) for m in mesh_sched_mix(cfg)]
+            for q in reqs:
+                ref_s.submit(q)
+            ref_s.run()
+            models[wdt, kv] = [q.generated for q in reqs]
+            del ref_s
+        return cfg, fw, models.get((wdt, kv))
+
+    for run, mc, wdt, kv, opts in args.get("sched", MESH_SCHED):
         t0 = time.perf_counter()
+        cfg, fw, ref_streams = model(wdt, kv)
+        mix = mesh_sched_mix(cfg)
         mesh = make_mesh(MeshConfig(*mc), device=dev)
         local = shard_fast_tp_weights(fw, cfg, mesh)
-        sched = _fast(Scheduler(cfg, local, batch=16, device=dev, mesh=mesh))
+        kw: dict = {}
+        if opts.get("paged"):
+            kw.update(paged_pages=mc[0] * MESH_GROUP_PAGES, page_size=PAGE)
+        if opts.get("lookup"):
+            kw.update(spec_lookup=True, spec_k=SPEC_K)
+        if opts.get("draft"):   # the target's first layers (the scheduler cuts its shard)
+            kw.update(spec_draft=(with_layers(cfg, opts["draft"]),
+                                  first_layers(fw, opts["draft"])), spec_k=SPEC_K)
+        if opts.get("medusa"):
+            kw.update(spec_medusa=synth_medusa(cfg, dev, 9, opts["medusa"]), spec_k=SPEC_K)
+        sched = _fast(Scheduler(cfg, local, batch=16, device=dev, mesh=mesh, kv_dtype=kvs[kv],
+                                **kw))
         dist.barrier()
         _build.LAUNCHES.clear()
         r: dict = {}
@@ -5400,18 +5464,30 @@ def mesh_rank(args: dict) -> dict:
                 sched.stop_followers()
             streams = [q.generated for q in reqs]
             rows = [torch.stack(rows[id(q)]) for q in reqs]
+            r.update(preemptions=sched.preemptions, resumes=sched.resumes)
+            if sched.spec:
+                r["spec"] = dict(sched.spec_stats)
+            if sched.paged:
+                r["pages_free"] = [g.n_free for g in sched.alloc.groups]
         else:
             sched.follow()
         torch.cuda.synchronize()
         r["launches"] = dict(_build.LAUNCHES)
-        del sched, local
+        del sched, local, kw
         torch.cuda.empty_cache()
         if lead:
             for m, s, rw in zip(mix, streams, rows):
                 if len(s) != m["max_new_tokens"] or len(rw) != len(s):
                     raise AssertionError(f"{run}: a stream of {len(s)} tokens and {len(rw)} "
                                          f"rows, {m['max_new_tokens']} asked")
-            r["hold"] = mesh_rows_hold(run, cfg, fw, dev, torch.bfloat16, [
+            if opts.get("paged"):
+                if r["pages_free"] != [MESH_GROUP_PAGES - 1] * mc[0]:
+                    raise AssertionError(f"{run}: pages free at the end {r['pages_free']}")
+                if not opts.get("lookup") and not r["preemptions"]:
+                    raise AssertionError(f"{run}: no dp group preempted")
+            if "spec" in r and r["spec"]["rounds"] < 1:
+                raise AssertionError(f"{run}: no verify round")
+            r["hold"] = mesh_rows_hold(run, cfg, fw, dev, kvs[kv], [
                 (m["prompt_tokens"], s, rw, None if m["temperature"] == 0.0 else m["top_k"])
                 for m, s, rw in zip(mix, streams, rows)], oracle=True)
             same = [sum(a == b for a, b in zip(s, q)) for s, q in zip(streams, ref_streams)]
@@ -5421,6 +5497,7 @@ def mesh_rank(args: dict) -> dict:
         dist.barrier()
         r["seconds"] = time.perf_counter() - t0
         out[run] = r
+    del models
     return out
 
 
@@ -5449,16 +5526,25 @@ def phase_mesh_ranks(dev, world: int = 2, backend: str = "gloo", runs=MESH_RUNS,
             + (f", {h['mesh_vs_oracle']:.3f} from the f32 oracle's (the single device: "
                f"{h['single_vs_oracle']:.3f})" if "mesh_vs_oracle" in h else "")
             + f"; {r['wall_ms_per_token']:.2f} ms/token on {where}; {r['seconds']:.1f} s")
-    for run, _ in sched:
+    for run, _, wdt, kv, opts in sched:
         r, h = lead[run], lead[run]["hold"]
-        log(f"  {run}: 20 requests at batch 16, every token drawn from its own row; logits "
+        extra = ""
+        if opts.get("paged"):
+            extra += (f"; {r['preemptions']} preemptions, {r['resumes']} resumes, pages free "
+                      f"at the end {r['pages_free']}")
+        if "spec" in r:
+            st = r["spec"]
+            extra += (f"; {st['rounds']} verify rounds, {st['accepted']} of {st['proposed']} "
+                      "proposals accepted")
+        log(f"  {run} ({wdt}, {kv} cache, {MESH_LAYERS} layers): "
+            f"20 requests at batch 16, every token drawn from its own row; logits "
             f"{h['mesh_vs_single']:.3f} x the tolerance from the single device's"
             + (f", {h['mesh_vs_oracle']:.3f} from the f32 oracle's (the single device: "
                f"{h['single_vs_oracle']:.3f})" if "mesh_vs_oracle" in h else "")
             + f"; {h['near_ties']} greedy tokens not the single device's argmax, "
             f"{r['greedy_equal_to_single']} of 10 greedy streams and "
             f"{r['tokens_equal_to_single']:.3f} of all tokens equal to the single-device "
-            f"scheduler's; {r['seconds']:.1f} s")
+            f"scheduler's{extra}; {r['seconds']:.1f} s")
     return lead
 
 
@@ -5467,8 +5553,9 @@ def phase_mesh_kernels(bench: Bench, dev) -> None:
     against its plain version (2e-3, as phase 2) and timed: Mistral-7B at
     tp=2 (the LM head's 16000 rows, the block's 16 q and 4 kv heads without
     the residual, the FFN's 7168-wide hidden slice on one row and the
-    tick's 16, the tick's wqkv GEMM and K8 over 4 kv heads; int4: the block
-    K6, the FFN K7 and the prefill's wqkv GEMM) and Mixtral-8x7B at ep=2
+    tick's 16, the tick's and a verify sweep's 80-row wqkv GEMM, K8 and K9
+    (bf16 pool) over 4 kv heads; int4: the block K6, the FFN K7, the
+    prefill's wqkv GEMM and K9 over an e5m2 pool) and Mixtral-8x7B at ep=2
     (the 4 local experts' routed GEMV and GEMM, fp8 and int4, and the
     routed GEMV on the id -1 of another rank's expert: zeros, nothing
     loaded)."""
@@ -5554,7 +5641,21 @@ def phase_mesh_kernels(bench: Bench, dev) -> None:
                    bytes_=wb(fl.wqkv, sq if int4 else None) + 4 * M * (d + Nqkv),
                    flops=2 * M * Nqkv * d, json_row=True,
                    run="tp2_int4" if int4 else "sched_tp2")
+        if not int4:   # K1: a verify sweep's 16 x (K + 1) rows on the wqkv shard
+            Mv = 16 * (SPEC_K + 1)
+            xv = randn(Mv, d)
+            bench.case("gemm_l", f"tp=2 shard: wqkv {Nqkv}x{d}, M={Mv} (a verify sweep)",
+                       G.gemm_l(xv, fl.wqkv, 1, None), G.proj_plain(xv, fl.wqkv, 1, None), 2e-3,
+                       kernel=lambda r: G.gemm_l(xv, fl.wqkv, lay(r), None),
+                       plain=lambda r: G.proj_plain(xv, fl.wqkv, lay(r), None),
+                       library=lambda r: F.linear(xv.to(torch.bfloat16), wl[lay(r)]),
+                       bytes_=wb(fl.wqkv) + 4 * Mv * (d + Nqkv), flops=2 * Mv * Nqkv * d,
+                       json_row=True, run="medusa_tp2")
         del wl
+        # K9: the paged tick's attention over the shard's 4 kv heads, B 16, a
+        # pool of 4 layers in pages of 256 (bf16 for fp8, e5m2 for int4)
+        phase_paged_attention(bench, cl, dev, kvd, depths=(4,),
+                              run="paged_int4_tp2" if int4 else "paged_tp2")
         if not int4:
             # K1: the LM head's vocab slice
             lm_bf16 = fl.lm_head.to(torch.bfloat16)
@@ -5714,8 +5815,8 @@ def main() -> int:
         summary["fp8"]["paged"] = phase_serving(cfg_s, fw_s, dev, torch.bfloat16, "fp8",
                                                 n_requests=24, http=4,
                                                 paged_pages=PAGED_PAGES)
-    with phase("phase 3 (fp8 path, bf16 cache): speculation, single stream (32 layers)"):
-        summary["fp8"]["spec"] = phase_spec(cfg, fw, dev, torch.bfloat16)
+    with phase(f"phase 3 (fp8 path, bf16 cache): speculation, single stream ({lay_s} layers)"):
+        summary["fp8"]["spec"] = phase_spec(cfg_s, fw_s, dev, torch.bfloat16)
     with phase(f"phase 3 (fp8 path, bf16 cache): speculation, serving at batch 16 "
                f"({lay_s} layers)"):
         summary["fp8"]["spec_serving"] = phase_spec_serving(cfg_s, fw_s, dev, torch.bfloat16)

@@ -413,12 +413,13 @@ def test_routed_expert_sentinel_plain(int4):
     assert torch.equal(fv(x, w, 1, torch.tensor(1), s), ref)
 
 
-def test_mesh_routes_and_scheduler_refusals():
+def test_mesh_routes_and_scheduler_refusals(tmp_path):
     """The sharded oracle is a later slice (fast=False raises
     NotImplementedError naming ROADMAP.md); fast=True on shards the
     kernels refuse raises JAX's ValueError; the scheduler refuses the paged
-    pool and speculation on a mesh after JAX's own ValueErrors
-    (scheduler.py:507-538)."""
+    pool and speculation on an MoE mesh with JAX's own ValueErrors
+    (scheduler.py:507-538), and builds them on a dense tp=2 mesh (the
+    paged pool's shard: 4 of the 8 pages' kv heads)."""
     cfg, moe = tiny_config(**kw()), tiny_config(**kw(**MOE))
     assert mesh_route(cfg, "auto", grid(tp=2)) is True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -432,10 +433,12 @@ def test_mesh_routes_and_scheduler_refusals():
         Scheduler(moe, None, device="cpu", mesh=grid(ep=2), paged_pages=8, page_size=16)
     with pytest.raises(ValueError, match="spec x mesh"):
         Scheduler(moe, None, device="cpu", mesh=grid(ep=2), spec_lookup=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cfg, None, device="cpu", mesh=m, paged_pages=8, page_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cfg, None, device="cpu", mesh=m, spec_lookup=True)
+    path = str(tmp_path / "m.yalm")
+    synth_checkpoint(path, cfg, seed=4)
+    fw = load_fast_weights(read_yalm(path), cfg, "cpu", tp=2, rank=0)
+    paged = Scheduler(cfg, fw, device="cpu", mesh=m, paged_pages=8, page_size=16)
+    assert paged.paged and tuple(paged.lanes.cache.k.shape) == (8, 2, 16, 1, 128)
+    assert Scheduler(cfg, fw, device="cpu", mesh=m, spec_lookup=True).spec
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scheduler(cfg, None, device="cpu", mesh=m, fast=False)
     with pytest.raises(ValueError, match="batch % dp"):

@@ -893,13 +893,15 @@ def prefill_fast(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int,
 
 def prefill_fast_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, valid_len: int,
                        pool: PagedKVPool, table_b, page: int, row0: int, *,
-                       logits_mode: str = "last", page_size: int = 256, attend_len: int = 0
-                       ) -> tuple[Optional[torch.Tensor], PagedKVPool]:
+                       logits_mode: str = "last", page_size: int = 256, attend_len: int = 0,
+                       shard=None) -> tuple[Optional[torch.Tensor], PagedKVPool]:
     """Chunked prefill of ONE lane through its page table (fast.py:1511-1621):
     the chunk's valid rows land in one page, rows row0.. of (page, layer),
     IN PLACE; attention gathers the lane's pages (`table_b`, (window //
     page_size,) ids) covering attend_len (0 = the window; slots past a
-    lane's history are masked causally). Other arguments as prefill_fast."""
+    lane's history are masked causally). Other arguments as prefill_fast;
+    shard: one rank of the lane's dp group on a mesh, its pool shard's
+    page ids and kv heads (fast_tp.py:1087 make_prefill_paged_fast_tp)."""
     nblk = cfg.max_seq_len // page_size
     if pool.page_size != page_size or cfg.max_seq_len % page_size:
         raise ValueError(f"prefill_fast_paged: pool pages of {pool.page_size} vs page_size "
@@ -913,11 +915,11 @@ def prefill_fast_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0: int, val
         raise ValueError(f"prefill_fast_paged: page {page} outside the pool")
     S = attend_len or cfg.max_seq_len
     nb = -(-S // page_size)
-    out = _prefill_forward(cfg, fw, tokens, pos0, valid_len, attend_len,
-                           lambda i: (pool.k[:, i], pool.v[:, i]),
+    out = _prefill_forward(shard.cfg if shard is not None else cfg, fw, tokens, pos0,
+                           valid_len, attend_len, lambda i: (pool.k[:, i], pool.v[:, i]),
                            (page, slice(row0, row0 + valid_len)),
                            lambda c: gather_pages(c, tab[:nb])[:S], logits_mode,
-                           "prefill_fast_paged")
+                           "prefill_fast_paged", shard)
     return out, pool
 
 
@@ -1004,12 +1006,17 @@ def decode_step_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, position
 
 def decode_step_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, positions,
                                    pool: PagedKVPool, tables, write_mask=None, *,
-                                   page_size: int = 256) -> tuple[torch.Tensor, PagedKVPool]:
+                                   page_size: int = 256, shard=None
+                                   ) -> tuple[torch.Tensor, PagedKVPool]:
     """decode_step_fast_batched over a PAGED pool (fast.py:1434-1507): lane
     b's logical slots resolve through tables[b] ((B, window // page_size)
     page ids) into the shared pool, updated IN PLACE. The lane scalars and
     the tables are uploaded once per tick; each layer runs the paged
-    attention step. Returns (logits (B, vocab) f32, pool)."""
+    attention step. Returns (logits (B, vocab) f32, pool). shard: one
+    rank's tick on a mesh over its dp group's lanes, their group-local
+    tables and its pool shard (fast_tp.py:990 make_tick_paged_fast_tp)."""
+    if shard is not None:
+        cfg = shard.cfg
     if pool.page_size != page_size or cfg.max_seq_len % page_size:
         raise ValueError(f"decode_step_fast_batched_paged: pool pages of {pool.page_size} vs "
                          f"page_size {page_size}, window {cfg.max_seq_len}")
@@ -1022,7 +1029,7 @@ def decode_step_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, po
                          f"{lanes.shape[1]} lanes")
     rope = dict(kv_sinks=KV_SINKS, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
     logits = _tick_forward(cfg, fw, tokens, lambda i, q, k, v, **kw: attend_step_paged(
-        q, k, v, pool.k, pool.v, tab, i, lanes, **rope, **kw))
+        q, k, v, pool.k, pool.v, tab, i, lanes, **rope, **kw), shard)
     return logits, pool
 
 
@@ -1039,13 +1046,17 @@ def _attend_chunk_batched(cfg, q5, kc, vc, mask, D):
 
 
 def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, enable,
-                   attend_len: int, layers, dest, view_of, logits_mode: str, what: str):
+                   attend_len: int, layers, dest, view_of, logits_mode: str, what: str,
+                   shard=None):
     """Batched chunked admission's body (fast.py:1307-1426, 1680-1787):
     every enabled lane's next prompt chunk in ONE weight sweep. Per layer
     the valid rows of enabled lanes are written IN PLACE into the layer's
     cache view `layers(i)` = (k, v) at `dest(lane ids, slots)` (an index
     tuple), and chunk attention reads `view_of(view)` ((B, S, Hk, D), the
-    lanes' slots < S); other lanes change nothing."""
+    lanes' slots < S); other lanes change nothing. shard: one rank's
+    lanes on a mesh (cfg its local shapes), with the step's collectives
+    (fast_tp.py:703-835); the hidden rows after the final norm are the same
+    on every tp rank (fast_tp.py:716-719)."""
     sc = fw.scales
     dev = fw.wqkv.device
     tok = np.asarray(tokens, np.int64)
@@ -1076,7 +1087,7 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
     li, ti = np.nonzero(en[:, None] & (np.arange(T)[None, :] < vlen[:, None]))
     li_t, ti_t = torch.as_tensor(li, device=dev), torch.as_tensor(ti, device=dev)
     at = dest(li, p0[li] + ti)
-    x = _embed(cfg, fw, tok.reshape(-1))               # (B*T, dim)
+    x = _embed(cfg, fw, tok.reshape(-1), shard)        # (B*T, dim)
 
     for i in range(cfg.n_layers):
         xb = rmsnorm(x, fw.rms_att[i], cfg.norm_eps)
@@ -1095,18 +1106,17 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
                 int_view(c)[at] = int_view(rows[li_t, ti_t].to(c.dtype))
         mixed = _attend_chunk_batched(cfg, q.reshape(Bn, T, Hk, qpk, D), view_of(kl),
                                       view_of(vl), mask_of(i), D)
-        x = _wo_rows(cfg, fw, mixed.reshape(Bn * T, q_dim), x, i)
-        x = _ffn_rows(cfg, fw, x, i)
+        x = _wo_rows(cfg, fw, mixed.reshape(Bn * T, q_dim), x, i, shard)
+        x = _ffn_rows(cfg, fw, x, i, shard)
 
     if logits_mode == "none":
         return None
     if logits_mode == "lastv":
         last = torch.as_tensor(np.maximum(vlen, 1) - 1, device=dev)
         x = x.reshape(Bn, T, -1)[torch.arange(Bn, device=dev), last]
-        xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-        return _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None))
+        return _head(cfg, fw, rmsnorm(x, fw.final_norm, cfg.norm_eps), shard)
     xn = rmsnorm(x, fw.final_norm, cfg.norm_eps)
-    logits = _cap_logits(cfg, gemm(xn, fw.lm_head, sc.lm_head if sc else None)).reshape(Bn, T, -1)
+    logits = _head(cfg, fw, xn, shard).reshape(Bn, T, -1)
     if logits_mode == "all_h":   # plus the post-final-norm rows (fast.py:1422-1425)
         return logits, xn.reshape(Bn, T, -1)
     return logits
@@ -1114,7 +1124,7 @@ def _chunk_forward(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len, e
 
 def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, valid_len,
                                enable, cache: KVCache, *, attend_len: int = 0,
-                               logits_mode: str = "lastv"
+                               logits_mode: str = "lastv", shard=None
                                ) -> tuple[Optional[torch.Tensor], KVCache]:
     """Batched chunked admission (fast.py:1283, 1307-1426): every enabled
     lane's next prompt chunk -- tokens (B, T) padded, its first valid_len[b]
@@ -1126,23 +1136,24 @@ def prefill_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, 
 
     logits_mode: "lastv" -> (B, vocab) logits of each lane's last valid
     row; "none" -> None; "all" -> (B, T, vocab); "all_h" -> ((B, T, vocab)
-    logits, (B, T, dim) post-final-norm hidden rows)."""
+    logits, (B, T, dim) post-final-norm hidden rows). shard: one rank's
+    lanes and kv heads on a mesh (fast_tp.py:703)."""
     Bn = np.asarray(tokens).shape[0]
     if cache.k.dim() != 5 or cache.k.shape[0] != Bn:
         raise ValueError(f"prefill_chunk_fast_batched: cache {tuple(cache.k.shape)} vs {Bn} lanes")
     dev = cache.k.device
     S = attend_len or cfg.max_seq_len
-    out = _chunk_forward(cfg, fw, tokens, pos0, valid_len, enable, attend_len,
-                         lambda i: (cache.k[:, i], cache.v[:, i]),
+    out = _chunk_forward(shard.cfg if shard is not None else cfg, fw, tokens, pos0, valid_len,
+                         enable, attend_len, lambda i: (cache.k[:, i], cache.v[:, i]),
                          lambda li, slots: (torch.as_tensor(li, device=dev),
                                             torch.as_tensor(slots, device=dev)),
-                         lambda c: c[:, :S], logits_mode, "prefill_chunk_fast_batched")
+                         lambda c: c[:, :S], logits_mode, "prefill_chunk_fast_batched", shard)
     return out, cache
 
 
 def verify_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, enable,
-                              cache: KVCache, *, with_hidden: bool = False, attend_len: int = 0
-                              ) -> tuple:
+                              cache: KVCache, *, with_hidden: bool = False, attend_len: int = 0,
+                              shard=None) -> tuple:
     """The verify sweep of scheduler speculation (fast.py:1041-1066): ONE
     weight sweep scores every enabled lane's T-row chunk [cur, d0..d_{T-2}]
     at its own pos0 (host values) and writes all T rows of the lane into
@@ -1152,11 +1163,12 @@ def verify_chunk_fast_batched(cfg: ModelConfig, fw: FastWeights, tokens, pos0, e
     scheduler's speculation edge). with_hidden: ((logits, hidden (B, T,
     dim)), cache), the post-final-norm rows Medusa's heads read.
     attend_len (0 = the window, as the JAX package) bounds the attention
-    width; it must cover every enabled lane's pos0 + T."""
+    width; it must cover every enabled lane's pos0 + T. shard: one rank's
+    lanes on a mesh (fast_tp.py:703 make_verify_chunk_fast_tp)."""
     T = np.asarray(tokens).shape[1]
     out, cache = prefill_chunk_fast_batched(
         cfg, fw, tokens, pos0, np.full(np.asarray(tokens).shape[0], T), enable, cache,
-        attend_len=attend_len, logits_mode="all_h" if with_hidden else "all")
+        attend_len=attend_len, logits_mode="all_h" if with_hidden else "all", shard=shard)
     return out, cache
 
 
@@ -1326,7 +1338,7 @@ def scatter_tree_rows(cache: KVCache, ktree, vtree, pos0, rows, n) -> KVCache:
 def prefill_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0,
                                      valid_len, enable, pool: PagedKVPool, tables, *,
                                      page_size: int = 256, logits_mode: str = "lastv",
-                                     attend_len: int = 0
+                                     attend_len: int = 0, shard=None
                                      ) -> tuple[Optional[torch.Tensor], PagedKVPool]:
     """prefill_chunk_fast_batched over a PAGED pool (fast.py:1653,
     1680-1787): each enabled lane's valid chunk rows scatter through its
@@ -1348,25 +1360,29 @@ def prefill_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, 
     dev = pool.k.device
     S = attend_len or cfg.max_seq_len
     nb = -(-S // page_size)
-    out = _chunk_forward(cfg, fw, tokens, pos0, valid_len, enable, attend_len,
-                         lambda i: (pool.k[:, i], pool.v[:, i]),
+    out = _chunk_forward(shard.cfg if shard is not None else cfg, fw, tokens, pos0, valid_len,
+                         enable, attend_len, lambda i: (pool.k[:, i], pool.v[:, i]),
                          lambda li, slots: (torch.as_tensor(tab_host[li, slots // page_size],
                                                             dtype=torch.long, device=dev),
                                             torch.as_tensor(slots % page_size, device=dev)),
                          lambda c: gather_pages(c, tab[:, :nb])[:, :S], logits_mode,
-                         "prefill_chunk_fast_batched_paged")
+                         "prefill_chunk_fast_batched_paged", shard)
     return out, pool
 
 
 def verify_chunk_fast_batched_paged(cfg: ModelConfig, fw: FastWeights, tokens, pos0, enable,
                                     pool: PagedKVPool, tables, *, page_size: int = 256,
-                                    with_hidden: bool = False, attend_len: int = 0) -> tuple:
+                                    with_hidden: bool = False, attend_len: int = 0,
+                                    shard=None) -> tuple:
     """verify_chunk_fast_batched over a PAGED pool (fast.py:1625-1650): the
     chunk rows scatter through the lanes' page tables (a chunk may straddle
     pages). Enabled lanes need their pages mapped through pos0 + T (the
-    scheduler's _ensure_pages)."""
+    scheduler's _ensure_pages). shard: one rank's lanes on a mesh, their
+    group-local tables and its pool shard (fast_tp.py:837
+    make_verify_chunk_paged_fast_tp; a disabled lane writes nothing, where
+    JAX's sends its rows to the group's sink page 0)."""
     T = np.asarray(tokens).shape[1]
     return prefill_chunk_fast_batched_paged(
         cfg, fw, tokens, pos0, np.full(np.asarray(tokens).shape[0], T), enable, pool, tables,
         page_size=page_size, attend_len=attend_len,
-        logits_mode="all_h" if with_hidden else "all")
+        logits_mode="all_h" if with_hidden else "all", shard=shard)

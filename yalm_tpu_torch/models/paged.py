@@ -1,5 +1,6 @@
 """Paged KV cache: block-granular slot sharing for the batching scheduler
-(port of `yalm_tpu/models/paged.py` on one device).
+(port of `yalm_tpu/models/paged.py`; on a mesh, one allocator per dp
+group: GroupedPageAllocator).
 
 The dense batched cache gives every lane a full (n_layers, window, Hk, D)
 allocation whether it holds 10 tokens or 4096: at batch 16 and a 4k window
@@ -207,5 +208,85 @@ class PageAllocator:
 
     def same_pool(self, a: int, b: int) -> bool:
         """Whether preempting lane b frees pages lane a can use (always, on
-        one device; the mesh's grouped allocator is a later slice)."""
+        one device; on a mesh see GroupedPageAllocator)."""
         return True
+
+
+class GroupedPageAllocator:
+    """Per-dp-group allocators for the mesh's paged scheduler (paged.py:
+    206-282): the pool's page axis splits over dp, so each group of
+    batch/dp lanes allocates GROUP-LOCAL page ids out of its own pool shard
+    (parallel/fast_tp.py's paged factories), page 0 of each shard its sink.
+    Same interface as PageAllocator; lanes are global indices, routed to
+    (group, local lane)."""
+
+    def __init__(self, cfg: ModelConfig, n_pages: int, batch: int,
+                 page_size: int = 256, groups: int = 1):
+        if n_pages % groups or batch % groups:
+            raise ValueError(f"pages {n_pages} and batch {batch} must "
+                             f"divide over {groups} dp groups")
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.groups = [PageAllocator(cfg, n_pages // groups, batch // groups,
+                                     page_size) for _ in range(groups)]
+        self.lanes_per_group = batch // groups
+        self.blocks_per_lane = self.groups[0].blocks_per_lane
+
+    def _route(self, lane: int):
+        return (self.groups[lane // self.lanes_per_group],
+                lane % self.lanes_per_group)
+
+    @property
+    def n_free(self) -> int:
+        return sum(g.n_free for g in self.groups)
+
+    @property
+    def lane_capacity(self) -> int:
+        return self.groups[0].n_pages - 1
+
+    @property
+    def tables(self) -> np.ndarray:
+        return np.concatenate([g.tables for g in self.groups])
+
+    def pages_for(self, kv_len: int) -> int:
+        return self.groups[0].pages_for(kv_len)
+
+    def can_grow(self, lane: int, target_len: int) -> bool:
+        g, ll = self._route(lane)
+        return g.can_grow(ll, target_len)
+
+    def grow(self, lane: int, target_len: int) -> None:
+        g, ll = self._route(lane)
+        g.grow(ll, target_len)
+
+    def mapped_through(self, lane: int, target_len: int) -> bool:
+        g, ll = self._route(lane)
+        return g.mapped_through(ll, target_len)
+
+    def release(self, lane: int) -> None:
+        g, ll = self._route(lane)
+        g.release(ll)
+
+    def match_prefix(self, lane: int, tokens) -> int:
+        g, ll = self._route(lane)
+        return g.match_prefix(ll, tokens)
+
+    def register_prefix(self, lane: int, tokens) -> None:
+        g, ll = self._route(lane)
+        g.register_prefix(ll, tokens)
+
+    @property
+    def prefix_stats(self):
+        out = {"hits": 0, "hit_tokens": 0, "registered": 0, "evicted": 0}
+        for g in self.groups:
+            for k in out:
+                out[k] += g.prefix_stats[k]
+        return out
+
+    def same_pool(self, a: int, b: int) -> bool:
+        """Preemption only helps when the victim's pages come from the SAME
+        group's pool shard."""
+        return a // self.lanes_per_group == b // self.lanes_per_group
+
+    def table_array(self) -> np.ndarray:
+        return self.tables

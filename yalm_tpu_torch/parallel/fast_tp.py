@@ -1,6 +1,7 @@
 """Tensor, expert and data parallelism on the kernels (port of
-`yalm_tpu/parallel/fast_tp.py`: decode, chunked prefill and the batched
-tick; speculation and the paged pool on a mesh are a later slice).
+`yalm_tpu/parallel/fast_tp.py`: decode, chunked prefill, the batched
+tick, the paged pool's tick and prefill, and the speculative verify sweep,
+dense and paged).
 
 Each rank runs the SAME step bodies as one device (`models/fast.py`) on its
 Megatron shard -- its heads' q/k/v, its slice of the FFN hidden width and of
@@ -30,12 +31,19 @@ GEMVs answer with zeros without loading (JAX's lax.cond skip,
 fast_tp.py:345-364); the tick and prefill sweep every local expert, as
 JAX's do (fast_tp.py:653-662).
 
-Three factories mirror JAX's (each returns a function over this rank's
+Seven factories mirror JAX's (each returns a function over this rank's
 weights and cache): make_decode_step_fast_tp, make_prefill_fast_tp and
 make_tick_fast_tp (lanes on dp: a rank computes its dp group's lanes and
-the logits of all lanes are summed over dp). `MeshLanes` is the
+the logits of all lanes are summed over dp); over a paged pool whose pages
+split over dp (each group's page ids local to its shard, page 0 its sink)
+and kv heads over tp, make_tick_paged_fast_tp and
+make_prefill_paged_fast_tp (only the lane's group runs it); and the
+verify sweeps of speculation, make_verify_chunk_fast_tp and
+make_verify_chunk_paged_fast_tp (dense models, ep=1, as JAX's), which
+return the hidden rows Medusa's heads read when asked. `MeshLanes` is the
 scheduler's device side on a mesh: the leader rank broadcasts each
-operation's host inputs, the other ranks follow.
+operation's host inputs, the other ranks follow; a draft model on the
+same mesh is a second MeshLanes on the same wire.
 """
 
 from __future__ import annotations
@@ -49,12 +57,15 @@ import torch
 from ..config import ModelConfig
 from ..models.cache import KVCache
 from ..models.fast import (FastScales, FastWeights, decode_step_fast, decode_step_fast_batched,
-                           fast_unsupported, prefill_fast)
+                           decode_step_fast_batched_paged, fast_unsupported, prefill_fast,
+                           prefill_fast_paged, verify_chunk_fast_batched,
+                           verify_chunk_fast_batched_paged)
+from ..models.paged import PagedKVPool
 from ..models.weights import Weights
 from ..ops.core import int_view
 from ..ops.int4 import int4_group
 from .mesh import Mesh
-from .sharding import fast_weight_splits, local_cache_shape, take_shard
+from .sharding import fast_weight_splits, local_cache_shape, local_pool_shape, take_shard
 
 
 # ---------------------------------------------------------------------------
@@ -318,25 +329,42 @@ def make_prefill_fast_tp(cfg: ModelConfig, mesh: Mesh):
 def make_tick_fast_tp(cfg: ModelConfig, mesh: Mesh):
     """tick(fw, tokens, positions, cache, write_mask=None) -> (logits (B, V),
     cache) over dp x ep x tp (fast_tp.py:572): tokens, positions and the
-    write mask are the B lanes' host values; this rank's cache holds its
-    dp group's B/dp lanes, which it decodes; the logits of all B lanes
-    reach every rank (a sum over dp of rows zero outside each group's)."""
+    write mask are the B lanes' host values (the tokens may be a device
+    tensor); this rank's cache holds its dp group's B/dp lanes, which it
+    decodes; the logits of all B lanes reach every rank (a sum over dp of
+    rows zero outside each group's)."""
     shard = TPShard(cfg, mesh)
-    dp, g = mesh.shape["dp"], mesh.coords["dp"]
 
     def tick(fw, tokens, positions, cache, write_mask=None):
-        tok = np.asarray(tokens, np.int64).reshape(-1)
+        tok = _per_lane(tokens)
         B = tok.shape[0]
-        if B % dp:
-            raise ValueError(f"{B} lanes do not split over dp={dp}")
-        Bl = B // dp
-        sl = slice(g * Bl, (g + 1) * Bl)
-        pos = np.asarray(positions, np.int64).reshape(-1)
-        wr = None if write_mask is None else np.asarray(write_mask, np.int64).reshape(-1)[sl]
+        sl = dp_slice(mesh, B)
+        pos = _per_lane(positions, host=True)
+        wr = None if write_mask is None else _per_lane(write_mask, host=True)[sl]
         logits, cache = decode_step_fast_batched(cfg, fw, tok[sl], pos[sl], cache, wr,
                                                  shard=shard)
         return dp_rows(mesh, logits, sl, B), cache
     return tick
+
+
+def _per_lane(a, host: bool = False):
+    """Per-lane values as a flat int64 numpy array, or a flat device tensor
+    as given (a draft tick's argmax stays on the card) unless `host`."""
+    if isinstance(a, torch.Tensor) and not host:
+        return a.reshape(-1)
+    if isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    return np.asarray(a, np.int64).reshape(-1)
+
+
+def dp_slice(mesh: Mesh, B: int) -> slice:
+    """The lanes of this rank's dp group among B: lane b belongs to group
+    b // (B/dp)."""
+    dp, g = mesh.shape["dp"], mesh.coords["dp"]
+    if B % dp:
+        raise ValueError(f"{B} lanes do not split over dp={dp}")
+    Bl = B // dp
+    return slice(g * Bl, (g + 1) * Bl)
 
 
 def dp_rows(mesh: Mesh, rows: torch.Tensor, sl: slice, B: int) -> torch.Tensor:
@@ -349,50 +377,223 @@ def dp_rows(mesh: Mesh, rows: torch.Tensor, sl: slice, B: int) -> torch.Tensor:
     return mesh.all_reduce(full, "dp")
 
 
+def from_group(mesh: Mesh, out: Optional[torch.Tensor], group: int, shape) -> torch.Tensor:
+    """A tensor that dp group `group` computed (`out`, None elsewhere), on
+    every rank: zeros elsewhere, summed over dp (exact)."""
+    if mesh.shape["dp"] == 1:
+        return out
+    buf = out if group == mesh.coords["dp"] else torch.zeros(shape, dtype=torch.float32,
+                                                             device=mesh.device)
+    return mesh.all_reduce(buf.contiguous(), "dp")
+
+
+# ---------------------------------------------------------------------------
+# the paged pool and the verify sweeps (dense models, ep=1)
+# ---------------------------------------------------------------------------
+
+def _dense_shard(cfg: ModelConfig, mesh: Mesh, what: str) -> TPShard:
+    """The hook of a path JAX runs only for dense models with ep=1
+    (fast_tp.py:720, :852, :1004)."""
+    if cfg.is_moe or mesh.shape["ep"] != 1:
+        raise ValueError(f"{what} on a mesh: dense models, ep=1")
+    return TPShard(cfg, mesh)
+
+
+def local_pool(cfg: ModelConfig, mesh: Mesh, n_pages: int, page_size: int,
+               kv_dtype=torch.bfloat16) -> PagedKVPool:
+    """This rank's shard of a pool of n_pages: n_pages/dp pages of Hk/tp
+    heads (fast_tp.py:984 shard_paged_pool); page 0 of every shard is its
+    group's sink."""
+    shape = local_pool_shape(cfg, mesh.shape, n_pages, page_size)
+    return PagedKVPool(k=torch.zeros(shape, dtype=kv_dtype, device=mesh.device),
+                       v=torch.zeros(shape, dtype=kv_dtype, device=mesh.device))
+
+
+def _group_tables(tables, B: int, sl: slice) -> np.ndarray:
+    """This group's rows of the (B, blocks) tables of group-local page ids."""
+    t = tables.cpu().numpy() if isinstance(tables, torch.Tensor) else np.asarray(tables)
+    return np.asarray(t, np.int64).reshape(B, -1)[sl]
+
+
+def make_tick_paged_fast_tp(cfg: ModelConfig, mesh: Mesh, page_size: int):
+    """tick(fw, tokens, positions, pool, tables, write_mask=None) ->
+    (logits (B, V), pool) over a paged pool on dp x tp (fast_tp.py:990):
+    tables (B, window // page_size) hold each lane's page ids local to its
+    dp group; this rank runs its group's lanes over its pool shard (K9 at
+    Hk/tp heads), and every lane's logits reach every rank."""
+    shard = _dense_shard(cfg, mesh, "the paged tick")
+
+    def tick(fw, tokens, positions, pool, tables, write_mask=None):
+        tok = _per_lane(tokens)
+        B = tok.shape[0]
+        sl = dp_slice(mesh, B)
+        pos = _per_lane(positions, host=True)
+        wr = None if write_mask is None else _per_lane(write_mask, host=True)[sl]
+        logits, pool = decode_step_fast_batched_paged(
+            cfg, fw, tok[sl], pos[sl], pool, _group_tables(tables, B, sl), wr,
+            page_size=page_size, shard=shard)
+        return dp_rows(mesh, logits, sl, B), pool
+    return tick
+
+
+def make_prefill_paged_fast_tp(cfg: ModelConfig, mesh: Mesh, page_size: int):
+    """prefill(fw, tokens, pos0, valid_len, pool, table_b, page, row0, group,
+    logits_mode="last", attend_len=0) -> (logits (V,) or None, pool): one
+    lane's prefill chunk over the paged mesh (fast_tp.py:1087). `group` is
+    the dp group that owns the lane; table_b and page are local to its pool
+    shard. Only that group's ranks run the chunk (JAX runs it everywhere
+    with the other groups' writes masked: the pools come out the same),
+    and the "last" logits reach every rank."""
+    shard = _dense_shard(cfg, mesh, "the paged prefill")
+
+    def prefill(fw, tokens, pos0, valid_len, pool, table_b, page, row0, group,
+                logits_mode="last", attend_len=0):
+        if logits_mode not in ("none", "last"):
+            raise ValueError(f"bad logits_mode {logits_mode!r}")
+        out = None
+        if int(group) == mesh.coords["dp"]:
+            out, pool = prefill_fast_paged(cfg, fw, tokens, pos0, valid_len, pool, table_b,
+                                           page, row0, logits_mode=logits_mode,
+                                           page_size=page_size, attend_len=attend_len,
+                                           shard=shard)
+        if logits_mode == "none":
+            return None, pool
+        return from_group(mesh, out, int(group), (cfg.vocab_size,)), pool
+    return prefill
+
+
+def _verify_rows(mesh: Mesh, out, sl: slice, B: int, with_hidden: bool):
+    if with_hidden:
+        return dp_rows(mesh, out[0], sl, B), dp_rows(mesh, out[1], sl, B)
+    return dp_rows(mesh, out, sl, B)
+
+
+def make_verify_chunk_fast_tp(cfg: ModelConfig, mesh: Mesh, with_hidden: bool = False):
+    """verify(fw, tokens (B, T), pos0 (B,), enable (B,), cache, attend_len=0)
+    -> (logits (B, T, V), cache), or ((logits, hidden (B, T, dim)), cache)
+    with_hidden: the speculative verify sweep (verify_chunk_fast_batched)
+    with lanes on dp and heads, hidden and vocab on tp (fast_tp.py:703).
+    Every lane's rows reach every rank; the hidden rows after the final
+    norm are the same on every tp rank."""
+    shard = _dense_shard(cfg, mesh, "the verify sweep")
+
+    def verify(fw, tokens, pos0, enable, cache, attend_len=0):
+        tok = np.asarray(tokens, np.int64)
+        B = tok.shape[0]
+        sl = dp_slice(mesh, B)
+        out, cache = verify_chunk_fast_batched(
+            cfg, fw, tok[sl], _per_lane(pos0, host=True)[sl], _per_lane(enable, host=True)[sl],
+            cache, with_hidden=with_hidden, attend_len=attend_len, shard=shard)
+        return _verify_rows(mesh, out, sl, B, with_hidden), cache
+    return verify
+
+
+def make_verify_chunk_paged_fast_tp(cfg: ModelConfig, mesh: Mesh, page_size: int,
+                                    with_hidden: bool = False):
+    """verify(fw, tokens, pos0, enable, pool, tables, attend_len=0): the
+    verify sweep over the paged mesh (fast_tp.py:837), the chunk rows
+    scattered through each dp group's tables of group-local page ids;
+    returns as make_verify_chunk_fast_tp's."""
+    shard = _dense_shard(cfg, mesh, "the paged verify sweep")
+
+    def verify(fw, tokens, pos0, enable, pool, tables, attend_len=0):
+        tok = np.asarray(tokens, np.int64)
+        B = tok.shape[0]
+        sl = dp_slice(mesh, B)
+        out, pool = verify_chunk_fast_batched_paged(
+            cfg, fw, tok[sl], _per_lane(pos0, host=True)[sl], _per_lane(enable, host=True)[sl],
+            pool, _group_tables(tables, B, sl), page_size=page_size, with_hidden=with_hidden,
+            attend_len=attend_len, shard=shard)
+        return _verify_rows(mesh, out, sl, B, with_hidden), pool
+    return verify
+
+
+def draft_unsupported(dcfg: ModelConfig, mesh: Mesh) -> Optional[str]:
+    """Why a draft model cannot shard over the mesh (scheduler.py:958-960),
+    or None."""
+    tp = mesh.shape["tp"]
+    if fast_tp_unsupported(dcfg, tp, 1):
+        return f"draft x mesh: draft shapes must shard over tp={tp}"
+    return None
+
+
+
+
 # ---------------------------------------------------------------------------
 # the scheduler's device side on a mesh
 # ---------------------------------------------------------------------------
 
-_STOP, _TICK, _PREFILL, _STEP, _RESET = range(5)
+_STOP, _TICK, _PREFILL, _STEP, _RESET, _VERIFY, _PROPOSE = range(7)
 _MODES = ("none", "last")
 
 
 class MeshLanes:
-    """The dense scheduler's device work on a mesh: the batched cache split
-    as B/dp lanes x Hk/tp heads per rank, the tick, one lane's prefill
-    chunk and one lane's decode step. The leader rank (the scheduler's and
-    the HTTP server's owner) calls them; each first broadcasts the
-    operation and its host inputs (tokens, positions, the write mask, a
-    chunk's lane, start, length and logits mode) to every rank, whose
-    `follow()` loop runs the same operation until `stop()`. Lane b belongs
-    to dp group b // (B/dp); the logits of every lane reach the leader."""
+    """The scheduler's device work on a mesh for one model: its cache split
+    as B/dp lanes x Hk/tp heads per rank, or (paged_pages > 0) a pool split
+    as n_pages/dp pages x Hk/tp heads with each dp group's page ids local
+    to its shard; the tick, one lane's prefill chunk, one lane's decode
+    step (dense), the verify sweep and a draft's greedy proposal ticks.
+
+    The leader rank (the scheduler's and the HTTP server's owner) calls
+    them; each first broadcasts the operation, the model's tag and its host
+    inputs (tokens, positions, the write mask, the page tables, a chunk's
+    lane, start, length and logits mode) to every rank, whose `follow()`
+    loop runs the same operation until `stop()`. Lane b belongs to dp group
+    b // (B/dp); every lane's logits reach every rank. A draft model on the
+    same mesh is another MeshLanes with tag 1, added to the target's with
+    `add_peer`: both issue their collectives on the same process groups, in
+    the one order the leader broadcast them (scheduler.py:947-1000)."""
 
     def __init__(self, cfg: ModelConfig, fw: FastWeights, mesh: Mesh, batch: int,
-                 kv_dtype=torch.bfloat16):
+                 kv_dtype=torch.bfloat16, *, paged_pages: int = 0, page_size: int = 256,
+                 tag: int = 0):
         self.cfg, self.fw, self.mesh = cfg, fw, mesh
         self.B, self.kv_dtype = batch, kv_dtype
         self.B_l = batch // mesh.shape["dp"]
         self.g = mesh.coords["dp"]
         self.shard = TPShard(cfg, mesh)
-        self._tick = make_tick_fast_tp(cfg, mesh)
-        self.cache = local_cache(cfg, mesh, kv_dtype, batch)
+        self.paged = paged_pages > 0
+        self.n_pages, self.page_size = paged_pages, page_size
+        self.nblk = cfg.max_seq_len // page_size
+        self.tag = tag
+        self.peers = {tag: self}
+        if self.paged:
+            self._tick = make_tick_paged_fast_tp(cfg, mesh, page_size)
+            self._prefill_paged = make_prefill_paged_fast_tp(cfg, mesh, page_size)
+        else:
+            self._tick = make_tick_fast_tp(cfg, mesh)
+        self._verify = {}   # with_hidden -> the sweep, built at first use
+        self.cache = self._fresh()
 
-    # -- the wire: an int64 header (op, payload length), then the payload
-    def _send(self, op: int, payload=()) -> torch.Tensor:
-        p = torch.as_tensor(np.asarray(payload, np.int64).reshape(-1), device=self.mesh.device)
-        self.mesh.broadcast(torch.tensor([op, p.numel()], dtype=torch.int64,
+    def add_peer(self, other: "MeshLanes") -> None:
+        """Put another model's lanes (a draft) on this wire: this object's
+        follow() runs their operations too."""
+        if other.tag in self.peers:
+            raise ValueError(f"tag {other.tag} is taken")
+        self.peers[other.tag] = other
+        other.peers = self.peers
+
+    def _fresh(self):
+        if self.paged:
+            return local_pool(self.cfg, self.mesh, self.n_pages, self.page_size, self.kv_dtype)
+        return local_cache(self.cfg, self.mesh, self.kv_dtype, self.B)
+
+    # -- the wire: an int64 header (op, payload length, tag), then the payload
+    def _send(self, op: int, payload=()) -> np.ndarray:
+        p = np.asarray(payload, np.int64).reshape(-1)
+        self.mesh.broadcast(torch.tensor([op, p.size, self.tag], dtype=torch.int64,
                                          device=self.mesh.device))
-        if p.numel():
-            self.mesh.broadcast(p)
+        if p.size:
+            self.mesh.broadcast(torch.as_tensor(p, device=self.mesh.device))
         return p
 
     def _recv(self):
-        head = self.mesh.broadcast(torch.zeros(2, dtype=torch.int64, device=self.mesh.device))
-        op, n = (int(v) for v in head.tolist())
+        head = self.mesh.broadcast(torch.zeros(3, dtype=torch.int64, device=self.mesh.device))
+        op, n, tag = (int(v) for v in head.tolist())
         p = torch.zeros(n, dtype=torch.int64, device=self.mesh.device)
         if n:
             self.mesh.broadcast(p)
-        return op, p.cpu().numpy()
+        return op, p.cpu().numpy(), tag
 
     def _lane(self, b: int):
         """(owner dp group, this rank's view of lane b or None)."""
@@ -401,21 +602,37 @@ class MeshLanes:
 
     def _from_owner(self, out, owner: int):
         """One lane's logits from its dp group to every rank."""
-        if self.mesh.shape["dp"] == 1:
-            return out
-        buf = out if owner == self.g else torch.zeros(self.cfg.vocab_size, dtype=torch.float32,
-                                                      device=self.mesh.device)
-        return self.mesh.all_reduce(buf.contiguous(), "dp")
+        return from_group(self.mesh, out, owner, (self.cfg.vocab_size,))
+
+    def _tables(self, p: np.ndarray) -> Optional[np.ndarray]:
+        return p.reshape(self.B, self.nblk) if self.paged else None
 
     # -- the operations (leader: broadcast, then run; followers: run)
-    def _run_tick(self, p: np.ndarray) -> torch.Tensor:
+    def _tick_args(self, tokens, positions, write, tables=None) -> np.ndarray:
+        arrs = [tokens, positions, write] + ([tables] if self.paged else [])
+        return np.concatenate([np.asarray(a, np.int64).reshape(-1) for a in arrs])
+
+    def _run_tick(self, p: np.ndarray, tokens=None) -> torch.Tensor:
         B = self.B
-        logits, _ = self._tick(self.fw, p[:B], p[B:2 * B], self.cache, p[2 * B:3 * B])
+        tok = p[:B] if tokens is None else tokens
+        if self.paged:
+            logits, _ = self._tick(self.fw, tok, p[B:2 * B], self.cache,
+                                   self._tables(p[3 * B:]), p[2 * B:3 * B])
+        else:
+            logits, _ = self._tick(self.fw, tok, p[B:2 * B], self.cache, p[2 * B:3 * B])
         return logits
 
     def _run_prefill(self, p: np.ndarray):
         b, pos0, take, mode, attend = (int(v) for v in p[:5])
-        owner, lane = self._lane(b)
+        owner = b // self.B_l
+        if self.paged:
+            page, row0 = int(p[5]), int(p[6])
+            table_b, padded = p[7:7 + self.nblk], p[7 + self.nblk:]
+            out, _ = self._prefill_paged(self.fw, padded, pos0, take, self.cache, table_b, page,
+                                         row0, owner, logits_mode=_MODES[mode],
+                                         attend_len=attend)
+            return out
+        _, lane = self._lane(b)
         out = None
         if lane is not None:
             out, _ = prefill_fast(self.cfg, self.fw, p[5:], pos0, take, lane,
@@ -431,28 +648,74 @@ class MeshLanes:
                                       output_logits=bool(want), shard=self.shard)
         return self._from_owner(out, owner) if want else None
 
-    def tick(self, tokens, positions, write) -> torch.Tensor:
-        """(B, V) logits of one batched tick (every rank runs its lanes)."""
-        p = np.concatenate([np.asarray(a, np.int64).reshape(-1)
-                            for a in (tokens, positions, write)])
-        self._send(_TICK, p)
-        return self._run_tick(p)
+    def _run_verify(self, p: np.ndarray):
+        B = self.B
+        T, wh, attend = (int(v) for v in p[:3])
+        o = 3 + B * T
+        tokens, pos0, enable = p[3:o].reshape(B, T), p[o:o + B], p[o + B:o + 2 * B]
+        if wh not in self._verify:
+            self._verify[wh] = (
+                make_verify_chunk_paged_fast_tp(self.cfg, self.mesh, self.page_size, bool(wh))
+                if self.paged else make_verify_chunk_fast_tp(self.cfg, self.mesh, bool(wh)))
+        if self.paged:
+            out, _ = self._verify[wh](self.fw, tokens, pos0, enable, self.cache,
+                                      self._tables(p[o + 2 * B:]), attend_len=attend)
+        else:
+            out, _ = self._verify[wh](self.fw, tokens, pos0, enable, self.cache,
+                                      attend_len=attend)
+        return out
 
-    def prefill(self, b: int, padded, pos0: int, take: int, mode: str, attend: int):
-        """Lane b's prefill chunk; (V,) logits for mode "last", else None."""
-        p = np.concatenate([[b, pos0, take, _MODES.index(mode), attend],
-                            np.asarray(padded, np.int64).reshape(-1)])
-        self._send(_PREFILL, p)
-        return self._run_prefill(p)
+    def _run_propose(self, p: np.ndarray) -> torch.Tensor:
+        """K+1 greedy ticks (every lane's argmax feeds its next tick on the
+        card; the logits are the same bits on every rank, so is the argmax)."""
+        K, B = int(p[0]), self.B
+        q = p[1:].copy()
+        out = torch.empty((B, K + 1), dtype=torch.long, device=self.mesh.device)
+        toks = None
+        for i in range(K + 1):
+            toks = torch.argmax(self._run_tick(q, toks), dim=-1)
+            out[:, i] = toks
+            q[B:2 * B] += 1
+        return out
+
+    def tick(self, tokens, positions, write, tables=None) -> torch.Tensor:
+        """(B, V) logits of one batched tick (every rank runs its group's
+        lanes); paged: tables (B, blocks) of group-local page ids."""
+        return self._run_tick(self._send(_TICK, self._tick_args(tokens, positions, write,
+                                                                tables)))
+
+    def prefill(self, b: int, padded, pos0: int, take: int, mode: str, attend: int,
+                table_b=None, page: int = 0, row0: int = 0):
+        """Lane b's prefill chunk; (V,) logits for mode "last", else None.
+        Paged: lane b's table row, the chunk's page (group-local) and its
+        first row in the page."""
+        head = [b, pos0, take, _MODES.index(mode), attend]
+        if self.paged:
+            head += [page, row0] + [int(t) for t in np.asarray(table_b).reshape(-1)]
+        p = np.concatenate([head, np.asarray(padded, np.int64).reshape(-1)])
+        return self._run_prefill(self._send(_PREFILL, p))
 
     def step(self, b: int, token: int, pos: int, output_logits: bool = True):
-        """One decode step of lane b alone (ring-regime hydration)."""
-        p = np.asarray([b, token, pos, int(output_logits)], np.int64)
-        self._send(_STEP, p)
-        return self._run_step(p)
+        """One decode step of lane b alone (dense ring-regime hydration)."""
+        return self._run_step(self._send(_STEP, [b, token, pos, int(output_logits)]))
+
+    def verify(self, tokens, pos0, enable, with_hidden: bool, attend: int, tables=None):
+        """The verify sweep of tokens (B, T) at pos0 for the enabled lanes:
+        (B, T, V) logits, or (logits, (B, T, dim) hidden rows) with_hidden."""
+        tok = np.asarray(tokens, np.int64)
+        p = np.concatenate([[tok.shape[1], int(with_hidden), attend], tok.reshape(-1),
+                            np.asarray(pos0, np.int64), np.asarray(enable, np.int64)]
+                           + ([np.asarray(tables, np.int64).reshape(-1)] if self.paged else []))
+        return self._run_verify(self._send(_VERIFY, p))
+
+    def propose(self, tokens, positions, write, K: int) -> np.ndarray:
+        """A draft's K+1 greedy batched ticks from tokens at positions
+        (write-masked lanes attend read-only): (B, K+1) ids, read once."""
+        p = np.concatenate([[K], self._tick_args(tokens, positions, write)])
+        return self._run_propose(self._send(_PROPOSE, p)).cpu().numpy()
 
     def reset(self) -> None:
-        """A zeroed cache on every rank (the scheduler's recovery)."""
+        """A zeroed cache or pool on every rank (the scheduler's recovery)."""
         self._send(_RESET)
         self._run_reset()
 
@@ -460,18 +723,20 @@ class MeshLanes:
         self.cache = None
         if self.mesh.device.type == "cuda":
             torch.cuda.empty_cache()
-        self.cache = local_cache(self.cfg, self.mesh, self.kv_dtype, self.B)
+        self.cache = self._fresh()
 
     def stop(self) -> None:
         """End every follower's loop."""
         self._send(_STOP)
 
     def follow(self) -> None:
-        """A follower rank's loop: run what the leader broadcasts until it
-        stops."""
+        """A follower rank's loop: run what the leader broadcasts, for this
+        model or a peer, until it stops."""
         while True:
-            op, p = self._recv()
+            op, p, tag = self._recv()
             if op == _STOP:
                 return
-            {_TICK: self._run_tick, _PREFILL: self._run_prefill, _STEP: self._run_step,
-             _RESET: lambda p: self._run_reset()}[op](p)
+            lanes = self.peers[tag]
+            {_TICK: lanes._run_tick, _PREFILL: lanes._run_prefill, _STEP: lanes._run_step,
+             _VERIFY: lanes._run_verify, _PROPOSE: lanes._run_propose,
+             _RESET: lambda p: lanes._run_reset()}[op](p)

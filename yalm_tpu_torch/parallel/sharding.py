@@ -10,6 +10,7 @@ dimension. The tensor-parallel layout is the Megatron split:
 - wo: input columns on `tp` -> partial sums, summed over tp
 - w1/w3 (w13, shard-major): hidden rows on `tp`; w2: hidden columns on `tp`
 - the KV cache: kv heads on `tp` (attention is local to a rank), lanes on `dp`
+- the paged pool: kv heads on `tp`, pages on `dp` (group-local page ids)
 - embed / lm_head: vocab rows on `tp`
 - MoE experts on `ep`, their inner dimensions on `tp` as above
 
@@ -65,6 +66,13 @@ def cache_splits(batched: bool = False) -> tuple:
     return ((0, "dp"), (3, "tp")) if batched else ((2, "tp"),)
 
 
+def paged_pool_splits() -> tuple:
+    """The paged pool (n_pages, L, page, Hk, D): the page axis on dp (each
+    dp group allocates group-local page ids out of its own shard), kv
+    heads on tp (fast_tp.py:977-981 paged_pool_pspecs)."""
+    return ((0, "dp"), (3, "tp"))
+
+
 def take_shard(t, splits, shape: dict, coords: dict, what: str = "tensor"):
     """This rank's chunk of t, a torch tensor or a numpy array (a view, so
     a checkpoint mmap's rows are not copied), under a table entry; raises
@@ -87,6 +95,18 @@ def local_cache_shape(cfg: ModelConfig, shape: dict, batch: int | None = None) -
     for dim, axis in cache_splits(batch is not None):
         if full[dim] % shape[axis]:
             raise ValueError(f"cache dimension {dim} ({full[dim]}) does not split "
+                             f"{shape[axis]} ways over {axis}")
+        out[dim] = full[dim] // shape[axis]
+    return tuple(out)
+
+
+def local_pool_shape(cfg: ModelConfig, shape: dict, n_pages: int, page_size: int) -> tuple:
+    """The (n_pages/dp, L, page, Hk/tp, D) pool shard a rank holds."""
+    full = (n_pages, cfg.n_layers, page_size, cfg.n_kv_heads, cfg.head_dim)
+    out = list(full)
+    for dim, axis in paged_pool_splits():
+        if full[dim] % shape[axis]:
+            raise ValueError(f"pool dimension {dim} ({full[dim]}) does not split "
                              f"{shape[axis]} ways over {axis}")
         out[dim] = full[dim] // shape[axis]
     return tuple(out)

@@ -50,17 +50,23 @@
   writing lane of a tick, per-slot prefill; no paged pool, no batched
   admission, no prefix cache, no speculation.
 
-- A mesh (`mesh`, parallel/mesh.Mesh; scheduler.py:527-540, 653-680):
-  lanes split over dp, heads and the FFN hidden width over tp, experts over
-  ep. Every rank builds the Scheduler; the leader (rank 0) owns the
-  requests, and each tick, prefill chunk and ring-hydration step it runs
-  is broadcast with its host inputs (tokens, positions, the write mask) to
-  the other ranks, which `follow()` until `stop_followers()`
-  (parallel/fast_tp.MeshLanes); the logits of every lane reach the leader,
-  which samples. As in JAX's, a mesh takes the dense cache with per-slot
-  admission (no batched admission, no prefix cache); the paged pool,
-  speculation and the sharded oracle on a mesh are a later slice of the
-  port (ROADMAP.md item 13) and raise NotImplementedError.
+- A mesh (`mesh`, parallel/mesh.Mesh; scheduler.py:527-680, 832-858,
+  947-1000): lanes split over dp, heads and the FFN hidden width over tp,
+  experts over ep. Every rank builds the Scheduler; the leader (rank 0)
+  owns the requests, and each tick, prefill chunk, ring-hydration step,
+  verify sweep and draft proposal it runs is broadcast with its host
+  inputs (tokens, positions, the write mask, the page tables) to the other
+  ranks, which `follow()` until `stop_followers()`
+  (parallel/fast_tp.MeshLanes); the logits (and Medusa's hidden rows) of
+  every lane reach the leader, which samples and accepts. As in JAX's, a
+  mesh takes per-slot admission (no batched admission, no dense prefix
+  registry). The paged pool splits its pages over dp (GroupedPageAllocator:
+  one allocator per group, page ids local to the group's pool shard,
+  preemption inside the lane's group) and its kv heads over tp; all three
+  proposal sources speculate on a dense model with ep=1, a draft model
+  sharded over the same mesh with its own cache. The sharded oracle on a
+  mesh is a later slice of the port (ROADMAP.md item 13) and raises
+  NotImplementedError.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ from .models.fast import (cartesian_tree, decode_step_fast, decode_step_fast_bat
                           prefill_fast, prefill_fast_paged,
                           scatter_tree_rows, tree_depths, verify_chunk_fast_batched,
                           verify_chunk_fast_batched_paged, verify_tree_fast_batched)
-from .models.paged import PageAllocator, PagedKVPool
+from .models.paged import GroupedPageAllocator, PageAllocator, PagedKVPool
 from .models.transformer import decode_step, prefill
 from .sampler import _envelope, sample_rows, uniform_rows
 from .spec import NgramHistory
@@ -427,10 +433,6 @@ class Scheduler:
             if paged_pages > 0 and moe_ep:
                 raise ValueError("paged cache + mesh needs ep=1 and a dense model; "
                                  "single-device paged x MoE works")
-            if paged_pages > 0 or spec:
-                raise NotImplementedError("the paged pool and speculation on a mesh are a "
-                                          "later slice of the PyTorch port (ROADMAP.md "
-                                          "item 13)")
             self.fast = mesh_route(cfg, fast, mesh)
             if batch % mesh.shape["dp"]:
                 raise ValueError(f"mesh scheduler requires the fast TP path and batch % dp "
@@ -492,12 +494,27 @@ class Scheduler:
             self.spec_k = min(self.spec_k, spec_medusa.n_heads)
         self.spec_stats = {"rounds": 0, "accepted": 0, "proposed": 0}
         self.spec_edge = self.cfg.max_seq_len
-        self.draft_cfg = self.draft_weights = self.draft_cache = None
+        self.draft_cfg = self.draft_weights = self.draft_cache = self.draft_lanes = None
         if spec_draft is None:
             return
         dcfg, dweights = spec_draft
         if dcfg.vocab_size != self.cfg.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
+        # the draft's window binds too: its ring cannot roll back a rejection
+        self.spec_edge = min(self.cfg.max_seq_len, dcfg.max_seq_len)
+        if self.mesh is not None:
+            # the draft shards over the SAME mesh with its own cache; its
+            # ticks and prefill ride the target's wire (scheduler.py:947-1000)
+            from .parallel.fast_tp import MeshLanes, draft_unsupported, mesh_weights
+            why = draft_unsupported(dcfg, self.mesh)
+            if why:
+                raise ValueError(why)
+            self.draft_cfg = dcfg
+            self.draft_weights = mesh_weights(dcfg, dweights, self.mesh)
+            self.draft_lanes = MeshLanes(dcfg, self.draft_weights, self.mesh, self.B,
+                                         self.kv_dtype, tag=1)
+            self.lanes.add_peer(self.draft_lanes)
+            return
         why = fast_unsupported(dcfg)
         if why:
             raise ValueError(f"the draft's shapes do not fit the port's kernels: {why}")
@@ -507,8 +524,6 @@ class Scheduler:
         self.draft_cfg, self.draft_weights = dcfg, dweights
         # a dense batched draft cache, also under a paged target
         self.draft_cache = KVCache.init(dcfg, self.kv_dtype, self.device, batch=self.B)
-        # the draft's window binds too: its ring cannot roll back a rejection
-        self.spec_edge = min(self.cfg.max_seq_len, dcfg.max_seq_len)
 
     def _init_tree(self, spec_tree) -> None:
         """Tree-attention Medusa's static tree (scheduler.py:884-936): the
@@ -541,8 +556,12 @@ class Scheduler:
         if self.mesh is not None:
             from .parallel.fast_tp import MeshLanes
             self.cache = None
+            if self.paged:
+                self.alloc = GroupedPageAllocator(self.cfg, self.n_pages, self.B, self.page_size,
+                                                  groups=self.mesh.shape["dp"])
             if getattr(self, "lanes", None) is None:
-                self.lanes = MeshLanes(self.cfg, self.weights, self.mesh, self.B, self.kv_dtype)
+                self.lanes = MeshLanes(self.cfg, self.weights, self.mesh, self.B, self.kv_dtype,
+                                       paged_pages=self.n_pages, page_size=self.page_size)
             else:
                 self.lanes.reset()
             return
@@ -742,12 +761,15 @@ class Scheduler:
             slot.med_props = None
             return
         dcfg = self.draft_cfg
-        lane = self.draft_cache.lane(b)
         for i0, take, bucket in chunk_schedule(len(toks), 0, dcfg.max_seq_len):
             padded = np.zeros(bucket, np.int64)
             padded[:take] = toks[i0: i0 + take]
-            prefill_fast(dcfg, self.draft_weights, padded, i0, take, lane, logits_mode="none",
-                         attend_len=attend_bucket(i0 + bucket, dcfg.max_seq_len))
+            attend = attend_bucket(i0 + bucket, dcfg.max_seq_len)
+            if self.draft_lanes is not None:
+                self.draft_lanes.prefill(b, padded, i0, take, "none", attend)
+            else:
+                prefill_fast(dcfg, self.draft_weights, padded, i0, take, self.draft_cache.lane(b),
+                             logits_mode="none", attend_len=attend)
 
     def _finish_resume(self, slot: _Slot) -> None:
         """End a preemption-resume re-hydration: the stream's tokens were all
@@ -819,6 +841,8 @@ class Scheduler:
         positions[b] = pos
         write = np.zeros(self.B, np.int64)
         write[b] = 1
+        if self.mesh is not None:
+            return self.lanes.tick(tokens, positions, write, self.alloc.table_array())[b]
         logits, _ = decode_step_fast_batched_paged(
             self.cfg, self.weights, tokens, positions, self.cache, self.alloc.table_array(),
             write, page_size=self.page_size)
@@ -854,10 +878,16 @@ class Scheduler:
                 mode = "last" if last and not slot.resuming else "none"
                 attend = attend_bucket(slot.pos + bucket, window)
                 if self.paged:
-                    out, _ = prefill_fast_paged(
-                        self.cfg, self.weights, padded, slot.pos, take, self.cache,
-                        self.alloc.tables[b], int(self.alloc.tables[b, slot.pos // ps]),
-                        slot.pos % ps, logits_mode=mode, page_size=ps, attend_len=attend)
+                    table_b = self.alloc.tables[b]
+                    page, row0 = int(table_b[slot.pos // ps]), slot.pos % ps
+                    if self.mesh is not None:   # page ids local to lane b's dp group
+                        out = self.lanes.prefill(b, padded, slot.pos, take, mode, attend,
+                                                 table_b, page, row0)
+                    else:
+                        out, _ = prefill_fast_paged(
+                            self.cfg, self.weights, padded, slot.pos, take, self.cache,
+                            table_b, page, row0, logits_mode=mode, page_size=ps,
+                            attend_len=attend)
                 elif self.mesh is not None:
                     out = self.lanes.prefill(b, padded, slot.pos, take, mode, attend)
                 elif self.fast:
@@ -1013,6 +1043,8 @@ class Scheduler:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._new_cache()
+        if self.draft_lanes is not None:
+            self.draft_lanes.reset()
 
     # ------------------------------------------------------------------
     def step(self) -> int:
@@ -1047,11 +1079,12 @@ class Scheduler:
         args = (self.cfg, self.weights, [s.last_token for s in self.slots],
                 [s.pos for s in self.slots], self.cache)
         write = [int(b in on) for b in range(self.B)]
-        if self.paged:
+        if self.mesh is not None:
+            logits = self.lanes.tick(args[2], args[3], write,
+                                     self.alloc.table_array() if self.paged else None)
+        elif self.paged:
             logits, _ = decode_step_fast_batched_paged(
                 *args, self.alloc.table_array(), write, page_size=self.page_size)
-        elif self.mesh is not None:
-            logits = self.lanes.tick(args[2], args[3], write)
         elif self.fast:
             logits, _ = decode_step_fast_batched(*args, write)
         else:
@@ -1081,6 +1114,8 @@ class Scheduler:
         d[K-1], which full acceptance keeps visible. Returns (B, K+1) ids,
         read back once."""
         K = self.spec_k
+        if self.draft_lanes is not None:
+            return self.draft_lanes.propose(tokens, positions, write, K)
         out = torch.empty((self.B, K + 1), dtype=torch.long, device=self.device)
         toks = torch.as_tensor(tokens, device=self.device)
         for i in range(K + 1):
@@ -1152,7 +1187,10 @@ class Scheduler:
         window = self.cfg.max_seq_len
         attend = max(attend_bucket(int(positions[b]) + K + 1, window) for b in elig)
         wh = self.spec_medusa is not None
-        if self.paged:
+        if self.mesh is not None:
+            out = self.lanes.verify(chunk, positions, write, wh, attend,
+                                    self.alloc.table_array() if self.paged else None)
+        elif self.paged:
             out, _ = verify_chunk_fast_batched_paged(
                 self.cfg, self.weights, chunk, positions, write, self.cache,
                 self.alloc.table_array(), page_size=self.page_size, with_hidden=wh,

@@ -24,7 +24,11 @@ On a mesh (`--mesh DP,EP,TP`, one process per device, launched by
 model.yalm --mesh DP,EP,TP`; `--distributed` with `--coordinator`,
 `--num-processes` and `--process-id` for a manual cluster) rank 0 owns the
 scheduler and the HTTP server and the other ranks follow its device work
-(scheduler.py); lanes split over dp, experts over ep, heads over tp.
+(scheduler.py); lanes split over dp, experts over ep, heads over tp. On a
+dense model with ep=1, `--paged-pages` (pages split over dp, one allocator
+per group: /metrics' `yalm_pages_free` sums the groups), `--spec-lookup`,
+`--draft` (each rank loads the draft's shard) and `--medusa` compose with
+the mesh.
 """
 
 from __future__ import annotations
@@ -107,12 +111,13 @@ class ServingEngine:
     @classmethod
     def from_checkpoint(cls, path: str, *, context: int = 0, batch: int = 8,
                         device="cuda", medusa: bool = False, medusa_tree=None, fast="auto",
-                        mesh=None, **kw) -> "ServingEngine":
+                        mesh=None, draft: str | None = None, **kw) -> "ServingEngine":
         """medusa: serve with the checkpoint's own Medusa heads; medusa_tree
         ("4,2" or a tuple of branching factors): with tree-attention
-        verification. The weights load straight into the route's layout
+        verification; draft: a draft checkpoint's path (scheduler
+        speculation). The weights load straight into the route's layout
         (server.py:91-118): load_fast_weights for the kernels, load_weights
-        for the oracle; on a mesh, each rank its shard."""
+        for the oracle; on a mesh, each rank its shard, the draft's too."""
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
@@ -137,6 +142,8 @@ class ServingEngine:
                                    if isinstance(medusa_tree, str) else tuple(medusa_tree))
         finally:
             yf.close()  # the weights were copied out of the mapping
+        if draft:
+            kw["spec_draft"] = load_draft(draft, context, dev, mesh)
         return cls(cfg, weights, tok, batch=batch, device=dev, fast=fast, mesh=mesh, **kw)
 
     # -- scheduler thread -----------------------------------------------
@@ -700,23 +707,34 @@ def main(argv=None) -> None:
         dist.destroy_process_group()
 
 
+def load_draft(path: str, context: int, device, mesh=None) -> tuple:
+    """(cfg, FastWeights) of a draft checkpoint on `device`, or on a mesh
+    this rank's shard on its device; a draft whose shards do not fit the
+    mesh raises JAX's ValueError (scheduler.py:958-960) before it loads."""
+    yf = read_yalm(path)
+    try:
+        dcfg = ModelConfig.from_metadata(yf.metadata, context=context)
+        if mesh is None:
+            return dcfg, load_fast_weights(yf, dcfg, resolve_device(device))
+        from .parallel.fast_tp import draft_unsupported
+        why = draft_unsupported(dcfg, mesh)
+        if why:
+            raise ValueError(why)
+        return dcfg, load_fast_weights(yf, dcfg, resolve_device(mesh.device),
+                                       tp=mesh.shape["tp"], ep=mesh.shape["ep"],
+                                       rank=mesh.position)
+    finally:
+        yf.close()
+
+
 def _serve_main(args, ap, mesh) -> None:
     """Build the serving engine and serve (a mesh's follower follows)."""
     kv_dtype = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[args.kv]
-    spec_draft = None
-    if args.draft:
-        dev = resolve_device(args.device)
-        dyf = read_yalm(args.draft)
-        try:
-            dcfg = ModelConfig.from_metadata(dyf.metadata, context=args.context)
-            spec_draft = (dcfg, load_fast_weights(dyf, dcfg, dev))
-        finally:
-            dyf.close()
     engine = ServingEngine.from_checkpoint(
         args.checkpoint, context=args.context, batch=args.batch, device=args.device,
         kv_dtype=kv_dtype, max_prompt_tokens=args.max_prompt_tokens,
         chat_template=args.chat_template, paged_pages=args.paged_pages,
-        page_size=args.page_size, spec_draft=spec_draft, spec_k=args.spec_k,
+        page_size=args.page_size, draft=args.draft, spec_k=args.spec_k,
         spec_lookup=args.spec_lookup, spec_ngram=args.spec_ngram, medusa=args.medusa,
         medusa_tree=args.medusa_tree, mesh=mesh)
     if mesh is not None and not mesh.leader:

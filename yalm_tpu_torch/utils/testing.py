@@ -378,11 +378,12 @@ def mesh_cases(args: dict) -> list:
     a mesh of this world, in order, and return each case's result (every
     rank runs every case; the tests read rank 0's and check the others').
 
-    Case keys: "op" (decode | prefill | tick | engine | weights | scheduler
-    | server), "path" (a checkpoint), "mesh" ((dp, ep, tp)), "kv" ("bf16" |
-    "fp8"), and the op's inputs: "tokens" and "positions" (decode: one
-    token per step; tick: (steps, B) arrays and "write"), "chunks" (prefill:
-    (tokens, pos0, valid_len, logits_mode) tuples), "prompt", "steps",
+    Case keys: "op" (decode | prefill | tick | paged | verify | engine |
+    weights | scheduler | server), "path" (a checkpoint), "mesh" ((dp, ep,
+    tp)), "kv" ("bf16" | "fp8"), and the op's inputs: "tokens" and
+    "positions" (decode: one token per step; tick: (steps, B) arrays and
+    "write"), "chunks" (prefill: (tokens, pos0, valid_len, logits_mode)
+    tuples), paged_case's and verify_case's, "prompt", "steps",
     "temperature", "seed" (engine), "requests" and "batch" (scheduler),
     "prompt" and "max_tokens" (server)."""
     import numpy as np
@@ -401,7 +402,7 @@ def mesh_cases(args: dict) -> list:
         yf = read_yalm(case["path"])
         cfg = ModelConfig.from_metadata(yf.metadata)
         op = case["op"]
-        if op in ("decode", "prefill", "tick", "weights"):
+        if op in ("decode", "prefill", "tick", "weights", "paged", "verify"):
             fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"],
                                    ep=mesh.shape["ep"], rank=mesh.position)
         yf.close()
@@ -433,6 +434,10 @@ def mesh_cases(args: dict) -> list:
                 logits, cache = tick(fw, toks, pos, cache, wr)
                 rows.append(logits.float().cpu().numpy())
             out.append(np.stack(rows))
+        elif op == "paged":
+            out.append(paged_case(case, cfg, fw, mesh, kv))
+        elif op == "verify":
+            out.append(verify_case(case, cfg, fw, mesh, kv))
         elif op == "engine":
             from ..engine import Engine
             eng = Engine.from_checkpoint(case["path"], mesh=mesh, kv_dtype=kv)
@@ -446,6 +451,64 @@ def mesh_cases(args: dict) -> list:
         else:
             raise ValueError(f"unknown mesh case {op!r}")
     return out
+
+
+def _pool_bytes(cache) -> dict:
+    from ..ops.core import int_view
+    return {"k": int_view(cache.k).cpu().numpy(), "v": int_view(cache.v).cpu().numpy()}
+
+
+def paged_case(case: dict, cfg, fw, mesh, kv) -> dict:
+    """The paged factories on this rank's pool shard: case["prefills"]
+    ((lane, padded tokens, pos0, valid_len, logits_mode) chunks through
+    make_prefill_paged_fast_tp, the lane's page and row from its table),
+    then case["ticks"] ((tokens, positions, write) through
+    make_tick_paged_fast_tp); "tables" (B, blocks) of group-local page
+    ids, "n_pages" and "page_size". Returns the logits and the pool's bytes."""
+    from ..parallel.fast_tp import local_pool, make_prefill_paged_fast_tp, make_tick_paged_fast_tp
+    ps = case["page_size"]
+    tables = np.asarray(case["tables"], np.int64)
+    B_l = tables.shape[0] // mesh.shape["dp"]
+    pool = local_pool(cfg, mesh, case["n_pages"], ps, kv)
+    prefill = make_prefill_paged_fast_tp(cfg, mesh, ps)
+    tick = make_tick_paged_fast_tp(cfg, mesh, ps)
+    pre, ticks = [], []
+    for b, toks, pos0, valid, mode in case["prefills"]:
+        lg, pool = prefill(fw, np.asarray(toks), pos0, valid, pool, tables[b],
+                           int(tables[b, pos0 // ps]), pos0 % ps, b // B_l, logits_mode=mode)
+        pre.append(None if lg is None else lg.float().cpu().numpy())
+    for toks, pos, wr in case["ticks"]:
+        lg, pool = tick(fw, toks, pos, pool, tables, wr)
+        ticks.append(lg.float().cpu().numpy())
+    return {"prefill": pre, "ticks": np.stack(ticks), **_pool_bytes(pool)}
+
+
+def verify_case(case: dict, cfg, fw, mesh, kv) -> dict:
+    """The verify sweeps with their hidden rows on this rank's cache (or
+    pool shard, with "tables" (B, blocks) of group-local ids, "n_pages"
+    and "page_size"): case["sweeps"] of (tokens (B, T), pos0, enable).
+    Returns the logits, the hidden rows and the cache's bytes."""
+    from ..parallel.fast_tp import (local_cache, local_pool, make_verify_chunk_fast_tp,
+                                    make_verify_chunk_paged_fast_tp)
+    B = len(case["sweeps"][0][0])
+    if "tables" in case:
+        cache = local_pool(cfg, mesh, case["n_pages"], case["page_size"], kv)
+        vp = make_verify_chunk_paged_fast_tp(cfg, mesh, case["page_size"], with_hidden=True)
+
+        def verify(t, p, e, c):
+            return vp(fw, t, p, e, c, case["tables"])
+    else:
+        cache = local_cache(cfg, mesh, kv, batch=B)
+        vd = make_verify_chunk_fast_tp(cfg, mesh, with_hidden=True)
+
+        def verify(t, p, e, c):
+            return vd(fw, t, p, e, c)
+    logits, hidden = [], []
+    for toks, pos0, en in case["sweeps"]:
+        (lg, h), cache = verify(toks, pos0, en, cache)
+        logits.append(lg.float().cpu().numpy())
+        hidden.append(h.float().cpu().numpy())
+    return {"logits": np.stack(logits), "hidden": np.stack(hidden), **_pool_bytes(cache)}
 
 
 def _fast_weights_numpy(fw) -> dict:
@@ -464,24 +527,80 @@ def _fast_weights_numpy(fw) -> dict:
     return out
 
 
-def _mesh_scheduler_case(case: dict, mesh, kv):
-    """The dense scheduler on a mesh: the leader submits the requests and
-    runs to the end, then stops the followers; returns the streams (the
-    leader's; None on followers)."""
+def load_shard(path: str, mesh):
+    """(cfg, this rank's FastWeights shard on its device, Medusa heads or
+    None) of a checkpoint."""
     from ..codec.format import read_yalm
     from ..config import ModelConfig
+    from ..medusa import load_medusa_weights
     from ..models.fast import load_fast_weights
+    yf = read_yalm(path)
+    try:
+        cfg = ModelConfig.from_metadata(yf.metadata)
+        fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"], ep=mesh.shape["ep"],
+                               rank=mesh.position)
+        heads = (load_medusa_weights(yf, cfg, mesh.device)
+                 if "medusa_heads" in yf.metadata else None)
+    finally:
+        yf.close()
+    return cfg, fw, heads
+
+
+def _record_preemptions(sched) -> None:
+    """Keep (growing lane, victim) of every paged preemption in
+    sched.preempted (the grower -1 where no lane was growing)."""
+    sched.preempted = []
+    grow, preempt = sched._ensure_pages, sched._preempt
+    who = [-1]
+
+    def ensure(b, target_len):
+        who[0] = b
+        try:
+            return grow(b, target_len)
+        finally:
+            who[0] = -1
+
+    def record(b):
+        sched.preempted.append((who[0], b))
+        preempt(b)
+    sched._ensure_pages, sched._preempt = ensure, record
+
+
+def scheduler_report(sched, reqs) -> dict:
+    """The streams and counters of a finished scheduler run."""
+    out = {"streams": [r.generated for r in reqs], "errors": [r.error for r in reqs],
+           "preemptions": sched.preemptions, "resumes": sched.resumes,
+           "preempted": list(getattr(sched, "preempted", [])),
+           "spec": dict(sched.spec_stats)}
+    if sched.paged:
+        groups = getattr(sched.alloc, "groups", [sched.alloc])
+        out["free"] = [g.n_free for g in groups]
+        out["capacity"] = [g.n_pages - 1 for g in groups]
+    return out
+
+
+def _mesh_scheduler_case(case: dict, mesh, kv):
+    """The scheduler on a mesh: the leader submits the requests and runs to
+    the end, then stops the followers; returns the streams (the leader's;
+    None on followers), or with "report" scheduler_report's dict. Options:
+    "paged_pages", "page_size", "spec_lookup", "spec_k", "draft" (a
+    checkpoint, loaded as this rank's shard) and "medusa" (the checkpoint's
+    heads)."""
     from ..scheduler import Request, Scheduler
-    yf = read_yalm(case["path"])
-    cfg = ModelConfig.from_metadata(yf.metadata)
-    fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"], ep=mesh.shape["ep"],
-                           rank=mesh.position)
-    yf.close()
+    cfg, fw, heads = load_shard(case["path"], mesh)
+    kw = {k: case[k] for k in ("paged_pages", "page_size", "spec_lookup", "spec_k")
+          if k in case}
+    if case.get("draft"):
+        dcfg, dfw, _ = load_shard(case["draft"], mesh)
+        kw["spec_draft"] = (dcfg, dfw)
+    if case.get("medusa"):
+        kw["spec_medusa"] = heads
     sched = Scheduler(cfg, fw, batch=case["batch"], kv_dtype=kv, device=mesh.device,
-                      mesh=mesh)
+                      mesh=mesh, **kw)
     if not mesh.leader:
         sched.follow()
         return None
+    _record_preemptions(sched)
     reqs = [Request(**r) for r in case["requests"]]
     for r in reqs:
         sched.submit(r)
@@ -489,7 +608,7 @@ def _mesh_scheduler_case(case: dict, mesh, kv):
         sched.run()
     finally:
         sched.stop_followers()
-    return [r.generated for r in reqs]
+    return scheduler_report(sched, reqs) if case.get("report") else [r.generated for r in reqs]
 
 
 def _mesh_server_case(case: dict, mesh, kv):
@@ -500,7 +619,8 @@ def _mesh_server_case(case: dict, mesh, kv):
 
     from ..server import ServingEngine, serve
     eng = ServingEngine.from_checkpoint(case["path"], batch=case.get("batch", 4),
-                                       device=mesh.device, kv_dtype=kv, mesh=mesh)
+                                       device=mesh.device, kv_dtype=kv, mesh=mesh,
+                                       **case.get("engine", {}))
     if not mesh.leader:
         eng.follow()
         return None
