@@ -191,7 +191,27 @@ time into the GEMV without and with the GLU pair;
    (c) the kernels at those runs' shard shapes against their plain
    versions, timed, in the kernels line with path "mesh" (K9 over 4 kv
    heads of a bf16 and an e5m2 pool, the wqkv GEMM at a verify sweep's 80
-   rows among them).
+   rows among them);
+8. the rest of `parallel/` on two gloo ranks sharing the card
+   (`mesh8_rank`, a world of its own): (a) the ring prefill at sp=2 on
+   Mistral-7B widths, 4 layers, fp8 over T 4096 (the whole window) and
+   int4 with an e5m2 cache over T 1024, timed beside one device's
+   prefill_fast of the same prompt in one call, the window cache placed
+   from both ranks' rows and 16 greedy decode steps from it, the logits
+   held to one device's (its own rows placed the same way, fed the same
+   tokens) by phase 7's near-tie rule, and the placed rows, layer by
+   layer, no further from the f32 oracle's than 1.25x one device's; (b)
+   the pipelined tick at pp=2, 16 lanes (random history, the ring regime
+   among them, two idle lanes), fp8 on bf16 and int4 on e5m2, 8 ticks each
+   held to the single-device tick fed the same tokens by the same rule
+   (the oracle lane by lane for the writing lanes), and the stages' caches
+   likewise; (c) the sharded parity
+   oracle (Engine(mesh=, fast=False), f32) at tp=2 on Mistral widths, 2
+   layers, and ep=2 on Mixtral widths, 1 layer, 64 + 8 greedy tokens held
+   to the single-device oracle within 1e-4; (d) the kernels at the ring's
+   and the pipeline's shapes (the wqkv GEMM at T/sp rows, K5 at 512, K8
+   over B/pp lanes, K4 at B/pp rows, the LM head GEMM at 16) in the
+   kernels line with path "mesh", each launched in its run.
 The int4 path (e5m2 cache) and the Mixtral fp8 path also run
 the tree phase at depths 2 and 8 (`phase_tree_path`); debug capture also
 runs on Mixtral fp8 (K10's gemv_le), Gemma3 (bf16 cache) and Gemma2 (e5m2
@@ -4896,16 +4916,38 @@ def mesh_cards() -> int:
     fp8 and int4 with tp=4 at 32 layers, Mixtral-8x7B fp8 with ep=4 at
     depth 4, the dense scheduler on dp=2 x tp=2 and on dp=4, and phase
     7(b)'s paged and speculative tp=2 runs on dp=2 x tp=2, each held to
-    the single-device port on rank 0's card as in phase 7(b). Correctness,
-    as phase 7; the walls it logs are not a scaling measurement. Run from
-    the repository root:
+    the single-device port on rank 0's card as in phase 7(b); then phase 8
+    on the four cards (mesh8_cards). Correctness, as phases 7 and 8; the
+    walls it logs are not a scaling measurement. Run from the repository
+    root:
         python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mesh_cards())"
     Prints the runs as one JSON line, then the cards' names and power
     limits."""
+    return _on_cards(lambda: {**phase_mesh_ranks(None, 4, "nccl", MESH_CARD_RUNS,
+                                                 MESH_CARD_SCHED),
+                              **phase_mesh8_ranks(None, 4, "nccl", CARD_RING_RUNS,
+                                                  CARD_PP_RUNS, CARD_ORACLE_RUNS)})
+
+
+def mesh8_cards() -> int:
+    """Phase 8 on four cards, one NCCL rank each (the only place the ring's
+    and the pipeline's shifts run on NCCL's send and receive): the ring
+    prefill at sp=2 x tp=2 (Mistral-7B fp8, T 4096), the pipelined tick at
+    pp=4 (16 lanes) and the sharded oracle at tp=4, each held to one device
+    on rank 0's card as in phase 8. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mesh8_cards())"
+    """
+    return _on_cards(lambda: phase_mesh8_ranks(None, 4, "nccl", CARD_RING_RUNS, CARD_PP_RUNS,
+                                               CARD_ORACLE_RUNS))
+
+
+def _on_cards(runs_of) -> int:
+    """Build the kernels, run `runs_of()` on four cards, print its runs as
+    one JSON line, then the cards' names and power limits."""
     import torch
     from yalm_tpu_torch.ops.cuda import _build
     if torch.cuda.device_count() < 4:
-        print("chip_smoke: mesh_cards needs four CUDA GPUs", file=sys.stderr)
+        print("chip_smoke: four CUDA GPUs needed", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -4915,7 +4957,7 @@ def mesh_cards() -> int:
     _build.lib()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     with phase("four NCCL ranks, one per card"):
-        runs = phase_mesh_ranks(None, 4, "nccl", MESH_CARD_RUNS, MESH_CARD_SCHED)
+        runs = runs_of()
     print(json.dumps({"mesh_cards": runs}), flush=True)
     print("\n".join(smi), flush=True)
     return 0
@@ -5751,6 +5793,511 @@ def phase_mesh_kernels(bench: Bench, dev) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the ring prefill, the pipelined tick and the sharded oracle
+# ---------------------------------------------------------------------------
+
+MESH8_LAYERS = 4           # the ring's and the pipeline's Mistral depth
+MESH8_TIMEOUT = 600        # seconds the phase's world may take
+RING_NEW = 16              # greedy decode steps from the ring-placed cache
+PP_TICKS = 8
+ORACLE_PROMPT, ORACLE_NEW = 64, 8
+ORACLE_TOL = 1e-4          # the f32 oracle's bound on a mesh (tests/test_sharding.py:60)
+# (run, weights, cache, axes, prompt tokens, seed): the whole window on
+# fp8, a quarter of it on int4 over an e5m2 cache
+RING_RUNS = (("ring_fp8", "fp8", "bf16", {"sp": 2, "tp": 1}, 4096, 60),
+             ("ring_int4", "int4", "fp8", {"sp": 2, "tp": 1}, 1024, 61))
+# (run, weights, cache, pp, lanes, seed)
+PP_RUNS = (("pp_fp8", "fp8", "bf16", 2, 16, 62), ("pp_int4", "int4", "fp8", 2, 16, 63))
+# (run, model, mesh (dp, ep, tp), depth, seed)
+ORACLE_RUNS = (("oracle_tp2", "mistral", (1, 1, 2), 2, 64),
+               ("oracle_ep2", "mixtral", (1, 2, 1), 1, 65))
+# the four-card runs of mesh_cards
+CARD_RING_RUNS = (("ring_sp2_tp2", "fp8", "bf16", {"sp": 2, "tp": 2}, 4096, 60),)
+CARD_PP_RUNS = (("pp4_fp8", "fp8", "bf16", 4, 16, 62),)
+CARD_ORACLE_RUNS = (("oracle_tp4", "mistral", (1, 1, 4), 2, 64),)
+# the pipelined tick's 16 lanes: short and long histories, the window's
+# edge, the ring regime past it (sinks); the last two lanes idle
+PP_POS = (0, 1, 63, 64, 511, 999, 2047, 2048, 3000, 4000, 4094, 4095, 4200, 6000, 20, 100)
+
+
+def _kv_type(kv: str):
+    import torch
+    return {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}[kv]
+
+
+def ring_run(dev, run: str, wdt: str, kv: str, axes: dict, T: int, seed: int) -> dict:
+    """8(a) on this rank: the ring prefill of a T-token prompt at Mistral-7B
+    widths (MESH8_LAYERS layers), timed after a first call; the window cache
+    of type kv placed from every rank's rows (each rank gathers the whole
+    cache); RING_NEW greedy decode steps on one device from it. On rank 0,
+    the references, each fed the same prompt and tokens with its rows placed
+    the same way: one device's prefill_fast of the whole prompt in one call
+    (timed after a first call) over a bf16 cache -- the ring's attention
+    reads bf16 rows whatever the cache type, as JAX's (ring.py:151-153,
+    219-223) -- and the f32 parity oracle's prefill over an f32 cache. The
+    logits and the decode steps are held by mesh_rows_hold's rule
+    (mesh_near_tie_hold), the placed K/V rows by rows_vs_oracle."""
+    import torch
+    import torch.distributed as dist
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast, prefill_fast
+    from yalm_tpu_torch.models.transformer import decode_step, prefill
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.mesh import make_mesh
+    from yalm_tpu_torch.parallel.ring import (make_prefill_ring, ring_prefill_cache,
+                                              shard_ring_weights)
+    t0 = time.perf_counter()
+    lead = dist.get_rank() == 0
+    kvd = _kv_type(kv)
+    cfg, fw = mesh_weights_of("mistral", wdt, dev, seed, MESH8_LAYERS)
+    mesh = make_mesh(axes, device=dev)
+    rw = shard_ring_weights(fw, cfg, mesh)
+    ring = make_prefill_ring(cfg, mesh)
+    prompt = mesh_prompt(cfg, T, seed)
+    ring(rw, prompt)
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.LAUNCHES.clear()
+    t1 = time.perf_counter()
+    logits, ck, cv = ring(rw, prompt)
+    torch.cuda.synchronize()
+    r = dict(ttft_s=time.perf_counter() - t1, launches=dict(_build.LAUNCHES), T=T)
+    del rw
+    cache = ring_prefill_cache(cfg, ck, cv, kvd, mesh=mesh)
+    del ck, cv
+    # the placed rows, before the decode steps' ring regime overwrites them
+    placed = {c: getattr(cache, c)[:, :T].clone() for c in ("k", "v")} if lead else None
+    lg, toks, rows = logits, [], []
+    for s in range(RING_NEW):
+        toks.append(int(torch.argmax(lg)))
+        rows.append(lg.float().cpu())
+        lg, cache = decode_step_fast(cfg, fw, toks[-1], T + s, cache)
+    r["tokens"] = toks
+    del cache
+    if lead:
+        for rep in range(2):   # the second call is timed
+            one = KVCache.init(cfg, torch.bfloat16, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, one = prefill_fast(cfg, fw, prompt, 0, T, one)
+            torch.cuda.synchronize()
+        r["single_ttft_s"] = time.perf_counter() - t1
+        ref = ring_prefill_cache(cfg, one.k[:, :T], one.v[:, :T], kvd)
+        del one
+        want = []
+        single = {c: getattr(ref, c)[:, :T].clone() for c in ("k", "v")}
+        for s, t in enumerate(toks):
+            want.append(lg.float().cpu())
+            lg, ref = decode_step_fast(cfg, fw, t, T + s, ref)
+        del ref
+        w = oracle_of(cfg, fw)
+        exact = KVCache.init(cfg, torch.float32, dev)
+        lg, exact = prefill(cfg, w, prompt, 0, T, exact)
+        orc = ring_prefill_cache(cfg, exact.k[:, :T], exact.v[:, :T], kvd)
+        del exact
+        r["rows"] = {c: rows_vs_oracle(f"{run} {c}", placed[c], single[c],
+                                       getattr(orc, c)[:, :T]) for c in ("k", "v")}
+        del placed, single
+        oracle = []
+        for s, t in enumerate(toks):
+            oracle.append(lg.float().cpu())
+            lg, orc = decode_step(cfg, w, t, T + s, orc)
+        del orc, w
+        r["hold"] = mesh_near_tie_hold(run, torch.stack(rows), torch.stack(want), toks,
+                                       torch.stack(oracle))
+    del fw
+    torch.cuda.empty_cache()
+    dist.barrier()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def mesh_near_tie_hold(name: str, rows, want, toks, oracle=None) -> dict:
+    """Greedy tokens drawn from a mesh run's logits `rows` against one
+    device's rows `want` fed the same tokens, by mesh_rows_hold's rule:
+    each token its own row's argmax (one device's argmax elsewhere is a
+    near-tie, counted); the rows within 1e-2 of max(1, max|logit|) of one
+    device's, or, where they are not, no further from the f32 parity
+    oracle's rows `oracle` than MESH_ORACLE_SLACK times one device's own
+    distance to them."""
+    import torch
+    t = torch.as_tensor(toks)
+    if not bool((rows.argmax(-1) == t).all()):
+        raise AssertionError(f"{name}: a token outside its own logits row's argmax")
+    r = dict(near_ties=int((want.argmax(-1) != t).sum()), mesh_vs_single=over_tol(rows, want))
+    if oracle is not None:
+        r.update(mesh_vs_oracle=over_tol(rows, oracle), single_vs_oracle=over_tol(want, oracle))
+    if r["mesh_vs_single"] > 1:
+        if oracle is None:
+            raise AssertionError(f"{name}: logits {r['mesh_vs_single']:.2f} x the tolerance "
+                                 "from one device's")
+        bar = max(1.0, MESH_ORACLE_SLACK * r["single_vs_oracle"])
+        if r["mesh_vs_oracle"] > bar:
+            raise AssertionError(f"{name}: {r['mesh_vs_oracle']:.2f} x the tolerance from the "
+                                 f"f32 oracle, past {bar:.2f} (one device: "
+                                 f"{r['single_vs_oracle']:.2f})")
+    return r
+
+
+def rows_vs_oracle(name: str, got, single, orc) -> dict:
+    """Placed K/V rows (n_layers, T, Hk, D) of a mesh run against one
+    device's, both held to the f32 parity oracle's placed the same way:
+    layer by layer, the mesh run's RMS distance to the oracle's rows no
+    more than MESH_ORACLE_SLACK times one device's (the rows of two correct
+    bf16 formulations part by rounding that grows over depth; neither may
+    be the far one). Returns both distances per layer and how many
+    elements differ from one device's."""
+    import torch
+    per = []
+    for layer in range(got.shape[0]):
+        o = orc[layer].float()
+        dm = float((got[layer].float() - o).pow(2).mean().sqrt())
+        ds = float((single[layer].float() - o).pow(2).mean().sqrt())
+        per.append((dm, ds))
+        if dm > MESH_ORACLE_SLACK * ds:
+            raise AssertionError(f"{name}: layer {layer}'s rows {dm:.3e} RMS from the f32 "
+                                 f"oracle's, one device's {ds:.3e}")
+    return dict(rms_vs_oracle=per, differ=int((got != single).sum()), of=got.numel())
+
+
+def pp_run(dev, run: str, wdt: str, kv: str, pp: int, B: int, seed: int) -> dict:
+    """8(b) on this rank: PP_TICKS pipelined ticks at Mistral-7B widths
+    (MESH8_LAYERS layers) over a B-lane cache of random history (the same
+    bytes on every rank, cut per stage) at PP_POS, the last two lanes idle,
+    each tick's argmax the next tick's tokens, each tick timed. On rank 0,
+    fed the same tokens from the same cache: the single-device tick
+    (decode_step_fast_batched) and, for the writing lanes, the f32 parity
+    oracle lane by lane (decode_step on each lane's cache); each tick held
+    by mesh_near_tie_hold, the idle lanes to one device alone (a read-only
+    lane attends the cache as it is, without its own row: no oracle step
+    computes that); the stages' caches (gathered over pp) by
+    rows_vs_oracle."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import decode_step_fast_batched
+    from yalm_tpu_torch.models.transformer import decode_step
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.mesh import make_mesh
+    from yalm_tpu_torch.parallel.pipeline import make_tick_pp, shard_pp_cache, shard_pp_weights
+    t0 = time.perf_counter()
+    lead = dist.get_rank() == 0
+    kvd = _kv_type(kv)
+    cfg, fw = mesh_weights_of("mistral", wdt, dev, seed, MESH8_LAYERS)
+    mesh = make_mesh({"pp": pp}, device=dev)
+    whole = KVCache.init(cfg, kvd, dev, batch=B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for c in (whole.k, whole.v):
+        c.copy_(torch.randn(c.shape, generator=gen, device=dev).to(kvd))
+    pc, pw = shard_pp_cache(whole, mesh), shard_pp_weights(fw, cfg, mesh)
+    if not lead:
+        del whole
+    tick = make_tick_pp(cfg, mesh, B)
+    write = np.asarray([1] * (B - 2) + [0, 0])
+    pos = np.asarray(PP_POS[:B])
+    toks = np.asarray(mesh_prompt(cfg, B, seed))
+    fed, rows, walls = [], [], []
+    dist.barrier()
+    _build.LAUNCHES.clear()
+    for _ in range(PP_TICKS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, pc = tick(pw, toks, pos, pc, write)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        fed.append((toks, pos))
+        rows.append(lg.float().cpu())
+        toks, pos = lg.argmax(-1).cpu().numpy(), pos + write
+    r = dict(launches=dict(_build.LAUNCHES), ms_per_tick=statistics.median(walls) * 1e3,
+             tokens=[t.tolist() for t, _ in fed[1:]] + [toks.tolist()])
+    got = {c: mesh.all_gather(getattr(pc, c), "pp", 1) for c in ("k", "v")}
+    del pc, pw
+    if lead:
+        w = oracle_of(cfg, fw)
+        exact = KVCache(k=whole.k.clone(), v=whole.v.clone())
+        live = [b for b in range(B) if write[b]]
+        idle = [b for b in range(B) if not write[b]]
+        swalls, holds, idles = [], [], []
+        for t, ((tk, ps), row) in enumerate(zip(fed, rows)):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want, whole = decode_step_fast_batched(cfg, fw, tk, ps, whole, write)
+            torch.cuda.synchronize()
+            swalls.append(time.perf_counter() - t1)
+            want, pick = want.float().cpu(), row.argmax(-1)
+            orc = torch.stack([decode_step(cfg, w, int(tk[b]), int(ps[b]), exact.lane(b))[0]
+                               .float().cpu() for b in live])
+            holds.append(mesh_near_tie_hold(f"{run} tick {t}", row[live], want[live],
+                                            pick[live].tolist(), orc))
+            idles.append(mesh_near_tie_hold(f"{run} tick {t}, idle lanes", row[idle],
+                                            want[idle], pick[idle].tolist()))
+        r.update(single_ms_per_tick=statistics.median(swalls) * 1e3,
+                 logits_vs_single=max(h["mesh_vs_single"] for h in holds + idles),
+                 logits_vs_oracle=max(h["mesh_vs_oracle"] for h in holds),
+                 single_vs_oracle=max(h["single_vs_oracle"] for h in holds),
+                 near_ties=sum(h["near_ties"] for h in holds + idles),
+                 rows={c: rows_vs_oracle(f"{run} {c}", got[c].transpose(0, 1),
+                                         getattr(whole, c).transpose(0, 1),
+                                         getattr(exact, c).transpose(0, 1))
+                       for c in ("k", "v")})
+        del whole, exact, w
+    del got, fw
+    torch.cuda.empty_cache()
+    dist.barrier()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def oracle_run(dev, run: str, model: str, mc, depth: int, seed: int) -> dict:
+    """8(c) on this rank: Engine(mesh=, fast=False), the sharded parity
+    oracle in f32 on an f32 cache, at the model's widths and `depth`: an
+    ORACLE_PROMPT-token prefill and ORACLE_NEW greedy steps. On rank 0 the
+    single-device oracle fed the same tokens: every logits row within rtol
+    and atol ORACLE_TOL of its rows, each token its argmax."""
+    import torch
+    import torch.distributed as dist
+    from yalm_tpu_torch.engine import Engine
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    t0 = time.perf_counter()
+    lead = dist.get_rank() == 0
+    cfg, fw = mesh_weights_of(model, "fp8", dev, seed, depth)
+    w = oracle_of(cfg, fw)
+    mesh = make_mesh(MeshConfig(*mc), device=dev)
+    eng = Engine(cfg, w, mesh=mesh, fast=False, kv_dtype=torch.float32)
+    if eng.fast:
+        raise AssertionError(f"{run}: the engine took the kernels")
+    prompt = mesh_prompt(cfg, ORACLE_PROMPT, seed)
+    dist.barrier()
+    _build.LAUNCHES.clear()
+    t1 = time.perf_counter()
+    toks, rows = greedy_rows(eng, prompt, ORACLE_NEW)
+    torch.cuda.synchronize()
+    r = dict(tokens=toks, launches=dict(_build.LAUNCHES), wall_s=time.perf_counter() - t1)
+    del eng
+    if lead:
+        ref = Engine(cfg, w, device=dev, fast=False, kv_dtype=torch.float32)
+        want = forced_rows(ref, prompt, toks)
+        excess = float(((rows - want).abs() - ORACLE_TOL * (1 + want.abs())).max())
+        if excess > 0 or not bool((want.argmax(-1) == torch.as_tensor(toks)).all()):
+            raise AssertionError(f"{run}: the sharded oracle parts from one device's "
+                                 f"(excess {excess:.3e} past rtol/atol {ORACLE_TOL})")
+        r["max_abs_err"] = float((rows - want).abs().max())
+        del ref
+    del w, fw
+    torch.cuda.empty_cache()
+    dist.barrier()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def mesh8_rank(args: dict) -> dict:
+    """Phase 8, one of the world's ranks (run_ranks; two gloo ranks sharing
+    the card, or through mesh_cards one NCCL rank per card): each run of
+    args["ring"] (ring_run), args["pp"] (pp_run) and args["oracle"]
+    (oracle_run), in order."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    from yalm_tpu_torch.parallel.mesh import mesh_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh_device(args.get("device"))   # None: cuda:LOCAL_RANK
+    _build.lib()
+    out: dict = {}
+    for row in args.get("ring", RING_RUNS):
+        out[row[0]] = ring_run(dev, *row)
+    for row in args.get("pp", PP_RUNS):
+        out[row[0]] = pp_run(dev, *row)
+    for row in args.get("oracle", ORACLE_RUNS):
+        out[row[0]] = oracle_run(dev, *row)
+    return out
+
+
+def phase_mesh8_ranks(dev, world: int = 2, backend: str = "gloo", ring=RING_RUNS, pp=PP_RUNS,
+                      oracle=ORACLE_RUNS) -> dict:
+    """8(a)-(c): mesh8_rank's runs in a world of `world` ranks spawned on
+    `dev` (cuda:0 for two gloo ranks sharing the card; None: one NCCL rank
+    per card); every rank's tokens equal. Two ranks sharing one card
+    measure correctness, not scaling."""
+    from yalm_tpu_torch.utils.testing import run_ranks
+    work = os.path.join(ROOT, "build", "mesh8_world")
+    shutil.rmtree(work, ignore_errors=True)
+    res = run_ranks("chip_smoke:mesh8_rank", world,
+                    {"device": None if dev is None else str(dev), "ring": ring, "pp": pp,
+                     "oracle": oracle}, work, backend=backend, timeout=MESH8_TIMEOUT, cwd=ROOT)
+    shutil.rmtree(work, ignore_errors=True)
+    lead = res[0]
+    for run, *_ in ring + pp + oracle:
+        if any(other[run]["tokens"] != lead[run]["tokens"] for other in res[1:]):
+            raise AssertionError(f"{run}: the ranks drew different tokens")
+    where = "two ranks sharing the card" if world == 2 else f"{world} {backend} ranks"
+    for run, wdt, kv, axes, T, _ in ring:
+        r, h = lead[run], lead[run]["hold"]
+        last = {c: r["rows"][c]["rms_vs_oracle"][-1] for c in ("k", "v")}
+        log(f"  {run} ({wdt}, {kv} cache, {MESH8_LAYERS} layers, {axes}): ring prefill of {T} "
+            f"tokens {r['ttft_s']:.3f} s on {where} (one device's prefill_fast "
+            f"{r['single_ttft_s']:.3f} s); K/V rows of the last layer {last['k'][0]:.3e} / "
+            f"{last['v'][0]:.3e} RMS from the f32 oracle's (one device {last['k'][1]:.3e} / "
+            f"{last['v'][1]:.3e}; {r['rows']['k']['differ']} / {r['rows']['v']['differ']} "
+            f"elements differ from one device's); the prefill's logits and {RING_NEW - 1} "
+            f"greedy steps from the placed cache held to one device ({h['near_ties']} "
+            f"near-ties, logits {h['mesh_vs_single']:.3f} x the tolerance, "
+            f"{h['mesh_vs_oracle']:.3f} from the f32 oracle's, one device "
+            f"{h['single_vs_oracle']:.3f}); {r['seconds']:.1f} s")
+    for run, wdt, kv, p, B, _ in pp:
+        r = lead[run]
+        last = {c: r["rows"][c]["rms_vs_oracle"][-1] for c in ("k", "v")}
+        log(f"  {run} ({wdt}, {kv} cache, {MESH8_LAYERS} layers, pp={p}, B={B}): {PP_TICKS} "
+            f"ticks at {r['ms_per_tick']:.2f} ms a tick on {where} (one device "
+            f"{r['single_ms_per_tick']:.2f}); logits {r['logits_vs_single']:.3f} x the "
+            f"tolerance from one device's, {r['logits_vs_oracle']:.3f} from the f32 oracle's "
+            f"(one device {r['single_vs_oracle']:.3f}), {r['near_ties']} near-ties; the last "
+            f"layer's rows {last['k'][0]:.3e} / {last['v'][0]:.3e} RMS from the oracle's (one "
+            f"device {last['k'][1]:.3e} / {last['v'][1]:.3e}; {r['rows']['k']['differ']} / "
+            f"{r['rows']['v']['differ']} elements differ from one device's); "
+            f"{r['seconds']:.1f} s")
+    for run, model, mc, depth, _ in oracle:
+        r = lead[run]
+        log(f"  {run} ({model}, mesh {mc}, {depth} layers, f32): {ORACLE_PROMPT} + "
+            f"{ORACLE_NEW} greedy tokens held to the single-device oracle (max |err| "
+            f"{r['max_abs_err']:.3e}, bound {ORACLE_TOL} + {ORACLE_TOL} x |logit|); "
+            f"{r['wall_s']:.2f} s of generation, {r['seconds']:.1f} s")
+    return lead
+
+
+def phase_mesh8_kernels(bench: Bench, dev) -> None:
+    """8(d): the kernels at the shapes the ring and the pipeline give them,
+    each against its plain version (2e-3, as phase 2) and timed: K1 gemm_l
+    on the wqkv GEMM at the ring's T/sp = 2048 rows, K5 gemm4_l at its int4
+    run's 512, K8 attend_step_batched_l over a stage's B/pp = 8 lanes (8 kv
+    heads, bf16 cache), K4 ffn_l at 8 rows (the GEMV route) and K1 gemm_l
+    on the LM head at the tick's 16 rows."""
+    import torch
+    import torch.nn.functional as F
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.ops.cuda import attention as A
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn_plain
+
+    bench.path = "mesh"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    randn = lambda *s, scale=1.0: torch.randn(s, generator=gen, device=dev) * scale  # noqa: E731
+    L = 2
+    lay = lambda r: r % L  # noqa: E731
+    for wdt, M, run in (("fp8", 2048, "ring_fp8"), ("int4", 512, "ring_int4")):
+        cfg = with_layers(mistral7b(weight_dtype=wdt), L)
+        fw = (synth_int4_weights if wdt == "int4" else synth_fast_weights)(cfg, dev, 70)
+        d, Nqkv = cfg.dim, cfg.q_dim + 2 * cfg.kv_dim
+        int4 = wdt == "int4"
+        sq = fw.scales.wqkv if int4 else None
+        fn, nm = (G.gemm4_l, "gemm4_l") if int4 else (G.gemm_l, "gemm_l")
+        wl = dequant4(fw.wqkv, sq) if int4 else fw.wqkv.to(torch.bfloat16)
+        wbytes = fw.wqkv[0].numel() * fw.wqkv.element_size() + (4 * sq[0].numel() if int4 else 0)
+        xm = randn(M, d)
+        bench.case(nm, f"ring sp=2: wqkv {Nqkv}x{d}, M={M} (T/sp)", fn(xm, fw.wqkv, 1, sq),
+                   G.proj_plain(xm, fw.wqkv, 1, sq), 2e-3,
+                   kernel=lambda r: fn(xm, fw.wqkv, lay(r), sq),
+                   plain=lambda r: G.proj_plain(xm, fw.wqkv, lay(r), sq),
+                   library=lambda r: F.linear(xm.to(torch.bfloat16), wl[lay(r)]),
+                   bytes_=wbytes + 4 * M * (d + Nqkv), flops=2 * M * Nqkv * d, json_row=True,
+                   run=run)
+        del wl
+        if not int4:
+            # K4: a stage's FFN at B/pp = 8 rows, the GEMV route, no residual
+            Bm, h = 8, cfg.hidden_dim
+            kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
+            xx = randn(Bm, d, scale=3.0)
+            bench.case("ffn_l", f"pp=2 stage: {Bm} rows (B/pp), hidden {h}, no residual",
+                       ffn(xx, fw.rms_ffn, fw.w13, fw.w2, 1, **kw),
+                       ffn_plain(xx, fw.rms_ffn, fw.w13, fw.w2, 1, **kw), 2e-3,
+                       kernel=lambda r: ffn(xx, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
+                       plain=lambda r: ffn_plain(xx, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
+                       bytes_=(fw.w13[0].numel() + fw.w2[0].numel()) * fw.w13.element_size()
+                       + 8 * Bm * d + 4 * d, flops=Bm * 6 * h * d, json_row=True, run="pp_fp8")
+            # K1: the unembedding's GEMM over the tick's 16 rows
+            xn = randn(16, d)
+            lm = fw.lm_head.to(torch.bfloat16)
+            V = cfg.vocab_size
+            bench.case("gemm_l", f"pp: LM head {V}x{d}, M=16 (the tick's unembedding)",
+                       G.gemm(xn, fw.lm_head), G.proj_plain(xn, fw.lm_head[None], 0), 2e-3,
+                       kernel=lambda r: G.gemm(xn, fw.lm_head),
+                       plain=lambda r: G.proj_plain(xn, fw.lm_head[None], 0),
+                       library=lambda r: F.linear(xn.to(torch.bfloat16), lm),
+                       bytes_=V * d + 4 * 16 * (d + V), flops=2 * 16 * V * d, json_row=True,
+                       run="pp_fp8")
+            del lm
+        del fw
+        torch.cuda.empty_cache()
+    # K8: a stage's attention over B/pp = 8 lanes, all 8 kv heads, bf16 cache
+    cfg = mistral7b()
+    Hq, Hk, D, S, Bm, L4 = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.max_seq_len, 8, 2
+    cb = KVCache.init(with_layers(cfg, L4), torch.bfloat16, dev, batch=Bm)
+    for c in (cb.k, cb.v):
+        c.copy_(randn(*c.shape).to(torch.bfloat16))
+    lanes_h = tuple(x[::2] for x in batched_lanes(S))   # 8 of the 16 lanes: 1..S+1904 slots
+    lanes = A.lane_scalars(*lanes_h, S=S, kv_sinks=2, device=dev)
+    lanes_cpu = lanes.cpu()
+    q = randn(Bm, Hk, Hq // Hk, D, scale=2.0)
+    kn, vn = randn(Bm, Hk, D, scale=2.0), randn(Bm, Hk, D)
+    rope = dict(kv_sinks=2, theta=cfg.rope_param, rotary_dim=cfg.rotary_dim)
+    want = A.attend_step_batched_plain(q, kn, vn, cb.k.clone(), cb.v.clone(), 1, lanes_cpu,
+                                       **rope)
+    mask, rows = window_rows(S, *lanes_h[:3], None)
+    mask = mask.to(dev)
+    kk = [cb.k[:, l].transpose(1, 2).contiguous() for l in range(L4)]
+    vv = [cb.v[:, l].transpose(1, 2).contiguous() for l in range(L4)]
+    qq = q.reshape(Bm, Hq, 1, D).to(torch.bfloat16)
+    bench.case("attend_step_batched_l", f"pp=2 stage: {Hk} kv heads, B/pp={Bm}, kv_len 1..{S}",
+               A.attend_step_batched(q, kn, vn, cb.k, cb.v, 1, lanes, **rope), want, 2e-3,
+               kernel=lambda r: A.attend_step_batched(q, kn, vn, cb.k, cb.v, r % L4, lanes,
+                                                      **rope),
+               plain=lambda r: A.attend_step_batched_plain(q, kn, vn, cb.k, cb.v, r % L4,
+                                                           lanes_cpu, **rope),
+               library=lambda r: F.scaled_dot_product_attention(
+                   qq, kk[r % L4], vv[r % L4], attn_mask=mask[:, None, None, :], enable_gqa=True),
+               bytes_=2 * rows * Hk * D * 2 + 4 * Bm * (2 * Hq * D + 2 * Hk * D) + 4 * 5 * Bm,
+               flops=4 * rows * Hq * D, json_row=True, run="pp_fp8")
+    del cb, kk, vv
+    torch.cuda.empty_cache()
+
+
+def mesh8_phases() -> int:
+    """Phase 8 alone, for a short card call: (a)-(c) two gloo ranks sharing
+    the card (the ring prefill, the pipelined tick, the sharded oracle),
+    (d) the kernels at their shapes. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.mesh8_phases())"
+    Prints the cases and the runs as one JSON line, then the card's name
+    and power limit."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    bench = Bench(HBM_BYTES_PER_S)
+    with phase("(a)-(c) the ring prefill, the pipelined tick, the sharded oracle"):
+        runs = phase_mesh8_ranks(torch.device("cuda", 0))
+    with phase("(d) the kernels at the ring's and the pipeline's shapes"):
+        phase_mesh8_kernels(bench, dev)
+    for r in bench.rows:
+        if r["json"] and not runs[r["run"]]["launches"].get(r["name"]):
+            raise AssertionError(f"{r['name']}: no launch in the mesh run {r['run']}")
+    print(json.dumps({"cases": bench.rows, "mesh": runs}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     try:
@@ -5975,10 +6522,15 @@ def main() -> int:
         summary["mesh"].update(phase_mesh_ranks(torch.device("cuda", 0)))
     with phase("phase 7 (mesh): (c) the kernels at shard shapes"):
         phase_mesh_kernels(bench, dev)
-        for r in bench.rows:
-            if r["path"] == "mesh" and r["json"] and not summary["mesh"][r["run"]][
-                    "launches"].get(r["name"]):
-                raise AssertionError(f"{r['name']}: no launch in the mesh run {r['run']}")
+    with phase("phase 8 (mesh): (a)-(c) the ring prefill (sp=2), the pipelined tick (pp=2) "
+               "and the sharded oracle (tp=2, ep=2) on two gloo ranks sharing the card"):
+        summary["mesh"].update(phase_mesh8_ranks(torch.device("cuda", 0)))
+    with phase("phase 8 (mesh): (d) the kernels at the ring's and the pipeline's shapes"):
+        phase_mesh8_kernels(bench, dev)
+    for r in bench.rows:
+        if r["path"] == "mesh" and r["json"] and not summary["mesh"][r["run"]][
+                "launches"].get(r["name"]):
+            raise AssertionError(f"{r['name']}: no launch in the mesh run {r['run']}")
 
     # name -> (source, the TPU function of the same name it replaces); the
     # FFN's composite wrappers launch csrc/gemv.cu or csrc/gemm.cu

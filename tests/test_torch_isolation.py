@@ -35,7 +35,8 @@ print("BAD", bad)
                                     "models.transformer", "models.weights", "ops.attention",
                                     "utils.debug", "convert", "native", "parallel.mesh",
                                     "parallel.sharding", "parallel.distributed",
-                                    "parallel.fast_tp"])
+                                    "parallel.fast_tp", "parallel.ring", "parallel.pipeline",
+                                    "parallel.oracle"])
 def test_serving_modules_import_no_jax(module):
     code = (f"import sys, yalm_tpu_torch.{module}\n"
             "print('BAD', sorted(k for k in sys.modules if k.split('.')[0] in "
@@ -323,3 +324,54 @@ def test_mesh_entry_points_do_not_fall_back_to_cpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="init_process_group failed"):
         distributed.initialize(f"file://{tmp_path}/pg", 2, 0, device="cpu")
     assert tried == ["gloo"]   # the CPU's backend, once
+
+
+def test_ring_and_pipeline_entry_points_do_not_fall_back_to_cpu(tmp_path):
+    """The ring prefill's and the pipelined tick's meshes default to the
+    card: without a GPU their named-axis meshes raise; given the CPU (a
+    world of one, gloo) both run the plain versions and leave their outputs
+    on the CPU, and a shift over an axis of one is the identity."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    import numpy as np
+    import torch.distributed as dist
+
+    from yalm_tpu_torch.codec.format import read_yalm
+    from yalm_tpu_torch.config import ModelConfig
+    from yalm_tpu_torch.models.cache import KVCache
+    from yalm_tpu_torch.models.fast import load_fast_weights
+    from yalm_tpu_torch.parallel import distributed
+    from yalm_tpu_torch.parallel.mesh import make_mesh
+    from yalm_tpu_torch.parallel.pipeline import make_tick_pp, shard_pp_cache, shard_pp_weights
+    from yalm_tpu_torch.parallel.ring import (make_prefill_ring, ring_prefill_cache,
+                                              shard_ring_weights)
+    from yalm_tpu_torch.utils.testing import synth_checkpoint, tiny_config
+    path = str(tmp_path / "m.yalm")
+    synth_checkpoint(path, tiny_config(dim=256, hidden_dim=512, head_dim=128, n_heads=4,
+                                       n_kv_heads=2, vocab_size=512, max_seq_len=32,
+                                       rotary_dim=128, weight_dtype="fp8"))
+    yf = read_yalm(path)
+    cfg = ModelConfig.from_metadata(yf.metadata)
+    fw = load_fast_weights(yf, cfg, "cpu")
+    yf.close()
+    distributed.initialize(num_processes=1, device="cpu")
+    try:
+        for axes in ({"sp": 1, "tp": 1}, {"pp": 1}):
+            with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                make_mesh(axes)
+        ring = make_mesh({"sp": 1, "tp": 1}, device="cpu")
+        t = torch.arange(6.0)
+        assert ring.shift(t, "sp") is t
+        logits, ck, cv = make_prefill_ring(cfg, ring)(shard_ring_weights(fw, cfg, ring),
+                                                      np.arange(3, 19))
+        cache = ring_prefill_cache(cfg, ck, cv, torch.bfloat16, mesh=ring)
+        pp = make_mesh({"pp": 1}, device="cpu")
+        lg, pc = make_tick_pp(cfg, pp, 4)(shard_pp_weights(fw, cfg, pp), [3, 4, 5, 6],
+                                          [0, 1, 2, 3],
+                                          shard_pp_cache(KVCache.init(cfg, batch=4,
+                                                                      device="cpu"), pp),
+                                          [1, 1, 1, 1])
+    finally:
+        dist.destroy_process_group()
+    assert {logits.device.type, cache.k.device.type, lg.device.type, pc.k.device.type} == {"cpu"}
+    assert logits.shape == (512,) and lg.shape == (4, 512)

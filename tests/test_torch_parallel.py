@@ -414,18 +414,17 @@ def test_routed_expert_sentinel_plain(int4):
 
 
 def test_mesh_routes_and_scheduler_refusals(tmp_path):
-    """The sharded oracle is a later slice (fast=False raises
-    NotImplementedError naming ROADMAP.md); fast=True on shards the
-    kernels refuse raises JAX's ValueError; the scheduler refuses the paged
+    """fast=False, and "auto" on shards the kernels refuse, take the sharded
+    oracle (tests/test_torch_oracle_mesh.py holds it); fast=True on such
+    shards raises JAX's ValueError; the scheduler refuses the paged
     pool and speculation on an MoE mesh with JAX's own ValueErrors
     (scheduler.py:507-538), and builds them on a dense tp=2 mesh (the
-    paged pool's shard: 4 of the 8 pages' kv heads)."""
+    paged pool's shard: 4 of the 8 pages' kv heads); it refuses the oracle
+    on a mesh with JAX's ValueError (scheduler.py:535-538)."""
     cfg, moe = tiny_config(**kw()), tiny_config(**kw(**MOE))
     assert mesh_route(cfg, "auto", grid(tp=2)) is True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh_route(cfg, False, grid(tp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh_route(cfg, "auto", grid(tp=4))
+    assert mesh_route(cfg, False, grid(tp=2)) is False
+    assert mesh_route(cfg, "auto", grid(tp=4)) is False
     with pytest.raises(ValueError, match="fast TP path unavailable"):
         mesh_route(cfg, True, grid(tp=4))
     m = grid(tp=2)
@@ -439,7 +438,26 @@ def test_mesh_routes_and_scheduler_refusals(tmp_path):
     paged = Scheduler(cfg, fw, device="cpu", mesh=m, paged_pages=8, page_size=16)
     assert paged.paged and tuple(paged.lanes.cache.k.shape) == (8, 2, 16, 1, 128)
     assert Scheduler(cfg, fw, device="cpu", mesh=m, spec_lookup=True).spec
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires the fast TP path"):
         Scheduler(cfg, None, device="cpu", mesh=m, fast=False)
     with pytest.raises(ValueError, match="batch % dp"):
         Scheduler(cfg, None, device="cpu", mesh=grid(dp=2, position=1), batch=5)
+
+
+def test_named_axes_grid():
+    """A mesh of named axes (make_mesh's and grid_mesh's dict form, as
+    jax.make_mesh((sp, tp), ("sp", "tp"))): coordinates in grid order, tp
+    fastest; the grid position; each axis' previous and next rank, the
+    peers Mesh.shift sends to and receives from (JAX's ppermute perm
+    [(i, (i + 1) % n)]); a group per axis."""
+    from yalm_tpu_torch.parallel.mesh import grid_axes
+    m = grid_mesh({"sp": 4, "tp": 2}, 5)
+    assert m.axes == ("sp", "tp") and m.shape == {"sp": 4, "tp": 2} and m.config is None
+    assert m.coords == {"sp": 2, "tp": 1} and m.position == 5
+    assert m.peers == {"sp": (3, 7), "tp": (4, 4)}
+    assert set(m.groups) == {"sp", "tp", "world"}
+    pp = grid_mesh({"pp": 3}, 0)
+    assert pp.peers == {"pp": (2, 1)} and pp.coords == {"pp": 0}
+    assert grid_mesh(MeshConfig(dp=2, tp=2), 3).coords == {"dp": 1, "ep": 0, "tp": 1}
+    with pytest.raises(ValueError, match="every size >= 1"):
+        grid_axes({"sp": 0})

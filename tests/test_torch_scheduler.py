@@ -216,8 +216,9 @@ def test_poisoned_request_isolation_and_recover(model):
 @pytest.mark.parametrize("kw", [dict(paged_pages=8, page_size=16), dict(spec_tree=(2,)),
                                 dict(mesh="tp2", fast=False)])
 def test_later_slices_raise(model, kw):
-    """The sharded oracle on a mesh is a later slice and raises (the
-    scheduler on a mesh runs the kernels: tests/test_torch_scheduler_mesh.py);
+    """The oracle on a mesh is refused with JAX's ValueError (the scheduler
+    on a mesh runs the kernels: tests/test_torch_scheduler_mesh.py; the
+    Engine runs the sharded oracle: tests/test_torch_oracle_mesh.py);
     paged KV came with its slice and
     serves (tests/test_torch_paged.py holds its streams to the JAX paged
     scheduler's; tests/test_torch_spec_scheduler.py the chain
@@ -248,7 +249,7 @@ def test_later_slices_raise(model, kw):
     else:
         from yalm_tpu_torch.parallel.mesh import MeshConfig, grid_mesh
         kw["mesh"] = grid_mesh(MeshConfig(tp=2), 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="requires the fast TP path"):
             Scheduler(cfg, tw, device="cpu", **kw)
     with pytest.raises(ValueError, match="at most 16"):
         Scheduler(cfg, tw, device="cpu").submit(

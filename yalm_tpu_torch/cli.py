@@ -29,8 +29,8 @@ Usage: python -m yalm_tpu_torch.cli <checkpoint.yalm> [options]
                  every rank runs the same loop in lockstep and rank 0 prints
                  (nccl on the cards, gloo with -d cpu)
 A model whose shapes the kernels refuse runs on the parity oracle
-(models/transformer.py), as the JAX CLI's does (on one device: the sharded
-oracle is a later slice).
+(models/transformer.py), as the JAX CLI's does; with -M on each rank's cut
+of it (parallel/oracle.py).
 """
 
 from __future__ import annotations

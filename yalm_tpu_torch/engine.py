@@ -186,21 +186,28 @@ class Engine:
         mesh (parallel/mesh.Mesh): this process is one rank of a mesh, on
         the mesh's device, and every rank runs the same calls in lockstep
         (the CLI's SPMD loop): the kernels on the rank's shard with the
-        collectives of parallel/fast_tp.py; the logits, and so the sampled
-        tokens, are the same on every rank (a generator seeded alike; a
-        seed left to the clock is the leader's). weights: oracle Weights or
-        a whole shard-major FastWeights (cut to the rank's shard), or the
-        rank's shard (load_fast_weights(tp=, ep=, rank=)). The sharded
-        oracle (fast=False) is a later slice and raises."""
+        collectives of parallel/fast_tp.py, or (fast=False, or "auto" on
+        shards the kernels refuse) the oracle on the rank's cut with those
+        of parallel/oracle.py; the logits, and so the sampled tokens, are
+        the same on every rank (a generator seeded alike; a seed left to
+        the clock is the leader's). weights: oracle Weights or a whole
+        shard-major FastWeights (cut to the rank's shard), or the rank's
+        shard (load_fast_weights(tp=, ep=, rank=)); the oracle takes the
+        whole model's Weights."""
         self.mesh = mesh
         self.shard = None
         if mesh is not None:
             from .parallel.fast_tp import TPShard, mesh_route, mesh_weights
+            from .parallel.oracle import OracleShard, shard_oracle_weights
             self.device = resolve_device(mesh.device)
             self.fast = mesh_route(cfg, fast, mesh)
             kv_dtype = route_kv_dtype(kv_dtype, self.fast)
-            weights = mesh_weights(cfg, weights, mesh)
-            self.shard = TPShard(cfg, mesh)
+            if self.fast:
+                weights = mesh_weights(cfg, weights, mesh)
+                self.shard = TPShard(cfg, mesh)
+            else:
+                weights = shard_oracle_weights(weights, cfg, mesh)
+                self.shard = OracleShard(cfg, mesh)
         else:
             self.device = resolve_device(device)
             self.fast = resolve_fast(cfg, fast)
@@ -223,7 +230,8 @@ class Engine:
         """Load a checkpoint straight into the route's layout
         (engine.py:312-345): load_fast_weights for the kernels,
         load_weights for the oracle; on a mesh each rank reads only its
-        shard (load_fast_weights(tp=, ep=, rank=))."""
+        shard (load_fast_weights(tp=, ep=, rank=)), or for the sharded
+        oracle the whole Weights on the host, which it cuts."""
         yf = read_yalm(path)
         try:
             cfg = ModelConfig.from_metadata(yf.metadata, context=context)
@@ -231,8 +239,9 @@ class Engine:
                 from .parallel.fast_tp import mesh_route
                 dev = resolve_device(mesh.device)
                 fast = mesh_route(cfg, fast, mesh)
-                weights = load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
-                                            ep=mesh.shape["ep"], rank=mesh.position)
+                weights = (load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
+                                             ep=mesh.shape["ep"], rank=mesh.position)
+                           if fast else load_weights(yf, cfg, "cpu"))
             else:
                 dev = resolve_device(device)
                 fast = resolve_fast(cfg, fast)
@@ -251,7 +260,9 @@ class Engine:
         """A zeroed cache: on a mesh the rank's kv heads."""
         if self.mesh is not None:
             from .parallel.fast_tp import local_cache
-            return local_cache(self.cfg, self.mesh, self.kv_dtype)
+            from .parallel.oracle import oracle_cache
+            return (local_cache if self.fast else oracle_cache)(self.cfg, self.mesh,
+                                                                self.kv_dtype)
         return KVCache.init(self.cfg, self.kv_dtype, self.device)
 
     def reset(self) -> None:
@@ -274,7 +285,7 @@ class Engine:
         else:
             logits, self.cache = decode_step(self.cfg, self.weights, token, self.pos, self.cache,
                                              output_logits=output_logits,
-                                             compute_dtype=self.compute_dtype)
+                                             compute_dtype=self.compute_dtype, shard=self.shard)
         self.pos += 1
         return logits
 
@@ -288,7 +299,8 @@ class Engine:
                 shard=self.shard)
         else:
             out, self.cache = prefill(self.cfg, self.weights, padded, self.pos, take, self.cache,
-                                      logits_mode=mode, compute_dtype=self.compute_dtype)
+                                      logits_mode=mode, compute_dtype=self.compute_dtype,
+                                      shard=self.shard)
         self.pos += take
         return out
 

@@ -14,6 +14,12 @@ kernel path.
 `decode_step(capture=True)` also returns the per-layer activation map that
 `utils/debug.py:diff_captures` compares with the kernel path's
 (`models/fast.py:decode_step_fast(capture=True)`).
+
+On a mesh, `shard` (parallel/oracle.OracleShard) is one rank's hook: the
+weights and the cache are the rank's cut, and the hook adds the sums GSPMD
+inserts in JAX's sharded oracle (the embedding over tp, the wo and w2
+partials over tp, an MoE layer's expert deltas over ep and tp, the logits'
+vocab slices gathered over tp).
 """
 
 from __future__ import annotations
@@ -80,36 +86,59 @@ def _ffn(xb: torch.Tensor, w1, w2, w3, act: str, compute_dtype) -> torch.Tensor:
     return _proj(act_fn(act)(h1) * h3, w2, compute_dtype)
 
 
-def _moe_ffn(cfg: ModelConfig, xb: torch.Tensor, lw: LayerWeights, compute_dtype) -> torch.Tensor:
+def _moe_ffn(cfg: ModelConfig, xb: torch.Tensor, lw: LayerWeights, compute_dtype,
+             shard=None) -> torch.Tensor:
     """The top-k expert mixture of rows xb[..., dim]: the router, the gate
     over the chosen experts, each chosen expert's FFN on its rows, and the
-    gated deltas summed in rank order."""
+    gated deltas summed in rank order. On a mesh the rank runs its experts
+    (global ids e0..) on its hidden slice, and the deltas are summed over ep
+    and tp before the gates weigh them."""
     rows = xb.reshape(-1, xb.shape[-1])
     router = _proj(rows, lw.moegate, compute_dtype)            # (R, n_experts)
     gates, idx = moe_gate(router, cfg.n_experts_active)        # (R, k)
     deltas = torch.zeros(rows.shape[0], cfg.n_experts_active, rows.shape[1],
                          dtype=torch.float32, device=rows.device)
-    for e in range(cfg.n_experts):
-        r, j = torch.nonzero(idx == e, as_tuple=True)
+    e0 = shard.e0 if shard is not None else 0
+    for e in range(lw.w1.shape[0]):
+        r, j = torch.nonzero(idx == e0 + e, as_tuple=True)
         if len(r):
             deltas[r, j] = _ffn(rows[r], lw.w1[e], lw.w2[e], lw.w3[e], cfg.act_type,
                                 compute_dtype)
+    if shard is not None:
+        deltas = shard.reduce_experts(deltas)
     return torch.sum(gates[..., None] * deltas, dim=1).reshape(xb.shape)
 
 
-def _dense_ffn_delta(cfg: ModelConfig, xb: torch.Tensor, lw: LayerWeights,
-                     compute_dtype) -> torch.Tensor:
+def _ffn_delta(cfg: ModelConfig, xb: torch.Tensor, lw: LayerWeights, compute_dtype,
+               shard=None) -> torch.Tensor:
+    """The FFN's delta (before the sandwich norm): on a mesh summed over the
+    ranks' hidden slices (and experts)."""
     if cfg.is_moe:
-        return _moe_ffn(cfg, xb, lw, compute_dtype)
-    return _ffn(xb, lw.w1, lw.w2, lw.w3, cfg.act_type, compute_dtype)
+        return _moe_ffn(cfg, xb, lw, compute_dtype, shard)
+    out = _ffn(xb, lw.w1, lw.w2, lw.w3, cfg.act_type, compute_dtype)
+    return out if shard is None else shard.reduce(out)
 
 
-def _embed(cfg: ModelConfig, weights: Weights, tokens) -> torch.Tensor:
+def _wo_delta(mixed: torch.Tensor, lw: LayerWeights, compute_dtype, shard=None):
+    """The attention's delta (before the sandwich norm): on a mesh the
+    rank's q columns through its wo columns, summed over tp."""
+    if shard is None:
+        return _proj(mixed, lw.wo, compute_dtype)
+    return shard.reduce(_proj(mixed[..., shard.q_cols], lw.wo, compute_dtype))
+
+
+def _embed(cfg: ModelConfig, weights: Weights, tokens, shard=None) -> torch.Tensor:
     """(..., dim) f32 embedding rows (the gather through an integer view:
-    not every backend indexes fp8)."""
+    not every backend indexes fp8); on a mesh the rank's vocab rows, zero
+    elsewhere, summed over tp (exact: one rank holds each row)."""
     idx = _ids(tokens, weights.embed.device)
+    if shard is not None:
+        idx, mine = shard.vocab_rows(idx)
     x = int_view(weights.embed)[idx].view(weights.embed.dtype).float()
-    return x * cfg.embed_scale if cfg.embed_scale != 1.0 else x
+    x = x * cfg.embed_scale if cfg.embed_scale != 1.0 else x
+    if shard is not None:
+        x = shard.reduce(torch.where(mine[..., None], x, torch.zeros_like(x)))
+    return x
 
 
 def _ids(tokens, device) -> torch.Tensor:
@@ -129,11 +158,14 @@ def _sliding(cfg: ModelConfig, i: int) -> bool:
     return bool(cfg.layer_sliding) and bool(cfg.layer_sliding[i])
 
 
-def _head(cfg: ModelConfig, weights: Weights, xn: torch.Tensor, compute_dtype) -> torch.Tensor:
+def _head(cfg: ModelConfig, weights: Weights, xn: torch.Tensor, compute_dtype,
+          shard=None) -> torch.Tensor:
+    """The capped logits; on a mesh the rank's vocab slice, capped, then
+    gathered into the full row."""
     logits = _proj(xn, weights.lm_head, compute_dtype)
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    return logits if shard is None else shard.gather(logits)
 
 
 def _write_rows(c: torch.Tensor, at, rows: torch.Tensor) -> None:
@@ -147,7 +179,8 @@ def _write_rows(c: torch.Tensor, at, rows: torch.Tensor) -> None:
 # ---------------------------------------------------------------------------
 
 def decode_step(cfg: ModelConfig, weights: Weights, token, pos: int, cache: KVCache, *,
-                output_logits: bool = True, compute_dtype=torch.float32, capture: bool = False):
+                output_logits: bool = True, compute_dtype=torch.float32, capture: bool = False,
+                shard=None):
     """One decode step at absolute position `pos` (transformer.py:121-241);
     updates `cache` ((n_layers, L, Hk, D), any floating type) in place and
     returns (logits (vocab,) f32 or None, cache), or with capture=True
@@ -158,11 +191,19 @@ def decode_step(cfg: ModelConfig, weights: Weights, token, pos: int, cache: KVCa
     The ring buffer and attention sinks: once pos reaches the window the
     first KV_SINKS slots freeze and the rest is replaced in ring order;
     attention reads the sink keys rotated forward by max(0, pos - L + 1) in
-    an f32 view. Sliding layers mask by slot age."""
+    an f32 view. Sliding layers mask by slot age.
+
+    shard: one rank's hook on a mesh (parallel/oracle.OracleShard; not
+    with capture): the weights and cache are the rank's cut, the logits
+    full rows on every rank."""
+    if shard is not None:
+        if capture:
+            raise ValueError("capture runs on one device")
+        cfg = shard.cfg
     L = cfg.max_seq_len
     pos = int(pos)
     dev = weights.embed.device
-    x = _embed(cfg, weights, token).reshape(cfg.dim)
+    x = _embed(cfg, weights, token, shard).reshape(cfg.dim)
     kv_sink = KV_SINKS if pos >= L else 0
     kv_pos = kv_sink + (pos - kv_sink) % (L - kv_sink)
     kv_len = min(pos + 1, L)
@@ -196,12 +237,12 @@ def decode_step(cfg: ModelConfig, weights: Weights, token, pos: int, cache: KVCa
         valid = sliding_valid if _sliding(cfg, i) else slot_valid
         mixed = attend_one(q.reshape(Hk, Hq // Hk, D), k_view, vc, valid,
                            softcap=cfg.attn_softcap).reshape(cfg.q_dim)
-        delta = _proj(mixed, lw.wo, compute_dtype)
+        delta = _wo_delta(mixed, lw, compute_dtype, shard)
         if lw.pa is not None:   # Gemma2's sandwich norm on the attention delta
             delta = rmsnorm(delta, lw.pa, cfg.norm_eps)
         x = x + delta
         xb2 = rmsnorm(x, lw.rms_ffn, cfg.norm_eps)
-        delta = _dense_ffn_delta(cfg, xb2, lw, compute_dtype)
+        delta = _ffn_delta(cfg, xb2, lw, compute_dtype, shard)
         if lw.pf is not None:
             delta = rmsnorm(delta, lw.pf, cfg.norm_eps)
         x = x + delta
@@ -213,7 +254,7 @@ def decode_step(cfg: ModelConfig, weights: Weights, token, pos: int, cache: KVCa
     if not output_logits:
         return (None, cache, cap) if capture else (None, cache)
     xn = rmsnorm(x, weights.final_norm, cfg.norm_eps)
-    logits = _head(cfg, weights, xn, compute_dtype)
+    logits = _head(cfg, weights, xn, compute_dtype, shard)
     if capture:
         cap["final_norm"] = xn
         cap["logits"] = logits
@@ -226,7 +267,8 @@ def decode_step(cfg: ModelConfig, weights: Weights, token, pos: int, cache: KVCa
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, weights: Weights, tokens, pos0: int, valid_len: int,
-            cache: KVCache, *, logits_mode: str = "last", compute_dtype=torch.float32):
+            cache: KVCache, *, logits_mode: str = "last", compute_dtype=torch.float32,
+            shard=None):
     """A chunk of T tokens (padded; the first valid_len real) at absolute
     positions pos0.. (transformer.py:247-368), inside the window (pos0 + T
     <= L: no ring wraparound and no sink rotation within a chunk). The
@@ -236,9 +278,12 @@ def prefill(cfg: ModelConfig, weights: Weights, tokens, pos0: int, valid_len: in
 
     logits_mode: "none" -> (None, cache); "last" -> (vocab,) logits of the
     last valid token; "all" -> (T, vocab); "all_h" -> ((T, vocab), (T, dim)
-    post-final-norm rows)."""
+    post-final-norm rows). shard: one rank's hook on a mesh, as
+    decode_step's."""
     if logits_mode not in ("none", "last", "all", "all_h"):
         raise ValueError(f"bad logits_mode {logits_mode!r}")
+    if shard is not None:
+        cfg = shard.cfg
     L = cfg.max_seq_len
     dev = weights.embed.device
     tok = _ids(tokens, dev).reshape(-1)
@@ -247,7 +292,7 @@ def prefill(cfg: ModelConfig, weights: Weights, tokens, pos0: int, valid_len: in
     if pos0 < 0 or pos0 + T > L or not 0 < valid_len <= T:
         raise ValueError(f"prefill: chunk {pos0}+{T} (valid {valid_len}) vs window {L}")
     positions = pos0 + torch.arange(T, device=dev)
-    x = _embed(cfg, weights, tok)                               # (T, dim)
+    x = _embed(cfg, weights, tok, shard)                        # (T, dim)
     att_mask = torch.arange(L, device=dev)[None, :] <= positions[:, None]   # (T, L)
     sliding_mask = att_mask
     if any(cfg.layer_sliding):
@@ -270,12 +315,12 @@ def prefill(cfg: ModelConfig, weights: Weights, tokens, pos0: int, valid_len: in
         mask = sliding_mask if _sliding(cfg, i) else att_mask
         mixed = attend_chunk(q.reshape(T, Hk, Hq // Hk, D), kc, vc, mask,
                              softcap=cfg.attn_softcap).reshape(T, cfg.q_dim)
-        delta = _proj(mixed, lw.wo, compute_dtype)
+        delta = _wo_delta(mixed, lw, compute_dtype, shard)
         if lw.pa is not None:
             delta = rmsnorm(delta, lw.pa, cfg.norm_eps)
         x = x + delta
         xb2 = rmsnorm(x, lw.rms_ffn, cfg.norm_eps)
-        delta = _dense_ffn_delta(cfg, xb2, lw, compute_dtype)
+        delta = _ffn_delta(cfg, xb2, lw, compute_dtype, shard)
         if lw.pf is not None:
             delta = rmsnorm(delta, lw.pf, cfg.norm_eps)
         x = x + delta
@@ -284,7 +329,7 @@ def prefill(cfg: ModelConfig, weights: Weights, tokens, pos0: int, valid_len: in
         return None, cache
     if logits_mode == "last":
         xn = rmsnorm(x[valid_len - 1], weights.final_norm, cfg.norm_eps)
-        return _head(cfg, weights, xn, compute_dtype), cache
+        return _head(cfg, weights, xn, compute_dtype, shard), cache
     xn = rmsnorm(x, weights.final_norm, cfg.norm_eps)
-    logits = _head(cfg, weights, xn, compute_dtype)
+    logits = _head(cfg, weights, xn, compute_dtype, shard)
     return ((logits, xn) if logits_mode == "all_h" else logits), cache

@@ -85,18 +85,23 @@ class TPShard:
     a mesh, with the shard's shapes (`cfg`, local) and offsets."""
 
     def __init__(self, cfg: ModelConfig, mesh: Mesh):
-        tp, ep = mesh.shape["tp"], mesh.shape["ep"]
-        why = fast_tp_unsupported(cfg, tp, ep)
+        why = fast_tp_unsupported(cfg, mesh.shape["tp"], mesh.shape.get("ep", 1))
         if why:
             raise ValueError(f"the mesh's shards do not fit the port's kernels: {why}")
+        self._place(cfg, mesh)
+        self.cfg = local_config(cfg, self.tp)
+
+    def _place(self, cfg: ModelConfig, mesh: Mesh) -> None:
+        """The rank's vocab and expert slices (a mesh of named axes without
+        ep, the ring's ('sp', 'tp'), has one expert shard)."""
+        tp, ep = mesh.shape["tp"], mesh.shape.get("ep", 1)
         self.mesh = mesh
         self.tp, self.ep = tp, ep
         self.full = cfg
-        self.cfg = local_config(cfg, tp)
         self.V_l = cfg.vocab_size // tp
         self.v0 = mesh.coords["tp"] * self.V_l
         self.E_l = cfg.n_experts // ep if cfg.is_moe else 0
-        self.e0 = mesh.coords["ep"] * self.E_l
+        self.e0 = mesh.coords.get("ep", 0) * self.E_l
         self.moe_split = cfg.is_moe and tp * ep > 1
 
     def reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -167,20 +172,16 @@ def fast_tp_supported(cfg: ModelConfig, tp: int, ep: int = 1) -> bool:
 
 def mesh_route(cfg: ModelConfig, fast, mesh: Mesh) -> bool:
     """The route of an entry point on a mesh (engine.py:145-158): the
-    kernels on the rank's shard where fast_tp_supported; True on shards the
-    kernels refuse raises with the limit. The sharded parity oracle (JAX's
-    GSPMD path: fast=False, or "auto" on such shards) is a later slice of
-    the port and raises NotImplementedError."""
+    kernels on the rank's shard where fast_tp_supported ("auto" or True);
+    True on shards the kernels refuse raises with the limit; False, and
+    "auto" on such shards, take the sharded parity oracle
+    (parallel/oracle.py, JAX's GSPMD path)."""
     if fast not in ("auto", True, False):
         raise ValueError(f"fast must be 'auto', True or False, got {fast!r}")
     why = fast_tp_unsupported(cfg, mesh.shape["tp"], mesh.shape["ep"])
     if fast is True and why:
         raise ValueError(f"fast TP path unavailable for this config/mesh: {why}")
-    if fast is False or why:
-        raise NotImplementedError(
-            "the sharded parity oracle (fast=False on a mesh" + (f"; {why}" if why else "")
-            + ") is a later slice of the PyTorch port (ROADMAP.md item 13)")
-    return True
+    return fast is not False and why is None
 
 
 def shard_major_rows(sizes, tp: int) -> list[int]:
@@ -271,7 +272,7 @@ def shard_fast_tp_weights(weights, cfg: ModelConfig, mesh: Mesh) -> FastWeights:
 
 def is_local_shard(fw: FastWeights, cfg: ModelConfig, mesh: Mesh) -> bool:
     """Whether FastWeights hold one rank's shard (not the whole model)."""
-    tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+    tp, ep = mesh.shape["tp"], mesh.shape.get("ep", 1)
     rows = (cfg.q_dim + 2 * cfg.kv_dim) // tp
     experts = cfg.n_experts // ep if cfg.is_moe else None
     return fw.wqkv.shape[1] == rows and (experts is None or fw.w13.shape[1] == experts)

@@ -1,8 +1,8 @@
 """Device mesh over a torch.distributed world (port of
 `yalm_tpu/parallel/mesh.py`).
 
-One process drives one device. The world's ranks form a ('dp', 'ep', 'tp')
-grid in JAX's reshape order, `tp` fastest:
+One process drives one device. By default the world's ranks form a
+('dp', 'ep', 'tp') grid in JAX's reshape order, `tp` fastest:
 
   dp : data parallelism (the scheduler's request lanes)
   ep : expert parallelism (an MoE model's experts)
@@ -13,6 +13,11 @@ Each axis the step bodies reduce over has a process group of the ranks that
 share the other coordinates: `tp`, `ep`, `ep_tp` (an MoE FFN's sum over
 experts and hidden slices) and `dp`. Where JAX lets NamedSharding insert
 the collectives, the port calls them itself (parallel/fast_tp.py).
+
+A mesh may also name its own axes in grid order, as jax.make_mesh does:
+{"sp": 2, "tp": 2} for the ring prefill (parallel/ring.py), {"pp": 4} for
+the pipelined tick (parallel/pipeline.py); each named axis has its group.
+`Mesh.shift` is JAX's ppermute to the next rank along an axis.
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ class MeshConfig:
         return self.dp * self.ep * self.tp
 
 
-AXES = ("dp", "ep", "tp")
 # the process groups a mesh holds: axis name -> the grid axes it spans
 GROUPS = {"tp": ("tp",), "ep": ("ep",), "ep_tp": ("ep", "tp"), "dp": ("dp",)}
 
@@ -64,23 +68,43 @@ def mesh_device(device=None) -> torch.device:
     return dev
 
 
-class Mesh:
-    """This rank's view of the ('dp', 'ep', 'tp') grid: `shape` and `coords`
-    are dicts keyed by axis name (as JAX's mesh.shape), `ranks` the grid of
-    world ranks, `device` the rank's device and `groups` one process group
-    per entry of GROUPS (None where the group is this rank alone: its
-    collectives are the identity and are skipped)."""
+def grid_axes(mcfg) -> tuple[dict, dict]:
+    """(axis name -> size in grid order, group name -> the axes it spans) of
+    a MeshConfig (the ('dp', 'ep', 'tp') grid and GROUPS) or of a dict of
+    named axes (one group per axis)."""
+    if isinstance(mcfg, MeshConfig):
+        return {"dp": mcfg.dp, "ep": mcfg.ep, "tp": mcfg.tp}, GROUPS
+    shape = {str(a): int(n) for a, n in dict(mcfg).items()}
+    if not shape or min(shape.values()) < 1:
+        raise ValueError(f"mesh axes {shape}: at least one axis, every size >= 1")
+    return shape, {a: (a,) for a in shape}
 
-    def __init__(self, mcfg: MeshConfig, ranks: np.ndarray, rank: int, device: torch.device,
+
+class Mesh:
+    """This rank's view of the grid: `shape` and `coords` are dicts keyed by
+    axis name in grid order (as JAX's mesh.shape), `ranks` the grid of world
+    ranks, `device` the rank's device and `groups` one process group per
+    group name (None where the group is this rank alone: its collectives
+    are the identity and are skipped). `config` is the MeshConfig of a
+    ('dp', 'ep', 'tp') mesh, None for named axes."""
+
+    def __init__(self, mcfg, ranks: np.ndarray, rank: int, device: torch.device,
                  backend: str, groups: dict, nodes: dict | None = None):
-        self.config = mcfg
-        self.shape = {"dp": mcfg.dp, "ep": mcfg.ep, "tp": mcfg.tp}
+        self.config = mcfg if isinstance(mcfg, MeshConfig) else None
+        self.shape = grid_axes(mcfg)[0]
+        self.axes = tuple(self.shape)
         self.ranks = ranks
         self.rank = rank
-        d, e, t = (int(i[0]) for i in np.nonzero(ranks == rank))
-        self.coords = {"dp": d, "ep": e, "tp": t}
+        at = tuple(int(i[0]) for i in np.nonzero(ranks == rank))
+        self.coords = dict(zip(self.axes, at))
         # the rank's place in grid order (load_fast_weights' `rank`)
-        self.position = (d * mcfg.ep + e) * mcfg.tp + t
+        self.position = int(np.ravel_multi_index(at, ranks.shape))
+        # each axis' (previous, next) world rank: shift's peers
+        self.peers = {}
+        for i, a in enumerate(self.axes):
+            prev, nxt = list(at), list(at)
+            prev[i], nxt[i] = (at[i] - 1) % self.shape[a], (at[i] + 1) % self.shape[a]
+            self.peers[a] = (int(ranks[tuple(prev)]), int(ranks[tuple(nxt)]))
         self.device = device
         self.backend = backend
         self.groups = groups
@@ -102,6 +126,42 @@ class Mesh:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
         return t
 
+    def shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """JAX's ppermute over `axis` with perm [(i, (i + 1) % n)]: this
+        rank's t goes to the next rank along the axis (the last to the
+        first) and the previous rank's block, of t's shape and type, comes
+        back, bit for bit (it travels as its bytes: NCCL sends no int16). nccl,
+        and gloo on CPU tensors, send and receive in one batch; gloo sends
+        only CPU tensors, so a CUDA block on gloo (two ranks sharing a card)
+        goes through a host copy. Every rank of the axis calls it."""
+        if self.shape[axis] == 1:
+            return t
+        prev, nxt = self.peers[axis]
+        g = self.groups[axis]
+        src = t.contiguous().view(torch.uint8)
+        via_host = self.backend == "gloo" and src.device.type != "cpu"
+        if via_host:
+            src = src.cpu()
+        out = torch.empty_like(src)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, src, nxt, g),
+                                         dist.P2POp(dist.irecv, out, prev, g)]):
+            w.wait()
+        if via_host:
+            out = out.to(t.device)
+        return out.view(t.dtype)
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The blocks t of every rank along `axis`, concatenated along `dim`
+        in coordinate order, on every rank of the axis: n - 1 shifts, so
+        each block arrives bit for bit."""
+        n, c = self.shape[axis], self.coords[axis]
+        blocks = [None] * n
+        blocks[c] = cur = t
+        for s in range(1, n):
+            cur = self.shift(cur, axis)
+            blocks[(c - s) % n] = cur
+        return torch.cat(blocks, dim=dim)
+
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
         """The leader's t on every rank of the mesh, in place; returns t."""
         if self.size > 1:
@@ -114,15 +174,17 @@ class Mesh:
         return int(self.broadcast(t)[0])
 
     def __repr__(self) -> str:
-        return (f"Mesh(dp={self.shape['dp']}, ep={self.shape['ep']}, tp={self.shape['tp']}, "
-                f"rank={self.rank}, coords={self.coords}, device={self.device}, "
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"Mesh({axes}, rank={self.rank}, coords={self.coords}, device={self.device}, "
                 f"backend={self.backend})")
 
 
-def make_mesh(mcfg: MeshConfig | None = None, *, device=None, order=None,
+def make_mesh(mcfg: MeshConfig | dict | None = None, *, device=None, order=None,
               nodes: dict | None = None) -> Mesh:
-    """Build this rank's ('dp', 'ep', 'tp') mesh over the initialized
-    torch.distributed world (parallel/distributed.initialize).
+    """Build this rank's mesh over the initialized torch.distributed world
+    (parallel/distributed.initialize): a ('dp', 'ep', 'tp') MeshConfig, or
+    a dict of axis names and sizes in grid order ({"sp": 2, "tp": 2}; one
+    process group per axis).
 
     With no MeshConfig every rank goes to `tp`. `order` lists the world's
     ranks in grid order (default 0..n-1; make_hybrid_mesh passes its node
@@ -136,8 +198,11 @@ def make_mesh(mcfg: MeshConfig | None = None, *, device=None, order=None,
     world = dist.get_world_size()
     if mcfg is None:
         mcfg = MeshConfig(tp=world)
-    if mcfg.n_devices != world:
-        raise ValueError(f"mesh {mcfg} wants {mcfg.n_devices} devices, have {world}")
+    shape, spans = grid_axes(mcfg)
+    axes = tuple(shape)
+    if int(np.prod(list(shape.values()))) != world:
+        raise ValueError(f"mesh {mcfg} wants {int(np.prod(list(shape.values())))} devices, "
+                         f"have {world}")
     dev = mesh_device(device)
     backend = str(dist.get_backend())
     if backend == "nccl" and dev.type != "cuda":
@@ -145,12 +210,12 @@ def make_mesh(mcfg: MeshConfig | None = None, *, device=None, order=None,
     order = list(range(world)) if order is None else [int(r) for r in order]
     if sorted(order) != list(range(world)):
         raise ValueError(f"order {order} is not a permutation of the world's {world} ranks")
-    ranks = np.asarray(order).reshape(mcfg.dp, mcfg.ep, mcfg.tp)
+    ranks = np.asarray(order).reshape(tuple(shape.values()))
     rank = dist.get_rank()
     groups: dict = {"world": None if world == 1 else dist.group.WORLD}
-    for name, axes in GROUPS.items():
-        keep = [i for i, a in enumerate(AXES) if a not in axes]
-        size = int(np.prod([ranks.shape[AXES.index(a)] for a in axes]))
+    for name, over in spans.items():
+        keep = [i for i, a in enumerate(axes) if a not in over]
+        size = int(np.prod([shape[a] for a in over]))
         # the other axes first: each row is one group, in grid order
         members = np.moveaxis(ranks, keep, list(range(len(keep)))).reshape(-1, size)
         mine = None
@@ -164,13 +229,14 @@ def make_mesh(mcfg: MeshConfig | None = None, *, device=None, order=None,
     return Mesh(mcfg, ranks, rank, dev, backend, groups, nodes)
 
 
-def grid_mesh(mcfg: MeshConfig, position: int, device="cpu") -> Mesh:
-    """Rank `position` of a (dp, ep, tp) grid without process groups: what
-    cutting one rank's shard in a single process reads (its collectives
-    must not be called)."""
-    ranks = np.arange(mcfg.n_devices).reshape(mcfg.dp, mcfg.ep, mcfg.tp)
+def grid_mesh(mcfg: MeshConfig | dict, position: int, device="cpu") -> Mesh:
+    """Rank `position` of a grid (a MeshConfig or named axes) without
+    process groups: what cutting one rank's shard in a single process reads
+    (its collectives must not be called)."""
+    shape, spans = grid_axes(mcfg)
+    ranks = np.arange(int(np.prod(list(shape.values())))).reshape(tuple(shape.values()))
     return Mesh(mcfg, ranks, position, torch.device(device), "none",
-                {k: None for k in (*GROUPS, "world")})
+                {k: None for k in (*spans, "world")})
 
 
 def validate_divisibility(cfg, mcfg: MeshConfig) -> None:

@@ -51,7 +51,7 @@ def fast_weight_splits(cfg: ModelConfig, with_scales: bool = False) -> dict:
 
 def weight_splits(cfg: ModelConfig) -> dict:
     """The oracle Weights layout's table (sharding.py:29-62; leading axis =
-    layers): the sharded oracle that reads it is a later slice."""
+    layers), which the sharded oracle cuts (parallel/oracle.py)."""
     e = ((1, "ep"),) if cfg.is_moe else ()
     x = 1 if cfg.is_moe else 0
     return {"embed": ((0, "tp"),), "rms_att": (), "rms_ffn": (),

@@ -64,9 +64,10 @@
   one allocator per group, page ids local to the group's pool shard,
   preemption inside the lane's group) and its kv heads over tp; all three
   proposal sources speculate on a dense model with ep=1, a draft model
-  sharded over the same mesh with its own cache. The sharded oracle on a
-  mesh is a later slice of the port (ROADMAP.md item 13) and raises
-  NotImplementedError.
+  sharded over the same mesh with its own cache. As JAX's, a scheduler on
+  a mesh runs the kernels: the oracle there (fast=False, or "auto" on
+  shards the kernels refuse) raises JAX's ValueError; the Engine runs the
+  sharded oracle.
 """
 
 from __future__ import annotations
@@ -434,7 +435,7 @@ class Scheduler:
                 raise ValueError("paged cache + mesh needs ep=1 and a dense model; "
                                  "single-device paged x MoE works")
             self.fast = mesh_route(cfg, fast, mesh)
-            if batch % mesh.shape["dp"]:
+            if not self.fast or batch % mesh.shape["dp"]:
                 raise ValueError(f"mesh scheduler requires the fast TP path and batch % dp "
                                  f"== 0 (got batch={batch}, mesh={mesh.shape})")
             self.device = resolve_device(mesh.device)

@@ -125,8 +125,10 @@ class ServingEngine:
                 from .parallel.fast_tp import mesh_route
                 dev = resolve_device(mesh.device)
                 fast = mesh_route(cfg, fast, mesh)
-                weights = load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
-                                            ep=mesh.shape["ep"], rank=mesh.position)
+                # the oracle on a mesh loads nothing: the scheduler refuses it
+                weights = (load_fast_weights(yf, cfg, dev, tp=mesh.shape["tp"],
+                                             ep=mesh.shape["ep"], rank=mesh.position)
+                           if fast else None)
             else:
                 dev = resolve_device(device)
                 fast = resolve_fast(cfg, fast)

@@ -379,8 +379,10 @@ def mesh_cases(args: dict) -> list:
     rank runs every case; the tests read rank 0's and check the others').
 
     Case keys: "op" (decode | prefill | tick | paged | verify | engine |
-    weights | scheduler | server), "path" (a checkpoint), "mesh" ((dp, ep,
-    tp)), "kv" ("bf16" | "fp8"), and the op's inputs: "tokens" and
+    weights | scheduler | server | ring | pp | oracle), "path" (a
+    checkpoint), "mesh" ((dp, ep, tp)) or "axes" (named axes in grid order,
+    {"sp": 2, "tp": 1}), "kv" ("bf16" | "fp8"; the oracle also "f32"), and
+    the op's inputs (ring_case's, pp_case's and oracle_case's too): "tokens" and
     "positions" (decode: one token per step; tick: (steps, B) arrays and
     "write"), "chunks" (prefill: (tokens, pos0, valid_len, logits_mode)
     tuples), paged_case's and verify_case's, "prompt", "steps",
@@ -394,10 +396,11 @@ def mesh_cases(args: dict) -> list:
     from ..parallel.fast_tp import (local_cache, make_decode_step_fast_tp, make_prefill_fast_tp,
                                     make_tick_fast_tp)
     from ..parallel.mesh import MeshConfig, make_mesh
-    kvs = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2}
+    kvs = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2, "f32": torch.float32}
     out = []
     for case in args["cases"]:
-        mesh = make_mesh(MeshConfig(*case["mesh"]), device=args.get("device", "cpu"))
+        mesh = make_mesh(MeshConfig(*case["mesh"]) if "mesh" in case else case["axes"],
+                         device=args.get("device", "cpu"))
         kv = kvs[case.get("kv", "bf16")]
         yf = read_yalm(case["path"])
         cfg = ModelConfig.from_metadata(yf.metadata)
@@ -405,6 +408,8 @@ def mesh_cases(args: dict) -> list:
         if op in ("decode", "prefill", "tick", "weights", "paged", "verify"):
             fw = load_fast_weights(yf, cfg, mesh.device, tp=mesh.shape["tp"],
                                    ep=mesh.shape["ep"], rank=mesh.position)
+        elif op in ("ring", "pp"):   # the whole model: the case cuts the rank's part
+            fw = load_fast_weights(yf, cfg, mesh.device)
         yf.close()
         if op == "weights":
             out.append(_fast_weights_numpy(fw))
@@ -440,10 +445,17 @@ def mesh_cases(args: dict) -> list:
             out.append(verify_case(case, cfg, fw, mesh, kv))
         elif op == "engine":
             from ..engine import Engine
-            eng = Engine.from_checkpoint(case["path"], mesh=mesh, kv_dtype=kv)
+            eng = Engine.from_checkpoint(case["path"], mesh=mesh, kv_dtype=kv,
+                                         fast=case.get("fast", "auto"))
             out.append(list(eng.generate(case["prompt"], max_steps=case["steps"],
                                          temperature=case.get("temperature", 0.0),
                                          seed=case.get("seed"))))
+        elif op == "ring":
+            out.append(ring_case(case, cfg, fw, mesh, kv))
+        elif op == "pp":
+            out.append(pp_case(case, cfg, fw, mesh, kv))
+        elif op == "oracle":
+            out.append(oracle_case(case, cfg, mesh, kv))
         elif op == "scheduler":
             out.append(_mesh_scheduler_case(case, mesh, kv))
         elif op == "server":
@@ -481,6 +493,86 @@ def paged_case(case: dict, cfg, fw, mesh, kv) -> dict:
         lg, pool = tick(fw, toks, pos, pool, tables, wr)
         ticks.append(lg.float().cpu().numpy())
     return {"prefill": pre, "ticks": np.stack(ticks), **_pool_bytes(pool)}
+
+
+def ring_case(case: dict, cfg, fw, mesh, kv) -> dict:
+    """The ring prefill of case["tokens"] on this rank of an ('sp', 'tp')
+    mesh (fw: the whole model, cut by shard_ring_weights), then
+    case["steps"] greedy decode steps on one device from the placed
+    window cache of type kv. Returns the last-token logits, this rank's K/V
+    rows (f32), the greedy stream and its steps' logits."""
+    from ..models.fast import decode_step_fast
+    from ..parallel.ring import make_prefill_ring, ring_prefill_cache, shard_ring_weights
+    tokens = case["tokens"]
+    logits, ck, cv = make_prefill_ring(cfg, mesh)(shard_ring_weights(fw, cfg, mesh), tokens)
+    cache = ring_prefill_cache(cfg, ck, cv, kv, mesh=mesh)
+    cur, stream, rows = int(torch.argmax(logits)), [], []
+    for s in range(case.get("steps", 0)):
+        stream.append(cur)
+        lg, cache = decode_step_fast(cfg, fw, cur, len(tokens) + s, cache)
+        rows.append(lg.float().cpu().numpy())
+        cur = int(torch.argmax(lg))
+    return {"logits": logits.float().cpu().numpy(), "k": ck.float().cpu().numpy(),
+            "v": cv.float().cpu().numpy(), "stream": stream, "rows": rows}
+
+
+def pp_case(case: dict, cfg, fw, mesh, kv) -> dict:
+    """The pipelined tick on this rank of a ('pp',) mesh (fw: the whole
+    model, cut by shard_pp_weights) over case["ticks"] ((positions, write)
+    each) of case["B"] lanes from case["tokens"]; with case["greedy"] each
+    tick's argmax feeds the next, else case["tokens"] every tick. The whole
+    batched cache starts zeroed, or as case["cache"] ((k, v) integer views
+    of its bytes), and is cut per stage. Returns each tick's logits and the
+    stage's cache bytes."""
+    from ..models.cache import KVCache
+    from ..ops.core import int_view
+    from ..parallel.pipeline import make_tick_pp, shard_pp_cache, shard_pp_weights
+    B = case["B"]
+    cache = KVCache.init(cfg, kv, fw.wqkv.device, batch=B)
+    if case.get("cache") is not None:
+        for c, a in zip((cache.k, cache.v), case["cache"]):
+            int_view(c).copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    pc = shard_pp_cache(cache, mesh)
+    pw = shard_pp_weights(fw, cfg, mesh)
+    tick = make_tick_pp(cfg, mesh, B)
+    toks, rows = case["tokens"], []
+    for pos, wr in case["ticks"]:
+        lg, pc = tick(pw, toks, pos, pc, wr)
+        rows.append(lg.float().cpu().numpy())
+        if case.get("greedy"):
+            toks = torch.argmax(lg, dim=-1).cpu().numpy()
+    return {"logits": np.stack(rows), **_pool_bytes(pc)}
+
+
+def oracle_case(case: dict, cfg, mesh, kv) -> dict:
+    """The sharded oracle on this rank (parallel/oracle.py): case["chunks"]
+    ((tokens, pos0, valid_len, logits_mode) through transformer.prefill),
+    then case["tokens"] through transformer.decode_step from the next
+    position, on the rank's cut of the whole Weights and its cache of type
+    kv. Returns the logits and the cache (f32)."""
+    from ..codec.format import read_yalm
+    from ..models.transformer import decode_step, prefill
+    from ..models.weights import load_weights
+    from ..parallel.oracle import OracleShard, oracle_cache, shard_oracle_weights
+    yf = read_yalm(case["path"])
+    try:
+        w = shard_oracle_weights(load_weights(yf, cfg, "cpu"), cfg, mesh)
+    finally:
+        yf.close()
+    shard = OracleShard(cfg, mesh)
+    cache = oracle_cache(cfg, mesh, kv)
+    pre, steps, pos = [], [], 0
+    for toks, pos0, valid, mode in case.get("chunks", ()):
+        lg, cache = prefill(cfg, w, np.asarray(toks), pos0, valid, cache, logits_mode=mode,
+                            shard=shard)
+        pre.append(None if lg is None else lg.float().cpu().numpy())
+        pos = pos0 + valid
+    for t in case.get("tokens", ()):
+        lg, cache = decode_step(cfg, w, int(t), pos, cache, shard=shard)
+        steps.append(lg.float().cpu().numpy())
+        pos += 1
+    return {"prefill": pre, "steps": np.stack(steps) if steps else None,
+            "k": cache.k.float().cpu().numpy(), "v": cache.v.float().cpu().numpy()}
 
 
 def verify_case(case: dict, cfg, fw, mesh, kv) -> dict:
