@@ -127,8 +127,8 @@ gemm4_l and K11 gemm4_le run on the wgmma gemm_kernel (round_rows_bf16
 first; `gemm_plan`); every case of theirs in phase 2 (K1 and K5 also at
 the tick's M 16 for w2 and wo, with F.linear beside it) also times the
 mma.sync design it replaced (gemm_kernel_v1 or gemm4_kernel_v1, through
-`gemm_v1`) in the same run, as do K4's and K7's GEMM-route rows, and
-phase 2 checks `cuobjdump -sass` for HGMMA in every gemm_kernel instance,
+`gemm_v1`) in the same run, as do K4's and K7's GEMM-route rows (64
+rows), and phase 2 checks `cuobjdump -sass` for HGMMA in every gemm_kernel instance,
 the int4 ones among them. K8 attend_step_batched_l and K9
 attend_step_paged_l run split over the window's slots (`lanes_split_plan`,
 two launches per call); every K8/K9 case in phase 2 also times the
@@ -137,9 +137,21 @@ one-block-per-(kv head, lane) design it replaced (attend_step_kernel through
 each run one K8 and one K9 call under torch's sync debug mode (no host
 sync) and replay each captured in a CUDA graph after rewriting its lanes
 tensor in place; phase
-3's tick profiles report K8/K9's device time per tick. Every GEMV (K1
-gemv/gemv_l, K5 gemv4_l, K10 gemv_le, K11 gemv4_le and the GEMV legs of
-K4/K7, and K3/K6's GEMV phases) runs on gemv_kernel's body: mma.sync with x's rows as the n of 8,
+3's tick profiles report K8/K9's device time per tick. K4 ffn_l and K7
+ffn4_l run as one cooperative launch each for 1-16 rows (csrc/ffn.cu: the
+w13 GEMV's slices, then the w2 GEMV's, each w2 item waiting for the GLU
+columns it reads); phase 2 (`phase_ffn_rows`) holds it at 1, 4, 8 and 16
+rows (and Gemma's gelu, the tp=2 shard's hidden slice, a pipeline stage's
+8 rows) against its plain version, bit for bit against the two GEMV
+launches it replaced up to 8 rows (`ffn_old`; past 8 the GEMM route's five
+launches), whose time is the row's old design, reads its GLU rows back
+from the scratch, and at 1 and 16 rows prints its timeline and the host's
+time per call and replays it from a CUDA graph (one kernel node); phase 3
+reruns each dense path's first greedy request on the launches it replaced
+(the same tokens and logits, bit for bit); phase 3's tick profiles require
+one ffn launch a layer and none on the GEMM route. Every GEMV (K1
+gemv/gemv_l, K5 gemv4_l, K10 gemv_le, K11 gemv4_le, and K3/K6's and
+K4/K7's GEMV phases) runs on gemv_kernel's body: mma.sync with x's rows as the n of 8,
 the weight stream started before the rmsnorm prologue, K split by
 `gemv_plan` where the grid starves; phase 2 times it at every shape a
 decode step launches (`phase_gemv`: one row, and eight on w13 and w2)
@@ -675,11 +687,14 @@ def phase_gemv(bench: Bench, cfg, fw, dev) -> None:
     (gemv_kernel_v1 through gemv_v1) timed in the same run, the plain
     version, the bound and F.linear on bf16 (int4: dequantized bf16) copies
     of 4 layers: fp8 and int4 -- wqkv + rmsnorm, wo + residual, w13 +
-    rmsnorm + GLU, w2 + residual (1 row, and 8 rows for w13 and w2, the
-    FFN's GEMV route) and the LM head (e5m2; int8 + scale), on fp8 also
+    rmsnorm + GLU, w2 + residual (1 row, and 8 rows for w13 and w2: the
+    GEMV phases of csrc/block.cu's and csrc/ffn.cu's one launch, which no
+    path launches as a separate GEMV any more, so their rows stay out of
+    the kernels line) and the LM head (e5m2; int8 + scale), on fp8 also
     wqkv on bf16 and int8 + scale weights; Mixtral -- the routed w13 +
     rmsnorm + GLU and w2 with the expert id on the card; the Gemmas -- the
-    tied LM head. The dense rows also check that two calls give the same
+    tied LM head and gemv_l's wqkv + rmsnorm and wo, which their unfused
+    attention launches each layer. The dense rows also check that two calls give the same
     bits (split K sums its slices in a fixed order)."""
     import torch
     import torch.nn.functional as F
@@ -749,6 +764,27 @@ def phase_gemv(bench: Bench, cfg, fw, dev) -> None:
                    library=lambda r: F.linear(x.to(torch.bfloat16), lm_bf16),
                    old=lambda r: gemv_v1(x, fw.lm_head[None], 0),
                    bytes_=V * d + 4 * d + 4 * V, flops=2 * V * d, json_row=True)
+        del lm_bf16
+        # the unfused attention's GEMVs, as the decode step launches them
+        # (gemv_l: wqkv with the rmsnorm prologue; wo without the residual,
+        # which follows the post-norm)
+        Nqkv, q_dim = cfg.q_dim + 2 * cfg.kv_dim, cfg.q_dim
+        norm_att = dict(norm_w=fw.rms_att, norm_eps=cfg.norm_eps)
+        for nm, w, N, K, kw, xx in (("wqkv + rmsnorm", fw.wqkv, Nqkv, d, norm_att,
+                                     randn(d, scale=3.0)),
+                                    ("wo", fw.wo, d, q_dim, {}, randn(q_dim))):
+            wl = bf16_copies(w, None)
+            plan = G.gemv_plan(1, N, K, False, 0, w.element_size())
+            bench.case("gemv_l", f"{nm} e5m2 ({N}x{K}), split {plan.split}",
+                       G.gemv_l(xx, w, 0, **kw), G.gemv_l_plain(xx, w, 0, **kw), 2e-3,
+                       kernel=lambda r, w=w, kw=kw, xx=xx: G.gemv_l(xx, w, lay(r), **kw),
+                       plain=lambda r, w=w, kw=kw, xx=xx: G.gemv_l_plain(xx, w, lay(r), **kw),
+                       library=lambda r, xx=xx, wl=wl: F.linear(xx.to(torch.bfloat16),
+                                                                wl[r % len(wl)]),
+                       old=lambda r, w=w, kw=kw, xx=xx: gemv_v1(xx, w, lay(r), **kw),
+                       bytes_=wbytes(w[0], None) + 4 * K + (4 * K if kw else 0) + 4 * N,
+                       flops=2 * N * K, json_row=bool(kw))
+            del wl
         return
 
     # the dense paths: Mistral-7B fp8 (e5m2) or int4 (packed, int8 head)
@@ -805,8 +841,7 @@ def phase_gemv(bench: Bench, cfg, fw, dev) -> None:
                    bytes_=wbytes(w[0], None if s(field) is None else s(field)[0]) + 4 * nb * K
                    + (4 * K if "norm_w" in kw else 0)
                    + 4 * nb * n_out * (2 if "residual" in kw else 1),
-                   flops=2 * nb * N * K, bf16_out=glu,
-                   json_row=(nb, field) == (1, "wqkv") or (nb, field) == (1, "w13"))
+                   flops=2 * nb * N * K, bf16_out=glu)
         del wl
     if int4:
         return
@@ -916,6 +951,28 @@ def four_launches(x, norm_w, wqkv_all, wo_all, k_all, v_all, layer, kv_pos, kv_l
                          residual=x if add_residual else None)
 
 
+def ffn_old(x, norm_w, w13_all, w2_all, layer, scale13=None, scale2=None, *, norm_eps, act,
+            add_residual=True):
+    """K4/K7's function for 1-16 rows on the design csrc/ffn.cu's one
+    launch replaced, for the same-run time and the
+    bit-for-bit check: up to 8 rows two GEMV launches (the w13 GEMV with the
+    rmsnorm prologue and the GLU pair, then the w2 GEMV with scale +
+    residual, launch_gemv twice), past 8 the GEMM route's five launches
+    (launch_ffn_gemm)."""
+    from yalm_tpu_torch.ops.cuda import ffn as FF
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    x2 = x.float().reshape(-1, x.shape[-1]).contiguous()
+    res = x2 if add_residual else None
+    if x2.shape[0] > 8:
+        out = FF.launch_ffn_gemm(x2, norm_w, w13_all, w2_all, layer, scale13, scale2,
+                                 norm_eps=norm_eps, act=act, residual=res)
+        return out.reshape(x.shape)
+    name = "gemv4_l" if G.is_int4(w13_all) else "gemv_l"
+    h = G.launch_gemv(name, x2, w13_all, layer, norm_w=norm_w, norm_eps=norm_eps,
+                      scale=scale13, glu_act=act)
+    return G.launch_gemv(name, h, w2_all, layer, scale=scale2, residual=res).reshape(x.shape)
+
+
 def kernels_per_call(fn, calls: int = 20) -> list:
     """The names of the device kernels `calls` calls of fn launch, from a
     torch.profiler trace of those calls alone (CUDA activity only), taken
@@ -977,7 +1034,7 @@ def graph_node_types(graph) -> list | None:
 
 
 def block_capture(fn, x) -> tuple:
-    """One call of fn (an attn_block on x) captured in a CUDA graph and
+    """One call of fn (an attn_block or an ffn on x) captured in a CUDA graph and
     replayed after x is rewritten in place, against the uncaptured call on
     the new x: ("replays bit for bit" or the error of a refused capture,
     the graph's node types: [0] is one kernel node). A replay that
@@ -1005,7 +1062,7 @@ def block_capture(fn, x) -> tuple:
     torch.cuda.synchronize()
     replayed = out.clone()
     if not torch.equal(replayed, fn()):
-        raise AssertionError("attn_block: the graph's replay differs from the uncaptured call")
+        raise AssertionError("the graph's replay differs from the uncaptured call")
     return "replays bit for bit", types
 
 
@@ -1135,7 +1192,6 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.ops.cuda import attention as A
     from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1264,17 +1320,10 @@ def phase_kernels(bench: Bench, cfg, fw, dev) -> None:
     phase_block(bench, cfg, fw, dev, cache)
     del cache
 
-    # K4: ffn_l, one row (decode) and four rows, without the residual
-    for B in (1, 4):
-        xf = randn(d, scale=3.0) if B == 1 else randn(B, d, scale=3.0)
-        kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
-        bench.case("ffn_l", f"B={B} e5m2", ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw),
-                   ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, 2, **kw), 2e-3,
-                   kernel=lambda r, xf=xf: ffn_l(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
-                   plain=lambda r, xf=xf: ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
-                   bytes_=3 * h * d + 8 * B * d + 4 * d, flops=B * 6 * h * d,
-                   json_row=(B == 1))
-    phase_ffn_rows(bench, cfg, fw, dev, (16, 64))
+    # K4: ffn_l in one launch at 1, 4, 8 and 16 rows (the decode step, a
+    # pipeline stage, the tick) beside the launches it replaced; at 64 rows
+    # (a prefill chunk) the GEMM route
+    phase_ffn_rows(bench, cfg, fw, dev, (1, 4, 8, 16, 64), {1: "serve", 16: "batched", 64: "batched"})
     phase_batched_attention(bench, cfg, dev, torch.bfloat16)
     phase_paged_attention(bench, cfg, dev, torch.bfloat16)
     phase_lanes_capture(cfg, dev, torch.bfloat16)
@@ -1289,7 +1338,6 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     from yalm_tpu_torch.models.cache import KVCache
     from yalm_tpu_torch.ops.cuda import attention as A
     from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.ffn import ffn4_l, ffn_plain
     from yalm_tpu_torch.ops.int4 import int4_group
 
     bench.path = "int4"
@@ -1409,17 +1457,9 @@ def phase_kernels4(bench: Bench, cfg, fw, dev) -> None:
     phase_block(bench, cfg, fw, dev, cache, sc)
     del cache
 
-    # K7: ffn4_l, one row (decode), without the residual
-    xf = randn(d, scale=3.0)
-    kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
-    bench.case("ffn4_l", "B=1", ffn4_l(xf, fw.rms_ffn, fw.w13, fw.w2, 2, sc.w13, sc.w2, **kw),
-               ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, 2, sc.w13, sc.w2, **kw), 2e-3,
-               kernel=lambda r: ffn4_l(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), sc.w13, sc.w2, **kw),
-               plain=lambda r: ffn_plain(xf, fw.rms_ffn, fw.w13, fw.w2, lay(r), sc.w13, sc.w2,
-                                         **kw),
-               bytes_=w4_bytes(2 * h, d) + w4_bytes(d, h) + 12 * d, flops=6 * h * d,
-               json_row=True)
-    phase_ffn_rows(bench, cfg, fw, dev, (16,))
+    # K7: ffn4_l in one launch at 1, 4, 8 and 16 rows, beside the launches
+    # it replaced; at 64 rows the GEMM route
+    phase_ffn_rows(bench, cfg, fw, dev, (1, 4, 8, 16, 64), {1: "serve", 16: "batched", 64: "batched"})
     phase_batched_attention(bench, cfg, dev, torch.float8_e5m2)
     phase_paged_attention(bench, cfg, dev, torch.float8_e5m2)
     phase_lanes_capture(cfg, dev, torch.float8_e5m2)
@@ -1531,35 +1571,16 @@ def phase_sliding_step(bench: Bench, cfg, dev, kv_dtype, form: dict) -> None:
 
 def phase_gemma_kernels(bench: Bench, cfg, fw, dev, kv_dtype, form: dict) -> None:
     """Phase 2 of a Gemma path at its shapes: the LM-head GEMV over the
-    tied 256k-row embedding; the gelu GLU on the GEMV route (one row) and
-    the GEMM route (16 rows), each GLU output against ops/core.gelu's to
-    one bf16 ulp; K2, K8 (B 16) and K9 (B 16, shuffled pages of 256) in the
+    tied 256k-row embedding and the unfused attention's wqkv and wo GEMVs
+    (phase_gemv); the gelu GLU in the one-launch FFN at one row
+    and at 16 (phase_ffn_rows), its GLU rows against ops/core.gelu's to one
+    bf16 ulp; K2, K8 (B 16) and K9 (B 16, shuffled pages of 256) in the
     path's Gemma form, linear and ring lanes, on the path's cache type."""
-    import torch
-    from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.ffn import ffn_l, ffn_plain
-
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(17)
-    L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
-    phase_gemv(bench, cfg, fw, dev)   # the tied LM head, beside the old design
-    act = cfg.act_type
-    x = torch.randn(d, generator=gen, device=dev) * 3.0
-    glu = G.launch_gemv("check", x, fw.w13, 1, norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps,
-                        glu_act=act)
-    ref = G.gemv_l_plain(x, fw.w13, 1, norm_w=fw.rms_ffn, norm_eps=cfg.norm_eps)
-    gerr = glu_holds(f"ffn_l B=1 {act}", glu, G.glu_plain(ref, act))
-    log(f"  ffn_l B=1: the w13 GEMV's {act} GLU output bf16-rounded bit for bit, max |err| "
-        f"{gerr:.3e}")
-    kw = dict(norm_eps=cfg.norm_eps, act=act, add_residual=False)
-    bench.case("ffn_l", f"B=1 e5m2 {act}", ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, 2, **kw),
-               ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, 2, **kw), 2e-3,
-               kernel=lambda r: ffn_l(x, fw.rms_ffn, fw.w13, fw.w2, r % L, **kw),
-               plain=lambda r: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, r % L, **kw),
-               bytes_=3 * h * d + 8 * d + 4 * d, flops=6 * h * d, json_row=True)
+    phase_gemv(bench, cfg, fw, dev)   # the tied LM head, wqkv and wo, beside the old design
+    # the gelu GLU in the one-launch FFN at one row and at the tick's 16;
     # the kernels line reports the serving run the path has (dense or paged)
     dense = bench.path == "gemma3"
-    phase_ffn_rows(bench, cfg, fw, dev, (16,), run="batched" if dense else "paged")
+    phase_ffn_rows(bench, cfg, fw, dev, (1, 16), {1: "serve", 16: "batched" if dense else "paged"})
     phase_sliding_step(bench, cfg, dev, kv_dtype, form)
     phase_batched_attention(bench, cfg, dev, kv_dtype, form, json=dense)
     phase_paged_attention(bench, cfg, dev, kv_dtype, form, depths=(4,), json=not dense)
@@ -1700,47 +1721,149 @@ def glu_holds(name: str, glu, ref) -> float:
     return float(diff.max())
 
 
-def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list, run: str = "batched") -> None:
-    """K4/K7 past 8 rows, the batched tick's FFN: the GEMM route (row norm,
-    w13 GEMM with the GLU-pair epilogue, w2 GEMM), without the residual,
-    with the model's activation. The GLU output, an intermediate, is
-    checked bit for bit: every value the w13 GEMM writes is a bf16 value,
-    within 2e-3 of the plain GLU or one bf16 ulp of it (glu_holds). `run`:
-    the serving run whose launches the kernels line reports for it."""
+FFN_MARKS = ("A done", "first B ready", "last B ready", "end")
+
+
+def ffn_timeline(args, kw, reps: int = 9) -> dict:
+    """Where one call of csrc/ffn.cu's kernel spends its time, from its
+    blocks' stamps (the card's ns timer, ffn.cu's stamp()): the us from the
+    first block's entry to the last block's A items done, to the first and
+    the last block's first w2 item having its GLU columns (its weights
+    were streaming before), and to the last block's end; the median over
+    `reps` calls on args(rep) = (x2, norm_w, w13, w2, layer, s13, s2)."""
     import torch
     from yalm_tpu_torch.ops.cuda import gemv as G
-    from yalm_tpu_torch.ops.cuda.ffn import ffn, ffn_plain
+    from yalm_tpu_torch.ops.cuda.ffn import ffn_plan, launch_ffn
+    marks = []
+    for r in range(reps):
+        x2, nw, w13, w2, layer, s13, s2 = args(r)
+        int4 = G.is_int4(w13)
+        plan = ffn_plan(x2.shape[0], x2.shape[1], w13.shape[1] // 2,
+                        1 if int4 else w13.element_size(), int4)
+        st = torch.zeros(plan.grid, 4, dtype=torch.int64, device=x2.device)
+        launch_ffn("timeline", x2, nw, w13, w2, layer, s13, s2, stamps=st, **kw)
+        torch.cuda.synchronize()
+        st = st[st[:, 0] != 0].double() / 1e3   # us, the launched blocks
+        t0, b = st[:, 0].min(), st[st[:, 2] != 0, 2]
+        marks.append([float(st[:, 1].max() - t0), float(b.min() - t0), float(b.max() - t0),
+                      float(st[:, 3].max() - t0)])
+    return {m: statistics.median(x[k] for x in marks) for k, m in enumerate(FFN_MARKS)}
 
+
+def ffn_glu_rows(x2, H: int, int4: bool, itemsize: int):
+    """The GLU rows (nb, H) the last one-launch FFN call on x2's device and
+    the current stream wrote: bf16 in the scratch (ffn_plan's glu region),
+    widened to f32."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import ffn_plan
+    nb, K = x2.shape
+    scratch, _ = G._SPLIT_BUFFERS[(x2.device, torch.cuda.current_stream(x2.device).cuda_stream)]
+    off = ffn_plan(nb, K, H, itemsize, int4).offsets[2]
+    return scratch[off:off + -(-nb * H // 2)].view(torch.bfloat16)[:nb * H].float().view(nb, H)
+
+
+def phase_ffn_rows(bench: Bench, cfg, fw, dev, rows_list, runs=None, probes=False) -> None:
+    """K4/K7 at each row count of rows_list, without the residual, with the
+    model's activation. 1-16 rows (the decode step, a pipeline stage, the
+    batched tick) run ONE launch of csrc/ffn.cu, timed beside the sequence
+    it replaced (`ffn_old`, same run: two GEMV launches up to 8 rows, which
+    it must equal bit for bit; the GEMM route's five launches past 8), its
+    GLU rows read back from the scratch, and at 1 and 16 rows its timeline
+    (ffn_timeline), the host's time per call of both designs and a
+    CUDA-graph replay whose graph holds one kernel node; with `probes`
+    (ffn_phases) also one kernel in a profiler trace of each of 20 calls.
+    Past 16 rows
+    the GEMM route (row norm, w13 GEMM with the GLU-pair epilogue, w2 GEMM)
+    beside the mma.sync design it replaced. The GLU output, an
+    intermediate, is checked in both: every value a bf16 value, within 2e-3
+    of the plain GLU or one bf16 ulp of it (glu_holds). `runs`: row count
+    -> the run whose launches the kernels line reports for that case (a
+    row count not in it gets no row in the line)."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import FFN_ROWS, ffn, ffn_plain
+
+    runs = runs or {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     L, d, h = cfg.n_layers, cfg.dim, cfg.hidden_dim
     sc = fw.scales
     s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
     int4 = G.is_int4(fw.w13)
+    isz = 1 if int4 else fw.w13.element_size()
     name = "ffn4_l" if int4 else "ffn_l"
     wbytes = (fw.w13[0].numel() + fw.w2[0].numel()
               + (4 * (s13[0].numel() + s2[0].numel()) if int4 else 0))
     lay = lambda r: r % L  # noqa: E731
     act = cfg.act_type
     kw = dict(norm_eps=cfg.norm_eps, act=act, add_residual=False)
+    wt = ("int4" if int4 else str(fw.w13.dtype).replace("torch.float8_", "")) + (
+        f" {act}" if act != "silu" else "")
     for B in rows_list:
         x = torch.randn(B, d, generator=gen, device=dev) * 3.0
-        xb = G.bf16f(x * torch.rsqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps)
+        if B == 1:
+            x = x[0]   # the decode step's (dim,) stream
+        x2 = x.reshape(-1, d)
+        xb = G.bf16f(x2 * torch.rsqrt((x2 * x2).mean(-1, keepdim=True) + cfg.norm_eps)
                      * fw.rms_ffn[2])
-        glu = G.launch_gemm("check", xb, fw.w13, 2, s13, glu_act=act)
-        gerr = glu_holds(f"{name} B={B}", glu, G.glu_plain(G.proj_plain(xb, fw.w13, 2, s13), act))
-        log(f"  {name} B={B}: {act} GLU output bf16-rounded bit for bit, max |err| {gerr:.3e}")
-        bench.case(f"{name}_gemm", f"B={B} (GEMM route)" + ("" if int4 else " e5m2")
-                   + (f" {act}" if act != "silu" else ""),
-                   ffn(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw),
-                   ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, 2, s13, s2, **kw), 2e-3,
-                   kernel=lambda r, x=x: ffn(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw),
-                   plain=lambda r, x=x: ffn_plain(x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2,
-                                                  **kw),
-                   old=lambda r, x=x: on_old_gemm(lambda: ffn(
-                       x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2, **kw)),
+        ref_glu = G.glu_plain(G.proj_plain(xb, fw.w13, 2, s13), act)
+        args = lambda r, x=x: (x, fw.rms_ffn, fw.w13, fw.w2, lay(r), s13, s2)  # noqa: E731
+        if B > FFN_ROWS:
+            glu = G.launch_gemm("check", xb, fw.w13, 2, s13, glu_act=act)
+            gerr = glu_holds(f"{name} B={B}", glu, ref_glu)
+            log(f"  {name} B={B}: {act} GLU output bf16-rounded bit for bit, max |err| "
+                f"{gerr:.3e}")
+            bench.case(f"{name}_gemm", f"B={B} (GEMM route) {wt}",
+                       ffn(*args(2), **kw), ffn_plain(*args(2), **kw), 2e-3,
+                       kernel=lambda r, a=args: ffn(*a(r), **kw),
+                       plain=lambda r, a=args: ffn_plain(*a(r), **kw),
+                       old=lambda r, a=args: on_old_gemm(lambda: ffn(*a(r), **kw)),
+                       bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
+                       json_row=B in runs, run=runs.get(B, "serve"))
+            continue
+        got = ffn(*args(2), **kw)
+        glu = ffn_glu_rows(x2, h, int4, isz)
+        old = ffn_old(*args(2), **kw)
+        torch.cuda.synchronize()
+        if B <= 8 and not torch.equal(got, old):
+            raise AssertionError(f"{name} B={B}: the one launch differs from the two launches "
+                                 f"(max |diff| {float((got - old).abs().max())})")
+        gerr = glu_holds(f"{name} B={B}", glu, ref_glu)
+        flips = int(((glu - ref_glu).abs() > 2e-3 * max(1.0, float(ref_glu.abs().max()))).sum())
+        log(f"  {name} B={B}: one launch" + (" equal to the two launches bit for bit"
+                                            if B <= 8 else "")
+            + f"; its {act} GLU rows bf16 values, max |err| {gerr:.3e} ({flips} one-ulp flips)")
+        bench.case(name, f"B={B} {wt}, one launch", got, ffn_plain(*args(2), **kw), 2e-3,
+                   kernel=lambda r, a=args: ffn(*a(r), **kw),
+                   plain=lambda r, a=args: ffn_plain(*a(r), **kw),
+                   old=lambda r, a=args: ffn_old(*a(r), **kw),
                    bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
-                   json_row=B == 16, run=run)
+                   json_row=B in runs, run=runs.get(B, "serve"))
+        row = bench.rows[-1]
+        row["glu_flips"] = flips
+        if B not in (1, 16):
+            continue
+        lk = dict(norm_eps=cfg.norm_eps, act=act)
+        a2 = lambda r, x2=x2: (x2,) + args(r)[1:]  # noqa: E731
+        row["timeline_us"] = tl = ffn_timeline(a2, lk)
+        row["host_us"] = host_us_per_call(lambda: ffn(*args(5), **kw))
+        row["old_host_us"] = host_us_per_call(lambda: ffn_old(*args(5), **kw))
+        xg = x.clone()
+        row["graph"], nodes = block_capture(lambda: ffn(xg, *args(5)[1:], **kw), xg)
+        ks = kernels_per_call(lambda: ffn(*args(5), **kw)) if probes else None
+        if (nodes is not None and nodes != [0]) or (nodes is None and ks is None) or (
+                ks is not None and (any("ffn_kernel" not in k for k in ks) or len(ks) > 20
+                                    or (nodes is None and len(ks) != 20))):
+            raise AssertionError(f"{name} B={B}: one call's graph nodes {nodes}; 20 calls "
+                                 f"launched {ks}")
+        msg = (f"  {name} B={B}: timeline (us) " + ", ".join(f"{k} {v:.2f}" for k, v in tl.items())
+               + f"; one call's CUDA graph: node types {nodes} (0: a kernel), {row['graph']}; "
+               f"host time per call {row['host_us']:.1f} us (the launches it replaced: "
+               f"{row['old_host_us']:.1f} us)")
+        if probes:
+            msg += f"; 20 calls: {len(ks)} kernels ({ks[0] if ks else '-'})"
+        log(msg)
 
 
 def batched_lanes(S: int):
@@ -2096,9 +2219,8 @@ def phase_lanes_capture(cfg, dev, kv_dtype) -> None:
 
 # the kernels each path must launch in its phase-3 run (the Mixtral paths'
 # router is gemv_l/gemm_l on every weight type), and those it must not
-PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attn_block_l", "ffn_l"),
-                "int4": ("gemv", "gemv4_l", "gemm4_l", "round_rows_bf16", "attn_block4_l",
-                         "ffn4_l"),
+PATH_KERNELS = {"fp8": ("gemv", "gemm_l", "round_rows_bf16", "attn_block_l", "ffn_l"),
+                "int4": ("gemv", "gemm4_l", "round_rows_bf16", "attn_block4_l", "ffn4_l"),
                 "moe_fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attn_block_l",
                             "gemv_le", "gemm_le"),
                 "moe_int4": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "gemm4_l",
@@ -2106,8 +2228,10 @@ PATH_KERNELS = {"fp8": ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attn_blo
 PATH_KERNELS.update({g: ("gemv", "gemv_l", "gemm_l", "round_rows_bf16", "attend_step_l",
                          "ffn_l") for g in ("gemma3", "gemma2")})
 # the fused block is one launch (csrc/block.cu): no attend_step_l on its
-# paths; the Gemma paths take the unfused route: no fused attention block
-PATH_ABSENT = {"fp8": ("attend_step_l",), "int4": ("attend_step_l",),
+# paths, and with the FFN in one launch (csrc/ffn.cu) no layer GEMV either
+# (the head is `gemv`); the Gemma paths take the unfused route: no fused
+# attention block
+PATH_ABSENT = {"fp8": ("attend_step_l", "gemv_l"), "int4": ("attend_step_l", "gemv4_l"),
                "moe_fp8": ("ffn_l", "ffn_l_gemm", "attend_step_l"),
                "moe_int4": ("ffn4_l", "ffn4_l_gemm", "attend_step_l"),
                "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
@@ -2216,6 +2340,8 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
             raise AssertionError(f"{name}: bad token stream {out[:8]}... ({len(out)})")
         if not bool(torch.isfinite(logits).all()) or logits.shape != (cfg.vocab_size,):
             raise AssertionError(f"{name}: non-finite or misshapen logits")
+        if not first and not kw.get("temperature"):
+            first.update(name=name, toks=list(toks), out=out, logits=logits.clone())
         r = dict(request=name, prompt_tokens=len(toks), new_tokens=n,
                  ttft_s=t_first - t0, prefill_tok_s=len(toks) / (t_first - t0),
                  decode_tok_s=(n - 1) / (t_end - t_first) if n > 1 else None,
@@ -2225,6 +2351,7 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
             f"first tokens {out[:6]}")
         return r
 
+    first: dict = {}   # the first greedy request's prompt, tokens and last logits
     eng.warmup()
     calls: collections.Counter = collections.Counter()   # decode steps, prefill chunks
     for nm in ("_step", "_prefill"):
@@ -2260,10 +2387,13 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
         raise AssertionError(f"kernels never launched on the {path} path: {missing}")
     present = [k for k in PATH_ABSENT.get(path, ()) if launches.get(k, 0)]
     if present:
-        raise AssertionError(f"dense-FFN kernels launched on the {path} path: {present}")
+        raise AssertionError(f"kernels launched on the {path} path that it must not "
+                             f"launch: {present}")
     out = dict(requests=reqs, launches=launches, decode_profile=profile,
                window_decode_profile=window_profile, decode_steps=calls["_step"],
                prefill_chunks=calls["_prefill"])
+    if not cfg.is_moe:
+        out["old_ffn_stream"] = old_ffn_stream(eng, first)
     if cfg.is_moe:
         gv, gm = routed_names(fw)
         per_step = launches[gv] / calls["_step"]
@@ -2277,6 +2407,48 @@ def phase_serve(cfg, fw, dev, kv_dtype, path: str, requests=SERVE_REQUESTS) -> d
         out.update({f"{gv}_per_step": per_step, f"{gm}_per_chunk": per_chunk,
                     "decode_host_syncs": decode_syncs(cfg, fw, eng)})
     return out
+
+
+def old_ffn_stream(eng, first: dict) -> dict:
+    """The first greedy request again with the FFN's 1-8 rows on the two
+    GEMV launches the one launch replaced (`ffn_old`; more rows as the
+    path runs them): raises unless its tokens and last logits are the one
+    launch's bit for bit. Then the decode step's device time on each, in
+    this run: 16 profiled steps each on the one launch, the two, the two,
+    the one (continuing the sequence, so the two designs see the same mean
+    context)."""
+    import torch
+    from yalm_tpu_torch.models import fast as M
+    one = M.ffn
+
+    def two(x, *a, **k):
+        return (ffn_old if x.reshape(-1, x.shape[-1]).shape[0] <= 8 else one)(x, *a, **k)
+    M.ffn = two
+    try:
+        eng.reset()
+        toks = list(eng.generate(first["toks"], max_steps=len(first["out"]), temperature=0.0))
+        logits = eng._last_logits.clone()
+    finally:
+        M.ffn = one
+    if toks != first["out"] or not torch.equal(logits, first["logits"]):
+        raise AssertionError(f"{first['name']}: the stream on the two FFN launches differs from "
+                             f"the one launch's (tokens equal: {toks == first['out']}, max "
+                             f"|logit diff| {float((logits - first['logits']).abs().max())})")
+    msg = (f"{first['name']} again on the two FFN launches: the same {len(toks)} tokens and "
+           "last logits, bit for bit")
+    log(f"  {msg}")
+    steps = {"one": [], "two": []}
+    for design in ("one", "two", "two", "one"):
+        M.ffn = two if design == "two" else one
+        try:
+            steps[design].append(profile_decode(eng, 16, quiet=True)["device_ms_per_step"])
+        finally:
+            M.ffn = one
+    ms = {k: statistics.mean(v) for k, v in steps.items()}
+    log(f"  decode step on the device, same run (one, two, two, one; 16 steps each, context "
+        f"to {eng.pos}): one FFN launch {ms['one']:.4f} ms, the two launches it replaced "
+        f"{ms['two']:.4f} ms ({steps})")
+    return dict(check=msg, device_ms_per_step=ms, runs=steps)
 
 
 def decode_syncs(cfg, fw, eng) -> int:
@@ -2310,20 +2482,22 @@ def decode_syncs(cfg, fw, eng) -> int:
 # attention is K8 on the dense cache and K9 on a paged pool (the other
 # never runs); the dense ring admission hydrates through the single-lane
 # step (attn_block_l), the paged one through masked ticks
-# (round_rows_bf16: the rounding of X before every gemm_kernel launch)
+# (round_rows_bf16: the rounding of X before every gemm_kernel launch); a
+# dense model's tick runs the FFN in one launch (ffn_l / ffn4_l, csrc/ffn.cu),
+# a prefill chunk of more than 16 rows on the GEMM route (_gemm)
 SERVING_KERNELS = {
-    ("fp8", False): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "attn_block_l",
-                     "gemv"),
-    ("int4", False): ("gemm4_l", "round_rows_bf16", "ffn4_l_gemm", "rmsnorm_rows"),
-    ("fp8", True): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
-    ("int4", True): ("gemm4_l", "round_rows_bf16", "ffn4_l_gemm", "rmsnorm_rows"),
+    ("fp8", False): ("gemm_l", "round_rows_bf16", "ffn_l", "ffn_l_gemm", "rmsnorm_rows",
+                     "attn_block_l", "gemv"),
+    ("int4", False): ("gemm4_l", "round_rows_bf16", "ffn4_l", "ffn4_l_gemm", "rmsnorm_rows"),
+    ("fp8", True): ("gemm_l", "round_rows_bf16", "ffn_l", "ffn_l_gemm", "rmsnorm_rows", "gemv"),
+    ("int4", True): ("gemm4_l", "round_rows_bf16", "ffn4_l", "ffn4_l_gemm", "rmsnorm_rows"),
     # MoE: the router on gemm_l, every expert of every row on the routed GEMM
     # (the single-token gemv_le/gemv4_le and the dense FFN never run)
     ("moe_fp8", False): ("gemm_l", "round_rows_bf16", "gemm_le"),
     ("moe_int4", True): ("gemm_l", "round_rows_bf16", "gemm4_l", "gemm4_le"),
     # Gemma: the tick's FFN without its residual, then the post-norm
-    ("gemma3", False): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows"),
-    ("gemma2", True): ("gemm_l", "round_rows_bf16", "ffn_l_gemm", "rmsnorm_rows")}
+    ("gemma3", False): ("gemm_l", "round_rows_bf16", "ffn_l", "ffn_l_gemm", "rmsnorm_rows"),
+    ("gemma2", True): ("gemm_l", "round_rows_bf16", "ffn_l", "ffn_l_gemm", "rmsnorm_rows")}
 SERVING_ABSENT = {"moe_fp8": ("gemv_le", "ffn_l_gemm"), "moe_int4": ("gemv4_le", "ffn4_l_gemm"),
                   "gemma3": ("attn_block_l",), "gemma2": ("attn_block_l",)}
 TICK_ATTENTION = {False: "attend_step_batched_l", True: "attend_step_paged_l"}
@@ -2517,6 +2691,9 @@ def phase_serving(cfg, fw, dev, kv_dtype, path: str, n_requests: int, http: int,
     per_tick = {attention: cfg.n_layers}
     if cfg.is_moe:
         per_tick[routed_names(fw)[1]] = 2 * cfg.n_experts * cfg.n_layers
+    else:   # the 16-lane tick's FFN: one launch a layer, none on the GEMM route
+        ffn = "ffn4_l" if fw.w13.dtype == torch.uint8 else "ffn_l"
+        per_tick.update({ffn: cfg.n_layers, ffn + "_gemm": 0})
     r["tick_profile"] = profile_ticks(sched, cfg, 16, per_tick)
     del engine, sched
     torch.cuda.empty_cache()
@@ -4385,9 +4562,10 @@ def gemv_us(dev_us: dict) -> dict:
     return out
 
 
-def profile_decode(eng, n: int) -> dict:
+def profile_decode(eng, n: int, quiet: bool = False) -> dict:
     """torch.profiler over n greedy decode steps (continuing the engine's
-    sequence): wall time, device time by kernel, and the device's idle share."""
+    sequence): wall time, device time by kernel, and the device's idle share
+    (logged unless quiet)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4403,18 +4581,22 @@ def profile_decode(eng, n: int) -> dict:
     busy = device_busy_us(prof) / 1e6
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
     gemv = gemv_us(dev_us)
+    ffn_ms = sum(us for k, us in dev_us.items() if "ffn_kernel" in k) / n / 1e3
     r = dict(steps=n, context=eng.pos, wall_ms_per_step=wall / n * 1e3,
              device_ms_per_step=busy / n * 1e3,
              idle_share=(1 - busy / wall) if busy else None,
              gemv_ms_per_step=gemv[False] / n / 1e3, gemv_glu_ms_per_step=gemv[True] / n / 1e3,
              gemv_share=(gemv[False] + gemv[True]) / 1e6 / busy if busy else None,
-             top=[(k[:60], v / n / 1e3) for k, v in top])
+             ffn_ms_per_step=ffn_ms, top=[(k[:60], v / n / 1e3) for k, v in top])
     if not busy:
         log("  profiler saw no device time: only the wall time is reported")
+    if quiet:
+        return r
     log(f"  decode profile at context {eng.pos}: {r['wall_ms_per_step']:.3f} ms/step wall, "
         f"{r['device_ms_per_step']:.3f} ms/step on the device, idle share {r['idle_share']}; "
         f"gemv_kernel {r['gemv_ms_per_step']:.3f} ms/step without GLU, "
-        f"{r['gemv_glu_ms_per_step']:.3f} with, {r['gemv_share']} of the device time")
+        f"{r['gemv_glu_ms_per_step']:.3f} with, {r['gemv_share']} of the device time; "
+        f"ffn_kernel (K4/K7, csrc/ffn.cu) {ffn_ms:.3f} ms/step")
     for k, ms in r["top"]:
         log(f"    {ms:8.4f} ms/step  {k}")
     return r
@@ -4906,6 +5088,69 @@ def block_phases() -> int:
         del fw, cache
         torch.cuda.empty_cache()
     print(json.dumps({"cases": bench.rows}), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+def ffn_phases() -> int:
+    """K4 and K7 alone, for a short card call: phase 2's phase_ffn_rows at
+    Mistral-7B widths (4 layers: each call still streams a cold layer of
+    117 + 59 MB), fp8 and int4 at 1, 4, 8, 16 and 64 rows, Gemma3-12B's
+    gelu at 1 and 16, and the tp=2 shard's hidden slice of 7168 at 1 and 16
+    (fp8 and int4) -- the one launch against its plain version, bit for bit
+    against the two GEMV launches up to 8 rows, beside the launches it
+    replaced, its GLU rows, timeline, one kernel per call and a CUDA-graph
+    replay; first the launches' floor at a width whose bytes take no time. Run from the repository root:
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.ffn_phases())"
+    Prints the cases as one JSON line, then the card's name and power
+    limit."""
+    import torch
+    from yalm_tpu_torch.ops.cuda import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} ({smi})")
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s (nvcc, all sources "
+        "started together: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                         sorted(_build.BUILD_SECONDS.items())) + ")")
+    bench = Bench(HBM_BYTES_PER_S)
+    # the launches' floor: the one launch, one GEMV launch and the two at a
+    # width whose bytes take no time (dim 256, hidden 256, one row, e5m2)
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    from yalm_tpu_torch.ops.cuda.ffn import ffn
+    tiny = with_layers(mistral7b(), 2, dim=256, hidden_dim=256)
+    fw = synth_fast_weights(tiny, dev, seed=3)
+    x = torch.randn(256, device=dev)
+    kw = dict(norm_eps=tiny.norm_eps, act="silu")
+    floor = dict(one=Bench.time_ms(lambda r: ffn(x, fw.rms_ffn, fw.w13, fw.w2, r % 2, **kw)),
+                 gemv=Bench.time_ms(lambda r: G.launch_gemv("floor", x, fw.w2, r % 2)),
+                 two=Bench.time_ms(lambda r: ffn_old(x, fw.rms_ffn, fw.w13, fw.w2, r % 2, **kw)))
+    log("launch floor (dim 256, hidden 256, one row, e5m2): " +
+        ", ".join(f"{k} {v:.4f} ms" for k, v in floor.items()))
+    del fw
+    tp2 = dict(hidden_dim=mistral7b().hidden_dim // 2)
+    for path, cfg, synth, rows in (
+            ("fp8", with_layers(mistral7b(), 4), synth_fast_weights, (1, 4, 8, 16, 64)),
+            ("int4", with_layers(mistral7b(weight_dtype="int4"), 4), synth_int4_weights,
+             (1, 4, 8, 16, 64)),
+            ("gemma3", with_layers(gemma3_12b(), 4), synth_fast_weights, (1, 16)),
+            ("mesh", with_layers(mistral7b(), 4, **tp2), synth_fast_weights, (1, 16)),
+            ("mesh", with_layers(mistral7b(weight_dtype="int4"), 4, **tp2), synth_int4_weights,
+             (1, 16))):
+        fw = synth(cfg, dev, seed=3)
+        bench.path = path
+        with phase(f"{path} path: K4/K7 at hidden {cfg.hidden_dim}, {cfg.act_type}, one launch "
+                   "beside the launches it replaced"):
+            phase_ffn_rows(bench, cfg, fw, dev, rows, probes=True)
+        del fw
+        torch.cuda.empty_cache()
+    print(json.dumps({"cases": bench.rows, "launch_floor_ms": floor}), flush=True)
     print(smi, flush=True)
     return 0
 
@@ -5652,22 +5897,23 @@ def phase_mesh_kernels(bench: Bench, dev) -> None:
                    + 2 * 1000 * Hk * D * cache.k.element_size() + 12 * d,
                    flops=2 * (Nqkv * d + d * q_dim) + 4 * 1000 * Hq * D, json_row=True, run=run)
         del cache
-        # K4 / K7: the FFN's hidden slice, one row (decode) and 16 (the tick)
+        # K4 / K7: the FFN's hidden slice in one launch, one row (decode) and
+        # 16 (the tick), beside the launches it replaced (ffn_old)
         s13, s2 = (sc.w13, sc.w2) if sc else (None, None)
         kw = dict(norm_eps=cl.norm_eps, act="silu", add_residual=False)
         wbytes = wb(fl.w13, s13 if int4 else None) + wb(fl.w2, s2 if int4 else None)
-        for B in ((1,) if int4 else (1, 16)):
+        for B in (1, 16):
             xx = randn(B, d, scale=3.0) if B > 1 else randn(d, scale=3.0)
-            nm = ("ffn4_l" if int4 else "ffn_l") + ("_gemm" if B > 1 else "")
-            bench.case(nm, f"tp=2 shard: hidden {h}, {B} row{'s' if B > 1 else ''}, no residual",
-                       ffn(xx, fl.rms_ffn, fl.w13, fl.w2, 1, s13, s2, **kw),
-                       ffn_plain(xx, fl.rms_ffn, fl.w13, fl.w2, 1, s13, s2, **kw), 2e-3,
-                       kernel=lambda r, xx=xx: ffn(xx, fl.rms_ffn, fl.w13, fl.w2, lay(r), s13,
-                                                   s2, **kw),
-                       plain=lambda r, xx=xx: ffn_plain(xx, fl.rms_ffn, fl.w13, fl.w2, lay(r),
-                                                        s13, s2, **kw),
-                       bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d, json_row=True,
-                       run=run if B == 1 else "sched_tp2")
+            args = lambda r, xx=xx: (xx, fl.rms_ffn, fl.w13, fl.w2, lay(r), s13, s2)  # noqa: E731
+            bench.case("ffn4_l" if int4 else "ffn_l",
+                       f"tp=2 shard: hidden {h}, {B} row{'s' if B > 1 else ''}, no residual, "
+                       "one launch", ffn(*args(1), **kw), ffn_plain(*args(1), **kw), 2e-3,
+                       kernel=lambda r, a=args: ffn(*a(r), **kw),
+                       plain=lambda r, a=args: ffn_plain(*a(r), **kw),
+                       old=lambda r, a=args: ffn_old(*a(r), **kw),
+                       bytes_=wbytes + 8 * B * d + 4 * d, flops=B * 6 * h * d,
+                       json_row=True, run=run if B == 1 else
+                       "paged_int4_tp2" if int4 else "sched_tp2")
         # K1 / K5: the wqkv shard's GEMM (the tick's 16 rows; int4: a 64-row prefill chunk)
         M = 64 if int4 else 16
         xm = randn(M, d)
@@ -6172,8 +6418,8 @@ def phase_mesh8_kernels(bench: Bench, dev) -> None:
     each against its plain version (2e-3, as phase 2) and timed: K1 gemm_l
     on the wqkv GEMM at the ring's T/sp = 2048 rows, K5 gemm4_l at its int4
     run's 512, K8 attend_step_batched_l over a stage's B/pp = 8 lanes (8 kv
-    heads, bf16 cache), K4 ffn_l at 8 rows (the GEMV route) and K1 gemm_l
-    on the LM head at the tick's 16 rows."""
+    heads, bf16 cache), K4 ffn_l at 8 rows (one launch, beside the two it
+    replaced) and K1 gemm_l on the LM head at the tick's 16 rows."""
     import torch
     import torch.nn.functional as F
     from yalm_tpu_torch.models.cache import KVCache
@@ -6206,15 +6452,17 @@ def phase_mesh8_kernels(bench: Bench, dev) -> None:
                    run=run)
         del wl
         if not int4:
-            # K4: a stage's FFN at B/pp = 8 rows, the GEMV route, no residual
+            # K4: a stage's FFN at B/pp = 8 rows in one launch, no residual,
+            # beside the two GEMV launches it replaced
             Bm, h = 8, cfg.hidden_dim
             kw = dict(norm_eps=cfg.norm_eps, act="silu", add_residual=False)
             xx = randn(Bm, d, scale=3.0)
-            bench.case("ffn_l", f"pp=2 stage: {Bm} rows (B/pp), hidden {h}, no residual",
-                       ffn(xx, fw.rms_ffn, fw.w13, fw.w2, 1, **kw),
+            bench.case("ffn_l", f"pp=2 stage: {Bm} rows (B/pp), hidden {h}, no residual, "
+                       "one launch", ffn(xx, fw.rms_ffn, fw.w13, fw.w2, 1, **kw),
                        ffn_plain(xx, fw.rms_ffn, fw.w13, fw.w2, 1, **kw), 2e-3,
                        kernel=lambda r: ffn(xx, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
                        plain=lambda r: ffn_plain(xx, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
+                       old=lambda r: ffn_old(xx, fw.rms_ffn, fw.w13, fw.w2, lay(r), **kw),
                        bytes_=(fw.w13[0].numel() + fw.w2[0].numel()) * fw.w13.element_size()
                        + 8 * Bm * d + 4 * d, flops=Bm * 6 * h * d, json_row=True, run="pp_fp8")
             # K1: the unembedding's GEMM over the tick's 16 rows
@@ -6325,7 +6573,9 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.lib()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s (nvcc, all sources "
+        "started together: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                         sorted(_build.BUILD_SECONDS.items())) + ")")
 
     # streaming ceiling: a 2 GiB device-to-device copy (read + write)
     src = torch.empty(1 << 31, dtype=torch.uint8, device=dev)
@@ -6533,7 +6783,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']}: no launch in the mesh run {r['run']}")
 
     # name -> (source, the TPU function of the same name it replaces); the
-    # FFN's composite wrappers launch csrc/gemv.cu or csrc/gemm.cu
+    # FFN's GEMM route (_gemm) launches csrc/gemm.cu
     sources = {"gemv": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:81"),
                "gemv_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:148"),
                "gemm_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:426"),
@@ -6541,11 +6791,11 @@ def main() -> int:
                "round_rows_bf16": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:476"),
                "attend_step_l": ("csrc/attention.cu", "yalm_tpu/ops/pallas/attention.py:808"),
                "attn_block_l": ("csrc/block.cu", "yalm_tpu/ops/pallas/block.py:554"),
-               "ffn_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:332"),
+               "ffn_l": ("csrc/ffn.cu", "yalm_tpu/ops/pallas/ffn.py:332"),
                "gemv4_l": ("csrc/gemv.cu", "yalm_tpu/ops/pallas/gemv.py:776"),
                "gemm4_l": ("csrc/gemm.cu", "yalm_tpu/ops/pallas/gemv.py:600"),
                "attn_block4_l": ("csrc/block.cu", "yalm_tpu/ops/pallas/block.py:365"),
-               "ffn4_l": ("ops/cuda/ffn.py", "yalm_tpu/ops/pallas/ffn.py:227"),
+               "ffn4_l": ("csrc/ffn.cu", "yalm_tpu/ops/pallas/ffn.py:227"),
                "attend_step_batched_l": ("csrc/attention.cu",
                                          "yalm_tpu/ops/pallas/attention.py:538"),
                "attend_step_paged_l": ("csrc/attention.cu",

@@ -8,7 +8,7 @@ the batched attention over 3 lanes with their own positions, write masks
 and a window whose scores live in global scratch; the paged attention over
 shuffled page tables of pages of 16, 48, 64 and 256, a shared page, a page id
 outside the pool, and bit for bit against the batched kernel on the
-gathered cache; the FFN's many-row GEMM route at 9, 33 and 64 rows on every
+gathered cache; the FFN's many-row GEMM route at 17, 33 and 64 rows on every
 weight type; the MoE routed-expert kernels over 2, 4 and 8 experts at 1 to
 300 rows, the expert from the host and from a device tensor, the GLU
 epilogue, an expert id outside the stack, and bit for bit against the
@@ -46,7 +46,13 @@ types, in the linear and the ring regime, with and without bias and
 residual: bit for bit the four launches it replaced (output and cache) and
 within TOL of the plain version, every arrival counter back at 0 after
 calls at other shapes, a CUDA-graph replay equal to the uncaptured call,
-and a bad layer or position refused on the host with nothing written.
+and a bad layer or position refused on the host with nothing written; and
+K4/K7 as one cooperative launch (csrc/ffn.cu) at 1 to 16 rows on e5m2,
+int8, bf16, f32 and int4 weights, silu and gelu, with and without the
+residual, both GEMVs split in K or w13 unsplit, ragged widths: within TOL
+of the plain version, up to 8 rows bit for bit the two GEMV launches it
+replaced, every counter and flag back at 0, a CUDA-graph replay equal to
+the uncaptured call.
 
 These tests need a CUDA GPU and skip without one. The machine with the card
 has no JAX, which tests/conftest.py imports, so run them there with
@@ -403,10 +409,10 @@ def test_batched_attention_kernel(dev, kv, qpk, D, S):
 
 
 @pytest.mark.parametrize("wt", WTYPES[1:] + [torch.uint8], ids=["bf16", "e5m2", "int8", "int4"])
-@pytest.mark.parametrize("rows", [9, 33, 64])
+@pytest.mark.parametrize("rows", [17, 33, 64])
 def test_ffn_many_rows(dev, wt, rows):
     """The FFN's GEMM route (row norm, w13 GEMM with the GLU-pair epilogue,
-    w2 GEMM with the residual), past the GEMV route's 8 rows; the GLU
+    w2 GEMM with the residual), past the one launch's 16 rows; the GLU
     output is rounded to bf16 bit for bit."""
     gen = torch.Generator(device=dev).manual_seed(rows)
     L, dim, H = 2, 256, 768
@@ -1584,3 +1590,140 @@ def test_attn_block_bad_scalars_raise_and_write_nothing(dev):
             attn_block_l(x, nw, wqkv, wo, k_all, v_all, *sl, **kw)
     torch.cuda.synchronize()
     assert torch.equal(k_all, k0) and torch.equal(v_all, v0)
+
+
+# ---------------------------------------------------------------------------
+# K4/K7 as one cooperative launch (csrc/ffn.cu)
+# ---------------------------------------------------------------------------
+
+def ffn_old(*args, **kw):
+    """ffn_l's function as two GEMV launches (up to 8 rows) or the GEMM
+    route's five (past 8), the sequences the one launch replaced
+    (chip_smoke.py's same-run yardstick); up to 8 rows the one launch must
+    equal it bit for bit."""
+    import chip_smoke
+    return chip_smoke.ffn_old(*args, **kw)
+
+
+def ffn_case(dev, wt, rows, seed, L=2, dim=1024, H=1536):
+    """(x, norm_w, w13, w2, scale13, scale2) of an FFN of `rows` rows; at
+    dim 1024, H 1536 both GEMVs split in K (e5m2: 8 and 12 slices; int4: 2
+    and 3 groups of 512), at H 8704 the w13 GEMV's 136 row blocks do not."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    i4 = wt == torch.uint8
+    x = torch.randn(rows, dim, generator=gen, device=dev) * 3
+    nw = 1 + 0.1 * torch.randn(L, dim, generator=gen, device=dev)
+    w13 = weights((L, 2 * H, dim // 2 if i4 else dim), wt, dev, gen)
+    w2 = weights((L, dim, H // 2 if i4 else H), wt, dev, gen)
+    if i4:
+        s13, s2 = gscales(L, dim, 2 * H, dev, gen), gscales(L, H, dim, dev, gen)
+    elif wt == torch.int8:   # a quantized checkpoint's row scales: absmax / 127 of ~1/sqrt(K)
+        s13 = (torch.rand(L, 2 * H, generator=gen, device=dev) + 0.5) * 5e-4
+        s2 = (torch.rand(L, dim, generator=gen, device=dev) + 0.5) * 5e-4
+    else:
+        s13 = s2 = None
+    return x, nw, w13, w2, s13, s2
+
+
+FFN_WTS = [torch.float8_e5m2, torch.int8, torch.bfloat16, torch.uint8]
+FFN_WT_IDS = ["e5m2", "int8", "bf16", "int4"]
+
+
+@pytest.mark.parametrize("wt", FFN_WTS, ids=FFN_WT_IDS)
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("act,residual", [("silu", True), ("gelu", False)])
+def test_ffn_one_launch(dev, wt, rows, act, residual):
+    """1-16 rows take ONE launch of csrc/ffn.cu's ffn_kernel (counted under
+    ffn_l / ffn4_l, nothing else launched through a wrapper), within TOL of
+    the plain version; up to 8 rows bit for bit the two GEMV launches it
+    replaced, past 8 within TOL of the GEMM route's five launches."""
+    from yalm_tpu_torch.ops.cuda.ffn import FFN_ROWS, ffn_plan
+    x, nw, w13, w2, s13, s2 = ffn_case(dev, wt, rows, rows)
+    kw = dict(norm_eps=1e-5, act=act, add_residual=residual)
+    i4 = wt == torch.uint8
+    plan = ffn_plan(rows, 1024, 1536, 1 if i4 else w13.element_size(), i4)
+    assert rows <= FFN_ROWS and plan.w13.split > 1 and plan.w2.split > 1
+    _build.LAUNCHES.clear()
+    got = ffn(x, nw, w13, w2, 1, s13, s2, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"ffn4_l" if i4 else "ffn_l": 1}
+    close(got, ffn_plain(x, nw, w13, w2, 1, s13, s2, **kw))
+    old = ffn_old(x, nw, w13, w2, 1, s13, s2, **kw)
+    torch.cuda.synchronize()
+    if rows <= 8:
+        assert torch.equal(got, old)
+    else:
+        close(got, old)
+
+
+@pytest.mark.parametrize("wt", FFN_WTS, ids=FFN_WT_IDS)
+@pytest.mark.parametrize("rows", [9, 12, 16])
+def test_ffn_two_tiles_give_the_same_bits(dev, wt, rows):
+    """Past 8 rows x's rows 8.. lie on the second n8 mma tile, with the
+    same weight fragments and the same slice-order sums: a row there that
+    repeats a row of the first tile gives its bits, and no row's bits
+    depend on the values of the other rows (rows 1-7 rewritten)."""
+    x, nw, w13, w2, s13, s2 = ffn_case(dev, wt, rows, 60 + rows)
+    x[8:] = x[:rows - 8]
+    kw = dict(norm_eps=1e-5, act="silu")
+    got = ffn(x, nw, w13, w2, 1, s13, s2, **kw)
+    assert torch.equal(got[8:], got[:rows - 8])
+    y = x.clone()
+    y[1:8] = -0.5 * x[1:8]
+    again = ffn(y, nw, w13, w2, 1, s13, s2, **kw)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[8], got[8])
+    assert not torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("wt", [torch.float32, torch.float8_e5m2, torch.bfloat16],
+                         ids=["f32", "e5m2", "bf16"])
+@pytest.mark.parametrize("rows,dim,H", [(1, 512, 8704), (16, 512, 8704), (2, 800, 1008),
+                                        (13, 800, 1008)])
+def test_ffn_one_launch_shapes(dev, wt, rows, dim, H):
+    """The one launch where the w13 GEMV does not split in K (136 row blocks
+    of GLU pairs) and at ragged widths (dim 800: a last iteration of 32
+    bytes of e5m2 rows, H 1008: a w13 row block of 48 pairs and a w2 slice
+    that ends mid-iteration), f32 weights among them: within TOL of the
+    plain version, bit for bit the two launches up to 8 rows."""
+    x, nw, w13, w2, s13, s2 = ffn_case(dev, wt, rows, rows + H, dim=dim, H=H)
+    kw = dict(norm_eps=1e-5, act="silu")
+    got = ffn_l(x, nw, w13, w2, 0, **kw)
+    close(got, ffn_plain(x, nw, w13, w2, 0, **kw))
+    if rows <= 8:
+        assert torch.equal(got, ffn_old(x, nw, w13, w2, 0, **kw))
+
+
+@pytest.mark.parametrize("wt", [torch.float8_e5m2, torch.uint8], ids=["e5m2", "int4"])
+def test_ffn_counters_return_to_zero_and_graph_replays(dev, wt):
+    """After one-launch calls at 1, 9 and 16 rows and other widths (and a
+    GEMV split between them on the same buffers), every arrival counter and
+    flag is back at 0; the launch captured in a CUDA graph and replayed
+    after x is rewritten in place gives the uncaptured call's bits."""
+    from yalm_tpu_torch.ops.cuda import gemv as G
+    for i, (rows, H) in enumerate([(1, 1536), (9, 2048), (16, 1536), (4, 2048)]):
+        x, nw, w13, w2, s13, s2 = ffn_case(dev, wt, rows, 40 + i, H=H)
+        ffn(x, nw, w13, w2, 1, s13, s2, norm_eps=1e-5, act="silu")
+        torch.cuda.synchronize()
+        for _, ctr in G._SPLIT_BUFFERS.values():
+            assert int(ctr.abs().sum()) == 0
+    for rows in (1, 16):
+        x, nw, w13, w2, s13, s2 = ffn_case(dev, wt, rows, 50 + rows)
+        fn = lambda: ffn(x, nw, w13, w2, 1, s13, s2, norm_eps=1e-5, act="gelu")  # noqa: E731
+        fn()   # buffers sized before the capture
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            fn()
+        torch.cuda.current_stream().wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        x.copy_(torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                            device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        assert torch.equal(replayed, fn())
+        torch.cuda.synchronize()
+        for _, ctr in G._SPLIT_BUFFERS.values():
+            assert int(ctr.abs().sum()) == 0

@@ -258,28 +258,6 @@ __device__ __forceinline__ void gemv_slice(const void* wall, const float* gsall,
   __stcg(part + tid, make_float4(acc[0], acc[1], acc[2], acc[3]));
 }
 
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Thread 0 waits until *flag >= n (another block's release); the block
-// waits for thread 0 at the next __syncthreads(). (A __nanosleep between
-// polls measured ~1% slower.)
-__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned n) {
-  if (threadIdx.x == 0)
-    while (ld_acquire(flag) < n) {
-    }
-}
-
-// This block's writes, then one arrival on flag.
-__device__ __forceinline__ void release(unsigned* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(flag, 1u);
-}
-
 // The wqkv item (blk, z) after its partials are stored: the last slice of
 // the row block to arrive sums the slices in slice order, writes rope's
 // input rows with the epilogue (gemv_kernel's last block: scale, bias,
@@ -727,43 +705,9 @@ size_t block_smem(const BlockArgs& a, int kv_sinks, size_t elem) {
 
 template <int WT, typename T>
 int launch_block(const BlockArgs& a, int kv_sinks, int grid, cudaStream_t st) {
-  const auto kern = attn_block_kernel<WT, T>;
   const size_t smem = block_smem<WT>(a, kv_sinks, sizeof(T));
   if (smem > attn::SMEM_MAX) return ERR_ARGS;
-  // per device: the SM count and the co-resident blocks per SM at the size
-  // last asked (the occupancy query costs host time)
-  static int sms[32] = {}, asked[32] = {}, per_sm[32] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 32) return ERR_ARGS;
-  if (asked[dev] != (int)smem) {
-    if ((err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
-            cudaSuccess ||
-        (smem > 48 * 1024 &&
-         (err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem)) != cudaSuccess) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kern, THREADS, smem)) !=
-            cudaSuccess)
-      return (int)err;
-    asked[dev] = (int)smem;
-  }
-  if (per_sm[dev] < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // cooperative: the card launches it only if every block is co-resident,
-  // which the waits between the phases need
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(std::min(grid, per_sm[dev] * sms[dev]));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kern, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_cooperative<attn_block_kernel<WT, T>>(a, smem, grid, THREADS, st);
 }
 
 template <int WT>
@@ -771,20 +715,6 @@ int launch_wt(int kv_type, const BlockArgs& a, int kv_sinks, int grid, cudaStrea
   if (kv_type == W_BF16) return launch_block<WT, __nv_bfloat16>(a, kv_sinks, grid, st);
   if (kv_type == W_E5M2) return launch_block<WT, uint8_t>(a, kv_sinks, grid, st);
   return ERR_ARGS;
-}
-
-// A GEMV plan's slices cover the row's iterations exactly (gemv.py:gemv_plan).
-bool plan_ok(int wtype, int K, int group, int kchunk, int split) {
-  const size_t rb = wtype == W_I4 ? (size_t)K / 2
-                                  : (size_t)K * (wtype == W_F32 ? 4 : wtype == W_BF16 ? 2 : 1);
-  const long long nit = (long long)((rb + gemv::WIN - 1) / gemv::WIN);
-  if (kchunk < 1 || split < 1 || (long long)(split - 1) * kchunk >= nit ||
-      (long long)split * kchunk < nit || rb % 16)
-    return false;
-  if (wtype == W_I4)
-    return (group == 256 || group == 512) && K % group == 0 &&
-           kchunk % (group / (2 * gemv::WIN)) == 0;
-  return group == 0;
 }
 
 }  // namespace
@@ -829,8 +759,8 @@ extern "C" int yt_attn_block(int wtype, int kv_type, const void* wqkv, const voi
       !scores || !ml || !att_part || !mix || !wo_part || !counters ||
       (i4 && (!gs_qkv || !gs_o || scale_qkv || scale_o)) || (!i4 && (gs_qkv || gs_o)))
     return ERR_ARGS;
-  if (!plan_ok(wtype, dim, group_qkv, kchunk_a, split_a) ||
-      !plan_ok(wtype, q_dim, group_o, kchunk_c, split_c) || chunk < attn::TILE ||
+  if (!gemv::plan_ok(wtype, dim, group_qkv, kchunk_a, split_a) ||
+      !gemv::plan_ok(wtype, q_dim, group_o, kchunk_c, split_c) || chunk < attn::TILE ||
       chunk % attn::TILE || nsplit < 1 || nsplit > attn::MAX_SPLIT ||
       (long long)(nsplit - 1) * chunk >= kv_len || (long long)nsplit * chunk < kv_len)
     return ERR_ARGS;

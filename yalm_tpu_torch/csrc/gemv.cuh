@@ -1,7 +1,9 @@
 // Device helpers of csrc/gemv.cu's gemv_kernel that csrc/block.cu's fused
-// attention block runs too: the streamed weight loads, the widening of
-// weight bytes to bf16 pairs, the mma.sync tile, a block's tile rows and an
-// iteration's loads. gemv.cu's file comment has the design.
+// attention block and csrc/ffn.cu's fused FFN run too: the streamed weight
+// loads, the widening of weight bytes to bf16 pairs, the mma.sync tile, a
+// block's tile rows, an iteration's loads and its products over one or two
+// n8 tiles of x, a GEMV plan's check; and the flags between the blocks of a
+// cooperative launch. gemv.cu's file comment has the design.
 #pragma once
 
 #include "common.cuh"
@@ -198,5 +200,155 @@ __device__ __forceinline__ void load_iter(uint4 (&v)[4], float (&sc)[2], const u
   }
 }
 
+// The products of slice iteration i (a ring slot's loads v, its int4 group
+// scales sc) over NT n8 tiles of x: tile j holds x rows 8j..8j+7, row 8j + g
+// staged at xg[j] (live[j]: a row below nb; zeros past it). The weights'
+// fragments are built once and shared by the tiles; each tile's mma
+// sequence is gemv_kernel's (NT = 1 is its loop body). int4: each group
+// sums into a fresh gacc, scaled into acc at the group's last iteration
+// (the slice starts on a group boundary).
+template <int WT, int NT>
+__device__ __forceinline__ void mma_iter(float (&acc)[NT][4], float (&gacc)[NT][4],
+                                         const uint4 (&v)[4], const float (&sc)[2],
+                                         const __nv_bfloat16* const (&xg)[NT],
+                                         const bool (&live)[NT], int i, int t, int group) {
+  using LY = Layout<WT>;
+  if constexpr (LY::I4) {
+    const int ipg = group / (2 * WIN);  // iterations per group (1 or 2)
+    const int lg = i / ipg, gb = (i - lg * ipg) * WIN;
+    if (gb == 0)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = lg * group + gb + 64 * h + 16 * t;  // x column of the low nibbles
+      uint32_t lo0[8], hi0[8], lo1[8], hi1[8];
+      const uint32_t u0[4] = {v[h].x, v[h].y, v[h].z, v[h].w};
+      const uint32_t u1[4] = {v[2 + h].x, v[2 + h].y, v[2 + h].z, v[2 + h].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        i4_quad(u0[q], lo0 + 2 * q, hi0 + 2 * q);
+        i4_quad(u1[q], lo1 + 2 * q, hi1 + 2 * q);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t xlo[8], xhi[8];
+        load_x<16>(xg[j] + col, live[j], xlo);
+        load_x<16>(xg[j] + col + group / 2, live[j], xhi);
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          mma16816(gacc[j], lo0[s], lo1[s], hi0[s], hi1[s], xlo[s], xhi[s]);
+      }
+    }
+    if (gb + WIN == group / 2)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        acc[j][0] = fmaf(gacc[j][0], sc[0], acc[j][0]);
+        acc[j][1] = fmaf(gacc[j][1], sc[0], acc[j][1]);
+        acc[j][2] = fmaf(gacc[j][2], sc[1], acc[j][2]);
+        acc[j][3] = fmaf(gacc[j][3], sc[1], acc[j][3]);
+      }
+  } else {
+    constexpr int PER = Widen<WT>::PER, COLS = LY::COLS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t p0[PER / 2], p1[PER / 2];
+      Widen<WT>::pairs(v[h], p0);
+      Widen<WT>::pairs(v[2 + h], p1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t xb[PER / 2];
+        load_x<PER>(xg[j] + i * COLS + h * (COLS / 2) + t * PER, live[j], xb);
+#pragma unroll
+        for (int s = 0; s < PER / 4; ++s)
+          mma16816(acc[j], p0[2 * s], p1[2 * s], p0[2 * s + 1], p1[2 * s + 1], xb[2 * s],
+                   xb[2 * s + 1]);
+      }
+    }
+  }
+}
+
+// A GEMV plan's slices cover the row's iterations exactly (ops/cuda/gemv.py:
+// gemv_plan): kchunk iterations a slice, `split` slices; int4 (group > 0)
+// slices of whole groups.
+inline bool plan_ok(int wtype, int K, int group, int kchunk, int split) {
+  const size_t rb = wtype == W_I4 ? (size_t)K / 2
+                                  : (size_t)K * (wtype == W_F32 ? 4 : wtype == W_BF16 ? 2 : 1);
+  const long long nit = (long long)((rb + WIN - 1) / WIN);
+  if (kchunk < 1 || split < 1 || (long long)(split - 1) * kchunk >= nit ||
+      (long long)split * kchunk < nit || rb % 16)
+    return false;
+  if (wtype == W_I4)
+    return (group == 256 || group == 512) && K % group == 0 && kchunk % (group / (2 * WIN)) == 0;
+  return group == 0;
+}
+
 }  // namespace gemv
+
+// Flags between the blocks of one cooperative launch (csrc/block.cu,
+// csrc/ffn.cu). A release is the writer's __threadfence(), __syncthreads()
+// and one atomic; a wait is thread 0's ld.acquire loop, then the block's
+// next __syncthreads(); what another SM wrote in the launch is read through
+// L2 (ld.global.cg).
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Thread 0 waits until *flag >= n (another block's release); the block
+// waits for thread 0 at the next __syncthreads(). (A __nanosleep between
+// polls measured ~1% slower in csrc/block.cu.)
+__device__ __forceinline__ void wait_flag(const unsigned* flag, unsigned n) {
+  if (threadIdx.x == 0)
+    while (ld_acquire(flag) < n) {
+    }
+}
+
+// This block's writes, then one arrival on flag.
+__device__ __forceinline__ void release(unsigned* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(flag, 1u);
+}
+
+// One cooperative launch of KERN(a) on `grid` blocks of `threads`, at most
+// as many as are co-resident: the card launches it only if every block is,
+// which the waits between the phases need. The SM count and the co-resident
+// blocks per SM at the size last asked are kept per kernel and device (the
+// occupancy query costs host time). Returns a cudaError_t, or ERR_ARGS.
+template <auto KERN, typename Args>
+int launch_cooperative(const Args& a, size_t smem, int grid, int threads, cudaStream_t st) {
+  static int sms[32] = {}, asked[32] = {}, per_sm[32] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32) return ERR_ARGS;
+  if (asked[dev] != (int)smem) {
+    if ((err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (smem > 48 * 1024 &&
+         (err = cudaFuncSetAttribute(KERN, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem)) != cudaSuccess) ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], KERN, threads,
+                                                             smem)) != cudaSuccess)
+      return (int)err;
+    asked[dev] = (int)smem;
+  }
+  if (per_sm[dev] < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid < per_sm[dev] * sms[dev] ? grid : per_sm[dev] * sms[dev]);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, KERN, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace yt

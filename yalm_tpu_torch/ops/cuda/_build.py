@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -31,6 +32,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # wrapper adds one where it launches its kernel on the card, never on the
 # CPU path; chip_smoke.py zeroes it before the main path and reads it after.
 LAUNCHES: collections.Counter = collections.Counter()
+# seconds each source's nvcc took in this process's build (none if the
+# library was built already)
+BUILD_SECONDS: dict = {}
 
 # weight type codes of csrc/common.cuh (uint8 weights are packed int4); the
 # KV cache takes the bf16 and e5m2 codes
@@ -67,6 +71,11 @@ _SIGNATURES = {
     # plans, grid, stream): ops/cuda/block.py:block_plan
     "yt_attn_block": [_I, _I, _P, _P, _P, _P, _F, _P, _P, _I, _P, _F, _P, _P, _I, _P, _P, _P,
                       _F, _F, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, *[_I] * 19, _P],
+    # (wtype, w13, w2, x, nb, norm, eps, scales, int4 groups, act, residual,
+    # out, scratch regions, counters, stamps, shapes, the two plans, grid,
+    # stream): ops/cuda/ffn.py:ffn_plan
+    "yt_ffn": [_I, _P, _P, _P, _I, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+               _P, *[_I] * 9, _P],
 }
 
 _lib = None
@@ -107,15 +116,24 @@ def build() -> Path:
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
         procs = []
+        t0 = time.perf_counter()
         for src in _sources():
-            obj = tmp / (src.stem + ".o")
+            obj, out = tmp / (src.stem + ".o"), tmp / (src.stem + ".log")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-            procs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            with open(out, "wb") as f:
+                procs.append((src.name, cmd, obj, out, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        pending = list(procs)
+        while pending:   # each source's seconds from the common start to its object
+            for item in list(pending):
+                if item[-1].poll() is not None:
+                    BUILD_SECONDS[item[0]] = time.perf_counter() - t0
+                    pending.remove(item)
+            time.sleep(0.05)
         objs = []
-        for cmd, obj, proc in procs:
-            log = proc.communicate()[0].decode(errors="replace")
+        for _, cmd, obj, out, proc in procs:
             if proc.returncode != 0:
+                log = out.read_bytes().decode(errors="replace")
                 raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{log}")
             objs.append(str(obj))
         link = [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp / lib_path.name)]
